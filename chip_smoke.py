@@ -6,15 +6,21 @@ It needs one CUDA card and exits non-zero, printing no result, without one
 or when any check fails.  Phases:
 
 1. Card and build: the card's name and power limit, the torch and CUDA
-   versions, then ``nvcc`` builds the kernels from
-   ``src/repro_torch/kernels/csrc`` for ``sm_90a``.
+   versions, then ``nvcc`` builds the three sources of
+   ``src/repro_torch/kernels/csrc`` for ``sm_90a``, all started together,
+   with the seconds each took.
 2. Kernels: K1 (paged decode) and K2 (chunked prefill) against their plain
    PyTorch versions on the card, bf16 pools, fp32 and bf16 queries, at the
    head shapes of olmo-1b, mistral-nemo-12b and gemma-7b, block size 32,
    random block tables with null padding and ragged lengths, plus one
-   sliding-window and one softcap case.  One JSON line per case with the
-   error, the kernel's, the plain version's and the library's time, and the
-   case's bound.
+   sliding-window and one softcap case.  Then K3 (flash attention forward)
+   at olmo-1b's training shape and GQA, window, softcap, fp32 and ragged
+   cases, and K4 (FP8 GEMM) at the forward and backward shapes of
+   olmo-1b's training step and a ragged case.  One JSON line per case with
+   the error, the kernel's, the plain version's and the library's time, and
+   the case's bound.  K3 is also run on the model's strided layout, and
+   each K3 case computes a control (the plain version with one fault) that
+   its checks must reject.
 3. Serving: the engine serves 8 greedy requests on the full-width olmo-1b
    (random weights from a seed) with bf16 pools, block size 32, 4 slots,
    a 128-token prefill budget and the prefix cache.  The launch counters
@@ -23,6 +29,19 @@ or when any check fails.  Phases:
    decode step on olmo-1b with ``attn_impl="kernel"`` and ``"plain"``.
 5. Profile: one 4-slot decode step of olmo-1b, its wall time, its device
    time by kernel under ``torch.profiler`` and the device's idle share.
+6. Train: FP8 training of olmo-1b at full width and depth (fp32 master
+   weights, bf16 compute, K4 for every projection GEMM, remat per block),
+   4 steps of 4 x 2048 tokens from random weights (seed 0), with the loss,
+   time, tokens/s and K4 launches of every step, peak memory and model
+   FLOP/s.  The counters are set to 0 just before the steps.
+7. Train path: one more step from the same state with ``fp8_gemm="kernel"``,
+   with ``"plain"`` and with a control (the plain GEMM with its inverse
+   scale rounded to bf16): loss, gradient norm and two updated tensors.
+8. Eval: ``loss_fn`` with ``attn_impl="flash"`` (K3) against ``"torch"``
+   under ``torch.no_grad()`` on the train batch, and a control (attention
+   that also sees the next key) that the limits must reject.
+9. Train profile: one train step without and one under ``torch.profiler``:
+   wall time, device time by kernel and the device's idle share.
 
 It then prints one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Every time is measured on the card in
@@ -37,6 +56,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -47,6 +67,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 on the CUDA cores (the kernels' math)
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+FP8_FLOPS_PER_S = 1979e12  # H100 SXM dense fp8 tensor cores
 BLOCK_SIZE = 32
 SEED = 0
 
@@ -73,6 +95,13 @@ def emit(obj) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def bound(nbytes: float, flops: float, rate: float) -> tuple[float, str]:
+    """(least time in ms, what bounds it) for ``nbytes`` moved and ``flops``
+    done at ``rate``."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / rate
+    return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
 
 
 def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -229,7 +258,7 @@ def serving_prompts(cfg, seed) -> list[list[int]]:
 
 def serving_phase(cfg, params, device, max_new_tokens=32) -> dict:
     from repro_torch.kernels import paged_attention as K
-    from repro_torch.models.initializers import tree_leaves
+    from repro_torch.utils.tree import tree_leaves
     from repro_torch.serving import InferenceEngine
 
     kw = dict(
@@ -383,6 +412,448 @@ def profile_phase(cfg, params, device, steps=5) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: K3 and K4 against their plain versions
+# ---------------------------------------------------------------------------
+
+# K3 cases: name, (B, H, KV, S, hd), dtype, window, softcap, q scale.  The
+# first is the training path's shape (olmo-1b, batch 4 x 2048 tokens).  The
+# softcap case scales q by 8 so that the scores (standard deviation 8) reach
+# the cap: at scale 1 a cap of 30 moves a score by only about s^3/2700.
+FLASH_CASES = [
+    ("olmo-1b", (4, 16, 16, 2048, 128), torch.bfloat16, 0, 0.0, 1.0),
+    ("gqa-32/8", (1, 32, 8, 2048, 128), torch.bfloat16, 0, 0.0, 1.0),
+    ("window-256", (4, 16, 16, 2048, 128), torch.bfloat16, 256, 0.0, 1.0),
+    ("gemma-7b-softcap", (1, 16, 16, 2048, 256), torch.bfloat16, 0, 30.0, 8.0),
+    ("olmo-1b-fp32", (1, 16, 16, 2048, 128), torch.float32, 0, 0.0, 1.0),
+    ("ragged-1000", (2, 16, 16, 1000, 128), torch.bfloat16, 0, 0.0, 1.0),
+]
+# K3 against its plain version.  Both keep scores, P and the sums in fp32 and
+# differ only in the order of the sums, far below a bf16 spacing.  So with
+# bf16 outputs the two roundings differ by at most one bf16 spacing of the
+# row's largest |output|, and only where the fp32 values straddle a rounding
+# boundary; with fp32 outputs sums of up to 2048 terms in another order
+# differ by tens of fp32 spacings of it.  The mean error relative to the mean
+# |output| then stays near 1e-6.  The controls, computed in every run, are
+# the plain version with P rounded to bf16 before P.V and, in the softcap
+# case, without the cap; the limits lie between the readings of the sound
+# runs and of the controls on the H100 (PERF.md), and the script fails if a
+# control passes the checks.
+FLASH_MAX_SPACINGS = {torch.bfloat16: 1.0, torch.float32: 512.0}
+FLASH_MEAN_RTOL = 2e-5
+
+TRAIN_B, TRAIN_S = 4, 2048  # 8192 tokens per step
+# K4 cases at M = 8192 tokens: name, (M, K, N), operand dtypes, transposes
+D_MODEL, D_FF, M_TOK = 2048, 8192, TRAIN_B * TRAIN_S
+GEMM_CASES = [
+    ("fwd attn_q/k/v/o", (M_TOK, D_MODEL, D_MODEL), ("e4m3", "e4m3"), (False, False)),
+    ("fwd ffn_up/gate", (M_TOK, D_MODEL, D_FF), ("e4m3", "e4m3"), (False, False)),
+    ("fwd ffn_down", (M_TOK, D_FF, D_MODEL), ("e4m3", "e4m3"), (False, False)),
+    ("bwd dx attn_q/k/v/o: g @ w.T", (M_TOK, D_MODEL, D_MODEL), ("e5m2", "e4m3"), (False, True)),
+    ("bwd dw attn_q/k/v/o: x.T @ g", (D_MODEL, M_TOK, D_MODEL), ("e4m3", "e5m2"), (True, False)),
+    ("bwd dx ffn_up/gate: g @ w.T", (M_TOK, D_FF, D_MODEL), ("e5m2", "e4m3"), (False, True)),
+    ("bwd dw ffn_up/gate: x.T @ g", (D_MODEL, M_TOK, D_FF), ("e4m3", "e5m2"), (True, False)),
+    ("bwd dx ffn_down: g @ w.T", (M_TOK, D_MODEL, D_FF), ("e5m2", "e4m3"), (False, True)),
+    ("bwd dw ffn_down: x.T @ g", (D_FF, M_TOK, D_MODEL), ("e4m3", "e5m2"), (True, False)),
+    ("ragged", (1000, 1000, 1000), ("e4m3", "e4m3"), (False, False)),
+]
+# K4 against its plain version: fp8 products are exact in fp32, only the
+# order of the fp32 sums differs; relative to the output's largest magnitude
+GEMM_RTOL = 1e-5
+
+
+def flash_work(B, H, KV, S, hd, itemsize, window) -> tuple[int, int]:
+    """(bytes, operations) of one causal call: q, k, v read once, the output
+    written once; 4 hd operations (QK^T and PV multiply-adds) per visible
+    (query, key) pair."""
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    nbytes = (2 * B * H * S * hd + 2 * B * KV * S * hd) * itemsize
+    return nbytes, B * H * pairs * 4 * hd
+
+
+def attention_p_bf16(q, k, v, *, window, softcap):
+    """A control: the plain version with P rounded to bf16 before P.V."""
+    B, H, S, hd = q.shape
+    KV = k.shape[1]
+    s = torch.einsum("bhgqd,bhkd->bhgqk", q.float().reshape(B, KV, H // KV, S, hd), k.float()) / hd**0.5
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(S, device=q.device)
+    rel = pos[:, None] - pos[None, :]
+    ok = (rel >= 0) & (rel < window) if window else rel >= 0
+    w = torch.softmax(s.masked_fill(~ok, -1e38), dim=-1).bfloat16().float()
+    return torch.einsum("bhgqk,bhkd->bhgqd", w, v.float()).reshape(B, H, S, hd).to(q.dtype)
+
+
+def flash_errors(out, ref) -> dict:
+    """max |out - ref| in spacings of out's dtype at the row's largest
+    |ref|, and mean |out - ref| over mean |ref|."""
+    d = (out.float() - ref.float()).abs()
+    rowmax = ref.float().abs().amax(-1, keepdim=True)
+    _, e = torch.frexp(rowmax.clamp_min(1e-30))
+    mant = {torch.bfloat16: 7, torch.float32: 23}[out.dtype]
+    return {"max_spacings": float((d / torch.exp2((e - 1 - mant).float())).max()),
+            "mean_rel": float(d.mean() / ref.float().abs().mean()), "max_abs": float(d.max())}
+
+
+def flash_passes(r, dt) -> bool:
+    return r["max_spacings"] <= FLASH_MAX_SPACINGS[dt] and r["mean_rel"] <= FLASH_MEAN_RTOL
+
+
+def flash_phase(device) -> dict:
+    from repro_torch.kernels import flash_attention as K3
+    from repro_torch.kernels.flash_attention_ref import flash_attention_plain
+
+    main = None
+    for seed, (name, (B, H, KV, S, hd), dt, window, cap, q_scale) in enumerate(FLASH_CASES):
+        g = torch.Generator(device=device).manual_seed(100 + seed)
+        q = (q_scale * torch.randn((B, H, S, hd), generator=g, device=device)).to(dt)
+        k = torch.randn((B, KV, S, hd), generator=g, device=device).to(dt)
+        v = torch.randn((B, KV, S, hd), generator=g, device=device).to(dt)
+        kw = dict(causal=True, window=window, softcap=cap)
+        out = K3.flash_attention_bhsd(q, k, v, **kw)
+        ref = flash_attention_plain(q, k, v, **kw)
+        errs = flash_errors(out, ref)
+        controls = {"p_bf16": flash_errors(attention_p_bf16(q, k, v, window=window, softcap=cap), ref)}
+        if cap:
+            controls["no_softcap"] = flash_errors(flash_attention_plain(q, k, v, causal=True, window=window), ref)
+        model_layout_equal = None
+        if seed == 0:  # the model's (B, S, H, hd) tensors, strided views in the kernel
+            qm, km, vm = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            model_layout_equal = torch.equal(K3.flash_attention(qm, km, vm, **kw).transpose(1, 2), out)
+            del qm, km, vm
+        del out, ref
+        lib = None
+        if not cap:  # SDPA has no softcap
+            mask = None
+            if window:
+                pos = torch.arange(S, device=device)
+                rel = pos[:, None] - pos[None, :]
+                mask = (rel >= 0) & (rel < window)
+
+            def lib(i, mask=mask):
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=H != KV)
+
+        nbytes, flops = flash_work(B, H, KV, S, hd, q.element_size(), window)
+        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S if dt == torch.bfloat16 else FP32_FLOPS_PER_S)
+        row = {
+            "phase": "kernel", "kernel": "flash_attention", "case": name, "shape": [B, H, KV, S, hd],
+            "dtype": str(dt).replace("torch.", ""), "window": window, "softcap": cap, "q_scale": q_scale,
+            "max_abs_err": errs["max_abs"], "errors": errs, "controls": controls,
+            "tol": {"max_spacings": FLASH_MAX_SPACINGS[dt], "mean_rel": FLASH_MEAN_RTOL},
+            "model_layout_equal": model_layout_equal,
+            "kernel_ms": timed_ms(lambda i: K3.flash_attention_bhsd(q, k, v, **kw), iters=10, warmup=2),
+            "plain_ms": timed_ms(lambda i: flash_attention_plain(q, k, v, **kw), iters=5, warmup=1),
+            "library_ms": timed_ms(lib, iters=10, warmup=2) if lib else None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        emit(row)
+        if not flash_passes(errs, dt):
+            fail(f"flash_attention {name}: errors {errs} beyond {row['tol']}")
+        passing = [c for c, r in controls.items() if flash_passes(r, dt)]
+        if passing:
+            fail(f"flash_attention {name}: the controls {passing} pass the checks, which then prove nothing")
+        if model_layout_equal is False:
+            fail(f"flash_attention {name}: the model layout's output differs from the (B, H, S, hd) one")
+        main = main or row
+        del q, k, v
+        torch.cuda.empty_cache()
+    return main
+
+
+def gemm_phase(device) -> dict:
+    from repro_torch.fp8 import FP8_DTYPES, compute_scale, quantize, tensor_amax
+    from repro_torch.fp8 import gemm as K4
+    from repro_torch.fp8.gemm_ref import fp8_gemm_plain
+
+    rows = {}
+    for seed, (name, (M, K, N), (fa, fb), (ta, tb)) in enumerate(GEMM_CASES):
+        g = torch.Generator(device=device).manual_seed(200 + seed)
+        ops = []
+        for shape, fmt, tr in (((M, K), fa, ta), ((K, N), fb, tb)):
+            x = torch.randn(shape[::-1] if tr else shape, generator=g, device=device)
+            sx = compute_scale(tensor_amax(x), FP8_DTYPES[fmt])
+            qx = quantize(x, sx, FP8_DTYPES[fmt])
+            ops.append((qx.T if tr else qx, sx))  # a transposed view, as the backward passes it
+            del x
+        (a, sa), (b, sb) = ops
+        out = K4.fp8_gemm(a, b, sa, sb)
+        ref = fp8_gemm_plain(a, b, sa, sb)
+        err = float((out - ref).abs().max())
+        tol = GEMM_RTOL * float(ref.abs().max())
+        del out, ref
+        lib = None
+        if M % 16 == 0 and K % 16 == 0 and N % 16 == 0:  # torch._scaled_mm's shape rule
+            a_row, b_col = a.contiguous(), b.T.contiguous().T  # its layouts, made outside the timing
+            inv_a, inv_b = 1.0 / sa, 1.0 / sb
+
+            def lib(i):
+                return torch._scaled_mm(a_row, b_col, scale_a=inv_a, scale_b=inv_b, out_dtype=torch.float32)
+
+            try:
+                lib(0)
+            except RuntimeError:  # an operand-type pair it does not take
+                lib = None
+        bound_ms, bound_by = bound(M * K + K * N + 4 * M * N + 8, 2 * M * N * K, FP8_FLOPS_PER_S)
+        row = {
+            "phase": "kernel", "kernel": "fp8_gemm", "case": name, "mkn": [M, K, N], "dtypes": [fa, fb],
+            "transposed": [ta, tb], "max_abs_err": err, "tol": tol,
+            "kernel_ms": timed_ms(lambda i: K4.fp8_gemm(a, b, sa, sb), iters=10, warmup=2),
+            "plain_ms": timed_ms(lambda i: fp8_gemm_plain(a, b, sa, sb), iters=10, warmup=2),
+            "library_ms": timed_ms(lib, iters=10, warmup=2) if lib else None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        emit(row)
+        if not err <= tol:
+            fail(f"fp8_gemm {name}: err {err} > {tol}")
+        rows[name] = row
+        del a, b, ops
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 6-9: FP8 training at full width and depth
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 4
+# kernel step against plain step from one state: the same fp8 operands, the
+# GEMM sums in another order.  The control is the plain step with each
+# GEMM's 1/(sa sb) rounded to bf16 (up to 2^-9 off), a fault a kernel's
+# epilogue could have.  Parameters are compared in units of the step's lr,
+# since AdamW moves each by about lr whatever its gradient.  Each limit lies
+# between the readings of the sound runs and of the control on the H100
+# (PERF.md); the script fails if the control passes them.
+PATH_LIMITS = {"loss_rel": 1e-6, "grad_norm_rel": 1e-5, "param_mean_over_lr": 1e-5}
+# flash against torch attention at full width, bf16: the torch path rounds
+# the scores and P to bf16 (as the reference's einsums do), K3 keeps them in
+# fp32.  The control is attention that also sees the next key, an off-by-one
+# of the causal mask.  Limits set as above.
+EVAL_LIMITS = {"loss_diff": 2e-4, "max_logits_diff": 0.5}
+
+
+def train_run_config(fp8_gemm: str):
+    from repro_torch.config import ParallelConfig, PrecisionConfig, RunConfig, TrainConfig
+
+    return RunConfig(
+        arch="olmo-1b",
+        train=TrainConfig(global_batch=TRAIN_B, seq_len=TRAIN_S, warmup_steps=2, total_steps=10),
+        parallel=ParallelConfig(remat="full"),
+        precision=PrecisionConfig(param_dtype="float32", compute_dtype="bfloat16", fp8=True, fp8_gemm=fp8_gemm),
+    )
+
+
+def model_flops_per_step(cfg, tokens: int, seq: int) -> float:
+    """3 x the forward's matmul FLOPs (forward + backward, recompute not
+    counted): per token 2 (L (4 D^2 + 3 D F) + D V) for the projections and
+    the tied head, plus 2 L D S for causal attention (QK^T and PV over S/2
+    keys on average)."""
+    L, D, F_, V = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    per_token = 2 * (L * (4 * D * D + 3 * D * F_) + D * V) + 2 * L * D * seq
+    return 3.0 * tokens * per_token
+
+
+def train_phase(cfg, device):
+    from repro_torch.data import make_batch_fn
+    from repro_torch.fp8 import fp8_sites
+    from repro_torch.fp8 import gemm as K4
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.utils.tree import tree_leaves
+
+    run = train_run_config("kernel")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, run, SEED, device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = make_train_step(cfg, run)
+    batch_fn = make_batch_fn(cfg, global_batch=TRAIN_B, seq_len=TRAIN_S, seed=SEED, device=device)
+    batches = [batch_fn(i) for i in range(TRAIN_STEPS + 1)]
+    tokens = TRAIN_B * TRAIN_S
+    flops = model_flops_per_step(cfg, tokens, TRAIN_S)
+    per_step = 4 * cfg.num_layers * len(fp8_sites(cfg))  # forward, recompute, dx and dw of every site
+    K4.reset_launches()  # the main path's run starts here
+    steps = []
+    for i in range(TRAIN_STEPS):
+        before = K4.LAUNCHES["fp8_gemm"]
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i])
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rec = {"phase": "train_step", "step": i, "loss": loss, "ms": dt * 1e3, "tokens_per_s": tokens / dt,
+               "lr": float(m["lr"]), "grad_norm": float(m["grad_norm"]),
+               "k4_launches": K4.LAUNCHES["fp8_gemm"] - before}
+        emit(rec)
+        steps.append(rec)
+        if not np.isfinite(loss) or rec["k4_launches"] != per_step:
+            fail(f"train step {i}: loss {loss}, {rec['k4_launches']} K4 launches (expected {per_step})")
+    launches = K4.LAUNCHES["fp8_gemm"]
+    steady = steps[1:]  # step 0 builds nothing but warms the allocator
+    step_s = float(np.mean([r["ms"] for r in steady])) / 1e3
+    out = {
+        "phase": "train", "model": cfg.name, "params": sum(t.numel() for t in tree_leaves(state.params)),
+        "tokens_per_step": tokens, "steps": TRAIN_STEPS, "init_s": init_s, "k4_launches": launches,
+        "losses": [r["loss"] for r in steps], "step_ms_mean_steps_1_3": step_s * 1e3,
+        "tokens_per_s_steps_1_3": tokens / step_s, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "model_tflop_per_step": flops / 1e12, "model_tflop_s": flops / step_s / 1e12,
+        "bf16_peak_share": flops / step_s / BF16_FLOPS_PER_S,
+        "flops_formula": "3 * T * (2 * (L * (4 D^2 + 3 D F) + D V) + 2 L D S)",
+    }
+    emit(out)
+    return state, batches[TRAIN_STEPS], out
+
+
+def clone_state(state):
+    from repro_torch.train import TrainState
+    from repro_torch.utils.tree import tree_map
+
+    c = lambda t: t.clone()  # noqa: E731
+    return TrainState(params=tree_map(c, state.params), opt=type(state.opt)(state.opt.step.clone(), tree_map(c, state.opt.m), tree_map(c, state.opt.v)),
+                      compress_residual=None, fp8=type(state.fp8)(tree_map(c, state.fp8.amax_history), tree_map(c, state.fp8.scale), state.fp8.step.clone()))
+
+
+def path_readings(r, ref) -> dict:
+    lr = ref["lr"]
+    diffs = [(r["params"][n] - ref["params"][n]).abs() for n in ref["params"]]
+    return {"loss_rel": abs(r["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "grad_norm_rel": abs(r["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"]),
+            "param_mean_over_lr": float(sum(d.sum() for d in diffs)) / sum(d.numel() for d in diffs) / lr,
+            "param_max_over_lr": max(float(d.max()) for d in diffs) / lr}
+
+
+def within(readings: dict, limits: dict) -> bool:
+    return all(readings[k] <= v for k, v in limits.items())
+
+
+def train_path_phase(cfg, state, batch):
+    """One step from the same state with the plain GEMM, with the control
+    and with the K4 kernel.  Returns the kernel step's state."""
+    from repro_torch.fp8 import policy
+    from repro_torch.train import make_train_step
+
+    picks = {"blocks.0.attn.wq": lambda p: p["blocks"][0]["attn"]["wq"],
+             f"blocks.{cfg.num_layers - 1}.mlp.w_down": lambda p: p["blocks"][-1]["mlp"]["w_down"]}
+
+    def run(impl, st):
+        new, m = make_train_step(cfg, train_run_config(impl))(st, batch)
+        return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]),
+                "params": {n: get(new.params).clone() for n, get in picks.items()}}, new
+
+    plain, _ = run("plain", clone_state(state))
+    plain_gemm = policy.GEMM_IMPLS["plain"]
+    policy.GEMM_IMPLS["plain"] = lambda a, b, sa, sb: plain_gemm(a, b, sa, sb) * ((1 / (sa * sb)).bfloat16().float() * (sa * sb))
+    try:
+        control, _ = run("plain", clone_state(state))
+    finally:
+        policy.GEMM_IMPLS["plain"] = plain_gemm
+    kernel, state = run("kernel", state)
+    out = {"phase": "train_path", "loss": {"kernel": kernel["loss"], "plain": plain["loss"]},
+           "grad_norm": {"kernel": kernel["grad_norm"], "plain": plain["grad_norm"]}, "lr": plain["lr"],
+           "kernel_vs_plain": path_readings(kernel, plain), "control_vs_plain": path_readings(control, plain),
+           "limits": PATH_LIMITS}
+    emit(out)
+    if not within(out["kernel_vs_plain"], PATH_LIMITS):
+        fail(f"kernel and plain train steps differ: {out}")
+    if within(out["control_vs_plain"], PATH_LIMITS):
+        fail(f"the control step passes the train path's limits, which then prove nothing: {out}")
+    torch.cuda.empty_cache()
+    return state
+
+
+def attention_next_key(q, k, v, *, causal, window, softcap):
+    """A control for the eval: causal attention in the model layout that
+    also sees the next key."""
+    S = q.shape[1]
+    pos = torch.arange(S, device=q.device)
+    mask = pos[None, :] <= pos[:, None] + 1
+    return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                          attn_mask=mask, enable_gqa=q.shape[2] != k.shape[2]).transpose(1, 2)
+
+
+def eval_phase(cfg, params, batch) -> dict:
+    from repro_torch.kernels import flash_attention as K3
+    from repro_torch.models import attention, forward
+    from repro_torch.train import loss_fn
+
+    def evaluate(impl):
+        K3.reset_launches()
+        t0 = time.perf_counter()
+        loss = float(loss_fn(cfg, params, batch, attn_impl=impl, compute_dtype=torch.bfloat16)[0])
+        dt = time.perf_counter() - t0
+        launches = K3.LAUNCHES["flash_attention"]
+        logits = forward(cfg, params, batch, attn_impl=impl, compute_dtype=torch.bfloat16)[0]
+        return {"loss": loss, "wall_s": dt, "k3_launches": launches, "logits": logits}
+
+    def readings(r):
+        return {"loss_diff": abs(r["loss"] - ref["loss"]),
+                "max_logits_diff": float((r["logits"] - ref["logits"]).abs().max())}
+
+    with torch.no_grad():
+        ref = evaluate("torch")
+        flash = evaluate("flash")
+        finite = bool(torch.isfinite(flash["logits"]).all())
+        k3 = attention.flash_attention
+        attention.flash_attention = attention_next_key
+        try:
+            control = evaluate("flash")
+        finally:
+            attention.flash_attention = k3
+        out = {"phase": "eval", "loss": {"torch": ref["loss"], "flash": flash["loss"], "control": control["loss"]},
+               "wall_s": {"torch": ref["wall_s"], "flash": flash["wall_s"]}, "k3_launches": flash["k3_launches"],
+               "k3_launches_torch": ref["k3_launches"],
+               "flash_vs_torch": readings(flash), "control_vs_torch": readings(control), "limits": EVAL_LIMITS}
+        del ref, flash, control
+    emit(out)
+    if out["k3_launches"] != cfg.num_layers or out["k3_launches_torch"] != 0:
+        fail(f"flash eval launched K3 {out['k3_launches']} times (expected {cfg.num_layers})")
+    if not finite or not within(out["flash_vs_torch"], EVAL_LIMITS):
+        fail(f"flash and torch attention disagree: {out}")
+    if within(out["control_vs_torch"], EVAL_LIMITS):
+        fail(f"the control passes the eval's limits, which then prove nothing: {out}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_profile_phase(cfg, state, batch) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train import make_train_step
+
+    step = make_train_step(cfg, train_run_config("kernel"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)  # the step's wall time, without the profiler
+    float(m["loss"])
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+    prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict[str, float] = {}
+    launches = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            launches += 1
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    out = {
+        "phase": "train_profile", "model": cfg.name, "what": "one fp8 train step, 4 x 2048 tokens, remat full",
+        "wall_ms": wall_ms, "wall_ms_under_profiler": prof_wall_ms, "device_busy_ms": busy if by_name else None,
+        "idle_share": 1.0 - busy / wall_ms if by_name else None,
+        "idle_share_under_profiler": 1.0 - busy / prof_wall_ms if by_name else None, "device_launches": launches,
+        "fp8_gemm_ms": sum(v for k, v in by_name.items() if "fp8_gemm_kernel" in k),
+        "top_kernels_ms": [[name[:90], ms] for name, ms in top],
+    }
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -392,7 +863,7 @@ def main() -> int:
     # imported before any output: a copy without the package prints nothing
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
-    from repro_torch.kernels import paged_attention as K
+    from repro_torch.kernels import build
     from repro_torch.models import init_params
 
     smi = subprocess.run(
@@ -404,29 +875,67 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0)})
 
     device = resolve_device("cuda")  # also pins fp32 matmuls to full precision
-    t0 = time.perf_counter()
-    lib, log = K.build(verbose=True)
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": os.path.relpath(lib, ROOT),
-          "ptxas": [ln.strip() for ln in log.splitlines() if "registers" in ln or "Compiling" in ln]})
+    sources = ["paged_attention.cu", "fp8_gemm.cu", "flash_attention.cu"]
 
-    main_rows = kernel_phase(device)
+    def timed_build(src):
+        t0 = time.perf_counter()
+        lib, log = build.build(src, verbose=True)
+        return src, time.perf_counter() - t0, lib, log
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all started together
+        built = list(pool.map(timed_build, sources))
+    for src, secs, lib, log in built:
+        emit({"phase": "build", "source": src, "seconds": secs, "library": os.path.relpath(lib, ROOT),
+              "ptxas": [ln.strip() for ln in log.splitlines() if "registers" in ln or "Compiling" in ln]})
+    emit({"phase": "build", "wall_seconds": time.perf_counter() - t0})
+
+    seconds = {"build": time.perf_counter() - t0}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    main_rows = phase("kernel_k1_k2", kernel_phase, device)
+    flash_main = phase("kernel_k3", flash_phase, device)
+    gemm_rows = phase("kernel_k4", gemm_phase, device)
 
     cfg = get_config("olmo-1b")  # full width and depth
-    t0 = time.perf_counter()
-    params = init_params(cfg, SEED, device)
-    torch.cuda.synchronize()
-    emit({"phase": "init", "model": cfg.name, "seconds": time.perf_counter() - t0})
-    serving = serving_phase(cfg, params, device)
-    path_phase(cfg, params, device)
-    profile_phase(cfg, params, device)
+    params = phase("init", init_params, cfg, SEED, device)
+    emit({"phase": "init", "model": cfg.name, "seconds": seconds["init"]})
+    serving = phase("serving", serving_phase, cfg, params, device)
+    phase("path", path_phase, cfg, params, device)
+    phase("profile", profile_phase, cfg, params, device)
+    del params  # the serving model's memory goes back before training
+    torch.cuda.empty_cache()
 
-    replaces = {"paged_decode": "src/repro/kernels/paged_attention.py:149",
-                "paged_prefill": "src/repro/kernels/paged_attention.py:283"}
+    state, batch, train = phase("train", train_phase, cfg, device)
+    state = phase("train_path", train_path_phase, cfg, state, batch)
+    evaluation = phase("eval", eval_phase, cfg, state.params, batch)
+    phase("train_profile", train_profile_phase, cfg, state, batch)
+    emit({"phase": "seconds", **seconds})
+
+    src = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, row in main_rows.items():
         kernels.append({
-            "name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-            "replaces": replaces[name], "launches": serving["launches"][name],
+            "name": name, "route": "cuda", "source": src + "paged_attention.cu",
+            "replaces": {"paged_decode": "src/repro/kernels/paged_attention.py:149",
+                         "paged_prefill": "src/repro/kernels/paged_attention.py:283"}[name],
+            "launches": serving["launches"][name],
+            "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        })
+    gemm_main = gemm_rows["fwd ffn_up/gate"]  # the step's largest forward shape
+    for name, source, replaces, launches, row in (
+        ("flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:124", evaluation["k3_launches"], flash_main),
+        ("fp8_gemm", "fp8_gemm.cu", "src/repro/fp8/gemm.py:91", train["k4_launches"], gemm_main),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + source, "replaces": replaces, "launches": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })

@@ -1,9 +1,11 @@
-"""Weight bridge: the JAX package's parameter tree -> the port's.
+"""Weight bridge: the JAX package's parameter tree (and train state) -> the
+port's.
 
 The JAX tree stacks every block leaf over layers, ``(L, ...)``; the port
 keeps one dict per layer.  Leaf names and layouts are the same, so the
 bridge is a plain copy.  Arrays arrive as numpy (the caller converts with
-``np.asarray``); bf16, which numpy lacks, goes through fp32.
+``np.asarray``, e.g. ``jax.tree.map(np.asarray, state)``); bf16, which
+numpy lacks, goes through fp32.
 """
 
 from __future__ import annotations
@@ -12,6 +14,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.fp8.quantize import Fp8State
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.train.step import TrainState
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -39,3 +44,33 @@ def params_from_jax(cfg, np_tree: dict, device="cuda", dtype=torch.float32) -> d
     out = {k: _convert(v, device, dtype) for k, v in np_tree.items() if k != "blocks"}
     out["blocks"] = [_convert(_unstack(np_tree["blocks"], l), device, dtype) for l in range(cfg.num_layers)]
     return out
+
+
+def train_state_from_jax(cfg, np_state, device="cuda", param_dtype=torch.float32, opt_dtype=torch.float32) -> TrainState:
+    """A port ``TrainState`` holding the values of the JAX ``TrainState``
+    ``np_state`` (numpy leaves): parameters, the AdamW ``step``/``m``/``v``
+    (unstacked like the parameters) and the ``Fp8State`` (``amax_history``,
+    ``scale``, ``step``), so both packages can continue from one state,
+    mid-training included."""
+    device = resolve_device(device)
+    if np_state.compress_residual is not None:
+        raise NotImplementedError("gradient compression state is not ported")
+    opt = np_state.opt
+    fp8 = None
+    if np_state.fp8 is not None:
+        f = np_state.fp8
+        fp8 = Fp8State(
+            amax_history={k: _tensor(v, device, torch.float32) for k, v in f.amax_history.items()},
+            scale={k: _tensor(v, device, torch.float32) for k, v in f.scale.items()},
+            step=torch.tensor(int(f.step), dtype=torch.int32, device=device),
+        )
+    return TrainState(
+        params=params_from_jax(cfg, np_state.params, device, param_dtype),
+        opt=AdamWState(
+            step=torch.tensor(int(opt.step), dtype=torch.int32, device=device),
+            m=params_from_jax(cfg, opt.m, device, opt_dtype),
+            v=params_from_jax(cfg, opt.v, device, opt_dtype),
+        ),
+        compress_residual=None,
+        fp8=fp8,
+    )

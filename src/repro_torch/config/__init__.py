@@ -6,5 +6,26 @@ from repro_torch.config.model import (
     VisionConfig,
     reduce_for_smoke,
 )
+from repro_torch.config.run import (
+    MeshConfig,
+    ParallelConfig,
+    PrecisionConfig,
+    RunConfig,
+    ServeConfig,
+    TrainConfig,
+)
 
-__all__ = ["ModelConfig", "MoEConfig", "RWKVConfig", "SSMConfig", "VisionConfig", "reduce_for_smoke"]
+__all__ = [
+    "MeshConfig",
+    "ModelConfig",
+    "MoEConfig",
+    "ParallelConfig",
+    "PrecisionConfig",
+    "RWKVConfig",
+    "RunConfig",
+    "SSMConfig",
+    "ServeConfig",
+    "TrainConfig",
+    "VisionConfig",
+    "reduce_for_smoke",
+]

@@ -1,0 +1,54 @@
+"""Deterministic synthetic token batches, the recipe of the JAX package's
+``data/synthetic.py`` on a ``torch.Generator``.
+
+A batch is a pure function of (seed, step): replaying a step gives the same
+tokens.  Tokens are Zipf-like over the vocabulary (logits ``-1.2 log rank``)
+and, with probability 0.3, the previous base token times 31 modulo V, so a
+model can learn something; ``labels`` are the tokens shifted left by one.
+The bits differ from ``jax.random``'s: parity tests hand one numpy batch to
+both packages.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def _generator(seed: int, step: int) -> torch.Generator:
+    """A CPU generator for (seed, step).  Its Mersenne Twister keeps 32 bits
+    of a seed, so the pair is hashed into 32 bits first."""
+    if seed < 0 or step < 0:
+        raise ValueError(f"seed {seed} and step {step} must be non-negative")
+    return torch.Generator().manual_seed(int(np.random.SeedSequence([seed, step]).generate_state(1)[0]))
+
+
+def synthetic_batch(cfg, *, step: int, global_batch: int, seq_len: int, seed: int = 0, device="cuda") -> dict:
+    """One training batch of int32 ``tokens`` and ``labels`` (B, S), made on
+    the CPU from (seed, step) and moved to ``device``."""
+    if cfg.family in ("audio", "vlm"):
+        raise NotImplementedError(f"synthetic {cfg.family} batches are not ported yet ({cfg.name})")
+    device = resolve_device(device)
+    g = _generator(seed, step)
+    V = cfg.vocab_size
+    ranks = torch.arange(V, dtype=torch.float64) + 1.0
+    probs = torch.exp(-1.2 * torch.log(ranks))
+    B, S = global_batch, seq_len
+    base = torch.multinomial(probs, B * S, replacement=True, generator=g).reshape(B, S)
+    shift = torch.roll(base, 1, dims=1) * 31 % V
+    mix = torch.rand((B, S), generator=g) < 0.3
+    tokens = torch.where(mix, shift, base).to(torch.int32)
+    labels = torch.roll(tokens, -1, dims=1)
+    return {"tokens": tokens.to(device), "labels": labels.to(device)}
+
+
+def make_batch_fn(cfg, *, global_batch: int, seq_len: int, seed: int = 0, device="cuda"):
+    """step -> batch closure (deterministic)."""
+    device = resolve_device(device)
+
+    def batch_fn(step: int) -> dict:
+        return synthetic_batch(cfg, step=step, global_batch=global_batch, seq_len=seq_len, seed=seed, device=device)
+
+    return batch_fn

@@ -5,8 +5,8 @@ and K2 (chunked prefill, C query tokens per sequence), the Hopper
 counterparts of the JAX package's Pallas ``paged_attention_bhd`` and
 ``paged_prefill_attention_bhd``.  The source is compiled with ``nvcc`` for
 ``sm_90a`` at first use into ``build/`` at the repository root and loaded
-with ``ctypes`` (a plain C interface: no PyTorch headers, a build of
-seconds).
+with ``ctypes`` through ``kernels.build`` (a plain C interface: no PyTorch
+headers, a build of seconds).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates the
 output with ``torch.empty``, launches on the current stream and raises if
@@ -19,24 +19,16 @@ CUDA tensors it launches the kernel or raises, and never falls back.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention_ref import (
     paged_attention_plain,
     paged_prefill_attention_plain,
 )
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+SOURCE = "paged_attention.cu"  # under kernels/csrc
 
 # launches of each kernel by its wrapper (reset with ``reset_launches``)
 LAUNCHES = {"paged_decode": 0, "paged_prefill": 0}
@@ -44,69 +36,24 @@ LAUNCHES = {"paged_decode": 0, "paged_prefill": 0}
 PREFILL_ROW_TILE = 16  # K2 query rows per thread block
 MAX_SMEM = 232_448  # bytes of shared memory one H100 thread block may use
 
-_lib = None
-_lib_lock = threading.Lock()
-
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(f"nvcc not found (looked in {cand} and on PATH)")
-    return found
-
-
-def library_path() -> Path:
-    """The shared library's path, keyed by the source's content hash."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"libpaged_attention_{digest}.so"
-
-
-def build(verbose: bool = False) -> tuple[Path, str]:
-    """Compile the kernels unless this source is already built.  Returns
-    (library path, the compiler's messages; ``verbose`` adds ptxas's
-    register and shared-memory report)."""
-    out = library_path()
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
-    return out, proc.stdout + proc.stderr
+def _declare(lib) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.paged_decode_attention.argtypes = [p] * 6 + [i] * 7 + [f, i, i, i, p]
+    lib.paged_decode_attention.restype = i
+    lib.paged_prefill_attention.argtypes = [p] * 6 + [i] * 9 + [f, i, i, i, p]
+    lib.paged_prefill_attention.restype = i
+    lib.paged_attention_smem_bytes.argtypes = [i, i, i]
+    lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
 
 
 def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            path, _ = build()
-            lib = ctypes.CDLL(str(path))
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.paged_decode_attention.argtypes = [p] * 6 + [i] * 7 + [f, i, i, i, p]
-            lib.paged_decode_attention.restype = i
-            lib.paged_prefill_attention.argtypes = [p] * 6 + [i] * 9 + [f, i, i, i, p]
-            lib.paged_prefill_attention.restype = i
-            lib.paged_attention_smem_bytes.argtypes = [i, i, i]
-            lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
-            _lib = lib
-        return _lib
+    return build.load(SOURCE, _declare)
 
 
 def _check(q, k_pool, v_pool, block_tables, lens, q_dims: int) -> None:

@@ -1,22 +1,39 @@
-"""Attention over a paged KV cache: projections, K/V scatter, and the two
-kernel entry points (chunked prefill and decode).
+"""Attention: full-sequence self-attention (training, forward) and attention
+over a paged KV cache (chunked prefill and decode).
 
 Shapes follow the (batch, seq, heads, head_dim) convention of the JAX
-package's ``models/attention.py``.  ``impl="kernel"`` attends through the
-CUDA kernel wrappers of ``kernels.paged_attention`` (which take the plain
-version for CPU tensors); ``impl="plain"`` calls the plain versions
-directly, which on the card serves only as the kernels' yardstick.
+package's ``models/attention.py``.
+
+* ``self_attention``: ``impl="torch"`` is the counterpart of the JAX
+  package's ``"xla"``: attention in tensor ops, differentiable, with
+  optional query chunking; the train step uses it.  ``impl="flash"`` runs
+  the flash-attention kernel K3 (``kernels.flash_attention``), forward only.
+* the paged functions: ``impl="kernel"`` attends through the CUDA kernel
+  wrappers of ``kernels.paged_attention`` (which take the plain version for
+  CPU tensors); ``impl="plain"`` calls the plain versions directly, which on
+  the card serves only as the kernels' yardstick.
+
+With an ``fp8`` handle (``repro_torch.fp8.policy.Fp8Layer``) the q/k/v/o
+projections run through FP8 GEMMs; the head split is a free reshape around
+a 2-D GEMM.
 """
 
 from __future__ import annotations
 
-import torch
+import math
 
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention, paged_prefill_attention
 from repro_torch.kernels.paged_attention_ref import paged_attention_plain, paged_prefill_attention_plain
-from repro_torch.models.layers import ParamSpec, apply_rope
+from repro_torch.models.layers import ParamSpec, apply_rope, softcap
 
-ATTN_IMPLS = ("kernel", "plain")
+ATTN_IMPLS = ("kernel", "plain")  # paged attention
+SELF_ATTN_IMPLS = ("torch", "flash")  # full-sequence self-attention
+
+NEG_INF = -2.0e38
 
 
 def attention_specs(cfg) -> dict:
@@ -49,8 +66,17 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype).reshape(D, nh * hd)).reshape(x.shape[:-1] + (nh, hd))
 
 
-def _qkv(cfg, p, x):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+def _fp8_proj(fp8, site: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The FP8 route of ``_proj``: the fp32 master weight as (D, heads*hd)."""
+    D, nh, hd = w.shape
+    return fp8.matmul(site, x, w.reshape(D, nh * hd)).reshape(x.shape[:-1] + (nh, hd))
+
+
+def _qkv(cfg, p, x, fp8=None):
+    if fp8 is not None:
+        q, k, v = (_fp8_proj(fp8, f"attn_{n}", x, p[f"w{n}"]) for n in ("q", "k", "v"))
+    else:
+        q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if cfg.use_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -67,9 +93,12 @@ def _rms_head(x, scale, eps):
     return (xf * scale.float()).to(x.dtype)
 
 
-def _out(cfg, p, ctx, dtype):
+def _out(cfg, p, ctx, dtype, fp8=None):
     H, hd, D = p["wo"].shape
-    out = ctx.to(dtype).reshape(ctx.shape[:-2] + (H * hd,)) @ p["wo"].to(dtype).reshape(H * hd, D)
+    if fp8 is not None:
+        out = fp8.matmul("attn_o", ctx.reshape(ctx.shape[:-2] + (H * hd,)), p["wo"].reshape(H * hd, D)).to(dtype)
+    else:
+        out = ctx.to(dtype).reshape(ctx.shape[:-2] + (H * hd,)) @ p["wo"].to(dtype).reshape(H * hd, D)
     if cfg.use_bias:
         out = out + p["bo"].to(dtype)
     return out
@@ -82,6 +111,49 @@ def _rope(cfg, q, k, positions):
     return q, k
 
 
+# ---------------------------------------------------------------------------
+# core attention math (grouped heads, fp32 softmax)
+# ---------------------------------------------------------------------------
+
+
+def _scores(q, k, q_per_kv, scale):
+    """q: (B,Sq,H,hd), k: (B,Skv,KV,hd) -> (B,KV,G,Sq,Skv) fp32.  The
+    product is in q's dtype, as the reference's einsum."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Sq, KV, q_per_kv, hd)
+    s = torch.einsum("bqhgk,bshk->bhgqs", qg, k)
+    return s.float() * scale
+
+
+def _attend_block(cfg, q, k, v, mask, q_per_kv):
+    """Exact softmax attention for one (possibly chunked) query block.
+
+    mask: (B?, 1, 1, Sq, Skv) additive fp32 mask (0 / NEG_INF).
+    """
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    s = _scores(q, k, q_per_kv, scale)
+    if cfg.attn_logit_softcap > 0:
+        s = softcap(s, cfg.attn_logit_softcap)
+    s = s + mask
+    w = torch.softmax(s, dim=-1)
+    B, Sq = q.shape[0], q.shape[1]
+    ctx = torch.einsum("bhgqs,bshk->bqhgk", w.to(v.dtype), v)
+    return ctx.reshape(B, Sq, cfg.num_heads, cfg.head_dim)
+
+
+def make_mask(q_pos, kv_pos, *, causal: bool, window: int) -> torch.Tensor:
+    """Additive mask (..., Sq, Skv) from absolute positions."""
+    rel = q_pos[..., :, None] - kv_pos[..., None, :]  # q - kv
+    ok = torch.ones(rel.shape, dtype=torch.bool, device=rel.device)
+    if causal:
+        ok &= rel >= 0
+    if window > 0:
+        ok &= rel < window
+    zero = torch.zeros((), dtype=torch.float32, device=rel.device)
+    return torch.where(ok, zero, torch.full((), NEG_INF, dtype=torch.float32, device=rel.device))
+
+
 def _scatter(pool: torch.Tensor, phys: torch.Tensor, off: torch.Tensor, rows: torch.Tensor) -> None:
     # in place, where the JAX package returns a new pool from a donated
     # ``.at[phys, off].set`` (the engine owns the only reference)
@@ -91,6 +163,47 @@ def _scatter(pool: torch.Tensor, phys: torch.Tensor, off: torch.Tensor, rows: to
 # ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
+
+
+def self_attention(cfg, p: dict, x: torch.Tensor, *, positions=None, q_chunk: int = 0, impl: str = "torch", fp8=None):
+    """Full-sequence self-attention (training / forward).  x: (B, S, D);
+    positions: (B, S), default ``arange(S)``.  Returns (B, S, D).
+
+    ``q_chunk``: with ``impl="torch"``, attend ``q_chunk`` queries at a time
+    (each chunk recomputed in the backward), bounding the scores to
+    ``q_chunk x S``.  ``impl="flash"`` ignores it: K3 never holds the scores.
+    """
+    if impl not in SELF_ATTN_IMPLS:
+        raise ValueError(f"impl={impl!r} (choose from {SELF_ATTN_IMPLS})")
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device).expand(B, S)
+    q, k, v = _qkv(cfg, p, x, fp8=fp8)
+    q, k = _rope(cfg, q, k, positions)
+
+    if impl == "flash":
+        ctx = flash_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
+        return _out(cfg, p, ctx, x.dtype, fp8=fp8)
+
+    qpk = cfg.q_per_kv
+    if q_chunk and S > q_chunk and S % q_chunk == 0:
+
+        def chunk(qc, pq):
+            m = make_mask(pq, positions, causal=cfg.causal, window=cfg.sliding_window)
+            return _attend_block(cfg, qc, k, v, m[:, None, None], qpk)
+
+        ctxs = []
+        for c0 in range(0, S, q_chunk):
+            qc, pq = q[:, c0 : c0 + q_chunk], positions[:, c0 : c0 + q_chunk]
+            # recomputed in the backward: otherwise autograd keeps every
+            # chunk's (q_chunk x S) scores
+            ctxs.append(checkpoint(chunk, qc, pq, use_reentrant=False) if torch.is_grad_enabled() else chunk(qc, pq))
+        ctx = torch.cat(ctxs, dim=1)
+    else:
+        m = make_mask(positions, positions, causal=cfg.causal, window=cfg.sliding_window)
+        ctx = _attend_block(cfg, q, k, v, m[:, None, None], qpk)
+    return _out(cfg, p, ctx, x.dtype, fp8=fp8)
+
 
 
 def paged_chunk_attention(cfg, p: dict, x: torch.Tensor, cache: dict, tbl_row: torch.Tensor, start: torch.Tensor, *, impl: str = "kernel"):

@@ -36,16 +36,23 @@ def ffn_specs(cfg, d_ff: int | None = None) -> dict:
     return specs
 
 
-def ffn(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+def ffn(cfg, p: dict, x: torch.Tensor, *, fp8=None) -> torch.Tensor:
+    """``fp8``: an FP8 layer handle (``repro_torch.fp8.policy.Fp8Layer``)
+    routes the up/gate/down GEMMs through quantized matmuls (biases and the
+    activation stay in the compute dtype)."""
+
+    def mm(site, a, w):
+        return fp8.matmul(site, a, w) if fp8 is not None else a @ w.to(a.dtype)
+
     act = gate_fn(cfg.activation)
-    up = x @ p["w_up"].to(x.dtype)
+    up = mm("ffn_up", x, p["w_up"])
     if cfg.use_bias:
         up = up + p["b_up"].to(x.dtype)
     if is_gated(cfg.activation):
-        h = act(x @ p["w_gate"].to(x.dtype)) * up
+        h = act(mm("ffn_gate", x, p["w_gate"])) * up
     else:
         h = act(up)
-    out = h @ p["w_down"].to(x.dtype)
+    out = mm("ffn_down", h, p["w_down"])
     if cfg.use_bias:
         out = out + p["b_down"].to(x.dtype)
     return out

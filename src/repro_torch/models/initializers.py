@@ -14,6 +14,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.blocks import dense_block_specs
 from repro_torch.models.layers import ParamSpec, materialize, norm_specs
+from repro_torch.utils.tree import tree_map
 
 
 def param_specs(cfg) -> dict:
@@ -28,23 +29,6 @@ def param_specs(cfg) -> dict:
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((D, V), ("embed_v", "vocab"))
     return specs
-
-
-def tree_map(fn, tree):
-    """Map ``fn`` over the leaves of a tree of dicts and lists."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
-def tree_leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
-    if isinstance(tree, list):
-        return [leaf for v in tree for leaf in tree_leaves(v)]
-    return [tree]
 
 
 def init_params(cfg, generator: torch.Generator | int = 0, device="cuda", dtype=torch.float32) -> dict:

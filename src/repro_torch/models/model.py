@@ -1,7 +1,9 @@
-"""The dense model on a paged cache: embedding -> layer loop -> head.
+"""The dense model: embedding -> layer loop -> head.
 
-Two entry points, counterparts of the JAX package's ``models/model.py``:
+Entry points, counterparts of the JAX package's ``models/model.py``:
 
+* ``forward``      — training forward over whole sequences: (logits, aux),
+  or (logits, aux, amaxes) with an FP8 context
 * ``prefill_step`` — one prompt chunk against the paged cache: (logits at
   the chunk's last token, cache)
 * ``decode_step``  — one token per batch slot: (logits, cache)
@@ -16,9 +18,10 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.attention import ATTN_IMPLS
-from repro_torch.models.blocks import dense_block_chunk, dense_block_decode
+from repro_torch.models.attention import ATTN_IMPLS, SELF_ATTN_IMPLS
+from repro_torch.models.blocks import dense_block, dense_block_chunk, dense_block_decode
 from repro_torch.models.cache import layer_cache
 from repro_torch.models.layers import apply_norm
 
@@ -50,9 +53,63 @@ def lm_logits(cfg, params, x: torch.Tensor) -> torch.Tensor:
         logits = x @ params["embed"]["tok"].to(x.dtype).T
     logits = logits.float()
     if cfg.padded_vocab != cfg.vocab_size:
-        # mask the alignment-padding columns (never predicted)
-        logits[..., cfg.vocab_size :] = -1e9
+        # mask the alignment-padding columns (never predicted); out of place,
+        # so the product's gradient is kept
+        col = torch.arange(cfg.padded_vocab, device=logits.device)
+        logits = logits.masked_fill(col >= cfg.vocab_size, -1e9)
     return logits
+
+
+# activation-checkpoint policies of the JAX package's layer scan; the port
+# recomputes a whole block ("full") or nothing ("none")
+REMAT_POLICIES = ("none", "full", "dots", "dots_no_batch")
+
+
+def forward(cfg, params, batch, *, q_chunk=0, remat="none", attn_impl="torch", compute_dtype=None, fp8=None):
+    """Training forward.  Returns (logits, aux_loss), or (logits, aux_loss,
+    amaxes) when an ``fp8`` context (``repro_torch.fp8.Fp8Ctx``) is passed:
+    amaxes maps each scale key to the (num_layers,) amaxes observed.
+
+    batch: ``tokens`` (B, S) int and optional ``positions`` (B, S).
+    ``compute_dtype`` casts the activation stream, not the master weights:
+    each weight use casts its own tensor (FP8 sites quantize the fp32
+    master weight directly).  ``remat="full"`` recomputes each block in the
+    backward (``torch.utils.checkpoint``, non-reentrant); ``"dots"`` and
+    ``"dots_no_batch"`` (save the matmul outputs) are not ported yet.
+    ``attn_impl``: ``"torch"`` (differentiable) or ``"flash"`` (K3, forward
+    only).
+    """
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported yet")
+    if attn_impl not in SELF_ATTN_IMPLS:
+        raise ValueError(f"attn_impl={attn_impl!r} (choose from {SELF_ATTN_IMPLS})")
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat={remat!r} (choose from {REMAT_POLICIES})")
+    if remat not in ("none", "full"):
+        raise NotImplementedError(f"remat={remat!r} is not ported yet (ROADMAP Queue 1, training)")
+    tokens = batch["tokens"]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
+    x = embed_input(cfg, params, tokens, positions)
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    obs = []
+    for layer, p_layer in enumerate(params["blocks"]):
+        handle = fp8.bind_layer_scales(layer) if fp8 is not None else None
+
+        def block(x, p_layer=p_layer, handle=handle):
+            return dense_block(cfg, p_layer, x, positions=positions, q_chunk=q_chunk, attn_impl=attn_impl, fp8=handle)
+
+        x = checkpoint(block, x, use_reentrant=False) if remat == "full" and torch.is_grad_enabled() else block(x)
+        if fp8 is not None:
+            obs.append(fp8.drain())
+    logits = lm_logits(cfg, params, x)
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)  # no auxiliary loss in the dense family
+    if fp8 is None:
+        return logits, aux
+    amaxes = {k: torch.stack([o[k] for o in obs]) for k in fp8.keys}
+    return logits, aux, amaxes
 
 
 def _chunk_stack(cfg, params, cache, tokens, start, tbl_row, *, attn_impl="kernel"):

@@ -1,0 +1,91 @@
+"""The CUDA kernels of the training path, K4 (FP8 GEMM) and K3 (flash
+attention forward), against their plain PyTorch versions on the card.
+Needs no JAX, so it runs where the card is:
+``python -m pytest -m gpu tests/test_torch_cuda_train_kernels.py``.  It
+skips on a host without CUDA.
+
+K4: fp8 products are exact in fp32, so only the order of the fp32 sums
+differs: 1e-5 of the output's largest magnitude.  K3: both compute in fp32
+(1e-4, as K1/K2); with bf16 inputs both round the output to bf16, one ulp
+of 2^-7 relative on outputs below 4 (2e-2).
+"""
+
+import pytest
+import torch
+
+from repro_torch.fp8 import E4M3, E5M2, compute_scale, quantize, tensor_amax
+from repro_torch.fp8 import gemm as K4
+from repro_torch.fp8.gemm_ref import fp8_gemm_plain
+from repro_torch.kernels import flash_attention as K3
+from repro_torch.kernels.flash_attention_ref import flash_attention_plain
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full fp32
+
+
+def _fp8(shape, dtype, g):
+    x = torch.randn(shape, generator=g).cuda()
+    s = compute_scale(tensor_amax(x), dtype)
+    return quantize(x, s, dtype), s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(256, 128, 384), (100, 70, 36), (1000, 1000, 1000), (8, 4096, 8)])
+@pytest.mark.parametrize("fa,fb", [(E4M3, E4M3), (E5M2, E4M3), (E4M3, E5M2), (E5M2, E5M2)])
+def test_cuda_fp8_gemm_matches_plain(M, K, N, fa, fb):
+    _card()
+    g = torch.Generator().manual_seed(M * 7 + K * 3 + N)
+    a, sa = _fp8((M, K), fa, g)
+    b, sb = _fp8((K, N), fb, g)
+    at, bt = a.T.contiguous().T, b.T.contiguous().T  # column-major views: the backward's layouts
+    for x, y in ((a, b), (at, b), (a, bt), (at, bt)):
+        before = K4.LAUNCHES["fp8_gemm"]
+        out = K4.fp8_gemm(x, y, sa, sb)
+        ref = fp8_gemm_plain(x, y, sa, sb)
+        torch.cuda.synchronize()
+        assert K4.LAUNCHES["fp8_gemm"] == before + 1
+        assert out.dtype == torch.float32 and out.shape == (M, N)
+        assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+FLASH_GPU_CASES = [
+    # B, H, KV, Sq, Skv, hd, causal, window, softcap, dtype
+    (2, 4, 2, 256, 256, 64, True, 0, 0.0, torch.float32),
+    (1, 4, 4, 200, 200, 128, True, 0, 0.0, torch.bfloat16),
+    (2, 8, 2, 300, 300, 64, True, 64, 0.0, torch.float32),
+    (1, 2, 2, 256, 256, 256, True, 0, 30.0, torch.float32),
+    (1, 4, 2, 130, 170, 16, False, 0, 0.0, torch.bfloat16),
+    (1, 2, 1, 384, 384, 32, True, 0, 0.0, torch.float32),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,hd,causal,window,softcap,dtype", FLASH_GPU_CASES)
+def test_cuda_flash_attention_matches_plain(B, H, KV, Sq, Skv, hd, causal, window, softcap, dtype):
+    _card()
+    g = torch.Generator().manual_seed(Sq + hd)
+    q = torch.randn((B, H, Sq, hd), generator=g).to(dtype).cuda()
+    k = torch.randn((B, KV, Skv, hd), generator=g).to(dtype).cuda()
+    v = torch.randn((B, KV, Skv, hd), generator=g).to(dtype).cuda()
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = K3.LAUNCHES["flash_attention"]
+    out = K3.flash_attention_bhsd(q, k, v, **kw)
+    ref = flash_attention_plain(q, k, v, **kw)
+    # the model layout: transposed views, no copy
+    out_m = K3.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw)
+    torch.cuda.synchronize()
+    assert K3.LAUNCHES["flash_attention"] == before + 2
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert out.dtype == dtype and float((out.float() - ref.float()).abs().max()) < tol
+    assert torch.equal(out_m.transpose(1, 2), out)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_refuses_gradients():
+    _card()
+    q = torch.randn((1, 2, 64, 64), device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        K3.flash_attention_bhsd(q, q.detach(), q.detach())

@@ -5,7 +5,8 @@
 * ``repro_torch`` and every submodule import with ``jax`` and ``repro``
   made unimportable.
 * Entry points called without ``device="cpu"`` raise on a host without
-  CUDA instead of falling back to the CPU.
+  CUDA instead of falling back to the CPU, and kernel wrappers never hand a
+  tensor that is not on the CPU to their plain versions.
 """
 
 import ast
@@ -84,6 +85,46 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax(cfg, {"embed": {}, "blocks": {}, "final_norm": {}})
     InferenceEngine(cfg, params, device="cpu")  # asked for by name: fine
+
+
+def test_training_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+    from repro_torch.config import RunConfig, reduce_for_smoke
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch_fn, synthetic_batch
+    from repro_torch.launch.train import main
+    from repro_torch.train import init_train_state
+
+    cfg = reduce_for_smoke(get_config("olmo-1b"))
+    run = RunConfig(arch="olmo-1b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_train_state(cfg, run)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        synthetic_batch(cfg, step=0, global_batch=2, seq_len=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_batch_fn(cfg, global_batch=2, seq_len=8)
+    init_train_state(cfg, run, device="cpu")  # asked for by name: fine
+
+
+def test_kernel_wrappers_never_fall_back():
+    """Off the CPU a wrapper launches its kernel or raises: a tensor on a
+    device that is neither the CPU nor a card is refused, not handed to the
+    plain version."""
+    from repro_torch.fp8 import E4M3, fp8_gemm
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bhsd
+
+    a = torch.empty((8, 16), dtype=E4M3, device="meta")
+    s = torch.empty((), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fp8_gemm(a, a.T, s, s)
+    q = torch.empty((1, 2, 16, 16), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention_bhsd(q, q, q)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention(q, q, q)
 
 
 @pytest.mark.parametrize(

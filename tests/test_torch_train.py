@@ -1,0 +1,221 @@
+"""The port's training path against the JAX package's, on the CPU.
+
+Both packages start from one state: the JAX package initialises and takes
+one step (so the AdamW moments, the step counter and the FP8 amax history
+are mid-training), ``repro_torch.bridge.train_state_from_jax`` copies that
+state into the port, and both take three more steps on the same numpy
+batches.  Tolerances, by what differs between the two:
+
+* fp32 compute: the same functions with sums in another order.  Losses
+  agree to 1e-6 relative, parameters to 1e-6 absolute.  AdamW normalises
+  each update, so a parameter moves by about the learning rate (1e-3) per
+  step whatever its gradient: a wrong weight-decay rule (1e-4 per step on
+  the norm scales of mistral-nemo-12b) or a wrong learning rate shows far
+  above that.
+* bf16 compute (and FP8, which quantizes bf16 activations): the two
+  frameworks round the bf16 stream at different places, so a gradient that
+  is close to zero may change sign and move its parameter by 2 lr the other
+  way.  Losses agree to 1e-3 relative (2e-3 with FP8), gradient norms to
+  5e-2, every parameter to 2 lr per step, and the mean parameter difference
+  stays under lr / 10.  With FP8 an e4m3 code next to a rounding boundary
+  may take its neighbour when its bf16 input differs in the last bit, which
+  moves more gradients: lr / 5.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.config import ParallelConfig as JaxParallelConfig
+from repro.config import PrecisionConfig as JaxPrecisionConfig
+from repro.config import RunConfig as JaxRunConfig
+from repro.config import TrainConfig as JaxTrainConfig
+from repro.config.model import reduce_for_smoke as jax_reduce
+from repro.configs import get_config as jax_get_config
+from repro.models import forward as jax_forward
+from repro.models import init_params as jax_init_params
+from repro.train.step import init_train_state as jax_init_train_state
+from repro.train.step import loss_fn as jax_loss_fn
+from repro.train.step import make_train_step as jax_make_train_step
+from repro_torch.bridge import params_from_jax, train_state_from_jax
+from repro_torch.config import ParallelConfig, PrecisionConfig, RunConfig, TrainConfig, reduce_for_smoke
+from repro_torch.configs import get_config
+from repro_torch.data import make_batch_fn, synthetic_batch
+from repro_torch.models import forward
+from repro_torch.train import init_train_state, loss_fn, make_train_step
+from repro_torch.utils.tree import tree_leaves
+
+torch.set_num_threads(2)
+
+B, S, LR = 4, 32, 1e-3
+
+
+def _configs(arch):
+    return jax_reduce(jax_get_config(arch)), reduce_for_smoke(get_config(arch))
+
+
+def _batches(vocab, n, seed=0, batch=B, seq=S):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        tok = rng.integers(0, vocab, (batch, seq)).astype(np.int32)
+        out.append({"tokens": tok, "labels": np.roll(tok, -1, axis=1)})
+    return out
+
+
+def _jax(b):
+    return {k: jnp.asarray(v) for k, v in b.items()}
+
+
+def _torch(b):
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+@pytest.mark.parametrize("jax_impl,impl", [("xla", "torch"), ("flash", "flash")])
+def test_forward_logits_match_jax(jax_impl, impl):
+    jcfg, tcfg = _configs("olmo-1b")
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(1), jnp.float32)
+    tparams = params_from_jax(tcfg, jax.tree.map(np.asarray, jparams), device="cpu")
+    batch = _batches(jcfg.vocab_size, 1, seed=2, batch=2)[0]
+    ref, _ = jax_forward(jcfg, jparams, _jax(batch), attn_impl=jax_impl, compute_dtype=jnp.float32)
+    with torch.no_grad():  # flash is forward only
+        got, aux = forward(tcfg, tparams, _torch(batch), attn_impl=impl, compute_dtype=torch.float32)
+    assert got.shape == ref.shape and float(aux) == 0.0
+    assert float(np.abs(got.numpy() - np.asarray(ref)).max()) < 1e-4  # fp32: sums in another order
+
+
+def test_loss_fn_matches_jax():
+    jcfg, tcfg = _configs("mistral-nemo-12b")
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(2), jnp.float32)
+    tparams = params_from_jax(tcfg, jax.tree.map(np.asarray, jparams), device="cpu")
+    batch = _batches(jcfg.vocab_size, 1, seed=3)[0]
+    kw = dict(remat="full", z_loss=1e-4)
+    jl, (jce, _) = jax_loss_fn(jcfg, jparams, _jax(batch), compute_dtype=jnp.float32, **kw)
+    tl, (tce, _) = loss_fn(tcfg, tparams, _torch(batch), compute_dtype=torch.float32, **kw)
+    assert float(tl) == pytest.approx(float(jl), rel=1e-6)
+    assert float(tce) == pytest.approx(float(jce), rel=1e-6)
+    tl0, _ = loss_fn(tcfg, tparams, _torch(batch), compute_dtype=torch.float32, remat="full")
+    assert float(tl) > float(tl0)  # the z-loss term
+
+
+TRAIN_CASES = [
+    # arch, precision overrides, microbatches, tight (fp32) tolerances
+    ("olmo-1b", {"compute_dtype": "float32"}, 1, True),
+    ("olmo-1b", {}, 1, False),  # bf16 compute
+    ("olmo-1b", {"fp8": True, "fp8_gemm": "pallas"}, 1, False),
+    ("olmo-1b", {}, 2, False),
+    ("mistral-nemo-12b", {"compute_dtype": "float32"}, 1, True),  # norm scales: the decay rank rule
+]
+
+
+@pytest.mark.parametrize("arch,prec,nmb,tight", TRAIN_CASES)
+def test_train_steps_match_jax(arch, prec, nmb, tight):
+    jcfg, tcfg = _configs(arch)
+    tr = dict(global_batch=B, seq_len=S, learning_rate=LR, warmup_steps=2, total_steps=10)
+    jrun = JaxRunConfig(
+        arch=arch, train=JaxTrainConfig(**tr), parallel=JaxParallelConfig(remat="full", num_microbatches=nmb),
+        precision=JaxPrecisionConfig(**prec),
+    )
+    tprec = dict(prec, fp8_gemm="kernel") if prec.get("fp8") else prec  # JAX "pallas" is the port's "kernel"
+    trun = RunConfig(
+        arch=arch, train=TrainConfig(**tr), parallel=ParallelConfig(remat="full", num_microbatches=nmb),
+        precision=PrecisionConfig(**tprec),
+    )
+    batches = _batches(jcfg.vocab_size, 4)
+    jstate = jax_init_train_state(jcfg, jrun, jax.random.PRNGKey(0))
+    jstep = jax.jit(jax_make_train_step(jcfg, jrun))
+    jstate, _ = jstep(jstate, _jax(batches[0]))  # mid-training: moments, step 1, amax history
+    tstate = train_state_from_jax(tcfg, jax.tree.map(np.asarray, jstate), device="cpu")
+    tstep = make_train_step(tcfg, trun)
+    before = [t.clone() for t in tree_leaves(tstate.params)]
+    for batch in batches[1:]:
+        jstate, jm = jstep(jstate, _jax(batch))
+        tstate, tm = tstep(tstate, _torch(batch))
+        assert float(tm["lr"]) == pytest.approx(float(jm["lr"]), rel=1e-6)
+        assert float(tm["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-6 if tight else (2e-3 if prec.get("fp8") else 1e-3))
+        assert float(tm["grad_norm"]) == pytest.approx(float(jm["grad_norm"]), rel=1e-5 if tight else 5e-2)
+    assert int(tstate.opt.step) == int(jstate.opt.step) == 4
+    ref = tree_leaves(params_from_jax(tcfg, jax.tree.map(np.asarray, jstate.params), device="cpu"))
+    got = tree_leaves(tstate.params)
+    diff = torch.cat([(a - b).abs().flatten() for a, b in zip(got, ref)])
+    moved = torch.cat([(a - b).abs().flatten() for a, b in zip(got, before)])
+    assert float(moved.mean()) > LR / 2  # the steps moved the parameters
+    if tight:
+        assert float(diff.max()) < 1e-6
+    else:
+        assert float(diff.max()) <= 2 * LR * 3 and float(diff.mean()) < (LR / 5 if prec.get("fp8") else LR / 10)
+    if prec.get("fp8"):
+        assert int(tstate.fp8.step) == int(jstate.fp8.step) == 4
+        # an amax is one element of a bf16 activation three steps on: it
+        # moves by a few bf16 ulps (2^-8 relative each) as the parameters do
+        for k, h in tstate.fp8.amax_history.items():
+            np.testing.assert_allclose(h.numpy(), np.asarray(jstate.fp8.amax_history[k]), rtol=0.1)
+            np.testing.assert_allclose(tstate.fp8.scale[k].numpy(), np.asarray(jstate.fp8.scale[k]), rtol=0.1)
+
+
+def test_first_step_applies_no_update():
+    """With warmup the rate at step 0 is 0: the first step changes nothing
+    but the moments and the counters."""
+    cfg = reduce_for_smoke(get_config("olmo-1b"))
+    run = RunConfig(arch="olmo-1b", train=TrainConfig(warmup_steps=2), precision=PrecisionConfig(fp8=True))
+    state = init_train_state(cfg, run, 0, device="cpu")
+    before = [t.clone() for t in tree_leaves(state.params)]
+    batch = synthetic_batch(cfg, step=0, global_batch=2, seq_len=16, device="cpu")
+    state, m = make_train_step(cfg, run)(state, batch)
+    assert float(m["lr"]) == 0.0 and np.isfinite(float(m["loss"]))
+    assert all(torch.equal(a, b) for a, b in zip(before, tree_leaves(state.params)))
+    assert int(state.opt.step) == 1 and int(state.fp8.step) == 1
+    assert all(bool((h[:, 0] > 0).all()) for h in state.fp8.amax_history.values())
+
+
+def test_synthetic_batch_is_deterministic():
+    cfg = reduce_for_smoke(get_config("olmo-1b"))
+    fn = make_batch_fn(cfg, global_batch=8, seq_len=256, seed=3, device="cpu")
+    a, b, c = fn(5), fn(5), fn(6)
+    assert torch.equal(a["tokens"], b["tokens"]) and not torch.equal(a["tokens"], c["tokens"])
+    assert not torch.equal(a["tokens"], synthetic_batch(cfg, step=5, global_batch=8, seq_len=256, seed=4, device="cpu")["tokens"])
+    t = a["tokens"]
+    assert t.dtype == torch.int32 and t.shape == (8, 256)
+    assert int(t.min()) >= 0 and int(t.max()) < cfg.vocab_size
+    assert torch.equal(a["labels"], torch.roll(t, -1, dims=1))
+    counts = torch.bincount(t.flatten().long(), minlength=cfg.vocab_size)
+    assert int(counts[0]) > int(counts[cfg.vocab_size // 2])  # Zipf: low ranks are common
+    follows = (t[:, 1:] == (t[:, :-1] * 31 % cfg.vocab_size)).float().mean()
+    assert 0.1 < float(follows) < 0.5  # the 0.3 mix of the shifted base token
+
+
+def test_launcher_runs_on_cpu(capsys):
+    from repro_torch.launch.train import main
+
+    records = main(["--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "16", "--fp8", "--microbatches", "2"])
+    assert [r["step"] for r in records] == [0, 1]
+    assert all(np.isfinite(r["loss"]) and r["tokens_per_s"] > 0 for r in records)
+    out = capsys.readouterr().out
+    assert "fp8: ON" in out and "tok/s" in out
+
+
+@pytest.mark.parametrize(
+    "what",
+    ["grad_compression", "mesh", "remat_dots"],
+)
+def test_options_outside_the_slice_raise(what):
+    """Sharding and gradient compression belong to the tensor-parallel slice;
+    the "dots" remat policy is not ported."""
+    cfg = reduce_for_smoke(get_config("olmo-1b"))
+    if what == "grad_compression":
+        run = RunConfig(arch="olmo-1b", parallel=ParallelConfig(grad_compression="bf16"))
+        with pytest.raises(NotImplementedError, match="grad_compression"):
+            make_train_step(cfg, run)
+        with pytest.raises(NotImplementedError, match="grad_compression"):
+            init_train_state(cfg, run, device="cpu")
+    elif what == "mesh":
+        with pytest.raises(NotImplementedError, match="sharded"):
+            make_train_step(cfg, RunConfig(arch="olmo-1b"), mesh=object())
+    else:
+        run = RunConfig(arch="olmo-1b", parallel=ParallelConfig(remat="dots"))
+        state = init_train_state(cfg, run, device="cpu")
+        batch = synthetic_batch(cfg, step=0, global_batch=2, seq_len=8, device="cpu")
+        with pytest.raises(NotImplementedError, match="dots"):
+            make_train_step(cfg, run)(state, batch)
