@@ -6,7 +6,7 @@ It needs one CUDA card and exits non-zero, printing no result, without one
 or when any check fails.  Phases:
 
 1. Card and build: the card's name and power limit, the torch and CUDA
-   versions, then ``nvcc`` builds the three sources of
+   versions, then ``nvcc`` builds the five sources of
    ``src/repro_torch/kernels/csrc`` for ``sm_90a``, all started together,
    with the seconds each took.
 2. Kernels: K1 (paged decode) and K2 (chunked prefill) against their plain
@@ -42,6 +42,25 @@ or when any check fails.  Phases:
    that also sees the next key) that the limits must reject.
 9. Train profile: one train step without and one under ``torch.profiler``:
    wall time, device time by kernel and the device's idle share.
+10. Kernels K6 (BabelStream) and K5 (RWKV6 WKV scan), run after phase 2:
+   copy, mul, add and triad at n = 2^27 in fp32 and bf16, bit-equal to
+   their plain versions, and dot on non-negative inputs, each beside its
+   PyTorch call; K5 at rwkv6-7b's eval shape, at a small shape and with
+   fast decay, against its plain version and the sequential oracle.  Each
+   check computes a control (triad with the scalar left unrounded, dot
+   without its last tile, the scan with the decay one step late) that it
+   must reject.
+11. BabelStream: ``repro_torch.benchmarks.babelstream.run()``, the entry
+   point of the paper's Fig. 10, on the card in fp32 (the counters set to 0
+   just before, read just after) and in bf16.
+12. RWKV eval, once the olmo-1b state is freed: rwkv6-7b at full width and
+   depth (random fp32 weights from seed 0, bf16 compute), ``loss_fn`` on
+   4 x 2048 synthetic tokens under ``torch.no_grad()`` with
+   ``wkv_impl="kernel"`` (K5, one launch per layer) and ``"chunked"``,
+   with a chaos probe (1e-6 noise on the plain scan's outputs); then every
+   layer, in bf16 and in fp32 compute, on the chunked forward's own input
+   with K5, the chunked scan and a control (the late-decay scan) that the
+   limits must reject.
 
 It then prints one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Every time is measured on the card in
@@ -67,6 +86,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 on the CUDA cores (the kernels' math)
+# H100 SXM special-function units: 16 exponentials per SM per clock, 132 SMs
+# at the 1.98 GHz boost clock
+EXP_PER_S = 16 * 132 * 1.98e9
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 FP8_FLOPS_PER_S = 1979e12  # H100 SXM dense fp8 tensor cores
 BLOCK_SIZE = 32
@@ -361,13 +383,31 @@ def path_phase(cfg, params, device) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def profiled(fn, steps: int = 1) -> tuple[dict, float, float]:
+    """``fn()`` run ``steps`` times under ``torch.profiler``: (device ms by
+    kernel name, device launches, wall ms under the profiler), each per run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    by_name: dict[str, float] = {}
+    launches = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+            launches += 1
+    return by_name, launches / steps, wall_ms
+
+
 def profile_phase(cfg, params, device, steps=5) -> dict:
     """The 4-slot decode step at the kernel phase's lengths: host wall time
     per step (no profiler), then device time by kernel under
     ``torch.profiler``.  Idle share = 1 - device busy / wall."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.models import decode_step, init_paged_cache
 
     B = len(DECODE_LENS)
@@ -387,23 +427,14 @@ def profile_phase(cfg, params, device, steps=5) -> dict:
         step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-    by_name: dict[str, float] = {}
-    launches = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
-            launches += 1
+    by_name, launches, _ = profiled(step, steps)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out = {
         "phase": "profile", "model": cfg.name, "what": "decode_step, 4 slots, bf16 pools, fp32 weights",
         "wall_ms": wall_ms, "device_busy_ms": busy if by_name else None,
         "idle_share": 1.0 - busy / wall_ms if by_name else None,
-        "device_launches_per_step": launches / steps,
+        "device_launches_per_step": launches,
         "paged_decode_ms": sum(v for k, v in by_name.items() if "paged_decode_kernel" in k),
         "top_kernels_ms": [[name[:90], ms] for name, ms in top],
     }
@@ -815,41 +846,372 @@ def eval_phase(cfg, params, batch) -> dict:
 
 
 def train_profile_phase(cfg, state, batch) -> dict:
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.train import make_train_step
 
     step = make_train_step(cfg, train_run_config("kernel"))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, m = step(state, batch)  # the step's wall time, without the profiler
-    float(m["loss"])
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def run():
+        nonlocal state
         state, m = step(state, batch)
         float(m["loss"])
-        torch.cuda.synchronize()
-    prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name: dict[str, float] = {}
-    launches = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-            launches += 1
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()  # the step's wall time, without the profiler
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, launches, prof_wall_ms = profiled(run)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     out = {
         "phase": "train_profile", "model": cfg.name, "what": "one fp8 train step, 4 x 2048 tokens, remat full",
         "wall_ms": wall_ms, "wall_ms_under_profiler": prof_wall_ms, "device_busy_ms": busy if by_name else None,
         "idle_share": 1.0 - busy / wall_ms if by_name else None,
-        "idle_share_under_profiler": 1.0 - busy / prof_wall_ms if by_name else None, "device_launches": launches,
+        "idle_share_under_profiler": 1.0 - busy / prof_wall_ms if by_name else None, "device_launches": int(launches),
         "fp8_gemm_ms": sum(v for k, v in by_name.items() if "fp8_gemm_kernel" in k),
         "top_kernels_ms": [[name[:90], ms] for name, ms in top],
     }
     emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: K6 (BabelStream) and K5 (RWKV6 WKV scan) against their plain versions
+# ---------------------------------------------------------------------------
+
+STREAM_N = 2**27  # elements: 512 MiB per fp32 array, the paper's BabelStream size
+STREAM_KERNELS = ("copy", "mul", "add", "triad", "dot")
+# dot on non-negative inputs against its plain version, relative to the
+# exact-sign sum sum |a b| (then the sum itself): fp32 sums of 2^27 terms in
+# another order stay near 1e-7 of it, and the control, the sum without its
+# last tile's partial, is 1/2048 = 4.9e-4 short.  The limit lies between.
+DOT_RTOL = 1e-5
+
+
+def stream_inputs(n, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((n,), generator=g, device=device).to(dtype) for _ in range(3)]
+
+
+def stream_phase(device, n=STREAM_N) -> dict:
+    """Each K6 kernel in fp32 and bf16 against its plain version (bit-equal
+    but dot), timed beside its PyTorch call; returns the fp32 rows."""
+    from repro_torch.kernels import babelstream as K6
+    from repro_torch.kernels import babelstream_ref as ref
+
+    rows = {}
+    for seed, dt in enumerate((torch.float32, torch.bfloat16)):
+        a, b, c = stream_inputs(n, dt, device, 300 + seed)
+        aa, ba = a.abs(), b.abs()  # dot: a dropped tile shows against a sum of non-negative terms
+        s = ref.round_scalar(0.4, dt)
+        dst = torch.empty_like(a)
+        calls = {
+            "copy": (lambda: K6.stream_copy(a), lambda: ref.copy_ref(a), lambda: dst.copy_(a)),
+            "mul": (lambda: K6.stream_mul(c), lambda: ref.mul_ref(c), lambda: torch.mul(c, s)),
+            "add": (lambda: K6.stream_add(a, b), lambda: ref.add_ref(a, b), lambda: torch.add(a, b)),
+            # one PyTorch call for b + s c: it rounds once in bf16 too, so only its time compares
+            "triad": (lambda: K6.stream_triad(b, c), lambda: ref.triad_ref(b, c), lambda: torch.add(b, c, alpha=s)),
+            "dot": (lambda: K6.stream_dot(aa, ba), lambda: ref.dot_ref(aa, ba),
+                    (lambda: torch.dot(aa, ba)) if dt == torch.float32 else None),
+        }
+        for name in STREAM_KERNELS:
+            kernel, plain, lib = calls[name]
+            out, want = kernel(), plain()
+            control = None
+            if name == "dot":
+                err = float((out - want).abs())
+                tol = DOT_RTOL * float(want)
+                partials = K6.dot_partials(aa, ba)
+                control = abs(float(partials[:-1].sum()) - float(want))  # the last tile dropped
+                ok, control_ok = err <= tol, control <= tol
+            else:
+                err = float((out.float() - want.float()).abs().max())
+                tol = 0.0
+                ok = torch.equal(out, want)
+                if name == "triad" and dt == torch.bfloat16:  # the scalar left unrounded
+                    unrounded = K6.launch_map("triad", b, c, 0.4)
+                    control = int((unrounded != want).sum())
+                    control_ok = control == 0
+                    del unrounded
+            torch.cuda.synchronize()
+            flops = {"copy": 0, "mul": n, "add": n, "triad": 2 * n, "dot": 2 * n}[name]
+            nbytes = K6.stream_bytes(name, n, a.element_size()) + (4 * (n // K6.DEFAULT_BLOCK) if name == "dot" else 0)
+            bound_ms, bound_by = bound(nbytes, flops, FP32_FLOPS_PER_S)
+            kernel_ms = timed_ms(lambda i: kernel())
+            row = {
+                "phase": "kernel", "kernel": f"stream_{name}", "n": n, "dtype": str(dt).replace("torch.", ""),
+                "bit_equal": None if name == "dot" else ok, "max_abs_err": err, "tol": tol, "control": control,
+                "kernel_ms": kernel_ms, "plain_ms": timed_ms(lambda i: plain(), iters=5, warmup=1),
+                "library_ms": timed_ms(lambda i: lib()) if lib else None,
+                "bound_ms": bound_ms, "bound_by": bound_by, "gbps": nbytes / 1e6 / kernel_ms,
+            }
+            emit(row)
+            del out, want
+            if not ok:
+                fail(f"stream_{name} {row['dtype']}: error {err} beyond {tol}")
+            if control is not None and control_ok:
+                fail(f"stream_{name} {row['dtype']}: the control passes the check ({control}), which then proves nothing")
+            if dt == torch.float32:
+                rows[f"stream_{name}"] = row
+        del a, b, c, aa, ba, dst
+        torch.cuda.empty_cache()
+    return rows
+
+
+def babelstream_phase(device, n=STREAM_N) -> dict:
+    """The Fig. 10 entry point on the card: fp32 (the counted run), then bf16."""
+    from repro_torch.benchmarks import babelstream as bench
+    from repro_torch.kernels import babelstream as K6
+
+    K6.reset_launches()  # the main path's run starts here
+    rows = bench.run(n=n, dtype=torch.float32, device=device)
+    torch.cuda.synchronize()
+    launches = dict(K6.LAUNCHES)
+    rows += bench.run(n=n, dtype=torch.bfloat16, device=device)
+    for r in rows:
+        emit({"phase": "babelstream", **r})
+    out = {"phase": "babelstream_launches", "launches": launches}
+    emit(out)
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        fail(f"BabelStream's run did not launch {missing}: {launches}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+# K5 cases: name, (B, S, H, n), chunk, logw (None: -exp(N(0,1) - 1)).  The
+# first is rwkv6-7b's eval shape (4 x 2048 tokens, 64 heads of 64).
+WKV_CASES = [
+    ("rwkv6-7b", (4, 2048, 64, 64), 64, None),
+    ("small", (2, 128, 3, 16), 16, None),
+    ("fast-decay", (1, 256, 4, 64), 64, -8.0),
+]
+# K5 against the plain version and the sequential oracle: all three in fp32,
+# the sums in other orders.  Relative to the largest |output|; the control
+# (the decay applied one step late in the inter-chunk term) moves whole
+# outputs.  The limit lies between the readings (PERF.md).
+WKV_RTOL = 1e-4
+
+
+def wkv_late_decay(r, k, v, logw, u, *, chunk=64):
+    """A control: the plain version on (BH, S, n) with r decayed by exp(la)
+    in place of exp(la_prev) in the inter-chunk term, the decay applied one
+    step late: each chunk's output gains r (exp(la) - exp(la_prev)) @ S0."""
+    from repro_torch.kernels.rwkv6_scan_ref import wkv_chunk
+
+    BH, S, n = r.shape
+    state = torch.zeros((BH, n, n), dtype=torch.float32, device=r.device)
+    outs = []
+    for c0 in range(0, S, chunk):
+        rr, kk, vv, lw = (x[:, c0 : c0 + chunk].float() for x in (r, k, v, logw))
+        out, next_state = wkv_chunk(state, rr, kk, vv, lw, u.float()[:, None, :])
+        la = torch.cumsum(lw, dim=1)
+        outs.append(out + (rr * (torch.exp(la) - torch.exp(la - lw))) @ state)
+        state = next_state
+    return torch.cat(outs, dim=1)
+
+
+def on_model_layout(scan):
+    """A scan on (BH, S, n) as a ``wkv_impl``: (B, S, H, n) operands, u (H, n)."""
+
+    def model_scan(r, k, v, logw, u, *, chunk):
+        B, S, H, n = r.shape
+        to_bh = lambda x: x.transpose(1, 2).reshape(B * H, S, n)  # noqa: E731
+        out = scan(*(to_bh(x) for x in (r, k, v, logw)), u.expand(B, H, n).reshape(B * H, n), chunk=chunk)
+        return out.reshape(B, H, S, n).transpose(1, 2)
+
+    return model_scan
+
+
+def wkv_work(BH, S, n) -> tuple[int, int, int]:
+    """(bytes, fp32 operations, exponentials) that the scan needs in any
+    formulation: r, k, v, logw and u read and the output written once; per
+    token and head, r read against the state (n^2 multiply-adds) and the
+    token's outer product added into it (n^2 multiply-adds, the decay
+    folded over a chunk): 4 n^2 operations; one exponential per channel
+    (the decay).  K5's chunked form does more: its pairwise scores take
+    about L / 2 exponentials per token and channel at chunk L."""
+    return 5 * BH * S * n * 4 + BH * n * 4, BH * S * 4 * n * n, BH * S * n
+
+
+def wkv_bound(BH, S, n) -> tuple[float, str]:
+    nbytes, flops, exps = wkv_work(BH, S, n)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, max(flops / FP32_FLOPS_PER_S, exps / EXP_PER_S)
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def wkv_phase(device, cases=WKV_CASES) -> dict:
+    from repro_torch.kernels import rwkv6_scan as K5
+    from repro_torch.kernels.rwkv6_scan_ref import wkv6_chunked_plain, wkv6_ref
+
+    main = None
+    for seed, (name, (B, S, H, n), chunk, logw) in enumerate(cases):
+        g = torch.Generator(device=device).manual_seed(400 + seed)
+        r, k, v = (0.5 * torch.randn((B, S, H, n), generator=g, device=device) for _ in range(3))
+        lw = (-torch.exp(torch.randn((B, S, H, n), generator=g, device=device) - 1.0) if logw is None
+              else torch.full((B, S, H, n), logw, device=device))
+        u = 0.3 * torch.randn((H, n), generator=g, device=device)
+        to_bh = lambda x: x.transpose(1, 2).reshape(B * H, S, n)  # noqa: E731
+        bh = [to_bh(x) for x in (r, k, v, lw)]
+        ub = u.expand(B, H, n).reshape(B * H, n)
+        with torch.no_grad():
+            out = K5.wkv6(r, k, v, lw, u, chunk=chunk)  # the model's layout, strided
+            out_bh = to_bh(out)
+            plain = wkv6_chunked_plain(*bh, ub, chunk=chunk)
+            oracle = wkv6_ref(*bh, ub)
+            control = wkv_late_decay(*bh, ub, chunk=chunk)
+            layout_equal = torch.equal(K5.wkv6_chunked(*bh, ub, chunk=chunk), out_bh)
+        scale = float(plain.abs().max())
+        rel = lambda x, y: float((x - y).abs().max()) / scale  # noqa: E731
+        readings = {"vs_plain": rel(out_bh, plain), "vs_oracle": rel(out_bh, oracle),
+                    "control_vs_plain": rel(control, plain), "control_vs_oracle": rel(control, oracle)}
+        finite = bool(torch.isfinite(out).all())
+        del out, out_bh, plain, oracle, control
+        bound_ms, bound_by = wkv_bound(B * H, S, n)
+        row = {
+            "phase": "kernel", "kernel": "rwkv6_scan", "case": name, "shape_bshn": [B, S, H, n], "chunk": chunk,
+            "max_abs_err": readings["vs_plain"] * scale, "max_abs_out": scale, "readings": readings, "tol": WKV_RTOL,
+            "finite": finite, "model_layout_equal": layout_equal,
+            "kernel_ms": timed_ms(lambda i: K5.wkv6(r, k, v, lw, u, chunk=chunk), iters=10, warmup=2),
+            "plain_ms": timed_ms(lambda i: wkv6_chunked_plain(*bh, ub, chunk=chunk), iters=3, warmup=1),
+            "library_ms": None,  # no single PyTorch call computes the scan
+            "bound_ms": bound_ms, "bound_by": bound_by, "work": dict(zip(("bytes", "flops", "exps"), wkv_work(B * H, S, n))),
+        }
+        emit(row)
+        if not finite or readings["vs_plain"] > WKV_RTOL or readings["vs_oracle"] > WKV_RTOL or not layout_equal:
+            fail(f"rwkv6_scan {name}: {readings} beyond {WKV_RTOL}, finite {finite}, layouts equal {layout_equal}")
+        if readings["control_vs_plain"] <= WKV_RTOL or readings["control_vs_oracle"] <= WKV_RTOL:
+            fail(f"rwkv6_scan {name}: the late-decay control passes the check ({readings}), which then proves nothing")
+        main = main or row
+        del r, k, v, lw, u, bh, ub
+        torch.cuda.empty_cache()
+    return main
+
+
+# ---------------------------------------------------------------------------
+# phase 12: rwkv6-7b eval at full width and depth
+# ---------------------------------------------------------------------------
+
+# K5 against the chunked scan at full width.  The random-init rwkv6-7b is
+# chaotic over 32 layers: noise of 1e-6 of every WKV output moves the
+# logits by more than the late-decay control does (PERF.md), so the whole
+# forward's loss and logits are reported, not held to a limit.  The check
+# is per layer: each block gets the chunked forward's input and runs once
+# with K5 and once with the chunked scan.  The readings are the largest
+# over the layers of mean |difference| / mean |block increment| and of
+# max |difference| / max |block increment|.  In bf16 compute (the eval's
+# own) the two differ where a WKV output lands on the other side of a bf16
+# rounding boundary; in fp32 compute only the scans' summation orders
+# differ.  The control is the scan with the decay one step late.  Each
+# limit lies between the readings of the sound run and of the control on
+# the H100 (PERF.md).
+RWKV_LAYER_LIMITS = {
+    torch.bfloat16: {"layer_mean_rel": 1e-3, "layer_max_rel": 3.5e-2},
+    torch.float32: {"layer_mean_rel": 1e-4, "layer_max_rel": 1e-3},
+}
+WKV_NOISE = 1e-6  # the chaos probe: relative noise on every plain WKV output
+
+
+def layer_readings(cfg, params, tokens, control, dtype) -> dict:
+    """Per layer, on the chunked forward's own input in ``dtype``: K5 and
+    the control scan against the chunked scan (see RWKV_LAYER_LIMITS)."""
+    from repro_torch.models import embed_input
+    from repro_torch.models.blocks import rwkv_block
+
+    limits = RWKV_LAYER_LIMITS[dtype]
+    worst = {"sound": dict.fromkeys(limits, 0.0), "control": dict.fromkeys(limits, 0.0)}
+    x = embed_input(cfg, params, tokens, None).to(dtype)
+    for p in params["blocks"]:
+        ref = rwkv_block(cfg, p, x, wkv_impl="chunked")
+        inc = (ref.float() - x.float()).abs()
+        for name, impl in (("sound", "kernel"), ("control", control)):
+            d = (rwkv_block(cfg, p, x, wkv_impl=impl).float() - ref.float()).abs()
+            w = worst[name]
+            w["layer_mean_rel"] = max(w["layer_mean_rel"], float(d.mean() / inc.mean()))
+            w["layer_max_rel"] = max(w["layer_max_rel"], float(d.max() / inc.max()))
+        x = ref
+    return worst
+
+
+def rwkv_eval_phase(cfg, device, batch_size=TRAIN_B, seq=TRAIN_S) -> dict:
+    from repro_torch.data import make_batch_fn
+    from repro_torch.kernels import rwkv6_scan as K5
+    from repro_torch.kernels.rwkv6_scan_ref import wkv6_chunked_plain
+    from repro_torch.models import forward, init_params
+    from repro_torch.train import loss_fn
+    from repro_torch.utils.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, SEED, device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = make_batch_fn(cfg, global_batch=batch_size, seq_len=seq, seed=SEED, device=device)(0)
+
+    def evaluate(impl):
+        K5.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = float(loss_fn(cfg, params, batch, wkv_impl=impl, compute_dtype=torch.bfloat16)[0])
+        dt = time.perf_counter() - t0
+        launches = K5.LAUNCHES["rwkv6_scan"]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        logits = forward(cfg, params, batch, wkv_impl=impl, compute_dtype=torch.bfloat16)[0]
+        return {"loss": loss, "wall_s": dt, "k5_launches": launches, "peak_mem_gb": peak, "logits": logits}
+
+    def whole(r):
+        return {"loss_diff": abs(r["loss"] - ref["loss"]),
+                "max_logits_diff": float((r["logits"] - ref["logits"]).abs().max())}
+
+    with torch.no_grad():
+        evaluate("kernel")  # warm-up: library handles, the allocator
+        ref = evaluate("chunked")
+        kern = evaluate("kernel")
+        finite = bool(torch.isfinite(kern["logits"]).all())
+        g = torch.Generator(device=device).manual_seed(SEED)
+
+        def noisy(*args, chunk):
+            out = wkv6_chunked_plain(*args, chunk=chunk)
+            return out * (1 + WKV_NOISE * torch.randn(out.shape, generator=g, device=out.device))
+
+        noise = evaluate(on_model_layout(noisy))
+        control = on_model_layout(wkv_late_decay)
+        layers = {str(dt).removeprefix("torch."): layer_readings(cfg, params, batch["tokens"], control, dt)
+                  for dt in RWKV_LAYER_LIMITS}
+        by_name, launches, prof_wall_ms = profiled(lambda: float(loss_fn(cfg, params, batch, wkv_impl="kernel",
+                                                                          compute_dtype=torch.bfloat16)[0]))
+        busy = sum(by_name.values())
+        profile_out = {
+            "wall_ms": kern["wall_s"] * 1e3, "wall_ms_under_profiler": prof_wall_ms,
+            "device_busy_ms": busy if by_name else None,
+            "idle_share": 1.0 - busy / (kern["wall_s"] * 1e3) if by_name else None, "device_launches": int(launches),
+            "rwkv6_scan_ms": sum(v for k, v in by_name.items() if "wkv6_kernel" in k),
+            "top_kernels_ms": [[name[:90], ms] for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]],
+        }
+        out = {"phase": "rwkv_eval", "model": cfg.name, "params": sum(t.numel() for t in tree_leaves(params)),
+               "tokens": batch_size * seq, "init_s": init_s,
+               "loss": {"chunked": ref["loss"], "kernel": kern["loss"]},
+               "wall_s": {"chunked": ref["wall_s"], "kernel": kern["wall_s"]},
+               "peak_mem_gb": {"chunked": ref["peak_mem_gb"], "kernel": kern["peak_mem_gb"]},
+               "k5_launches": kern["k5_launches"], "k5_launches_chunked": ref["k5_launches"],
+               "logits_std": float(ref["logits"].std()), "logits_shape": list(kern["logits"].shape),
+               "whole_kernel_vs_chunked": whole(kern), "whole_noise_vs_chunked": whole(noise), "wkv_noise": WKV_NOISE,
+               "layers_kernel_vs_chunked": {dt: r["sound"] for dt, r in layers.items()},
+               "layers_control_vs_chunked": {dt: r["control"] for dt, r in layers.items()},
+               "limits": {str(dt).removeprefix("torch."): lim for dt, lim in RWKV_LAYER_LIMITS.items()},
+               "profile_kernel_eval": profile_out}
+        del ref, kern, noise
+    emit(out)
+    if out["k5_launches"] != cfg.num_layers or out["k5_launches_chunked"] != 0:
+        fail(f"rwkv eval launched K5 {out['k5_launches']} times (expected {cfg.num_layers})")
+    if out["logits_shape"] != [batch_size, seq, cfg.padded_vocab]:
+        fail(f"rwkv eval logits of shape {out['logits_shape']}")
+    for dt, limits in out["limits"].items():
+        if not finite or not np.isfinite(out["loss"]["kernel"]) or not within(out["layers_kernel_vs_chunked"][dt], limits):
+            fail(f"the K5 and chunked rwkv blocks disagree in {dt}: {out}")
+        if within(out["layers_control_vs_chunked"][dt], limits):
+            fail(f"the control passes the rwkv eval's {dt} limits, which then prove nothing: {out}")
+    del params, batch
+    torch.cuda.empty_cache()
     return out
 
 
@@ -875,7 +1237,7 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0)})
 
     device = resolve_device("cuda")  # also pins fp32 matmuls to full precision
-    sources = ["paged_attention.cu", "fp8_gemm.cu", "flash_attention.cu"]
+    sources = ["paged_attention.cu", "fp8_gemm.cu", "flash_attention.cu", "babelstream.cu", "rwkv6_scan.cu"]
 
     def timed_build(src):
         t0 = time.perf_counter()
@@ -902,6 +1264,9 @@ def main() -> int:
     main_rows = phase("kernel_k1_k2", kernel_phase, device)
     flash_main = phase("kernel_k3", flash_phase, device)
     gemm_rows = phase("kernel_k4", gemm_phase, device)
+    stream_rows = phase("kernel_k6", stream_phase, device)
+    wkv_main = phase("kernel_k5", wkv_phase, device)
+    stream_launches = phase("babelstream", babelstream_phase, device)
 
     cfg = get_config("olmo-1b")  # full width and depth
     params = phase("init", init_params, cfg, SEED, device)
@@ -916,6 +1281,10 @@ def main() -> int:
     state = phase("train_path", train_path_phase, cfg, state, batch)
     evaluation = phase("eval", eval_phase, cfg, state.params, batch)
     phase("train_profile", train_profile_phase, cfg, state, batch)
+    del state, batch  # the olmo-1b training state's memory goes back before rwkv6-7b
+    torch.cuda.empty_cache()
+
+    rwkv = phase("rwkv_eval", rwkv_eval_phase, get_config("rwkv6-7b"), device)
     emit({"phase": "seconds", **seconds})
 
     src = "src/repro_torch/kernels/csrc/"
@@ -930,9 +1299,13 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
     gemm_main = gemm_rows["fwd ffn_up/gate"]  # the step's largest forward shape
+    stream_lines = {"copy": 60, "mul": 72, "add": 84, "triad": 96, "dot": 108}  # pallas_call sites
     for name, source, replaces, launches, row in (
         ("flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:124", evaluation["k3_launches"], flash_main),
         ("fp8_gemm", "fp8_gemm.cu", "src/repro/fp8/gemm.py:91", train["k4_launches"], gemm_main),
+        ("rwkv6_scan", "rwkv6_scan.cu", "src/repro/kernels/rwkv6_scan.py:85", rwkv["k5_launches"], wkv_main),
+        *((f"stream_{k}", "babelstream.cu", f"src/repro/kernels/babelstream.py:{line}", stream_launches[f"stream_{k}"],
+           stream_rows[f"stream_{k}"]) for k, line in stream_lines.items()),
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": src + source, "replaces": replaces, "launches": launches,

@@ -2,15 +2,19 @@
 
 Imports ``torch``, numpy and the standard library only; it never imports
 ``jax`` or anything of ``repro``.  Entry points run on the card unless the
-caller passes ``device="cpu"``.  Ported so far, for the dense family:
+caller passes ``device="cpu"``.  Ported so far:
 
-* paged serving: configs, the dense model on a paged KV cache, the
-  paged-attention CUDA kernels (decode and chunked prefill) and the
-  continuous-batching engine with prefix caching and chunked prefill;
-* training: the full-sequence forward, AdamW, synthetic data, FP8 training
-  with delayed scaling through the FP8 GEMM CUDA kernel, the
-  flash-attention CUDA kernel for the forward, the train step and its
-  launcher (``python -m repro_torch.launch.train``).
+* paged serving (dense family): configs, the dense model on a paged KV
+  cache, the paged-attention CUDA kernels (decode and chunked prefill) and
+  the continuous-batching engine with prefix caching and chunked prefill;
+* training (dense family): the full-sequence forward, AdamW, synthetic
+  data, FP8 training with delayed scaling through the FP8 GEMM CUDA
+  kernel, the flash-attention CUDA kernel for the forward, the train step
+  and its launcher (``python -m repro_torch.launch.train``);
+* the RWKV6 (ssm) family's model and full-sequence forward, with the WKV
+  scan CUDA kernel for the evaluation forward;
+* BabelStream (paper Fig. 10): the five memory-bandwidth CUDA kernels and
+  their benchmark (``python -m repro_torch.benchmarks.babelstream``).
 """
 
 from repro_torch.config import ModelConfig, reduce_for_smoke

@@ -1,4 +1,4 @@
-"""Architecture registry of the port: the dense configurations it serves.
+"""Architecture registry of the port: the configurations it runs.
 
 Each ``<arch>.py`` is a copy of the JAX package's file of the same name;
 ``get_config`` resolves the dashed arch id (``olmo-1b``).
@@ -25,4 +25,4 @@ def get_config(name: str) -> ModelConfig:
 
 
 # import for registration side effects
-from repro_torch.configs import gemma_7b, mistral_nemo_12b, olmo_1b  # noqa: E402,F401
+from repro_torch.configs import gemma_7b, mistral_nemo_12b, olmo_1b, rwkv6_7b  # noqa: E402,F401

@@ -1,9 +1,15 @@
-"""Dense transformer block (olmo, mistral-nemo, gemma): one layer's specs,
-its full-sequence forward (training), and its chunked-prefill and decode
-steps against a paged cache."""
+"""Blocks per family: one layer's specs, its full-sequence forward
+(training, eval) and its serving steps.
+
+* dense (olmo, mistral-nemo, gemma): the forward, and the chunked-prefill
+  and decode steps against a paged cache;
+* ssm (RWKV6): the forward, and the prefill and decode steps that carry
+  the recurrent state (``tm_x``, ``cm_x``, ``state``).
+"""
 
 from __future__ import annotations
 
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.attention import (
     attention_specs,
     paged_chunk_attention,
@@ -51,3 +57,50 @@ def dense_block_decode(cfg, p, x, cache, pos, *, attn_impl="kernel"):
     h = apply_norm(cfg, p["norm1"], x)
     a = paged_decode_attention(cfg, p["attn"], h, cache, pos, impl=attn_impl)
     return _residual(cfg, p, x, h, a)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (attention-free)
+# ---------------------------------------------------------------------------
+
+
+def rwkv_block_specs(cfg) -> dict:
+    return {
+        "norm1": norm_specs(cfg),
+        "time_mix": rwkv_mod.time_mix_specs(cfg),
+        "norm2": norm_specs(cfg),
+        "channel_mix": rwkv_mod.channel_mix_specs(cfg),
+    }
+
+
+def rwkv_block(cfg, p, x, *, wkv_impl="chunked"):
+    """Full-sequence forward of one layer from a zero state; the final
+    state is dropped, so ``wkv_impl="kernel"`` (K5) may compute the scan."""
+    out, _state = rwkv_mod.time_mix(cfg, p["time_mix"], apply_norm(cfg, p["norm1"], x), wkv_impl=wkv_impl)
+    x = x + out
+    out, _cmx = rwkv_mod.channel_mix(cfg, p["channel_mix"], apply_norm(cfg, p["norm2"], x))
+    return x + out
+
+
+def rwkv_block_prefill(cfg, p, x):
+    """Forward that also returns the layer's decode cache: the last token of
+    each mix and the WKV state (the chunked scan: K5 computes no state)."""
+    h = apply_norm(cfg, p["norm1"], x)
+    out, (tm_x, state) = rwkv_mod.time_mix(cfg, p["time_mix"], h)
+    x = x + out
+    h2 = apply_norm(cfg, p["norm2"], x)
+    out, cm_x = rwkv_mod.channel_mix(cfg, p["channel_mix"], h2)
+    x = x + out
+    return x, {"tm_x": tm_x, "cm_x": cm_x, "state": state}
+
+
+def rwkv_block_decode(cfg, p, x, cache, pos):
+    """One token per sequence against the layer's cache; ``pos`` is unused
+    (the recurrence has no positions), as in the JAX package."""
+    h = apply_norm(cfg, p["norm1"], x)
+    out, (tm_x, state) = rwkv_mod.time_mix_step(cfg, p["time_mix"], h, cache["tm_x"], cache["state"])
+    x = x + out
+    h2 = apply_norm(cfg, p["norm2"], x)
+    out, cm_x = rwkv_mod.channel_mix(cfg, p["channel_mix"], h2, prev_x=cache["cm_x"])
+    x = x + out
+    return x, {"tm_x": tm_x, "cm_x": cm_x, "state": state}

@@ -1,8 +1,9 @@
-"""Whole-model ParamSpec assembly and initialization (dense family).
+"""Whole-model ParamSpec assembly and initialization (dense and ssm families).
 
 The parameter tree keeps the JAX package's names and per-layer layout
 (``wq (D,H,hd)``, ``wk/wv (D,KV,hd)``, ``wo (H,hd,D)``, ``w_up/w_gate
-(D,F)``, ``w_down (F,D)``, ``embed.tok (V,D)``, ``lm_head (D,V)``); the JAX
+(D,F)``, ``w_down (F,D)``, ``embed.tok (V,D)``, ``lm_head (D,V)``; the
+rwkv blocks' ``time_mix``/``channel_mix`` trees, ``maa_w2 (5,r,D)``); the JAX
 package stacks the layers on a leading axis for its layer scan, the port
 keeps a list of per-layer dicts under ``"blocks"``.
 """
@@ -12,19 +13,22 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.blocks import dense_block_specs
+from repro_torch.models.blocks import dense_block_specs, rwkv_block_specs
 from repro_torch.models.layers import ParamSpec, materialize, norm_specs
 from repro_torch.utils.tree import tree_map
 
 
+BLOCK_SPECS = {"dense": dense_block_specs, "ssm": rwkv_block_specs}
+
+
 def param_specs(cfg) -> dict:
-    if cfg.family != "dense":
+    if cfg.family not in BLOCK_SPECS:
         raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported yet")
     D, V = cfg.d_model, cfg.padded_vocab
     specs: dict = {"embed": {"tok": ParamSpec((V, D), ("vocab", "embed_v"), "normal")}}
     if cfg.learned_pos_embedding:
         specs["embed"]["pos"] = ParamSpec((cfg.max_position, D), (None, "embed_v"), "normal")
-    specs["blocks"] = [dense_block_specs(cfg) for _ in range(cfg.num_layers)]
+    specs["blocks"] = [BLOCK_SPECS[cfg.family](cfg) for _ in range(cfg.num_layers)]
     specs["final_norm"] = norm_specs(cfg)
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((D, V), ("embed_v", "vocab"))

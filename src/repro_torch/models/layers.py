@@ -17,7 +17,7 @@ import torch.nn.functional as F
 class ParamSpec(NamedTuple):
     shape: tuple[int, ...]
     axes: tuple[str | None, ...]  # logical axis names, len == ndim
-    init: str = "fan_in"  # "fan_in" | "normal" | "zeros" | "ones"
+    init: str = "fan_in"  # "fan_in" | "normal" | "zeros" | "ones" | "rwkv_decay"
     scale: float = 1.0  # extra multiplier on the init stddev / value
 
 
@@ -34,6 +34,12 @@ def materialize(spec: ParamSpec, generator: torch.Generator, device, dtype) -> t
         return torch.zeros(shape, device=device, dtype=dtype)
     if spec.init == "ones":
         return torch.ones(shape, device=device, dtype=dtype)
+    if spec.init == "rwkv_decay":
+        # RWKV6 decay base: spread in [-6, -1] so exp(-exp(w)) spans slow/fast.
+        n = shape[-1]
+        ratio = torch.arange(n, dtype=torch.float32, device=device) / max(n - 1, 1)
+        base = -6.0 + 5.0 * ratio**0.7
+        return base.expand(shape).to(dtype).clone()
     out = torch.empty(shape, device=device, dtype=torch.float32)
     if spec.init == "normal":
         torch.nn.init.normal_(out, 0.0, spec.scale * 0.02, generator=generator)
@@ -76,6 +82,18 @@ def apply_norm(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
         xf = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
         if p:  # parametric
             xf = xf * p["scale"].float() + p["bias"].float()
+    return xf.to(dtype)
+
+
+def group_norm_heads(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_heads: int, eps: float) -> torch.Tensor:
+    """GroupNorm with one group per head over the channel dim (RWKV ln_x)."""
+    dtype = x.dtype
+    *lead, d = x.shape
+    xf = x.float().reshape(*lead, num_heads, d // num_heads)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    xf = xf.reshape(*lead, d) * scale.float() + bias.float()
     return xf.to(dtype)
 
 

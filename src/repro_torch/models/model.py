@@ -1,12 +1,15 @@
-"""The dense model: embedding -> layer loop -> head.
+"""The model: embedding -> layer loop -> head.
 
 Entry points, counterparts of the JAX package's ``models/model.py``:
 
 * ``forward``      — training forward over whole sequences: (logits, aux),
-  or (logits, aux, amaxes) with an FP8 context
+  or (logits, aux, amaxes) with an FP8 context; the dense and ssm (RWKV6)
+  families
 * ``prefill_step`` — one prompt chunk against the paged cache: (logits at
   the chunk's last token, cache)
 * ``decode_step``  — one token per batch slot: (logits, cache)
+
+``prefill_step`` and ``decode_step`` serve the dense family only.
 
 The layer loop is a Python loop over per-layer parameter dicts.  The cache
 is updated in place and returned for symmetry with the JAX functions, which
@@ -21,9 +24,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import ATTN_IMPLS, SELF_ATTN_IMPLS
-from repro_torch.models.blocks import dense_block, dense_block_chunk, dense_block_decode
+from repro_torch.models.blocks import dense_block, dense_block_chunk, dense_block_decode, rwkv_block
 from repro_torch.models.cache import layer_cache
 from repro_torch.models.layers import apply_norm
+from repro_torch.models.rwkv import check_wkv_impl
 
 
 def _check_impl(cfg, attn_impl: str) -> None:
@@ -65,10 +69,16 @@ def lm_logits(cfg, params, x: torch.Tensor) -> torch.Tensor:
 REMAT_POLICIES = ("none", "full", "dots", "dots_no_batch")
 
 
-def forward(cfg, params, batch, *, q_chunk=0, remat="none", attn_impl="torch", compute_dtype=None, fp8=None):
+FORWARD_FAMILIES = ("dense", "ssm")
+
+
+def forward(
+    cfg, params, batch, *, q_chunk=0, remat="none", attn_impl="torch", wkv_impl="chunked", compute_dtype=None, fp8=None
+):
     """Training forward.  Returns (logits, aux_loss), or (logits, aux_loss,
     amaxes) when an ``fp8`` context (``repro_torch.fp8.Fp8Ctx``) is passed:
-    amaxes maps each scale key to the (num_layers,) amaxes observed.
+    amaxes maps each scale key to the (num_layers,) amaxes observed.  The
+    ssm family takes no fp8 context (ValueError, as in the JAX package).
 
     batch: ``tokens`` (B, S) int and optional ``positions`` (B, S).
     ``compute_dtype`` casts the activation stream, not the master weights:
@@ -76,13 +86,20 @@ def forward(cfg, params, batch, *, q_chunk=0, remat="none", attn_impl="torch", c
     master weight directly).  ``remat="full"`` recomputes each block in the
     backward (``torch.utils.checkpoint``, non-reentrant); ``"dots"`` and
     ``"dots_no_batch"`` (save the matmul outputs) are not ported yet.
-    ``attn_impl``: ``"torch"`` (differentiable) or ``"flash"`` (K3, forward
-    only).
+    ``attn_impl`` (dense): ``"torch"`` (differentiable) or ``"flash"`` (K3,
+    forward only).  ``wkv_impl`` (ssm): ``"chunked"`` (differentiable) or
+    ``"kernel"`` (K5, forward only, from a zero state; the forward drops
+    the final state), or a scan called in K5's place
+    (``models.rwkv.check_wkv_impl``).
     """
-    if cfg.family != "dense":
+    if cfg.family not in FORWARD_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported yet")
+    if fp8 is not None and cfg.family == "ssm":
+        # the ssm family has no quantizable projections in the reference
+        raise ValueError(f"fp8 training is not supported for family={cfg.family}")
     if attn_impl not in SELF_ATTN_IMPLS:
         raise ValueError(f"attn_impl={attn_impl!r} (choose from {SELF_ATTN_IMPLS})")
+    check_wkv_impl(wkv_impl)
     if remat not in REMAT_POLICIES:
         raise ValueError(f"remat={remat!r} (choose from {REMAT_POLICIES})")
     if remat not in ("none", "full"):
@@ -99,13 +116,15 @@ def forward(cfg, params, batch, *, q_chunk=0, remat="none", attn_impl="torch", c
         handle = fp8.bind_layer_scales(layer) if fp8 is not None else None
 
         def block(x, p_layer=p_layer, handle=handle):
+            if cfg.family == "ssm":
+                return rwkv_block(cfg, p_layer, x, wkv_impl=wkv_impl)
             return dense_block(cfg, p_layer, x, positions=positions, q_chunk=q_chunk, attn_impl=attn_impl, fp8=handle)
 
         x = checkpoint(block, x, use_reentrant=False) if remat == "full" and torch.is_grad_enabled() else block(x)
         if fp8 is not None:
             obs.append(fp8.drain())
     logits = lm_logits(cfg, params, x)
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)  # no auxiliary loss in the dense family
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)  # no auxiliary loss in these families
     if fp8 is None:
         return logits, aux
     amaxes = {k: torch.stack([o[k] for o in obs]) for k in fp8.keys}

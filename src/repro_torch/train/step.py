@@ -52,13 +52,16 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *, z_loss: float =
     return loss
 
 
-def loss_fn(model_cfg, params, batch, *, q_chunk=0, remat="none", z_loss=0.0, attn_impl="torch", compute_dtype=None, fp8=None):
+def loss_fn(
+    model_cfg, params, batch, *, q_chunk=0, remat="none", z_loss=0.0, attn_impl="torch", wkv_impl="chunked",
+    compute_dtype=None, fp8=None,
+):
     """Returns (loss, (ce, aux)); with an ``fp8`` context the aux grows a
     third slot, the per-site amax observations of the delayed-scaling
-    update.  ``attn_impl="flash"`` runs K3, forward only: call it under
-    ``torch.no_grad()``."""
+    update.  ``attn_impl="flash"`` runs K3 and ``wkv_impl="kernel"`` runs
+    K5, both forward only: call them under ``torch.no_grad()``."""
     out = forward(
-        model_cfg, params, batch, q_chunk=q_chunk, remat=remat, attn_impl=attn_impl,
+        model_cfg, params, batch, q_chunk=q_chunk, remat=remat, attn_impl=attn_impl, wkv_impl=wkv_impl,
         compute_dtype=compute_dtype, fp8=fp8,
     )
     ce = cross_entropy(out[0], batch["labels"], z_loss=z_loss)
