@@ -8,7 +8,9 @@ or when any check fails.  Phases:
 1. Card and build: the card's name and power limit, the torch and CUDA
    versions, then ``nvcc`` builds the five sources of
    ``src/repro_torch/kernels/csrc`` for ``sm_90a``, all started together,
-   with the seconds each took.
+   with the seconds each took; then the count of HGMMA (``wgmma``)
+   instructions in each of K4's four kernels (``cuobjdump -sass``): every
+   one must hold some.
 2. Kernels: K1 (paged decode) and K2 (chunked prefill) against their plain
    PyTorch versions on the card, bf16 pools, fp32 and bf16 queries, at the
    head shapes of olmo-1b, mistral-nemo-12b and gemma-7b, block size 32,
@@ -16,11 +18,12 @@ or when any check fails.  Phases:
    sliding-window and one softcap case.  Then K3 (flash attention forward)
    at olmo-1b's training shape and GQA, window, softcap, fp32 and ragged
    cases, and K4 (FP8 GEMM) at the forward and backward shapes of
-   olmo-1b's training step and a ragged case.  One JSON line per case with
-   the error, the kernel's, the plain version's and the library's time, and
-   the case's bound.  K3 is also run on the model's strided layout, and
-   each K3 case computes a control (the plain version with one fault) that
-   its checks must reject.
+   olmo-1b's training step and a ragged case, each with a control (the
+   plain GEMM without its last 32 k-elements), ``torch._scaled_mm``'s error
+   and the wrapper's layout copies.  One JSON line per case with the error, the kernel's,
+   the plain version's and the library's time, and the case's bound.  K3
+   is also run on the model's strided layout, and each K3 case computes a
+   control (the plain version with one fault) that its checks must reject.
 3. Serving: the engine serves 8 greedy requests on the full-width olmo-1b
    (random weights from a seed) with bf16 pools, block size 32, 4 slots,
    a 128-token prefill budget and the prefix cache.  The launch counters
@@ -34,9 +37,13 @@ or when any check fails.  Phases:
    4 steps of 4 x 2048 tokens from random weights (seed 0), with the loss,
    time, tokens/s and K4 launches of every step, peak memory and model
    FLOP/s.  The counters are set to 0 just before the steps.
-7. Train path: one more step from the same state with ``fp8_gemm="kernel"``,
-   with ``"plain"`` and with a control (the plain GEMM with its inverse
-   scale rounded to bf16): loss, gradient norm and two updated tensors.
+7. Train path: one more step from the same state with K4 in which every
+   K4 call is held against the plain GEMM, with a control (the plain GEMM
+   without its last 32 k-elements), on its own operands; and whole steps
+   with the plain GEMM, a control (the plain GEMM with its inverse scale
+   rounded to bf16) and an order probe (the plain GEMM's sums in another
+   order), compared with the kernel step by loss, gradient norm and two
+   updated tensors, against limits that the control must fail.
 8. Eval: ``loss_fn`` with ``attn_impl="flash"`` (K3) against ``"torch"``
    under ``torch.no_grad()`` on the train batch, and a control (attention
    that also sees the next key) that the limits must reject.
@@ -383,9 +390,15 @@ def path_phase(cfg, params, device) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def profiled(fn, steps: int = 1) -> tuple[dict, float, float]:
+# record_function spans of the port's code; the profiler puts each on the
+# device's timeline too, beside the kernels inside it
+SPANS = ("fp8_layout_copy",)
+
+
+def profiled(fn, steps: int = 1) -> tuple[dict, float, float, dict]:
     """``fn()`` run ``steps`` times under ``torch.profiler``: (device ms by
-    kernel name, device launches, wall ms under the profiler), each per run."""
+    kernel name, device launches, wall ms under the profiler, device ms of
+    each span of ``SPANS``), each per run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -396,12 +409,18 @@ def profiled(fn, steps: int = 1) -> tuple[dict, float, float]:
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     by_name: dict[str, float] = {}
+    by_span = dict.fromkeys(SPANS, 0.0)
     launches = 0
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3 / steps
+        if e.name in by_span:  # the span's range on the device, not a kernel
+            by_span[e.name] += ms
+        else:
+            by_name[e.name] = by_name.get(e.name, 0.0) + ms
             launches += 1
-    return by_name, launches / steps, wall_ms
+    return by_name, launches / steps, wall_ms, by_span
 
 
 def profile_phase(cfg, params, device, steps=5) -> dict:
@@ -427,7 +446,7 @@ def profile_phase(cfg, params, device, steps=5) -> dict:
         step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    by_name, launches, _ = profiled(step, steps)
+    by_name, launches, _, _ = profiled(step, steps)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out = {
@@ -487,8 +506,11 @@ GEMM_CASES = [
     ("bwd dw ffn_down: x.T @ g", (D_FF, M_TOK, D_MODEL), ("e4m3", "e5m2"), (True, False)),
     ("ragged", (1000, 1000, 1000), ("e4m3", "e4m3"), (False, False)),
 ]
-# K4 against its plain version: fp8 products are exact in fp32, only the
-# order of the fp32 sums differs; relative to the output's largest magnitude
+# K4 against its plain version: its products are exact and its sums fp32,
+# so only the order of the fp32 sums differs; relative to the output's
+# largest magnitude.  The control, computed in every case, is the plain GEMM
+# without its last 32 k-elements; the script fails if it passes.  Each case
+# also reads torch._scaled_mm's error against the plain version.
 GEMM_RTOL = 1e-5
 
 
@@ -591,6 +613,11 @@ def flash_phase(device) -> dict:
     return main
 
 
+def rel_err(out, ref) -> float:
+    """max |out - ref| over max |ref|."""
+    return float((out - ref).abs().max()) / float(ref.abs().max())
+
+
 def gemm_phase(device) -> dict:
     from repro_torch.fp8 import FP8_DTYPES, compute_scale, quantize, tensor_amax
     from repro_torch.fp8 import gemm as K4
@@ -607,12 +634,29 @@ def gemm_phase(device) -> dict:
             ops.append((qx.T if tr else qx, sx))  # a transposed view, as the backward passes it
             del x
         (a, sa), (b, sb) = ops
+        copies_before = K4.LAUNCHES["fp8_layout_copy"]
         out = K4.fp8_gemm(a, b, sa, sb)
+        copies = K4.LAUNCHES["fp8_layout_copy"] - copies_before
         ref = fp8_gemm_plain(a, b, sa, sb)
         err = float((out - ref).abs().max())
         tol = GEMM_RTOL * float(ref.abs().max())
-        del out, ref
-        lib = None
+        # the control: the plain GEMM without its last 32 k-elements
+        control = float((fp8_gemm_plain(a[:, : K - 32], b[: K - 32], sa, sb) - ref).abs().max())
+        kernel_rel_err = rel_err(out, ref)
+        del out
+        # the operands as the kernel reads them, made outside the timing, and
+        # the wrapper's layout copies on their own
+        plan_a, plan_b = K4.layout_plan(a, 1), K4.layout_plan(b, 0)
+        ak = K4.kmajor_copy(a, 1, plan_a[1])[:, :K] if plan_a[0] else a
+        bk = K4.kmajor_copy(b, 0, plan_b[1])[:, :K].T if plan_b[0] else b
+
+        def layout_copies(i):
+            if plan_a[0]:
+                K4.kmajor_copy(a, 1, plan_a[1])
+            if plan_b[0]:
+                K4.kmajor_copy(b, 0, plan_b[1])
+
+        lib = lib_err = None
         if M % 16 == 0 and K % 16 == 0 and N % 16 == 0:  # torch._scaled_mm's shape rule
             a_row, b_col = a.contiguous(), b.T.contiguous().T  # its layouts, made outside the timing
             inv_a, inv_b = 1.0 / sa, 1.0 / sb
@@ -621,25 +665,54 @@ def gemm_phase(device) -> dict:
                 return torch._scaled_mm(a_row, b_col, scale_a=inv_a, scale_b=inv_b, out_dtype=torch.float32)
 
             try:
-                lib(0)
+                lib_err = float((lib(0) - ref).abs().max())
             except RuntimeError:  # an operand-type pair it does not take
                 lib = None
+        del ref
         bound_ms, bound_by = bound(M * K + K * N + 4 * M * N + 8, 2 * M * N * K, FP8_FLOPS_PER_S)
         row = {
             "phase": "kernel", "kernel": "fp8_gemm", "case": name, "mkn": [M, K, N], "dtypes": [fa, fb],
-            "transposed": [ta, tb], "max_abs_err": err, "tol": tol,
-            "kernel_ms": timed_ms(lambda i: K4.fp8_gemm(a, b, sa, sb), iters=10, warmup=2),
+            "transposed": [ta, tb], "max_abs_err": err, "tol": tol, "control_err": control,
+            "rel_err": kernel_rel_err, "library_max_abs_err": lib_err, "layout_copies": copies,
+            # the wrapper on the operands as the path passes them, its layout
+            # copies included; the kernel alone; the copies alone
+            "kernel_ms": timed_ms(lambda i: K4.fp8_gemm(a, b, sa, sb), iters=20, warmup=3),
+            "kernel_alone_ms": timed_ms(lambda i: K4.fp8_gemm(ak, bk, sa, sb), iters=20, warmup=3),
+            "layout_copy_ms": timed_ms(layout_copies, iters=20, warmup=3) if copies else 0.0,
             "plain_ms": timed_ms(lambda i: fp8_gemm_plain(a, b, sa, sb), iters=10, warmup=2),
-            "library_ms": timed_ms(lib, iters=10, warmup=2) if lib else None,
+            "library_ms": timed_ms(lib, iters=20, warmup=3) if lib else None,
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
         emit(row)
         if not err <= tol:
             fail(f"fp8_gemm {name}: err {err} > {tol}")
+        if control <= tol:
+            fail(f"fp8_gemm {name}: the control (the last 32 k dropped) passes, err {control} <= {tol}")
         rows[name] = row
-        del a, b, ops
+        del a, b, ak, bk, ops
         torch.cuda.empty_cache()
     return rows
+
+
+def hgmma_counts(lib) -> dict:
+    """HGMMA (warpgroup MMA on fp16/bf16 operands) instructions in the SASS of
+    each kernel of K4's library, by the kernel's template arguments (a e5m2,
+    b e5m2)."""
+    import re
+
+    from repro_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"fp8_gemm_kernelILb(\d)ELb(\d)E", line)
+            fn = f"a_e5m2={m[1]},b_e5m2={m[2]}" if m else line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None:
+            counts[fn] += bool(re.search(r"\bHGMMA\b", line))
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -647,14 +720,24 @@ def gemm_phase(device) -> dict:
 # ---------------------------------------------------------------------------
 
 TRAIN_STEPS = 4
-# kernel step against plain step from one state: the same fp8 operands, the
-# GEMM sums in another order.  The control is the plain step with each
-# GEMM's 1/(sa sb) rounded to bf16 (up to 2^-9 off), a fault a kernel's
-# epilogue could have.  Parameters are compared in units of the step's lr,
-# since AdamW moves each by about lr whatever its gradient.  Each limit lies
-# between the readings of the sound runs and of the control on the H100
-# (PERF.md); the script fails if the control passes them.
-PATH_LIMITS = {"loss_rel": 1e-6, "grad_norm_rel": 1e-5, "param_mean_over_lr": 1e-5}
+# The train path: one kernel step in which every K4 call is also computed by
+# the plain GEMM on the same fp8 operands and held to GEMM_RTOL of its
+# output's largest magnitude, as the K4 phase holds its cases, with the same
+# control (the plain GEMM without its last 32 k-elements); the script fails
+# if the control passes in any call.  Then the whole step against the plain
+# step from the same state: the fp8 casts of its activations turn a last-bit
+# difference in a GEMM's fp32 sum into a flipped fp8 value, so any kernel
+# whose sums run in another order than cuBLAS's moves the loss by about 1e-5
+# (PERF.md).  An order probe (the plain GEMM with its sums in another fp32
+# order, K split in halves) shows what a sound order reads; the control is
+# the plain GEMM with 1/(sa sb) rounded to bf16 (up to 2^-9 off, a fault an
+# epilogue could have).  Each limit lies between the kernel's and the
+# probe's readings and the control's on the H100 (PERF.md); the script fails
+# if the kernel or the probe passes one, or the control passes one.  The
+# gradient norm does not separate them (the probe reads above the control)
+# and is reported only.  Parameters are compared in units of the step's lr,
+# since AdamW moves each by about lr whatever its gradient.
+PATH_LIMITS = {"loss_rel": 8e-5, "param_mean_over_lr": 4.3e-3}
 # flash against torch attention at full width, bf16: the torch path rounds
 # the scores and P to bf16 (as the reference's einsums do), K3 keeps them in
 # fp32.  The control is attention that also sees the next key, an off-by-one
@@ -662,7 +745,7 @@ PATH_LIMITS = {"loss_rel": 1e-6, "grad_norm_rel": 1e-5, "param_mean_over_lr": 1e
 EVAL_LIMITS = {"loss_diff": 2e-4, "max_logits_diff": 0.5}
 
 
-def train_run_config(fp8_gemm: str):
+def train_run_config(fp8_gemm="kernel"):
     from repro_torch.config import ParallelConfig, PrecisionConfig, RunConfig, TrainConfig
 
     return RunConfig(
@@ -705,7 +788,7 @@ def train_phase(cfg, device):
     K4.reset_launches()  # the main path's run starts here
     steps = []
     for i in range(TRAIN_STEPS):
-        before = K4.LAUNCHES["fp8_gemm"]
+        before, copies_before = K4.LAUNCHES["fp8_gemm"], K4.LAUNCHES["fp8_layout_copy"]
         t0 = time.perf_counter()
         state, m = step(state, batches[i])
         loss = float(m["loss"])
@@ -713,7 +796,8 @@ def train_phase(cfg, device):
         dt = time.perf_counter() - t0
         rec = {"phase": "train_step", "step": i, "loss": loss, "ms": dt * 1e3, "tokens_per_s": tokens / dt,
                "lr": float(m["lr"]), "grad_norm": float(m["grad_norm"]),
-               "k4_launches": K4.LAUNCHES["fp8_gemm"] - before}
+               "k4_launches": K4.LAUNCHES["fp8_gemm"] - before,
+               "k4_layout_copies": K4.LAUNCHES["fp8_layout_copy"] - copies_before}
         emit(rec)
         steps.append(rec)
         if not np.isfinite(loss) or rec["k4_launches"] != per_step:
@@ -724,6 +808,7 @@ def train_phase(cfg, device):
     out = {
         "phase": "train", "model": cfg.name, "params": sum(t.numel() for t in tree_leaves(state.params)),
         "tokens_per_step": tokens, "steps": TRAIN_STEPS, "init_s": init_s, "k4_launches": launches,
+        "k4_layout_copies": K4.LAUNCHES["fp8_layout_copy"],
         "losses": [r["loss"] for r in steps], "step_ms_mean_steps_1_3": step_s * 1e3,
         "tokens_per_s_steps_1_3": tokens / step_s, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "model_tflop_per_step": flops / 1e12, "model_tflop_s": flops / step_s / 1e12,
@@ -757,36 +842,68 @@ def within(readings: dict, limits: dict) -> bool:
 
 
 def train_path_phase(cfg, state, batch):
-    """One step from the same state with the plain GEMM, with the control
-    and with the K4 kernel.  Returns the kernel step's state."""
-    from repro_torch.fp8 import policy
+    """One kernel step in which every K4 call is checked against the plain
+    GEMM on its own operands (with the control), and whole steps with the
+    plain GEMM, the control and the order probe.  Returns the kernel step's
+    state."""
+    from repro_torch.fp8 import fp8_gemm, fp8_sites
+    from repro_torch.fp8.gemm_ref import fp8_gemm_plain
     from repro_torch.train import make_train_step
 
     picks = {"blocks.0.attn.wq": lambda p: p["blocks"][0]["attn"]["wq"],
              f"blocks.{cfg.num_layers - 1}.mlp.w_down": lambda p: p["blocks"][-1]["mlp"]["w_down"]}
 
-    def run(impl, st):
-        new, m = make_train_step(cfg, train_run_config(impl))(st, batch)
+    def run(gemm, st):  # one step with ``gemm`` as the quantized GEMMs
+        new, m = make_train_step(cfg, train_run_config(gemm))(st, batch)
         return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]),
                 "params": {n: get(new.params).clone() for n, get in picks.items()}}, new
 
+    def control(a, b, sa, sb):
+        return fp8_gemm_plain(a, b, sa, sb) * ((1 / (sa * sb)).bfloat16().float() * (sa * sb))
+
+    def order_probe(a, b, sa, sb):
+        h = a.shape[1] // 2
+        return (a[:, :h].float() @ b[:h].float() + a[:, h:].float() @ b[h:].float()) * (1.0 / (sa.float() * sb.float()))
+
+    calls = []
+
+    def checked(a, b, sa, sb):  # K4, the plain GEMM and the call's control on the same operands
+        out = fp8_gemm(a, b, sa, sb)
+        ref = fp8_gemm_plain(a, b, sa, sb)
+        tol = GEMM_RTOL * float(ref.abs().max())
+        dropped = fp8_gemm_plain(a[:, :-32], b[:-32], sa, sb)
+        calls.append((float((out - ref).abs().max()), float((dropped - ref).abs().max()), tol,
+                      [a.shape[0], a.shape[1], b.shape[1], str(a.dtype).split(".")[1], str(b.dtype).split(".")[1]]))
+        return out
+
     plain, _ = run("plain", clone_state(state))
-    plain_gemm = policy.GEMM_IMPLS["plain"]
-    policy.GEMM_IMPLS["plain"] = lambda a, b, sa, sb: plain_gemm(a, b, sa, sb) * ((1 / (sa * sb)).bfloat16().float() * (sa * sb))
-    try:
-        control, _ = run("plain", clone_state(state))
-    finally:
-        policy.GEMM_IMPLS["plain"] = plain_gemm
-    kernel, state = run("kernel", state)
-    out = {"phase": "train_path", "loss": {"kernel": kernel["loss"], "plain": plain["loss"]},
+    ctl, _ = run(control, clone_state(state))
+    probe, _ = run(order_probe, clone_state(state))
+    kernel, state = run(checked, state)
+    worst = max(calls, key=lambda c: c[0] / c[2])
+    weakest_control = min(calls, key=lambda c: c[1] / c[2])
+    out = {"phase": "train_path", "k4_calls": len(calls),
+           "worst_call": {"err": worst[0], "tol": worst[2], "mkn_dtypes": worst[3]},
+           "weakest_control_call": {"err": weakest_control[1], "tol": weakest_control[2], "mkn_dtypes": weakest_control[3]},
+           "loss": {"kernel": kernel["loss"], "plain": plain["loss"]},
            "grad_norm": {"kernel": kernel["grad_norm"], "plain": plain["grad_norm"]}, "lr": plain["lr"],
-           "kernel_vs_plain": path_readings(kernel, plain), "control_vs_plain": path_readings(control, plain),
-           "limits": PATH_LIMITS}
+           "kernel_vs_plain": path_readings(kernel, plain), "control_vs_plain": path_readings(ctl, plain),
+           "order_probe_vs_plain": path_readings(probe, plain), "limits": PATH_LIMITS}
     emit(out)
+    per_step = 4 * cfg.num_layers * len(fp8_sites(cfg))
+    if len(calls) != per_step:
+        fail(f"the checked kernel step made {len(calls)} K4 calls, expected {per_step}")
+    if worst[0] > worst[2]:
+        fail(f"a K4 call of the train step differs from the plain GEMM on its operands: {out}")
+    if weakest_control[1] <= weakest_control[2]:
+        fail(f"the control passes a K4 call's limit, which then proves nothing: {out}")
     if not within(out["kernel_vs_plain"], PATH_LIMITS):
         fail(f"kernel and plain train steps differ: {out}")
-    if within(out["control_vs_plain"], PATH_LIMITS):
-        fail(f"the control step passes the train path's limits, which then prove nothing: {out}")
+    if not within(out["order_probe_vs_plain"], PATH_LIMITS):
+        fail(f"the order probe, a sound order of the sums, fails the train path's limits: {out}")
+    for k, limit in PATH_LIMITS.items():
+        if out["control_vs_plain"][k] <= limit:
+            fail(f"the control step passes the train path's {k} limit, which then proves nothing: {out}")
     torch.cuda.empty_cache()
     return state
 
@@ -860,16 +977,18 @@ def train_profile_phase(cfg, state, batch) -> dict:
     run()  # the step's wall time, without the profiler
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name, launches, prof_wall_ms = profiled(run)
+    by_name, launches, prof_wall_ms, spans = profiled(run)
     busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    k4_ms = sum(v for k, v in by_name.items() if "fp8_gemm_kernel" in k)
     out = {
         "phase": "train_profile", "model": cfg.name, "what": "one fp8 train step, 4 x 2048 tokens, remat full",
         "wall_ms": wall_ms, "wall_ms_under_profiler": prof_wall_ms, "device_busy_ms": busy if by_name else None,
         "idle_share": 1.0 - busy / wall_ms if by_name else None,
         "idle_share_under_profiler": 1.0 - busy / prof_wall_ms if by_name else None, "device_launches": int(launches),
-        "fp8_gemm_ms": sum(v for k, v in by_name.items() if "fp8_gemm_kernel" in k),
-        "top_kernels_ms": [[name[:90], ms] for name, ms in top],
+        "fp8_gemm_ms": k4_ms, "fp8_gemm_share": k4_ms / busy if by_name else None,
+        "fp8_layout_copy_ms": spans["fp8_layout_copy"],
+        "top_kernels_ms": [[name[:160], ms] for name, ms in top],
     }
     emit(out)
     return out
@@ -1177,7 +1296,7 @@ def rwkv_eval_phase(cfg, device, batch_size=TRAIN_B, seq=TRAIN_S) -> dict:
         control = on_model_layout(wkv_late_decay)
         layers = {str(dt).removeprefix("torch."): layer_readings(cfg, params, batch["tokens"], control, dt)
                   for dt in RWKV_LAYER_LIMITS}
-        by_name, launches, prof_wall_ms = profiled(lambda: float(loss_fn(cfg, params, batch, wkv_impl="kernel",
+        by_name, launches, prof_wall_ms, _ = profiled(lambda: float(loss_fn(cfg, params, batch, wkv_impl="kernel",
                                                                           compute_dtype=torch.bfloat16)[0]))
         busy = sum(by_name.values())
         profile_out = {
@@ -1251,6 +1370,12 @@ def main() -> int:
         emit({"phase": "build", "source": src, "seconds": secs, "library": os.path.relpath(lib, ROOT),
               "ptxas": [ln.strip() for ln in log.splitlines() if "registers" in ln or "Compiling" in ln]})
     emit({"phase": "build", "wall_seconds": time.perf_counter() - t0})
+    # K4 runs on the tensor cores: each of its four kernels (one per type
+    # pair) holds HGMMA
+    hgmma = hgmma_counts(dict((src, lib) for src, _, lib, _ in built)["fp8_gemm.cu"])
+    emit({"phase": "sass", "source": "fp8_gemm.cu", "hgmma_per_kernel": hgmma})
+    if len(hgmma) != 4 or min(hgmma.values()) == 0:
+        fail(f"fp8_gemm.cu: K4 needs four kernels that each hold HGMMA: {hgmma}")
 
     seconds = {"build": time.perf_counter() - t0}
 
@@ -1312,6 +1437,11 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+    for k in kernels:  # K4's time covers its layout copies; the parts beside it
+        if k["name"] == "fp8_gemm":
+            k.update(kernel_alone_ms=gemm_main["kernel_alone_ms"], layout_copy_ms=gemm_main["layout_copy_ms"],
+                     layout_copies_per_call=gemm_main["layout_copies"],
+                     layout_copies=train["k4_layout_copies"])
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

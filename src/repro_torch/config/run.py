@@ -3,7 +3,8 @@
 A copy of the JAX package's ``config/run.py`` (pure dataclasses).  One
 difference: ``PrecisionConfig.fp8_gemm`` names the port's two FP8 GEMMs,
 ``"kernel"`` (the hand-written CUDA kernel, the default) and ``"plain"``
-(its plain PyTorch version); the JAX package's ``"ref"`` lets XLA lower the
+(its plain PyTorch version), or a callable with K4's signature (a check
+hands its GEMM to the train step so); the JAX package's ``"ref"`` lets XLA lower the
 product, which has no counterpart here, and its ``"pallas"`` corresponds to
 ``"kernel"``.  ``MeshConfig`` and the sharding knobs of ``ParallelConfig``
 describe the TPU pod; the port runs on one card and the train step raises
@@ -13,6 +14,7 @@ on the options that need a mesh (see ``repro_torch.train.step``).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable
 
 
 @dataclass(frozen=True)
@@ -92,7 +94,7 @@ class PrecisionConfig:
     fp8_dtype: str = "e4m3"  # forward operand dtype; gradients always use e5m2
     fp8_amax_history: int = 16  # delayed-scaling amax window (steps)
     fp8_margin: float = 0.0  # scale headroom: scale = fp8_max / (2^margin * amax)
-    fp8_gemm: str = "kernel"  # "kernel" (CUDA K4) | "plain" (its PyTorch version)
+    fp8_gemm: str | Callable = "kernel"  # "kernel" (CUDA K4) | "plain" (its PyTorch version) | a GEMM
 
 
 @dataclass(frozen=True)

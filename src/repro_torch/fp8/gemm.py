@@ -1,18 +1,26 @@
 """The FP8 GEMM (K4) on the card: wrapper of the hand-written CUDA kernel.
 
 ``kernels/csrc/fp8_gemm.cu`` is the Hopper counterpart of the JAX package's
-Pallas ``fp8_gemm``: ``(a/a_scale) @ (b/b_scale)`` from fp8 operands, fp32
-products and sums, fp32 output.  It is compiled with ``nvcc`` for ``sm_90a``
-at first use into ``build/`` and loaded with ``ctypes`` (``kernels.build``).
+Pallas ``fp8_gemm``: ``(a/a_scale) @ (b/b_scale)`` from fp8 operands, exact
+products, fp32 sums, fp32 output, on the tensor cores (TMA loads, ``wgmma``).
+It is compiled with ``nvcc`` for ``sm_90a`` at first use into ``build/`` and
+loaded with ``ctypes`` (``kernels.build``).
 
-The wrapper checks device, dtype, shape and strides, allocates the output
-with ``torch.empty``, launches on the current stream and raises if the
-launch failed.  Each operand is passed with its strides, so a transposed
-view (``qw.T`` in the backward of ``fp8_dot``) costs no copy; one of its two
-strides must be 1.  ``LAUNCHES["fp8_gemm"]`` counts launches; the wrapper
-adds one where it launches, nowhere else.  For tensors on the CPU it calls
-the plain version (``fp8.gemm_ref.fp8_gemm_plain``); for CUDA tensors it
-launches the kernel or raises, and never falls back.
+The kernel reads each operand K-major: ``a`` as (M, K) and ``b`` as (N, K),
+rows a multiple of 16 bytes apart.  ``layout_plan`` says whether an operand
+is already stored so; where it is not (``qw`` in the forward of ``fp8_dot``,
+both operands of its weight gradient, a K not a multiple of 16), the
+wrapper makes a K-major copy, padded in K to a multiple of 16
+(``kmajor_copy``; ``LAUNCHES["fp8_layout_copy"]`` counts them).  The kernel
+never reads the padding: its loads stop at K.
+
+The wrapper checks device, dtype and shape, allocates the output with
+``torch.empty``, launches on the current stream and raises if the launch
+failed.  ``LAUNCHES["fp8_gemm"]`` counts launches; the wrapper adds one
+where it launches, nowhere else.  For tensors on the CPU it calls the plain
+version (``fp8.gemm_ref.fp8_gemm_plain``) on the operands as given, with no
+copy; for CUDA tensors it launches the kernel or raises, and never falls
+back.
 """
 
 from __future__ import annotations
@@ -27,32 +35,59 @@ from repro_torch.kernels import build
 
 SOURCE = "fp8_gemm.cu"  # under kernels/csrc
 
-LAUNCHES = {"fp8_gemm": 0}
+LAUNCHES = {"fp8_gemm": 0, "fp8_layout_copy": 0}
+
+ALIGN = 16  # bytes: TMA's rule for global strides and base addresses
 
 
 def reset_launches() -> None:
-    LAUNCHES["fp8_gemm"] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _declare(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fp8_gemm.argtypes = [p] * 5 + [i] * 3 + [ll] * 4 + [i] * 4 + [p]
+    lib.fp8_gemm.argtypes = [p] * 5 + [i] * 3 + [ll] * 2 + [i] * 2 + [p]
     lib.fp8_gemm.restype = i
 
 
-def _layout(t: torch.Tensor, name: str) -> tuple[int, int, bool]:
-    """(stride of dim 0, stride of dim 1, 16-byte loads allowed) of a 2-D
-    operand with one unit stride.  A dim of size 1 may take stride 1."""
-    s0, s1 = t.stride()
-    if t.shape[1] == 1:
-        s1 = 1
-    elif t.shape[0] == 1 and s1 != 1:
-        s0 = 1
-    if s1 != 1 and s0 != 1:
-        raise ValueError(f"{name} strides {t.stride()}: one of them must be 1 (row- or column-major)")
-    lead = s0 if s1 == 1 else s1
-    vec = t.data_ptr() % 16 == 0 and lead % 16 == 0
-    return s0, s1, vec
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def layout_plan(t: torch.Tensor, k_dim: int) -> tuple[bool, int]:
+    """For a 2-D fp8 operand whose dim ``k_dim`` is K: (whether the kernel
+    needs a K-major copy of it, the leading dimension in elements of what
+    the kernel reads).  The operand is read as it is when its K stride is 1
+    (or K is 1) and its other stride is at least K and a multiple of 16
+    bytes, from a 16-byte aligned base; otherwise the copy has K padded to a
+    multiple of 16."""
+    K, rows = t.shape[k_dim], t.shape[1 - k_dim]
+    s_k, s_rows = t.stride(k_dim), t.stride(1 - k_dim)
+    lead = _round_up(K, ALIGN)
+    if rows == 1:  # a single row: its stride is never used
+        s_rows = lead
+    k_major = s_k == 1 or K == 1
+    if k_major and s_rows >= K and s_rows % ALIGN == 0 and t.data_ptr() % ALIGN == 0:
+        return False, s_rows
+    return True, lead
+
+
+def kmajor_copy(t: torch.Tensor, k_dim: int, lead: int) -> torch.Tensor:
+    """A (rows, lead) copy of the operand with K along dim 1 and the
+    elements past K left unset.  ``[:, :K]`` of it holds the operand."""
+    K, rows = t.shape[k_dim], t.shape[1 - k_dim]
+    with torch.profiler.record_function("fp8_layout_copy"):  # a profile's span of the copies
+        out = torch.empty((rows, lead), dtype=t.dtype, device=t.device)
+        out[:, :K].copy_(t if k_dim == 1 else t.T)
+    LAUNCHES["fp8_layout_copy"] += 1
+    return out
+
+
+def _kmajor(t: torch.Tensor, k_dim: int) -> tuple[torch.Tensor, int]:
+    """(tensor whose data_ptr starts the K-major storage, leading dim)."""
+    copy, lead = layout_plan(t, k_dim)
+    return (kmajor_copy(t, k_dim, lead), lead) if copy else (t, lead)
 
 
 def fp8_gemm(
@@ -78,17 +113,21 @@ def fp8_gemm(
     (M, K), N = a.shape, b.shape[1]
     if max(M, N, K) >= 2**31:
         raise ValueError(f"dims {M, N, K} exceed int32")
-    a_sm, a_sk, a_vec = _layout(a, "a")
-    b_sk, b_sn, b_vec = _layout(b, "b")
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
     if M == 0 or N == 0:
         return out
+    if K == 0:
+        return out.zero_()
+    ak, lda = _kmajor(a, 1)
+    bk, ldb = _kmajor(b, 0)
     lib = build.load(SOURCE, _declare)
     rc = lib.fp8_gemm(
-        a.data_ptr(), b.data_ptr(), a_scale.data_ptr(), b_scale.data_ptr(), out.data_ptr(),
-        M, N, K, a_sm, a_sk, b_sk, b_sn, int(a.dtype == E5M2), int(b.dtype == E5M2),
-        int(a_vec), int(b_vec), torch.cuda.current_stream(a.device).cuda_stream,
+        ak.data_ptr(), bk.data_ptr(), a_scale.data_ptr(), b_scale.data_ptr(), out.data_ptr(),
+        M, N, K, lda, ldb, int(a.dtype == E5M2), int(b.dtype == E5M2),
+        torch.cuda.current_stream(a.device).cuda_stream,
     )
+    if rc == -1:
+        raise RuntimeError(f"fp8_gemm: cuTensorMapEncodeTiled refused a tensor map (lda {lda}, ldb {ldb})")
     if rc != 0:
         raise RuntimeError(f"fp8_gemm launch failed: CUDA error {rc}")
     LAUNCHES["fp8_gemm"] += 1

@@ -101,10 +101,11 @@ class Fp8Ctx:
     def __init__(self, cfg, precision, state: Fp8State):
         if precision.fp8_dtype not in FP8_DTYPES:
             raise ValueError(f"precision.fp8_dtype={precision.fp8_dtype!r}: expected one of {sorted(FP8_DTYPES)}")
-        if precision.fp8_gemm not in GEMM_IMPLS:
-            raise ValueError(f"precision.fp8_gemm={precision.fp8_gemm!r}: expected one of {sorted(GEMM_IMPLS)}")
+        gemm_fn = precision.fp8_gemm
+        if not (callable(gemm_fn) or gemm_fn in GEMM_IMPLS):
+            raise ValueError(f"precision.fp8_gemm={gemm_fn!r}: expected one of {sorted(GEMM_IMPLS)} or a GEMM")
         self.fwd_dtype = FP8_DTYPES[precision.fp8_dtype]
-        self.gemm_fn = GEMM_IMPLS[precision.fp8_gemm]
+        self.gemm_fn = gemm_fn if callable(gemm_fn) else GEMM_IMPLS[gemm_fn]
         self.state = state
         self.keys = scale_keys(cfg)
         self._amax: dict[str, torch.Tensor] = {}

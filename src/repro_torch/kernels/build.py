@@ -2,8 +2,9 @@
 
 Each source in ``csrc/`` has a plain C interface.  ``build`` compiles it
 with ``nvcc`` for ``sm_90a`` into a shared library under ``build/`` at the
-repository root, named by the source's stem and a hash of its content, so
-an edited source builds anew and an unchanged one is built once.  ``load``
+repository root, named by the source's stem and a hash of its content and
+of every header in ``csrc/`` (``*.cuh``), so an edited source or header
+builds anew and an unchanged one is built once.  ``load``
 builds if needed and opens the library with ``ctypes``; the caller declares
 the argument types.  Nothing here runs when a module is imported.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -39,10 +41,18 @@ def _nvcc() -> str:
 
 
 def library_path(source: str | Path) -> Path:
-    """The shared library's path, keyed by the source's content hash."""
+    """The shared library's path, keyed by a hash of the source and of every
+    ``csrc/*.cuh``.  Raises FileNotFoundError if the source includes
+    (``#include "..."``) a header that is not in ``csrc/``."""
     source = CSRC / source
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+    text = source.read_bytes()
+    for name in re.findall(rb'^\s*#\s*include\s+"([^"]+)"', text, flags=re.M):
+        if not (CSRC / name.decode()).is_file():
+            raise FileNotFoundError(f"{source.name} includes {name.decode()!r}, which is not in {CSRC}")
+    h = hashlib.sha256(text)
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:12]}.so"
 
 
 def build(source: str | Path, verbose: bool = False) -> tuple[Path, str]:

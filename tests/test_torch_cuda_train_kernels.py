@@ -4,8 +4,8 @@ Needs no JAX, so it runs where the card is:
 ``python -m pytest -m gpu tests/test_torch_cuda_train_kernels.py``.  It
 skips on a host without CUDA.
 
-K4: fp8 products are exact in fp32, so only the order of the fp32 sums
-differs: 1e-5 of the output's largest magnitude.  K3: both compute in fp32
+K4: its products are exact and its sums fp32, so only the order of the
+fp32 sums differs: 1e-5 of the output's largest magnitude.  K3: both compute in fp32
 (1e-4, as K1/K2); with bf16 inputs both round the output to bf16, one ulp
 of 2^-7 relative on outputs below 4 (2e-2).
 """
@@ -32,8 +32,12 @@ def _fp8(shape, dtype, g):
     return quantize(x, s, dtype), s
 
 
+# shapes off the 128 x 128 x 128 tile (ragged M, N and K; K not a multiple of
+# 16, which the wrapper pads) and one of the training path, (1024, 2048, 8192)
 @pytest.mark.gpu
-@pytest.mark.parametrize("M,K,N", [(256, 128, 384), (100, 70, 36), (1000, 1000, 1000), (8, 4096, 8)])
+@pytest.mark.parametrize(
+    "M,K,N", [(256, 128, 384), (100, 70, 36), (1000, 1000, 1000), (8, 4096, 8), (192, 4160, 320), (1024, 2048, 8192)]
+)
 @pytest.mark.parametrize("fa,fb", [(E4M3, E4M3), (E5M2, E4M3), (E4M3, E5M2), (E5M2, E5M2)])
 def test_cuda_fp8_gemm_matches_plain(M, K, N, fa, fb):
     _card()
@@ -42,11 +46,15 @@ def test_cuda_fp8_gemm_matches_plain(M, K, N, fa, fb):
     b, sb = _fp8((K, N), fb, g)
     at, bt = a.T.contiguous().T, b.T.contiguous().T  # column-major views: the backward's layouts
     for x, y in ((a, b), (at, b), (a, bt), (at, bt)):
-        before = K4.LAUNCHES["fp8_gemm"]
+        # the kernel reads K-major rows 16 bytes apart: a row-major a and a
+        # column-major b are read as they are when K is a multiple of 16
+        copies = int(x is at or K % 16 != 0) + int(y is b or K % 16 != 0)
+        before, copies_before = K4.LAUNCHES["fp8_gemm"], K4.LAUNCHES["fp8_layout_copy"]
         out = K4.fp8_gemm(x, y, sa, sb)
         ref = fp8_gemm_plain(x, y, sa, sb)
         torch.cuda.synchronize()
         assert K4.LAUNCHES["fp8_gemm"] == before + 1
+        assert K4.LAUNCHES["fp8_layout_copy"] == copies_before + copies
         assert out.dtype == torch.float32 and out.shape == (M, N)
         assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 

@@ -47,6 +47,7 @@ from repro_torch.fp8 import (
     scale_keys,
     update_fp8_state,
 )
+from repro_torch.fp8 import gemm
 from repro_torch.models import forward, init_params
 
 torch.set_num_threads(2)
@@ -132,6 +133,73 @@ def test_fp8_gemm_plain_matches_pallas(M, K, N, fa, fb):
     np.testing.assert_array_equal(fp8_gemm(ta, tb, tsa, tsb).numpy(), got.numpy())
     got_t = fp8_gemm(ta.T.contiguous().T, tb.T.contiguous().T, tsa, tsb)
     np.testing.assert_allclose(got_t.numpy(), ref, rtol=1e-5, atol=tol)
+
+
+def _dot_gemm_operands(M, K, N):
+    """The (a, b) operands of fp8_dot's three GEMMs, as its forward and
+    backward hand them to the GEMM: forward, dgrad, wgrad."""
+    rng = np.random.default_rng(M + K + N)
+    seen = []
+
+    def record(a, b, sa, sb):
+        seen.append((a, b))
+        return fp8_gemm_plain(a, b, sa, sb)
+
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).requires_grad_(True)
+    w = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)).requires_grad_(True)
+    out = fp8_dot(x, w, torch.tensor(100.0), torch.tensor(300.0), E4M3, record)
+    out.sum().backward()
+    return seen
+
+
+def test_layout_plan_of_fp8_dot_gemms():
+    """At olmo-1b's smoke widths (32 tokens, d_model 64, d_ff 128): the
+    forward copies b (qw is N-major), dgrad copies nothing (qg and qw.T are
+    K-major), wgrad copies both (qx.T and qg are M- and N-major)."""
+    cfg = reduce_for_smoke(get_config("olmo-1b"))
+    for K, N in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
+        (fa, fb), (da, db), (wa, wb) = _dot_gemm_operands(32, K, N)
+        plans = [(gemm.layout_plan(a, 1)[0], gemm.layout_plan(b, 0)[0]) for a, b in ((fa, fb), (da, db), (wa, wb))]
+        assert plans == [(False, True), (False, False), (True, True)]
+        # what is read as it is keeps its own leading stride
+        assert gemm.layout_plan(fa, 1) == (False, K) and gemm.layout_plan(db, 0) == (False, N)
+
+
+@pytest.mark.parametrize("K,lead", [(70, 80), (1000, 1008), (64, 64), (1, 16)])
+def test_layout_plan_pads_k_to_16_bytes(K, lead):
+    a = torch.zeros((24, K), dtype=E4M3)  # row-major: K-major, rows K bytes apart
+    b = torch.zeros((K, 40), dtype=E5M2)  # row-major: N-major
+    assert gemm.layout_plan(a, 1) == (K % 16 != 0, lead)
+    assert gemm.layout_plan(b, 0) == (True, lead)
+    assert gemm.layout_plan(b.T.contiguous().T, 0) == (K % 16 != 0, lead)
+    # a view that starts off a 16-byte boundary is copied
+    assert gemm.layout_plan(torch.zeros((24, K + 1), dtype=E4M3)[:, 1:], 1)[0]
+
+
+@pytest.mark.parametrize("M,K,N", [(32, 64, 128), (40, 70, 36), (17, 1000, 5)])
+def test_kmajor_copies_give_the_same_product(M, K, N):
+    """fp8_gemm_plain on the K-major copies (past K unset) is bit-equal to it
+    on the views, for every operand of fp8_dot's three GEMMs."""
+    for a, b in _dot_gemm_operands(M, K, N):
+        sa, sb = torch.tensor(3.0), torch.tensor(0.5)
+        Ka = a.shape[1]
+        ca = gemm.kmajor_copy(a, 1, gemm.layout_plan(a, 1)[1])[:, :Ka]
+        cb = gemm.kmajor_copy(b, 0, gemm.layout_plan(b, 0)[1])[:, :Ka].T
+        assert ca.stride(1) == 1 and cb.stride(0) == 1
+        assert ca.stride(0) % 16 == 0 and cb.stride(1) % 16 == 0
+        assert torch.equal(fp8_gemm_plain(ca, cb, sa, sb), fp8_gemm_plain(a, b, sa, sb))
+
+
+def test_cpu_operands_take_the_plain_version_without_copies():
+    a = torch.randn((40, 70)).to(E4M3)
+    b = torch.randn((36, 70)).to(E5M2).T  # a view: K-major, rows 70 bytes apart
+    sa, sb = torch.tensor(2.0), torch.tensor(4.0)
+    gemm.reset_launches()
+    out = fp8_gemm(a, b, sa, sb)
+    assert gemm.LAUNCHES == {"fp8_gemm": 0, "fp8_layout_copy": 0}
+    assert torch.equal(out, fp8_gemm_plain(a, b, sa, sb))
+    with pytest.raises(ValueError, match="cuda or cpu"):  # any other device: no plain version
+        fp8_gemm(a.to("meta"), b.to("meta"), sa.to("meta"), sb.to("meta"))
 
 
 @pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])

@@ -155,6 +155,35 @@ def test_train_steps_match_jax(arch, prec, nmb, tight):
             np.testing.assert_allclose(tstate.fp8.scale[k].numpy(), np.asarray(jstate.fp8.scale[k]), rtol=0.1)
 
 
+def test_a_gemm_passed_as_fp8_gemm_takes_k4s_place():
+    """A callable ``fp8_gemm`` is called for every quantized GEMM of the step
+    (forward, recompute, both backward products) with K4's arguments; handed
+    K4 itself, the step is the ``"kernel"`` step bit for bit."""
+    from repro_torch.fp8 import fp8_gemm, fp8_sites
+
+    cfg = reduce_for_smoke(get_config("olmo-1b"))
+    calls = []
+
+    def gemm(a, b, sa, sb):
+        calls.append((a.dtype, b.dtype))
+        return fp8_gemm(a, b, sa, sb)
+
+    def step(impl):
+        run = RunConfig(arch="olmo-1b", train=TrainConfig(warmup_steps=0), parallel=ParallelConfig(remat="full"),
+                        precision=PrecisionConfig(fp8=True, fp8_gemm=impl))
+        state = init_train_state(cfg, run, 0, device="cpu")
+        batch = synthetic_batch(cfg, step=0, global_batch=2, seq_len=16, device="cpu")
+        return make_train_step(cfg, run)(state, batch)
+
+    got, gm = step(gemm)
+    ref, rm = step("kernel")
+    assert float(gm["loss"]) == float(rm["loss"]) and float(gm["grad_norm"]) == float(rm["grad_norm"])
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got.params), tree_leaves(ref.params)))
+    assert len(calls) == 4 * cfg.num_layers * len(fp8_sites(cfg))
+    with pytest.raises(ValueError, match="fp8_gemm"):
+        step("pallas")
+
+
 def test_first_step_applies_no_update():
     """With warmup the rate at step 0 is 0: the first step changes nothing
     but the moments and the counters."""
