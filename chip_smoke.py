@@ -9,15 +9,18 @@ or when any check fails.  Phases:
    versions, then ``nvcc`` builds the five sources of
    ``src/repro_torch/kernels/csrc`` for ``sm_90a``, all started together,
    with the seconds each took; then the count of HGMMA (``wgmma``)
-   instructions in each of K4's four kernels (``cuobjdump -sass``): every
-   one must hold some.
+   instructions in each kernel of K4 and K3 (``cuobjdump -sass``): each of
+   K4's four kernels and of K3's four bf16 kernels must hold some.
 2. Kernels: K1 (paged decode) and K2 (chunked prefill) against their plain
    PyTorch versions on the card, bf16 pools, fp32 and bf16 queries, at the
    head shapes of olmo-1b, mistral-nemo-12b and gemma-7b, block size 32,
    random block tables with null padding and ragged lengths, plus one
    sliding-window and one softcap case.  Then K3 (flash attention forward)
-   at olmo-1b's training shape and GQA, window, softcap, fp32 and ragged
-   cases, and K4 (FP8 GEMM) at the forward and backward shapes of
+   at olmo-1b's training shape and GQA, window, softcap, fp32, ragged, head
+   dim 80 and 160 and no-key (Sq > Skv with a window) cases, each naming
+   the kernel its dtype runs (``route``), with SDPA's errors and the
+   CUDA-core kernel's time on the bf16 inputs beside the tensor-core
+   kernel's, and K4 (FP8 GEMM) at the forward and backward shapes of
    olmo-1b's training step and a ragged case, each with a control (the
    plain GEMM without its last 32 k-elements), ``torch._scaled_mm``'s error
    and the wrapper's layout copies.  One JSON line per case with the error, the kernel's,
@@ -45,8 +48,9 @@ or when any check fails.  Phases:
    order), compared with the kernel step by loss, gradient norm and two
    updated tensors, against limits that the control must fail.
 8. Eval: ``loss_fn`` with ``attn_impl="flash"`` (K3) against ``"torch"``
-   under ``torch.no_grad()`` on the train batch, and a control (attention
-   that also sees the next key) that the limits must reject.
+   under ``torch.no_grad()`` on the train batch, each timed once cold and
+   once warm, and a control (attention that also sees the next key) that
+   the limits must reject.
 9. Train profile: one train step without and one under ``torch.profiler``:
    wall time, device time by kernel and the device's idle share.
 10. Kernels K6 (BabelStream) and K5 (RWKV6 WKV scan), run after phase 2:
@@ -465,29 +469,39 @@ def profile_phase(cfg, params, device, steps=5) -> dict:
 # phase 2b: K3 and K4 against their plain versions
 # ---------------------------------------------------------------------------
 
-# K3 cases: name, (B, H, KV, S, hd), dtype, window, softcap, q scale.  The
-# first is the training path's shape (olmo-1b, batch 4 x 2048 tokens).  The
-# softcap case scales q by 8 so that the scores (standard deviation 8) reach
-# the cap: at scale 1 a cap of 30 moves a score by only about s^3/2700.
+# K3 cases: name, (B, H, KV, Sq, Skv, hd), dtype, causal, window, softcap,
+# q scale.  The first is the training path's shape (olmo-1b, batch 4 x 2048
+# tokens).  The softcap case scales q by 8 so that the scores (standard
+# deviation 8) reach the cap: at scale 1 a cap of 30 moves a score by only
+# about s^3/2700.  hubert-xlarge (16 heads of 80, a bidirectional encoder)
+# and stablelm-12b (32 heads of 160 over 8 kv heads) have head dims that TMA
+# pads to a multiple of 64.  The no-key cases (Sq > Skv with a window)
+# hold rows >= 256 + 63 that see no key, where the Pallas kernel averages V
+# over all keys.
 FLASH_CASES = [
-    ("olmo-1b", (4, 16, 16, 2048, 128), torch.bfloat16, 0, 0.0, 1.0),
-    ("gqa-32/8", (1, 32, 8, 2048, 128), torch.bfloat16, 0, 0.0, 1.0),
-    ("window-256", (4, 16, 16, 2048, 128), torch.bfloat16, 256, 0.0, 1.0),
-    ("gemma-7b-softcap", (1, 16, 16, 2048, 256), torch.bfloat16, 0, 30.0, 8.0),
-    ("olmo-1b-fp32", (1, 16, 16, 2048, 128), torch.float32, 0, 0.0, 1.0),
-    ("ragged-1000", (2, 16, 16, 1000, 128), torch.bfloat16, 0, 0.0, 1.0),
+    ("olmo-1b", (4, 16, 16, 2048, 2048, 128), torch.bfloat16, True, 0, 0.0, 1.0),
+    ("gqa-32/8", (1, 32, 8, 2048, 2048, 128), torch.bfloat16, True, 0, 0.0, 1.0),
+    ("window-256", (4, 16, 16, 2048, 2048, 128), torch.bfloat16, True, 256, 0.0, 1.0),
+    ("gemma-7b-softcap", (1, 16, 16, 2048, 2048, 256), torch.bfloat16, True, 0, 30.0, 8.0),
+    ("olmo-1b-fp32", (1, 16, 16, 2048, 2048, 128), torch.float32, True, 0, 0.0, 1.0),
+    ("ragged-1000", (2, 16, 16, 1000, 1000, 128), torch.bfloat16, True, 0, 0.0, 1.0),
+    ("hubert-xlarge-hd80", (2, 16, 16, 1500, 1500, 80), torch.bfloat16, False, 0, 0.0, 1.0),
+    ("stablelm-12b-hd160", (1, 32, 8, 2048, 2048, 160), torch.bfloat16, True, 0, 0.0, 1.0),
+    ("no-key", (1, 4, 2, 512, 256, 128), torch.bfloat16, True, 64, 0.0, 1.0),
+    ("no-key-fp32", (1, 4, 2, 512, 256, 128), torch.float32, True, 64, 0.0, 1.0),
 ]
-# K3 against its plain version.  Both keep scores, P and the sums in fp32 and
-# differ only in the order of the sums, far below a bf16 spacing.  So with
-# bf16 outputs the two roundings differ by at most one bf16 spacing of the
-# row's largest |output|, and only where the fp32 values straddle a rounding
-# boundary; with fp32 outputs sums of up to 2048 terms in another order
-# differ by tens of fp32 spacings of it.  The mean error relative to the mean
-# |output| then stays near 1e-6.  The controls, computed in every run, are
-# the plain version with P rounded to bf16 before P.V and, in the softcap
-# case, without the cap; the limits lie between the readings of the sound
-# runs and of the controls on the H100 (PERF.md), and the script fails if a
-# control passes the checks.
+# K3 against its plain version.  Both keep scores and the sums in fp32 and P
+# at fp32 accuracy (the bf16 kernel carries P as two bf16 terms, good to
+# about 2^-17) and differ only in the order of the sums, far below a bf16
+# spacing.  So with bf16 outputs the two roundings differ by at most one
+# bf16 spacing of the row's largest |output|, and only where the fp32 values
+# straddle a rounding boundary; with fp32 outputs sums of up to 2048 terms
+# in another order differ by tens of fp32 spacings of it.  The mean error
+# relative to the mean |output| then stays near 1e-6.  The controls,
+# computed in every run, are the plain version with P rounded to bf16
+# before P.V and, in the softcap case, without the cap; the limits lie
+# between the readings of the sound runs and of the controls on the H100
+# (PERF.md), and the script fails if a control passes the checks.
 FLASH_MAX_SPACINGS = {torch.bfloat16: 1.0, torch.float32: 512.0}
 FLASH_MEAN_RTOL = 2e-5
 
@@ -514,87 +528,77 @@ GEMM_CASES = [
 GEMM_RTOL = 1e-5
 
 
-def flash_work(B, H, KV, S, hd, itemsize, window) -> tuple[int, int]:
-    """(bytes, operations) of one causal call: q, k, v read once, the output
-    written once; 4 hd operations (QK^T and PV multiply-adds) per visible
-    (query, key) pair."""
-    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
-    nbytes = (2 * B * H * S * hd + 2 * B * KV * S * hd) * itemsize
-    return nbytes, B * H * pairs * 4 * hd
-
-
-def attention_p_bf16(q, k, v, *, window, softcap):
-    """A control: the plain version with P rounded to bf16 before P.V."""
-    B, H, S, hd = q.shape
-    KV = k.shape[1]
-    s = torch.einsum("bhgqd,bhkd->bhgqk", q.float().reshape(B, KV, H // KV, S, hd), k.float()) / hd**0.5
-    if softcap > 0:
-        s = softcap * torch.tanh(s / softcap)
-    pos = torch.arange(S, device=q.device)
-    rel = pos[:, None] - pos[None, :]
-    ok = (rel >= 0) & (rel < window) if window else rel >= 0
-    w = torch.softmax(s.masked_fill(~ok, -1e38), dim=-1).bfloat16().float()
-    return torch.einsum("bhgqk,bhkd->bhgqd", w, v.float()).reshape(B, H, S, hd).to(q.dtype)
-
-
-def flash_errors(out, ref) -> dict:
-    """max |out - ref| in spacings of out's dtype at the row's largest
-    |ref|, and mean |out - ref| over mean |ref|."""
-    d = (out.float() - ref.float()).abs()
-    rowmax = ref.float().abs().amax(-1, keepdim=True)
-    _, e = torch.frexp(rowmax.clamp_min(1e-30))
-    mant = {torch.bfloat16: 7, torch.float32: 23}[out.dtype]
-    return {"max_spacings": float((d / torch.exp2((e - 1 - mant).float())).max()),
-            "mean_rel": float(d.mean() / ref.float().abs().mean()), "max_abs": float(d.max())}
+def flash_work(B, H, KV, Sq, Skv, hd, itemsize, causal, window) -> tuple[int, int]:
+    """(bytes, operations) of one call: q, k, v read once, the output written
+    once; 4 hd operations (QK^T and PV multiply-adds) per visible (query,
+    key) pair, and the mean of V over all Skv keys for a row that sees no
+    key."""
+    r = np.arange(Sq)
+    lo = np.maximum(0, r - window + 1) if window else np.zeros_like(r)
+    hi = np.minimum(Skv, r + 1) if causal else np.full_like(r, Skv)
+    seen = np.maximum(0, hi - lo)
+    ops = int(seen.sum()) * 4 * hd + int((seen == 0).sum()) * Skv * hd
+    nbytes = (2 * B * H * Sq * hd + 2 * B * KV * Skv * hd) * itemsize
+    return nbytes, B * H * ops
 
 
 def flash_passes(r, dt) -> bool:
     return r["max_spacings"] <= FLASH_MAX_SPACINGS[dt] and r["mean_rel"] <= FLASH_MEAN_RTOL
 
 
+def finite_or_none(r: dict) -> dict:
+    return {k: v if np.isfinite(v) else None for k, v in r.items()}
+
+
 def flash_phase(device) -> dict:
     from repro_torch.kernels import flash_attention as K3
-    from repro_torch.kernels.flash_attention_ref import flash_attention_plain
+    from repro_torch.kernels.flash_attention_ref import flash_attention_plain, flash_attention_split_p, flash_errors
 
     main = None
-    for seed, (name, (B, H, KV, S, hd), dt, window, cap, q_scale) in enumerate(FLASH_CASES):
+    for seed, (name, (B, H, KV, Sq, Skv, hd), dt, causal, window, cap, q_scale) in enumerate(FLASH_CASES):
         g = torch.Generator(device=device).manual_seed(100 + seed)
-        q = (q_scale * torch.randn((B, H, S, hd), generator=g, device=device)).to(dt)
-        k = torch.randn((B, KV, S, hd), generator=g, device=device).to(dt)
-        v = torch.randn((B, KV, S, hd), generator=g, device=device).to(dt)
-        kw = dict(causal=True, window=window, softcap=cap)
+        q = (q_scale * torch.randn((B, H, Sq, hd), generator=g, device=device)).to(dt)
+        k = torch.randn((B, KV, Skv, hd), generator=g, device=device).to(dt)
+        v = torch.randn((B, KV, Skv, hd), generator=g, device=device).to(dt)
+        kw = dict(causal=causal, window=window, softcap=cap)
         out = K3.flash_attention_bhsd(q, k, v, **kw)
         ref = flash_attention_plain(q, k, v, **kw)
         errs = flash_errors(out, ref)
-        controls = {"p_bf16": flash_errors(attention_p_bf16(q, k, v, window=window, softcap=cap), ref)}
+        controls = {"p_bf16": flash_errors(flash_attention_split_p(q, k, v, terms=1, **kw), ref)}
         if cap:
-            controls["no_softcap"] = flash_errors(flash_attention_plain(q, k, v, causal=True, window=window), ref)
+            controls["no_softcap"] = flash_errors(flash_attention_plain(q, k, v, causal=causal, window=window), ref)
         model_layout_equal = None
         if seed == 0:  # the model's (B, S, H, hd) tensors, strided views in the kernel
             qm, km, vm = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             model_layout_equal = torch.equal(K3.flash_attention(qm, km, vm, **kw).transpose(1, 2), out)
             del qm, km, vm
-        del out, ref
-        lib = None
+        del out
+        lib = lib_errors = None
         if not cap:  # SDPA has no softcap
             mask = None
-            if window:
-                pos = torch.arange(S, device=device)
-                rel = pos[:, None] - pos[None, :]
-                mask = (rel >= 0) & (rel < window)
+            if window or (causal and Sq != Skv):
+                rel = torch.arange(Sq, device=device)[:, None] - torch.arange(Skv, device=device)[None, :]
+                mask = (rel >= 0) & (rel < window) if window else rel >= 0
 
             def lib(i, mask=mask):
-                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=H != KV)
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+                                                      enable_gqa=H != KV)
 
-        nbytes, flops = flash_work(B, H, KV, S, hd, q.element_size(), window)
+            lib_errors = finite_or_none(flash_errors(lib(0), ref))
+        del ref
+        nbytes, flops = flash_work(B, H, KV, Sq, Skv, hd, q.element_size(), causal, window)
         bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S if dt == torch.bfloat16 else FP32_FLOPS_PER_S)
         row = {
-            "phase": "kernel", "kernel": "flash_attention", "case": name, "shape": [B, H, KV, S, hd],
-            "dtype": str(dt).replace("torch.", ""), "window": window, "softcap": cap, "q_scale": q_scale,
-            "max_abs_err": errs["max_abs"], "errors": errs, "controls": controls,
+            "phase": "kernel", "kernel": "flash_attention", "case": name, "shape": [B, H, KV, Sq, Skv, hd],
+            "dtype": str(dt).replace("torch.", ""), "route": K3.ROUTES[dt], "causal": causal, "window": window,
+            "softcap": cap, "q_scale": q_scale, "max_abs_err": errs["max_abs"], "errors": errs, "controls": controls,
+            "library_errors": lib_errors,
             "tol": {"max_spacings": FLASH_MAX_SPACINGS[dt], "mean_rel": FLASH_MEAN_RTOL},
             "model_layout_equal": model_layout_equal,
             "kernel_ms": timed_ms(lambda i: K3.flash_attention_bhsd(q, k, v, **kw), iters=10, warmup=2),
+            # the CUDA-core kernel (v1) on the same bf16 inputs, the yardstick
+            "cuda_cores_ms": (timed_ms(lambda i: K3.flash_attention_cuda_cores(q, k, v, **kw), iters=5, warmup=1)
+                              if dt == torch.bfloat16 else None),
             "plain_ms": timed_ms(lambda i: flash_attention_plain(q, k, v, **kw), iters=5, warmup=1),
             "library_ms": timed_ms(lib, iters=10, warmup=2) if lib else None,
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -694,10 +698,23 @@ def gemm_phase(device) -> dict:
     return rows
 
 
+def kernel_label(mangled: str) -> str:
+    """A readable name for a kernel of K4's or K3's library: its template
+    arguments."""
+    import re
+
+    if m := re.search(r"fp8_gemm_kernelILb(\d)ELb(\d)E", mangled):
+        return f"a_e5m2={m[1]},b_e5m2={m[2]}"
+    if m := re.search(r"flash_tc_kernelILi(\d+)E", mangled):
+        return f"tensor_cores_bf16,hd_pad={m[1]}"
+    if m := re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d)E", mangled):
+        return f"cuda_cores_{'fp32' if m[1] == 'f' else 'bf16'},hd<={64 * int(m[2])}"
+    return mangled
+
+
 def hgmma_counts(lib) -> dict:
     """HGMMA (warpgroup MMA on fp16/bf16 operands) instructions in the SASS of
-    each kernel of K4's library, by the kernel's template arguments (a e5m2,
-    b e5m2)."""
+    each kernel of a library, by ``kernel_label``."""
     import re
 
     from repro_torch.kernels import build
@@ -707,8 +724,7 @@ def hgmma_counts(lib) -> dict:
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"fp8_gemm_kernelILb(\d)ELb(\d)E", line)
-            fn = f"a_e5m2={m[1]},b_e5m2={m[2]}" if m else line.split("Function :", 1)[1].strip()
+            fn = kernel_label(line.split("Function :", 1)[1].strip())
             counts[fn] = 0
         elif fn is not None:
             counts[fn] += bool(re.search(r"\bHGMMA\b", line))
@@ -929,8 +945,11 @@ def eval_phase(cfg, params, batch) -> dict:
         loss = float(loss_fn(cfg, params, batch, attn_impl=impl, compute_dtype=torch.bfloat16)[0])
         dt = time.perf_counter() - t0
         launches = K3.LAUNCHES["flash_attention"]
+        t0 = time.perf_counter()  # the same forward again, warm
+        float(loss_fn(cfg, params, batch, attn_impl=impl, compute_dtype=torch.bfloat16)[0])
+        warm = time.perf_counter() - t0
         logits = forward(cfg, params, batch, attn_impl=impl, compute_dtype=torch.bfloat16)[0]
-        return {"loss": loss, "wall_s": dt, "k3_launches": launches, "logits": logits}
+        return {"loss": loss, "wall_s": dt, "warm_wall_s": warm, "k3_launches": launches, "logits": logits}
 
     def readings(r):
         return {"loss_diff": abs(r["loss"] - ref["loss"]),
@@ -947,7 +966,9 @@ def eval_phase(cfg, params, batch) -> dict:
         finally:
             attention.flash_attention = k3
         out = {"phase": "eval", "loss": {"torch": ref["loss"], "flash": flash["loss"], "control": control["loss"]},
-               "wall_s": {"torch": ref["wall_s"], "flash": flash["wall_s"]}, "k3_launches": flash["k3_launches"],
+               "wall_s": {"torch": ref["wall_s"], "flash": flash["wall_s"]},
+               "warm_wall_s": {"torch": ref["warm_wall_s"], "flash": flash["warm_wall_s"]},
+               "k3_launches": flash["k3_launches"],
                "k3_launches_torch": ref["k3_launches"],
                "flash_vs_torch": readings(flash), "control_vs_torch": readings(control), "limits": EVAL_LIMITS}
         del ref, flash, control
@@ -1370,12 +1391,19 @@ def main() -> int:
         emit({"phase": "build", "source": src, "seconds": secs, "library": os.path.relpath(lib, ROOT),
               "ptxas": [ln.strip() for ln in log.splitlines() if "registers" in ln or "Compiling" in ln]})
     emit({"phase": "build", "wall_seconds": time.perf_counter() - t0})
-    # K4 runs on the tensor cores: each of its four kernels (one per type
-    # pair) holds HGMMA
-    hgmma = hgmma_counts(dict((src, lib) for src, _, lib, _ in built)["fp8_gemm.cu"])
+    # K4 and K3's bf16 route run on the tensor cores: each of K4's four
+    # kernels (one per type pair) and each of K3's four bf16 kernels (one per
+    # padded head dim) holds HGMMA
+    libs = {src: lib for src, _, lib, _ in built}
+    hgmma = hgmma_counts(libs["fp8_gemm.cu"])
     emit({"phase": "sass", "source": "fp8_gemm.cu", "hgmma_per_kernel": hgmma})
     if len(hgmma) != 4 or min(hgmma.values()) == 0:
         fail(f"fp8_gemm.cu: K4 needs four kernels that each hold HGMMA: {hgmma}")
+    hgmma_k3 = hgmma_counts(libs["flash_attention.cu"])
+    emit({"phase": "sass", "source": "flash_attention.cu", "hgmma_per_kernel": hgmma_k3})
+    k3_tc = [n for n in hgmma_k3 if n.startswith("tensor_cores_bf16")]
+    if len(k3_tc) != 4 or min(hgmma_k3[n] for n in k3_tc) == 0:
+        fail(f"flash_attention.cu: K3's bf16 route needs four kernels that each hold HGMMA: {hgmma_k3}")
 
     seconds = {"build": time.perf_counter() - t0}
 
@@ -1438,6 +1466,8 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
     for k in kernels:  # K4's time covers its layout copies; the parts beside it
+        if k["name"] == "flash_attention":  # the bf16 route's kernel, v1 beside it
+            k.update(kernel=flash_main["route"], cuda_cores_ms=flash_main["cuda_cores_ms"])
         if k["name"] == "fp8_gemm":
             k.update(kernel_alone_ms=gemm_main["kernel_alone_ms"], layout_copy_ms=gemm_main["layout_copy_ms"],
                      layout_copies_per_call=gemm_main["layout_copies"],

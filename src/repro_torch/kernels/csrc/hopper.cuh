@@ -1,13 +1,15 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
-// mbarriers, TMA tensor maps and loads, wgmma shared-memory descriptors,
-// fences and the m64n128 product.  Header only; every function is inline.
+// mbarriers, TMA tensor maps and loads (rank 2 and rank 4), wgmma
+// shared-memory descriptors (K-major and MN-major), fences and the fp16 and
+// bf16 products.  Header only; every function is inline.
 //
 // Conventions.  Shared-memory addresses are 32-bit addresses in the shared
-// window (``smem_addr``).  Operand tiles are K-major with the 128-byte
-// swizzle: each row of a tile is 128 bytes of k (128 fp8 or 64 16-bit
-// values), eight rows form a 1024-byte swizzle atom, and a tile starts on a
-// 1024-byte boundary.  TMA writes that layout (CU_TENSOR_MAP_SWIZZLE_128B
-// with a 128-byte inner box) and ``smem_desc`` describes it to wgmma.
+// window (``smem_addr``).  Operand tiles carry the 128-byte swizzle: each
+// row of a tile is 128 bytes (128 fp8 or 64 16-bit values), eight rows form
+// a 1024-byte swizzle atom, and a tile starts on a 1024-byte boundary.  TMA
+// writes that layout (CU_TENSOR_MAP_SWIZZLE_128B with a 128-byte inner box).
+// A tile whose rows run along k is K-major (``smem_desc``); one whose rows
+// run along m or n, with k from row to row, is MN-major (``smem_desc_mn``).
 //
 // libcuda's cuTensorMapEncodeTiled is looked up at run time through the
 // CUDA runtime's entry-point query, so a library that includes this header
@@ -89,6 +91,17 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// 4-D tile load: the box at (c0 innermost, c1, c2, c3) of the tensor map,
+// as ``tma_load_2d``.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -127,6 +140,25 @@ inline bool encode_kmajor_sw128(CUtensorMap* map, const void* base, uint64_t row
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Tensor map of a rank-4 tensor with extents ``dims`` (innermost first, the
+// innermost of unit stride) and byte strides ``strides`` of dims 1..3 (each
+// a multiple of 16), read in boxes of 128 bytes x ``box_rows`` x 1 x 1 with
+// the 128-byte swizzle.  Parts of a box past an extent, the innermost
+// included, are filled with zeros.  Returns false if the encoding is refused.
+inline bool encode_rank4_sw128(CUtensorMap* map, const void* base, const uint64_t (&dims)[4],
+                               const uint64_t (&strides)[3], uint32_t box_rows, uint32_t elem_bytes,
+                               CUtensorMapDataType dtype) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t st[3] = {strides[0], strides[1], strides[2]};
+  const cuuint32_t box[4] = {128u / elem_bytes, box_rows, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return fn(map, dtype, 4, const_cast<void*>(base), d, st, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -138,6 +170,17 @@ inline bool encode_kmajor_sw128(CUtensorMap* map, const void* base, uint64_t row
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
   return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
          (uint64_t(1) << 62);
+}
+
+// Descriptor of an MN-major operand tile with the 128-byte swizzle at
+// ``addr``: each 128-byte row holds 64 values along m (or n) at one k, rows
+// are consecutive k; 8-row groups (k) are 1024 bytes apart (stride byte
+// offset) and the next 64 values along m or n start ``mn_stride`` bytes on
+// (leading byte offset).  Moving 16 along k adds 2048 bytes to ``addr``.
+// wgmma reads such a tile as B of a 16-bit product with the transpose bit.
+__device__ __forceinline__ uint64_t smem_desc_mn(uint32_t addr, uint32_t mn_stride) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t((mn_stride >> 4) & 0x3FFF) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -163,6 +206,17 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
+
+// The 32 accumulator operands of an m64n64 product, as inline-asm lists.
+#define HOPPER_D32_STR                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                     \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define HOPPER_D32_OPS(d)                                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),           \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),   \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),             \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),             \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
 
 // The 64 accumulator operands of an m64n128 product, as inline-asm lists.
 #define HOPPER_D64_STR                                                                          \
@@ -198,14 +252,59 @@ __device__ __forceinline__ void wgmma_m64n128k16_f16_rs(float (&d)[64], uint32_t
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
 }
 
+// d (64 x 64, fp32) = A (64 x 16) B^T (64 x 16) [+ d if accumulate], bf16
+// operands, both K-major in shared memory (``smem_desc``).  The products
+// are exact; the tensor cores sum them in fp32 with truncation.
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                        int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32_STR
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_D32_OPS(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) = A (64 x 16) B (16 x 64) [+ d if accumulate], bf16
+// operands: A from registers (``a_frag_row``), B MN-major in shared memory
+// (``smem_desc_mn``: 16 rows of k, each 64 values of n), read with the
+// transpose bit.
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_rs_mn(float (&d)[32], uint32_t a0, uint32_t a1,
+                                                           uint32_t a2, uint32_t a3, uint64_t db,
+                                                           int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32_STR
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : HOPPER_D32_OPS(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+}
+
+// The same at n = 128, two MN-major 64-column tiles ``mn_stride`` bytes
+// apart (the descriptor's leading byte offset): d0 takes columns 0..63 and
+// d1 columns 64..127, each in the m64n64 layout.
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_rs_mn(float (&d0)[32], float (&d1)[32], uint32_t a0,
+                                                            uint32_t a1, uint32_t a2, uint32_t a3, uint64_t db,
+                                                            int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64_STR
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : HOPPER_D32_OPS(d0), HOPPER_D32_OPS(d1)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+}
+
 // The A fragment from registers, for the thread with index ``t`` in its
 // warpgroup: register r (0..3) holds the two values of row
 // (t >> 5) * 16 + ((t & 31) >> 2) + 8 * (r & 1) at k = 2 * (t & 3) + 8 * (r >> 1)
 // and the next k.
 __device__ __forceinline__ int a_frag_row(int t, int r) { return (t >> 5) * 16 + ((t & 31) >> 2) + 8 * (r & 1); }
 
-// Row and column, within the 64 x 128 tile, of accumulator register i of
-// the thread with index ``t`` in its warpgroup (0..127).
+// Row and column, within the 64 x n tile, of accumulator register i of
+// the thread with index ``t`` in its warpgroup (0..127).  Registers
+// 8 j + 2 r and 8 j + 2 r + 1 hold the two values of A fragment register r
+// (``a_frag_row``) of k16 step j of a product whose A is this tile, so an
+// accumulator feeds the next product without leaving the registers.
 __device__ __forceinline__ int acc_row(int t, int i) { return (t >> 5) * 16 + ((t & 31) >> 2) + 8 * ((i >> 1) & 1); }
 __device__ __forceinline__ int acc_col(int t, int i) { return (i >> 2) * 8 + (t & 3) * 2 + (i & 1); }
 

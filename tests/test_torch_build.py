@@ -46,3 +46,16 @@ def test_a_missing_header_raises(csrc):
 def test_the_repository_sources_hash():
     for src in ("paged_attention.cu", "fp8_gemm.cu", "flash_attention.cu", "babelstream.cu", "rwkv6_scan.cu"):
         assert build.library_path(src).name.startswith(f"lib{src[:-3]}_")
+
+
+@pytest.mark.parametrize("src", ["fp8_gemm.cu", "flash_attention.cu"])
+def test_tensor_core_sources_follow_hopper_cuh(src, tmp_path, monkeypatch):
+    # the two tensor-core kernels include hopper.cuh: an edit of it builds them anew
+    for f in build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    assert '#include "hopper.cuh"' in (tmp_path / src).read_text()
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build.library_path(src)
+    with open(tmp_path / "hopper.cuh", "a") as f:
+        f.write("// edited\n")
+    assert build.library_path(src) != first

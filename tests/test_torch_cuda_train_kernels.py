@@ -5,9 +5,12 @@ Needs no JAX, so it runs where the card is:
 skips on a host without CUDA.
 
 K4: its products are exact and its sums fp32, so only the order of the
-fp32 sums differs: 1e-5 of the output's largest magnitude.  K3: both compute in fp32
-(1e-4, as K1/K2); with bf16 inputs both round the output to bf16, one ulp
-of 2^-7 relative on outputs below 4 (2e-2).
+fp32 sums differs: 1e-5 of the output's largest magnitude.  K3 with fp32
+inputs (the CUDA-core kernel): both compute in fp32 (1e-4, as K1/K2).  K3
+with bf16 inputs (the tensor-core kernel, P split into two bf16 terms):
+``chip_smoke.py``'s limits, at most one bf16 spacing of the row's largest
+|output| and a mean error of 2e-5 of the mean |output|; the plain version
+with P rounded to bf16 before P.V, a control, must fail them.
 """
 
 import pytest
@@ -17,7 +20,7 @@ from repro_torch.fp8 import E4M3, E5M2, compute_scale, quantize, tensor_amax
 from repro_torch.fp8 import gemm as K4
 from repro_torch.fp8.gemm_ref import fp8_gemm_plain
 from repro_torch.kernels import flash_attention as K3
-from repro_torch.kernels.flash_attention_ref import flash_attention_plain
+from repro_torch.kernels.flash_attention_ref import flash_attention_plain, flash_attention_split_p, flash_errors
 
 
 def _card():
@@ -67,7 +70,23 @@ FLASH_GPU_CASES = [
     (1, 2, 2, 256, 256, 256, True, 0, 30.0, torch.float32),
     (1, 4, 2, 130, 170, 16, False, 0, 0.0, torch.bfloat16),
     (1, 2, 1, 384, 384, 32, True, 0, 0.0, torch.float32),
+    # the tensor-core kernel: hd 64, 80, 128, 160 and 256 (TMA pads hd to a
+    # multiple of 64), GQA, window, softcap, ragged, Sq != Skv, short
+    (2, 4, 4, 256, 256, 64, True, 0, 0.0, torch.bfloat16),
+    (1, 4, 2, 300, 300, 80, False, 0, 0.0, torch.bfloat16),
+    (2, 8, 2, 384, 384, 128, True, 64, 0.0, torch.bfloat16),
+    (1, 4, 2, 257, 257, 160, True, 0, 0.0, torch.bfloat16),
+    (1, 2, 2, 256, 256, 256, True, 0, 30.0, torch.bfloat16),
+    (1, 4, 4, 300, 300, 256, True, 100, 0.0, torch.bfloat16),
+    (1, 4, 2, 192, 320, 128, False, 0, 0.0, torch.bfloat16),
+    (1, 4, 2, 320, 192, 64, True, 32, 0.0, torch.bfloat16),  # rows >= 223 see no key
+    (1, 2, 2, 96, 96, 32, True, 0, 0.0, torch.bfloat16),
 ]
+FLASH_BF16_LIMITS = {"max_spacings": 1.0, "mean_rel": 2e-5}  # chip_smoke.py's
+
+
+def _flash_passes(r) -> bool:
+    return r["max_spacings"] <= FLASH_BF16_LIMITS["max_spacings"] and r["mean_rel"] <= FLASH_BF16_LIMITS["mean_rel"]
 
 
 @pytest.mark.gpu
@@ -75,7 +94,8 @@ FLASH_GPU_CASES = [
 def test_cuda_flash_attention_matches_plain(B, H, KV, Sq, Skv, hd, causal, window, softcap, dtype):
     _card()
     g = torch.Generator().manual_seed(Sq + hd)
-    q = torch.randn((B, H, Sq, hd), generator=g).to(dtype).cuda()
+    # with a softcap, scores of standard deviation 8 reach the cap
+    q = ((8.0 if softcap else 1.0) * torch.randn((B, H, Sq, hd), generator=g)).to(dtype).cuda()
     k = torch.randn((B, KV, Skv, hd), generator=g).to(dtype).cuda()
     v = torch.randn((B, KV, Skv, hd), generator=g).to(dtype).cuda()
     kw = dict(causal=causal, window=window, softcap=softcap)
@@ -86,9 +106,31 @@ def test_cuda_flash_attention_matches_plain(B, H, KV, Sq, Skv, hd, causal, windo
     out_m = K3.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw)
     torch.cuda.synchronize()
     assert K3.LAUNCHES["flash_attention"] == before + 2
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-    assert out.dtype == dtype and float((out.float() - ref.float()).abs().max()) < tol
-    assert torch.equal(out_m.transpose(1, 2), out)
+    assert out.dtype == dtype and torch.equal(out_m.transpose(1, 2), out)
+    if dtype == torch.float32:
+        assert float((out - ref).abs().max()) < 1e-4
+    else:
+        errs = flash_errors(out, ref)
+        assert _flash_passes(errs), errs
+        control = flash_errors(flash_attention_split_p(q, k, v, terms=1, **kw), ref)
+        assert not _flash_passes(control), control
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_attention_no_key_rows(dtype):
+    # Sq > Skv with a window: rows >= Skv + window - 1 see no key, where the
+    # Pallas kernel and the plain version give the mean of V over all keys
+    _card()
+    B, H, KV, Sq, Skv, hd, window = 1, 4, 2, 512, 256, 128, 64
+    g = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn(s, generator=g).to(dtype).cuda() for s in ((B, H, Sq, hd), (B, KV, Skv, hd), (B, KV, Skv, hd)))
+    out = K3.flash_attention_bhsd(q, k, v, causal=True, window=window)
+    ref = flash_attention_plain(q, k, v, causal=True, window=window)
+    mean_v = v.float().mean(2).repeat_interleave(H // KV, 1)[:, :, None].expand(B, H, Sq - Skv - window + 1, hd)
+    torch.testing.assert_close(ref[:, :, Skv + window - 1 :].float(), mean_v, rtol=0, atol=1e-2 if dtype == torch.bfloat16 else 1e-6)
+    errs = flash_errors(out, ref)
+    assert errs["max_spacings"] <= (1.0 if dtype == torch.bfloat16 else 512.0) and errs["mean_rel"] <= 2e-5, errs
 
 
 @pytest.mark.gpu
