@@ -9,13 +9,22 @@ or when any check fails.  Phases:
    versions, then ``nvcc`` builds the five sources of
    ``src/repro_torch/kernels/csrc`` for ``sm_90a``, all started together,
    with the seconds each took; then the count of HGMMA (``wgmma``)
-   instructions in each kernel of K4 and K3 (``cuobjdump -sass``): each of
-   K4's four kernels and of K3's four bf16 kernels must hold some.
+   instructions in each kernel of K4, K3 and K2 (``cuobjdump -sass``): each
+   of K4's four kernels, K3's four bf16 kernels and K2's eight tensor-core
+   kernels must hold some.
 2. Kernels: K1 (paged decode) and K2 (chunked prefill) against their plain
    PyTorch versions on the card, bf16 pools, fp32 and bf16 queries, at the
    head shapes of olmo-1b, mistral-nemo-12b and gemma-7b, block size 32,
    random block tables with null padding and ragged lengths, plus one
-   sliding-window and one softcap case.  Then K3 (flash attention forward)
+   sliding-window and one softcap case, and for K2 the short and ragged
+   chunks serving runs (C = 1 and 16 at 192, C = 40 at 200).  Each case
+   names the kernel it runs (``route``: K2's bf16 pools run on the tensor
+   cores), reads the max error against ``TOL``, the mean error and
+   (reported only) the signed bias, and a control that must fail ``TOL``
+   (fp32 queries: q rounded to one bf16 term; bf16 queries: the causal
+   mask off by one); K2 cases also time v1 (the CUDA-core yardstick) and
+   the kernel without its cluster split, and read the host time of one
+   call for both routes.  Then K3 (flash attention forward)
    at olmo-1b's training shape and GQA, window, softcap, fp32, ragged, head
    dim 80 and 160 and no-key (Sq > Skv with a window) cases, each naming
    the kernel its dtype runs (``route``), with SDPA's errors and the
@@ -27,6 +36,13 @@ or when any check fails.  Phases:
    the plain version's and the library's time, and the case's bound.  K3
    is also run on the model's strided layout, and each K3 case computes a
    control (the plain version with one fault) that its checks must reject.
+   Kernel times are device times: the timed calls are queued behind a
+   device sleep, so the host's enqueue does not set them.  Each kernel's
+   row also reads ``kernel_enqueue_ms``, the calls timed back to back with
+   nothing queued ahead, where a wrapper slower on the host than its
+   kernel on the device sets the time, as on the serving path (the
+   ``kernels`` line's ``enqueue_ms``).  K2's bound on the tensor cores
+   counts its bf16 products at the bf16 rate, two terms of fp32 q and of P.
 3. Serving: the engine serves 8 greedy requests on the full-width olmo-1b
    (random weights from a seed) with bf16 pools, block size 32, 4 slots,
    a 128-token prefill budget and the prefix cache.  The launch counters
@@ -137,8 +153,36 @@ def bound(nbytes: float, flops: float, rate: float) -> tuple[float, str]:
     return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
 
 
+CLOCK_HZ = 1.98e9  # H100 SXM boost clock: a device sleep of n cycles lasts at least n / CLOCK_HZ s
+
+
 def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean time of ``fn(i)`` over ``iters`` calls, by CUDA events."""
+    """Mean device time of ``fn(i)`` over ``iters`` calls, by CUDA events.
+    The calls are queued behind a device sleep longer than their host time,
+    so the events time the device's work back to back, not the host's
+    enqueue (``enqueue_ms`` and ``host_us`` read that)."""
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(0)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(CLOCK_HZ * min(1.5 * iters * host_s + 1e-3, 0.5)))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def enqueue_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean time of ``fn(i)`` over ``iters`` calls issued back to back by the
+    host, by CUDA events with nothing queued ahead: the device time where
+    the device is the slower side, else the host's rate of issue, which is
+    what a caller such as the serving loop pays per call."""
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
@@ -151,19 +195,39 @@ def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_times(fn, iters: int = 20, warmup: int = 3) -> dict:
+    """A kernel's two readings: device time (``kernel_ms``) and the time per
+    call at the host's rate of issue (``kernel_enqueue_ms``)."""
+    return {"kernel_ms": timed_ms(fn, iters, warmup), "kernel_enqueue_ms": enqueue_ms(fn, iters, warmup)}
+
+
+def host_us(fn, iters: int = 30) -> float:
+    """Median host time of one ``fn(i)`` call with the device idle: the
+    wrapper's checks, allocation, argument packing and launch."""
+    walls = []
+    for i in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(i)
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e6 * float(np.median(walls))
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 
-def kernel_case(kind, H, KV, hd, q_dtype, window, softcap, device, layers=16, seed=0):
+def kernel_case(kind, H, KV, hd, q_dtype, window, softcap, device, layers=16, seed=0, C=PREFILL_C, start=PREFILL_START):
     """Inputs of one case.  ``layers`` pools are made so that timing loops
     can read a different layer's pool each call, as the model does; their
-    total exceeds the 50 MB L2 cache."""
+    total exceeds the 50 MB L2 cache.  Prefill: one C-token chunk at
+    ``start``."""
     g = torch.Generator().manual_seed(seed)
     B = len(DECODE_LENS) if kind == "decode" else 1
     N = 1 + B * NB + 2
-    last = [n - 1 for n in DECODE_LENS] if kind == "decode" else [PREFILL_START + PREFILL_C - 1]
+    last = [n - 1 for n in DECODE_LENS] if kind == "decode" else [start + C - 1]
     tbl = (torch.randperm(N - 1, generator=g)[: B * NB] + 1).reshape(B, NB).to(torch.int32)
     for b in range(B):
         tbl[b, last[b] // BLOCK_SIZE + 1 :] = 0  # null padding past the live blocks
@@ -172,18 +236,19 @@ def kernel_case(kind, H, KV, hd, q_dtype, window, softcap, device, layers=16, se
         q = torch.randn((B, H, hd), generator=g)
         lens = torch.tensor(DECODE_LENS, dtype=torch.int32)
     else:
-        q = torch.randn((B, PREFILL_C, H, hd), generator=g)
-        lens = torch.tensor([PREFILL_START], dtype=torch.int32)
+        q = torch.randn((B, C, H, hd), generator=g)
+        lens = torch.tensor([start], dtype=torch.int32)
     to = lambda t: t.to(device)  # noqa: E731
     return dict(
-        kind=kind, H=H, KV=KV, hd=hd, window=window, softcap=softcap, q=to(q.to(q_dtype)),
+        kind=kind, H=H, KV=KV, hd=hd, window=window, softcap=softcap, q=to(q.to(q_dtype)), C=C, start=start,
         k=to(pools[0]), v=to(pools[1]), tbl=to(tbl), lens=to(lens), layers=layers,
     )
 
 
 def case_work(c) -> tuple[int, int]:
-    """(bytes, fp32 operations) the case needs: each input read once, each
-    output written once, K/V only at the positions some query can see."""
+    """(bytes, multiply-adds of one product) the case needs: each input read
+    once, each output written once, K/V only at the positions some query
+    can see; Q K^T and P V each take the multiply-adds returned."""
     H, KV, hd, w = c["H"], c["KV"], c["hd"], c["window"]
     q_bytes = c["q"].numel() * c["q"].element_size()
     kv_row = KV * hd * c["k"].element_size() * 2  # K and V of one position
@@ -192,10 +257,11 @@ def case_work(c) -> tuple[int, int]:
         vis = [min(n, w) if w else n for n in DECODE_LENS]
         kv_rows, pairs = sum(vis), sum(vis)
     else:
-        lo = max(0, PREFILL_START - w + 1) if w else 0
-        kv_rows = PREFILL_START + PREFILL_C - lo
-        pairs = sum(min(PREFILL_START + i + 1, w) if w else PREFILL_START + i + 1 for i in range(PREFILL_C))
-    return 2 * q_bytes + kv_rows * kv_row + meta, pairs * H * hd * 4  # QK^T and PV: 2 multiply-adds
+        start, C = c["start"], c["C"]
+        lo = max(0, start - w + 1) if w else 0
+        kv_rows = start + C - lo
+        pairs = sum(min(start + i + 1, w) if w else start + i + 1 for i in range(C))
+    return 2 * q_bytes + kv_rows * kv_row + meta, pairs * H * hd
 
 
 def library_call(c, attend):
@@ -214,7 +280,7 @@ def library_call(c, attend):
         q_pos = (c["lens"].long() - 1)[:, None]  # (B, 1)
     else:
         qq = q.transpose(1, 2)  # (B, H, C, hd)
-        q_pos = c["lens"].long()[:, None] + torch.arange(PREFILL_C, device=q.device)[None]  # (B, C)
+        q_pos = c["lens"].long()[:, None] + torch.arange(c["C"], device=q.device)[None]  # (B, C)
     ok = kv_pos[None, None] <= q_pos[..., None]
     if c["window"]:
         ok &= (q_pos[..., None] - kv_pos[None, None]) < c["window"]
@@ -234,43 +300,100 @@ def library_call(c, attend):
     return call, float((out.float() - ref.float()).abs().max())
 
 
+# K1 / K2 cases: model, (H, KV, hd), q dtype, window, softcap, and for K2
+# the chunk (C, start): the three head shapes in both q dtypes, a sliding
+# window and a softcap case at the serving chunk, then the short and
+# ragged chunks serving runs (C = 1 and 16 at 192; C = 40 at 200, rows not
+# a multiple of 64 and a start inside a block)
+KERNEL_CASES = [(m, (H, KV, hd), dt, 0, 0.0) for (m, H, KV, hd) in HEAD_SHAPES for dt in (torch.float32, torch.bfloat16)]
+KERNEL_CASES += [("mistral-nemo-12b", (32, 8, 128), torch.float32, 32, 0.0), ("gemma-7b", (16, 16, 256), torch.float32, 0, 30.0)]
+PREFILL_CASES = [(*case, (PREFILL_C, PREFILL_START)) for case in KERNEL_CASES]
+PREFILL_CASES += [("olmo-1b", (16, 16, 128), torch.float32, 0, 0.0, chunk) for chunk in ((1, 192), (16, 192), (40, 200))]
+
+
+def case_bound(c, route: str) -> tuple[float, str]:
+    """The case's bound on its route.  The CUDA-core kernels do the two
+    products in fp32 at the fp32 rate; the tensor-core route does them as
+    bf16 products at the bf16 rate, Q K^T once per bf16 term of q (two for
+    fp32 queries) and P V once per term of P (two)."""
+    nbytes, macs = case_work(c)
+    if route == "tensor_cores_bf16":
+        q_terms = 2 if c["q"].dtype == torch.float32 else 1
+        return bound(nbytes, 2 * macs * (q_terms + 2), BF16_FLOPS_PER_S)
+    return bound(nbytes, 2 * macs * 2, FP32_FLOPS_PER_S)
+
+
+def kernel_control(c, plain, kw):
+    """The plain version with one fault, which the limit must reject: for
+    fp32 queries q rounded to one bf16 term (what the tensor-core route
+    would read without its split), for bf16 queries the causal mask off by
+    one (each row also sees q_pos + 1)."""
+    if c["q"].dtype == torch.float32:
+        return "q_bf16", plain(c["q"].bfloat16().float(), c["k"][0], c["v"][0], c["tbl"], c["lens"], **kw)
+    return "mask_plus_one", plain(c["q"], c["k"][0], c["v"][0], c["tbl"], c["lens"] + 1, **kw)
+
+
 def kernel_phase(device) -> dict:
     from repro_torch.kernels import paged_attention as K
+    from repro_torch.kernels.flash_attention_ref import flash_errors
     from repro_torch.kernels.paged_attention_ref import paged_attention_plain, paged_prefill_attention_plain
 
     fns = {"decode": (K.paged_attention, paged_attention_plain), "prefill": (K.paged_prefill_attention, paged_prefill_attention_plain)}
-    cases = [(m, H, KV, hd, dt, 0, 0.0) for (m, H, KV, hd) in HEAD_SHAPES for dt in (torch.float32, torch.bfloat16)]
-    cases += [("mistral-nemo-12b", 32, 8, 128, torch.float32, 32, 0.0), ("gemma-7b", 16, 16, 256, torch.float32, 0, 30.0)]
-    main = {}  # per kernel: the serving path's case (olmo-1b, fp32 queries)
+    main = {}  # per kernel: the serving path's case (olmo-1b, fp32 queries, the 128-token chunk)
     for kind in ("decode", "prefill"):
         kernel, plain = fns[kind]
-        for seed, (model, H, KV, hd, dt, window, cap) in enumerate(cases):
-            c = kernel_case(kind, H, KV, hd, dt, window, cap, device, seed=seed)
+        cases = KERNEL_CASES if kind == "decode" else PREFILL_CASES
+        for seed, (model, (H, KV, hd), dt, window, cap, *chunk) in enumerate(cases):
+            C, start = chunk[0] if chunk else (PREFILL_C, PREFILL_START)
+            c = kernel_case(kind, H, KV, hd, dt, window, cap, device, seed=seed, C=C, start=start)
             kw = dict(softcap=cap, window=window)
 
-            def run(fn, i, c=c, kw=kw):
+            def run(fn, i, c=c, kw=kw, **extra):
                 layer = i % c["layers"]
-                return fn(c["q"], c["k"][layer], c["v"][layer], c["tbl"], c["lens"], **kw)
+                return fn(c["q"], c["k"][layer], c["v"][layer], c["tbl"], c["lens"], **kw, **extra)
 
-            err = float((run(kernel, 0).float() - run(plain, 0).float()).abs().max())
+            out, ref = run(kernel, 0), run(plain, 0)
             torch.cuda.synchronize()
+            errs = flash_errors(out, ref)
+            control_name, control_out = kernel_control(c, plain, kw)
+            control = flash_errors(control_out, ref)
+            del out, control_out
             tol = TOL[dt]
             lib = library_call(c, lambda i: run(plain, i))
-            nbytes, flops = case_work(c)
+            route = K.DECODE_ROUTE if kind == "decode" else K.prefill_route(dt, c["k"].dtype)
+            bound_ms, bound_by = case_bound(c, route)
             row = {
                 "phase": "kernel", "kernel": f"paged_{kind}", "model": model, "q_dtype": str(dt).replace("torch.", ""),
-                "window": window, "softcap": cap, "max_abs_err": err, "tol": tol,
-                "kernel_ms": timed_ms(lambda i: run(kernel, i)),
+                "route": route,
+                "window": window, "softcap": cap, "max_abs_err": errs["max_abs"], "tol": tol,
+                "mean_rel": errs["mean_rel"], "mean_bias": errs["mean_bias"],  # the bias is reported only
+                "control": control_name, "control_max_abs_err": control["max_abs"],
+                **kernel_times(lambda i: run(kernel, i)),
                 "plain_ms": timed_ms(lambda i: run(plain, i)),
                 "library_ms": timed_ms(lib[0]) if lib else None,
                 "library_max_abs_err": lib[1] if lib else None,
-                "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S),
-                "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS_PER_S else "operations",
+                "bound_ms": bound_ms, "bound_by": bound_by,
             }
+            if kind == "prefill":
+                cuda_cores = K.paged_prefill_attention_cuda_cores
+                v1_err = float((run(cuda_cores, 0).float() - ref.float()).abs().max())
+                row.update(
+                    C=C, start=start, split=K._prefill_split(c["q"], c["k"][0], c["tbl"], softcap=cap, window=window),
+                    # the kernel without the cluster split, and v1 (the yardstick) on the same inputs
+                    split1_ms=timed_ms(lambda i: run(K._prefill_launch, i, split=1)),
+                    cuda_cores_ms=timed_ms(lambda i: run(cuda_cores, i)), cuda_cores_max_abs_err=v1_err,
+                    host_us=host_us(lambda i: run(kernel, i)), cuda_cores_host_us=host_us(lambda i: run(cuda_cores, i)),
+                )
             emit(row)
-            if not err < tol:
-                fail(f"{row['kernel']} {model} {row['q_dtype']} window={window} softcap={cap}: err {err} >= {tol}")
-            if model == "olmo-1b" and dt == torch.float32:
+            del ref
+            if not errs["max_abs"] < tol:
+                fail(f"{row['kernel']} {model} {row['q_dtype']} window={window} softcap={cap}: err {errs['max_abs']} >= {tol}")
+            if not control["max_abs"] > tol:
+                fail(f"{row['kernel']} {model} {row['q_dtype']}: the control {control_name} passes "
+                     f"({control['max_abs']} <= {tol}), which then proves nothing")
+            if kind == "prefill" and not row["cuda_cores_max_abs_err"] < tol:
+                fail(f"paged_prefill_cuda_cores {model} {row['q_dtype']}: err {row['cuda_cores_max_abs_err']} >= {tol}")
+            if model == "olmo-1b" and dt == torch.float32 and f"paged_{kind}" not in main:
                 main[f"paged_{kind}"] = row
             del c
     return main
@@ -595,7 +718,7 @@ def flash_phase(device) -> dict:
             "library_errors": lib_errors,
             "tol": {"max_spacings": FLASH_MAX_SPACINGS[dt], "mean_rel": FLASH_MEAN_RTOL},
             "model_layout_equal": model_layout_equal,
-            "kernel_ms": timed_ms(lambda i: K3.flash_attention_bhsd(q, k, v, **kw), iters=10, warmup=2),
+            **kernel_times(lambda i: K3.flash_attention_bhsd(q, k, v, **kw), iters=10, warmup=2),
             # the CUDA-core kernel (v1) on the same bf16 inputs, the yardstick
             "cuda_cores_ms": (timed_ms(lambda i: K3.flash_attention_cuda_cores(q, k, v, **kw), iters=5, warmup=1)
                               if dt == torch.bfloat16 else None),
@@ -680,7 +803,7 @@ def gemm_phase(device) -> dict:
             "rel_err": kernel_rel_err, "library_max_abs_err": lib_err, "layout_copies": copies,
             # the wrapper on the operands as the path passes them, its layout
             # copies included; the kernel alone; the copies alone
-            "kernel_ms": timed_ms(lambda i: K4.fp8_gemm(a, b, sa, sb), iters=20, warmup=3),
+            **kernel_times(lambda i: K4.fp8_gemm(a, b, sa, sb), iters=20, warmup=3),
             "kernel_alone_ms": timed_ms(lambda i: K4.fp8_gemm(ak, bk, sa, sb), iters=20, warmup=3),
             "layout_copy_ms": timed_ms(layout_copies, iters=20, warmup=3) if copies else 0.0,
             "plain_ms": timed_ms(lambda i: fp8_gemm_plain(a, b, sa, sb), iters=10, warmup=2),
@@ -699,10 +822,15 @@ def gemm_phase(device) -> dict:
 
 
 def kernel_label(mangled: str) -> str:
-    """A readable name for a kernel of K4's or K3's library: its template
-    arguments."""
+    """A readable name for a kernel of K4's, K3's or K1/K2's library: its
+    template arguments."""
     import re
 
+    dtype = {"f": "fp32", "13__nv_bfloat16": "bf16"}
+    if m := re.search(r"paged_prefill_tc_kernelI(f|13__nv_bfloat16)Li(\d+)E", mangled):
+        return f"prefill_tensor_cores,q={dtype[m[1]]},hd_pad={m[2]}"
+    if m := re.search(r"paged_(prefill|decode)_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)E", mangled):
+        return f"{m[1]}_cuda_cores,q={dtype[m[2]]},pools={'fp32' if m[3] == 'f' else 'bf16'}"
     if m := re.search(r"fp8_gemm_kernelILb(\d)ELb(\d)E", mangled):
         return f"a_e5m2={m[1]},b_e5m2={m[2]}"
     if m := re.search(r"flash_tc_kernelILi(\d+)E", mangled):
@@ -1077,11 +1205,12 @@ def stream_phase(device, n=STREAM_N) -> dict:
             flops = {"copy": 0, "mul": n, "add": n, "triad": 2 * n, "dot": 2 * n}[name]
             nbytes = K6.stream_bytes(name, n, a.element_size()) + (4 * (n // K6.DEFAULT_BLOCK) if name == "dot" else 0)
             bound_ms, bound_by = bound(nbytes, flops, FP32_FLOPS_PER_S)
-            kernel_ms = timed_ms(lambda i: kernel())
+            times = kernel_times(lambda i: kernel())
+            kernel_ms = times["kernel_ms"]
             row = {
                 "phase": "kernel", "kernel": f"stream_{name}", "n": n, "dtype": str(dt).replace("torch.", ""),
                 "bit_equal": None if name == "dot" else ok, "max_abs_err": err, "tol": tol, "control": control,
-                "kernel_ms": kernel_ms, "plain_ms": timed_ms(lambda i: plain(), iters=5, warmup=1),
+                **times, "plain_ms": timed_ms(lambda i: plain(), iters=5, warmup=1),
                 "library_ms": timed_ms(lambda i: lib()) if lib else None,
                 "bound_ms": bound_ms, "bound_by": bound_by, "gbps": nbytes / 1e6 / kernel_ms,
             }
@@ -1212,7 +1341,7 @@ def wkv_phase(device, cases=WKV_CASES) -> dict:
             "phase": "kernel", "kernel": "rwkv6_scan", "case": name, "shape_bshn": [B, S, H, n], "chunk": chunk,
             "max_abs_err": readings["vs_plain"] * scale, "max_abs_out": scale, "readings": readings, "tol": WKV_RTOL,
             "finite": finite, "model_layout_equal": layout_equal,
-            "kernel_ms": timed_ms(lambda i: K5.wkv6(r, k, v, lw, u, chunk=chunk), iters=10, warmup=2),
+            **kernel_times(lambda i: K5.wkv6(r, k, v, lw, u, chunk=chunk), iters=10, warmup=2),
             "plain_ms": timed_ms(lambda i: wkv6_chunked_plain(*bh, ub, chunk=chunk), iters=3, warmup=1),
             "library_ms": None,  # no single PyTorch call computes the scan
             "bound_ms": bound_ms, "bound_by": bound_by, "work": dict(zip(("bytes", "flops", "exps"), wkv_work(B * H, S, n))),
@@ -1391,9 +1520,10 @@ def main() -> int:
         emit({"phase": "build", "source": src, "seconds": secs, "library": os.path.relpath(lib, ROOT),
               "ptxas": [ln.strip() for ln in log.splitlines() if "registers" in ln or "Compiling" in ln]})
     emit({"phase": "build", "wall_seconds": time.perf_counter() - t0})
-    # K4 and K3's bf16 route run on the tensor cores: each of K4's four
-    # kernels (one per type pair) and each of K3's four bf16 kernels (one per
-    # padded head dim) holds HGMMA
+    # K4, K3's bf16 route and K2's bf16-pool route run on the tensor cores:
+    # each of K4's four kernels (one per type pair), K3's four bf16 kernels
+    # (one per padded head dim) and K2's eight (q dtype x padded head dim)
+    # holds HGMMA
     libs = {src: lib for src, _, lib, _ in built}
     hgmma = hgmma_counts(libs["fp8_gemm.cu"])
     emit({"phase": "sass", "source": "fp8_gemm.cu", "hgmma_per_kernel": hgmma})
@@ -1404,6 +1534,12 @@ def main() -> int:
     k3_tc = [n for n in hgmma_k3 if n.startswith("tensor_cores_bf16")]
     if len(k3_tc) != 4 or min(hgmma_k3[n] for n in k3_tc) == 0:
         fail(f"flash_attention.cu: K3's bf16 route needs four kernels that each hold HGMMA: {hgmma_k3}")
+    # K2's tensor-core route: one kernel per q dtype and padded head dim
+    hgmma_k2 = hgmma_counts(libs["paged_attention.cu"])
+    emit({"phase": "sass", "source": "paged_attention.cu", "hgmma_per_kernel": hgmma_k2})
+    k2_tc = [n for n in hgmma_k2 if n.startswith("prefill_tensor_cores")]
+    if len(k2_tc) != 8 or min(hgmma_k2[n] for n in k2_tc) == 0:
+        fail(f"paged_attention.cu: K2's tensor-core route needs eight kernels that each hold HGMMA: {hgmma_k2}")
 
     seconds = {"build": time.perf_counter() - t0}
 
@@ -1448,7 +1584,8 @@ def main() -> int:
             "replaces": {"paged_decode": "src/repro/kernels/paged_attention.py:149",
                          "paged_prefill": "src/repro/kernels/paged_attention.py:283"}[name],
             "launches": serving["launches"][name],
-            "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"], "enqueue_ms": row["kernel_enqueue_ms"],
+            "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
     gemm_main = gemm_rows["fwd ffn_up/gate"]  # the step's largest forward shape
@@ -1462,10 +1599,17 @@ def main() -> int:
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": src + source, "replaces": replaces, "launches": launches,
-            "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"], "enqueue_ms": row["kernel_enqueue_ms"],
+            "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
     for k in kernels:  # K4's time covers its layout copies; the parts beside it
+        if k["name"] == "paged_decode":
+            k.update(kernel=main_rows["paged_decode"]["route"])
+        if k["name"] == "paged_prefill":  # the bf16-pool route's kernel, v1 and the unsplit kernel beside it
+            r = main_rows["paged_prefill"]
+            k.update(kernel=r["route"], cuda_cores_ms=r["cuda_cores_ms"], split=r["split"], split1_ms=r["split1_ms"],
+                     host_us=r["host_us"], cuda_cores_host_us=r["cuda_cores_host_us"])
         if k["name"] == "flash_attention":  # the bf16 route's kernel, v1 beside it
             k.update(kernel=flash_main["route"], cuda_cores_ms=flash_main["cuda_cores_ms"])
         if k["name"] == "fp8_gemm":

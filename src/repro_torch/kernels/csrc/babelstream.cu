@@ -28,12 +28,22 @@
 // most two flops per element, so 3.35 TB/s of device memory is the limit.
 //
 // Design (not the Pallas grid of VMEM-sized tiles, which exists to
-// double-buffer HBM->VMEM copies): every thread moves 16 bytes per load and
-// store (4 fp32 or 8 bf16 elements), neighbouring threads on neighbouring
-// 16-byte chunks, in a grid-stride loop over a grid of a few blocks per SM,
-// so that enough loads are in flight to cover the memory latency.  dot runs
-// one thread block per tile, which reduces its tile in registers, then by
-// warp shuffles and shared memory, and writes its fp32 partial.
+// double-buffer HBM->VMEM copies): enough bytes in flight to cover the
+// memory latency, and nothing else in the way.
+//  * every thread moves 16 bytes per load and store (4 fp32 or 8 bf16
+//    elements), neighbouring threads on neighbouring 16-byte chunks;
+//  * each thread issues kUnroll (U = 2) independent 16-byte loads per input
+//    before any store or FMA, on a contiguous tile of 256 U chunks per
+//    block; the grid holds every whole tile, so the block scheduler
+//    balances the SMs; block 0 also takes the ragged end;
+//  * index math is 32-bit where the array allows (fewer than 2^31 chunks),
+//    64-bit otherwise.
+// On the H100, U = 4 and 8, a grid of the SMs' occupancy walking the tiles
+// (its last round is uneven) and the streaming cache hints (__ldcs /
+// __stcs) were each slower (PERF.md).
+// dot runs one thread block per tile of `block` elements; each thread keeps
+// U independent fp32 sums, then the block reduces them by warp shuffles and
+// shared memory and writes its partial.
 //
 // Entry points: a plain C interface (loaded with ctypes) that returns
 // cudaGetLastError() after the launch.  The caller guarantees contiguous
@@ -47,7 +57,12 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBlocksPerSM = 8;  // resident blocks of 256 threads that fill an SM
+constexpr int kUnroll = 2;  // U: independent 16-byte loads per input per thread
+
+// Every load of the kernels: a plain 16-byte load.  Indexing the
+// __restrict__ arguments directly instead ran dot 4-6% slower on the H100
+// (PERF.md), though the loads are the same bytes.
+__device__ __forceinline__ uint4 load16(const uint4* p) { return *p; }
 
 enum Op { kCopy = 0, kMul = 1, kAdd = 2, kTriad = 3 };
 
@@ -64,61 +79,94 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) { return
 // One 16-byte chunk of the result from the chunks of x and y.
 template <typename T, int OP>
 __device__ __forceinline__ uint4 apply(const uint4& xv, const uint4& yv, float s) {
-  constexpr int N = 16 / sizeof(T);
-  uint4 ov;
-  const T* x = reinterpret_cast<const T*>(&xv);
-  const T* y = reinterpret_cast<const T*>(&yv);
-  T* o = reinterpret_cast<T*>(&ov);
+  if constexpr (OP == kCopy) {
+    return xv;
+  } else {
+    constexpr int N = 16 / sizeof(T);
+    uint4 ov;
+    const T* x = reinterpret_cast<const T*>(&xv);
+    const T* y = reinterpret_cast<const T*>(&yv);
+    T* o = reinterpret_cast<T*>(&ov);
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
-    if constexpr (OP == kMul) {
-      o[j] = from_f<T>(__fmul_rn(s, to_f(x[j])));
-    } else if constexpr (OP == kAdd) {
-      o[j] = from_f<T>(__fadd_rn(to_f(x[j]), to_f(y[j])));
-    } else if constexpr (sizeof(T) == 4) {  // kTriad, fp32: x = b, y = c, one rounding
-      o[j] = __fmaf_rn(s, to_f(y[j]), to_f(x[j]));
-    } else {  // kTriad, bf16: the product is rounded to bf16 before the sum
-      const T p = from_f<T>(__fmul_rn(s, to_f(y[j])));
-      o[j] = from_f<T>(__fadd_rn(to_f(x[j]), to_f(p)));
+    for (int j = 0; j < N; ++j) {
+      if constexpr (OP == kMul) {
+        o[j] = from_f<T>(__fmul_rn(s, to_f(x[j])));
+      } else if constexpr (OP == kAdd) {
+        o[j] = from_f<T>(__fadd_rn(to_f(x[j]), to_f(y[j])));
+      } else if constexpr (sizeof(T) == 4) {  // kTriad, fp32: x = b, y = c, one rounding
+        o[j] = __fmaf_rn(s, to_f(y[j]), to_f(x[j]));
+      } else {  // kTriad, bf16: the product is rounded to bf16 before the sum
+        const T p = from_f<T>(__fmul_rn(s, to_f(y[j])));
+        o[j] = from_f<T>(__fadd_rn(to_f(x[j]), to_f(p)));
+      }
     }
+    return ov;
   }
-  return ov;
 }
 
-template <typename T, int OP>
+// out = op(x, y) over nvec 16-byte chunks: block t takes the tile of
+// kThreads * U chunks at t * kThreads * U, block 0 also the ragged end; I
+// is the index type.
+template <typename T, int OP, typename I>
 __global__ void __launch_bounds__(kThreads) stream_kernel(const uint4* __restrict__ x,
                                                           const uint4* __restrict__ y,
-                                                          uint4* __restrict__ out, long long nvec,
-                                                          float s) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < nvec; i += stride) {
-    if constexpr (OP == kCopy) {
-      out[i] = x[i];
-    } else {
-      const uint4 xv = x[i];
-      const uint4 yv = (OP == kAdd || OP == kTriad) ? y[i] : xv;
-      out[i] = apply<T, OP>(xv, yv, s);
+                                                          uint4* __restrict__ out, I nvec, float s) {
+  constexpr bool kTwo = OP == kAdd || OP == kTriad;  // a second input
+  constexpr I kTile = I(kThreads) * kUnroll;
+  const I whole = nvec / kTile;
+  if (I(blockIdx.x) < whole) {
+    const I i0 = I(blockIdx.x) * kTile + threadIdx.x;
+    uint4 xv[kUnroll], yv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) xv[u] = load16(x + i0 + u * kThreads);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) yv[u] = kTwo ? load16(y + i0 + u * kThreads) : xv[u];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) out[i0 + u * kThreads] = apply<T, OP>(xv[u], yv[u], s);
+  }
+  if (blockIdx.x == 0) {
+    for (I i = whole * kTile + threadIdx.x; i < nvec; i += kThreads) {
+      const uint4 xv = load16(x + i);
+      out[i] = apply<T, OP>(xv, kTwo ? load16(y + i) : xv, s);
     }
   }
+}
+
+template <typename T>
+__device__ __forceinline__ void fma_chunk(const uint4& av, const uint4& bv, float& acc) {
+  constexpr int N = 16 / sizeof(T);
+  const T* x = reinterpret_cast<const T*>(&av);
+  const T* y = reinterpret_cast<const T*>(&bv);
+#pragma unroll
+  for (int j = 0; j < N; ++j) acc = fmaf(to_f(x[j]), to_f(y[j]), acc);
 }
 
 // Sum of fp32(a) * fp32(b) over one tile of `block` elements per thread
 // block; the tile's partial goes to partials[blockIdx.x].
-template <typename T>
+template <typename T, typename I>
 __global__ void __launch_bounds__(kThreads) dot_kernel(const uint4* __restrict__ a,
                                                        const uint4* __restrict__ b,
-                                                       float* __restrict__ partials,
-                                                       long long vec_per_tile) {
-  constexpr int N = 16 / sizeof(T);
-  const long long base = (long long)blockIdx.x * vec_per_tile;
-  float acc = 0.f;
-  for (long long i = threadIdx.x; i < vec_per_tile; i += kThreads) {
-    const uint4 av = a[base + i], bv = b[base + i];
-    const T* x = reinterpret_cast<const T*>(&av);
-    const T* y = reinterpret_cast<const T*>(&bv);
+                                                       float* __restrict__ partials, I vec_per_tile) {
+  constexpr I kStep = I(kThreads) * kUnroll;
+  const uint4* at = a + I(blockIdx.x) * vec_per_tile;
+  const uint4* bt = b + I(blockIdx.x) * vec_per_tile;
+  float sums[kUnroll];
 #pragma unroll
-    for (int j = 0; j < N; ++j) acc = fmaf(to_f(x[j]), to_f(y[j]), acc);
+  for (int u = 0; u < kUnroll; ++u) sums[u] = 0.f;
+  const I whole = vec_per_tile / kStep * kStep;
+  for (I i = threadIdx.x; i < whole; i += kStep) {
+    uint4 av[kUnroll], bv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) av[u] = load16(at + i + u * kThreads);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) bv[u] = load16(bt + i + u * kThreads);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) fma_chunk<T>(av[u], bv[u], sums[u]);
   }
+  for (I i = whole + threadIdx.x; i < vec_per_tile; i += kThreads) fma_chunk<T>(load16(at + i), load16(bt + i), sums[0]);
+  float acc = 0.f;
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) acc += sums[u];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   __shared__ float warp_sums[kThreads / 32];
@@ -133,36 +181,28 @@ __global__ void __launch_bounds__(kThreads) dot_kernel(const uint4* __restrict__
   }
 }
 
-int grid_for(long long nvec) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 132;
-  }
-  const long long want = (nvec + kThreads - 1) / kThreads;
-  const long long cap = (long long)sms * kBlocksPerSM;
-  return int(want < cap ? (want > 0 ? want : 1) : cap);
-}
-
-template <typename T>
-int launch_stream(int op, const void* x, const void* y, void* out, long long n, float s,
-                  cudaStream_t st) {
-  const long long nvec = n * (long long)sizeof(T) / 16;
-  const dim3 grid(grid_for(nvec));
-  const uint4* xv = static_cast<const uint4*>(x);
-  const uint4* yv = static_cast<const uint4*>(y);
-  uint4* ov = static_cast<uint4*>(out);
-  switch (op) {
-    case kCopy: stream_kernel<T, kCopy><<<grid, kThreads, 0, st>>>(xv, yv, ov, nvec, s); break;
-    case kMul: stream_kernel<T, kMul><<<grid, kThreads, 0, st>>>(xv, yv, ov, nvec, s); break;
-    case kAdd: stream_kernel<T, kAdd><<<grid, kThreads, 0, st>>>(xv, yv, ov, nvec, s); break;
-    case kTriad: stream_kernel<T, kTriad><<<grid, kThreads, 0, st>>>(xv, yv, ov, nvec, s); break;
-    default: return int(cudaErrorInvalidValue);
-  }
+template <typename T, int OP, typename I>
+int launch_op(const void* x, const void* y, void* out, long long nvec, float s, cudaStream_t st) {
+  const long long whole = nvec / ((long long)kThreads * kUnroll);
+  if (whole > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  stream_kernel<T, OP, I><<<dim3(static_cast<unsigned>(whole > 0 ? whole : 1)), kThreads, 0, st>>>(
+      static_cast<const uint4*>(x), static_cast<const uint4*>(y), static_cast<uint4*>(out), I(nvec), s);
   return int(cudaGetLastError());
 }
+
+template <typename T, typename I>
+int launch_stream(int op, const void* x, const void* y, void* out, long long nvec, float s, cudaStream_t st) {
+  switch (op) {
+    case kCopy: return launch_op<T, kCopy, I>(x, y, out, nvec, s, st);
+    case kMul: return launch_op<T, kMul, I>(x, y, out, nvec, s, st);
+    case kAdd: return launch_op<T, kAdd, I>(x, y, out, nvec, s, st);
+    case kTriad: return launch_op<T, kTriad, I>(x, y, out, nvec, s, st);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// 32-bit indices while every chunk index (and the last tile's end) fits
+constexpr long long kMax32 = 0x7fffffffLL - (long long)kThreads * kUnroll;
 
 }  // namespace
 
@@ -174,8 +214,12 @@ extern "C" {
 int stream_run(int op, int bf16, const void* x, const void* y, void* out, long long n, float s,
                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) return launch_stream<__nv_bfloat16>(op, x, y, out, n, s, st);
-  return launch_stream<float>(op, x, y, out, n, s, st);
+  const long long nvec = n * (bf16 ? 2 : 4) / 16;
+  if (nvec <= kMax32)
+    return bf16 ? launch_stream<__nv_bfloat16, unsigned>(op, x, y, out, nvec, s, st)
+                : launch_stream<float, unsigned>(op, x, y, out, nvec, s, st);
+  return bf16 ? launch_stream<__nv_bfloat16, long long>(op, x, y, out, nvec, s, st)
+              : launch_stream<float, long long>(op, x, y, out, nvec, s, st);
 }
 
 // partials: (n / block,) fp32, one per tile of `block` elements.
@@ -188,10 +232,17 @@ int stream_dot_partials(int bf16, const void* a, const void* b, void* partials, 
   const uint4* av = static_cast<const uint4*>(a);
   const uint4* bv = static_cast<const uint4*>(b);
   float* p = static_cast<float*>(partials);
-  if (bf16)
-    dot_kernel<__nv_bfloat16><<<dim3(unsigned(tiles)), kThreads, 0, st>>>(av, bv, p, vec_per_tile);
-  else
-    dot_kernel<float><<<dim3(unsigned(tiles)), kThreads, 0, st>>>(av, bv, p, vec_per_tile);
+  const dim3 grid(static_cast<unsigned>(tiles));
+  if (n * (bf16 ? 2 : 4) / 16 <= kMax32) {
+    if (bf16)
+      dot_kernel<__nv_bfloat16, unsigned><<<grid, kThreads, 0, st>>>(av, bv, p, unsigned(vec_per_tile));
+    else
+      dot_kernel<float, unsigned><<<grid, kThreads, 0, st>>>(av, bv, p, unsigned(vec_per_tile));
+  } else if (bf16) {
+    dot_kernel<__nv_bfloat16, long long><<<grid, kThreads, 0, st>>>(av, bv, p, vec_per_tile);
+  } else {
+    dot_kernel<float, long long><<<grid, kThreads, 0, st>>>(av, bv, p, vec_per_tile);
+  }
   return int(cudaGetLastError());
 }
 

@@ -48,12 +48,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_tc.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1.0e38f;  // the Pallas kernel's NEG_INF
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
   long long b, h, s;
@@ -369,7 +369,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
 // them over a whole row of keys shrinks by a bias that grows with the
 // number of products (in olmo-1b's eval forward enough to move the loss
 // past its limit): P V of each KV tile is therefore summed from zero on the
-// tensor cores and added to O in fp32 registers, rounding to nearest.
+// tensor cores and added to O in fp32 registers, rounding to nearest.  The
+// softmax, the P split and the per-tile sum live in attention_tc.cuh,
+// shared with K2's tensor-core kernel.
 //
 // Design:
 //  * a block of 384 threads per (128-row q tile, q head, batch), q tiles
@@ -425,10 +427,6 @@ struct Tiles {
   static constexpr int kSmem = 1024 + kQBytes + kStages * kStageBytes + 8 * (1 + 3 * kStages);
   static_assert(kStages >= 2 && kSmem <= 232448, "a block's shared memory on the H100");
 };
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 template <int HDP>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -495,7 +493,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int r0 = q0 + 64 * w;              // the warpgroup's first row
     const int row_a = r0 + acc_row(tw, 0);   // this thread's two rows
     const int row_b = row_a + 8;
-    const float scale_log2 = scale * kLog2e;
 
     constexpr int PVC = L::PVC;
     float o_acc[NC][32];  // O, summed in fp32 registers (round to nearest)
@@ -525,48 +522,19 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_commit();
     };
     // pv = P_hi V + P_lo V for chunks c0 .. c0 + PVC - 1 of stage s, from
-    // zero, issued (one commit group): 128 columns per product where two
-    // chunks go together
+    // zero, issued (one commit group)
     auto issue_pv = [&](int s, uint32_t parity, int c0) {
-#pragma unroll
-      for (int c = 0; c < PVC; ++c) fence_regs(pv[c]);
-      fence_regs(p_hi);
-      fence_regs(p_lo);
       mbar_wait(v_full(s), parity);
-      wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < BKV / 16; ++j) {
-        const uint64_t dv = smem_desc_mn(v_s(s) + c0 * (BKV * 128) + j * (16 * 128), BKV * 128);
-        if constexpr (PVC == 2) {
-          wgmma_m64n128k16_bf16_rs_mn(pv[0], pv[1], p_hi[4 * j], p_hi[4 * j + 1], p_hi[4 * j + 2], p_hi[4 * j + 3], dv,
-                                      j > 0);
-          wgmma_m64n128k16_bf16_rs_mn(pv[0], pv[1], p_lo[4 * j], p_lo[4 * j + 1], p_lo[4 * j + 2], p_lo[4 * j + 3], dv, 1);
-        } else {
-          wgmma_m64n64k16_bf16_rs_mn(pv[0], p_hi[4 * j], p_hi[4 * j + 1], p_hi[4 * j + 2], p_hi[4 * j + 3], dv, j > 0);
-          wgmma_m64n64k16_bf16_rs_mn(pv[0], p_lo[4 * j], p_lo[4 * j + 1], p_lo[4 * j + 2], p_lo[4 * j + 3], dv, 1);
-        }
-      }
-      wgmma_commit();
+      attn_tc::issue_pv<PVC>(pv, p_hi, p_lo, v_s(s) + c0 * (BKV * 128));
     };
     // once the issued P V is done: O += pv, rounded to nearest
-    auto add_pv = [&](int c0) {
-#pragma unroll
-      for (int c = 0; c < PVC; ++c) {
-        fence_regs(pv[c]);
-#pragma unroll
-        for (int i = 0; i < 32; ++i) o_acc[c0 + c][i] += pv[c][i];
-      }
-      fence_regs(p_hi);
-      fence_regs(p_lo);
-    };
+    auto add_pv = [&](int c0) { attn_tc::add_pv<PVC, NC>(o_acc, pv, p_hi, p_lo, c0); };
     // softcap, mask and online softmax of the landed S of the tile at key
     // t0 (log2 units): sc becomes P, m and l move on; returns the rescale
     // of the rows' earlier sums in alpha
     auto softmax = [&](int t0, float (&alpha)[2]) {
-      float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int i = 0; i < BKV / 2; ++i)
-        sc[i] = softcap > 0.f ? softcap * tanhf(sc[i] * scale / softcap) * kLog2e : sc[i] * scale_log2;
+      for (int i = 0; i < BKV / 2; ++i) sc[i] = attn_tc::log2_score(sc[i], scale, softcap);
       if (t0 + BKV > Skv || (causal && t0 + BKV - 1 > r0) || (window > 0 && r0 + 63 - t0 >= window)) {
 #pragma unroll
         for (int i = 0; i < BKV / 2; ++i) {  // the diagonal, the window's edge or the last tile
@@ -576,36 +544,10 @@ __global__ void __launch_bounds__(kThreads, 1)
           sc[i] = c >= Skv ? -INFINITY : ok ? sc[i] : kNegInf;
         }
       }
-#pragma unroll
-      for (int i = 0; i < BKV / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {  // a row's values lie on 4 neighbouring lanes
-        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
-        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
-        alpha[e] = exp2f(m[e] - mx[e]);
-        m[e] = mx[e];
-        l[e] *= alpha[e];
-      }
-#pragma unroll
-      for (int i = 0; i < BKV / 2; ++i) {
-        sc[i] = exp2f(sc[i] - mx[(i >> 1) & 1]);
-        l[(i >> 1) & 1] += sc[i];
-      }
+      attn_tc::online_softmax(sc, m, l, alpha);
     };
     // O's rescale, then P into its two bf16 terms
-    auto rescale_split = [&](const float (&alpha)[2]) {
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-#pragma unroll
-        for (int i = 0; i < 32; ++i) o_acc[c][i] *= alpha[(i >> 1) & 1];
-#pragma unroll
-      for (int f = 0; f < BKV / 4; ++f) {
-        const __nv_bfloat162 hi2 = __floats2bfloat162_rn(sc[2 * f], sc[2 * f + 1]);
-        const float2 back = __bfloat1622float2(hi2);
-        p_hi[f] = bf16x2_bits(hi2);
-        p_lo[f] = bf16x2_bits(__floats2bfloat162_rn(sc[2 * f] - back.x, sc[2 * f + 1] - back.y));
-      }
-    };
+    auto rescale_split = [&](const float (&alpha)[2]) { attn_tc::rescale_split<NC>(o_acc, sc, alpha, p_hi, p_lo); };
     auto release = [&](int s) {  // the stage's K and V go back to the producer
       __syncwarp();
       if ((t & 31) == 0) mbar_arrive(empty(s));
@@ -661,12 +603,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // ---- O / max(l, 1e-30) in bf16, rows < Sq and columns < hd
     float denom[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      l[e] += __shfl_xor_sync(0xffffffffu, l[e], 1);
-      l[e] += __shfl_xor_sync(0xffffffffu, l[e], 2);
-      denom[e] = fmaxf(l[e], 1e-30f);
-    }
+    attn_tc::row_denominators(l, denom);
     __nv_bfloat16* ob = o + b * so.b + h * so.h;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
@@ -690,7 +627,8 @@ __host__ __device__ constexpr int smem_bytes(int hd) {
 inline bool encode(CUtensorMap* map, const void* p, int B, int heads, int S, int hd, Strides st, int rows) {
   const uint64_t dims[4] = {uint64_t(hd), uint64_t(S), uint64_t(heads), uint64_t(B)};
   const uint64_t strides[3] = {uint64_t(st.s) * 2, uint64_t(st.h) * 2, uint64_t(st.b) * 2};
-  return hopper::encode_rank4_sw128(map, p, dims, strides, rows, 2, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+  const uint32_t box[3] = {uint32_t(rows), 1, 1};
+  return hopper::encode_rank4_sw128(map, p, dims, strides, box, 2, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
 }
 
 template <int HDP>

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
-// mbarriers, TMA tensor maps and loads (rank 2 and rank 4), wgmma
+// mbarriers, cluster barriers and distributed shared memory, TMA tensor
+// maps and loads (rank 2 and rank 4), wgmma
 // shared-memory descriptors (K-major and MN-major), fences and the fp16 and
 // bf16 products.  Header only; every function is inline.
 //
@@ -75,6 +76,40 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// 16 bytes to shared memory at ``addr``.
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// thread-block clusters
+// ---------------------------------------------------------------------------
+
+// Every thread of every block of the cluster arrives, then waits for all:
+// shared-memory writes before it are visible to the cluster after it.
+// Called by whole, converged warps.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// The address of ``addr`` (this block's shared window) in the shared
+// memory of the cluster's block ``rank``.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
 // ---------------------------------------------------------------------------
 // TMA
 // ---------------------------------------------------------------------------
@@ -142,19 +177,20 @@ inline bool encode_kmajor_sw128(CUtensorMap* map, const void* base, uint64_t row
 
 // Tensor map of a rank-4 tensor with extents ``dims`` (innermost first, the
 // innermost of unit stride) and byte strides ``strides`` of dims 1..3 (each
-// a multiple of 16), read in boxes of 128 bytes x ``box_rows`` x 1 x 1 with
-// the 128-byte swizzle.  Parts of a box past an extent, the innermost
-// included, are filled with zeros.  Returns false if the encoding is refused.
+// a multiple of 16), read in boxes of 128 bytes x ``box[0]`` x ``box[1]`` x
+// ``box[2]`` with the 128-byte swizzle: in shared memory, rows of 128 bytes,
+// dim 1 fastest.  Parts of a box past an extent, the innermost included,
+// are filled with zeros.  Returns false if the encoding is refused.
 inline bool encode_rank4_sw128(CUtensorMap* map, const void* base, const uint64_t (&dims)[4],
-                               const uint64_t (&strides)[3], uint32_t box_rows, uint32_t elem_bytes,
+                               const uint64_t (&strides)[3], const uint32_t (&box)[3], uint32_t elem_bytes,
                                CUtensorMapDataType dtype) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
   const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
   const cuuint64_t st[3] = {strides[0], strides[1], strides[2]};
-  const cuuint32_t box[4] = {128u / elem_bytes, box_rows, 1, 1};
+  const cuuint32_t b[4] = {128u / elem_bytes, box[0], box[1], box[2]};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  return fn(map, dtype, 4, const_cast<void*>(base), d, st, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  return fn(map, dtype, 4, const_cast<void*>(base), d, st, b, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -14,6 +14,42 @@
 // q_pos = seq_len - 1 for every row; for K2 row r of the chunk's C*qpk rows
 // is chunk offset r / qpk at q_pos = start + r / qpk.
 //
+// The walk covers only blocks that hold a visible position: it starts at
+// the block of the first position inside the window and stops at the block
+// of the last query position.  The Pallas kernel walks every table entry,
+// but the blocks it masks fully leave its result unchanged (a fully masked
+// block before the first visible one is wiped by the exp(NEG_INF - m)
+// rescale, one after the last adds exp(NEG_INF - m) = 0).  Table entries
+// outside [0, N) read the null block 0, so a kernel never indexes outside
+// the pool.
+//
+// Two kernel families:
+//  * v1 (``paged_decode_kernel``, ``paged_prefill_kernel``): the CUDA cores
+//    in fp32, any pool dtype.  K1 always; K2 on fp32 pools, and on bf16
+//    pools only as the yardstick of the tensor-core kernel;
+//  * tc (``tc::paged_prefill_tc_kernel``): K2 on bf16 pools, the serving
+//    path, on the tensor cores (TMA through the block table, wgmma).
+//
+// Entry points have a plain C interface (loaded with ctypes) and return
+// cudaGetLastError() after the launch (or -1 if a TMA tensor map was
+// refused).  The caller guarantees: hd a multiple of 16 and <= 256, bs in
+// {16, 32}, H a multiple of KV, contiguous tensors on 16-byte boundaries,
+// int32 tables and lengths.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+#include "attention_tc.cuh"
+#include "hopper.cuh"
+
+namespace {
+
+// ===========================================================================
+// v1: the CUDA cores, fp32 arithmetic
+// ===========================================================================
+//
 // What bounds it on the card: the bytes of K/V read.  At decode every K/V
 // element is used by qpk query rows only, about one multiply-add per byte,
 // far below the ~20 fp32 operations per byte where the H100's CUDA cores
@@ -21,18 +57,12 @@
 // block for a tile of up to 16 query rows, which moves it toward the
 // operations bound.
 //
-// What the design does about it:
+// Design:
 //  * one thread block per (sequence, kv head[, row tile]) loads its own
 //    table row and length (this replaces the TPU's scalar prefetch) and
 //    walks the logical blocks in a loop (this replaces the sequential grid
 //    axis and its VMEM carry); the running max, denominator and accumulator
 //    stay in shared memory for the whole walk;
-//  * the walk covers only blocks that hold a visible position: it starts
-//    at the block of the first position inside the window and stops at the
-//    block of the last query position.  The Pallas kernel walks every table
-//    entry, but the blocks it masks fully leave its result unchanged (a
-//    fully masked block before the first visible one is wiped by the
-//    exp(NEG_INF - m) rescale, one after the last adds exp(NEG_INF - m) = 0);
 //  * each K/V block is read once per thread block, with 16-byte coalesced
 //    loads, converted to fp32 in shared memory and shared by all qpk (K1)
 //    or row-tile (K2) query rows;
@@ -40,21 +70,6 @@
 //    floats so neighbouring rows fall in different banks); each thread keeps
 //    four independent sums, in the scores and in the P V product, so its
 //    multiply-adds do not wait on each other.
-// Math is fp32 on the CUDA cores.  Tensor cores (wgmma), TMA and a split of
-// long sequences over several thread blocks are later work.
-//
-// Entry points have a plain C interface (loaded with ctypes) and return
-// cudaGetLastError() after the launch.  The caller guarantees: hd a multiple
-// of 16 and <= 256, bs in {16, 32}, H a multiple of KV, contiguous tensors,
-// int32 tables and lengths.  Table entries outside [0, N) read the null
-// block 0, so a kernel never indexes outside the pool.
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
-
-namespace {
 
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1.0e38f;  // the Pallas kernels' NEG_INF
@@ -402,6 +417,475 @@ int launch_prefill(const void* q, const void* k, const void* v, const int* table
   return int(cudaGetLastError());
 }
 
+// ===========================================================================
+// tc: K2 on bf16 pools, on the tensor cores
+// ===========================================================================
+//
+// What bounds it on the card: the operations.  At olmo-1b's serving chunk
+// (128 queries after 192 tokens, 16 heads of 128) every K/V position is
+// used by up to 128 query rows, hundreds of operations per byte read, and
+// the route does its products at the bf16 tensor-core rate (989 TFLOP/s)
+// where v1 ran at the CUDA cores' 67.
+//
+// Numerics.  The pools are bf16, so K and V are exact wgmma operands.
+// Serving queries are fp32 (fp32 weights), and the Pallas kernel computes
+// q . k in fp32: q is split on the card into q_hi = bf16(q) and
+// q_lo = bf16(q - q_hi), good to about 2^-17 together, and S is the sum of
+// two SS wgmmas per k16 step against the same K tile (one for bf16
+// queries, which are exact).  One bf16 term alone would miss the fp32
+// result by about 1e-3 of the output.  The softmax, P_hi + P_lo and the
+// per-tile fp32 sum of P V are K3's (attention_tc.cuh).
+//
+// Design:
+//  * a block of 160 threads: warps 0-3 are one consumer warpgroup that owns
+//    64 of the C * qpk query rows of one (sequence, kv head); warp 4 is the
+//    producer.  Rows past C * qpk are zero queries: computed, never stored;
+//  * the consumers load their Q rows once (16-byte loads), split them into
+//    bf16 terms and store each term as a K-major tile with the 128-byte
+//    swizzle, hd padded with zeros to HDP, a multiple of 64;
+//  * the producer's one thread reads the block table and loads each 64-key
+//    tile of K and V by TMA, one box of (64 columns, bs positions) of one
+//    kv head per physical block (a rank-4 map over the pool's (hd, KV, bs,
+//    N)), 64 / bs boxes per tile, into a ring of 2-4 stages with full and
+//    empty mbarriers, so the next tiles load while this one is computed.
+//    Tiles start at the walk's first block; positions past its last block
+//    read block 0 and are masked;
+//  * each tile: S by SS wgmma, the masks and the softmax in registers,
+//    then P V; K3's overlap of one tile's P V with the next one's softmax
+//    was slower here (a serving walk is a few tiles);
+//  * the causal and window masks are applied in registers on every tile;
+//  * where a tile's work is heavy (hd > 128 or a softcap), a row tile's
+//    tiles are split over a thread-block cluster of ``split`` blocks (1 to
+//    4; the host picks it, ``pick_split``):
+//    each block walks a contiguous share, and block 0 of the cluster
+//    combines the others' (m, l, O) from their shared memory (distributed
+//    shared memory) before it writes the output.  One launch per call.
+
+namespace tc {
+
+constexpr int kThreads = 160;  // one consumer warpgroup and a producer warp
+constexpr int kRows = 64;      // query rows per block
+constexpr int kMaxSplit = 4;   // blocks of a cluster that share a row tile
+
+template <typename TQ, int HDP>
+struct Tiles {
+  static constexpr int NC = HDP / 64;                 // 64-column chunks of a row
+  static constexpr int BKV = attn_tc::kBKV;           // keys per tile
+  static constexpr int kTerms = sizeof(TQ) == 4 ? 2 : 1;  // bf16 terms of q
+  static constexpr int PVC = NC <= 2 ? NC : 1;        // O chunks per P V product
+  static constexpr int kQBytes = NC * kRows * 128;    // one term of Q
+  static constexpr int kKVBytes = NC * BKV * 128;     // K or V of one stage
+  static constexpr int kStageBytes = 2 * kKVBytes;
+  static constexpr int kFit = (232448 - 2048 - kTerms * kQBytes) / kStageBytes;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  // what a block hands the cluster's first block: O, m and l of each thread
+  static constexpr int kXBytes = (32 * NC + 4) * 128 * 4;
+  // 1024 bytes of alignment slack, Q, the ring, 3 kStages mbarriers
+  static constexpr int kSmem = 1024 + kTerms * kQBytes + kStages * kStageBytes + 8 * 3 * kStages;
+  static_assert(kStages >= 2 && kSmem <= 232448, "a block's shared memory on the H100");
+  static_assert(kXBytes <= kStages * kStageBytes, "the exchange reuses the ring");
+};
+
+// 8 values of q from global memory, as floats.
+__device__ __forceinline__ void load8(const float* src, float (&x)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  const float4 b = *reinterpret_cast<const float4*>(src + 4);
+  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w, x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* src, float (&x)[8]) { Vec16<__nv_bfloat16>::load(src, x); }
+
+__device__ __forceinline__ void store2(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+template <typename TQ, int HDP>
+__global__ void __launch_bounds__(kThreads, 1)
+    paged_prefill_tc_kernel(const TQ* __restrict__ q, const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v, const int* __restrict__ tables,
+                            const int* __restrict__ starts, TQ* __restrict__ out, int N, int bs, int nb, int C,
+                            int H, int KV, int hd, float scale, float softcap, int window) {
+  using namespace hopper;
+  using L = Tiles<TQ, HDP>;
+  constexpr int NC = L::NC;
+  constexpr int BKV = L::BKV;
+  constexpr int kStages = L::kStages;
+  constexpr int PVC = L::PVC;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms need 1024-byte alignment
+  const uint32_t ring = base + L::kTerms * L::kQBytes;
+  auto q_s = [&](int term) { return base + term * L::kQBytes; };
+  auto k_s = [&](int s) { return ring + s * L::kStageBytes; };
+  auto v_s = [&](int s) { return ring + s * L::kStageBytes + L::kKVBytes; };
+  const uint32_t bars = ring + kStages * L::kStageBytes;
+  auto k_full = [&](int s) { return bars + 8u * s; };
+  auto v_full = [&](int s) { return bars + 8u * (kStages + s); };
+  auto empty = [&](int s) { return bars + 8u * (2 * kStages + s); };
+
+  // the cluster of gridDim.x blocks along x shares the row tile
+  const int split = gridDim.x;
+  const int rank = blockIdx.x;
+  const int row0 = blockIdx.y * kRows;
+  const int b = blockIdx.z / KV;
+  const int kv = blockIdx.z - b * KV;
+  const int qpk = H / KV;
+  const int total = C * qpk;
+  const int start = max(starts[b], 0);
+  // the logical blocks [blo, bhi] that hold a position some real row sees,
+  // in tiles of 64 / bs blocks; this block walks tiles [t_lo, t_lo + n_tiles)
+  const int first = start + row0 / qpk;
+  const int last = start + (min(row0 + kRows, total) - 1) / qpk;
+  const int blo = window > 0 ? max(first - window + 1, 0) / bs : 0;
+  const int bhi = min(last / bs, nb - 1);
+  const int per_tile = BKV / bs;
+  const int n_all = bhi >= blo ? (bhi - blo + per_tile) / per_tile : 0;
+  const int t_lo = n_all * rank / split;
+  const int n_tiles = n_all * (rank + 1) / split - t_lo;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), 4);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // producer: one thread reads the table and issues the loads
+    if (threadIdx.x == 128) {
+      const int* trow = tables + size_t(b) * nb;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) mbar_wait(empty(s), ((it / kStages) - 1) & 1);
+        mbar_arrive_expect_tx(k_full(s), L::kKVBytes);
+        mbar_arrive_expect_tx(v_full(s), L::kKVBytes);
+        const int lb0 = blo + (t_lo + it) * per_tile;
+        for (int j = 0; j < per_tile; ++j) {
+          int phys = lb0 + j <= bhi ? trow[lb0 + j] : 0;  // past the walk: block 0, masked
+          if (phys < 0 || phys >= N) phys = 0;             // never index outside the pool
+          for (int c = 0; c < NC; ++c) {
+            tma_load_4d(k_s(s) + c * (BKV * 128) + j * (bs * 128), &map_k, k_full(s), 64 * c, kv, 0, phys);
+            tma_load_4d(v_s(s) + c * (BKV * 128) + j * (bs * 128), &map_v, v_full(s), 64 * c, kv, 0, phys);
+          }
+        }
+      }
+    }
+    __syncwarp();
+    if (split > 1) {  // the consumers' two cluster barriers
+      cluster_sync();
+      cluster_sync();
+    }
+    return;
+  }
+
+  // ---- consumers
+  const int tw = threadIdx.x;
+  // Q rows row0 .. row0 + 63 as bf16 terms, K-major with the 128-byte
+  // swizzle: the 16-byte unit u of row r of a 64-column chunk lies at unit
+  // u ^ (r & 7) of the row's 128 bytes
+  constexpr int kUnits = HDP / 8;
+  constexpr int kPer = kRows * kUnits / 128;    // units per thread
+  constexpr int kBatch = kPer % 8 == 0 ? 8 : 4;  // loads in flight before the stores (divides kPer)
+  static_assert(kPer % kBatch == 0, "Q loads in whole batches");
+#pragma unroll
+  for (int u0 = 0; u0 < kPer; u0 += kBatch) {
+    float x[kBatch][8];
+#pragma unroll
+    for (int v = 0; v < kBatch; ++v) {
+      const int u = tw + 128 * (u0 + v);
+      const int r = u / kUnits;
+      const int col = 8 * (u - r * kUnits);
+      const int gr = row0 + r;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[v][e] = 0.f;
+      if (gr < total && col < hd) {
+        const int c = gr / qpk;
+        const int h = kv * qpk + (gr - c * qpk);
+        load8(q + ((size_t(b) * C + c) * H + h) * hd + col, x[v]);
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < kBatch; ++v) {
+      const int u = tw + 128 * (u0 + v);
+      const int r = u / kUnits;
+      const int cu = u - r * kUnits;
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) attn_tc::split_bf16x2(x[v][2 * e], x[v][2 * e + 1], hi[e], lo[e]);
+      const uint32_t off = (cu >> 3) * (kRows * 128) + r * 128 + (((cu & 7) ^ (r & 7)) << 4);
+      st_shared_v4(q_s(0) + off, hi[0], hi[1], hi[2], hi[3]);
+      if constexpr (L::kTerms == 2) st_shared_v4(q_s(1) + off, lo[0], lo[1], lo[2], lo[3]);
+    }
+  }
+  fence_proxy_async();  // the tiles are wgmma operands
+  named_barrier(1, 128);
+
+  const int row_a = row0 + acc_row(tw, 0);  // this thread's two rows
+  const int row_b = row_a + 8;
+  const int qpos_a = start + row_a / qpk;
+  const int qpos_b = start + row_b / qpk;
+  // the last key each row may see: its own position, or the table's last
+  // where the chunk runs past the table (bhi is then nb - 1, and the last
+  // tile's positions beyond it read block 0)
+  const int kp_last = (bhi + 1) * bs - 1;
+  const int qlim_a = min(qpos_a, kp_last);
+  const int qlim_b = min(qpos_b, kp_last);
+
+  float o_acc[NC][32];  // O, summed in fp32 registers (round to nearest)
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o_acc[c][i] = 0.f;
+  float pv[PVC][32];  // P V of one tile (PVC chunks), from the tensor cores
+  float m[2] = {attn_tc::kNegInf, attn_tc::kNegInf};  // running max, log2 units
+  float l[2] = {0.f, 0.f};                            // this thread's part of the row sums
+  float sc[BKV / 2];                                  // S of one tile, then its P
+#pragma unroll
+  for (int i = 0; i < BKV / 2; ++i) sc[i] = 0.f;
+  uint32_t p_hi[BKV / 4], p_lo[BKV / 4];  // P = P_hi + P_lo, the A fragments of P V
+  float alpha[2];
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    const uint32_t parity = (it / kStages) & 1;
+    // S = (Q_hi + Q_lo) K^T
+    fence_regs(sc);
+    mbar_wait(k_full(s), parity);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < HDP / 16; ++j) {  // hd's zero padding adds nothing
+      const uint32_t koff = (j >> 2) * (BKV * 128) + (j & 3) * 32;
+      const uint32_t qoff = (j >> 2) * (kRows * 128) + (j & 3) * 32;
+      wgmma_m64n64k16_bf16_ss(sc, smem_desc(q_s(0) + qoff), smem_desc(k_s(s) + koff), j > 0);
+      if constexpr (L::kTerms == 2) wgmma_m64n64k16_bf16_ss(sc, smem_desc(q_s(1) + qoff), smem_desc(k_s(s) + koff), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    // softcap and the causal / window mask, then the online softmax
+    const int kp0 = (blo + (t_lo + it) * per_tile) * bs;
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) {
+      const int kp = kp0 + acc_col(tw, i);
+      const int qp = (i & 2) ? qpos_b : qpos_a;
+      const bool ok = kp <= ((i & 2) ? qlim_b : qlim_a) && (window == 0 || qp - kp < window);
+      sc[i] = ok ? attn_tc::log2_score(sc[i], scale, softcap) : attn_tc::kNegInf;
+    }
+    attn_tc::online_softmax(sc, m, l, alpha);
+    attn_tc::rescale_split<NC>(o_acc, sc, alpha, p_hi, p_lo);
+    // P V of the tile, summed from zero and added to O in fp32
+    mbar_wait(v_full(s), parity);
+#pragma unroll
+    for (int c0 = 0; c0 < NC; c0 += PVC) {
+      attn_tc::issue_pv<PVC>(pv, p_hi, p_lo, v_s(s) + c0 * (BKV * 128));
+      wgmma_wait<0>();
+      attn_tc::add_pv<PVC, NC>(o_acc, pv, p_hi, p_lo, c0);
+    }
+    __syncwarp();  // the stage's K and V go back to the producer
+    if ((tw & 31) == 0) mbar_arrive(empty(s));
+  }
+
+  if (split > 1) {
+    // (m, l, O) of every block but the first go to its ring (every tile has
+    // landed and been read), thread-major so the first block's thread tw
+    // reads its own values: value v of thread tw at float v * 128 + tw
+    float* xs = reinterpret_cast<float*>(smem_raw + (ring - raw));
+    if (rank != 0) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) xs[(32 * c + i) * 128 + tw] = o_acc[c][i];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        xs[(32 * NC + e) * 128 + tw] = m[e];
+        xs[(32 * NC + 2 + e) * 128 + tw] = l[e];
+      }
+    }
+    __syncwarp();
+    cluster_sync();
+    if (rank == 0) {  // O = sum over blocks of exp2(m_j - M) O_j, and l alike
+      float mx[2] = {m[0], m[1]};
+      for (int j = 1; j < split; ++j) {
+        const uint32_t peer = cluster_map(ring, j);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) mx[e] = fmaxf(mx[e], ld_cluster_f32(peer + 4u * ((32 * NC + e) * 128 + tw)));
+      }
+      float w[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        w[e] = exp2f(m[e] - mx[e]);
+        l[e] *= w[e];
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o_acc[c][i] *= w[(i >> 1) & 1];
+      for (int j = 1; j < split; ++j) {
+        const uint32_t peer = cluster_map(ring, j);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          w[e] = exp2f(ld_cluster_f32(peer + 4u * ((32 * NC + e) * 128 + tw)) - mx[e]);
+          l[e] += w[e] * ld_cluster_f32(peer + 4u * ((32 * NC + 2 + e) * 128 + tw));
+        }
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            o_acc[c][i] += w[(i >> 1) & 1] * ld_cluster_f32(peer + 4u * ((32 * c + i) * 128 + tw));
+      }
+    }
+  }
+
+  if (rank == 0) {  // ---- O / max(l, 1e-30) in q's dtype, real rows and columns < hd
+    float denom[2];
+    attn_tc::row_denominators(l, denom);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int gr = e ? row_b : row_a;
+      if (gr >= total) continue;
+      const int c = gr / qpk;
+      const int h = kv * qpk + (gr - c * qpk);
+      TQ* orow = out + ((size_t(b) * C + c) * H + h) * hd;
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc)
+#pragma unroll
+        for (int i = 2 * e; i < 32; i += 4) {  // registers i, i + 1 of row e
+          const int col = 64 * cc + acc_col(tw, i);
+          if (col < hd) store2(orow + col, o_acc[cc][i] / denom[e], o_acc[cc][i + 1] / denom[e]);
+        }
+    }
+  }
+  __syncwarp();
+  if (split > 1) cluster_sync();  // the others' shared memory stays until it has been read
+}
+
+// Tensor map of a bf16 pool (N, bs, KV, hd), dims (hd, KV, bs, N), read in
+// boxes of (64 columns, 1 kv head, bs positions, 1 block): bs rows of 128
+// bytes in shared memory.
+inline bool encode_pool(CUtensorMap* map, const void* pool, int N, int bs, int KV, int hd) {
+  const uint64_t row = uint64_t(hd) * 2;  // bytes of one (position, kv head)
+  const uint64_t dims[4] = {uint64_t(hd), uint64_t(KV), uint64_t(bs), uint64_t(N)};
+  const uint64_t strides[3] = {row, row * KV, row * KV * bs};
+  const uint32_t box[3] = {1, uint32_t(bs), 1};
+  return hopper::encode_rank4_sw128(map, pool, dims, strides, box, 2, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+}
+
+// Blocks per row tile (the cluster size).  On the H100 a block's time is a
+// fixed part (launch, Q, the first loads) plus about 0.9 us a 64-key tile
+// at hd <= 128, 1.3 us at hd 256 and 4 us with a softcap (its tanhf), and a
+// cluster adds about 3 us to combine (PERF.md): the split pays only where
+// a tile is that heavy (hd > 128 or a softcap) and each block still walks
+// two tiles or more of the longest walk the table and the window allow.
+// The split is then the largest of 4, 3 and 2 that keeps that, whose grid
+// fills at most 3/4 of the SMs, and whose clusters the occupancy API
+// (asked once per kernel, which fixes its shared memory, and size) holds
+// at once: 4-block clusters over 128 of 132 SMs ran slower though the API
+// admitted them.  Else 1.
+template <typename TQ, int HDP>
+int pick_split(int B, int C, int H, int KV, int nb, int bs, int window, float softcap) {
+  static int sms = 0;
+  static int max_clusters[kMaxSplit + 1] = {};
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  if (!(HDP > 128 || softcap > 0.f)) return 1;
+  const int qpk = H / KV;
+  const int row_blocks = (C * qpk + kRows - 1) / kRows * B * KV;
+  const int positions = min(C, (kRows + qpk - 1) / qpk);  // query positions of one block's rows
+  constexpr int T = attn_tc::kBKV;
+  int max_tiles = (nb * bs + T - 1) / T;
+  if (window > 0) {  // the window, the block's positions, and a block of slack at each end
+    const int span = window - 1 + positions + 2 * bs;
+    max_tiles = min(max_tiles, (span + T - 1) / T);
+  }
+  auto kernel = paged_prefill_tc_kernel<TQ, HDP>;
+  constexpr int smem = Tiles<TQ, HDP>::kSmem;
+  for (int split = kMaxSplit; split >= 2; --split) {
+    if (2 * split > max_tiles || 4 * row_blocks * split > 3 * sms) continue;
+    if (max_clusters[split] == 0) {
+      // the query reads the kernel's shared-memory limit: set it first
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(split);
+      cfg.blockDim = dim3(kThreads);
+      cfg.dynamicSmemBytes = smem;
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = split;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      int n = 0;
+      if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess || n <= 0) {
+        cudaGetLastError();  // a refused query is not the launch's error
+        n = -1;
+      }
+      max_clusters[split] = n;
+    }
+    if (row_blocks <= max_clusters[split]) return split;
+  }
+  return 1;
+}
+
+template <typename TQ, int HDP>
+int launch(const void* q, const void* k, const void* v, const int* tables, const int* starts, void* out, int B,
+           int C, int H, int KV, int hd, int N, int bs, int nb, float softcap, int window, int split,
+           cudaStream_t stream) {
+  using L = Tiles<TQ, HDP>;
+  CUtensorMap mk, mv;
+  if (!encode_pool(&mk, k, N, bs, KV, hd) || !encode_pool(&mv, v, N, bs, KV, hd)) return -1;
+  auto kernel = paged_prefill_tc_kernel<TQ, HDP>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  if (e != cudaSuccess) return int(e);
+  if (split <= 0) split = pick_split<TQ, HDP>(B, C, H, KV, nb, bs, window, softcap);
+  const int row_tiles = (C * (H / KV) + kRows - 1) / kRows;
+  if (split > kMaxSplit) return int(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, row_tiles, B * KV);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = L::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const TQ*>(q), mk, mv, tables, starts, static_cast<TQ*>(out), N,
+                         bs, nb, C, H, KV, hd, 1.0f / sqrtf(float(hd)), softcap, window);
+  if (e != cudaSuccess) return int(e);
+  return int(cudaGetLastError());
+}
+
+template <typename TQ>
+int split_for(int B, int C, int H, int KV, int hd, int nb, int bs, int window, float softcap) {
+  if (hd <= 64) return pick_split<TQ, 64>(B, C, H, KV, nb, bs, window, softcap);
+  if (hd <= 128) return pick_split<TQ, 128>(B, C, H, KV, nb, bs, window, softcap);
+  if (hd <= 192) return pick_split<TQ, 192>(B, C, H, KV, nb, bs, window, softcap);
+  return pick_split<TQ, 256>(B, C, H, KV, nb, bs, window, softcap);
+}
+
+template <typename TQ>
+int dispatch(const void* q, const void* k, const void* v, const int* tables, const int* starts, void* out, int B,
+             int C, int H, int KV, int hd, int N, int bs, int nb, float softcap, int window, int split,
+             cudaStream_t st) {
+  if (hd <= 64) return launch<TQ, 64>(q, k, v, tables, starts, out, B, C, H, KV, hd, N, bs, nb, softcap, window, split, st);
+  if (hd <= 128) return launch<TQ, 128>(q, k, v, tables, starts, out, B, C, H, KV, hd, N, bs, nb, softcap, window, split, st);
+  if (hd <= 192) return launch<TQ, 192>(q, k, v, tables, starts, out, B, C, H, KV, hd, N, bs, nb, softcap, window, split, st);
+  return launch<TQ, 256>(q, k, v, tables, starts, out, B, C, H, KV, hd, N, bs, nb, softcap, window, split, st);
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" {
@@ -452,6 +936,28 @@ int paged_prefill_attention(const void* q, const void* k_pool, const void* v_poo
                                                 N, bs, nb, row_tile, softcap, window, st);
   return launch_prefill<float, float>(q, k_pool, v_pool, tb, st0, out, B, C, H, KV, hd, N, bs, nb,
                                       row_tile, softcap, window, st);
+}
+
+// The cluster split K2's tensor-core kernel picks for these shapes.
+int paged_prefill_tc_split(int B, int C, int H, int KV, int hd, int nb, int bs, int window, float softcap,
+                           int q_bf16) {
+  return q_bf16 ? tc::split_for<__nv_bfloat16>(B, C, H, KV, hd, nb, bs, window, softcap)
+                : tc::split_for<float>(B, C, H, KV, hd, nb, bs, window, softcap);
+}
+
+// K2 on bf16 pools, on the tensor cores.  Arguments as paged_prefill_attention;
+// the pools must be bf16.  split: blocks (a cluster of 1, 2 or 4) that share
+// each 64-row tile's keys; 0 lets the kernel pick.
+int paged_prefill_attention_tc(const void* q, const void* k_pool, const void* v_pool, const void* tables,
+                               const void* starts, void* out, int B, int C, int H, int KV, int hd, int N, int bs,
+                               int nb, float softcap, int window, int q_bf16, int split, void* stream) {
+  const int* tb = static_cast<const int*>(tables);
+  const int* st0 = static_cast<const int*>(starts);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (q_bf16)
+    return tc::dispatch<__nv_bfloat16>(q, k_pool, v_pool, tb, st0, out, B, C, H, KV, hd, N, bs, nb, softcap, window,
+                                       split, st);
+  return tc::dispatch<float>(q, k_pool, v_pool, tb, st0, out, B, C, H, KV, hd, N, bs, nb, softcap, window, split, st);
 }
 
 }  // extern "C"

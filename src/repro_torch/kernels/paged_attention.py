@@ -1,4 +1,4 @@
-"""Paged attention on the card: wrappers of the two hand-written CUDA kernels.
+"""Paged attention on the card: wrappers of the hand-written CUDA kernels.
 
 ``csrc/paged_attention.cu`` holds K1 (decode, one query token per sequence)
 and K2 (chunked prefill, C query tokens per sequence), the Hopper
@@ -8,12 +8,25 @@ counterparts of the JAX package's Pallas ``paged_attention_bhd`` and
 with ``ctypes`` through ``kernels.build`` (a plain C interface: no PyTorch
 headers, a build of seconds).
 
+K2 picks its kernel by the pools' dtype alone (``ROUTES``): bf16 pools,
+what serving uses, run on the tensor cores (TMA through the block table,
+``wgmma``; fp32 queries split exactly into two bf16 terms, P into two, each
+64-key tile's P V added to O in fp32; where a tile is heavy, hd > 128 or a
+softcap, a row tile's keys shared by a cluster of up to 4 blocks); fp32
+pools run the first, CUDA-core kernel (v1).  This
+is a dispatch, not a fallback: a kernel that fails to build or launch
+raises.  ``paged_prefill_attention_cuda_cores`` runs v1 on either pool
+dtype; no model path calls it: it is the yardstick the tensor-core kernel
+is timed against.  K1 runs v1 (``DECODE_ROUTE``).
+
 Each wrapper checks device, dtype, shape and contiguity, allocates the
 output with ``torch.empty``, launches on the current stream and raises if
-the launch failed.  ``LAUNCHES`` counts the launches of each kernel; a
-wrapper adds one where it launches, nowhere else.  For tensors on the CPU a
-wrapper calls the kernel's plain version (``paged_attention_ref``); for
-CUDA tensors it launches the kernel or raises, and never falls back.
+the launch failed.  ``LAUNCHES`` counts the launches of each kernel:
+``paged_prefill`` either route of K2, ``paged_prefill_cuda_cores`` the
+yardstick's; a wrapper adds one where it launches, nowhere else.  For
+tensors on the CPU a wrapper calls the kernel's plain version
+(``paged_attention_ref``); for CUDA tensors it launches the kernel or
+raises, and never falls back.
 """
 
 from __future__ import annotations
@@ -31,9 +44,13 @@ from repro_torch.kernels.paged_attention_ref import (
 SOURCE = "paged_attention.cu"  # under kernels/csrc
 
 # launches of each kernel by its wrapper (reset with ``reset_launches``)
-LAUNCHES = {"paged_decode": 0, "paged_prefill": 0}
+LAUNCHES = {"paged_decode": 0, "paged_prefill": 0, "paged_prefill_cuda_cores": 0}
 
-PREFILL_ROW_TILE = 16  # K2 query rows per thread block
+# the kernel K2 runs for each pool dtype, and K1's
+ROUTES = {torch.bfloat16: "tensor_cores_bf16", torch.float32: "cuda_cores_fp32"}
+DECODE_ROUTE = "cuda_cores_fp32"
+
+PREFILL_ROW_TILE = 16  # v1's K2 query rows per thread block
 MAX_SMEM = 232_448  # bytes of shared memory one H100 thread block may use
 
 
@@ -50,6 +67,10 @@ def _declare(lib) -> None:
     lib.paged_prefill_attention.restype = i
     lib.paged_attention_smem_bytes.argtypes = [i, i, i]
     lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
+    lib.paged_prefill_attention_tc.argtypes = [p] * 6 + [i] * 8 + [f, i, i, i, p]
+    lib.paged_prefill_attention_tc.restype = i
+    lib.paged_prefill_tc_split.argtypes = [i] * 8 + [f, i]
+    lib.paged_prefill_tc_split.restype = i
 
 
 def _library():
@@ -123,6 +144,64 @@ def paged_attention(
     return out
 
 
+def prefill_route(q_dtype: torch.dtype, pool_dtype: torch.dtype) -> str:
+    """The kernel K2 runs for these dtypes: ``ROUTES`` by the pools' dtype,
+    for fp32 and bf16 queries alike."""
+    if q_dtype not in (torch.float32, torch.bfloat16) or pool_dtype not in ROUTES:
+        raise TypeError(f"q {q_dtype}, pools {pool_dtype}: need float32 or bfloat16")
+    return ROUTES[pool_dtype]
+
+
+def _prefill_split(q: torch.Tensor, k_pool: torch.Tensor, block_tables: torch.Tensor, *, softcap: float = 0.0,
+                   window: int = 0) -> int:
+    """The blocks (cluster size) that the tensor-core route picks to share
+    each 64-row tile's keys on these shapes.  For checks and timing only."""
+    B, C, H, hd = q.shape
+    N, bs, KV, _ = k_pool.shape
+    return _library().paged_prefill_tc_split(B, C, H, KV, hd, block_tables.shape[1], bs, int(window), float(softcap),
+                                             int(q.dtype == torch.bfloat16))
+
+
+def _prefill_launch(q, k_pool, v_pool, block_tables, start, *, softcap: float = 0.0, window: int = 0,
+                    cuda_cores: bool = False, split: int = 0) -> torch.Tensor:
+    """Launch K2 on CUDA tensors: the route of the pools' dtype
+    (``ROUTES``), or v1 with ``cuda_cores``.  ``split`` (tensor-core route
+    only): the cluster of 1 to 4 blocks that share each 64-row tile's keys,
+    0 to let the kernel pick; the entry points always pass 0, checks and
+    timing force the others."""
+    _check(q, k_pool, v_pool, block_tables, start, 4)
+    B, C, H, hd = q.shape
+    N, bs, KV, _ = k_pool.shape
+    lib = _library()
+    q_bf16 = int(q.dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    out = torch.empty_like(q)
+    if not cuda_cores and prefill_route(q.dtype, k_pool.dtype) == "tensor_cores_bf16":
+        if not 0 <= split <= 4:
+            raise ValueError(f"split {split}: need 0 (chosen by the grid), 1, 2, 3 or 4")
+        for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must start on a 16-byte boundary")
+        rc = lib.paged_prefill_attention_tc(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(), start.data_ptr(),
+            out.data_ptr(), B, C, H, KV, hd, N, bs, block_tables.shape[1], float(softcap), int(window), q_bf16,
+            int(split), stream,
+        )
+    else:
+        row_tile = min(PREFILL_ROW_TILE, C * (H // KV))
+        _smem_ok(lib, row_tile, bs, hd)
+        rc = lib.paged_prefill_attention(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
+            start.data_ptr(), out.data_ptr(), B, C, H, KV, hd, N, bs, block_tables.shape[1],
+            row_tile, float(softcap), int(window), q_bf16, int(k_pool.dtype == torch.bfloat16), stream,
+        )
+    if rc != 0:
+        why = "a TMA tensor map was refused" if rc == -1 else f"CUDA error {rc}"
+        raise RuntimeError(f"paged_prefill_attention launch failed: {why}")
+    LAUNCHES["paged_prefill_cuda_cores" if cuda_cores else "paged_prefill"] += 1
+    return out
+
+
 def paged_prefill_attention(
     q: torch.Tensor,  # (B, C, H, hd) chunk queries
     k_pool: torch.Tensor,  # (N, bs, KV, hd), chunk K/V already written
@@ -138,20 +217,21 @@ def paged_prefill_attention(
         return paged_prefill_attention_plain(q, k_pool, v_pool, block_tables, start, softcap=softcap, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention runs on cuda or cpu, not {q.device}")
-    _check(q, k_pool, v_pool, block_tables, start, 4)
-    B, C, H, hd = q.shape
-    N, bs, KV, _ = k_pool.shape
-    lib = _library()
-    row_tile = min(PREFILL_ROW_TILE, C * (H // KV))
-    _smem_ok(lib, row_tile, bs, hd)
-    out = torch.empty_like(q)
-    rc = lib.paged_prefill_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
-        start.data_ptr(), out.data_ptr(), B, C, H, KV, hd, N, bs, block_tables.shape[1],
-        row_tile, float(softcap), int(window), int(q.dtype == torch.bfloat16),
-        int(k_pool.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"paged_prefill_attention launch failed: CUDA error {rc}")
-    LAUNCHES["paged_prefill"] += 1
-    return out
+    return _prefill_launch(q, k_pool, v_pool, block_tables, start, softcap=softcap, window=window)
+
+
+def paged_prefill_attention_cuda_cores(
+    q: torch.Tensor,  # (B, C, H, hd), on the card
+    k_pool: torch.Tensor,  # (N, bs, KV, hd)
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,
+    start: torch.Tensor,
+    *,
+    softcap: float = 0.0,
+    window: int = 0,
+) -> torch.Tensor:
+    """K2's CUDA-core kernel (v1) on either pool dtype: the yardstick of the
+    tensor-core kernel.  No model path calls it."""
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_prefill_attention_cuda_cores runs on cuda, not {q.device}")
+    return _prefill_launch(q, k_pool, v_pool, block_tables, start, softcap=softcap, window=window, cuda_cores=True)

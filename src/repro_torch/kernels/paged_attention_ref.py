@@ -11,6 +11,11 @@ lie on the CPU.
 Block-table contract (shared with the kernels): entries past a sequence's
 last live block point at the reserved null block (id 0).  They are gathered
 like any other block and fully masked by the position compare.
+
+Beside them, what the checks of K2's tensor-core route use:
+``paged_prefill_attention_split``, the prefill function with q and P
+carried as bf16 terms and P V summed per 64-key tile (two terms each are
+the route's numerics; one q term is the control "q rounded to bf16").
 """
 
 from __future__ import annotations
@@ -103,4 +108,64 @@ def paged_prefill_attention_plain(
 
     w = torch.softmax(s, dim=-1)
     ctx = torch.einsum("bkcgs,bskd->bckgd", w, v)
+    return ctx.reshape(B, C, H, hd).to(q.dtype)
+
+
+def _bf16_terms(x: torch.Tensor, terms: int) -> list[torch.Tensor]:
+    """``terms`` bf16 values (as fp32) whose sum carries x: each the bf16
+    rounding of what the earlier ones left."""
+    parts, rest = [], x
+    for _ in range(terms):
+        parts.append(rest.bfloat16().float())
+        rest = rest - parts[-1]
+    return parts
+
+
+def paged_prefill_attention_split(
+    q: torch.Tensor,  # (B, C, H, hd) chunk queries
+    k_pool: torch.Tensor,  # (N, bs, KV, hd) bf16 pool
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # (B, nb) int32
+    start: torch.Tensor,  # (B,) int32
+    *,
+    q_terms: int,
+    p_terms: int,
+    softcap: float = 0.0,
+    window: int = 0,
+    tile: int = 64,
+) -> torch.Tensor:
+    """The plain prefill with the tensor-core route's roundings: q carried
+    as ``q_terms`` bf16 terms (each term's q K summed in fp32), the softmax
+    weights P as ``p_terms`` bf16 terms, and P V of each ``tile``-key tile
+    of the gathered view summed alone and added in fp32.  ``q_terms=2,
+    p_terms=2`` is the kernel's route for fp32 queries; ``q_terms=1`` rounds
+    q to bf16.  Nothing on the model path calls it."""
+    B, C, H, hd = q.shape
+    KV = k_pool.shape[2]
+    qpk = H // KV
+    scale = 1.0 / math.sqrt(hd)
+
+    k = gather_blocks(k_pool, block_tables).float()  # (B, S, KV, hd)
+    v = gather_blocks(v_pool, block_tables).float()
+    S = k.shape[1]
+
+    qg = q.float().reshape(B, C, KV, qpk, hd)
+    s = sum(torch.einsum("bckgd,bskd->bkcgs", part, k) for part in _bf16_terms(qg, q_terms)) * scale
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+
+    q_pos = start.to(torch.int32)[:, None] + torch.arange(C, dtype=torch.int32, device=q.device)[None, :]
+    kv_pos = torch.arange(S, dtype=torch.int32, device=q.device)[None, None, :]
+    ok = kv_pos <= q_pos[:, :, None]
+    if window > 0:
+        ok &= (q_pos[:, :, None] - kv_pos) < window
+    s = torch.where(ok[:, None, :, None, :], s, torch.full_like(s, NEG_INF))
+
+    w = torch.softmax(s, dim=-1)
+    ctx = 0
+    for t0 in range(0, S, tile):
+        vt = v[:, t0 : t0 + tile]
+        ctx = ctx + sum(
+            torch.einsum("bkcgs,bskd->bckgd", part, vt) for part in _bf16_terms(w[..., t0 : t0 + tile], p_terms)
+        )
     return ctx.reshape(B, C, H, hd).to(q.dtype)

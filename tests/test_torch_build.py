@@ -48,14 +48,24 @@ def test_the_repository_sources_hash():
         assert build.library_path(src).name.startswith(f"lib{src[:-3]}_")
 
 
-@pytest.mark.parametrize("src", ["fp8_gemm.cu", "flash_attention.cu"])
-def test_tensor_core_sources_follow_hopper_cuh(src, tmp_path, monkeypatch):
-    # the two tensor-core kernels include hopper.cuh: an edit of it builds them anew
+def _edited_header_rebuilds(src, header, tmp_path, monkeypatch) -> None:
     for f in build.CSRC.iterdir():
         (tmp_path / f.name).write_bytes(f.read_bytes())
-    assert '#include "hopper.cuh"' in (tmp_path / src).read_text()
+    assert f'#include "{header}"' in (tmp_path / src).read_text()
     monkeypatch.setattr(build, "CSRC", tmp_path)
     first = build.library_path(src)
-    with open(tmp_path / "hopper.cuh", "a") as f:
+    with open(tmp_path / header, "a") as f:
         f.write("// edited\n")
     assert build.library_path(src) != first
+
+
+@pytest.mark.parametrize("src", ["fp8_gemm.cu", "flash_attention.cu", "paged_attention.cu"])
+def test_tensor_core_sources_follow_hopper_cuh(src, tmp_path, monkeypatch):
+    # the tensor-core kernels include hopper.cuh: an edit of it builds them anew
+    _edited_header_rebuilds(src, "hopper.cuh", tmp_path, monkeypatch)
+
+
+@pytest.mark.parametrize("src", ["flash_attention.cu", "paged_attention.cu"])
+def test_attention_sources_follow_attention_tc_cuh(src, tmp_path, monkeypatch):
+    # K3 and K2 share their softmax and P V code in attention_tc.cuh
+    _edited_header_rebuilds(src, "attention_tc.cuh", tmp_path, monkeypatch)

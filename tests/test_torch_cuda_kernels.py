@@ -5,7 +5,11 @@ skips on a host without CUDA.
 
 Both versions read the same bf16 pools and compute in fp32: with fp32
 queries only the summation order differs (1e-4); with bf16 queries both
-round the output to bf16 (2e-2).
+round the output to bf16 (2e-2).  K2 on bf16 pools runs on the tensor
+cores, with fp32 queries split into two bf16 terms: each of its cases also
+computes a control that must miss the limit (q in one bf16 term; for bf16
+queries, the causal mask off by one).  v1, the CUDA-core K2, stays checked
+on fp32 pools and through ``paged_prefill_attention_cuda_cores``.
 """
 
 import pytest
@@ -65,3 +69,115 @@ def test_cuda_prefill_matches_plain(H, KV_, hd, window, softcap, q_dtype):
     torch.cuda.synchronize()
     tol = 2e-2 if q_dtype == torch.bfloat16 else 1e-4
     assert float((out.float() - ref.float()).abs().max()) < tol
+
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# K2's serving chunks on olmo-1b's heads and GQA 32/8: H, KV, hd, C, start, window, q dtype
+ROUTE_CASES = [
+    (16, 16, 128, 1, 200, 0, torch.float32),
+    (16, 16, 128, 16, 200, 0, torch.float32),
+    (16, 16, 128, 40, 200, 0, torch.float32),
+    (32, 8, 128, 128, 192, 0, torch.float32),
+    (32, 8, 128, 128, 192, 32, torch.bfloat16),
+]
+
+
+def _err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,KV_,hd,C,start,window,q_dtype", ROUTE_CASES)
+def test_cuda_prefill_tensor_core_route(H, KV_, hd, C, start, window, q_dtype):
+    """bf16 pools: the tensor-core K2 against the plain version within the
+    limit, every cluster split alike; the control misses it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    st = torch.tensor([start], dtype=torch.int32)
+    q, kp, vp, tbl = _gpu_inputs(H, KV_, hd, (1, C, H, hd), st + C - 1, q_dtype, nb=16)
+    st = st.cuda()
+    assert K.prefill_route(q.dtype, kp.dtype) == "tensor_cores_bf16"
+    ref = paged_prefill_attention_plain(q, kp, vp, tbl, st, window=window)
+    before = dict(K.LAUNCHES)
+    outs = [K.paged_prefill_attention(q, kp, vp, tbl, st, window=window)]
+    outs += [K._prefill_launch(q, kp, vp, tbl, st, window=window, split=split) for split in (1, 2, 3, 4)]
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["paged_prefill"] == before["paged_prefill"] + 5
+    assert K.LAUNCHES["paged_prefill_cuda_cores"] == before["paged_prefill_cuda_cores"]
+    for out in outs:
+        assert out.dtype == q_dtype and bool(torch.isfinite(out).all())
+        assert _err(out, ref) < TOL[q_dtype]
+    if q_dtype == torch.float32:
+        control = paged_prefill_attention_plain(q.bfloat16().float(), kp, vp, tbl, st, window=window)
+    else:
+        control = paged_prefill_attention_plain(q, kp, vp, tbl, st + 1, window=window)
+    assert _err(control, ref) > TOL[q_dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_prefill_cuda_cores_yardstick(q_dtype):
+    """v1 stays checked: the route of fp32 pools, and the yardstick entry
+    point on bf16 pools, which counts its own launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    C = 24
+    st = torch.tensor([0, 40, 100], dtype=torch.int32)
+    q, kp, vp, tbl = _gpu_inputs(16, 16, 128, (3, C, 16, 128), st + C - 1, q_dtype)
+    st = st.cuda()
+    ref = paged_prefill_attention_plain(q, kp, vp, tbl, st)
+    before = dict(K.LAUNCHES)
+    yard = K.paged_prefill_attention_cuda_cores(q, kp, vp, tbl, st)
+    kp32, vp32 = kp.float(), vp.float()
+    assert K.prefill_route(q.dtype, kp32.dtype) == "cuda_cores_fp32"
+    fp32_pools = K.paged_prefill_attention(q, kp32, vp32, tbl, st)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["paged_prefill_cuda_cores"] == before["paged_prefill_cuda_cores"] + 1
+    assert K.LAUNCHES["paged_prefill"] == before["paged_prefill"] + 1
+    assert _err(yard, ref) < TOL[q_dtype]
+    assert _err(fp32_pools, ref) < TOL[q_dtype]
+
+
+@pytest.mark.gpu
+def test_cuda_prefill_table_entries_out_of_range_read_block_0():
+    """A table entry outside [0, N) reads the null block 0 on both routes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    C = 32
+    st = torch.tensor([64, 69], dtype=torch.int32)
+    q, kp, vp, tbl = _gpu_inputs(16, 16, 128, (2, C, 16, 128), st + C - 1, torch.float32, nb=8)
+    N = kp.shape[0]
+    bad = tbl.clone()
+    bad[0, 1], bad[1, 2] = N + 7, -3
+    good = bad.clone()
+    good[0, 1], good[1, 2] = 0, 0
+    st = st.cuda()
+    ref = paged_prefill_attention_plain(q, kp, vp, good, st)
+    routed = K.paged_prefill_attention(q, kp, vp, bad, st)
+    yard = K.paged_prefill_attention_cuda_cores(q, kp, vp, bad, st)
+    torch.cuda.synchronize()
+    assert _err(routed, ref) < TOL[torch.float32]
+    assert _err(yard, ref) < TOL[torch.float32]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_prefill_chunk_past_the_table_sees_only_its_blocks(q_dtype):
+    """A chunk that runs past the table's last block (start + C > nb * bs)
+    sees the table's positions only, on both routes and every cluster
+    split: the tensor-core walk's last tile pads with block 0, which the
+    kernel must mask, as v1 stops at the table's end."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    C, nb = 40, 3  # positions 80 .. 119 against a table of 96
+    st = torch.tensor([80], dtype=torch.int32)
+    q, kp, vp, tbl = _gpu_inputs(16, 16, 128, (1, C, 16, 128), st + C - 1, q_dtype, nb=nb)
+    st = st.cuda()
+    assert int(st[0]) + C > nb * kp.shape[1]
+    ref = paged_prefill_attention_plain(q, kp, vp, tbl, st)
+    outs = [K.paged_prefill_attention(q, kp, vp, tbl, st), K.paged_prefill_attention_cuda_cores(q, kp, vp, tbl, st)]
+    outs += [K._prefill_launch(q, kp, vp, tbl, st, split=split) for split in (2, 3, 4)]
+    torch.cuda.synchronize()
+    for out in outs:
+        assert out.dtype == q_dtype and bool(torch.isfinite(out).all())
+        assert _err(out, ref) < TOL[q_dtype]

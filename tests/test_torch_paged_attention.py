@@ -7,6 +7,12 @@ seed, with bf16-representable pools, null-padded tables and ragged
 lengths.  Tolerance 2e-5 absolute in fp32: the functions are the same, the
 sums run in another order.
 
+K2's tensor-core route (bf16 pools) splits fp32 queries into two bf16
+terms and P into two, and sums P V per 64-key tile in fp32:
+``paged_prefill_attention_split`` emulates those roundings here and is held
+to the card's limit against the Pallas kernel; q in one bf16 term must
+miss it.
+
 ``test_torch_cuda_kernels.py`` holds the CUDA kernels against the plain
 versions on the card.
 """
@@ -19,7 +25,11 @@ import torch
 from repro.kernels.paged_attention import paged_attention_bhd, paged_prefill_attention_bhd
 from repro.kernels.paged_attention_ref import paged_attention_ref, paged_prefill_attention_ref
 from repro_torch.kernels import paged_attention as K
-from repro_torch.kernels.paged_attention_ref import paged_attention_plain, paged_prefill_attention_plain
+from repro_torch.kernels.paged_attention_ref import (
+    paged_attention_plain,
+    paged_prefill_attention_plain,
+    paged_prefill_attention_split,
+)
 
 torch.set_num_threads(2)
 
@@ -102,4 +112,70 @@ def test_wrappers_take_the_plain_version_on_cpu():
     args2 = [torch.from_numpy(a) for a in (q2, kp2, vp2, tbl2, start)]
     out2 = K.paged_prefill_attention(*args2, softcap=30.0)
     assert torch.equal(out2, paged_prefill_attention_plain(*args2, softcap=30.0))
-    assert K.LAUNCHES == {"paged_decode": 0, "paged_prefill": 0}
+    assert K.LAUNCHES == {"paged_decode": 0, "paged_prefill": 0, "paged_prefill_cuda_cores": 0}
+
+
+# chip_smoke.py's K2 cases for fp32 queries: name, (H, KV, hd), C, start,
+# window, softcap; block size 32, a 16-entry table
+SPLIT_CASES = [
+    ("olmo-1b", (16, 16, 128), 128, 192, 0, 0.0),
+    ("gqa-32/8-window-32", (32, 8, 128), 128, 192, 32, 0.0),
+    ("gemma-7b-softcap-30", (16, 16, 256), 128, 192, 0, 30.0),
+    ("olmo-1b-C40@200", (16, 16, 128), 40, 200, 0, 0.0),
+]
+CARD_TOL_FP32 = 1e-4  # chip_smoke.py's TOL for fp32 queries
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=[c[0] for c in SPLIT_CASES])
+def test_split_q_route_meets_the_card_limits(case):
+    """The tensor-core route's roundings (q and P as two bf16 terms each,
+    P V per 64-key tile) stay within the card's limit of the Pallas K2; q
+    in one bf16 term misses it."""
+    _, (H, KV_, hd), C, start, window, softcap = case
+    rng = np.random.default_rng(hd + C + window)
+    bs, nb = 32, 16
+    N = 1 + nb + 2
+    q = rng.standard_normal((1, C, H, hd)).astype(np.float32)
+    kp = _bf16_round(rng.standard_normal((N, bs, KV_, hd)).astype(np.float32))
+    vp = _bf16_round(rng.standard_normal((N, bs, KV_, hd)).astype(np.float32))
+    tbl = (rng.permutation(N - 1)[:nb] + 1).reshape(1, nb).astype(np.int32)
+    tbl[0, (start + C - 1) // bs + 1 :] = 0
+    st = np.array([start], np.int32)
+    ref = np.asarray(paged_prefill_attention_bhd(*[jnp.asarray(a) for a in (q, kp, vp, tbl, st)],
+                                                 softcap=softcap, window=window, interpret=True))
+    args = [torch.from_numpy(a) for a in (q, kp, vp, tbl, st)]
+
+    def err(q_terms):
+        out = paged_prefill_attention_split(*args, q_terms=q_terms, p_terms=2, softcap=softcap, window=window)
+        return float(np.max(np.abs(out.numpy() - ref)))
+
+    assert err(2) < CARD_TOL_FP32
+    assert err(1) > CARD_TOL_FP32
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_routes_follow_the_pool_dtype(q_dtype):
+    """bf16 pools run the tensor-core kernel, fp32 pools v1, whatever the
+    query dtype; other dtypes are refused; K1 runs v1."""
+    assert K.prefill_route(q_dtype, torch.bfloat16) == K.ROUTES[torch.bfloat16] == "tensor_cores_bf16"
+    assert K.prefill_route(q_dtype, torch.float32) == K.ROUTES[torch.float32] == "cuda_cores_fp32"
+    with pytest.raises(TypeError):
+        K.prefill_route(q_dtype, torch.float16)
+    with pytest.raises(TypeError):
+        K.prefill_route(torch.float16, torch.bfloat16)
+    assert K.DECODE_ROUTE == "cuda_cores_fp32"
+
+
+def test_split_terms_are_exact_where_the_inputs_are_bf16():
+    """With bf16 queries one q term carries q exactly, so one term and two
+    agree; with P in two terms the route matches the plain version far
+    inside the card's limit."""
+    H, hd = 4, 16
+    start = np.array([3, 11], np.int32)
+    q, kp, vp, tbl = _inputs(9, H, hd, (B, 5, H, hd), start + 4)
+    args = [torch.from_numpy(a) for a in (_bf16_round(q), kp, vp, tbl, start)]
+    one = paged_prefill_attention_split(*args, q_terms=1, p_terms=2, window=8)
+    two = paged_prefill_attention_split(*args, q_terms=2, p_terms=2, window=8)
+    assert torch.equal(one, two)
+    plain = paged_prefill_attention_plain(*args, window=8)
+    assert float((two - plain).abs().max()) < CARD_TOL_FP32 / 10
