@@ -9,9 +9,10 @@ or when any check fails.  Phases:
    versions, then ``nvcc`` builds the five sources of
    ``src/repro_torch/kernels/csrc`` for ``sm_90a``, all started together,
    with the seconds each took; then the count of HGMMA (``wgmma``)
-   instructions in each kernel of K4, K3 and K2 (``cuobjdump -sass``): each
-   of K4's four kernels, K3's four bf16 kernels and K2's eight tensor-core
-   kernels must hold some.
+   instructions in each kernel of K4, K3 and K2 and of HMMA (``mma.sync``)
+   in K5's (``cuobjdump -sass``): each of K4's four kernels, K3's four bf16
+   kernels, K2's eight tensor-core kernels and K5's nine chunk kernels (one
+   per head size and chunk) must hold some.
 2. Kernels: K1 (paged decode) and K2 (chunked prefill) against their plain
    PyTorch versions on the card, bf16 pools, fp32 and bf16 queries, at the
    head shapes of olmo-1b, mistral-nemo-12b and gemma-7b, block size 32,
@@ -19,12 +20,14 @@ or when any check fails.  Phases:
    sliding-window and one softcap case, and for K2 the short and ragged
    chunks serving runs (C = 1 and 16 at 192, C = 40 at 200).  Each case
    names the kernel it runs (``route``: K2's bf16 pools run on the tensor
-   cores), reads the max error against ``TOL``, the mean error and
+   cores; K1 splits each walk over a cluster of up to 8 blocks, ``split``
+   the size it picked), reads the max error against ``TOL``, the mean error and
    (reported only) the signed bias, and a control that must fail ``TOL``
    (fp32 queries: q rounded to one bf16 term; bf16 queries: the causal
-   mask off by one); K2 cases also time v1 (the CUDA-core yardstick) and
-   the kernel without its cluster split, and read the host time of one
-   call for both routes.  Then K3 (flash attention forward)
+   mask off by one); K1 and K2 cases also time v1 (the CUDA-core
+   yardstick) and the kernel without its cluster split (the cluster size
+   the kernel picked beside it), and read the host time of one call for
+   both.  Then K3 (flash attention forward)
    at olmo-1b's training shape and GQA, window, softcap, fp32, ragged, head
    dim 80 and 160 and no-key (Sq > Skv with a window) cases, each naming
    the kernel its dtype runs (``route``), with SDPA's errors and the
@@ -73,10 +76,11 @@ or when any check fails.  Phases:
    copy, mul, add and triad at n = 2^27 in fp32 and bf16, bit-equal to
    their plain versions, and dot on non-negative inputs, each beside its
    PyTorch call; K5 at rwkv6-7b's eval shape, at a small shape and with
-   fast decay, against its plain version and the sequential oracle.  Each
-   check computes a control (triad with the scalar left unrounded, dot
-   without its last tile, the scan with the decay one step late) that it
-   must reject.
+   fast decay, against its plain version and the sequential oracle (max
+   and mean error), with v1 (the yardstick) timed and checked beside it.
+   Each check computes a control (triad with the scalar left unrounded,
+   dot without its last tile, the scan with the decay one step late) that
+   it must reject.
 11. BabelStream: ``repro_torch.benchmarks.babelstream.run()``, the entry
    point of the paper's Fig. 10, on the card in fp32 (the counters set to 0
    just before, read just after) and in bf16.
@@ -375,15 +379,20 @@ def kernel_phase(device) -> dict:
                 "bound_ms": bound_ms, "bound_by": bound_by,
             }
             if kind == "prefill":
-                cuda_cores = K.paged_prefill_attention_cuda_cores
-                v1_err = float((run(cuda_cores, 0).float() - ref.float()).abs().max())
-                row.update(
-                    C=C, start=start, split=K._prefill_split(c["q"], c["k"][0], c["tbl"], softcap=cap, window=window),
-                    # the kernel without the cluster split, and v1 (the yardstick) on the same inputs
-                    split1_ms=timed_ms(lambda i: run(K._prefill_launch, i, split=1)),
-                    cuda_cores_ms=timed_ms(lambda i: run(cuda_cores, i)), cuda_cores_max_abs_err=v1_err,
-                    host_us=host_us(lambda i: run(kernel, i)), cuda_cores_host_us=host_us(lambda i: run(cuda_cores, i)),
-                )
+                cuda_cores, launch = K.paged_prefill_attention_cuda_cores, K._prefill_launch
+                split = K._prefill_split(c["q"], c["k"][0], c["tbl"], softcap=cap, window=window)
+                row.update(C=C, start=start)
+            else:
+                cuda_cores, launch = K.paged_attention_cuda_cores, K._decode_launch
+                split = K._decode_split(c["q"], c["k"][0], c["tbl"], window=window)
+            v1_err = float((run(cuda_cores, 0).float() - ref.float()).abs().max())
+            row.update(
+                split=split,
+                # the kernel without the cluster split, and v1 (the yardstick) on the same inputs
+                split1_ms=timed_ms(lambda i: run(launch, i, split=1)),
+                cuda_cores_ms=timed_ms(lambda i: run(cuda_cores, i)), cuda_cores_max_abs_err=v1_err,
+                host_us=host_us(lambda i: run(kernel, i)), cuda_cores_host_us=host_us(lambda i: run(cuda_cores, i)),
+            )
             emit(row)
             del ref
             if not errs["max_abs"] < tol:
@@ -391,8 +400,8 @@ def kernel_phase(device) -> dict:
             if not control["max_abs"] > tol:
                 fail(f"{row['kernel']} {model} {row['q_dtype']}: the control {control_name} passes "
                      f"({control['max_abs']} <= {tol}), which then proves nothing")
-            if kind == "prefill" and not row["cuda_cores_max_abs_err"] < tol:
-                fail(f"paged_prefill_cuda_cores {model} {row['q_dtype']}: err {row['cuda_cores_max_abs_err']} >= {tol}")
+            if not row["cuda_cores_max_abs_err"] < tol:
+                fail(f"paged_{kind}_cuda_cores {model} {row['q_dtype']}: err {row['cuda_cores_max_abs_err']} >= {tol}")
             if model == "olmo-1b" and dt == torch.float32 and f"paged_{kind}" not in main:
                 main[f"paged_{kind}"] = row
             del c
@@ -829,8 +838,16 @@ def kernel_label(mangled: str) -> str:
     dtype = {"f": "fp32", "13__nv_bfloat16": "bf16"}
     if m := re.search(r"paged_prefill_tc_kernelI(f|13__nv_bfloat16)Li(\d+)E", mangled):
         return f"prefill_tensor_cores,q={dtype[m[1]]},hd_pad={m[2]}"
-    if m := re.search(r"paged_(prefill|decode)_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)E", mangled):
-        return f"{m[1]}_cuda_cores,q={dtype[m[2]]},pools={'fp32' if m[3] == 'f' else 'bf16'}"
+    if m := re.search(r"paged_(prefill_kernel|decode_cuda_cores_kernel)I(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)E",
+                      mangled):
+        return f"{m[1].split('_')[0]}_cuda_cores,q={dtype[m[2]]},pools={'fp32' if m[3] == 'f' else 'bf16'}"
+    if m := re.search(r"paged_decode_kernel_splitI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)Li(\d+)ELi(\d+)E",
+                      mangled):
+        return f"decode_split,q={dtype[m[1]]},pools={'fp32' if m[2] == 'f' else 'bf16'},hd_pad={m[3]},rows={m[4]}"
+    if m := re.search(r"wkv6_kernel_chunkILi(\d+)ELi(\d+)E", mangled):
+        return f"wkv6_chunk,n={m[1]},chunk={m[2]}"
+    if m := re.search(r"wkv6_cuda_cores_kernelILi(\d+)ELi(\d+)E", mangled):
+        return f"wkv6_cuda_cores,n={m[1]},chunk={m[2]}"
     if m := re.search(r"fp8_gemm_kernelILb(\d)ELb(\d)E", mangled):
         return f"a_e5m2={m[1]},b_e5m2={m[2]}"
     if m := re.search(r"flash_tc_kernelILi(\d+)E", mangled):
@@ -840,9 +857,10 @@ def kernel_label(mangled: str) -> str:
     return mangled
 
 
-def hgmma_counts(lib) -> dict:
-    """HGMMA (warpgroup MMA on fp16/bf16 operands) instructions in the SASS of
-    each kernel of a library, by ``kernel_label``."""
+def hgmma_counts(lib, op: str = "HGMMA") -> dict:
+    """Tensor-core instructions in the SASS of each kernel of a library, by
+    ``kernel_label``: HGMMA (warpgroup MMA on fp16/bf16 operands) or, with
+    ``op="HMMA"``, the warp-level ``mma.sync`` products."""
     import re
 
     from repro_torch.kernels import build
@@ -855,7 +873,7 @@ def hgmma_counts(lib) -> dict:
             fn = kernel_label(line.split("Function :", 1)[1].strip())
             counts[fn] = 0
         elif fn is not None:
-            counts[fn] += bool(re.search(r"\bHGMMA\b", line))
+            counts[fn] += bool(re.search(rf"\b{op}\b", line))
     return counts
 
 
@@ -1330,18 +1348,23 @@ def wkv_phase(device, cases=WKV_CASES) -> dict:
             oracle = wkv6_ref(*bh, ub)
             control = wkv_late_decay(*bh, ub, chunk=chunk)
             layout_equal = torch.equal(K5.wkv6_chunked(*bh, ub, chunk=chunk), out_bh)
+            v1 = to_bh(K5.wkv6_cuda_cores(r, k, v, lw, u, chunk=chunk))  # the yardstick
         scale = float(plain.abs().max())
         rel = lambda x, y: float((x - y).abs().max()) / scale  # noqa: E731
+        mean_rel = lambda x, y: float((x - y).abs().mean() / plain.abs().mean())  # noqa: E731
         readings = {"vs_plain": rel(out_bh, plain), "vs_oracle": rel(out_bh, oracle),
-                    "control_vs_plain": rel(control, plain), "control_vs_oracle": rel(control, oracle)}
+                    "mean_vs_plain": mean_rel(out_bh, plain), "mean_vs_oracle": mean_rel(out_bh, oracle),
+                    "control_vs_plain": rel(control, plain), "control_vs_oracle": rel(control, oracle),
+                    "cuda_cores_vs_plain": rel(v1, plain)}
         finite = bool(torch.isfinite(out).all())
-        del out, out_bh, plain, oracle, control
+        del out, out_bh, plain, oracle, control, v1
         bound_ms, bound_by = wkv_bound(B * H, S, n)
         row = {
             "phase": "kernel", "kernel": "rwkv6_scan", "case": name, "shape_bshn": [B, S, H, n], "chunk": chunk,
             "max_abs_err": readings["vs_plain"] * scale, "max_abs_out": scale, "readings": readings, "tol": WKV_RTOL,
             "finite": finite, "model_layout_equal": layout_equal,
             **kernel_times(lambda i: K5.wkv6(r, k, v, lw, u, chunk=chunk), iters=10, warmup=2),
+            "cuda_cores_ms": timed_ms(lambda i: K5.wkv6_cuda_cores(r, k, v, lw, u, chunk=chunk), iters=5, warmup=1),
             "plain_ms": timed_ms(lambda i: wkv6_chunked_plain(*bh, ub, chunk=chunk), iters=3, warmup=1),
             "library_ms": None,  # no single PyTorch call computes the scan
             "bound_ms": bound_ms, "bound_by": bound_by, "work": dict(zip(("bytes", "flops", "exps"), wkv_work(B * H, S, n))),
@@ -1349,6 +1372,8 @@ def wkv_phase(device, cases=WKV_CASES) -> dict:
         emit(row)
         if not finite or readings["vs_plain"] > WKV_RTOL or readings["vs_oracle"] > WKV_RTOL or not layout_equal:
             fail(f"rwkv6_scan {name}: {readings} beyond {WKV_RTOL}, finite {finite}, layouts equal {layout_equal}")
+        if readings["cuda_cores_vs_plain"] > WKV_RTOL:
+            fail(f"rwkv6_scan_cuda_cores {name}: {readings} beyond {WKV_RTOL}")
         if readings["control_vs_plain"] <= WKV_RTOL or readings["control_vs_oracle"] <= WKV_RTOL:
             fail(f"rwkv6_scan {name}: the late-decay control passes the check ({readings}), which then proves nothing")
         main = main or row
@@ -1541,6 +1566,14 @@ def main() -> int:
     if len(k2_tc) != 8 or min(hgmma_k2[n] for n in k2_tc) == 0:
         fail(f"paged_attention.cu: K2's tensor-core route needs eight kernels that each hold HGMMA: {hgmma_k2}")
 
+    # K5's chunk kernel takes its products on the tensor cores with mma.sync:
+    # each of its nine (head size x chunk) holds HMMA
+    hmma_k5 = hgmma_counts(libs["rwkv6_scan.cu"], "HMMA")
+    emit({"phase": "sass", "source": "rwkv6_scan.cu", "hmma_per_kernel": hmma_k5})
+    k5_tc = [n for n in hmma_k5 if n.startswith("wkv6_chunk,")]
+    if len(k5_tc) != 9 or min(hmma_k5[n] for n in k5_tc) == 0:
+        fail(f"rwkv6_scan.cu: K5 needs nine chunk kernels that each hold HMMA: {hmma_k5}")
+
     seconds = {"build": time.perf_counter() - t0}
 
     def phase(name, fn, *args):
@@ -1604,12 +1637,12 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
     for k in kernels:  # K4's time covers its layout copies; the parts beside it
-        if k["name"] == "paged_decode":
-            k.update(kernel=main_rows["paged_decode"]["route"])
-        if k["name"] == "paged_prefill":  # the bf16-pool route's kernel, v1 and the unsplit kernel beside it
-            r = main_rows["paged_prefill"]
+        if k["name"] in ("paged_decode", "paged_prefill"):  # the kernel, v1 and the unsplit kernel beside it
+            r = main_rows[k["name"]]
             k.update(kernel=r["route"], cuda_cores_ms=r["cuda_cores_ms"], split=r["split"], split1_ms=r["split1_ms"],
                      host_us=r["host_us"], cuda_cores_host_us=r["cuda_cores_host_us"])
+        if k["name"] == "rwkv6_scan":  # v1 beside the chunk-parallel kernels
+            k.update(cuda_cores_ms=wkv_main["cuda_cores_ms"], mean_rel=wkv_main["readings"]["mean_vs_plain"])
         if k["name"] == "flash_attention":  # the bf16 route's kernel, v1 beside it
             k.update(kernel=flash_main["route"], cuda_cores_ms=flash_main["cuda_cores_ms"])
         if k["name"] == "fp8_gemm":

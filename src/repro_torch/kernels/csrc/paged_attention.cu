@@ -23,10 +23,15 @@
 // outside [0, N) read the null block 0, so a kernel never indexes outside
 // the pool.
 //
-// Two kernel families:
-//  * v1 (``paged_decode_kernel``, ``paged_prefill_kernel``): the CUDA cores
-//    in fp32, any pool dtype.  K1 always; K2 on fp32 pools, and on bf16
-//    pools only as the yardstick of the tensor-core kernel;
+// Three kernel families:
+//  * v1 (``paged_decode_cuda_cores_kernel``, ``paged_prefill_kernel``): one
+//    block per (sequence, kv head[, row tile]) walking its blocks in order,
+//    the CUDA cores in fp32, any pool dtype.  K2 on fp32 pools; K1 and K2 on
+//    bf16 pools only as the yardsticks of the kernels below;
+//  * split (``split::paged_decode_kernel_split``): K1, every pool dtype, each
+//    (sequence, kv head)'s walk split over a thread-block cluster of up to
+//    8 blocks and 4 warps in each, with every load of a share in flight
+//    together, combined through distributed shared memory;
 //  * tc (``tc::paged_prefill_tc_kernel``): K2 on bf16 pools, the serving
 //    path, on the tensor cores (TMA through the block table, wgmma).
 //
@@ -55,7 +60,10 @@ namespace {
 // far below the ~20 fp32 operations per byte where the H100's CUDA cores
 // (67 TFLOP/s) would take over from its memory (3.35 TB/s).  K2 reuses each
 // block for a tile of up to 16 query rows, which moves it toward the
-// operations bound.
+// operations bound.  v1 runs K1 only as the yardstick of the split kernel:
+// its grid of (sequence, kv head) blocks, 64 at olmo-1b's 4 slots, each
+// loading one K/V block at a time and crossing four block barriers a
+// block, is bound by latency, not bytes.
 //
 // Design:
 //  * one thread block per (sequence, kv head[, row tile]) loads its own
@@ -290,10 +298,11 @@ __device__ void attend_blocks(const Tile& t, int rows, const TKV* __restrict__ k
   }
 }
 
-// K1: grid (B, KV); one thread block holds the qpk query rows of one kv head.
+// K1's yardstick: grid (B, KV); one thread block holds the qpk query rows
+// of one kv head.
 template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(kThreads)
-    paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kpool,
+    paged_decode_cuda_cores_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kpool,
                         const TKV* __restrict__ vpool, const int* __restrict__ tables,
                         const int* __restrict__ seq_lens, TQ* __restrict__ out, int N, int bs,
                         int nb, int H, int KV, int hd, float scale, float softcap, int window) {
@@ -393,7 +402,7 @@ int launch_decode(const void* q, const void* k, const void* v, const int* tables
                   const int* seq_lens, void* out, int B, int H, int KV, int hd, int N, int bs,
                   int nb, float softcap, int window, cudaStream_t stream) {
   const size_t smem = tile_bytes(H / KV, bs, hd);
-  auto kernel = paged_decode_kernel<TQ, TKV>;
+  auto kernel = paged_decode_cuda_cores_kernel<TQ, TKV>;
   if (int e = set_smem(kernel, smem)) return e;
   kernel<<<dim3(B, KV), kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v), tables,
@@ -886,6 +895,403 @@ int dispatch(const void* q, const void* k, const void* v, const int* tables, con
 
 }  // namespace tc
 
+// ===========================================================================
+// split: K1 with each (sequence, kv head)'s walk split across a cluster
+// ===========================================================================
+//
+// What bounds it on the card: the bytes of K/V read (olmo-1b's 4 slots at
+// lengths 77 / 160 / 291 / 352 read about 7 MB: 0.0022 ms at 3.35 TB/s).
+// Each K/V element feeds qpk <= 4 multiply-adds at the decode shapes the
+// port serves (olmo-1b and gemma-7b 1, mistral-nemo-12b 4): far below the
+// hundreds of operations a byte where the tensor cores would pay, so the
+// arithmetic stays fp32 on the CUDA cores.  What v1 lost was parallelism
+// and bytes in flight: 64 blocks on 132 SMs, each loading one K/V block
+// at a time behind four block barriers.
+//
+// Design:
+//  * a thread-block cluster of ``split`` blocks (1 to 8; the host picks it
+//    from the table width and the window, ``pick_split``) per (sequence, kv head, group of
+//    up to RT query rows).  The lengths stay on the card: each block takes
+//    an even share of the live positions [max(0, len - window), len) on the
+//    device, and each of its 4 warps an even share of the block's.  The
+//    shares are exact, so no position is masked; a share may be empty;
+//  * a warp issues every K/V load of its share at once (``cp.async``, 16
+//    bytes a lane, through the block table) into its own stages of up to
+//    16 positions, two stages ahead where the table holds more positions
+//    than one; it needs only warp barriers while it walks;
+//  * per stage: 8 lanes share a position's q . k (4 positions at a time,
+//    q in shared memory as fp32), the warp's online softmax in log2 units
+//    (one lane per position), then P V with each lane owning hd / 32
+//    columns of the rows' accumulators in registers;
+//  * the warps' (m, l, acc) are combined in shared memory (one block
+//    barrier), and the blocks' by the cluster's first block through
+//    distributed shared memory (two cluster barriers), which writes the
+//    output.  A share with no position has m = -inf and l = 0 and weighs
+//    0 in a combine (no exp(-inf - (-inf))).
+
+namespace split {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxSplit = 8;  // the portable cluster size
+constexpr int kG = 8;         // lanes that share one position's dot products
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+constexpr int round4(int x) { return (x + 3) & ~3; }
+
+// Layout of one instance: rows RT, head dim padded to HDP, pool type TKV.
+template <typename TKV, int HDP, int RT>
+struct Geo {
+  static constexpr int kRowBytes = HDP * int(sizeof(TKV));  // one position's K (or V) row in a stage
+  static constexpr int kWP = kRowBytes <= 256 ? 16 : (kRowBytes <= 512 ? 8 : 4);  // positions a stage
+  static constexpr int kStageBytes = 2 * kWP * kRowBytes;   // K and V of one stage
+  static constexpr int kCL = HDP / 32;                     // accumulator columns a lane
+  static constexpr int kX = HDP + 4;  // a row's (acc, m, l) in a combine, rows on 16-byte boundaries
+  // floats: q (then the block's combined rows), the stages' scores, the warps' rows
+  static constexpr int kQ = round4(RT * kX);
+  static constexpr int kP = round4(kWarps * RT * kWP);
+  static constexpr int kXs = round4(kWarps * RT * kX);
+  static constexpr int kFixed = 4 * (kQ + kP + kXs);
+  static constexpr size_t bytes(int depth) { return size_t(kFixed) + size_t(kWarps) * depth * kStageBytes; }
+};
+
+// Stage ``st`` of a warp's positions [wlo, whi) into its ring slot st % depth:
+// each lane copies 16-byte pieces of K and V rows, one commit group.
+template <typename TKV, int HDP, int RT>
+__device__ __forceinline__ void issue_stage(uint32_t ring_w, int depth, int st, int wlo, int whi, const TKV* kpool,
+                                            const TKV* vpool, const int* trow, int N, int bs, int KV, int kv, int hd,
+                                            int lane) {
+  using G = Geo<TKV, HDP, RT>;
+  const int p0 = wlo + st * G::kWP;
+  const int np = min(G::kWP, whi - p0);
+  const int chunks = hd * int(sizeof(TKV)) / 16;
+  const uint32_t kdst = ring_w + (st % depth) * G::kStageBytes;
+  const uint32_t vdst = kdst + G::kWP * G::kRowBytes;
+  for (int i = lane; i < np * chunks; i += 32) {
+    const int pp = i / chunks, c = i - pp * chunks;
+    const int p = p0 + pp;
+    int phys = trow[p / bs];
+    if (phys < 0 || phys >= N) phys = 0;  // never index outside the pool
+    const size_t off = (((size_t(phys) * bs + p % bs) * KV + kv) * size_t(hd)) * sizeof(TKV) + size_t(c) * 16;
+    cp_async16(kdst + pp * G::kRowBytes + c * 16, reinterpret_cast<const uint8_t*>(kpool) + off);
+    cp_async16(vdst + pp * G::kRowBytes + c * 16, reinterpret_cast<const uint8_t*>(vpool) + off);
+  }
+  cp_async_commit();
+}
+
+// CL values of T at ``src`` as floats.
+template <typename T, int CL>
+__device__ __forceinline__ void load_cols(const T* src, float (&x)[CL]) {
+  if constexpr (sizeof(T) * CL == 16) {
+    Vec16<T>::load(src, x);
+  } else if constexpr (sizeof(T) == 4 && CL == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(src);
+    x[0] = a.x, x[1] = a.y;
+  } else if constexpr (sizeof(T) == 2 && CL == 4) {
+    const uint2 a = *reinterpret_cast<const uint2*>(src);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a.y));
+    x[0] = lo.x, x[1] = lo.y, x[2] = hi.x, x[3] = hi.y;
+  } else if constexpr (sizeof(T) == 2 && CL == 2) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src));
+    x[0] = a.x, x[1] = a.y;
+  } else {  // 8 fp32
+#pragma unroll
+    for (int e = 0; e < CL; e += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(src + e);
+      x[e] = a.x, x[e + 1] = a.y, x[e + 2] = a.z, x[e + 3] = a.w;
+    }
+  }
+}
+
+// grid (split, B, KV * row groups), clusters of (split, 1, 1); 128 threads.
+template <typename TQ, typename TKV, int HDP, int RT>
+__global__ void __launch_bounds__(kThreads)
+    paged_decode_kernel_split(const TQ* __restrict__ q, const TKV* __restrict__ kpool, const TKV* __restrict__ vpool,
+                              const int* __restrict__ tables, const int* __restrict__ seq_lens, TQ* __restrict__ out,
+                              int N, int bs, int nb, int H, int KV, int hd, float scale, float softcap, int window,
+                              int depth) {
+  using G = Geo<TKV, HDP, RT>;
+  constexpr int WP = G::kWP, CL = G::kCL, X = G::kX;
+  constexpr int EPC = 16 / int(sizeof(TKV));  // values in a 16-byte piece
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;                  // RT x X: q in fp32, then the block's (acc, m, l)
+  float* p_s = q_s + G::kQ;           // kWarps x RT x WP: each warp's stage scores, then P
+  float* xs = p_s + G::kP;            // kWarps x RT x X: each warp's (acc, m, l)
+  uint8_t* ring = reinterpret_cast<uint8_t*>(xs + G::kXs);  // kWarps x depth stages
+
+  const int split = gridDim.x, rank = blockIdx.x;
+  const int b = blockIdx.y;
+  const int groups = gridDim.z / KV;
+  const int kv = blockIdx.z / groups, r0 = (blockIdx.z - kv * groups) * RT;
+  const int qpk = H / KV;
+  const int nrows = min(RT, qpk - r0);
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+
+  int len = seq_lens[b];
+  len = len < 1 ? 1 : (len > nb * bs ? nb * bs : len);
+  const int lo = window > 0 ? max(len - window, 0) : 0;
+  const int n_all = len - lo;
+  const int blo = lo + n_all * rank / split, bhi = lo + n_all * (rank + 1) / split;
+  const int wlo = blo + (bhi - blo) * w / kWarps, whi = blo + (bhi - blo) * (w + 1) / kWarps;
+  const int nst = (whi - wlo + WP - 1) / WP;
+
+  // the share's loads first, then q while they fly
+  const int* trow = tables + size_t(b) * nb;
+  const uint32_t ring_w = hopper::smem_addr(ring) + w * depth * G::kStageBytes;
+  for (int st = 0; st < min(depth, nst); ++st)
+    issue_stage<TKV, HDP, RT>(ring_w, depth, st, wlo, whi, kpool, vpool, trow, N, bs, KV, kv, hd, lane);
+  const TQ* qb = q + (size_t(b) * H + size_t(kv) * qpk + r0) * hd;
+  for (int i = tid; i < RT * HDP; i += kThreads) {
+    const int r = i / HDP, d = i - r * HDP;
+    q_s[r * X + d] = (r < nrows && d < hd) ? to_f(qb[size_t(r) * hd + d]) : 0.f;
+  }
+  __syncthreads();
+
+  float m[RT], l[RT], acc[RT][CL];
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    m[r] = -CUDART_INF_F;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CL; ++c) acc[r][c] = 0.f;
+  }
+  float* pw = p_s + w * RT * WP;
+  const int chunks = hd * int(sizeof(TKV)) / 16;
+  const int gl = lane & (kG - 1);
+  for (int st = 0; st < nst; ++st) {
+    if (min(nst, st + depth) - st - 1 > 0)  // a later stage may stay in flight
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncwarp();
+    const int p0 = wlo + st * WP;
+    const int np = min(WP, whi - p0);
+    const uint8_t* ks = ring + (w * depth + st % depth) * G::kStageBytes;
+    const uint8_t* vs = ks + WP * G::kRowBytes;
+    // scores: kG lanes share a position, 32 / kG positions at a time
+#pragma unroll
+    for (int it = 0; it < WP * kG / 32; ++it) {
+      const int pp = it * (32 / kG) + lane / kG;
+      float part[RT];
+#pragma unroll
+      for (int r = 0; r < RT; ++r) part[r] = 0.f;
+      if (pp < np) {
+        for (int c = gl; c < chunks; c += kG) {
+          float kf[EPC];
+          Vec16<TKV>::load(reinterpret_cast<const TKV*>(ks + pp * G::kRowBytes + c * 16), kf);
+#pragma unroll
+          for (int r = 0; r < RT; ++r) {
+            const float* qr = q_s + r * X + c * EPC;
+#pragma unroll
+            for (int e = 0; e < EPC; e += 4) {
+              const float4 qv = *reinterpret_cast<const float4*>(qr + e);
+              part[r] = fmaf(qv.x, kf[e], part[r]);
+              part[r] = fmaf(qv.y, kf[e + 1], part[r]);
+              part[r] = fmaf(qv.z, kf[e + 2], part[r]);
+              part[r] = fmaf(qv.w, kf[e + 3], part[r]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+#pragma unroll
+        for (int o = kG / 2; o > 0; o >>= 1) part[r] += __shfl_xor_sync(0xffffffffu, part[r], o);
+        if (gl == 0) pw[r * WP + pp] = pp < np ? attn_tc::log2_score(part[r], scale, softcap) : -CUDART_INF_F;
+      }
+    }
+    __syncwarp();
+    // online softmax, one lane per position (lanes past WP repeat them)
+    float sv[RT], alpha[RT];
+#pragma unroll
+    for (int r = 0; r < RT; ++r) sv[r] = pw[r * WP + lane % WP];
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      float mx = sv[r];
+#pragma unroll
+      for (int o = WP / 2; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float mn = fmaxf(m[r], mx);  // finite: the stage holds a position
+      const float p = exp2f(sv[r] - mn);
+      float ps = p;
+#pragma unroll
+      for (int o = WP / 2; o > 0; o >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, o);
+      alpha[r] = exp2f(m[r] - mn);  // 0 on the first stage (m = -inf)
+      l[r] = l[r] * alpha[r] + ps;
+      m[r] = mn;
+      if (lane < WP) pw[r * WP + lane] = p;
+    }
+    __syncwarp();
+    // P V: this lane's columns lane * CL ..
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+#pragma unroll
+      for (int c = 0; c < CL; ++c) acc[r][c] *= alpha[r];
+    if (lane * CL < hd) {
+      for (int pp = 0; pp < np; ++pp) {
+        float vf[CL];
+        load_cols<TKV, CL>(reinterpret_cast<const TKV*>(vs + pp * G::kRowBytes) + lane * CL, vf);
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          const float pr = pw[r * WP + pp];
+#pragma unroll
+          for (int c = 0; c < CL; ++c) acc[r][c] = fmaf(pr, vf[c], acc[r][c]);
+        }
+      }
+    }
+    __syncwarp();  // the stage's slot is free again
+    if (st + depth < nst)
+      issue_stage<TKV, HDP, RT>(ring_w, depth, st + depth, wlo, whi, kpool, vpool, trow, N, bs, KV, kv, hd, lane);
+  }
+
+  // the warps' rows, then the block's (one barrier)
+  float* xw = xs + w * RT * X;
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+#pragma unroll
+    for (int c = 0; c < CL; ++c) xw[r * X + lane * CL + c] = acc[r][c];
+    if (lane == 0) {
+      xw[r * X + HDP] = m[r];
+      xw[r * X + HDP + 1] = l[r];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < RT * (HDP + 1); i += kThreads) {  // column HDP: the row's m and l
+    const int r = i / (HDP + 1), d = i - r * (HDP + 1);
+    float M = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < kWarps; ++j) M = fmaxf(M, xs[(j * RT + r) * X + HDP]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int j = 0; j < kWarps; ++j) {
+      const float* xj = xs + (j * RT + r) * X;
+      if (xj[HDP] == -CUDART_INF_F) continue;  // an empty share weighs 0
+      const float wt = exp2f(xj[HDP] - M);
+      L += wt * xj[HDP + 1];
+      if (d < HDP) A += wt * xj[d];
+    }
+    if (d < HDP) {
+      q_s[r * X + d] = A;
+    } else {
+      q_s[r * X + HDP] = M;
+      q_s[r * X + HDP + 1] = L;
+    }
+  }
+
+  // the cluster's blocks, combined by its first block
+  if (split > 1)
+    hopper::cluster_sync();
+  else
+    __syncthreads();
+  if (rank == 0) {
+    const uint32_t xb = hopper::smem_addr(q_s);
+    for (int i = tid; i < nrows * hd; i += kThreads) {
+      const int r = i / hd, d = i - r * hd;
+      float M = q_s[r * X + HDP], L = q_s[r * X + HDP + 1], A = q_s[r * X + d];
+      for (int j = 1; j < split; ++j) {
+        const uint32_t peer = hopper::cluster_map(xb, j);
+        const float mj = hopper::ld_cluster_f32(peer + 4u * (r * X + HDP));
+        if (mj == -CUDART_INF_F) continue;
+        const float mn = fmaxf(M, mj);
+        const float a = M == -CUDART_INF_F ? 0.f : exp2f(M - mn);
+        const float wt = exp2f(mj - mn);
+        L = a * L + wt * hopper::ld_cluster_f32(peer + 4u * (r * X + HDP + 1));
+        A = a * A + wt * hopper::ld_cluster_f32(peer + 4u * (r * X + d));
+        M = mn;
+      }
+      out[(size_t(b) * H + size_t(kv) * qpk + r0 + r) * hd + d] = from_f<TQ>(A / fmaxf(L, 1e-30f));
+    }
+  }
+  if (split > 1) hopper::cluster_sync();  // the others' shared memory stays until it has been read
+}
+
+// The cluster size: every block of the longest walk the table and the
+// window allow takes 64 positions or more, at most 8 blocks, and the grid
+// stays within 8 blocks an SM.  (A cluster's combine costs more than a
+// walk of a few dozen positions: on the H100, mistral-nemo-12b's heads
+// under a window of 32 ran 0.0142 ms with 8 blocks against 0.0076 with one.)
+inline int pick_split(int B, int KV, int groups, int nb, int bs, int window) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  const int longest = window > 0 ? min(nb * bs, window) : nb * bs;
+  int split = min(kMaxSplit, max(1, (longest + 63) / 64));
+  while (split > 1 && B * KV * groups * split > 8 * sms) --split;
+  return split;
+}
+
+template <typename TQ, typename TKV, int HDP, int RT>
+int launch(const void* q, const void* k, const void* v, const int* tables, const int* seq_lens, void* out, int B,
+           int H, int KV, int hd, int N, int bs, int nb, float softcap, int window, int split, cudaStream_t stream) {
+  using G = Geo<TKV, HDP, RT>;
+  const int groups = (H / KV + RT - 1) / RT;
+  if (split <= 0) split = pick_split(B, KV, groups, nb, bs, window);
+  if (split > kMaxSplit) return int(cudaErrorInvalidValue);
+  // stages a warp needs for its share of a full table; two in flight at most
+  const int per_warp = ((nb * bs + split - 1) / split + kWarps - 1) / kWarps;
+  const int depth = min(2, max(1, (per_warp + G::kWP - 1) / G::kWP));
+  const size_t smem = G::bytes(depth);
+  auto kernel = paged_decode_kernel_split<TQ, TKV, HDP, RT>;
+  if (int e = set_smem(kernel, smem)) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, B, KV * groups);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const TQ*>(q), static_cast<const TKV*>(k),
+                                     static_cast<const TKV*>(v), tables, seq_lens, static_cast<TQ*>(out), N, bs, nb, H,
+                                     KV, hd, 1.0f / sqrtf(float(hd)), softcap, window, depth);
+  if (e != cudaSuccess) return int(e);
+  return int(cudaGetLastError());
+}
+
+// The instance for these dtypes, head dim and rows: RT = 1, 4 or 8 query
+// rows a block, hd padded to 64, 128 or 256.
+template <typename TQ, typename TKV>
+int dispatch(const void* q, const void* k, const void* v, const int* tables, const int* seq_lens, void* out, int B,
+             int H, int KV, int hd, int N, int bs, int nb, float softcap, int window, int split, cudaStream_t st) {
+  const int qpk = H / KV;
+#define K1_SPLIT_LAUNCH(HDP, RT) \
+  return launch<TQ, TKV, HDP, RT>(q, k, v, tables, seq_lens, out, B, H, KV, hd, N, bs, nb, softcap, window, split, st)
+#define K1_SPLIT_ROWS(HDP)          \
+  if (qpk == 1) K1_SPLIT_LAUNCH(HDP, 1); \
+  if (qpk <= 4) K1_SPLIT_LAUNCH(HDP, 4); \
+  K1_SPLIT_LAUNCH(HDP, 8)
+  if (hd <= 64) {
+    K1_SPLIT_ROWS(64);
+  }
+  if (hd <= 128) {
+    K1_SPLIT_ROWS(128);
+  }
+  K1_SPLIT_ROWS(256);
+#undef K1_SPLIT_ROWS
+#undef K1_SPLIT_LAUNCH
+}
+
+inline int rows_for(int qpk) { return qpk == 1 ? 1 : (qpk <= 4 ? 4 : 8); }
+
+}  // namespace split
+
 }  // namespace
 
 extern "C" {
@@ -893,8 +1299,36 @@ extern "C" {
 // Bytes of dynamic shared memory one thread block of either kernel needs.
 size_t paged_attention_smem_bytes(int rows, int bs, int hd) { return tile_bytes(rows, bs, hd); }
 
-// K1.  q, out: (B, H, hd); pools: (N, bs, KV, hd); tables: (B, nb) int32;
-// seq_lens: (B,) int32.  *_bf16 selects bf16 (1) or fp32 (0) storage.
+// K1, split over a cluster.  q, out: (B, H, hd); pools: (N, bs, KV, hd);
+// tables: (B, nb) int32; seq_lens: (B,) int32.  *_bf16 selects bf16 (1) or
+// fp32 (0) storage.  split: the cluster size, 1 to 8; 0 lets the kernel pick.
+int paged_decode_attention_split(const void* q, const void* k_pool, const void* v_pool, const void* tables,
+                                 const void* seq_lens, void* out, int B, int H, int KV, int hd, int N, int bs, int nb,
+                                 float softcap, int window, int q_bf16, int kv_bf16, int split, void* stream) {
+  const int* tb = static_cast<const int*>(tables);
+  const int* sl = static_cast<const int*>(seq_lens);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (q_bf16 && kv_bf16)
+    return split::dispatch<__nv_bfloat16, __nv_bfloat16>(q, k_pool, v_pool, tb, sl, out, B, H, KV, hd, N, bs, nb,
+                                                         softcap, window, split, st);
+  if (q_bf16)
+    return split::dispatch<__nv_bfloat16, float>(q, k_pool, v_pool, tb, sl, out, B, H, KV, hd, N, bs, nb, softcap,
+                                                 window, split, st);
+  if (kv_bf16)
+    return split::dispatch<float, __nv_bfloat16>(q, k_pool, v_pool, tb, sl, out, B, H, KV, hd, N, bs, nb, softcap,
+                                                 window, split, st);
+  return split::dispatch<float, float>(q, k_pool, v_pool, tb, sl, out, B, H, KV, hd, N, bs, nb, softcap, window,
+                                       split, st);
+}
+
+// The cluster size K1's split kernel picks for these shapes.
+int paged_decode_split(int B, int H, int KV, int nb, int bs, int window) {
+  const int rt = split::rows_for(H / KV);
+  return split::pick_split(B, KV, (H / KV + rt - 1) / rt, nb, bs, window);
+}
+
+// K1's yardstick, v1.  Arguments as paged_decode_attention_split without
+// the split.
 int paged_decode_attention(const void* q, const void* k_pool, const void* v_pool,
                            const void* tables, const void* seq_lens, void* out, int B, int H,
                            int KV, int hd, int N, int bs, int nb, float softcap, int window,

@@ -17,13 +17,22 @@ pools run the first, CUDA-core kernel (v1).  This
 is a dispatch, not a fallback: a kernel that fails to build or launch
 raises.  ``paged_prefill_attention_cuda_cores`` runs v1 on either pool
 dtype; no model path calls it: it is the yardstick the tensor-core kernel
-is timed against.  K1 runs v1 (``DECODE_ROUTE``).
+is timed against.
+
+K1 runs one kernel on every dtype (``DECODE_ROUTE``, fp32 on the CUDA
+cores): each (sequence, kv head)'s live positions split over a
+thread-block cluster of up to 8 blocks, picked from the table width and
+the window on the host, and over 4 warps in each block, each warp with
+its share's K/V loads in flight together; the cluster's first block
+combines the shares through distributed shared memory.  ``paged_attention_cuda_cores`` runs K1's v1,
+the yardstick; no model path calls it.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates the
 output with ``torch.empty``, launches on the current stream and raises if
 the launch failed.  ``LAUNCHES`` counts the launches of each kernel:
-``paged_prefill`` either route of K2, ``paged_prefill_cuda_cores`` the
-yardstick's; a wrapper adds one where it launches, nowhere else.  For
+``paged_decode`` K1, ``paged_prefill`` either route of K2, and
+``paged_decode_cuda_cores`` / ``paged_prefill_cuda_cores`` the
+yardsticks'; a wrapper adds one where it launches, nowhere else.  For
 tensors on the CPU a wrapper calls the kernel's plain version
 (``paged_attention_ref``); for CUDA tensors it launches the kernel or
 raises, and never falls back.
@@ -44,13 +53,14 @@ from repro_torch.kernels.paged_attention_ref import (
 SOURCE = "paged_attention.cu"  # under kernels/csrc
 
 # launches of each kernel by its wrapper (reset with ``reset_launches``)
-LAUNCHES = {"paged_decode": 0, "paged_prefill": 0, "paged_prefill_cuda_cores": 0}
+LAUNCHES = {"paged_decode": 0, "paged_decode_cuda_cores": 0, "paged_prefill": 0, "paged_prefill_cuda_cores": 0}
 
 # the kernel K2 runs for each pool dtype, and K1's
 ROUTES = {torch.bfloat16: "tensor_cores_bf16", torch.float32: "cuda_cores_fp32"}
 DECODE_ROUTE = "cuda_cores_fp32"
 
 PREFILL_ROW_TILE = 16  # v1's K2 query rows per thread block
+MAX_DECODE_SPLIT = 8  # blocks of K1's cluster
 MAX_SMEM = 232_448  # bytes of shared memory one H100 thread block may use
 
 
@@ -63,6 +73,10 @@ def _declare(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.paged_decode_attention.argtypes = [p] * 6 + [i] * 7 + [f, i, i, i, p]
     lib.paged_decode_attention.restype = i
+    lib.paged_decode_attention_split.argtypes = [p] * 6 + [i] * 7 + [f, i, i, i, i, p]
+    lib.paged_decode_attention_split.restype = i
+    lib.paged_decode_split.argtypes = [i] * 6
+    lib.paged_decode_split.restype = i
     lib.paged_prefill_attention.argtypes = [p] * 6 + [i] * 9 + [f, i, i, i, p]
     lib.paged_prefill_attention.restype = i
     lib.paged_attention_smem_bytes.argtypes = [i, i, i]
@@ -111,6 +125,44 @@ def _smem_ok(lib, rows: int, bs: int, hd: int) -> None:
         raise ValueError(f"{rows} query rows at hd={hd} need {need} B of shared memory (max {MAX_SMEM})")
 
 
+def _decode_split(q: torch.Tensor, k_pool: torch.Tensor, block_tables: torch.Tensor, *, window: int = 0) -> int:
+    """The cluster size K1 picks on these shapes (from the table width, the
+    window and the grid, never the lengths).  For checks and timing only."""
+    B, H, _ = q.shape
+    _, bs, KV, _ = k_pool.shape
+    return _library().paged_decode_split(B, H, KV, block_tables.shape[1], bs, int(window))
+
+
+def _decode_launch(q, k_pool, v_pool, block_tables, seq_lens, *, softcap: float = 0.0, window: int = 0,
+                   cuda_cores: bool = False, split: int = 0) -> torch.Tensor:
+    """Launch K1 on CUDA tensors: the split kernel, or v1 with
+    ``cuda_cores``.  ``split``: the cluster of 1 to 8 blocks that share each
+    (sequence, kv head)'s walk, 0 to let the kernel pick; the entry point
+    always passes 0, checks and timing force the others."""
+    _check(q, k_pool, v_pool, block_tables, seq_lens, 3)
+    B, H, hd = q.shape
+    N, bs, KV, _ = k_pool.shape
+    lib = _library()
+    args = (
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
+    )
+    dims = (B, H, KV, hd, N, bs, block_tables.shape[1], float(softcap), int(window), int(q.dtype == torch.bfloat16),
+            int(k_pool.dtype == torch.bfloat16))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    out = torch.empty_like(q)
+    if cuda_cores:
+        _smem_ok(lib, H // KV, bs, hd)
+        rc = lib.paged_decode_attention(*args, out.data_ptr(), *dims, stream)
+    else:
+        if not 0 <= split <= MAX_DECODE_SPLIT:
+            raise ValueError(f"split {split}: need 0 (chosen by the table width) or 1 to {MAX_DECODE_SPLIT}")
+        rc = lib.paged_decode_attention_split(*args, out.data_ptr(), *dims, int(split), stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_decode_attention launch failed: CUDA error {rc}")
+    LAUNCHES["paged_decode_cuda_cores" if cuda_cores else "paged_decode"] += 1
+    return out
+
+
 def paged_attention(
     q: torch.Tensor,  # (B, H, hd) current-token queries
     k_pool: torch.Tensor,  # (N, bs, KV, hd)
@@ -126,22 +178,24 @@ def paged_attention(
         return paged_attention_plain(q, k_pool, v_pool, block_tables, seq_lens, softcap=softcap, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu, not {q.device}")
-    _check(q, k_pool, v_pool, block_tables, seq_lens, 3)
-    B, H, hd = q.shape
-    N, bs, KV, _ = k_pool.shape
-    lib = _library()
-    _smem_ok(lib, H // KV, bs, hd)
-    out = torch.empty_like(q)
-    rc = lib.paged_decode_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
-        seq_lens.data_ptr(), out.data_ptr(), B, H, KV, hd, N, bs, block_tables.shape[1],
-        float(softcap), int(window), int(q.dtype == torch.bfloat16),
-        int(k_pool.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"paged_decode_attention launch failed: CUDA error {rc}")
-    LAUNCHES["paged_decode"] += 1
-    return out
+    return _decode_launch(q, k_pool, v_pool, block_tables, seq_lens, softcap=softcap, window=window)
+
+
+def paged_attention_cuda_cores(
+    q: torch.Tensor,  # (B, H, hd), on the card
+    k_pool: torch.Tensor,  # (N, bs, KV, hd)
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,
+    seq_lens: torch.Tensor,
+    *,
+    softcap: float = 0.0,
+    window: int = 0,
+) -> torch.Tensor:
+    """K1's first kernel (v1): the yardstick of the split kernel.  No model
+    path calls it."""
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention_cuda_cores runs on cuda, not {q.device}")
+    return _decode_launch(q, k_pool, v_pool, block_tables, seq_lens, softcap=softcap, window=window, cuda_cores=True)
 
 
 def prefill_route(q_dtype: torch.dtype, pool_dtype: torch.dtype) -> str:

@@ -12,10 +12,13 @@ Block-table contract (shared with the kernels): entries past a sequence's
 last live block point at the reserved null block (id 0).  They are gathered
 like any other block and fully masked by the position compare.
 
-Beside them, what the checks of K2's tensor-core route use:
+Beside them, what the checks of the redesigned kernels use:
 ``paged_prefill_attention_split``, the prefill function with q and P
 carried as bf16 terms and P V summed per 64-key tile (two terms each are
-the route's numerics; one q term is the control "q rounded to bf16").
+K2's tensor-core route; one q term is the control "q rounded to bf16"),
+and ``paged_attention_split_walk``, K1's walk as the card splits it: the
+live positions cut into shares over the blocks of a cluster and the warps
+of each block, each share's (max, sum, accumulator) combined.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import math
 import torch
 
 NEG_INF = -2.0e38
+WARPS = 4  # the warps of a block of K1 on the card, each walking a share
 
 
 def gather_blocks(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
@@ -70,6 +74,83 @@ def paged_attention_plain(
     w = torch.softmax(s, dim=-1)
     ctx = torch.einsum("bkgs,bskd->bkgd", w, v)
     return ctx.reshape(B, H, hd).to(q.dtype)
+
+
+def _shares(lo: int, hi: int, parts: int) -> list[tuple[int, int]]:
+    """[lo, hi) cut into ``parts`` even shares, as the kernel cuts it: share
+    j is [lo + n j / parts, lo + n (j + 1) / parts), some of them empty."""
+    n = hi - lo
+    return [(lo + n * j // parts, lo + n * (j + 1) // parts) for j in range(parts)]
+
+
+def paged_attention_split_walk(
+    q: torch.Tensor,  # (B, H, hd) current-token queries
+    k_pool: torch.Tensor,  # (N, bs, KV, hd)
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # (B, nb) int32
+    seq_lens: torch.Tensor,  # (B,) int32
+    *,
+    splits: int,
+    softcap: float = 0.0,
+    window: int = 0,
+) -> torch.Tensor:
+    """K1 as the card walks it: each sequence's live positions [max(0,
+    len - window), len) cut into ``splits`` shares (the blocks of a
+    cluster), each share into ``WARPS`` shares; every share's softmax
+    (max m, sum l, accumulator) in fp32 from its own positions, an empty
+    share (m = -inf, l = 0); the warps' shares combined in each block and
+    the blocks' in the first.  Lengths are clamped to [1, nb * bs] and
+    table entries outside [0, N) read block 0, as in the kernel.  Returns
+    (B, H, hd) in q's dtype; nothing on the model path calls it."""
+    B, H, hd = q.shape
+    N, bs, KV, _ = k_pool.shape
+    nb = block_tables.shape[1]
+    qpk = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    tbl = block_tables.long()
+    tbl = torch.where((tbl >= 0) & (tbl < N), tbl, torch.zeros_like(tbl))
+    out = torch.empty((B, H, hd), dtype=torch.float32)
+    for b in range(B):
+        n = min(max(int(seq_lens[b]), 1), nb * bs)
+        lo = max(n - window, 0) if window > 0 else 0
+        pos = torch.arange(nb * bs)
+        rows = tbl[b, pos // bs] * bs + pos % bs
+        k = k_pool.reshape(N * bs, KV, hd)[rows].float()  # (nb * bs, KV, hd)
+        v = v_pool.reshape(N * bs, KV, hd)[rows].float()
+        qg = q[b].float().reshape(KV, qpk, hd)
+        s = torch.einsum("kgd,pkd->kgp", qg, k) * scale  # (KV, qpk, positions)
+        if softcap > 0:
+            s = softcap * torch.tanh(s / softcap)
+        blocks = []
+        for b_lo, b_hi in _shares(lo, n, splits):
+            parts = []
+            for w_lo, w_hi in _shares(b_lo, b_hi, WARPS):
+                if w_hi == w_lo:
+                    parts.append((-math.inf, 0.0, 0.0))
+                    continue
+                sw = s[..., w_lo:w_hi]
+                m = sw.amax(-1, keepdim=True)
+                p = torch.exp(sw - m)
+                parts.append((m, p.sum(-1, keepdim=True), torch.einsum("kgp,pkd->kgd", p, v[w_lo:w_hi])))
+            blocks.append(_combine(parts))
+        m, l, acc = _combine(blocks)
+        out[b] = (acc / torch.clamp(l, min=1e-30)).reshape(H, hd)
+    return out.to(q.dtype)
+
+
+def _combine(parts):
+    """(m, l, acc) of disjoint shares -> one: m and l (KV, qpk, 1), acc
+    (KV, qpk, hd).  An empty share (m = -inf) weighs nothing, so shares
+    that are all empty combine to an empty share, with no NaN."""
+    real = [p for p in parts if not (isinstance(p[0], float) and p[0] == -math.inf)]
+    if not real:
+        return (-math.inf, 0.0, 0.0)
+    m = torch.stack([p[0] for p in real]).amax(0)
+    l, acc = 0.0, 0.0
+    for pm, pl, pacc in real:
+        w = torch.exp(pm - m)
+        l, acc = l + w * pl, acc + w * pacc
+    return m, l, acc
 
 
 def paged_prefill_attention_plain(

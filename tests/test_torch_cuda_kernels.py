@@ -5,7 +5,9 @@ skips on a host without CUDA.
 
 Both versions read the same bf16 pools and compute in fp32: with fp32
 queries only the summation order differs (1e-4); with bf16 queries both
-round the output to bf16 (2e-2).  K2 on bf16 pools runs on the tensor
+round the output to bf16 (2e-2).  K1 splits each walk over a cluster of
+up to 8 blocks: every forced cluster size holds, and v1 stays checked as
+its yardstick (``paged_attention_cuda_cores``).  K2 on bf16 pools runs on the tensor
 cores, with fp32 queries split into two bf16 terms: each of its cases also
 computes a control that must miss the limit (q in one bf16 term; for bf16
 queries, the causal mask off by one).  v1, the CUDA-core K2, stays checked
@@ -181,3 +183,63 @@ def test_cuda_prefill_chunk_past_the_table_sees_only_its_blocks(q_dtype):
     for out in outs:
         assert out.dtype == q_dtype and bool(torch.isfinite(out).all())
         assert _err(out, ref) < TOL[q_dtype]
+
+
+# K1 over a 16-entry table of 32-position blocks: lengths 1, 32, 33, 352 and
+# the table's end; H, KV, hd, window, softcap, q dtype, pool dtype
+SPLIT_CASES = [
+    (16, 16, 128, 0, 0.0, torch.float32, torch.bfloat16),
+    (32, 8, 128, 20, 0.0, torch.float32, torch.bfloat16),  # a window shorter than a share
+    (16, 16, 256, 0, 30.0, torch.float32, torch.bfloat16),
+    (32, 8, 128, 0, 0.0, torch.bfloat16, torch.bfloat16),
+    (16, 4, 64, 0, 0.0, torch.float32, torch.float32),
+    (8, 1, 32, 7, 0.0, torch.bfloat16, torch.float32),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,KV_,hd,window,softcap,q_dtype,pool_dtype", SPLIT_CASES)
+def test_cuda_decode_every_cluster_size(H, KV_, hd, window, softcap, q_dtype, pool_dtype):
+    """K1 with every forced cluster size 1 to 8 and the one it picks, and
+    v1, against the plain version; only the split kernel counts as
+    ``paged_decode``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    lens = torch.tensor([1, 32, 33, 352, 512], dtype=torch.int32)
+    q, kp, vp, tbl = _gpu_inputs(H, KV_, hd, (5, H, hd), lens - 1, q_dtype, nb=16)
+    kp, vp, lens = kp.to(pool_dtype), vp.to(pool_dtype), lens.cuda()
+    kw = dict(softcap=softcap, window=window)
+    ref = paged_attention_plain(q, kp, vp, tbl, lens, **kw)
+    before = dict(K.LAUNCHES)
+    outs = [K.paged_attention(q, kp, vp, tbl, lens, **kw)]
+    outs += [K._decode_launch(q, kp, vp, tbl, lens, split=split, **kw) for split in range(1, 9)]
+    yard = K.paged_attention_cuda_cores(q, kp, vp, tbl, lens, **kw)
+    torch.cuda.synchronize()
+    assert 1 <= K._decode_split(q, kp, tbl, window=window) <= 8
+    assert K.LAUNCHES["paged_decode"] == before["paged_decode"] + 9
+    assert K.LAUNCHES["paged_decode_cuda_cores"] == before["paged_decode_cuda_cores"] + 1
+    for out in (*outs, yard):
+        assert out.dtype == q_dtype and bool(torch.isfinite(out).all())
+        assert _err(out, ref) < TOL[q_dtype]
+    with pytest.raises(ValueError, match="split 9"):
+        K._decode_launch(q, kp, vp, tbl, lens, split=9, **kw)
+
+
+@pytest.mark.gpu
+def test_cuda_decode_table_entries_out_of_range_read_block_0():
+    """A table entry outside [0, N) reads the null block 0 in K1 and v1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    lens = torch.tensor([70, 90], dtype=torch.int32)
+    q, kp, vp, tbl = _gpu_inputs(16, 16, 128, (2, 16, 128), lens - 1, torch.float32, nb=4)
+    bad = tbl.clone()
+    bad[0, 1], bad[1, 2] = kp.shape[0] + 7, -3
+    good = bad.clone()
+    good[0, 1], good[1, 2] = 0, 0
+    lens = lens.cuda()
+    ref = paged_attention_plain(q, kp, vp, good, lens)
+    outs = [K.paged_attention(q, kp, vp, bad, lens), K.paged_attention_cuda_cores(q, kp, vp, bad, lens)]
+    outs += [K._decode_launch(q, kp, vp, bad, lens, split=split) for split in (2, 8)]
+    torch.cuda.synchronize()
+    for out in outs:
+        assert _err(out, ref) < TOL[torch.float32]

@@ -13,6 +13,12 @@ terms and P into two, and sums P V per 64-key tile in fp32:
 to the card's limit against the Pallas kernel; q in one bf16 term must
 miss it.
 
+K1 on the card splits each (sequence, kv head)'s live positions over the
+blocks of a cluster and the warps of each block and combines the shares'
+softmax sums: ``paged_attention_split_walk`` emulates that walk, empty
+shares included, and is held against the Pallas K1 for every cluster size
+of 1 to 8.
+
 ``test_torch_cuda_kernels.py`` holds the CUDA kernels against the plain
 versions on the card.
 """
@@ -27,6 +33,7 @@ from repro.kernels.paged_attention_ref import paged_attention_ref, paged_prefill
 from repro_torch.kernels import paged_attention as K
 from repro_torch.kernels.paged_attention_ref import (
     paged_attention_plain,
+    paged_attention_split_walk,
     paged_prefill_attention_plain,
     paged_prefill_attention_split,
 )
@@ -112,7 +119,8 @@ def test_wrappers_take_the_plain_version_on_cpu():
     args2 = [torch.from_numpy(a) for a in (q2, kp2, vp2, tbl2, start)]
     out2 = K.paged_prefill_attention(*args2, softcap=30.0)
     assert torch.equal(out2, paged_prefill_attention_plain(*args2, softcap=30.0))
-    assert K.LAUNCHES == {"paged_decode": 0, "paged_prefill": 0, "paged_prefill_cuda_cores": 0}
+    assert K.LAUNCHES == {"paged_decode": 0, "paged_decode_cuda_cores": 0, "paged_prefill": 0,
+                          "paged_prefill_cuda_cores": 0}
 
 
 # chip_smoke.py's K2 cases for fp32 queries: name, (H, KV, hd), C, start,
@@ -156,7 +164,8 @@ def test_split_q_route_meets_the_card_limits(case):
 @pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
 def test_routes_follow_the_pool_dtype(q_dtype):
     """bf16 pools run the tensor-core kernel, fp32 pools v1, whatever the
-    query dtype; other dtypes are refused; K1 runs v1."""
+    query dtype; other dtypes are refused; K1 runs fp32 on the CUDA cores
+    (its split kernel) on every dtype."""
     assert K.prefill_route(q_dtype, torch.bfloat16) == K.ROUTES[torch.bfloat16] == "tensor_cores_bf16"
     assert K.prefill_route(q_dtype, torch.float32) == K.ROUTES[torch.float32] == "cuda_cores_fp32"
     with pytest.raises(TypeError):
@@ -179,3 +188,37 @@ def test_split_terms_are_exact_where_the_inputs_are_bf16():
     assert torch.equal(one, two)
     plain = paged_prefill_attention_plain(*args, window=8)
     assert float((two - plain).abs().max()) < CARD_TOL_FP32 / 10
+
+
+# K1's split walk: lengths (a length of 1, one that fills a table block,
+# ragged ones), a window shorter than the shares, a softcap; GQA qpk 1 and 4
+SPLIT_WALK_CASES = [
+    (qpk, window, softcap, lens)
+    for qpk in (1, 4)
+    for window, softcap in ((0, 0.0), (5, 0.0), (0, 30.0))
+    for lens in ((13, 27), (1, 32), (1, 1))
+]
+
+
+@pytest.mark.parametrize("qpk,window,softcap,lens", SPLIT_WALK_CASES)
+def test_split_walk_matches_pallas(qpk, window, softcap, lens):
+    """Every cluster size 1 to 8 (4 warps a block) gives the Pallas K1's
+    output; at length 1 all shares but one are empty."""
+    H, hd = KV * qpk, 16
+    lens = np.array(lens, np.int32)
+    q, kp, vp, tbl = _inputs(qpk * 10 + window + int(lens[0]), H, hd, (B, H, hd), lens - 1)
+    ref = paged_attention_bhd(*[jnp.asarray(a) for a in (q, kp, vp, tbl, lens)], softcap=softcap, window=window,
+                              interpret=True)
+    args = [torch.from_numpy(a) for a in (q, kp, vp, tbl, lens)]
+    for splits in range(1, 9):
+        out = paged_attention_split_walk(*args, splits=splits, softcap=softcap, window=window)
+        assert bool(torch.isfinite(out).all())
+        _close(out, ref, f"{splits} blocks")
+
+
+def test_decode_yardstick_is_card_only():
+    """K1's v1 runs only on the card, as the yardstick of the split kernel."""
+    lens = np.array([9, 30], np.int32)
+    q, kp, vp, tbl = _inputs(11, 4, 16, (B, 4, 16), lens - 1)
+    with pytest.raises(ValueError, match="runs on cuda"):
+        K.paged_attention_cuda_cores(*[torch.from_numpy(a) for a in (q, kp, vp, tbl, lens)])

@@ -7,6 +7,13 @@ tensors) and the sequential oracle ``wkv6_ref`` against the Pallas
 chunked and the sequential forms sum in another order), plus the
 fast-decay case, which must stay finite.  K5 has no gradient in the JAX
 package; the wrappers refuse to differentiate.
+
+The card's K5 computes every chunk at once, factors the pairwise decay per
+16-step sub-chunk and takes its products on TF32 terms of the fp32
+operands ("3xTF32"): ``wkv6_chunked_split`` emulates that arithmetic, and
+with two terms it must stay within the card's limit (``chip_smoke.py``'s
+``WKV_RTOL``, 1e-4 of the largest output) of the Pallas kernel and the
+oracle at every head size and chunk, while one term misses it.
 """
 
 import jax.numpy as jnp
@@ -17,8 +24,8 @@ import torch
 from repro.kernels import wkv6 as jax_wkv6
 from repro.kernels.rwkv6_scan import wkv6_chunked as jax_wkv6_chunked
 from repro.kernels.rwkv6_scan_ref import wkv6_ref as jax_wkv6_ref
-from repro_torch.kernels.rwkv6_scan import wkv6, wkv6_chunked
-from repro_torch.kernels.rwkv6_scan_ref import wkv6_chunked_plain, wkv6_ref
+from repro_torch.kernels.rwkv6_scan import wkv6, wkv6_chunked, wkv6_cuda_cores
+from repro_torch.kernels.rwkv6_scan_ref import wkv6_chunked_plain, wkv6_chunked_split, wkv6_ref
 
 torch.set_num_threads(2)
 
@@ -108,3 +115,50 @@ def test_wkv6_wrappers_refuse_other_devices():
             wkv6(x, x, x, x, u, chunk=16)
         with pytest.raises(ValueError, match="cuda or cpu"):
             wkv6_chunked(xb, xb, xb, xb, u, chunk=16)
+
+
+def test_wkv6_cuda_cores_yardstick_is_card_only():
+    """v1 is the yardstick of the chunk-parallel K5: no plain version behind
+    it, so CPU tensors are refused."""
+    r, k, v, logw, u = (torch.from_numpy(x) for x in _inputs(1, 32, 2, 16))
+    with torch.no_grad(), pytest.raises(ValueError, match="runs on cuda"):
+        wkv6_cuda_cores(r, k, v, logw, u, chunk=16)
+
+
+WKV_RTOL = 1e-4  # chip_smoke.py's limit, relative to the largest |output|
+
+
+def _split_errors(n, chunk, logw=None, seed=3):
+    """(two-term, one-term) errors of the emulated card arithmetic against
+    the Pallas kernel and the oracle, relative to the largest |output|."""
+    B, S, H = 2, 4 * max(chunk, 32), 2
+    r, k, v, lw, u = _inputs(B, S, H, n, seed=seed + n + chunk, logw=logw)
+    ub = np.broadcast_to(u[None], (B, H, n)).reshape(B * H, n).copy()
+    bh = [_to_bh(x) for x in (r, k, v, lw)]
+    pallas = np.asarray(jax_wkv6_chunked(*(jnp.asarray(x) for x in bh), jnp.asarray(ub), chunk=chunk))
+    oracle = np.asarray(jax_wkv6_ref(*(jnp.asarray(x) for x in bh), jnp.asarray(ub)))
+    scale = float(np.abs(pallas).max())
+    errs = {}
+    for terms in (2, 1):
+        got = wkv6_chunked_split(*(torch.from_numpy(x) for x in bh), torch.from_numpy(ub), chunk=chunk, terms=terms)
+        assert bool(torch.isfinite(got).all())
+        got = got.numpy()
+        errs[terms] = max(float(np.abs(got - pallas).max()), float(np.abs(got - oracle).max())) / scale
+    return errs
+
+
+@pytest.mark.parametrize("n", [16, 32, 64])
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+def test_split_route_meets_the_card_limits(n, chunk):
+    """Sub-chunk factoring and two TF32 terms per operand stay within the
+    card's limit; operands rounded to one TF32 term miss it."""
+    errs = _split_errors(n, chunk)
+    assert errs[2] < WKV_RTOL, errs
+    assert errs[1] > WKV_RTOL, errs
+
+
+def test_split_route_fast_decay_stays_finite():
+    """logw = -8: the factors about each sub-chunk's first step underflow
+    to 0, never overflow; the outputs stay finite and within the limit."""
+    errs = _split_errors(64, 64, logw=-8.0)
+    assert errs[2] < WKV_RTOL, errs
