@@ -54,6 +54,25 @@ or when any check fails.  Phases:
    decode step on olmo-1b with ``attn_impl="kernel"`` and ``"plain"``.
 5. Profile: one 4-slot decode step of olmo-1b, its wall time, its device
    time by kernel under ``torch.profiler`` and the device's idle share.
+5b. Fused serving: the serving phase's engine, prompts and settings with
+   ``fused=True``: each tick one CUDA-graph replay (``serving/graphs.py``)
+   and one host sync.  The same engine first serves prompts from another
+   seed, untimed, which captures the (rows, width) buckets the traffic
+   uses; then the timed run reads TTFT, TPOT, tokens/s, dispatches and
+   host syncs per step, the graphs captured in each run and their capture
+   time, the graph pool's bytes and peak memory, and the K1/K2 launches
+   the replays ran (their counts set to 0 just before the timed run).  It
+   fails unless every request finishes by length, the replays ran K1 and
+   K2, and a step takes at most 1.5 dispatches.  Each request's tokens are
+   held against the serving phase's: at the first position where they
+   differ, the legacy tokens' top-2 logit gap there (recomputed through
+   ``prefill_step``) must be below ``PATH_TOL``, a near-tie, since mixed
+   ticks run decode rows through K2 rather than K1.
+5c. Fused profile: one fused pure-decode tick (staging, replay, one host
+   sync) at the profile phase's lengths, its wall time and, under
+   ``torch.profiler``, its device time, idle share and the launches the
+   profiler sees, beside the eager ``decode_step`` and the eager tick
+   (``decode_step``, argmax, host sync) in the same run.
 6. Train: FP8 training of olmo-1b at full width and depth (fp32 master
    weights, bf16 compute, K4 for every projection GEMM, remat per block),
    4 steps of 4 x 2048 tokens from random weights (seed 0), with the loss,
@@ -461,6 +480,7 @@ def serving_phase(cfg, params, device, max_new_tokens=32) -> dict:
         fail(f"blocks in use {s['alloc_blocks_in_use']}, prefix hit tokens {s['prefix_hit_tokens']}")
     decode_tokens = s["tokens_out"] - len(reqs)  # the first tokens come from prefill
     h_decode = eng.metrics.histogram("engine_decode_seconds")
+    tick_tokens, tick_s = decode_ticks(eng)
     out = {
         "phase": "serving", "model": cfg.name, "params": sum(t.numel() for t in tree_leaves(params)),
         "requests": len(reqs), "tokens_out": s["tokens_out"], "decode_steps": s["decode_steps"],
@@ -471,9 +491,175 @@ def serving_phase(cfg, params, device, max_new_tokens=32) -> dict:
         "tpot_p50_s": float(np.median([r.tpot for r in reqs])),
         "decode_step_p50_s": h_decode.percentile(50),
         "decode_tok_s": decode_tokens / h_decode.sum,
+        "decode_tick_tok_s": tick_tokens / tick_s,
         "output_tok_s": s["tokens_out"] / wall,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "dispatches_per_step": s["dispatches_per_step"], "host_syncs_per_step": s["host_syncs_per_step"],
     }
+    emit(out)
+    return out, [list(r.generated) for r in reqs]
+
+
+def decode_ticks(eng, since: float = float("-inf")) -> tuple[int, float]:
+    """(decode tokens, seconds) of the engine steps that decoded, started
+    at ``since`` or later on the engine's clock, from the tracer's step
+    spans (a first token is not a decode token)."""
+    if eng.tracer.dropped:
+        fail(f"the tracer dropped {eng.tracer.dropped} events")
+    steps = [e for e in eng.tracer.events if e.name == "step" and e.ts >= since and e.args.get("produced", 0) > 0]
+    return sum(e.args["produced"] for e in steps), sum(e.dur for e in steps)
+
+
+def tick_kinds(eng, since: float) -> dict:
+    """Count, summed and median wall of the fused engine's ticks since
+    ``since``: mixed ticks (a prefill chunk rode in them) and pure-decode
+    ticks, from the tracer's step spans and chunk instants."""
+    events = [e for e in eng.tracer.events if e.ts >= since]
+    chunks = [e.ts for e in events if e.name == "prefill_chunk"]
+    out = {"mixed": [], "decode": []}
+    for e in events:
+        if e.name == "step":
+            out["mixed" if any(e.ts <= t <= e.ts + e.dur for t in chunks) else "decode"].append(e.dur)
+    return {k: {"ticks": len(v), "wall_s": sum(v), "wall_ms_p50": float(np.median(v)) * 1e3 if v else None}
+            for k, v in out.items()}
+
+
+def top2_gap(cfg, params, device, context) -> float:
+    """The top-2 logit gap after ``context``, through one ``prefill_step``."""
+    from repro_torch.models import init_paged_cache, prefill_step
+
+    nb = -(-len(context) // BLOCK_SIZE)
+    cache = init_paged_cache(cfg, 1 + nb, BLOCK_SIZE, 1, nb, torch.bfloat16, device=device)
+    row = torch.arange(1, 1 + nb, dtype=torch.int32, device=device)[None]
+    tok = torch.tensor([context], dtype=torch.int32, device=device)
+    lg, _ = prefill_step(cfg, params, cache, tok, torch.zeros(1, dtype=torch.int32, device=device), row)
+    top = torch.topk(lg[0], 2).values
+    return float(top[0] - top[1])
+
+
+def serving_fused_phase(cfg, params, device, legacy_tokens, max_new_tokens=32) -> dict:
+    """The serving phase's run with ``fused=True``: one graph replay and one
+    host sync a tick on the card."""
+    from repro_torch.kernels import paged_attention as K
+    from repro_torch.serving import InferenceEngine
+
+    kw = dict(
+        max_batch=4, max_seq=512, block_size=BLOCK_SIZE, prefill_budget=128, cache_dtype=torch.bfloat16,
+        eos_token=cfg.padded_vocab, device=device, fused=True,
+    )
+    torch.cuda.reset_peak_memory_stats()
+    eng = InferenceEngine(cfg, params, **kw)
+    # untimed: prompts of the same lengths from another seed capture the
+    # buckets the timed traffic uses; their prefix shares no block with it
+    for p in serving_prompts(cfg, SEED + 1):
+        eng.submit(p, max_new_tokens=max_new_tokens)
+    eng.run_until_drained()
+    graphs = eng._graphs
+    s0 = eng.stats()
+    captured_warm, capture_s_warm = graphs.captures, graphs.capture_s
+    replay_launches = dict(graphs.launches)
+    since = eng.tracer.now()
+
+    reqs = [eng.submit(p, max_new_tokens=max_new_tokens) for p in serving_prompts(cfg, SEED)]
+    K.reset_launches()  # the main path's run starts here
+    t0 = time.perf_counter()
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)  # eager calls: the warm-up runs of keys captured in this run
+    replayed = {k: v - replay_launches[k] for k, v in graphs.launches.items()}
+    s = eng.stats()
+    steps = s["decode_steps"] - s0["decode_steps"]
+    dispatches = s["dispatches_total"] - s0["dispatches_total"]
+    syncs = s["host_syncs_total"] - s0["host_syncs_total"]
+    tick_tokens, tick_s = decode_ticks(eng, since)
+
+    differ = []
+    for i, (r, ref) in enumerate(zip(reqs, legacy_tokens)):
+        j = next((j for j, (a, b) in enumerate(zip(r.generated, ref)) if a != b), None)
+        if j is not None:
+            gap = top2_gap(cfg, params, device, r.prompt + ref[:j])
+            differ.append({"request": i, "position": j, "legacy_top2_gap": gap, "near_tie": gap < PATH_TOL})
+    out = {
+        "phase": "serving_fused", "model": cfg.name, "requests": len(reqs),
+        "tokens_out": s["tokens_out"] - s0["tokens_out"], "decode_steps": steps, "wall_s": wall,
+        "ttft_p50_s": float(np.median([r.ttft for r in reqs])),
+        "tpot_p50_s": float(np.median([r.tpot for r in reqs])),
+        "decode_tick_p50_s": eng.metrics.histogram("engine_decode_seconds").percentile(50),
+        "decode_tok_s": tick_tokens / tick_s,
+        "output_tok_s": (s["tokens_out"] - s0["tokens_out"]) / wall,
+        "dispatches_per_step": dispatches / steps, "host_syncs_per_step": syncs / steps,
+        "ticks": tick_kinds(eng, since),
+        "graphs_captured": {"warm": captured_warm, "timed": graphs.captures - captured_warm},
+        "graph_pool_bytes_by_key": {str(k): g.pool_bytes for k, g in graphs._graphs.items()},  # in capture order
+        "capture_s": {"warm": capture_s_warm, "timed": graphs.capture_s - capture_s_warm},
+        "graph_pool_bytes": graphs.pool_bytes(), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "replay_launches": replayed, "eager_launches": launches,
+        "requests_differing": len(differ), "differences": differ,
+    }
+    emit(out)
+    if not all(r.finish_reason == "length" and len(r.generated) == max_new_tokens for r in reqs):
+        fail(f"fused requests did not all finish by length: {[(r.finish_reason, len(r.generated)) for r in reqs]}")
+    if not (replayed["paged_decode"] > 0 and replayed["paged_prefill"] > 0):
+        fail(f"the fused run's graph replays ran no K1 or no K2: {replayed}")
+    if out["dispatches_per_step"] > 1.5:
+        fail(f"fused run: {out['dispatches_per_step']} dispatches a step (at most 1.5)")
+    if not all(d["near_tie"] for d in differ):
+        fail(f"fused tokens differ from the legacy run's away from a near-tie: {differ}")
+    return out
+
+
+def profile_fused_phase(cfg, params, device, ticks=5) -> dict:
+    """One fused pure-decode tick at the profile phase's lengths, as the
+    engine runs it (stage the inputs, replay the decode graph, one host
+    sync), beside the eager ``decode_step`` and the eager tick
+    (``decode_step``, argmax, one host sync), in the same run: wall per
+    call with no profiler, then device time, idle share and the launches
+    the profiler sees."""
+    from repro_torch.models import decode_step
+    from repro_torch.serving import InferenceEngine
+
+    B = len(DECODE_LENS)
+    eng = InferenceEngine(cfg, params, max_batch=B, max_seq=NB * BLOCK_SIZE, block_size=BLOCK_SIZE,
+                          cache_dtype=torch.bfloat16, eos_token=cfg.padded_vocab, device=device, fused=True)
+    eng.tbl[:] = np.arange(1, 1 + B * NB).reshape(B, NB)
+    eng._tbl_dirty = True
+    eng._sync_tables()
+    pos = np.array([n - 1 for n in DECODE_LENS], np.int32)
+    inputs = dict(tokens=np.zeros((B, 1), np.int32), pos=pos, temps=np.zeros(B, np.float32),
+                  top_ks=np.zeros(B, np.int32), room=np.full(B, 2, np.int32))
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=device)
+    pos_d = torch.from_numpy(pos).to(device)
+
+    def fused_tick():
+        eng._host_fetch(eng._graphs.run(("decode", B), eng._fused_decode_fn, inputs))
+
+    def eager_step():
+        decode_step(cfg, params, eng.cache, tok, pos_d)
+
+    def eager_tick():
+        logits, _ = decode_step(cfg, params, eng.cache, tok, pos_d)
+        eng._host_fetch(torch.argmax(logits, dim=-1))
+
+    out = {"phase": "profile_fused", "model": cfg.name, "what": "4 slots, bf16 pools, fp32 weights"}
+    for name, fn in (("fused_tick", fused_tick), ("eager_step", eager_step), ("eager_tick", eager_tick)):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
+        by_name, launches, _, _ = profiled(fn, ticks)
+        busy = sum(by_name.values())
+        out[name] = {
+            "wall_ms": wall_ms, "device_busy_ms": busy if by_name else None,
+            "idle_share": 1.0 - busy / wall_ms if by_name else None, "device_launches": launches,
+            "paged_decode_ms": sum(v for k, v in by_name.items() if "paged_decode_kernel" in k),
+        }
+    out["graphs_captured"] = eng._graphs.captures
+    out["graph_kernels_seen_one_by_one"] = out["fused_tick"]["device_launches"] >= out["eager_step"]["device_launches"]
     emit(out)
     return out
 
@@ -1593,9 +1779,11 @@ def main() -> int:
     cfg = get_config("olmo-1b")  # full width and depth
     params = phase("init", init_params, cfg, SEED, device)
     emit({"phase": "init", "model": cfg.name, "seconds": seconds["init"]})
-    serving = phase("serving", serving_phase, cfg, params, device)
+    serving, legacy_tokens = phase("serving", serving_phase, cfg, params, device)
     phase("path", path_phase, cfg, params, device)
     phase("profile", profile_phase, cfg, params, device)
+    phase("serving_fused", serving_fused_phase, cfg, params, device, legacy_tokens)
+    phase("profile_fused", profile_fused_phase, cfg, params, device)
     del params  # the serving model's memory goes back before training
     torch.cuda.empty_cache()
 

@@ -25,4 +25,11 @@ def get_config(name: str) -> ModelConfig:
 
 
 # import for registration side effects
-from repro_torch.configs import gemma_7b, mistral_nemo_12b, olmo_1b, rwkv6_7b  # noqa: E402,F401
+from repro_torch.configs import (  # noqa: E402,F401
+    bert_large,
+    gemma_7b,
+    mistral_nemo_12b,
+    olmo_1b,
+    rwkv6_7b,
+    stablelm_12b,
+)

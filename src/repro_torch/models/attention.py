@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention, paged_prefill_attention
 from repro_torch.kernels.paged_attention_ref import paged_attention_plain, paged_prefill_attention_plain
+from repro_torch.models.cache import NULL_BLOCK
 from repro_torch.models.layers import ParamSpec, apply_rope, softcap
 
 ATTN_IMPLS = ("kernel", "plain")  # paged attention
@@ -206,14 +207,20 @@ def self_attention(cfg, p: dict, x: torch.Tensor, *, positions=None, q_chunk: in
 
 
 
-def paged_chunk_attention(cfg, p: dict, x: torch.Tensor, cache: dict, tbl_row: torch.Tensor, start: torch.Tensor, *, impl: str = "kernel"):
+def paged_chunk_attention(
+    cfg, p: dict, x: torch.Tensor, cache: dict, tbl_row: torch.Tensor, start: torch.Tensor, *, impl: str = "kernel",
+    widths: torch.Tensor | None = None,
+):
     """Chunked-prefill attention against one layer's paged cache.
 
     x:       (B, C, D) chunk token embedding stream
     cache:   {"k","v": (N, bs, KV, hd) pools of this layer, ...}
     tbl_row: (B, nb) int32, the request's block table covering every
              logical block of prompt + generation
-    start:   (B,) int32 absolute position of the chunk's first token.
+    start:   (B,) int32 absolute position of the chunk's first token
+    widths:  (B,) int32 valid lanes per row (fused mixed batches), or None:
+             lanes at or past ``widths[b]`` scatter to the null block and
+             their outputs are garbage the caller discards.
 
     The chunk's K/V is scattered into its blocks first (position t lands in
     block ``tbl_row[b, t // bs]`` at offset ``t % bs``), then every chunk
@@ -229,6 +236,9 @@ def paged_chunk_attention(cfg, p: dict, x: torch.Tensor, cache: dict, tbl_row: t
 
     idx = torch.clamp(positions // bs, max=tbl_row.shape[1] - 1)
     phys = torch.gather(tbl_row.long(), 1, idx)  # (B, C)
+    if widths is not None:
+        lane = torch.arange(C, device=x.device)[None, :]
+        phys = torch.where(lane < widths[:, None], phys, NULL_BLOCK)
     off = positions % bs
     _scatter(k_pool, phys, off, k)
     _scatter(v_pool, phys, off, v)

@@ -45,11 +45,13 @@ def dense_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8=
     return _residual(cfg, p, x, h, a, fp8=fp8)
 
 
-def dense_block_chunk(cfg, p, x, cache, tbl_row, start, *, attn_impl="kernel"):
+def dense_block_chunk(cfg, p, x, cache, tbl_row, start, *, attn_impl="kernel", widths=None):
     """Chunked-prefill step: a C-token chunk written and attended through
-    the request's own paged block table."""
+    the request's own paged block table.  ``widths`` (fused mixed batches):
+    per-row valid-lane counts; pad lanes scatter to the null block and
+    their outputs are discarded upstream."""
     h = apply_norm(cfg, p["norm1"], x)
-    a = paged_chunk_attention(cfg, p["attn"], h, cache, tbl_row, start, impl=attn_impl)
+    a = paged_chunk_attention(cfg, p["attn"], h, cache, tbl_row, start, impl=attn_impl, widths=widths)
     return _residual(cfg, p, x, h, a)
 
 

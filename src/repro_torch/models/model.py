@@ -8,8 +8,12 @@ Entry points, counterparts of the JAX package's ``models/model.py``:
 * ``prefill_step`` — one prompt chunk against the paged cache: (logits at
   the chunk's last token, cache)
 * ``decode_step``  — one token per batch slot: (logits, cache)
+* ``unified_step`` — one fused pass over a mixed (rows, width) batch of
+  decode rows and prefill chunks: (all-lane logits, cache)
 
-``prefill_step`` and ``decode_step`` serve the dense family only.
+The serving steps serve the dense family only.  They do no host work
+(no ``.item()``, no host-to-device copy, no shape that depends on the
+data), so ``serving/graphs.py`` can capture them in CUDA graphs.
 
 The layer loop is a Python loop over per-layer parameter dicts.  The cache
 is updated in place and returned for symmetry with the JAX functions, which
@@ -44,7 +48,9 @@ def embed_input(cfg, params, tokens: torch.Tensor, positions: torch.Tensor) -> t
     if cfg.learned_pos_embedding:
         x = x + e["pos"][positions.long()].to(x.dtype)
     if cfg.scale_embedding:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+        # the scale rounded to x's dtype on the host: a Python float, so no
+        # host-to-device copy (which a CUDA graph capture refuses)
+        x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
     return x
 
 
@@ -131,15 +137,18 @@ def forward(
     return logits, aux, amaxes
 
 
-def _chunk_stack(cfg, params, cache, tokens, start, tbl_row, *, attn_impl="kernel"):
+def _chunk_stack(cfg, params, cache, tokens, start, tbl_row, *, attn_impl="kernel", widths=None):
     """Embed C tokens at ``start + [0, C)``, scatter their K/V into the paged
     cache through ``tbl_row`` and attend causally over the paged history.
-    Returns x (B, C, D)."""
+    ``widths`` ((B,) int32, optional): per-row valid-lane counts; lanes at
+    or past ``widths[b]`` scatter to the null block.  Returns x (B, C, D)."""
     C = tokens.shape[1]
     positions = start[:, None].long() + torch.arange(C, device=tokens.device)[None, :]
     x = embed_input(cfg, params, tokens, positions)
     for layer, p_layer in enumerate(params["blocks"]):
-        x = dense_block_chunk(cfg, p_layer, x, layer_cache(cache, layer), tbl_row, start, attn_impl=attn_impl)
+        x = dense_block_chunk(
+            cfg, p_layer, x, layer_cache(cache, layer), tbl_row, start, attn_impl=attn_impl, widths=widths
+        )
     return x
 
 
@@ -161,6 +170,32 @@ def prefill_step(cfg, params, cache, tokens, start, tbl_row, *, attn_impl="kerne
     _check_impl(cfg, attn_impl)
     x = _chunk_stack(cfg, params, cache, tokens, start, tbl_row, attn_impl=attn_impl)
     return lm_logits(cfg, params, x[:, -1]), cache
+
+
+@torch.no_grad()
+def unified_step(cfg, params, cache, tokens, start, widths, tbl_rows, *, attn_impl="kernel"):
+    """One fused pass over a mixed row batch (the one-dispatch step).
+
+    tokens:   (R, W) int32, each row feeds up to W consecutive tokens
+    start:    (R,) int32 absolute position of each row's first token
+    widths:   (R,) int32 valid lanes per row: a decode row feeds 1, a
+              prefill-chunk row its chunk length, a pad row 0; lanes past
+              the width scatter to the null block and their logits are
+              garbage the caller discards
+    tbl_rows: (R, nb) int32 per-row block tables (a mid-prefill row's
+              table is its private block list; decode rows pass the
+              published engine row; pad rows are all null)
+
+    Rows are independent batch entries through the chunk machinery of
+    ``prefill_step``.  Every layer scatters all rows' K/V before it
+    attends, so several chunk rows of one request may ride in the same
+    call: a later chunk reads the earlier chunk's K/V of the same layer, as
+    sequential chunking would.  Returns (logits (R, W, V), cache): the
+    logits of every lane, so the caller can sample in the same graph.
+    """
+    _check_impl(cfg, attn_impl)
+    x = _chunk_stack(cfg, params, cache, tokens, start, tbl_rows, attn_impl=attn_impl, widths=widths)
+    return lm_logits(cfg, params, x), cache
 
 
 @torch.no_grad()

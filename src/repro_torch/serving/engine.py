@@ -20,11 +20,25 @@ reduced to the paged dense path and its legacy step walk:
   (``scheduler.SchedulerCore``: admission with SLO preemption, then the
   prefill budget), then one batched ``models.decode_step`` over all
   ``max_batch`` slots (the K1 kernel) and one sampling call.
+* **Fused one-dispatch step** (``fused=True``): the scheduler emits a
+  typed ``StepPlan`` instead of walking phases, and each tick is one call
+  over a unified (rows, width) batch.  Pure-decode ticks run
+  ``decode_step`` with sampling folded in; mixed ticks run decode rows and
+  prefill chunks together through ``models.unified_step`` (K2 for every
+  row) and ``sampler.fused_sample_accept``.  On the card each tick is one
+  replay of a CUDA graph (``serving.graphs``); on the CPU the same step
+  functions run eagerly.  The host reads the tick's tokens in one sync.
+  As in the JAX engine, a prompt that completes mid-tick joins decode one
+  tick later than in the legacy walk: token sequences are unchanged.
+
+Dispatches and host syncs are counted at the JAX engine's seams
+(``_dispatch``, ``_host_fetch``, the first-token sample), and ``stats()``
+reports them per step.
 
 Options of the JAX engine that the port does not have yet raise
-``NotImplementedError`` naming the option: ``spec_decode``, ``fused``,
-``spill_bytes``, ``quantize_kv``, ``mesh``, ``cache_kind="dense"`` and
-families other than dense.
+``NotImplementedError`` naming the option: ``spec_decode`` (with or
+without ``fused``), ``spill_bytes``, ``quantize_kv``, ``mesh``,
+``cache_kind="dense"`` and families other than dense.
 
 Observability as in the JAX engine (``serving.metrics`` +
 ``serving.trace``): one injectable ``clock`` feeds every timestamp,
@@ -42,15 +56,17 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
-from repro_torch.models import decode_step, init_paged_cache, prefill_step
+from repro_torch.models import decode_step, init_paged_cache, prefill_step, unified_step
 from repro_torch.models.attention import ATTN_IMPLS
+from repro_torch.serving.graphs import StepGraphs
 from repro_torch.serving.kvcache import copy_block_rows, make_table_row
 from repro_torch.serving.metrics import MetricsRegistry
 from repro_torch.serving.paged import BlockAllocator, blocks_needed, truncate_blocks
 from repro_torch.serving.prefix import PrefixIndex
-from repro_torch.serving.sampler import sample_token, sample_tokens
+from repro_torch.serving.sampler import fused_sample_accept, sample_token, sample_tokens
 from repro_torch.serving.scheduler import Request, RequestState, SchedulerCore
 from repro_torch.serving.trace import SCHEDULER_TRACK, Tracer, slot_track
 
@@ -87,9 +103,12 @@ class InferenceEngine:
     ):
         if cfg.is_encoder_only:
             raise ValueError(f"{cfg.name} is encoder-only; no decode serving")
+        if fused and spec_decode != "off":
+            raise NotImplementedError(
+                f"fused=True with spec_decode={spec_decode!r} is not ported yet (the fused step's verify rows)"
+            )
         for name, value, default in (
             ("spec_decode", spec_decode, "off"),
-            ("fused", fused, False),
             ("spill_bytes", spill_bytes, 0),
             ("quantize_kv", quantize_kv, False),
             ("mesh", mesh, None),
@@ -112,6 +131,7 @@ class InferenceEngine:
         self.eos = eos_token
         self.cache_kind = cache_kind
         self.attn_impl = attn_impl
+        self.fused = bool(fused)
 
         # ---- observability: one injectable clock feeds every timestamp,
         # one registry collects every counter/gauge/histogram, one bounded
@@ -141,6 +161,12 @@ class InferenceEngine:
         self._g_queue = M.gauge("engine_queue_depth", "requests waiting for admission")
         self._g_active = M.gauge("engine_active_slots", "slots decoding")
         self._g_prefilling = M.gauge("engine_prefilling_slots", "slots mid chunked prefill")
+        # dispatch/sync accounting, at the JAX engine's seams: every model or
+        # sampling call counts one dispatch, every device-to-host read one sync
+        self.dispatches_total = 0
+        self.host_syncs_total = 0
+        self._g_dispatches = M.gauge("engine_dispatches_per_step", "model and sampling calls per engine step")
+        self._g_host_syncs = M.gauge("engine_host_syncs_per_step", "device->host syncs per engine step")
 
         # scheduling brain: queue ordering (SLO/FCFS), admission, preemption
         # decisions and the chunked-prefill budget live in SchedulerCore; the
@@ -186,6 +212,9 @@ class InferenceEngine:
         self.aborts = 0  # requests aborted (cancel / deadline / migration)
         self._ids = itertools.count()
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # the fused step's graphs hold the pools' and the table's addresses:
+        # everything below writes them in place
+        self._graphs = StepGraphs(self.device, self._gen, lambda: self.cache) if self.fused else None
         self.steps = 0
         self.tokens_out = 0
         self.peak_active = 0
@@ -461,7 +490,14 @@ class InferenceEngine:
         return True
 
     def _emit_first_token(self, req: Request, logits: torch.Tensor) -> None:
-        tok = sample_token(logits, req.temperature, self._gen, top_k=req.top_k)
+        self.dispatches_total += 1
+        self.host_syncs_total += 1
+        self._note_first_token(req, sample_token(logits, req.temperature, self._gen, top_k=req.top_k))
+
+    def _note_first_token(self, req: Request, tok: int) -> None:
+        """First-token bookkeeping shared by the legacy walk (which samples
+        from the final chunk's logits) and the fused step (whose token comes
+        out of the step's own sampling)."""
         req.generated.append(tok)
         req.first_token_t = self._clock()
         self.tokens_out += 1
@@ -476,6 +512,23 @@ class InferenceEngine:
     def _device_ints(self, values) -> torch.Tensor:
         return torch.as_tensor(np.asarray(values, np.int32), device=self.device)
 
+    def _dispatch(self, fn, *args, **kw):
+        """Run one model or step call, counted as one dispatch."""
+        self.dispatches_total += 1
+        return fn(*args, **kw)
+
+    def _host_fetch(self, *tensors) -> tuple:
+        """Bring device results to the host as one counted sync: on the
+        card one copy each into pinned memory, then the stream's sync."""
+        self.host_syncs_total += 1
+        if self.device.type == "cpu":
+            return tuple(t.numpy() for t in tensors)
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return tuple(h.numpy() for h in host)
+
     def run_chunk(self, req: Request, c: int) -> torch.Tensor:
         """Run one c-token context chunk; returns the chunk's last logits."""
         ctx = req.context()
@@ -483,8 +536,8 @@ class InferenceEngine:
         toks = self._device_ints(ctx[start : start + c])[None]
         row = self._device_ints(make_table_row(req.blocks, self.max_blocks_per_seq))[None]
         t0 = self._clock()
-        logits, self.cache = prefill_step(
-            self.cfg, self.params, self.cache, toks, self._device_ints([start]), row,
+        logits, self.cache = self._dispatch(
+            prefill_step, self.cfg, self.params, self.cache, toks, self._device_ints([start]), row,
             attn_impl=self.attn_impl,
         )
         self._h_prefill_chunk.observe(self._clock() - t0)
@@ -580,12 +633,171 @@ class InferenceEngine:
             self.cache["tbl"].copy_(torch.from_numpy(self.tbl))
             self._tbl_dirty = False
 
+    # ---- fused one-dispatch step -------------------------------------
+    def _fused_decode_fn(self, tokens, pos, temps, top_ks, room) -> torch.Tensor:
+        """The pure-decode tick's step: ``decode_step`` (bit-identical
+        logits to the legacy walk) with sampling folded in.  Returns
+        (2, B) int32: the tokens and the done flags."""
+        logits, _ = decode_step(self.cfg, self.params, self.cache, tokens, pos, attn_impl=self.attn_impl)
+        toks = sample_tokens(logits, temps, top_ks, self._gen)
+        done = (toks == self.eos) | (room <= 1)
+        return torch.stack([toks.int(), done.int()])
+
+    def _fused_mixed_fn(self, tokens, start, widths, tbl, temps, top_ks, sample_lane, room) -> torch.Tensor:
+        """The mixed tick's step: ``unified_step`` over the (R, W) row
+        batch, ``fused_sample_accept`` with no speculative window, and the
+        committed emission length ``cut`` (first EOS in the window, clamped
+        by the remaining budget ``room``).  Returns (4, R) int32: final
+        tokens, accept counts, cut and done flags."""
+        logits, _ = unified_step(
+            self.cfg, self.params, self.cache, tokens, start, widths, tbl, attn_impl=self.attn_impl
+        )
+        R, W = tokens.shape
+        drafts = torch.zeros((R, W - 1), dtype=torch.int32, device=tokens.device)
+        valid = torch.zeros((R, W - 1), dtype=torch.bool, device=tokens.device)
+        n_acc, final = fused_sample_accept(logits, drafts, None, valid, temps, top_ks, sample_lane, self._gen)
+        lanes = torch.arange(W, device=tokens.device)
+        emitted = torch.where(lanes[None, :] == n_acc[:, None], final[:, None], F.pad(drafts, (0, 1)))
+        is_eos = (lanes[None, :] <= n_acc[:, None]) & (emitted == self.eos)
+        eos_cut = torch.where(is_eos.any(dim=1), torch.argmax(is_eos.int(), dim=1) + 1, W + 1)
+        cut = torch.minimum(torch.minimum(eos_cut, room), n_acc + 1)
+        done = (eos_cut <= cut) | (cut >= room)
+        return torch.stack([final, n_acc, cut.int(), done.int()])
+
+    def _fused_step(self) -> int:
+        """One fused tick: the scheduler emits a ``StepPlan`` of decode and
+        prefill-chunk rows, the tick's model work and sampling run as one
+        call (one graph replay on the card), and the host reads the tokens
+        in one sync.  Pure-decode ticks keep ``decode_step``'s path; mixed
+        ticks run every row through the unified chunk path."""
+        plan = self.scheduler.plan()
+        self.peak_active = max(self.peak_active, sum(r is not None for r in self.slots))
+        if not plan.rows:
+            return 0
+        if not plan.chunk_rows:
+            return self._fused_decode_tick([pr.req for pr in plan.rows])
+        return self._fused_mixed_tick(plan)
+
+    def _fused_decode_tick(self, active: list[Request]) -> int:
+        self._sync_tables()
+        B = self.max_batch
+        tokens = np.zeros((B, 1), np.int32)
+        temps = np.zeros((B,), np.float32)
+        top_ks = np.zeros((B,), np.int32)
+        room = np.ones((B,), np.int32)
+        for r in active:
+            tokens[r.slot, 0] = r.generated[-1]
+            temps[r.slot] = r.temperature
+            top_ks[r.slot] = r.top_k
+            room[r.slot] = r.max_new_tokens - len(r.generated)
+        inputs = dict(tokens=tokens, pos=self.pos.copy(), temps=temps, top_ks=top_ks, room=room)
+        t_decode = self._clock()
+        packed = self._dispatch(self._graphs.run, ("decode", B), self._fused_decode_fn, inputs)
+        (out,) = self._host_fetch(packed)
+        self._h_decode.observe(self._clock() - t_decode)
+        self.steps += 1
+        for r in active:
+            r.generated.append(int(out[0, r.slot]))
+            self.pos[r.slot] += 1
+            self.tokens_out += 1
+            self._c_tokens.inc()
+            self._reclaim_window_blocks(r)
+            self._finish_if_done(r)
+        return len(active)
+
+    def _fused_mixed_tick(self, plan) -> int:
+        """Lower a mixed ``StepPlan`` into one unified (R, W) row batch.  R
+        is padded to a power of two (pad rows have width 0 and an all-null
+        table, so their lanes write only the null block); W is the widest
+        row, a power of two from ``binary_chunks`` or 1, so the graphs stay
+        few."""
+        rows = plan.rows
+        R = 1 << max(len(rows) - 1, 0).bit_length()
+        row_width = [1 if pr.kind == "decode" else pr.take for pr in rows]
+        W = max(max(row_width), 1)
+        tokens = np.zeros((R, W), np.int32)
+        start = np.zeros((R,), np.int32)
+        widths = np.zeros((R,), np.int32)
+        tbl = np.zeros((R, self.max_blocks_per_seq), np.int32)  # null-block rows for pad lanes
+        temps = np.zeros((R,), np.float32)
+        top_ks = np.zeros((R,), np.int32)
+        sample_lane = np.zeros((R,), np.int32)
+        room = np.full((R,), W + 1, np.int32)  # pad rows: cut never clamps
+        for i, pr in enumerate(rows):
+            r = pr.req
+            temps[i] = r.temperature
+            top_ks[i] = r.top_k
+            widths[i] = row_width[i]
+            if pr.kind == "decode":
+                tokens[i, 0] = r.generated[-1]
+                start[i] = self.pos[r.slot]
+                tbl[i] = self.tbl[r.slot]
+                room[i] = r.max_new_tokens - len(r.generated)
+            else:  # prefill chunk
+                c = pr.take
+                tokens[i, :c] = r.context()[pr.start : pr.start + c]
+                start[i] = pr.start
+                tbl[i, : len(r.blocks)] = r.blocks
+                sample_lane[i] = max(c - 1, 0)
+                if pr.final:
+                    room[i] = max(r.max_new_tokens - len(r.generated), 1)
+        inputs = dict(
+            tokens=tokens, start=start, widths=widths, tbl=tbl, temps=temps, top_ks=top_ks,
+            sample_lane=sample_lane, room=room,
+        )
+        packed = self._dispatch(self._graphs.run, ("mixed", R, W), self._fused_mixed_fn, inputs)
+        (out,) = self._host_fetch(packed)
+        final = out[0]
+        if any(pr.kind != "chunk" for pr in rows):
+            self.steps += 1
+        produced = 0
+        for i, pr in enumerate(rows):
+            r = pr.req
+            if pr.kind == "decode":
+                r.generated.append(int(final[i]))
+                self.pos[r.slot] += 1
+                produced += 1
+                self.tokens_out += 1
+                self._c_tokens.inc()
+                self._reclaim_window_blocks(r)
+                self._finish_if_done(r)
+                continue
+            c = pr.take
+            r.prefill_pos = pr.start + c
+            self.pos[r.slot] = r.prefill_pos
+            if c:
+                self.prefill_chunks += 1
+                self.prefill_tokens += c
+                self._c_prefill_tokens.inc(c)
+                self.tracer.instant(
+                    "prefill_chunk", track=slot_track(r.slot), req_id=r.req_id, pos=pr.start, tokens=c
+                )
+                if self.prefix is not None:
+                    r.reg_block, r.reg_parent = self.prefix.register(
+                        r.context(), r.blocks, r.prefill_pos, start_block=r.reg_block, parent=r.reg_parent
+                    )
+            if pr.final:
+                self.scheduler.drop_prefilling(r)
+                self.tbl[r.slot] = make_table_row(r.blocks, self.max_blocks_per_seq)
+                self._tbl_dirty = True
+                self.pos[r.slot] = r.prefill_target
+                r.prefilling = False
+                if not r.generated:
+                    self._note_first_token(r, int(final[i]))
+        return produced
+
     def step(self) -> int:
         """One engine iteration: one scheduling pass (admission with SLO
         preemption, then the chunked-prefill budget), then advance all
-        decoding slots by one batched decode step and one sampling call."""
+        decoding slots by one batched decode step and one sampling call;
+        with ``fused``, one fused tick."""
         t0 = self._clock()
         self._enforce_deadlines()
+        if self.fused:
+            produced = self._fused_step()
+            self._maybe_defrag()
+            self._note_step(t0, produced)
+            return produced
         self.scheduler.schedule()
         self.peak_active = max(self.peak_active, sum(r is not None for r in self.slots))
         active = [r for r in self.slots if r is not None and not r.prefilling]
@@ -600,20 +812,21 @@ class InferenceEngine:
                 temps[r.slot] = r.temperature
                 top_ks[r.slot] = r.top_k
             t_decode = self._clock()
-            logits, self.cache = decode_step(
-                self.cfg, self.params, self.cache, self._device_ints(tokens), self._device_ints(self.pos),
+            logits, self.cache = self._dispatch(
+                decode_step, self.cfg, self.params, self.cache, self._device_ints(tokens), self._device_ints(self.pos),
                 attn_impl=self.attn_impl,
             )
             self.steps += 1
             # one whole-batch sampling call; the all-greedy batch (the common
             # serving default) skips the sort/multinomial work
+            self.dispatches_total += 1  # the sampling call below
             if all(r.temperature <= 0.0 for r in active):
-                sampled = torch.argmax(logits, dim=-1).cpu().numpy()
+                (sampled,) = self._host_fetch(torch.argmax(logits, dim=-1))
             else:
-                sampled = sample_tokens(
+                (sampled,) = self._host_fetch(sample_tokens(
                     logits, torch.as_tensor(temps, device=self.device),
                     torch.as_tensor(top_ks, device=self.device), self._gen,
-                ).cpu().numpy()
+                ))
             self._h_decode.observe(self._clock() - t_decode)
             for r in active:
                 tok = int(sampled[r.slot])
@@ -636,6 +849,9 @@ class InferenceEngine:
         self._g_queue.set(len(self.queue))
         self._g_active.set(sum(r is not None and not r.prefilling for r in self.slots))
         self._g_prefilling.set(len(self._prefilling))
+        if self.steps:
+            self._g_dispatches.set(self.dispatches_total / self.steps)
+            self._g_host_syncs.set(self.host_syncs_total / self.steps)
         self._g_frag.set(self.allocator.fragmentation())
 
     def run_until_drained(self, max_steps: int = 10_000) -> list[Request]:
@@ -691,11 +907,23 @@ class InferenceEngine:
             "cache_bytes": self.cache_bytes(),
             "prefill_chunks": self.prefill_chunks,
             "prefill_tokens": self.prefill_tokens,
+            "fused": self.fused,
+            "dispatches_total": self.dispatches_total,
+            "host_syncs_total": self.host_syncs_total,
+            "dispatches_per_step": self.dispatches_total / self.steps if self.steps else 0.0,
+            "host_syncs_per_step": self.host_syncs_total / self.steps if self.steps else 0.0,
             "block_size": self.block_size,
             "defrag_triggers": self.defrag_triggers,
             "evictions": self.allocator.evictions,
         }
         s.update({f"alloc_{k}": v for k, v in self.allocator.stats().items()})
+        if self._graphs is not None and self._graphs.pool is not None:
+            # the card's graphs: captures (with their warm-up runs), replays
+            # and the kernel launches the replays ran
+            s["graphs_captured"] = self._graphs.captures
+            s["capture_s"] = self._graphs.capture_s
+            s["graph_replays"] = self._graphs.replays
+            s["graph_launches"] = dict(self._graphs.launches)
         if self.prefix is not None:
             served = self.prefix_hit_tokens + self.prefill_tokens
             s["prefix_hits"] = self.prefix_hits

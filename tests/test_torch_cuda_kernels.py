@@ -12,11 +12,20 @@ cores, with fp32 queries split into two bf16 terms: each of its cases also
 computes a control that must miss the limit (q in one bf16 term; for bf16
 queries, the causal mask off by one).  v1, the CUDA-core K2, stays checked
 on fp32 pools and through ``paged_prefill_attention_cuda_cores``.
+
+The fused serving step's CUDA graphs (``serving/graphs.py``) replay the
+decode and the mixed (R, W) step on the smoke olmo-1b: the same logits and
+tokens as the eager step on the same inputs, bit for bit, with K1 or K2
+among the calls each capture recorded, and again after the host staged new
+inputs.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.config import reduce_for_smoke
+from repro_torch.configs import get_config
 from repro_torch.kernels import paged_attention as K
 from repro_torch.kernels.paged_attention_ref import paged_attention_plain, paged_prefill_attention_plain
 
@@ -243,3 +252,77 @@ def test_cuda_decode_table_entries_out_of_range_read_block_0():
     torch.cuda.synchronize()
     for out in outs:
         assert _err(out, ref) < TOL[torch.float32]
+
+
+def _graph_engine():
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceEngine
+
+    cfg = reduce_for_smoke(get_config("olmo-1b"))
+    eng = InferenceEngine(cfg, init_params(cfg, 0, device="cuda"), max_batch=4, max_seq=128, block_size=16,
+                          fused=True, eos_token=1 << 30)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for name in ("k", "v"):  # a history in every block
+        eng.cache[name].copy_(torch.randn(eng.cache[name].shape, generator=g, device="cuda"))
+    eng.tbl[:] = np.arange(1, 1 + eng.tbl.size).reshape(eng.tbl.shape)
+    eng._tbl_dirty = True
+    eng._sync_tables()
+    return eng
+
+
+def _graph_inputs(eng, kind, seed):
+    rng = np.random.default_rng(seed)
+    V, B, nb = eng.cfg.vocab_size, eng.max_batch, eng.max_blocks_per_seq
+    if kind == "decode":
+        return dict(
+            tokens=rng.integers(0, V, (B, 1)).astype(np.int32), pos=rng.integers(0, 100, B).astype(np.int32),
+            temps=np.zeros(B, np.float32), top_ks=np.zeros(B, np.int32), room=np.full(B, 5, np.int32),
+        )
+    # a decode row, two chunk rows of one request, a width-0 pad row
+    R, W = 4, 8
+    s0 = int(rng.integers(0, 90))
+    tbl = np.zeros((R, nb), np.int32)
+    tbl[0], tbl[1], tbl[2] = eng.tbl[0], eng.tbl[1], eng.tbl[1]
+    return dict(
+        tokens=rng.integers(0, V, (R, W)).astype(np.int32), start=np.array([s0 + 7, s0, s0 + 8, 0], np.int32),
+        widths=np.array([1, 8, 5, 0], np.int32), tbl=tbl, temps=np.zeros(R, np.float32),
+        top_ks=np.zeros(R, np.int32), sample_lane=np.array([0, 7, 4, 0], np.int32), room=np.full(R, 9, np.int32),
+    )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["decode", "mixed"])
+def test_cuda_step_graphs_replay_the_eager_step(kind):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.models import decode_step, unified_step
+
+    eng = _graph_engine()
+    cfg, params, cache = eng.cfg, eng.params, eng.cache
+
+    def logits_fn(**a):
+        if kind == "decode":
+            return decode_step(cfg, params, cache, a["tokens"], a["pos"])[0]
+        return unified_step(cfg, params, cache, a["tokens"], a["start"], a["widths"], a["tbl"])[0]
+
+    tokens_fn = eng._fused_decode_fn if kind == "decode" else eng._fused_mixed_fn
+    kernel = "paged_decode" if kind == "decode" else "paged_prefill"
+    graphs = eng._graphs
+    for seed in (0, 1):  # the second replays the graphs on newly staged inputs
+        inputs = _graph_inputs(eng, kind, seed)
+        on_card = {n: torch.from_numpy(a).cuda() for n, a in inputs.items()}
+        eager = [logits_fn(**on_card).clone(), tokens_fn(**on_card).clone()]
+        replayed = [graphs.run(("logits", kind), logits_fn, inputs).clone(),
+                    graphs.run(("tokens", kind), tokens_fn, inputs).clone()]
+        torch.cuda.synchronize()
+        assert graphs.captures == 2 and graphs.replays == 2 * (seed + 1)
+        assert torch.equal(replayed[0], eager[0]) and torch.isfinite(eager[0]).all()
+        assert torch.equal(replayed[1], eager[1])
+    assert all(g.launches[kernel] == cfg.num_layers for g in graphs._graphs.values())
+    assert graphs.launches[kernel] == 4 * cfg.num_layers
+    # greedy rows: the tokens are the argmax of the sampled lane's logits
+    lanes = eager[0] if kind == "decode" else eager[0][torch.arange(4), torch.tensor([0, 7, 4, 0])]
+    assert eager[1][0, :3].tolist() == lanes.argmax(-1)[:3].tolist()
+    eng.cache["k"] = eng.cache["k"].clone()  # the graphs hold the old pool's address
+    with pytest.raises(RuntimeError, match="reallocated"):
+        graphs.run(("tokens", kind), tokens_fn, inputs)

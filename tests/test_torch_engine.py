@@ -53,10 +53,14 @@ def _serve(engine_cls, cfg, params, eos, **kw):
     return eng, reqs
 
 
-@pytest.mark.parametrize("eos", [256, 137], ids=["eos_outside_vocab", "eos_137"])
-def test_engine_matches_jax_engine(eos):
-    jcfg = jax_reduce(jax_get_config("olmo-1b"))
-    tcfg = reduce_for_smoke(get_config("olmo-1b"))
+@pytest.mark.parametrize(
+    "arch,eos",
+    [("olmo-1b", 256), ("olmo-1b", 137), ("stablelm-12b", 1 << 30)],
+    ids=["eos_outside_vocab", "eos_137", "stablelm_12b"],
+)
+def test_engine_matches_jax_engine(arch, eos):
+    jcfg = jax_reduce(jax_get_config(arch))
+    tcfg = reduce_for_smoke(get_config(arch))
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
     tparams = params_from_jax(tcfg, jax.tree.map(np.asarray, jparams), device="cpu")
 
@@ -73,4 +77,10 @@ def test_engine_matches_jax_engine(eos):
     assert ts["alloc_blocks_in_use"] == 0
     assert ts["alloc_total_allocs"] == ts["alloc_total_frees"]
     reasons = {r.finish_reason for r in treqs}
-    assert reasons == ({"length"} if eos == tcfg.padded_vocab else {"eos", "length"})
+    assert reasons == ({"eos", "length"} if eos == 137 else {"length"})
+
+
+def test_engine_refuses_encoder_only():
+    cfg = reduce_for_smoke(get_config("bert-large"))
+    with pytest.raises(ValueError, match="encoder-only"):
+        InferenceEngine(cfg, {}, device="cpu")

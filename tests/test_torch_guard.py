@@ -140,5 +140,7 @@ def test_options_outside_the_slice_raise(option, value):
 
     cfg = reduce_for_smoke(get_config("olmo-1b"))
     params = init_params(cfg, 0, device="cpu")
+    # the fused step is ported; its speculative verify rows are not
+    extra = {"spec_decode": "ngram"} if option == "fused" else {}
     with pytest.raises(NotImplementedError, match=option):
-        InferenceEngine(cfg, params, device="cpu", **{option: value})
+        InferenceEngine(cfg, params, device="cpu", **{option: value}, **extra)

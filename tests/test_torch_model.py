@@ -83,6 +83,7 @@ MODEL_CASES = [
     ("gemma-7b", {}),
     ("mistral-nemo-12b", {"sliding_window": 8}),
     ("gemma-7b", {"attn_logit_softcap": 30.0}),
+    ("stablelm-12b", {}),  # parallel residual, partial rotary, layernorm
 ]
 
 

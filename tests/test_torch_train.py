@@ -45,7 +45,7 @@ from repro_torch.configs import get_config
 from repro_torch.data import make_batch_fn, synthetic_batch
 from repro_torch.models import forward
 from repro_torch.train import init_train_state, loss_fn, make_train_step
-from repro_torch.utils.tree import tree_leaves
+from repro_torch.utils.tree import tree_leaves, tree_paths
 
 torch.set_num_threads(2)
 
@@ -73,9 +73,13 @@ def _torch(b):
     return {k: torch.from_numpy(v) for k, v in b.items()}
 
 
-@pytest.mark.parametrize("jax_impl,impl", [("xla", "torch"), ("flash", "flash")])
-def test_forward_logits_match_jax(jax_impl, impl):
-    jcfg, tcfg = _configs("olmo-1b")
+@pytest.mark.parametrize(
+    "jax_impl,impl,arch",
+    [("xla", "torch", "olmo-1b"), ("flash", "flash", "olmo-1b"), ("xla", "torch", "bert-large")],
+    ids=["xla-torch", "flash-flash", "bert-large"],
+)
+def test_forward_logits_match_jax(jax_impl, impl, arch):
+    jcfg, tcfg = _configs(arch)
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(1), jnp.float32)
     tparams = params_from_jax(tcfg, jax.tree.map(np.asarray, jparams), device="cpu")
     batch = _batches(jcfg.vocab_size, 1, seed=2, batch=2)[0]
@@ -107,6 +111,7 @@ TRAIN_CASES = [
     ("olmo-1b", {"fp8": True, "fp8_gemm": "pallas"}, 1, False),
     ("olmo-1b", {}, 2, False),
     ("mistral-nemo-12b", {"compute_dtype": "float32"}, 1, True),  # norm scales: the decay rank rule
+    ("bert-large", {"compute_dtype": "float32"}, 1, True),  # encoder: biases, learned positions, no mask
 ]
 
 
@@ -143,7 +148,13 @@ def test_train_steps_match_jax(arch, prec, nmb, tight):
     moved = torch.cat([(a - b).abs().flatten() for a, b in zip(got, before)])
     assert float(moved.mean()) > LR / 2  # the steps moved the parameters
     if tight:
-        assert float(diff.max()) < 1e-6
+        # a key bias shifts every score of a query row alike, which softmax
+        # cancels: its gradient is rounding noise, which AdamW normalises
+        # into moves of up to lr a step, so it is held to 2 lr a step
+        paths = tree_paths(tstate.params)
+        shift = torch.tensor([p[-1] == "bk" for p, a in zip(paths, got) for _ in range(a.numel())])
+        assert float(diff[~shift].max()) < 1e-6
+        assert not shift.any() or float(diff[shift].max()) <= 2 * LR * 3
     else:
         assert float(diff.max()) <= 2 * LR * 3 and float(diff.mean()) < (LR / 5 if prec.get("fp8") else LR / 10)
     if prec.get("fp8"):
