@@ -18,7 +18,8 @@ or when any check fails.  Phases:
    head shapes of olmo-1b, mistral-nemo-12b and gemma-7b, block size 32,
    random block tables with null padding and ragged lengths, plus one
    sliding-window and one softcap case, and for K2 the short and ragged
-   chunks serving runs (C = 1 and 16 at 192, C = 40 at 200).  Each case
+   chunks serving runs (C = 1 and 16 at 192, C = 40 at 200) and the
+   speculative verify window (C = spec_k + 1 = 5 at 192, 203 and 221).  Each case
    names the kernel it runs (``route``: K2's bf16 pools run on the tensor
    cores; K1 splits each walk over a cluster of up to 8 blocks, ``split``
    the size it picked), reads the max error against ``TOL``, the mean error and
@@ -73,6 +74,29 @@ or when any check fails.  Phases:
    ``torch.profiler``, its device time, idle share and the launches the
    profiler sees, beside the eager ``decode_step`` and the eager tick
    (``decode_step``, argmax, host sync) in the same run.
+5d. Speculative serving (``spec_k = 4``), the serving phase's engine,
+   prompts and settings in four runs: (a) the legacy walk with the n-gram
+   drafter; (b) the same with ``fused=True`` after an untimed run of
+   prompts from another seed; (c) the legacy walk with the target as its
+   own drafter on the first two prompts; (d) its control, a half-depth
+   draft of random weights from another seed, on the same two.  Each reads
+   TTFT, TPOT, output tokens/s, steps, dispatches and host syncs a step,
+   acceptance rate, tokens per verify, drafted and accepted tokens and the
+   K1/K2 launches (counts set to 0 just before each timed run), (b) also
+   its graphs and their pool.  It fails unless every request finishes by
+   length, K2 ran in every run (in (b) inside replays) and K1 in neither
+   (a) nor (b), (b) takes at most 1.5 dispatches a step and captures no
+   graph while timed, the tokens of (a)-(c) differ from the serving
+   phase's only at near-ties, and (c) accepts at least 0.8 of its drafts
+   while (d) accepts fewer.
+5e. Speculative rollback: one verify step of 4 slots at the profile
+   phase's lengths whose drafts cannot match (each slot's least likely
+   token),
+   eagerly and as one replay of the fused spec graph: the rejected rows
+   must read zero, the history must be unchanged and the committed row
+   within one bf16 spacing (of its largest element) of what a plain
+   decode step writes; the pools with no rollback and with the rollback
+   one lane early are the controls that must fail.
 6. Train: FP8 training of olmo-1b at full width and depth (fp32 master
    weights, bf16 compute, K4 for every projection GEMM, remat per block),
    4 steps of 4 x 2048 tokens from random weights (seed 0), with the loss,
@@ -332,6 +356,9 @@ KERNEL_CASES = [(m, (H, KV, hd), dt, 0, 0.0) for (m, H, KV, hd) in HEAD_SHAPES f
 KERNEL_CASES += [("mistral-nemo-12b", (32, 8, 128), torch.float32, 32, 0.0), ("gemma-7b", (16, 16, 256), torch.float32, 0, 30.0)]
 PREFILL_CASES = [(*case, (PREFILL_C, PREFILL_START)) for case in KERNEL_CASES]
 PREFILL_CASES += [("olmo-1b", (16, 16, 128), torch.float32, 0, 0.0, chunk) for chunk in ((1, 192), (16, 192), (40, 200))]
+# the speculative verify window, C = spec_k + 1 = 5: at a block's first
+# position, mid-block, and across a block edge
+PREFILL_CASES += [("olmo-1b", (16, 16, 128), torch.float32, 0, 0.0, (5, start)) for start in (192, 203, 221)]
 
 
 def case_bound(c, route: str) -> tuple[float, str]:
@@ -537,6 +564,19 @@ def top2_gap(cfg, params, device, context) -> float:
     return float(top[0] - top[1])
 
 
+def differences(cfg, params, device, reqs, legacy_tokens) -> list[dict]:
+    """Each request whose tokens differ from the legacy run's: the first
+    position where they do and the legacy tokens' top-2 logit gap there,
+    a near-tie when it is below ``PATH_TOL``."""
+    differ = []
+    for i, (r, ref) in enumerate(zip(reqs, legacy_tokens)):
+        j = next((j for j, (a, b) in enumerate(zip(r.generated, ref)) if a != b), None)
+        if j is not None:
+            gap = top2_gap(cfg, params, device, r.prompt + ref[:j])
+            differ.append({"request": i, "position": j, "legacy_top2_gap": gap, "near_tie": gap < PATH_TOL})
+    return differ
+
+
 def serving_fused_phase(cfg, params, device, legacy_tokens, max_new_tokens=32) -> dict:
     """The serving phase's run with ``fused=True``: one graph replay and one
     host sync a tick on the card."""
@@ -573,13 +613,7 @@ def serving_fused_phase(cfg, params, device, legacy_tokens, max_new_tokens=32) -
     dispatches = s["dispatches_total"] - s0["dispatches_total"]
     syncs = s["host_syncs_total"] - s0["host_syncs_total"]
     tick_tokens, tick_s = decode_ticks(eng, since)
-
-    differ = []
-    for i, (r, ref) in enumerate(zip(reqs, legacy_tokens)):
-        j = next((j for j, (a, b) in enumerate(zip(r.generated, ref)) if a != b), None)
-        if j is not None:
-            gap = top2_gap(cfg, params, device, r.prompt + ref[:j])
-            differ.append({"request": i, "position": j, "legacy_top2_gap": gap, "near_tie": gap < PATH_TOL})
+    differ = differences(cfg, params, device, reqs, legacy_tokens)
     out = {
         "phase": "serving_fused", "model": cfg.name, "requests": len(reqs),
         "tokens_out": s["tokens_out"] - s0["tokens_out"], "decode_steps": steps, "wall_s": wall,
@@ -661,6 +695,249 @@ def profile_fused_phase(cfg, params, device, ticks=5) -> dict:
     out["graphs_captured"] = eng._graphs.captures
     out["graph_kernels_seen_one_by_one"] = out["fused_tick"]["device_launches"] >= out["eager_step"]["device_launches"]
     emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: speculative decoding
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+SPEC_ACCEPTANCE = 0.8  # the self-draft must reach it; a draft of unrelated weights must not
+
+
+def serving_spec_phase(cfg, params, device, legacy_tokens, max_new_tokens=32) -> dict:
+    """The serving phase's engine, prompts and settings with
+    ``spec_decode`` and ``spec_k = 4``, four runs: (a) the legacy walk with
+    the n-gram drafter; (b) the same with ``fused=True``, after an untimed
+    run of prompts from another seed that captures the buckets; (c) the
+    legacy walk with the target as its own drafter on the first two
+    prompts; (d) its control, a ``make_draft_config`` draft of random
+    weights from another seed, on the same two.  Each run first serves an
+    untimed warm-up on its own engine; its readings are the timed run's."""
+    from repro_torch.kernels import paged_attention as K
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceEngine
+    from repro_torch.serving.spec_decode import make_draft_config
+
+    kw = dict(
+        max_batch=4, max_seq=512, block_size=BLOCK_SIZE, prefill_budget=128, cache_dtype=torch.bfloat16,
+        eos_token=cfg.padded_vocab, device=device, spec_k=SPEC_K,
+    )
+    prompts = serving_prompts(cfg, SEED)
+    dcfg = make_draft_config(cfg)
+    runs = {
+        "a_legacy_ngram": (dict(spec_decode="ngram"), prompts),
+        "b_fused_ngram": (dict(spec_decode="ngram", fused=True), prompts),
+        "c_legacy_self_draft": (dict(spec_decode="draft", draft_cfg=cfg, draft_params=params), prompts[:2]),
+        "d_control_draft": (
+            dict(spec_decode="draft", draft_cfg=dcfg, draft_params=init_params(dcfg, SEED + 7, device=device)),
+            prompts[:2],
+        ),
+    }
+    out = {"phase": "serving_spec", "model": cfg.name, "spec_k": SPEC_K, "draft_model": dcfg.name}
+    for name, (extra, ps) in runs.items():
+        eng = InferenceEngine(cfg, params, **kw, **extra)
+        warm = serving_prompts(cfg, SEED + 1)
+        for p in warm if eng.fused else [warm[0][:48]]:
+            eng.submit(p, max_new_tokens=max_new_tokens if eng.fused else 8)
+        eng.run_until_drained()
+        graphs = eng._graphs
+        captured_warm = graphs.captures if graphs is not None else 0
+        replay_before = dict(graphs.launches) if graphs is not None else {}
+        s0 = eng.stats()
+        counts0 = (eng.spec_emitted, eng.spec_slot_steps)
+        since = eng.tracer.now()
+        reqs = [eng.submit(p, max_new_tokens=max_new_tokens) for p in ps]
+        K.reset_launches()  # this run's main path starts here
+        t0 = time.perf_counter()
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        eager = dict(K.LAUNCHES)
+        s = eng.stats()
+        d = {k: s[k] - s0[k] for k in ("decode_steps", "dispatches_total", "host_syncs_total", "tokens_out",
+                                        "drafted_tokens", "accepted_tokens", "verify_tokens", "spec_steps")}
+        emitted, slot_steps = eng.spec_emitted - counts0[0], eng.spec_slot_steps - counts0[1]
+        replayed = {k: v - replay_before[k] for k, v in graphs.launches.items()} if graphs is not None else {}
+        row = {
+            "requests": len(reqs), "wall_s": wall,
+            "ttft_p50_s": float(np.median([r.ttft for r in reqs])),
+            "tpot_p50_s": float(np.median([r.tpot for r in reqs])),
+            "output_tok_s": d["tokens_out"] / wall, "steps": d["decode_steps"],
+            "step_s": wall / d["decode_steps"],
+            "ticks": tick_kinds(eng, since),  # "decode": steps with no prefill chunk
+            "dispatches_per_step": d["dispatches_total"] / d["decode_steps"],
+            "host_syncs_per_step": d["host_syncs_total"] / d["decode_steps"],
+            "acceptance_rate": d["accepted_tokens"] / d["drafted_tokens"] if d["drafted_tokens"] else 0.0,
+            "tokens_per_verify": emitted / slot_steps if slot_steps else 0.0,
+            "drafted_tokens": d["drafted_tokens"], "accepted_tokens": d["accepted_tokens"],
+            "verify_passes": slot_steps, "verify_tokens": d["verify_tokens"], "spec_steps": d["spec_steps"],
+            "eager_launches": eager, "replay_launches": replayed or None,
+            "k2_launches": eager["paged_prefill"] + replayed.get("paged_prefill", 0),
+            "k1_launches": eager["paged_decode"] + replayed.get("paged_decode", 0),
+            "differences": differences(cfg, params, device, reqs, legacy_tokens[: len(reqs)]),
+        }
+        if graphs is not None:
+            row.update(
+                graphs_captured={"warm": captured_warm, "timed": graphs.captures - captured_warm},
+                graph_keys=[str(k) for k in graphs._graphs],
+                graph_pool_bytes_by_key={str(k): g.pool_bytes for k, g in graphs._graphs.items()},
+                graph_pool_bytes=graphs.pool_bytes(),
+            )
+        out[name] = row
+        emit({"phase": "serving_spec", "run": name, **row})
+        if not all(r.finish_reason == "length" and len(r.generated) == max_new_tokens for r in reqs):
+            fail(f"spec run {name}: requests did not all finish by length: "
+                 f"{[(r.finish_reason, len(r.generated)) for r in reqs]}")
+        if row["k2_launches"] <= 0 or (graphs is not None and replayed["paged_prefill"] <= 0):
+            fail(f"spec run {name}: K2 did not run on the verify path: eager {eager}, replays {replayed}")
+        if name[0] in "ab" and row["k1_launches"]:
+            fail(f"spec run {name}: K1 ran ({row['k1_launches']} launches) though every step verifies")
+        if graphs is not None:
+            if row["dispatches_per_step"] > 1.5:
+                fail(f"spec run {name}: {row['dispatches_per_step']} dispatches a step (at most 1.5)")
+            if row["graphs_captured"]["timed"]:
+                fail(f"spec run {name}: {row['graphs_captured']['timed']} graphs captured in the timed run")
+        if name[0] in "abc" and not all(x["near_tie"] for x in row["differences"]):
+            fail(f"spec run {name}: tokens differ from the legacy run's away from a near-tie: {row['differences']}")
+        del eng, graphs
+        torch.cuda.empty_cache()
+    out["k2_launches"] = {name: out[name]["k2_launches"] for name in runs}
+    if not out["c_legacy_self_draft"]["acceptance_rate"] >= SPEC_ACCEPTANCE:
+        fail(f"self-draft acceptance {out['c_legacy_self_draft']['acceptance_rate']} < {SPEC_ACCEPTANCE}")
+    if not out["d_control_draft"]["acceptance_rate"] < SPEC_ACCEPTANCE:
+        fail(f"the control draft's acceptance {out['d_control_draft']['acceptance_rate']} reaches "
+             f"{SPEC_ACCEPTANCE}, which then proves nothing")
+    return out
+
+
+# a committed row against the plain path's: each layer's K/V row is rounded
+# to bf16 from activations that differ in the last fp32 bits, so a few
+# elements may move by one bf16 spacing; the limit is one spacing of the
+# row's largest element (2^-7 of it)
+COMMITTED_REL = 2.0**-7
+
+
+def rollback_readings(pools, history, reference, starts, cut, tbl) -> dict:
+    """Per verify window of one step: the rejected rows [start + cut,
+    start + spec_k + 1) must read zero, the history [0, start) must be
+    bit-equal to the pools before the step, and the committed rows [start,
+    start + cut) must agree with what the plain path wrote (``reference``):
+    max |a - b| over each (layer, position) row, divided by the row's
+    largest |b|, at most ``COMMITTED_REL``."""
+    rejected, history_diff, committed = 0.0, 0.0, 0.0
+    for b, (st, c) in enumerate(zip(starts, cut)):
+        pos = torch.arange(st + c, st + SPEC_K + 1, device=tbl.device)
+        for name in ("k", "v"):
+            pool = pools[name]
+            rows = pool[:, tbl[b, pos // BLOCK_SIZE].long(), pos % BLOCK_SIZE]
+            rejected = max(rejected, float(rows.float().abs().max()))
+            old = torch.arange(st, device=tbl.device)
+            idx = (tbl[b, old // BLOCK_SIZE].long(), old % BLOCK_SIZE)
+            history_diff = max(history_diff, float((pool[:, idx[0], idx[1]].float()
+                                                    - history[name][:, idx[0], idx[1]].float()).abs().max()))
+            new = torch.arange(st, st + c, device=tbl.device)
+            idx = (tbl[b, new // BLOCK_SIZE].long(), new % BLOCK_SIZE)
+            a, ref = pool[:, idx[0], idx[1]].float(), reference[name][:, idx[0], idx[1]].float()  # (L, c, KV, hd)
+            row_err = (a - ref).abs().amax(dim=(2, 3)) / ref.abs().amax(dim=(2, 3))
+            committed = max(committed, float(row_err.max()))
+    return {"rejected_max_abs": rejected, "history_max_diff": history_diff, "committed_max_rel": committed}
+
+
+def rollback_passes(r: dict) -> bool:
+    return r["rejected_max_abs"] == 0.0 and r["history_max_diff"] == 0.0 and r["committed_max_rel"] <= COMMITTED_REL
+
+
+def spec_rollback_phase(cfg, params, device) -> dict:
+    """One verify step of 4 slots whose drafts cannot match (each slot's
+    least likely token after its last committed one, by the plain path's
+    logits), at the profile phase's lengths on full-width olmo-1b: so every
+    window accepts nothing and rolls back its last ``spec_k`` lanes.  Run eagerly as the
+    legacy walk calls it (``verify_step``, ``spec_accept``,
+    ``truncate_block_rows``) and as the fused walk's spec graph (captured
+    on a first call, then replayed on the restored pools and read).  Two
+    controls must fail the readings: the pools after the verify pass with
+    no rollback, and with the rollback one lane early (from ``start``,
+    which also zeroes the committed row)."""
+    from repro_torch.models import decode_step, prefill_step, verify_step
+    from repro_torch.serving import InferenceEngine
+    from repro_torch.serving.kvcache import truncate_block_rows
+    from repro_torch.serving.sampler import spec_accept
+
+    B, W = len(DECODE_LENS), SPEC_K + 1
+    eng = InferenceEngine(cfg, params, max_batch=B, max_seq=NB * BLOCK_SIZE, block_size=BLOCK_SIZE,
+                          cache_dtype=torch.bfloat16, eos_token=cfg.padded_vocab, device=device, fused=True,
+                          spec_decode="ngram", spec_k=SPEC_K)
+    eng.tbl[:] = np.arange(1, 1 + B * NB).reshape(B, NB)
+    eng._tbl_dirty = True
+    eng._sync_tables()
+    tbl = eng.cache["tbl"]
+    rng = np.random.default_rng(SEED + 3)
+    starts = [n - 1 for n in DECODE_LENS]  # the windows cross block edges at 159 and 351
+    zero = torch.zeros(1, dtype=torch.int32, device=device)
+    for b, n in enumerate(starts):  # the history, through the prefill path
+        hist = torch.tensor(rng.integers(0, cfg.vocab_size, n)[None], dtype=torch.int32, device=device)
+        prefill_step(cfg, params, eng.cache, hist, zero, tbl[b : b + 1])
+    history = {n: eng.cache[n].clone() for n in ("k", "v")}
+    last = rng.integers(0, cfg.vocab_size, B).astype(np.int32)
+    start = np.array(starts, np.int32)
+    dev = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+
+    # the plain path's rows: one decode step of the last token, plain
+    # attention; its least likely token is each slot's draft
+    reference = {n: history[n].clone() for n in ("k", "v")}
+    ref_logits, _ = decode_step(cfg, params, {**reference, "tbl": tbl}, dev(last[:, None]), dev(start), attn_impl="plain")
+    tokens = np.repeat(ref_logits[:, : cfg.vocab_size].argmin(-1).int().cpu().numpy()[:, None], W, axis=1)
+    tokens[:, 0] = last
+
+    # eager, as the legacy walk's _spec_step
+    for n in ("k", "v"):
+        eng.cache[n].copy_(history[n])
+    logits, _ = verify_step(cfg, params, eng.cache, dev(tokens), dev(start), tbl)
+    no_rollback = {n: eng.cache[n].clone() for n in ("k", "v")}
+    early = truncate_block_rows({n: t.clone() for n, t in no_rollback.items()}, tbl, dev(start), dev(start + W), span=W)
+    valid = torch.ones((B, SPEC_K), dtype=torch.bool, device=device)
+    temps, top_ks = torch.zeros(B, device=device), torch.zeros(B, dtype=torch.int32, device=device)
+    n_acc, _ = spec_accept(logits, dev(tokens[:, 1:]), None, valid, temps, top_ks, eng._gen)
+    cut_eager = (n_acc + 1).cpu().tolist()
+    truncate_block_rows(eng.cache, tbl, dev(start) + n_acc + 1, dev(start + W), span=W)
+    torch.cuda.synchronize()
+    eager = rollback_readings(eng.cache, history, reference, starts, cut_eager, tbl)
+
+    # the fused walk's spec graph: the capture's call, then a replay
+    inputs = dict(
+        tokens=tokens, start=start, widths=np.full(B, W, np.int32), tbl=eng.tbl.astype(np.int32),
+        temps=np.zeros(B, np.float32), top_ks=np.zeros(B, np.int32), sample_lane=np.zeros(B, np.int32),
+        room=np.full(B, W + 1, np.int32), drafts=tokens[:, 1:].copy(), valid=np.ones((B, SPEC_K), np.int32),
+        roll_end=start + W,
+    )
+    key = ("mixed", B, W, "spec")
+    for _ in range(2):
+        for n in ("k", "v"):
+            eng.cache[n].copy_(history[n])
+        packed = eng._graphs.run(key, eng._fused_mixed_fn, inputs)
+        torch.cuda.synchronize()
+    cut_graph = packed[2].cpu().tolist()
+    graph = rollback_readings(eng.cache, history, reference, starts, cut_graph, tbl)
+    controls = {name: rollback_readings(pools, history, reference, starts, cut_eager, tbl)
+                for name, pools in (("no_rollback", no_rollback), ("one_lane_early", early))}
+    out = {
+        "phase": "spec_rollback", "model": cfg.name, "starts": starts, "spec_k": SPEC_K,
+        "cut_eager": cut_eager, "cut_graph": cut_graph, "eager": eager, "graph": graph,
+        "graph_replays": eng._graphs.replays, "graph_launches": dict(eng._graphs.launches),
+        "limit_committed_rel": COMMITTED_REL, "controls": controls,
+    }
+    emit(out)
+    if out["graph_launches"]["paged_prefill"] != 2 * cfg.num_layers:
+        fail(f"spec rollback: the two replays ran {out['graph_launches']} K2 launches, not 2 x {cfg.num_layers}")
+    if cut_eager != [1] * B or cut_graph != [1] * B:
+        fail(f"spec rollback: a draft that cannot match was accepted: cut {cut_eager} / {cut_graph}")
+    if not rollback_passes(eager) or not rollback_passes(graph):
+        fail(f"spec rollback: eager {eager}, graph {graph}")
+    for name, r in controls.items():
+        if rollback_passes(r):
+            fail(f"spec rollback: the control {name} passes {r}, which then proves nothing")
     return out
 
 
@@ -1784,6 +2061,8 @@ def main() -> int:
     phase("profile", profile_phase, cfg, params, device)
     phase("serving_fused", serving_fused_phase, cfg, params, device, legacy_tokens)
     phase("profile_fused", profile_fused_phase, cfg, params, device)
+    spec = phase("serving_spec", serving_spec_phase, cfg, params, device, legacy_tokens)
+    phase("spec_rollback", spec_rollback_phase, cfg, params, device)
     del params  # the serving model's memory goes back before training
     torch.cuda.empty_cache()
 
@@ -1829,6 +2108,8 @@ def main() -> int:
             r = main_rows[k["name"]]
             k.update(kernel=r["route"], cuda_cores_ms=r["cuda_cores_ms"], split=r["split"], split1_ms=r["split1_ms"],
                      host_us=r["host_us"], cuda_cores_host_us=r["cuda_cores_host_us"])
+        if k["name"] == "paged_prefill":  # the verify passes of each spec run, its own count
+            k["spec_launches"] = spec["k2_launches"]
         if k["name"] == "rwkv6_scan":  # v1 beside the chunk-parallel kernels
             k.update(cuda_cores_ms=wkv_main["cuda_cores_ms"], mean_rel=wkv_main["readings"]["mean_vs_plain"])
         if k["name"] == "flash_attention":  # the bf16 route's kernel, v1 beside it

@@ -1,4 +1,4 @@
-from repro_torch.models.cache import NULL_BLOCK, init_paged_cache, paged_cache_bytes
+from repro_torch.models.cache import NULL_BLOCK, init_cache, init_paged_cache, paged_cache_bytes
 from repro_torch.models.initializers import init_params, param_specs
 from repro_torch.models.model import (
     REMAT_POLICIES,
@@ -8,6 +8,7 @@ from repro_torch.models.model import (
     lm_logits,
     prefill_step,
     unified_step,
+    verify_step,
 )
 
 __all__ = [
@@ -16,6 +17,7 @@ __all__ = [
     "decode_step",
     "embed_input",
     "forward",
+    "init_cache",
     "init_paged_cache",
     "init_params",
     "lm_logits",
@@ -23,4 +25,5 @@ __all__ = [
     "param_specs",
     "prefill_step",
     "unified_step",
+    "verify_step",
 ]

@@ -8,6 +8,9 @@ package's ``models/attention.py``.
   package's ``"xla"``: attention in tensor ops, differentiable, with
   optional query chunking; the train step uses it.  ``impl="flash"`` runs
   the flash-attention kernel K3 (``kernels.flash_attention``), forward only.
+* ``decode_attention``: one decode token against the dense ring cache
+  (``models.cache.init_cache``), in tensor ops, as the JAX package's
+  ``decode_attention``; the speculative drafter decodes through it.
 * the paged functions: ``impl="kernel"`` attends through the CUDA kernel
   wrappers of ``kernels.paged_attention`` (which take the plain version for
   CPU tensors); ``impl="plain"`` calls the plain versions directly, which on
@@ -205,6 +208,33 @@ def self_attention(cfg, p: dict, x: torch.Tensor, *, positions=None, q_chunk: in
         ctx = _attend_block(cfg, q, k, v, m[:, None, None], qpk)
     return _out(cfg, p, ctx, x.dtype, fp8=fp8)
 
+
+def decode_attention(cfg, p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor) -> torch.Tensor:
+    """Single-token decode against one layer's dense ring cache.
+
+    x:     (B, 1, D) current token embedding stream
+    cache: {"k","v": (B, W, KV, hd) ring buffers (W = the run's length or
+           the sliding window), "pos": (B, W) absolute position held in
+           each slot (-1 = empty)}
+    pos:   (B,) absolute position of the current token.
+
+    The new K/V and its position land in ring slot ``pos % W`` (in place);
+    the token attends over every filled slot the causal and window masks
+    admit.  Returns (B, 1, D).
+    """
+    k_c, v_c, pos_c = cache["k"], cache["v"], cache["pos"]
+    B, W = pos_c.shape
+    q, k, v = _qkv(cfg, p, x)
+    q, k = _rope(cfg, q, k, pos[:, None])
+    b = torch.arange(B, device=x.device)
+    slot = pos.long() % W
+    k_c[b, slot] = k[:, 0].to(k_c.dtype)
+    v_c[b, slot] = v[:, 0].to(v_c.dtype)
+    pos_c[b, slot] = pos.to(pos_c.dtype)
+    m = make_mask(pos[:, None], pos_c, causal=cfg.causal, window=cfg.sliding_window)  # (B, 1, W)
+    m = torch.where(pos_c[:, None, :] < 0, torch.full_like(m, NEG_INF), m)  # empty slots
+    ctx = _attend_block(cfg, q, k_c, v_c, m[:, None, None], cfg.q_per_kv)
+    return _out(cfg, p, ctx, x.dtype)
 
 
 def paged_chunk_attention(

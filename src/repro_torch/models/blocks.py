@@ -1,8 +1,9 @@
 """Blocks per family: one layer's specs, its full-sequence forward
 (training, eval) and its serving steps.
 
-* dense (olmo, mistral-nemo, gemma): the forward, and the chunked-prefill
-  and decode steps against a paged cache;
+* dense (olmo, mistral-nemo, gemma): the forward, the chunked-prefill
+  step against a paged cache and the decode step against either cache
+  layout;
 * ssm (RWKV6): the forward, and the prefill and decode steps that carry
   the recurrent state (``tm_x``, ``cm_x``, ``state``).
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.attention import (
     attention_specs,
+    decode_attention,
     paged_chunk_attention,
     paged_decode_attention,
     self_attention,
@@ -56,8 +58,14 @@ def dense_block_chunk(cfg, p, x, cache, tbl_row, start, *, attn_impl="kernel", w
 
 
 def dense_block_decode(cfg, p, x, cache, pos, *, attn_impl="kernel"):
+    """One decode token against either cache layout: the cache's keys select
+    it (``"tbl"``: paged, through ``attn_impl``; else the dense ring cache,
+    always in tensor ops), as the JAX package's ``_decode_attn``."""
     h = apply_norm(cfg, p["norm1"], x)
-    a = paged_decode_attention(cfg, p["attn"], h, cache, pos, impl=attn_impl)
+    if "tbl" in cache:
+        a = paged_decode_attention(cfg, p["attn"], h, cache, pos, impl=attn_impl)
+    else:
+        a = decode_attention(cfg, p["attn"], h, cache, pos)
     return _residual(cfg, p, x, h, a)
 
 

@@ -1,4 +1,14 @@
-"""Paged KV cache (vLLM-style block pool + per-slot block tables).
+"""Decode caches: the paged KV cache (vLLM-style block pool + per-slot
+block tables) and, for the dense family, the dense ring cache.
+
+The dense ring cache (``init_cache``), as in the JAX package's
+``models/cache.py``: per layer ``k``/``v`` ``(B, W, kv_heads, head_dim)``
+and ``pos`` ``(B, W)``, stacked over layers, where ``W`` is the run's
+length or the sliding window (``cache_window``) and position ``t`` lives in
+ring slot ``t % W``; ``pos`` holds the absolute position in each slot, -1
+while it is empty.  Only decode reads it (the speculative drafter's
+per-slot batch=1 caches); the engine's ``cache_kind="dense"`` is not
+ported.
 
 The pools are stacked over layers, ``(L, num_blocks, block_size, kv_heads,
 head_dim)``, as in the JAX package's ``models/cache.py``; the decode block
@@ -20,6 +30,30 @@ from repro_torch.device import resolve_device
 NULL_BLOCK = 0  # physical block 0 is never allocated: inactive batch slots
 # and padding entries of short block tables point here, so their (masked)
 # decode writes/reads can never touch a live request's blocks.
+
+
+def cache_window(cfg, seq_len: int) -> int:
+    """Slots the attention cache needs for a decode run of length seq_len."""
+    if cfg.sliding_window > 0:
+        return min(cfg.sliding_window, seq_len)
+    return seq_len
+
+
+def layer_cache_layout(cfg, B: int, seq_len: int, dtype) -> dict:
+    """(shape, dtype) of one layer's dense ring cache (dense family)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"no dense cache for family {cfg.family!r} ({cfg.name}) in the port")
+    W, KV, hd = cache_window(cfg, seq_len), cfg.num_kv_heads, cfg.head_dim
+    return {"k": ((B, W, KV, hd), dtype), "v": ((B, W, KV, hd), dtype), "pos": ((B, W), torch.int32)}
+
+
+def init_cache(cfg, B: int, seq_len: int, dtype, *, device="cuda") -> dict:
+    """Zero dense ring cache stacked over layers, every slot empty (pos -1)."""
+    device = resolve_device(device)
+    lay = layer_cache_layout(cfg, B, seq_len, dtype)
+    cache = {name: torch.zeros((cfg.num_layers,) + shape, dtype=dt, device=device) for name, (shape, dt) in lay.items()}
+    cache["pos"].fill_(-1)
+    return cache
 
 
 def paged_cache_layout(cfg, num_blocks: int, block_size: int, max_batch: int, max_blocks_per_seq: int, dtype) -> dict:
@@ -44,6 +78,7 @@ def paged_cache_bytes(cfg, num_blocks: int, block_size: int, max_batch: int, max
 
 
 def layer_cache(cache: dict, layer: int) -> dict:
-    """One layer's view of the cache: its pools (views into the stacked
-    tensors, so in-place writes land in the cache) and the shared table."""
-    return {"k": cache["k"][layer], "v": cache["v"][layer], "tbl": cache["tbl"]}
+    """One layer's view of either cache: its leaves (views into the stacked
+    tensors, so in-place writes land in the cache) and, for the paged
+    cache, the shared table."""
+    return {name: t if name == "tbl" else t[layer] for name, t in cache.items()}

@@ -7,7 +7,10 @@ Entry points, counterparts of the JAX package's ``models/model.py``:
   families
 * ``prefill_step`` — one prompt chunk against the paged cache: (logits at
   the chunk's last token, cache)
-* ``decode_step``  — one token per batch slot: (logits, cache)
+* ``verify_step``  — C candidate tokens against the paged cache: (logits at
+  every lane, cache), the speculative-decoding verify pass
+* ``decode_step``  — one token per batch slot against the paged cache or
+  the dense ring cache: (logits, cache)
 * ``unified_step`` — one fused pass over a mixed (rows, width) batch of
   decode rows and prefill chunks: (all-lane logits, cache)
 
@@ -173,6 +176,23 @@ def prefill_step(cfg, params, cache, tokens, start, tbl_row, *, attn_impl="kerne
 
 
 @torch.no_grad()
+def verify_step(cfg, params, cache, tokens, start, tbl_row, *, attn_impl="kernel"):
+    """Score C candidate tokens against a paged cache in one pass.
+
+    The chunk machinery of ``prefill_step`` (scatter, then K2 over the
+    paged history), with the logits of EVERY lane, (B, C, V): fed
+    ``[last_committed, d_1, ..., d_k]``, lane i holds the target's
+    distribution after the i-th fed token, so ``sampler.spec_accept`` can
+    judge the whole draft window from one call.  The fed tokens' K/V is
+    written to the cache; the caller zeroes what the accept pass does not
+    commit (``serving.kvcache.truncate_block_rows``).
+    """
+    _check_impl(cfg, attn_impl)
+    x = _chunk_stack(cfg, params, cache, tokens, start, tbl_row, attn_impl=attn_impl)
+    return lm_logits(cfg, params, x), cache
+
+
+@torch.no_grad()
 def unified_step(cfg, params, cache, tokens, start, widths, tbl_rows, *, attn_impl="kernel"):
     """One fused pass over a mixed row batch (the one-dispatch step).
 
@@ -201,7 +221,11 @@ def unified_step(cfg, params, cache, tokens, start, widths, tbl_rows, *, attn_im
 @torch.no_grad()
 def decode_step(cfg, params, cache, token, pos, *, attn_impl="kernel"):
     """One decode step.  token: (B, 1) int32; pos: (B,) int32 absolute
-    position of this token.  Returns (logits (B, V), cache)."""
+    position of this token.  Returns (logits (B, V), cache).
+
+    The cache is the paged layout (``init_paged_cache``; attention through
+    ``attn_impl``) or the dense ring cache (``init_cache``; attention in
+    tensor ops whatever ``attn_impl`` says), selected by its keys."""
     _check_impl(cfg, attn_impl)
     x = embed_input(cfg, params, token, pos[:, None])
     for layer, p_layer in enumerate(params["blocks"]):

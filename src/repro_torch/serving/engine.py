@@ -30,15 +30,29 @@ reduced to the paged dense path and its legacy step walk:
   functions run eagerly.  The host reads the tick's tokens in one sync.
   As in the JAX engine, a prompt that completes mid-tick joins decode one
   tick later than in the legacy walk: token sequences are unchanged.
+* **Speculative decoding** (``spec_decode="ngram"|"draft"``): each step
+  drafts up to ``spec_k`` tokens per slot (``serving.spec_decode``: n-gram
+  prompt lookup, or a reduced-depth draft model over per-slot dense ring
+  caches) and scores the whole window in one verify pass through the
+  chunked-prefill machinery (``models.verify_step``, K2).
+  ``sampler.spec_accept`` keeps the longest prefix the target agrees with
+  plus one correction or bonus token, and the rejected tail's K/V rows are
+  zeroed (``kvcache.truncate_block_rows``).  Admission reserves ``spec_k``
+  positions of headroom per request, so verify writes land in the
+  request's own blocks.  The legacy walk runs one verify call, one
+  ``spec_accept`` call and one batched rollback a step; with ``fused``,
+  every spec tick is a mixed tick whose verify rows ride the (rows, width)
+  batch, with the accept and the rollback inside the same call (one graph
+  replay on the card).  Greedy tokens equal plain decoding's.
 
 Dispatches and host syncs are counted at the JAX engine's seams
 (``_dispatch``, ``_host_fetch``, the first-token sample), and ``stats()``
 reports them per step.
 
 Options of the JAX engine that the port does not have yet raise
-``NotImplementedError`` naming the option: ``spec_decode`` (with or
-without ``fused``), ``spill_bytes``, ``quantize_kv``, ``mesh``,
-``cache_kind="dense"`` and families other than dense.
+``NotImplementedError`` naming the option: ``spill_bytes``,
+``quantize_kv``, ``mesh``, ``cache_kind="dense"`` and families other than
+dense.
 
 Observability as in the JAX engine (``serving.metrics`` +
 ``serving.trace``): one injectable ``clock`` feeds every timestamp,
@@ -59,15 +73,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
-from repro_torch.models import decode_step, init_paged_cache, prefill_step, unified_step
+from repro_torch.models import decode_step, init_paged_cache, init_params, prefill_step, unified_step, verify_step
 from repro_torch.models.attention import ATTN_IMPLS
 from repro_torch.serving.graphs import StepGraphs
-from repro_torch.serving.kvcache import copy_block_rows, make_table_row
+from repro_torch.serving.kvcache import copy_block_rows, make_table_row, truncate_block_rows
 from repro_torch.serving.metrics import MetricsRegistry
 from repro_torch.serving.paged import BlockAllocator, blocks_needed, truncate_blocks
 from repro_torch.serving.prefix import PrefixIndex
-from repro_torch.serving.sampler import fused_sample_accept, sample_token, sample_tokens
+from repro_torch.serving.sampler import fused_sample_accept, sample_token, sample_tokens, spec_accept
 from repro_torch.serving.scheduler import Request, RequestState, SchedulerCore
+from repro_torch.serving.spec_decode import DraftModel, make_draft_config, ngram_draft
 from repro_torch.serving.trace import SCHEDULER_TRACK, Tracer, slot_track
 
 
@@ -94,6 +109,9 @@ class InferenceEngine:
         defrag_threshold: float = 0.5,
         spill_bytes: int = 0,
         spec_decode: str = "off",
+        spec_k: int = 4,
+        draft_cfg=None,
+        draft_params=None,
         mesh=None,
         clock=None,
         metrics: Optional[MetricsRegistry] = None,
@@ -103,12 +121,7 @@ class InferenceEngine:
     ):
         if cfg.is_encoder_only:
             raise ValueError(f"{cfg.name} is encoder-only; no decode serving")
-        if fused and spec_decode != "off":
-            raise NotImplementedError(
-                f"fused=True with spec_decode={spec_decode!r} is not ported yet (the fused step's verify rows)"
-            )
         for name, value, default in (
-            ("spec_decode", spec_decode, "off"),
             ("spill_bytes", spill_bytes, 0),
             ("quantize_kv", quantize_kv, False),
             ("mesh", mesh, None),
@@ -121,6 +134,10 @@ class InferenceEngine:
             raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported yet")
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl={attn_impl!r} (choose from {ATTN_IMPLS})")
+        if spec_decode not in ("off", "ngram", "draft"):
+            raise ValueError(f"spec_decode={spec_decode!r}")
+        if spec_k < 1:
+            raise ValueError(f"spec_k={spec_k} (need >= 1)")
         self.device = resolve_device(device)
         if params["embed"]["tok"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed']['tok'].device}, engine on {self.device}")
@@ -161,6 +178,8 @@ class InferenceEngine:
         self._g_queue = M.gauge("engine_queue_depth", "requests waiting for admission")
         self._g_active = M.gauge("engine_active_slots", "slots decoding")
         self._g_prefilling = M.gauge("engine_prefilling_slots", "slots mid chunked prefill")
+        self._c_drafted = M.counter("engine_spec_drafted_total", "speculative candidate tokens proposed")
+        self._c_accepted = M.counter("engine_spec_accepted_total", "speculative candidate tokens committed")
         # dispatch/sync accounting, at the JAX engine's seams: every model or
         # sampling call counts one dispatch, every device-to-host read one sync
         self.dispatches_total = 0
@@ -174,6 +193,29 @@ class InferenceEngine:
         # finish_prefill / preempt / ...) below
         self.scheduler = SchedulerCore(self, policy=policy, prefill_budget=prefill_budget)
         self.defrag_threshold = defrag_threshold
+
+        # speculative decoding: a verify pass writes up to spec_k positions
+        # past the committed sequence, so admission reserves that headroom
+        # and speculative writes always land in the request's own blocks.
+        # ``draft_params=None`` draws the port's own random draft weights
+        # from ``seed + 1``, which differ from the JAX engine's draw: parity
+        # runs pass the same (bridged) draft weights to both.
+        self.spec_mode = spec_decode
+        self.spec_k = spec_k
+        self._spec_extra = spec_k if spec_decode != "off" else 0
+        self._draft: Optional[DraftModel] = None
+        if spec_decode == "draft":
+            dcfg = draft_cfg if draft_cfg is not None else make_draft_config(cfg)
+            if dcfg.padded_vocab != cfg.padded_vocab:
+                raise ValueError(f"draft model vocab {dcfg.padded_vocab} != target {cfg.padded_vocab}")
+            if draft_params is None:
+                draft_params = init_params(dcfg, seed + 1, device=self.device)
+            if draft_params["embed"]["tok"].device.type != self.device.type:
+                raise ValueError(f"draft params are on {draft_params['embed']['tok'].device}, engine on {self.device}")
+            self._draft = DraftModel(
+                dcfg, draft_params, max_batch=max_batch, max_seq=max_seq, seed=seed, metrics=self.metrics,
+                device=self.device,
+            )
 
         self.block_size = block_size
         self.max_blocks_per_seq = -(-max_seq // block_size)
@@ -223,6 +265,14 @@ class InferenceEngine:
         self.prefix_hits = 0
         self.prefix_partial_hits = 0
         self.prefix_hit_tokens = 0  # prompt tokens served from cached blocks
+        # verify-window tokens count apart from prefill_tokens: they are
+        # decode work, and folding them in would deflate prefix_hit_rate
+        self.verify_tokens = 0
+        self.spec_steps = 0  # verify dispatches
+        self.spec_slot_steps = 0  # per-slot verify passes (the tokens-per-verify denominator)
+        self.spec_drafted = 0  # candidate tokens proposed (valid lanes only)
+        self.spec_accepted = 0  # drafted tokens committed
+        self.spec_emitted = 0  # tokens emitted through verify passes
         self.defrag_triggers = 0
         self._frees_seen = 0  # auto-defrag: only re-check after new frees
 
@@ -261,11 +311,13 @@ class InferenceEngine:
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError(f"deadline_s={deadline_s} (need > 0, or None)")
         total = len(prompt) + max_new_tokens
-        if total > self.max_seq:
-            raise ValueError(f"prompt+max_new_tokens={total} exceeds max_seq={self.max_seq}")
-        if blocks_needed(total, self.block_size) > self.allocator.capacity:
+        span = total + self._spec_extra  # worst case + speculative headroom
+        if span > self.max_seq:
+            headroom = f" (+{self._spec_extra} spec_k headroom)" if self._spec_extra else ""
+            raise ValueError(f"prompt+max_new_tokens={total}{headroom} exceeds max_seq={self.max_seq}")
+        if blocks_needed(span, self.block_size) > self.allocator.capacity:
             raise ValueError(
-                f"request needs {blocks_needed(total, self.block_size)} blocks, "
+                f"request needs {blocks_needed(span, self.block_size)} blocks, "
                 f"pool capacity is {self.allocator.capacity}"
             )
         req = Request(
@@ -439,7 +491,7 @@ class InferenceEngine:
         when the pool can't cover the request's unshared blocks.  A resumed
         (previously preempted) request admits with its committed context
         ``prompt + generated`` in place of the prompt."""
-        needed = blocks_needed(len(req.prompt) + req.max_new_tokens, self.block_size)
+        needed = blocks_needed(len(req.prompt) + req.max_new_tokens + self._spec_extra, self.block_size)
         ctx = req.context()
         full, partial = self.prefix.match(ctx) if self.prefix is not None else ([], None)
         need_new = needed - len(full)
@@ -483,6 +535,8 @@ class InferenceEngine:
         self.slots[slot] = req
         self.peak_active = max(self.peak_active, sum(r is not None for r in self.slots))
         self.pos[slot] = matched
+        if self._draft is not None:
+            self._draft.reset(slot)
         self._note_admit(req, slot)
         # the engine table row stays null until the prompt completes, so
         # interleaved decode steps write into the scratch null block
@@ -633,6 +687,121 @@ class InferenceEngine:
             self.cache["tbl"].copy_(torch.from_numpy(self.tbl))
             self._tbl_dirty = False
 
+    # ---- speculative decoding ----------------------------------------
+    def _propose(self, req: Request) -> tuple[list[int], Optional[np.ndarray]]:
+        """Draft up to ``spec_k`` tokens for a decoding slot (never past the
+        generation budget) and count them.  Returns ``(tokens, probs)``:
+        the draft model's (n, V) proposal law, or None for the n-gram
+        drafter, whose law is the one-hot of its tokens."""
+        k = self.scheduler.spec_window(req, self.spec_k)
+        ctx = req.context()
+        if self._draft is None:
+            d, q = ngram_draft(ctx, k), None
+        else:
+            d, q = self._draft.draft(req.slot, ctx, k, temperature=req.temperature, top_k=req.top_k)
+        self.spec_slot_steps += 1
+        self.spec_drafted += len(d)
+        self._c_drafted.inc(len(d))
+        self.verify_tokens += self.spec_k + 1  # the fed window: last committed token + spec_k lanes
+        return d, q
+
+    def _commit_verify(self, req: Request, drafts, n_acc: int, final: int, cut: int, base: int) -> None:
+        """Commit a verify window's first ``cut`` emitted tokens
+        (``drafts[:n_acc] + [final]`` cut at the first EOS and the budget):
+        their K/V is already in the request's blocks, at ``base`` on."""
+        slot = req.slot
+        emitted = ([int(t) for t in drafts[:n_acc]] + [final])[:cut]
+        committed = len(req.prompt) + len(req.generated)  # context before this step
+        req.generated.extend(emitted)
+        self.pos[slot] = base + cut
+        self.tokens_out += cut
+        self._c_tokens.inc(cut)
+        self.spec_accepted += min(n_acc, cut)
+        self._c_accepted.inc(min(n_acc, cut))
+        self.spec_emitted += cut
+        self.tracer.instant(
+            "spec_accept", track=slot_track(slot), req_id=req.req_id, drafted=len(drafts), accepted=n_acc,
+            emitted=cut,
+        )
+        if self._draft is not None:
+            # the drafter absorbed its own provisional tokens: truncate its
+            # view to the committed prefix (the next draft re-feeds the rest)
+            self._draft.rollback(slot, committed + min(n_acc, cut))
+        self._finish_if_done(req)
+
+    def _spec_step(self, active: list[Request]) -> int:
+        """One speculative iteration of the legacy walk over the decoding
+        slots: draft per slot, ONE verify call over all ``max_batch`` slots
+        (``models.verify_step``, K2), one ``spec_accept`` call and one host
+        sync, then one batched ``truncate_block_rows`` call that zeroes
+        every slot's rejected tail.  A slot with nothing to draft (no n-gram
+        match, a one-token budget) takes a plain one-token step through the
+        same pass."""
+        K, B = self.spec_k, self.max_batch
+        tokens = np.zeros((B, K + 1), np.int32)
+        drafts = np.zeros((B, K), np.int32)
+        # the draft model's proposal laws; the n-gram drafter's one-hot is
+        # built on the device by the sampler
+        qprobs = np.zeros((B, K, self.cfg.padded_vocab), np.float32) if self._draft is not None else None
+        valid = np.zeros((B, K), bool)
+        start = np.zeros((B,), np.int32)
+        temps = np.zeros((B,), np.float32)
+        top_ks = np.zeros((B,), np.int32)
+        window: dict[int, list[int]] = {}
+        for r in active:
+            s = r.slot
+            d, q = self._propose(r)
+            window[s] = d
+            tokens[s, 0] = r.generated[-1]
+            tokens[s, 1 : 1 + len(d)] = d
+            drafts[s, : len(d)] = d
+            valid[s, : len(d)] = True
+            if q is not None and d:
+                qprobs[s, : len(d)] = q
+            start[s] = self.pos[s]
+            temps[s] = r.temperature
+            top_ks[s] = r.top_k
+        t_decode = self._clock()
+        logits, self.cache = self._dispatch(
+            verify_step, self.cfg, self.params, self.cache, self._device_ints(tokens), self._device_ints(start),
+            self.cache["tbl"], attn_impl=self.attn_impl,
+        )
+        self.steps += 1
+        self.spec_steps += 1
+        self.dispatches_total += 1  # the spec_accept call below
+        dev = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
+        n_acc, final = self._host_fetch(*spec_accept(
+            logits, self._device_ints(drafts), dev(qprobs) if qprobs is not None else None, dev(valid),
+            dev(temps), dev(top_ks), self._gen,
+        ))
+        self._h_decode.observe(self._clock() - t_decode)
+        produced = 0
+        t_start = np.zeros((B,), np.int32)
+        t_end = np.zeros((B,), np.int32)  # end <= start: no rollback for the slot
+        for r in active:
+            s = r.slot
+            na = int(n_acc[s])
+            emitted = window[s][:na] + [int(final[s])]
+            # stop at the first EOS inside the accepted window, and at the budget
+            cut = next((j + 1 for j, t in enumerate(emitted) if t == self.eos), len(emitted))
+            cut = min(cut, r.max_new_tokens - len(r.generated))
+            base = int(start[s])
+            self._commit_verify(r, window[s], na, int(final[s]), cut, base)
+            produced += cut
+            if r.state != RequestState.ACTIVE:
+                continue  # its blocks were truncated and released at its final length
+            if cut < K + 1:
+                t_start[s], t_end[s] = base + cut, base + K + 1
+                self.tracer.instant("rollback", track=slot_track(s), req_id=r.req_id, tokens=K + 1 - cut)
+            self._reclaim_window_blocks(r)
+        if np.any(t_end > t_start):
+            # one call over the whole batch zeroes every slot's rejected tail
+            self._dispatch(
+                truncate_block_rows, self.cache, self._device_ints(self.tbl), self._device_ints(t_start),
+                self._device_ints(t_end), span=K + 1,
+            )
+        return produced
+
     # ---- fused one-dispatch step -------------------------------------
     def _fused_decode_fn(self, tokens, pos, temps, top_ks, room) -> torch.Tensor:
         """The pure-decode tick's step: ``decode_step`` (bit-identical
@@ -643,25 +812,42 @@ class InferenceEngine:
         done = (toks == self.eos) | (room <= 1)
         return torch.stack([toks.int(), done.int()])
 
-    def _fused_mixed_fn(self, tokens, start, widths, tbl, temps, top_ks, sample_lane, room) -> torch.Tensor:
+    def _fused_mixed_fn(
+        self, tokens, start, widths, tbl, temps, top_ks, sample_lane, room, drafts=None, valid=None, roll_end=None,
+        qprobs=None,
+    ) -> torch.Tensor:
         """The mixed tick's step: ``unified_step`` over the (R, W) row
-        batch, ``fused_sample_accept`` with no speculative window, and the
-        committed emission length ``cut`` (first EOS in the window, clamped
-        by the remaining budget ``room``).  Returns (4, R) int32: final
-        tokens, accept counts, cut and done flags."""
+        batch, ``fused_sample_accept``, and the committed emission length
+        ``cut`` (first EOS in the window, clamped by the remaining budget
+        ``room``).  Returns (4, R) int32: final tokens, accept counts, cut
+        and done flags.
+
+        A tick with verify rows passes their windows: ``drafts`` (R, W-1),
+        ``valid`` (R, W-1, int32 0/1), ``roll_end`` (R,) and, from the draft
+        model, ``qprobs`` (R, spec_k, V), padded here to W-1 lanes; its
+        rejected tails, lanes ``[start + cut, roll_end)``, are zeroed in the
+        same call (``roll_end`` 0: no rollback for the row).  Without them
+        every row has an empty window."""
         logits, _ = unified_step(
             self.cfg, self.params, self.cache, tokens, start, widths, tbl, attn_impl=self.attn_impl
         )
         R, W = tokens.shape
-        drafts = torch.zeros((R, W - 1), dtype=torch.int32, device=tokens.device)
-        valid = torch.zeros((R, W - 1), dtype=torch.bool, device=tokens.device)
-        n_acc, final = fused_sample_accept(logits, drafts, None, valid, temps, top_ks, sample_lane, self._gen)
+        if drafts is None:
+            drafts = torch.zeros((R, W - 1), dtype=torch.int32, device=tokens.device)
+            valid = torch.zeros((R, W - 1), dtype=torch.int32, device=tokens.device)
+        if qprobs is not None:
+            qprobs = F.pad(qprobs, (0, 0, 0, W - 1 - qprobs.shape[1]))
+        n_acc, final = fused_sample_accept(
+            logits, drafts, qprobs, valid.bool(), temps, top_ks, sample_lane, self._gen
+        )
         lanes = torch.arange(W, device=tokens.device)
         emitted = torch.where(lanes[None, :] == n_acc[:, None], final[:, None], F.pad(drafts, (0, 1)))
         is_eos = (lanes[None, :] <= n_acc[:, None]) & (emitted == self.eos)
         eos_cut = torch.where(is_eos.any(dim=1), torch.argmax(is_eos.int(), dim=1) + 1, W + 1)
         cut = torch.minimum(torch.minimum(eos_cut, room), n_acc + 1)
         done = (eos_cut <= cut) | (cut >= room)
+        if roll_end is not None:
+            truncate_block_rows(self.cache, tbl, start + cut, roll_end, span=W)
         return torch.stack([final, n_acc, cut.int(), done.int()])
 
     def _fused_step(self) -> int:
@@ -670,11 +856,12 @@ class InferenceEngine:
         call (one graph replay on the card), and the host reads the tokens
         in one sync.  Pure-decode ticks keep ``decode_step``'s path; mixed
         ticks run every row through the unified chunk path."""
-        plan = self.scheduler.plan()
+        spec = self.spec_mode != "off"
+        plan = self.scheduler.plan(spec=spec)
         self.peak_active = max(self.peak_active, sum(r is not None for r in self.slots))
         if not plan.rows:
             return 0
-        if not plan.chunk_rows:
+        if not plan.chunk_rows and not spec:
             return self._fused_decode_tick([pr.req for pr in plan.rows])
         return self._fused_mixed_tick(plan)
 
@@ -709,11 +896,16 @@ class InferenceEngine:
         """Lower a mixed ``StepPlan`` into one unified (R, W) row batch.  R
         is padded to a power of two (pad rows have width 0 and an all-null
         table, so their lanes write only the null block); W is the widest
-        row, a power of two from ``binary_chunks`` or 1, so the graphs stay
-        few."""
+        row: a power of two from ``binary_chunks``, 1 for a decode row or
+        ``spec_k + 1`` for a verify window, so the graphs stay few.  A tick
+        with verify rows runs the spec variant of the step, keyed apart,
+        and the draft model's variant also stages its (R, spec_k, V)
+        proposal laws."""
+        K = self.spec_k
         rows = plan.rows
         R = 1 << max(len(rows) - 1, 0).bit_length()
-        row_width = [1 if pr.kind == "decode" else pr.take for pr in rows]
+        has_verify = any(pr.kind == "verify" for pr in rows)
+        row_width = [1 if pr.kind == "decode" else K + 1 if pr.kind == "verify" else pr.take for pr in rows]
         W = max(max(row_width), 1)
         tokens = np.zeros((R, W), np.int32)
         start = np.zeros((R,), np.int32)
@@ -723,16 +915,34 @@ class InferenceEngine:
         top_ks = np.zeros((R,), np.int32)
         sample_lane = np.zeros((R,), np.int32)
         room = np.full((R,), W + 1, np.int32)  # pad rows: cut never clamps
+        spec = {}
+        if has_verify:
+            spec = dict(
+                drafts=np.zeros((R, W - 1), np.int32), valid=np.zeros((R, W - 1), np.int32),
+                roll_end=np.zeros((R,), np.int32),  # 0: no rollback for the row
+            )
+            if self._draft is not None:
+                spec["qprobs"] = np.zeros((R, K, self.cfg.padded_vocab), np.float32)
+        window: dict[int, list[int]] = {}
         for i, pr in enumerate(rows):
             r = pr.req
             temps[i] = r.temperature
             top_ks[i] = r.top_k
             widths[i] = row_width[i]
-            if pr.kind == "decode":
+            if pr.kind in ("decode", "verify"):
                 tokens[i, 0] = r.generated[-1]
                 start[i] = self.pos[r.slot]
                 tbl[i] = self.tbl[r.slot]
                 room[i] = r.max_new_tokens - len(r.generated)
+                if pr.kind == "verify":
+                    d, q = self._propose(r)
+                    window[i] = d
+                    tokens[i, 1 : 1 + len(d)] = d
+                    spec["drafts"][i, : len(d)] = d
+                    spec["valid"][i, : len(d)] = 1
+                    if q is not None and d:
+                        spec["qprobs"][i, : len(d)] = q
+                    spec["roll_end"][i] = start[i] + K + 1
             else:  # prefill chunk
                 c = pr.take
                 tokens[i, :c] = r.context()[pr.start : pr.start + c]
@@ -743,13 +953,18 @@ class InferenceEngine:
                     room[i] = max(r.max_new_tokens - len(r.generated), 1)
         inputs = dict(
             tokens=tokens, start=start, widths=widths, tbl=tbl, temps=temps, top_ks=top_ks,
-            sample_lane=sample_lane, room=room,
+            sample_lane=sample_lane, room=room, **spec,
         )
-        packed = self._dispatch(self._graphs.run, ("mixed", R, W), self._fused_mixed_fn, inputs)
+        key = ("mixed", R, W)
+        if has_verify:
+            key += ("draft" if self._draft is not None else "spec",)
+        packed = self._dispatch(self._graphs.run, key, self._fused_mixed_fn, inputs)
         (out,) = self._host_fetch(packed)
-        final = out[0]
+        final, n_acc, cut = out[0], out[1], out[2]
         if any(pr.kind != "chunk" for pr in rows):
             self.steps += 1
+        if has_verify:
+            self.spec_steps += 1
         produced = 0
         for i, pr in enumerate(rows):
             r = pr.req
@@ -761,6 +976,12 @@ class InferenceEngine:
                 self._c_tokens.inc()
                 self._reclaim_window_blocks(r)
                 self._finish_if_done(r)
+                continue
+            if pr.kind == "verify":
+                self._commit_verify(r, window[i], int(n_acc[i]), int(final[i]), int(cut[i]), int(start[i]))
+                produced += int(cut[i])
+                if r.state == RequestState.ACTIVE:
+                    self._reclaim_window_blocks(r)
                 continue
             c = pr.take
             r.prefill_pos = pr.start + c
@@ -802,7 +1023,10 @@ class InferenceEngine:
         self.peak_active = max(self.peak_active, sum(r is not None for r in self.slots))
         active = [r for r in self.slots if r is not None and not r.prefilling]
         produced = 0
-        if active:
+        if active and self.spec_mode != "off":
+            self._sync_tables()
+            produced = self._spec_step(active)
+        elif active:
             self._sync_tables()
             tokens = np.zeros((self.max_batch, 1), np.int32)
             temps = np.zeros((self.max_batch,), np.float32)
@@ -924,7 +1148,18 @@ class InferenceEngine:
             s["capture_s"] = self._graphs.capture_s
             s["graph_replays"] = self._graphs.replays
             s["graph_launches"] = dict(self._graphs.launches)
+        if self.spec_mode != "off":
+            s["spec_decode"] = self.spec_mode
+            s["spec_k"] = self.spec_k
+            s["spec_steps"] = self.spec_steps
+            s["verify_tokens"] = self.verify_tokens
+            s["drafted_tokens"] = self.spec_drafted
+            s["accepted_tokens"] = self.spec_accepted
+            s["acceptance_rate"] = self.spec_accepted / self.spec_drafted if self.spec_drafted else 0.0
+            # tokens emitted per slot and verify pass
+            s["accepted_per_step"] = self.spec_emitted / self.spec_slot_steps if self.spec_slot_steps else 0.0
         if self.prefix is not None:
+            # prompt tokens only: verify windows accrue to verify_tokens
             served = self.prefix_hit_tokens + self.prefill_tokens
             s["prefix_hits"] = self.prefix_hits
             s["prefix_partial_hits"] = self.prefix_partial_hits

@@ -5,7 +5,10 @@ and ``jax.jit``'s shape cache holds one compiled program per shape.
 PyTorch runs eagerly, so the port's counterpart of one dispatch is one
 replay of a captured ``torch.cuda.CUDAGraph``, and ``StepGraphs`` is the
 shape cache: one graph per key, the decode graph keyed by the batch and
-each mixed graph by its (rows, width) bucket.
+each mixed graph by its (rows, width) bucket; a mixed tick with
+speculative verify rows is keyed apart by its drafter (``"spec"``: the
+n-gram drafter; ``"draft"``: the draft model, whose (rows, spec_k, vocab)
+proposal laws are a float input).
 
 How a graph is fed and run:
 

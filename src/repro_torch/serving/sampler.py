@@ -2,7 +2,7 @@
 the fused step's sample-and-accept.
 
 Counterpart of the JAX package's ``serving/sampler.py`` (``sample_token``,
-``sample_tokens``, ``fused_sample_accept``).  Greedy takes the argmax
+``sample_tokens``, ``spec_accept``, ``fused_sample_accept``).  Greedy takes the argmax
 (first index on ties, as ``jnp.argmax``); sampled rows draw from an
 explicit ``torch.Generator``, so their bits differ from ``jax.random``.
 
@@ -69,6 +69,34 @@ def _target_probs(logits: torch.Tensor, temperature: torch.Tensor, top_k: torch.
     probs = torch.softmax(_scaled(logits, temperature, top_k), dim=-1)
     onehot = torch.zeros_like(probs).scatter_(-1, torch.argmax(logits, dim=-1, keepdim=True), 1.0)
     return torch.where((temperature <= 0.0)[:, None, None], onehot, probs)
+
+
+def spec_accept(
+    logits: torch.Tensor,  # (B, K+1, V) target logits at the verified positions
+    drafts: torch.Tensor,  # (B, K) int drafted tokens
+    draft_probs: torch.Tensor | None,  # (B, K, V) draft distributions, or None: one-hot(drafts)
+    valid: torch.Tensor,  # (B, K) bool; False positions force-reject (no draft)
+    temperature: torch.Tensor,  # (B,) fp32; <= 0 means greedy
+    top_k: torch.Tensor,  # (B,) int; <= 0 means full softmax
+    generator: torch.Generator | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Speculative accept / reject over a whole decode batch in one call.
+
+    ``logits[:, i]`` is the target distribution after the i-th fed token
+    (``[last_committed, d_1, ..., d_K]``), the one draft ``d_{i+1}`` is
+    judged against.  Draft ``d_i`` is accepted with probability
+    ``min(1, p_i(d_i) / q_i(d_i))`` (greedy rows: iff it is the argmax);
+    the first rejection at j emits one token from ``norm(max(p_j - q_j,
+    0))`` (an invalid position counts q as zero: a plain sample from p);
+    with every draft accepted, a bonus token comes from lane K.  The
+    emitted ``drafts[:n_acc] + [final]`` is distributed as n_acc + 1
+    sequential samples of the target, and equal to them under greedy.
+
+    It is ``fused_sample_accept`` with every row sampling from lane
+    ``n_acc`` (``sample_lane`` 0).  Returns ``(n_acc (B,), final (B,))``,
+    int32."""
+    sample_lane = torch.zeros(logits.shape[0], dtype=torch.int32, device=logits.device)
+    return fused_sample_accept(logits, drafts, draft_probs, valid, temperature, top_k, sample_lane, generator)
 
 
 def fused_sample_accept(

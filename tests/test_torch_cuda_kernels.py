@@ -14,10 +14,17 @@ queries, the causal mask off by one).  v1, the CUDA-core K2, stays checked
 on fp32 pools and through ``paged_prefill_attention_cuda_cores``.
 
 The fused serving step's CUDA graphs (``serving/graphs.py``) replay the
-decode and the mixed (R, W) step on the smoke olmo-1b: the same logits and
+decode, the mixed (R, W) step and its spec variant (verify rows, accept
+and rollback in the graph) on the smoke olmo-1b: the same logits and
 tokens as the eager step on the same inputs, bit for bit, with K1 or K2
 among the calls each capture recorded, and again after the host staged new
 inputs.
+
+Speculative decoding: K2 at the verify window's C = spec_k + 1 against the
+plain version; verify rows beside a chunk row in one ``unified_step``
+through K2 and through the plain attention; ``truncate_block_rows``
+captured in a graph and replayed, rejected rows zero and the rest
+unchanged.
 """
 
 import numpy as np
@@ -254,6 +261,9 @@ def test_cuda_decode_table_entries_out_of_range_read_block_0():
         assert _err(out, ref) < TOL[torch.float32]
 
 
+SPEC_K = 4  # the verify window: spec_k + 1 lanes
+
+
 def _graph_engine():
     from repro_torch.models import init_params
     from repro_torch.serving import InferenceEngine
@@ -278,8 +288,28 @@ def _graph_inputs(eng, kind, seed):
             tokens=rng.integers(0, V, (B, 1)).astype(np.int32), pos=rng.integers(0, 100, B).astype(np.int32),
             temps=np.zeros(B, np.float32), top_ks=np.zeros(B, np.int32), room=np.full(B, 5, np.int32),
         )
-    # a decode row, two chunk rows of one request, a width-0 pad row
     R, W = 4, 8
+    if kind == "spec":
+        # the mixed step's spec variant, whose accept and rollback run in
+        # the same call: two verify rows (random drafts, rejected and rolled
+        # back; no draft), a chunk row, a width-0 pad row
+        s0 = int(rng.integers(0, 80))
+        tbl = np.zeros((R, nb), np.int32)
+        tbl[0], tbl[1], tbl[2] = eng.tbl[0], eng.tbl[2], eng.tbl[1]
+        drafts = np.zeros((R, W - 1), np.int32)
+        drafts[0, :SPEC_K] = rng.integers(0, V, SPEC_K)
+        valid = np.zeros((R, W - 1), np.int32)
+        valid[0, :SPEC_K] = 1
+        tokens = rng.integers(0, V, (R, W)).astype(np.int32)
+        tokens[0, 1 : 1 + SPEC_K] = drafts[0, :SPEC_K]
+        start = np.array([s0 + 3, s0 + 11, s0, 0], np.int32)
+        return dict(
+            tokens=tokens, start=start, widths=np.array([SPEC_K + 1, SPEC_K + 1, 8, 0], np.int32), tbl=tbl,
+            temps=np.zeros(R, np.float32), top_ks=np.zeros(R, np.int32), sample_lane=np.array([0, 0, 7, 0], np.int32),
+            room=np.full(R, 9, np.int32), drafts=drafts, valid=valid,
+            roll_end=np.array([s0 + 3 + SPEC_K + 1, s0 + 11 + SPEC_K + 1, 0, 0], np.int32),
+        )
+    # a decode row, two chunk rows of one request, a width-0 pad row
     s0 = int(rng.integers(0, 90))
     tbl = np.zeros((R, nb), np.int32)
     tbl[0], tbl[1], tbl[2] = eng.tbl[0], eng.tbl[1], eng.tbl[1]
@@ -291,7 +321,7 @@ def _graph_inputs(eng, kind, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["decode", "mixed"])
+@pytest.mark.parametrize("kind", ["decode", "mixed", "spec"])
 def test_cuda_step_graphs_replay_the_eager_step(kind):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -316,13 +346,147 @@ def test_cuda_step_graphs_replay_the_eager_step(kind):
                     graphs.run(("tokens", kind), tokens_fn, inputs).clone()]
         torch.cuda.synchronize()
         assert graphs.captures == 2 and graphs.replays == 2 * (seed + 1)
-        assert torch.equal(replayed[0], eager[0]) and torch.isfinite(eager[0]).all()
-        assert torch.equal(replayed[1], eager[1])
+        assert torch.isfinite(eager[0]).all()
+        if kind == "spec":
+            # the spec step's rollback zeroes rows of the null block, which
+            # pad rows and lanes past a row's width read, between the calls:
+            # the lanes the engine reads must agree bit for bit
+            widths = inputs["widths"]
+            for r, w in enumerate(widths):
+                assert torch.equal(replayed[0][r, :w], eager[0][r, :w]), (seed, r)
+            live = torch.from_numpy(widths > 0).cuda()
+            assert torch.equal(replayed[1][:, live], eager[1][:, live])
+        else:
+            assert torch.equal(replayed[0], eager[0])
+            assert torch.equal(replayed[1], eager[1])
     assert all(g.launches[kernel] == cfg.num_layers for g in graphs._graphs.values())
     assert graphs.launches[kernel] == 4 * cfg.num_layers
-    # greedy rows: the tokens are the argmax of the sampled lane's logits
-    lanes = eager[0] if kind == "decode" else eager[0][torch.arange(4), torch.tensor([0, 7, 4, 0])]
+    # greedy rows: the tokens are the argmax of the sampled lane's logits,
+    # lane n_acc + sample_lane (n_acc is 0 without a draft window)
+    if kind == "decode":
+        lanes = eager[0]
+    else:
+        sampled = eager[1][1].long().cpu() + torch.from_numpy(inputs["sample_lane"]).long()
+        lanes = eager[0][torch.arange(4), sampled.cuda()]
     assert eager[1][0, :3].tolist() == lanes.argmax(-1)[:3].tolist()
     eng.cache["k"] = eng.cache["k"].clone()  # the graphs hold the old pool's address
     with pytest.raises(RuntimeError, match="reallocated"):
         graphs.run(("tokens", kind), tokens_fn, inputs)
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: K2 at the verify window, the rollback in a graph
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_verify_window_matches_plain(q_dtype):
+    """K2 at C = spec_k + 1 (not a power of two): verify rows at several
+    starts (a block's first position, mid-block, across a block edge) and a
+    pad row with an all-null table, against the plain version; the control
+    misses the limit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    C = SPEC_K + 1
+    st = torch.tensor([0, 27, 96, 253, 0], dtype=torch.int32)
+    q, kp, vp, tbl = _gpu_inputs(16, 16, 128, (5, C, 16, 128), st + C - 1, q_dtype, nb=16)
+    tbl[4] = 0  # a pad row
+    st = st.cuda()
+    ref = paged_prefill_attention_plain(q, kp, vp, tbl, st)
+    out = K.paged_prefill_attention(q, kp, vp, tbl, st)
+    torch.cuda.synchronize()
+    assert out.dtype == q_dtype and bool(torch.isfinite(out).all())
+    assert _err(out, ref) < TOL[q_dtype]
+    if q_dtype == torch.float32:
+        control = paged_prefill_attention_plain(q.bfloat16().float(), kp, vp, tbl, st)
+    else:
+        control = paged_prefill_attention_plain(q, kp, vp, tbl, st + 1)
+    assert _err(control, ref) > TOL[q_dtype]
+
+
+@pytest.mark.gpu
+def test_cuda_mixed_spec_rows_kernel_matches_plain_path():
+    """One ``unified_step`` over verify rows (width spec_k + 1), a 64-lane
+    chunk row and a width-0 pad row, W = 64, with K2 and with the plain
+    attention on copies of one bf16 cache: the valid lanes' logits agree
+    within the full-width path's limit (each layer's K/V rounds to bf16
+    from activations that differ in the last fp32 bits), and both paths
+    write the same K/V into the live blocks, nothing past a row's width."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.models import init_paged_cache, init_params, unified_step
+
+    cfg = reduce_for_smoke(get_config("olmo-1b"))
+    params = init_params(cfg, 0, device="cuda")
+    R, W, nb, bs = 4, 64, 8, 16
+    cache = init_paged_cache(cfg, 1 + 3 * nb, bs, 4, nb, torch.bfloat16, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for name in ("k", "v"):
+        cache[name].copy_(torch.randn(cache[name].shape, generator=g, device="cuda"))
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (R, W)).astype(np.int32)).cuda()
+    start = torch.tensor([37, 64, 20, 0], dtype=torch.int32, device="cuda")
+    widths = torch.tensor([SPEC_K + 1, SPEC_K + 1, 64, 0], dtype=torch.int32, device="cuda")
+    tbl = torch.zeros((R, nb), dtype=torch.int32, device="cuda")
+    for r in range(3):
+        tbl[r] = torch.arange(1 + r * nb, 1 + (r + 1) * nb, device="cuda")
+    caches = {impl: {n: t.clone() for n, t in cache.items()} for impl in ("kernel", "plain")}
+    before = dict(K.LAUNCHES)
+    logits = {impl: unified_step(cfg, params, caches[impl], tokens, start, widths, tbl, attn_impl=impl)[0]
+              for impl in caches}
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["paged_prefill"] == before["paged_prefill"] + cfg.num_layers
+    for r, w in enumerate(widths.tolist()[:3]):
+        assert _err(logits["kernel"][r, :w], logits["plain"][r, :w]) < 2e-2
+    live = slice(1, 1 + 3 * nb)
+    for name in ("k", "v"):
+        assert _err(caches["kernel"][name][:, live], caches["plain"][name][:, live]) < 5e-2
+        # lanes past each row's width wrote only the null block
+        for r, w in enumerate(widths.tolist()[:3]):
+            s0 = int(start[r]) + w
+            blk, off = int(tbl[r, s0 // bs]), s0 % bs
+            assert torch.equal(caches["kernel"][name][:, blk, off], cache[name][:, blk, off])
+
+
+@pytest.mark.gpu
+def test_cuda_truncate_block_rows_in_a_graph():
+    """The rollback captured in a CUDA graph and replayed on newly staged
+    ranges: the rows of [start, end) read zero, every other row of a live
+    block is unchanged, and the rows of an ``end <= start`` row too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.serving.kvcache import truncate_block_rows
+
+    L, N, bs, KV, hd, B, nb, span = 3, 1 + 4 * 6, 16, 2, 128, 4, 6, SPEC_K + 1
+    g = torch.Generator(device="cuda").manual_seed(5)
+    cache = {n: torch.randn((L, N, bs, KV, hd), generator=g, device="cuda").bfloat16() for n in ("k", "v")}
+    tbl = torch.arange(1, N, dtype=torch.int32, device="cuda").reshape(B, nb)
+    start = torch.zeros(B, dtype=torch.int32, device="cuda")
+    end = torch.zeros(B, dtype=torch.int32, device="cuda")
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        truncate_block_rows(cache, tbl, start, end, span=span)  # warm-up: a no-op range
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        truncate_block_rows(cache, tbl, start, end, span=span)
+
+    for ranges in ([(10, 15), (30, 33), (7, 7), (90, 95)], [(15, 20), (0, 5), (50, 48), (93, 96)]):
+        for n in cache:
+            cache[n].copy_(torch.randn(cache[n].shape, generator=g, device="cuda"))
+        before = {n: t.clone() for n, t in cache.items()}
+        start.copy_(torch.tensor([a for a, _ in ranges], dtype=torch.int32))
+        end.copy_(torch.tensor([b for _, b in ranges], dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        rows = tbl.cpu()
+        for n in cache:
+            expected = before[n].cpu()
+            for b, (a, e) in enumerate(ranges):
+                for pos in range(a, e):
+                    expected[:, rows[b, pos // bs], pos % bs] = 0
+            # block 0, the null block, takes the dead lanes' writes
+            assert torch.equal(cache[n].cpu()[:, 1:], expected[:, 1:]), (n, ranges)

@@ -283,6 +283,13 @@ def test_fused_engine_takes_fewer_dispatches():
 
 
 def test_fused_with_spec_decode_is_refused():
-    cfg = reduce_for_smoke(get_config("olmo-1b"))
-    with pytest.raises(NotImplementedError, match="spec_decode"):
-        InferenceEngine(cfg, {}, fused=True, spec_decode="ngram", device="cpu")
+    """``fused=True`` with ``spec_decode="ngram"`` is no longer refused: it
+    builds and drains on the CPU, every tick with decoding slots a verify
+    tick.  Its parity with the JAX engine is ``test_torch_spec_decode.py``'s."""
+    _, tcfg, _, tparams = _bridged("olmo-1b")
+    eng = _engine(InferenceEngine, tcfg, tparams, fused=True, spec_decode="ngram", spec_k=3)
+    reqs = _drain(eng)
+    s = eng.stats()
+    assert all(r.state == RequestState.DONE and len(r.generated) == 6 for r in reqs)
+    assert s["fused"] and s["spec_steps"] > 0 and s["drafted_tokens"] > 0
+    assert s["alloc_blocks_in_use"] == 0 and s["dispatches_per_step"] <= 1.5
