@@ -97,6 +97,25 @@ or when any check fails.  Phases:
    within one bf16 spacing (of its largest element) of what a plain
    decode step writes; the pools with no rollback and with the rollback
    one lane early are the controls that must fail.
+5f. KV-cache tiers: ``kv_quant_read`` holds the plain dequantizing read
+   of int8 and e4m3 pools (quantized pools have no kernel, as in the JAX
+   package) against K1 and K2 over fp32 pools that hold the same
+   dequantized rows, at the kernel phase's olmo-1b shapes, within
+   ``TOL[fp32]``, with scales one token row off as the control, and times
+   both; ``serving_quantized`` serves the serving phase's prompts with
+   ``quantize_kv="int8"`` and ``"fp8"`` in both walks (no K1/K2 launch;
+   the fused tokens within near-ties of the legacy run's; pool bytes,
+   TTFT, TPOT, decode ticks and agreement with the bf16 run read) and
+   profiles an eager quantized decode step; ``serving_tiered`` serves two
+   rounds of 8 prompts that share 256-token prefixes round to round over
+   48 usable blocks, with the host spill tier (also with a restore budget
+   of 32 blocks a pass), with dropped evictions and without a prefix cache
+   (legacy walk; tokens must be equal), and with
+   and without the tier in the fused walk (within near-ties), gated on
+   spills, restores and spill-tier hits; ``spill_restore`` sends one block
+   of a full-width bf16 pool through host memory and back into another
+   block (rows and K2 over it bit-equal; a restore into the neighbouring
+   block is the control) and times the copies.
 6. Train: FP8 training of olmo-1b at full width and depth (fp32 master
    weights, bf16 compute, K4 for every projection GEMM, remat per block),
    4 steps of 4 x 2048 tokens from random weights (seed 0), with the loss,
@@ -149,6 +168,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -522,6 +542,7 @@ def serving_phase(cfg, params, device, max_new_tokens=32) -> dict:
         "output_tok_s": s["tokens_out"] / wall,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "dispatches_per_step": s["dispatches_per_step"], "host_syncs_per_step": s["host_syncs_per_step"],
+        "cache_bytes": s["cache_bytes"], "pool_bytes": pool_bytes(eng),
     }
     emit(out)
     return out, [list(r.generated) for r in reqs]
@@ -551,12 +572,13 @@ def tick_kinds(eng, since: float) -> dict:
             for k, v in out.items()}
 
 
-def top2_gap(cfg, params, device, context) -> float:
-    """The top-2 logit gap after ``context``, through one ``prefill_step``."""
+def top2_gap(cfg, params, device, context, quantize_kv=False) -> float:
+    """The top-2 logit gap after ``context``, through one ``prefill_step``
+    (bf16 pools, or quantized ones)."""
     from repro_torch.models import init_paged_cache, prefill_step
 
     nb = -(-len(context) // BLOCK_SIZE)
-    cache = init_paged_cache(cfg, 1 + nb, BLOCK_SIZE, 1, nb, torch.bfloat16, device=device)
+    cache = init_paged_cache(cfg, 1 + nb, BLOCK_SIZE, 1, nb, torch.bfloat16, quantized=quantize_kv, device=device)
     row = torch.arange(1, 1 + nb, dtype=torch.int32, device=device)[None]
     tok = torch.tensor([context], dtype=torch.int32, device=device)
     lg, _ = prefill_step(cfg, params, cache, tok, torch.zeros(1, dtype=torch.int32, device=device), row)
@@ -564,15 +586,16 @@ def top2_gap(cfg, params, device, context) -> float:
     return float(top[0] - top[1])
 
 
-def differences(cfg, params, device, reqs, legacy_tokens) -> list[dict]:
+def differences(cfg, params, device, reqs, legacy_tokens, quantize_kv=False) -> list[dict]:
     """Each request whose tokens differ from the legacy run's: the first
-    position where they do and the legacy tokens' top-2 logit gap there,
-    a near-tie when it is below ``PATH_TOL``."""
+    position where they do and the legacy tokens' top-2 logit gap there
+    (through pools of the run's kind), a near-tie when it is below
+    ``PATH_TOL``."""
     differ = []
     for i, (r, ref) in enumerate(zip(reqs, legacy_tokens)):
         j = next((j for j, (a, b) in enumerate(zip(r.generated, ref)) if a != b), None)
         if j is not None:
-            gap = top2_gap(cfg, params, device, r.prompt + ref[:j])
+            gap = top2_gap(cfg, params, device, r.prompt + ref[:j], quantize_kv)
             differ.append({"request": i, "position": j, "legacy_top2_gap": gap, "near_tie": gap < PATH_TOL})
     return differ
 
@@ -942,6 +965,442 @@ def spec_rollback_phase(cfg, params, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5f-5i: the KV-cache tiers (quantized pools, host spill tier)
+# ---------------------------------------------------------------------------
+
+
+def quantized_case(c, mode) -> dict:
+    """A kernel case's K/V, drawn again in fp32 and quantized by the port's
+    ``quantize`` (``mode``: int8 or fp8): the codes and scales of each
+    layer, and fp32 pools that hold the same dequantized rows."""
+    from repro_torch.serving.kvquant import quantize
+
+    g = torch.Generator(device=c["q"].device).manual_seed(11)
+    out = {}
+    for name in ("k", "v"):
+        codes, scale = quantize(torch.randn(c[name].shape, generator=g, device=c["q"].device), mode)
+        out[name], out[f"{name}_scale"], out[f"{name}_fp32"] = codes, scale, codes.float() * scale
+    return out
+
+
+def kv_quant_read_phase(device) -> dict:
+    """The read path of quantized pools, which have no kernel (as in the
+    JAX package): the plain dequantizing read of int8 and e4m3 pools against
+    K1 and K2 over fp32 pools holding the same dequantized rows, at the
+    kernel phase's olmo-1b shapes (4 slots at ``DECODE_LENS``; one 128-token
+    chunk after 192 tokens), fp32 queries.  The arithmetic differs only in
+    summation order, so ``TOL[fp32]`` holds; scales shifted by one token row
+    are the control that must exceed it.  Times are device times."""
+    from repro_torch.kernels import paged_attention as K
+
+    (_, H, KV, hd) = HEAD_SHAPES[0]
+    out = {"phase": "kv_quant_read", "model": "olmo-1b", "tol": TOL[torch.float32]}
+    for kind, plain, kernel in (("decode", K.paged_attention_quantized, K.paged_attention),
+                                ("prefill", K.paged_prefill_attention_quantized, K.paged_prefill_attention)):
+        c = kernel_case(kind, H, KV, hd, torch.float32, 0, 0.0, device, layers=4)
+        for mode in ("int8", "fp8"):
+            p = quantized_case(c, mode)
+
+            def run_plain(i, p=p, c=c, shift=0):
+                layer = i % c["layers"]
+                ks = torch.roll(p["k_scale"][layer], shift, dims=1) if shift else p["k_scale"][layer]
+                return plain(c["q"], p["k"][layer], p["v"][layer], ks, p["v_scale"][layer], c["tbl"], c["lens"])
+
+            def run_kernel(i, p=p, c=c):
+                layer = i % c["layers"]
+                return kernel(c["q"], p["k_fp32"][layer], p["v_fp32"][layer], c["tbl"], c["lens"])
+
+            ref = run_kernel(0)
+            err = float((run_plain(0).float() - ref.float()).abs().max())
+            control = float((run_plain(0, shift=1).float() - ref.float()).abs().max())
+            row = {
+                "kind": kind, "mode": mode, "max_abs_err": err, "control": "scales_one_row_off",
+                "control_max_abs_err": control, "plain_ms": timed_ms(run_plain),
+                "kernel_fp32_pools_ms": timed_ms(run_kernel),
+            }
+            out[f"{kind}_{mode}"] = row
+            emit({"phase": "kv_quant_read", **row})
+            if not err < TOL[torch.float32]:
+                fail(f"kv_quant_read {kind} {mode}: the plain read is {err} from K1/K2 (>= {TOL[torch.float32]})")
+            if not control > TOL[torch.float32]:
+                fail(f"kv_quant_read {kind} {mode}: the control passes ({control}), which then proves nothing")
+            del p
+        del c
+    return out
+
+
+def pool_bytes(eng) -> int:
+    """Device bytes of the engine's pools and scale leaves (no table)."""
+    return sum(t.numel() * t.element_size() for n, t in eng.cache.items() if n != "tbl")
+
+
+def serving_quantized_phase(cfg, params, device, legacy_tokens, bf16_pool_bytes, max_new_tokens=32) -> dict:
+    """The serving phase's prompts and settings with ``quantize_kv="int8"``
+    and ``"fp8"``, in the legacy and the fused walk (the fused engine first
+    serves prompts from another seed, untimed, to capture its buckets).
+    Quantized pools read through the plain path, so K1 and K2 must not run;
+    the fused run's tokens must equal the legacy run's up to near-ties.
+    Agreement with the bf16 legacy run is reported, not gated: random
+    weights make near-ties, and int8 / e4m3 rows move logits more than a
+    bf16 rounding does."""
+    from repro_torch.kernels import paged_attention as K
+    from repro_torch.serving import InferenceEngine
+
+    kw = dict(
+        max_batch=4, max_seq=512, block_size=BLOCK_SIZE, prefill_budget=128, cache_dtype=torch.bfloat16,
+        eos_token=cfg.padded_vocab, device=device,  # attn_impl="kernel": quantized pools must not reach K1/K2
+    )
+    prompts = serving_prompts(cfg, SEED)
+    head = cfg.head_dim
+    out = {"phase": "serving_quantized", "model": cfg.name, "bf16_pool_bytes": bf16_pool_bytes,
+           "predicted_pool_ratio": (head + 4) / (2 * head)}
+    for mode in ("int8", "fp8"):
+        runs = {}
+        for fused in (False, True):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                eng = InferenceEngine(cfg, params, quantize_kv=mode, fused=fused, **kw)
+            if not any("no kernel" in str(w.message) for w in caught):
+                fail(f"serving_quantized {mode}: no warning that quantized pools read plain under attn_impl='kernel'")
+            warm = serving_prompts(cfg, SEED + 1)
+            for p in warm if fused else [warm[0][:48]]:
+                eng.submit(p, max_new_tokens=max_new_tokens if fused else 2)
+            eng.run_until_drained()
+            graphs = eng._graphs
+            s0 = eng.stats()
+            replay_before = dict(graphs.launches) if graphs is not None else {}
+            captured_warm = graphs.captures if graphs is not None else 0
+            since = eng.tracer.now()
+            reqs = [eng.submit(p, max_new_tokens=max_new_tokens) for p in prompts]
+            K.reset_launches()  # this run's main path starts here
+            t0 = time.perf_counter()
+            eng.run_until_drained()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            eager = dict(K.LAUNCHES)
+            replayed = {k: v - replay_before[k] for k, v in graphs.launches.items()} if graphs is not None else {}
+            s = eng.stats()
+            steps = s["decode_steps"] - s0["decode_steps"]
+            tick_tokens, tick_s = decode_ticks(eng, since)
+            runs[fused] = reqs
+            differ = differences(cfg, params, device, reqs, legacy_tokens)
+            row = {
+                "mode": mode, "fused": fused, "requests": len(reqs), "wall_s": wall,
+                "ttft_p50_s": float(np.median([r.ttft for r in reqs])),
+                "tpot_p50_s": float(np.median([r.tpot for r in reqs])),
+                "decode_tick_p50_s": float(np.median([e.dur for e in eng.tracer.events
+                                                      if e.name == "step" and e.ts >= since
+                                                      and e.args.get("produced", 0) > 0])),
+                "decode_tok_s": tick_tokens / tick_s, "output_tok_s": (s["tokens_out"] - s0["tokens_out"]) / wall,
+                "dispatches_per_step": (s["dispatches_total"] - s0["dispatches_total"]) / steps,
+                "cache_bytes": s["cache_bytes"], "pool_bytes": pool_bytes(eng),
+                "pool_ratio_to_bf16": pool_bytes(eng) / bf16_pool_bytes,
+                "alloc_blocks_in_use": s["alloc_blocks_in_use"],
+                "eager_launches": eager, "replay_launches": replayed or None,
+                "graphs_captured_timed": graphs.captures - captured_warm if graphs is not None else None,
+                "requests_equal_to_bf16": len(reqs) - len(differ),
+                "tokens_before_first_difference": [d["position"] for d in differ],
+                "differences_from_bf16": differ,  # each with the bf16 run's top2_gap there
+            }
+            out[f"{mode}_{'fused' if fused else 'legacy'}"] = row
+            emit({"phase": "serving_quantized", **row})
+            if not all(r.finish_reason == "length" and len(r.generated) == max_new_tokens for r in reqs):
+                fail(f"serving_quantized {mode} fused={fused}: requests did not all finish by length: "
+                     f"{[(r.finish_reason, len(r.generated)) for r in reqs]}")
+            if s["alloc_blocks_in_use"] != 0:
+                fail(f"serving_quantized {mode} fused={fused}: {s['alloc_blocks_in_use']} blocks still in use")
+            k1k2 = eager["paged_decode"] + eager["paged_prefill"] + sum(replayed.values())
+            if k1k2:
+                fail(f"serving_quantized {mode} fused={fused}: K1/K2 ran on quantized pools: {eager} {replayed}")
+            del eng, graphs
+            torch.cuda.empty_cache()
+        # mixed ticks run decode rows through other shapes than the legacy
+        # walk: held to the legacy run's tokens up to near-ties, as serving_fused
+        differ = differences(cfg, params, device, runs[True], [list(r.generated) for r in runs[False]], mode)
+        out[f"{mode}_fused_vs_legacy"] = differ
+        if not all(x["near_tie"] for x in differ):
+            fail(f"serving_quantized {mode}: the fused run's tokens differ from the legacy run's away from a near-tie: "
+                 f"{differ}")
+    for mode in ("int8", "fp8"):  # where an eager quantized decode step's time goes
+        out[f"{mode}_decode_step_profile"] = profile_phase(cfg, params, device, quantize_kv=mode)
+    if out["int8_legacy"]["pool_bytes"] != out["fp8_legacy"]["pool_bytes"]:
+        fail(f"serving_quantized: int8 pools {out['int8_legacy']['pool_bytes']} B, fp8 {out['fp8_legacy']['pool_bytes']}")
+    emit({"phase": "serving_quantized", "summary": {k: v for k, v in out.items() if not isinstance(v, dict)}})
+    return out
+
+
+TIER_GROUPS, TIER_PREFIX, TIER_TAIL = 8, 256, 32  # 8 prefixes of 8 full blocks, a 32-token tail each
+TIER_NUM_BLOCKS = 49  # 48 usable blocks of 4 MiB: round 1's chains must leave the card
+TIER_SPILL_BYTES = 512 << 20
+
+
+def since_counts(h, counts0):
+    """The observations of histogram ``h`` made after its bucket counts read
+    ``counts0``, as a histogram of its own (min and max stay ``h``'s)."""
+    from repro_torch.serving.metrics import Histogram
+
+    d = Histogram(h.name, buckets=h.bounds)
+    d.counts = [a - b for a, b in zip(h.counts, counts0)]
+    d.count, d.min, d.max = sum(d.counts), h.min, h.max
+    return d
+
+
+def time_calls(eng) -> dict:
+    """Time, on the host clock, each call of the engine's spill-tier steps
+    (the gather at evict time, the spill pool's put and pop, the restore
+    pass), by wrapping them on this engine instance; returns the dict the
+    seconds add up in.  The calls run as before."""
+    acc: dict[str, float] = {}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+        return call
+
+    eng.run_restores = timed("restore_pass", eng.run_restores)
+    if eng.spill is not None:
+        eng.prefix._fetch = timed("gather", eng.prefix._fetch)
+        eng.spill.put = timed("spill_put", eng.spill.put)
+        eng.spill.pop = timed("spill_pop", eng.spill.pop)
+    eng.scheduler._admit = timed("admit", eng.scheduler._admit)
+    return acc
+
+
+def tier_rounds(cfg, seed) -> list[list[list[int]]]:
+    """Two rounds of 8 prompts: round 2 resubmits round 1's 8 prefixes with
+    new tails."""
+    rng = np.random.default_rng(seed)
+    prefixes = [[int(t) for t in rng.integers(0, cfg.vocab_size, TIER_PREFIX)] for _ in range(TIER_GROUPS)]
+    return [[p + [int(t) for t in rng.integers(0, cfg.vocab_size, TIER_TAIL)] for p in prefixes] for _ in range(2)]
+
+
+def serving_tiered_phase(cfg, params, device, max_new_tokens=32) -> dict:
+    """Tiered traffic on full-width olmo-1b: two rounds of 8 prompts that
+    share, round to round, a 256-token prefix, against 48 usable blocks, so
+    round 1's chains leave the card.  Arms: ``spill`` (512 MiB host tier,
+    pool-native bytes), ``drop`` (evictions drop) and ``uncached`` (no
+    prefix cache), and ``spill_budget_32`` (the tier with a restore budget
+    of 32 blocks a pass in place of 4), in the legacy walk, and ``spill``
+    and ``drop`` in the fused walk, each after an untimed pass of the same
+    traffic from another seed.  A prefill budget of 0 puts every prompt through the same chunks
+    (256, then 32) in every arm, so the legacy arms compute every K/V row
+    alike and their tokens must be equal.  The fused arms' mixed ticks
+    batch rows differently, so their tokens are held to the legacy spill
+    arm's up to near-ties, as the serving_fused phase holds its own.
+    Round 2's readings also split its time: each request's TTFT, the
+    scheduler steps, the restore passes' seconds, and the spills and
+    evictions its admissions caused."""
+    from repro_torch.kernels import paged_attention as K
+    from repro_torch.serving import InferenceEngine
+
+    kw = dict(
+        max_batch=4, max_seq=512, block_size=BLOCK_SIZE, prefill_budget=0, cache_dtype=torch.bfloat16,
+        eos_token=cfg.padded_vocab, device=device, num_blocks=TIER_NUM_BLOCKS,
+    )
+    arms = {
+        "spill": dict(spill_bytes=TIER_SPILL_BYTES),
+        "drop": {},
+        "uncached": dict(prefix_cache=False),
+        # every swap-in of the 4 slots' admissions in one restore pass,
+        # where the default budget (4 blocks) takes 2 passes a request
+        "spill_budget_32": dict(spill_bytes=TIER_SPILL_BYTES, restore_budget=32),
+        "spill_fused": dict(spill_bytes=TIER_SPILL_BYTES, fused=True),
+        "drop_fused": dict(fused=True),
+    }
+    rounds = tier_rounds(cfg, SEED)
+    out = {"phase": "serving_tiered", "model": cfg.name, "num_blocks": TIER_NUM_BLOCKS,
+           "spill_bytes": TIER_SPILL_BYTES, "prefix_tokens": TIER_PREFIX, "tail_tokens": TIER_TAIL}
+    tokens = {}
+    for arm, extra in arms.items():
+        eng = InferenceEngine(cfg, params, **kw, **extra)
+        if eng.fused:  # untimed: the same traffic from another seed captures the buckets
+            for prompts in tier_rounds(cfg, SEED + 1):
+                for p in prompts:
+                    eng.submit(p, max_new_tokens=max_new_tokens)
+                eng.run_until_drained()
+        graphs = eng._graphs
+        s0 = eng.stats()
+        replay_before = dict(graphs.launches) if graphs is not None else {}
+        captured_warm = graphs.captures if graphs is not None else 0
+        restore_wait = eng.metrics.histogram("engine_restore_wait_seconds")
+        wait0 = list(restore_wait.counts)
+        host_s = time_calls(eng)
+        K.reset_launches()  # this arm's main path starts here
+        reqs, walls, starts = [], [], []
+        for r_i, prompts in enumerate(rounds):
+            starts.append(eng.tracer.now())
+            host_s.clear()  # each round's own
+            t0 = time.perf_counter()
+            reqs.append([eng.submit(p, max_new_tokens=max_new_tokens) for p in prompts])
+            eng.run_until_drained()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if r_i == 0:
+                s_mid = eng.stats()
+        eager = dict(K.LAUNCHES)
+        replayed = {k: v - replay_before[k] for k, v in graphs.launches.items()} if graphs is not None else {}
+        s = eng.stats()
+        d = lambda key, a=s, b=s0: a.get(key, 0) - b.get(key, 0)  # noqa: E731
+        r2_hit, r2_prefill = d("prefix_hit_tokens", s, s_mid), d("prefill_tokens", s, s_mid)
+        tokens[arm] = [list(r.generated) for rr in reqs for r in rr]
+        waits = since_counts(restore_wait, wait0)
+        r2_events = [e for e in eng.tracer.events if e.ts >= starts[1]]
+        row = {
+            "arm": arm, "fused": eng.fused, "wall_s": walls,
+            "round2_ttft_p50_s": float(np.median([r.ttft for r in reqs[1]])),
+            "round1_ttft_p50_s": float(np.median([r.ttft for r in reqs[0]])),
+            "round2_ttft_s": [r.ttft for r in reqs[1]],  # in submission order
+            "round2_steps": sum(e.name == "step" for e in r2_events),
+            "round2_restore_s": sum(e.dur for e in r2_events if e.name == "restore"),
+            "round2_spills": sum(e.name == "spill" for e in r2_events),
+            "round2_evictions": sum(e.name == "evict" for e in r2_events),
+            "round2_first_step_s": next((e.dur for e in r2_events if e.name == "step"), None),
+            "round2_host_s": dict(host_s),  # wall of the tier's calls: gather, spill put, pop, restore pass
+            "tpot_p50_s": float(np.median([r.tpot for rr in reqs for r in rr])),
+            "prefill_tokens": d("prefill_tokens"), "round2_prefill_tokens": r2_prefill,
+            "prefix_hit_tokens": d("prefix_hit_tokens"),
+            "round2_prefix_hit_rate": r2_hit / (r2_hit + r2_prefill) if r2_hit + r2_prefill else 0.0,
+            "prefix_hit_rate": s.get("prefix_hit_rate"),
+            "evictions_spilled": d("alloc_evictions_spilled"), "evictions_dropped": d("alloc_evictions_dropped"),
+            "restores": d("restores"), "restores_pending": s.get("restores_pending"),
+            "spill_hit_tokens": d("spill_hit_tokens"), "spill_bytes_used": s.get("spill_bytes_used"),
+            "spill_blocks": s.get("spill_blocks"), "spill_staged": s.get("spill_staged"),
+            "spill_drops": s.get("spill_drops"),
+            "restore_wait_p50_s": waits.percentile(50), "restore_waits": waits.count,
+            "alloc_blocks_in_use": s["alloc_blocks_in_use"],
+            "eager_launches": eager, "replay_launches": replayed or None,
+            "k1_launches": eager["paged_decode"] + replayed.get("paged_decode", 0),
+            "k2_launches": eager["paged_prefill"] + replayed.get("paged_prefill", 0),
+            "graphs_captured_timed": graphs.captures - captured_warm if graphs is not None else None,
+        }
+        out[arm] = row
+        emit({"phase": "serving_tiered", **row})
+        if not all(r.finish_reason == "length" and len(r.generated) == max_new_tokens for rr in reqs for r in rr):
+            fail(f"serving_tiered {arm}: requests did not all finish by length")
+        if s["alloc_blocks_in_use"] != 0:
+            fail(f"serving_tiered {arm}: {s['alloc_blocks_in_use']} blocks still in use")
+        if row["k2_launches"] <= 0 or row["k1_launches"] <= 0:
+            fail(f"serving_tiered {arm}: K1/K2 did not both run: eager {eager}, replays {replayed}")
+        if arm.startswith("spill"):
+            if not (row["evictions_spilled"] > 0 and row["restores"] > 0 and row["spill_hit_tokens"] > 0):
+                fail(f"serving_tiered {arm}: the tier did not work: {row}")
+            if row["restores_pending"] != 0:
+                fail(f"serving_tiered {arm}: {row['restores_pending']} restores still pending")
+        if arm.startswith("drop") and row["evictions_dropped"] <= 0:
+            fail(f"serving_tiered drop: no eviction, so round 1's chains never left the card: {row}")
+        if eng.fused:
+            flat = [r for rr in reqs for r in rr]
+            differ = differences(cfg, params, device, flat, tokens["spill"])
+            row["differences_from_legacy_spill"] = differ
+            if not all(x["near_tie"] for x in differ):
+                fail(f"serving_tiered: fused spill tokens differ from the legacy spill arm's away from a near-tie: "
+                     f"{differ}")
+        del eng, graphs
+        torch.cuda.empty_cache()
+    for arm in ("drop", "uncached", "spill_budget_32"):
+        differ = [i for i, (a, b) in enumerate(zip(tokens["spill"], tokens[arm])) if a != b]
+        out[f"requests_differing_spill_vs_{arm}"] = differ
+        if differ:
+            fail(f"serving_tiered: the spill arm's tokens differ from the {arm} arm's in requests {differ}")
+    out["fused_requests_differing"] = {arm: len(out[arm]["differences_from_legacy_spill"])
+                                       for arm in ("spill_fused", "drop_fused")}
+    emit({"phase": "serving_tiered", "summary": {k: v for k, v in out.items() if k not in arms}})
+    return out
+
+
+def spill_restore_phase(cfg, device, iters=10) -> dict:
+    """One block of a full-width olmo-1b bf16 pool through the host tier:
+    gathered, put with ``staging_depth=0`` (so it reaches host memory),
+    popped and restored into another block: the rows must be bit-equal
+    (``"cache"`` mode), and K2 over a table that points at the restored
+    block must give the output of K2 over the original, bit for bit.  The
+    control restores into the neighbouring block, which the same checks
+    must reject.  Times (host clock, the card synchronized): the gather and
+    device-to-host copy of one block, and a 4-block restore from host
+    memory, as the engine's restore pass runs it (the copies to the card,
+    the stack, one in-place scatter)."""
+    from repro_torch.kernels import paged_attention as K
+    from repro_torch.models import init_paged_cache
+    from repro_torch.serving import SpillPool, gather_block_rows, restore_block_rows
+
+    N = 1 + NB + 8
+    cache = init_paged_cache(cfg, N, BLOCK_SIZE, 1, NB, torch.bfloat16, device=device)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    for name in ("k", "v"):
+        cache[name].copy_(torch.randn(cache[name].shape, generator=g, device=device))
+    src, dst = 3, NB + 2  # dst lies outside the table's blocks 1..NB
+    control = {n: t.clone() for n, t in cache.items()}
+    pool = SpillPool(1 << 30, mode="cache", staging_depth=0)
+    h = pool.put(gather_block_rows(cache, src))
+    on_host = all(t.device.type == "cpu" for t in pool._payload[h].values())
+    rows = pool.pop(h)
+
+    def restore(c, block):
+        restore_block_rows(c, torch.tensor([block], dtype=torch.int32, device=device),
+                           {n: t.to(device)[:, None] for n, t in rows.items()})
+
+    restore(cache, dst)
+    restore(control, dst + 1)  # the control: into the neighbouring block
+    torch.cuda.synchronize()
+
+    def readings(c) -> dict:
+        H, hd = cfg.num_heads, cfg.head_dim
+        q = torch.randn((1, PREFILL_C, H, hd), generator=torch.Generator(device=device).manual_seed(5), device=device)
+        start = torch.tensor([PREFILL_START], dtype=torch.int32, device=device)
+        base = torch.arange(1, 1 + NB, dtype=torch.int32, device=device)[None]
+        moved = base.clone()
+        moved[0, src - 1] = dst
+        before = dict(K.LAUNCHES)
+        outs = [K.paged_prefill_attention(q, c["k"][l], c["v"][l], t, start) for l in (0, cfg.num_layers - 1)
+                for t in (base, moved)]
+        K.LAUNCHES.update(before)  # check launches, not the main path's
+        return {
+            "rows_equal": all(torch.equal(c[n][:, dst], c[n][:, src]) for n in ("k", "v")),
+            "k2_equal": all(torch.equal(outs[i], outs[i + 1]) for i in (0, 2)),
+        }
+
+    sound, ctrl = readings(cache), readings(control)
+
+    def wall(fn) -> float:
+        ts = []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return float(np.median(ts)) * 1e3
+
+    payload_bytes = sum(t.numel() * t.element_size() for t in rows.values())
+    host = [{n: t.clone() for n, t in rows.items()} for _ in range(4)]
+    blocks4 = torch.tensor([NB + 1, NB + 2, NB + 3, NB + 4], dtype=torch.int32, device=device)
+    d2h_ms = wall(lambda: pool._compress(gather_block_rows(cache, src)))
+    restore4_ms = wall(lambda: restore_block_rows(
+        cache, blocks4, {n: torch.stack([p[n].to(device) for p in host], dim=1) for n in rows}))
+    staged4_ms = wall(lambda: restore_block_rows(
+        cache, blocks4, {n: torch.stack([cache[n][:, src]] * 4, dim=1) for n in rows}))
+    out = {
+        "phase": "spill_restore", "model": cfg.name, "block_bytes": payload_bytes, "on_host": on_host,
+        "sound": sound, "control": ctrl,
+        "gather_d2h_one_block_ms": d2h_ms, "d2h_gb_s": payload_bytes / d2h_ms / 1e6,
+        "restore_4_blocks_from_host_ms": restore4_ms, "h2d_gb_s": 4 * payload_bytes / restore4_ms / 1e6,
+        "restore_4_blocks_on_device_ms": staged4_ms,
+    }
+    emit(out)
+    if not on_host:
+        fail("spill_restore: the payload never reached host memory")
+    if not (sound["rows_equal"] and sound["k2_equal"]):
+        fail(f"spill_restore: the round trip is not exact: {sound}")
+    if ctrl["rows_equal"] or ctrl["k2_equal"]:
+        fail(f"spill_restore: the control (a restore into the neighbouring block) passes {ctrl}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel path against plain path at full width
 # ---------------------------------------------------------------------------
 
@@ -1022,14 +1481,15 @@ def profiled(fn, steps: int = 1) -> tuple[dict, float, float, dict]:
     return by_name, launches / steps, wall_ms, by_span
 
 
-def profile_phase(cfg, params, device, steps=5) -> dict:
+def profile_phase(cfg, params, device, steps=5, quantize_kv=False) -> dict:
     """The 4-slot decode step at the kernel phase's lengths: host wall time
     per step (no profiler), then device time by kernel under
-    ``torch.profiler``.  Idle share = 1 - device busy / wall."""
+    ``torch.profiler``.  Idle share = 1 - device busy / wall.  With
+    ``quantize_kv`` the pools are int8 / e4m3 and read plain."""
     from repro_torch.models import decode_step, init_paged_cache
 
     B = len(DECODE_LENS)
-    cache = init_paged_cache(cfg, 1 + B * NB, BLOCK_SIZE, B, NB, torch.bfloat16, device=device)
+    cache = init_paged_cache(cfg, 1 + B * NB, BLOCK_SIZE, B, NB, torch.bfloat16, quantized=quantize_kv, device=device)
     cache["tbl"].copy_(torch.arange(1, 1 + B * NB, dtype=torch.int32).reshape(B, NB))
     tok = torch.zeros((B, 1), dtype=torch.int32, device=device)
     pos = torch.tensor([n - 1 for n in DECODE_LENS], dtype=torch.int32, device=device)
@@ -1049,7 +1509,8 @@ def profile_phase(cfg, params, device, steps=5) -> dict:
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out = {
-        "phase": "profile", "model": cfg.name, "what": "decode_step, 4 slots, bf16 pools, fp32 weights",
+        "phase": "profile", "model": cfg.name,
+        "what": f"decode_step, 4 slots, {quantize_kv or 'bf16'} pools, fp32 weights",
         "wall_ms": wall_ms, "device_busy_ms": busy if by_name else None,
         "idle_share": 1.0 - busy / wall_ms if by_name else None,
         "device_launches_per_step": launches,
@@ -2063,6 +2524,11 @@ def main() -> int:
     phase("profile_fused", profile_fused_phase, cfg, params, device)
     spec = phase("serving_spec", serving_spec_phase, cfg, params, device, legacy_tokens)
     phase("spec_rollback", spec_rollback_phase, cfg, params, device)
+    phase("kv_quant_read", kv_quant_read_phase, device)
+    quantized = phase("serving_quantized", serving_quantized_phase, cfg, params, device, legacy_tokens,
+                      serving["pool_bytes"])
+    tiered = phase("serving_tiered", serving_tiered_phase, cfg, params, device)
+    phase("spill_restore", spill_restore_phase, cfg, device)
     del params  # the serving model's memory goes back before training
     torch.cuda.empty_cache()
 
@@ -2110,6 +2576,14 @@ def main() -> int:
                      host_us=r["host_us"], cuda_cores_host_us=r["cuda_cores_host_us"])
         if k["name"] == "paged_prefill":  # the verify passes of each spec run, its own count
             k["spec_launches"] = spec["k2_launches"]
+        if k["name"] in ("paged_decode", "paged_prefill"):  # this slice's runs: each KV-tier arm's own count
+            which = "k1_launches" if k["name"] == "paged_decode" else "k2_launches"
+            k["tier_launches"] = {arm: tiered[arm][which] for arm in ("spill", "drop", "uncached", "spill_budget_32",
+                                                                      "spill_fused", "drop_fused")}
+            k["quantized_launches"] = {  # quantized pools read plain: none
+                run: quantized[run]["eager_launches"][k["name"]] + (quantized[run]["replay_launches"] or {}).get(k["name"], 0)
+                for run in ("int8_legacy", "int8_fused", "fp8_legacy", "fp8_fused")
+            }
         if k["name"] == "rwkv6_scan":  # v1 beside the chunk-parallel kernels
             k.update(cuda_cores_ms=wkv_main["cuda_cores_ms"], mean_rel=wkv_main["readings"]["mean_vs_plain"])
         if k["name"] == "flash_attention":  # the bf16 route's kernel, v1 beside it

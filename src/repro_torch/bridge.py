@@ -1,5 +1,5 @@
 """Weight bridge: the JAX package's parameter tree (and train state) -> the
-port's.
+port's, and a JAX paged cache -> the port's.
 
 The JAX tree stacks every block leaf over layers, ``(L, ...)``; the port
 keeps one dict per layer.  Leaf names and layouts are the same, so the
@@ -74,3 +74,24 @@ def train_state_from_jax(cfg, np_state, device="cuda", param_dtype=torch.float32
         compress_residual=None,
         fp8=fp8,
     )
+
+
+def paged_cache_from_jax(np_cache: dict, device="cuda") -> dict:
+    """A port paged cache holding the JAX cache ``np_cache`` (numpy leaves):
+    the pools in their own dtype (int8 as int8, ml_dtypes' bf16 and e4m3 by
+    their bits), the fp32 scale leaves of quantized pools, and one block
+    table, the first layer's (the port keeps one for every layer; the JAX
+    package stacks a copy per layer)."""
+    device = resolve_device(device)
+    by_bits = {"bfloat16": (np.uint16, torch.bfloat16), "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+    out = {}
+    for name, a in np_cache.items():
+        a = np.asarray(a)
+        if name == "tbl":
+            out[name] = torch.tensor(a[0], dtype=torch.int32, device=device)
+        elif a.dtype.name in by_bits:
+            bits, dtype = by_bits[a.dtype.name]
+            out[name] = torch.from_numpy(np.array(a).view(bits)).view(dtype).to(device)  # a writable copy
+        else:
+            out[name] = torch.tensor(a, device=device)
+    return out

@@ -36,6 +36,14 @@ yardsticks'; a wrapper adds one where it launches, nowhere else.  For
 tensors on the CPU a wrapper calls the kernel's plain version
 (``paged_attention_ref``); for CUDA tensors it launches the kernel or
 raises, and never falls back.
+
+Dtype contract, as the JAX package's ``kernels/paged_attention_ops.py``:
+the pool dtype selects the path and the two never mix.  Quantized pools
+(int8 / e4m3 rows with fp32 per-(token, head) scales, ``serving.kvquant``)
+have no kernel, in the JAX package as here: ``paged_attention_quantized``
+and ``paged_prefill_attention_quantized`` run the dequantizing plain
+versions on every device, and K1/K2's entry points raise on a quantized
+pool rather than read its codes as values.
 """
 
 from __future__ import annotations
@@ -58,6 +66,7 @@ LAUNCHES = {"paged_decode": 0, "paged_decode_cuda_cores": 0, "paged_prefill": 0,
 # the kernel K2 runs for each pool dtype, and K1's
 ROUTES = {torch.bfloat16: "tensor_cores_bf16", torch.float32: "cuda_cores_fp32"}
 DECODE_ROUTE = "cuda_cores_fp32"
+QUANTIZED_POOLS = (torch.int8, torch.float8_e4m3fn)  # storage dtypes of ``serving.kvquant``
 
 PREFILL_ROW_TILE = 16  # v1's K2 query rows per thread block
 MAX_DECODE_SPLIT = 8  # blocks of K1's cluster
@@ -174,6 +183,8 @@ def paged_attention(
     window: int = 0,
 ) -> torch.Tensor:
     """K1, decode.  Returns (B, H, hd) in q's dtype."""
+    if k_pool.dtype in QUANTIZED_POOLS:
+        raise ValueError("quantized pools need scales: use paged_attention_quantized")
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, block_tables, seq_lens, softcap=softcap, window=window)
     if q.device.type != "cuda":
@@ -267,6 +278,8 @@ def paged_prefill_attention(
     window: int = 0,
 ) -> torch.Tensor:
     """K2, chunked prefill.  Returns (B, C, H, hd) in q's dtype."""
+    if k_pool.dtype in QUANTIZED_POOLS:
+        raise ValueError("quantized pools need scales: use paged_prefill_attention_quantized")
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(q, k_pool, v_pool, block_tables, start, softcap=softcap, window=window)
     if q.device.type != "cuda":
@@ -289,3 +302,41 @@ def paged_prefill_attention_cuda_cores(
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention_cuda_cores runs on cuda, not {q.device}")
     return _prefill_launch(q, k_pool, v_pool, block_tables, start, softcap=softcap, window=window, cuda_cores=True)
+
+
+def paged_attention_quantized(
+    q: torch.Tensor,  # (B, H, hd)
+    k_pool: torch.Tensor,  # int8 / e4m3 (N, bs, KV, hd)
+    v_pool: torch.Tensor,
+    k_scale: torch.Tensor,  # fp32 (N, bs, KV, 1)
+    v_scale: torch.Tensor,
+    block_tables: torch.Tensor,
+    seq_lens: torch.Tensor,
+    *,
+    softcap: float = 0.0,
+    window: int = 0,
+) -> torch.Tensor:
+    """Decode over a quantized pool: the dequantizing plain version on
+    every device (no kernel, as in the JAX package)."""
+    return paged_attention_plain(
+        q, k_pool, v_pool, block_tables, seq_lens, softcap=softcap, window=window, k_scale=k_scale, v_scale=v_scale
+    )
+
+
+def paged_prefill_attention_quantized(
+    q: torch.Tensor,  # (B, C, H, hd)
+    k_pool: torch.Tensor,  # int8 / e4m3 (N, bs, KV, hd)
+    v_pool: torch.Tensor,
+    k_scale: torch.Tensor,  # fp32 (N, bs, KV, 1)
+    v_scale: torch.Tensor,
+    block_tables: torch.Tensor,
+    start: torch.Tensor,
+    *,
+    softcap: float = 0.0,
+    window: int = 0,
+) -> torch.Tensor:
+    """Chunked prefill over a quantized pool: the dequantizing plain
+    version on every device (no kernel, as in the JAX package)."""
+    return paged_prefill_attention_plain(
+        q, k_pool, v_pool, block_tables, start, softcap=softcap, window=window, k_scale=k_scale, v_scale=v_scale
+    )

@@ -1,12 +1,15 @@
 """Plain PyTorch versions of the two paged-attention kernels.
 
-Mirror of the JAX package's ``kernels/paged_attention_ref.py`` for
-floating-point pools: gather the K/V blocks addressed by each sequence's
-block table into a contiguous ``(B, nb*bs, KV, hd)`` view and run exact
-fp32 softmax attention.  The CPU tests hold these against the JAX oracle
-and the Pallas kernels; on the card ``kernels.paged_attention`` holds the
-CUDA kernels against them.  The kernel wrappers call them for tensors that
-lie on the CPU.
+Mirror of the JAX package's ``kernels/paged_attention_ref.py``: gather the
+K/V blocks addressed by each sequence's block table into a contiguous
+``(B, nb*bs, KV, hd)`` view and run exact fp32 softmax attention.  Quantized
+pools (int8 / e4m3, ``serving.kvquant``) pass their fp32 per-(token, head)
+``k_scale`` / ``v_scale`` leaves: the gathered rows are cast to fp32 and
+multiplied by the gathered scales, the dequantizing read of the JAX
+package's reference, which is also the only read quantized pools have.
+The CPU tests hold these against the JAX oracle and the Pallas kernels; on
+the card ``kernels.paged_attention`` holds the CUDA kernels against them.
+The kernel wrappers call them for tensors that lie on the CPU.
 
 Block-table contract (shared with the kernels): entries past a sequence's
 last live block point at the reserved null block (id 0).  They are gathered
@@ -39,6 +42,13 @@ def gather_blocks(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tenso
     return g.reshape((B, nb * bs) + tuple(pool.shape[2:]))
 
 
+def gather_kv(pool: torch.Tensor, block_tables: torch.Tensor, scale: torch.Tensor | None) -> torch.Tensor:
+    """The gathered view in fp32, dequantized by the gathered scales where
+    the pool carries them."""
+    x = gather_blocks(pool, block_tables).float()
+    return x if scale is None else x * gather_blocks(scale, block_tables)
+
+
 def paged_attention_plain(
     q: torch.Tensor,  # (B, H, hd) current-token queries
     k_pool: torch.Tensor,  # (N, bs, KV, hd) global block pool
@@ -48,6 +58,8 @@ def paged_attention_plain(
     *,
     softcap: float = 0.0,
     window: int = 0,
+    k_scale: torch.Tensor | None = None,  # (N, bs, KV, 1) fp32 (quantized pools)
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Decode: returns (B, H, hd) attention output in q.dtype."""
     B, H, hd = q.shape
@@ -55,8 +67,8 @@ def paged_attention_plain(
     qpk = H // KV
     scale = 1.0 / math.sqrt(hd)
 
-    k = gather_blocks(k_pool, block_tables).float()  # (B, S, KV, hd)
-    v = gather_blocks(v_pool, block_tables).float()
+    k = gather_kv(k_pool, block_tables, k_scale)  # (B, S, KV, hd)
+    v = gather_kv(v_pool, block_tables, v_scale)
     S = k.shape[1]
 
     qg = q.float().reshape(B, KV, qpk, hd)
@@ -162,6 +174,8 @@ def paged_prefill_attention_plain(
     *,
     softcap: float = 0.0,
     window: int = 0,
+    k_scale: torch.Tensor | None = None,  # (N, bs, KV, 1) fp32 (quantized pools)
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Chunked prefill: C query tokens per sequence at positions
     ``start + [0, C)`` attend causally (+ window) over the gathered paged
@@ -171,8 +185,8 @@ def paged_prefill_attention_plain(
     qpk = H // KV
     scale = 1.0 / math.sqrt(hd)
 
-    k = gather_blocks(k_pool, block_tables).float()  # (B, S, KV, hd)
-    v = gather_blocks(v_pool, block_tables).float()
+    k = gather_kv(k_pool, block_tables, k_scale)  # (B, S, KV, hd)
+    v = gather_kv(v_pool, block_tables, v_scale)
     S = k.shape[1]
 
     qg = q.float().reshape(B, C, KV, qpk, hd)

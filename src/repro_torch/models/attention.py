@@ -14,7 +14,11 @@ package's ``models/attention.py``.
 * the paged functions: ``impl="kernel"`` attends through the CUDA kernel
   wrappers of ``kernels.paged_attention`` (which take the plain version for
   CPU tensors); ``impl="plain"`` calls the plain versions directly, which on
-  the card serves only as the kernels' yardstick.
+  the card serves only as the kernels' yardstick.  Quantized pools
+  (int8 / e4m3, ``serving.kvquant``) quantize K/V on the way in, into the
+  pools and their scale leaves, and read through the dequantizing plain
+  path whatever ``impl`` says: they have no kernel, in the JAX package as
+  here.
 
 With an ``fp8`` handle (``repro_torch.fp8.policy.Fp8Layer``) the q/k/v/o
 projections run through FP8 GEMMs; the head split is a free reshape around
@@ -29,7 +33,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.paged_attention import paged_attention, paged_prefill_attention
+from repro_torch.kernels.paged_attention import (
+    paged_attention,
+    paged_attention_quantized,
+    paged_prefill_attention,
+    paged_prefill_attention_quantized,
+)
 from repro_torch.kernels.paged_attention_ref import paged_attention_plain, paged_prefill_attention_plain
 from repro_torch.models.cache import NULL_BLOCK
 from repro_torch.models.layers import ParamSpec, apply_rope, softcap
@@ -164,6 +173,23 @@ def _scatter(pool: torch.Tensor, phys: torch.Tensor, off: torch.Tensor, rows: to
     pool.index_put_((phys.long(), off.long()), rows.to(pool.dtype))
 
 
+def _write_kv(cache: dict, phys: torch.Tensor, off: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Scatter K/V rows into one layer's pools at (phys, off); a quantized
+    pool takes the rows' codes and their scales.  Returns whether the pools
+    are quantized."""
+    from repro_torch.serving.kvquant import kv_quant_mode_of, quantize
+
+    mode = kv_quant_mode_of(cache["k"].dtype)
+    for name, rows in (("k", k), ("v", v)):
+        if mode is None:
+            _scatter(cache[name], phys, off, rows)
+        else:
+            codes, scale = quantize(rows, mode)
+            _scatter(cache[name], phys, off, codes)
+            _scatter(cache[f"{name}_scale"], phys, off, scale)
+    return mode is not None
+
+
 # ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
@@ -244,7 +270,8 @@ def paged_chunk_attention(
     """Chunked-prefill attention against one layer's paged cache.
 
     x:       (B, C, D) chunk token embedding stream
-    cache:   {"k","v": (N, bs, KV, hd) pools of this layer, ...}
+    cache:   {"k","v": (N, bs, KV, hd) pools of this layer, ["k_scale",
+             "v_scale": (N, bs, KV, 1) fp32 of quantized pools], ...}
     tbl_row: (B, nb) int32, the request's block table covering every
              logical block of prompt + generation
     start:   (B,) int32 absolute position of the chunk's first token
@@ -270,14 +297,14 @@ def paged_chunk_attention(
         lane = torch.arange(C, device=x.device)[None, :]
         phys = torch.where(lane < widths[:, None], phys, NULL_BLOCK)
     off = positions % bs
-    _scatter(k_pool, phys, off, k)
-    _scatter(v_pool, phys, off, v)
-
-    attend = paged_prefill_attention if impl == "kernel" else paged_prefill_attention_plain
-    ctx = attend(
-        q.contiguous(), k_pool, v_pool, tbl_row, start,
-        softcap=cfg.attn_logit_softcap, window=cfg.sliding_window,
-    )
+    kw = dict(softcap=cfg.attn_logit_softcap, window=cfg.sliding_window)
+    if _write_kv(cache, phys, off, k, v):
+        ctx = paged_prefill_attention_quantized(
+            q, k_pool, v_pool, cache["k_scale"], cache["v_scale"], tbl_row, start, **kw
+        )
+    else:
+        attend = paged_prefill_attention if impl == "kernel" else paged_prefill_attention_plain
+        ctx = attend(q.contiguous(), k_pool, v_pool, tbl_row, start, **kw)
     return _out(cfg, p, ctx, x.dtype)
 
 
@@ -285,7 +312,8 @@ def paged_decode_attention(cfg, p: dict, x: torch.Tensor, cache: dict, pos: torc
     """Single-token decode against one layer's paged cache.
 
     x:     (B, 1, D) current token embedding stream
-    cache: {"k","v": (N, bs, KV, hd) pools of this layer, "tbl": (B, nb) block table}
+    cache: {"k","v": (N, bs, KV, hd) pools of this layer, "tbl": (B, nb) block
+           table, ["k_scale","v_scale": (N, bs, KV, 1) fp32 of quantized pools]}
     pos:   (B,) int32 absolute position of the current token.
 
     The new K/V lands in block ``tbl[b, pos // bs]`` at offset ``pos % bs``
@@ -302,13 +330,11 @@ def paged_decode_attention(cfg, p: dict, x: torch.Tensor, cache: dict, pos: torc
     pos64 = pos.long()
     phys = tbl.long()[torch.arange(B, device=x.device), pos64 // bs]
     off = pos64 % bs
-    _scatter(k_pool, phys, off, k[:, 0])
-    _scatter(v_pool, phys, off, v[:, 0])
-
     seq_lens = (pos + 1).to(torch.int32)
-    attend = paged_attention if impl == "kernel" else paged_attention_plain
-    ctx = attend(
-        q[:, 0].contiguous(), k_pool, v_pool, tbl, seq_lens,
-        softcap=cfg.attn_logit_softcap, window=cfg.sliding_window,
-    )
+    kw = dict(softcap=cfg.attn_logit_softcap, window=cfg.sliding_window)
+    if _write_kv(cache, phys, off, k[:, 0], v[:, 0]):
+        ctx = paged_attention_quantized(q[:, 0], k_pool, v_pool, cache["k_scale"], cache["v_scale"], tbl, seq_lens, **kw)
+    else:
+        attend = paged_attention if impl == "kernel" else paged_attention_plain
+        ctx = attend(q[:, 0].contiguous(), k_pool, v_pool, tbl, seq_lens, **kw)
     return _out(cfg, p, ctx[:, None], x.dtype)

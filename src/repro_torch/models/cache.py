@@ -17,6 +17,11 @@ by every layer (the JAX package stacks a copy per layer for its layer
 scan).  Physical blocks may appear in several slots' table rows at once:
 the prefix cache (``serving/prefix.py``) shares full prompt blocks by
 refcount (``serving/paged.py``).  Shared blocks are write-once.
+
+Quantized pools (``quantized="int8"|"fp8"``, ``True`` for int8) store
+``k``/``v`` in the ``serving.kvquant`` storage dtype with fp32
+per-(token, head) scales in sibling ``k_scale``/``v_scale`` leaves of
+shape ``(L, num_blocks, block_size, kv_heads, 1)``.
 """
 
 from __future__ import annotations
@@ -56,24 +61,40 @@ def init_cache(cfg, B: int, seq_len: int, dtype, *, device="cuda") -> dict:
     return cache
 
 
-def paged_cache_layout(cfg, num_blocks: int, block_size: int, max_batch: int, max_blocks_per_seq: int, dtype) -> dict:
-    """(shape, dtype) of every leaf of the stacked paged cache."""
+def paged_cache_layout(
+    cfg, num_blocks: int, block_size: int, max_batch: int, max_blocks_per_seq: int, dtype, *,
+    quantized: bool | str = False,
+) -> dict:
+    """(shape, dtype) of every leaf of the stacked paged cache; with
+    ``quantized`` the pools hold int8/e4m3 rows beside fp32 scale leaves."""
     if cfg.family != "dense":
         raise NotImplementedError(f"no paged cache for family {cfg.family!r} ({cfg.name}) in the port")
+    from repro_torch.serving.kvquant import kv_storage_dtype
+
     L, KV, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
-    pool = ((L, num_blocks, block_size, KV, hd), dtype)
-    return {"k": pool, "v": pool, "tbl": ((max_batch, max_blocks_per_seq), torch.int32)}
+    pool = ((L, num_blocks, block_size, KV, hd), kv_storage_dtype(quantized) if quantized else dtype)
+    lay = {"k": pool, "v": pool, "tbl": ((max_batch, max_blocks_per_seq), torch.int32)}
+    if quantized:
+        scale = ((L, num_blocks, block_size, KV, 1), torch.float32)
+        lay.update(k_scale=scale, v_scale=scale)
+    return lay
 
 
-def init_paged_cache(cfg, num_blocks: int, block_size: int, max_batch: int, max_blocks_per_seq: int, dtype, *, device="cuda") -> dict:
+def init_paged_cache(
+    cfg, num_blocks: int, block_size: int, max_batch: int, max_blocks_per_seq: int, dtype, *,
+    quantized: bool | str = False, device="cuda",
+) -> dict:
     """Zero-initialized paged cache; tables point at the null block."""
     device = resolve_device(device)
-    lay = paged_cache_layout(cfg, num_blocks, block_size, max_batch, max_blocks_per_seq, dtype)
+    lay = paged_cache_layout(cfg, num_blocks, block_size, max_batch, max_blocks_per_seq, dtype, quantized=quantized)
     return {name: torch.zeros(shape, dtype=dt, device=device) for name, (shape, dt) in lay.items()}
 
 
-def paged_cache_bytes(cfg, num_blocks: int, block_size: int, max_batch: int, max_blocks_per_seq: int, dtype) -> int:
-    lay = paged_cache_layout(cfg, num_blocks, block_size, max_batch, max_blocks_per_seq, dtype)
+def paged_cache_bytes(
+    cfg, num_blocks: int, block_size: int, max_batch: int, max_blocks_per_seq: int, dtype, *,
+    quantized: bool | str = False,
+) -> int:
+    lay = paged_cache_layout(cfg, num_blocks, block_size, max_batch, max_blocks_per_seq, dtype, quantized=quantized)
     return sum(math.prod(shape) * dt.itemsize for shape, dt in lay.values())
 
 

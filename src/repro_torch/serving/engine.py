@@ -44,15 +44,30 @@ reduced to the paged dense path and its legacy step walk:
   every spec tick is a mixed tick whose verify rows ride the (rows, width)
   batch, with the accept and the rollback inside the same call (one graph
   replay on the card).  Greedy tokens equal plain decoding's.
+* **Quantized pools** (``quantize_kv="int8"|"fp8"``, ``True`` for int8):
+  the block pools store int8 / e4m3 rows with fp32 per-(token, head)
+  scales (``serving.kvquant``), quantized at every write site inside the
+  step (so inside the fused step's graphs too).  They read through the
+  dequantizing plain path on every device: the JAX package has no kernel
+  for them either, and the engine warns when ``attn_impl="kernel"``.
+* **Tiered KV cache** (``spill_bytes=``, ``spill_dtype=``): the pool is
+  backed by a host-RAM spill tier (``serving.spill.SpillPool``).  An LRU
+  eviction of a prefix-cached block demotes its rows to host memory, the
+  index entry stays matchable under a spill handle, and a later prefix hit
+  swaps the rows back into fresh device blocks (``kvcache.restore_block_rows``)
+  under a per-step ``restore_budget``, in one batched in-place scatter a
+  scheduler pass.  The scheduler skips a request's prefill until its
+  swap-ins land; preempt and abort cancel pending swap-ins first and
+  demote their payloads back to the pool.  In the fused walk the restores
+  run eagerly between graph replays, from ``plan()``'s restore pass.
 
 Dispatches and host syncs are counted at the JAX engine's seams
 (``_dispatch``, ``_host_fetch``, the first-token sample), and ``stats()``
 reports them per step.
 
 Options of the JAX engine that the port does not have yet raise
-``NotImplementedError`` naming the option: ``spill_bytes``,
-``quantize_kv``, ``mesh``, ``cache_kind="dense"`` and families other than
-dense.
+``NotImplementedError`` naming the option: ``mesh``,
+``cache_kind="dense"`` and families other than dense.
 
 Observability as in the JAX engine (``serving.metrics`` +
 ``serving.trace``): one injectable ``clock`` feeds every timestamp,
@@ -66,6 +81,7 @@ from __future__ import annotations
 import itertools
 import time
 import warnings
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
@@ -76,14 +92,35 @@ from repro_torch.device import resolve_device
 from repro_torch.models import decode_step, init_paged_cache, init_params, prefill_step, unified_step, verify_step
 from repro_torch.models.attention import ATTN_IMPLS
 from repro_torch.serving.graphs import StepGraphs
-from repro_torch.serving.kvcache import copy_block_rows, make_table_row, truncate_block_rows
+from repro_torch.serving.kvcache import (
+    clear_block_row,
+    copy_block_rows,
+    gather_block_rows,
+    make_table_row,
+    restore_block_rows,
+    truncate_block_rows,
+)
+from repro_torch.serving.kvquant import normalize_kv_quant
 from repro_torch.serving.metrics import MetricsRegistry
 from repro_torch.serving.paged import BlockAllocator, blocks_needed, truncate_blocks
-from repro_torch.serving.prefix import PrefixIndex
+from repro_torch.serving.prefix import PrefixIndex, is_spilled
 from repro_torch.serving.sampler import fused_sample_accept, sample_token, sample_tokens, spec_accept
 from repro_torch.serving.scheduler import Request, RequestState, SchedulerCore
 from repro_torch.serving.spec_decode import DraftModel, make_draft_config, ngram_draft
+from repro_torch.serving.spill import SPILL_MODES, SpillPool, warn_if_fp8_over_int8
 from repro_torch.serving.trace import SCHEDULER_TRACK, Tracer, slot_track
+
+
+@dataclass
+class _RestoreTask:
+    """One pending spill swap-in: ``payload`` rows destined for device block
+    ``dst``.  ``cow`` marks a partial-tail restore whose canonical entry
+    stays in the pool (a cancel must not demote the private copy back)."""
+
+    dst: int
+    payload: dict
+    cow: bool
+    t0: float
 
 
 class InferenceEngine:
@@ -108,6 +145,8 @@ class InferenceEngine:
         policy: str = "slo",
         defrag_threshold: float = 0.5,
         spill_bytes: int = 0,
+        spill_dtype: str = "cache",
+        restore_budget: int = 4,
         spec_decode: str = "off",
         spec_k: int = 4,
         draft_cfg=None,
@@ -121,13 +160,8 @@ class InferenceEngine:
     ):
         if cfg.is_encoder_only:
             raise ValueError(f"{cfg.name} is encoder-only; no decode serving")
-        for name, value, default in (
-            ("spill_bytes", spill_bytes, 0),
-            ("quantize_kv", quantize_kv, False),
-            ("mesh", mesh, None),
-        ):
-            if value != default:
-                raise NotImplementedError(f"{name}={value!r} is not ported yet")
+        if mesh is not None:
+            raise NotImplementedError(f"mesh={mesh!r} is not ported yet")
         if cache_kind != "paged":
             raise NotImplementedError(f"cache_kind={cache_kind!r} is not ported yet (only 'paged')")
         if cfg.family != "dense":
@@ -149,6 +183,14 @@ class InferenceEngine:
         self.cache_kind = cache_kind
         self.attn_impl = attn_impl
         self.fused = bool(fused)
+        self.quantize_kv = normalize_kv_quant(quantize_kv)  # "int8" | "fp8" | None
+        if self.quantize_kv and attn_impl == "kernel":
+            warnings.warn(
+                f"{self.quantize_kv} block pools have no kernel yet; decode runs the "
+                "dequantizing plain path despite attn_impl='kernel'",
+                RuntimeWarning,
+                stacklevel=2,
+            )
 
         # ---- observability: one injectable clock feeds every timestamp,
         # one registry collects every counter/gauge/histogram, one bounded
@@ -166,7 +208,11 @@ class InferenceEngine:
         self._c_preempted = M.counter("engine_preemptions_total", "scheduler evictions of running requests")
         self._c_deadline_miss = M.counter("engine_deadline_violations_total", "finished requests whose TTFT missed deadline_s")
         self._c_aborted = M.counter("engine_requests_aborted_total", "requests aborted (client cancel, deadline, migration)")
+        self._c_spill_hit = M.counter("engine_spill_hit_tokens_total", "prompt tokens served from the host spill tier")
+        self._c_restored = M.counter("engine_restores_total", "spilled blocks swapped back into device blocks")
+        self._c_restore_cancel = M.counter("engine_restores_cancelled_total", "queued swap-ins cancelled by preempt/abort")
         self._h_queue_wait = M.histogram("engine_queue_wait_seconds", "submit to admission")
+        self._h_restore_wait = M.histogram("engine_restore_wait_seconds", "swap-in queued to rows scattered on device")
         self._h_ttft = M.histogram("engine_ttft_seconds", "submit to first generated token")
         self._h_admit_first = M.histogram("engine_admit_to_first_token_seconds", "admission to first generated token")
         self._h_tpot = M.histogram("engine_tpot_seconds", "mean inter-token time per finished request")
@@ -191,7 +237,9 @@ class InferenceEngine:
         # decisions and the chunked-prefill budget live in SchedulerCore; the
         # engine provides the execution primitives (try_admit / run_chunk /
         # finish_prefill / preempt / ...) below
-        self.scheduler = SchedulerCore(self, policy=policy, prefill_budget=prefill_budget)
+        if restore_budget < 1:
+            raise ValueError(f"restore_budget={restore_budget} (need >= 1)")
+        self.scheduler = SchedulerCore(self, policy=policy, prefill_budget=prefill_budget, restore_budget=restore_budget)
         self.defrag_threshold = defrag_threshold
 
         # speculative decoding: a verify pass writes up to spec_k positions
@@ -235,15 +283,35 @@ class InferenceEngine:
         inner_evict = self.allocator.on_evict
 
         def _evict_hook(block, _inner=inner_evict):
+            # the prefix index returns "spilled" when the block's rows were
+            # demoted to the host pool; the allocator counts the two apart
             tier = _inner(block) if _inner is not None else None
-            self.tracer.instant("evict", track=SCHEDULER_TRACK, block=block)
+            self.tracer.instant("spill" if tier == "spilled" else "evict", track=SCHEDULER_TRACK, block=block)
             return tier
 
         self.allocator.on_evict = _evict_hook
+        # host spill tier: evicted prefix blocks park in host RAM and swap
+        # back in on a later hit instead of running prefill again
+        if spill_dtype not in SPILL_MODES:
+            raise ValueError(f"spill_dtype={spill_dtype!r} (choose from {SPILL_MODES})")
+        self.spill = None
+        if spill_bytes > 0:
+            if self.prefix is None:
+                warnings.warn(
+                    f"spill_bytes needs the prefix cache (paged cache + dense/moe family); disabled for {cfg.name}",
+                    RuntimeWarning,
+                    stacklevel=2,
+                )
+            else:
+                spill_dtype = warn_if_fp8_over_int8(self.quantize_kv, spill_dtype)
+                self.spill = SpillPool(spill_bytes, mode=spill_dtype)
+                self.prefix.attach_spill(self.spill, self._fetch_block_rows)
+                self.spill.attach_metrics(self.metrics)
         self.tbl = np.zeros((max_batch, self.max_blocks_per_seq), np.int32)
         self._tbl_dirty = True
         self.cache = init_paged_cache(
-            cfg, num_blocks, block_size, max_batch, self.max_blocks_per_seq, cache_dtype, device=self.device
+            cfg, num_blocks, block_size, max_batch, self.max_blocks_per_seq, cache_dtype, quantized=self.quantize_kv,
+            device=self.device,
         )
 
         self.pos = np.zeros((max_batch,), np.int32)  # next position per slot
@@ -275,6 +343,12 @@ class InferenceEngine:
         self.spec_emitted = 0  # tokens emitted through verify passes
         self.defrag_triggers = 0
         self._frees_seen = 0  # auto-defrag: only re-check after new frees
+        self.spill_hits = 0  # admissions that matched >= 1 spilled block
+        self.spill_hit_tokens = 0  # prompt tokens served from the host tier
+        self.restores = 0  # spilled blocks swapped back onto the device
+        self.restores_cancelled = 0  # queued swap-ins cancelled (preempt/abort)
+        self._restore_q: list[_RestoreTask] = []  # FIFO, drained per scheduler pass
+        self._restoring: set[int] = set()  # dst blocks with a queued task
 
     # ------------------------------------------------------------------
     @property
@@ -372,6 +446,7 @@ class InferenceEngine:
         self.pos[slot] = 0
         self.tbl[slot] = 0  # null block
         self._tbl_dirty = True
+        self.cache = clear_block_row(self.cfg, self.cache, slot)
 
     def preempt(self, req: Request) -> None:
         """Evict a running request: park its committed K/V in the prefix
@@ -380,6 +455,10 @@ class InferenceEngine:
         positions ``[0, written)``: ``len(ctx) - 1`` for a decoding request,
         ``prefill_pos`` for a mid-prefill one."""
         slot = req.slot
+        # cancel in-flight swap-ins first: cancelled entries demote back to
+        # the spill pool, so the register below skips their chain positions
+        # and the release frees the never-written destination blocks
+        self._cancel_restores(req)
         written = int(req.prefill_pos if req.prefilling else self.pos[slot])
         if self.prefix is not None and req.freed_blocks == 0:
             # index the committed context up to the written position
@@ -428,6 +507,7 @@ class InferenceEngine:
                 return False
         else:  # ACTIVE: mid-prefill or decoding, holds a slot
             self.scheduler.drop_prefilling(req)
+            self._cancel_restores(req)
             written = int(req.prefill_pos if req.prefilling else self.pos[slot])
             self._release_request_blocks(req, written)
             self._clear_slot(slot)
@@ -485,38 +565,152 @@ class InferenceEngine:
         else:
             self.allocator.free(blocks)
 
+    # ---- spill tier: gather / swap-in machinery ----------------------
+    def _fetch_block_rows(self, block: int) -> dict:
+        """One block's K/V rows off the device pool, copied (the prefix
+        index calls this at evict time, before the allocator reuses the
+        block): the ``SpillPool`` staging ring holds the copy."""
+        return gather_block_rows(self.cache, block)
+
+    def _queue_restore(self, dst: int, payload: dict, *, cow: bool, req: Request) -> None:
+        self._restore_q.append(_RestoreTask(dst, payload, cow, self._clock()))
+        self._restoring.add(dst)
+        req.pending_restores.add(dst)
+
+    def restoring(self, req: Request) -> bool:
+        """Scheduler gate: the request's block table points at rows the
+        restore pass has not scattered yet, so no prefill chunk (or table
+        publish) may run until the swap-ins land."""
+        return bool(req.pending_restores)
+
+    def run_restores(self, budget: int) -> int:
+        """Execute up to ``budget`` queued swap-ins as ONE in-place scatter
+        (rows stacked along a new block axis), then unblock every admitted
+        request that waited on them.  The scheduler calls it between
+        admission and the prefill budget of each pass (``plan()`` in the
+        fused walk, eagerly between graph replays)."""
+        if budget <= 0 or not self._restore_q:
+            return 0
+        tasks = self._restore_q[:budget]
+        del self._restore_q[: len(tasks)]
+        t0 = self._clock()
+        rows = {
+            name: torch.stack(
+                [t.payload[name].to(device=self.device, dtype=self.cache[name].dtype) for t in tasks], dim=1
+            )
+            for name in tasks[0].payload
+        }
+        blocks = self._device_ints([t.dst for t in tasks])
+        self.cache = self._dispatch(restore_block_rows, self.cache, blocks, rows)
+        now = self._clock()
+        done = {t.dst for t in tasks}
+        self._restoring -= done
+        for r in self.slots:
+            if r is not None and r.pending_restores:
+                r.pending_restores -= done
+        for t in tasks:
+            self._h_restore_wait.observe(max(now - t.t0, 0.0))
+        n = len(tasks)
+        self.restores += n
+        self._c_restored.inc(n)
+        if self.spill is not None:
+            self.spill.restores += n
+        self.tracer.span("restore", t0, track=SCHEDULER_TRACK, blocks=n, queued=len(self._restore_q))
+        return n
+
+    def _cancel_restores(self, req: Request) -> None:
+        """Drop the request's pending swap-ins (preempt / abort mid-restore).
+        A task another admitted request also waits on stays queued; an
+        exclusive full-block task is removed and its entry *demoted* back to
+        the spill pool: the destination block was never written, so the rows
+        exist only in the payload.  COW tasks just drop (the canonical entry
+        never left the pool)."""
+        if not req.pending_restores:
+            return
+        for b in sorted(req.pending_restores):
+            req.pending_restores.discard(b)
+            if any(r is not None and r is not req and b in r.pending_restores for r in self.slots):
+                continue
+            task = next((t for t in self._restore_q if t.dst == b), None)
+            if task is None:
+                continue  # already scattered
+            self._restore_q.remove(task)
+            self._restoring.discard(b)
+            self.restores_cancelled += 1
+            self._c_restore_cancel.inc()
+            if not task.cow and self.prefix is not None:
+                self.prefix.demote(b, task.payload)
+            self.tracer.instant("restore_cancel", track=SCHEDULER_TRACK, block=b, req_id=req.req_id)
+
     def _admit_chunked(self, req: Request, slot: int) -> bool:
         """Prefix-matched, block-budgeted admission (no model call: context
         chunks run inside later ``step()`` prefill budgets).  Returns False
         when the pool can't cover the request's unshared blocks.  A resumed
         (previously preempted) request admits with its committed context
-        ``prompt + generated`` in place of the prompt."""
+        ``prompt + generated`` in place of the prompt.
+
+        Matched blocks may live on either tier: device entries pin by
+        refcount; **spilled** entries (negative handles) need a fresh device
+        block each.  Their payloads are popped from the host pool *before*
+        ``alloc`` (eviction inside alloc can spill new entries and must never
+        LRU-drop rows about to swap back in), the entries are ``promote``d
+        onto the new blocks, and the row scatter is queued for the
+        scheduler's budgeted restore pass.  A spilled partial tail copies on
+        write from the pool's decompressed rows while the canonical entry
+        stays put."""
         needed = blocks_needed(len(req.prompt) + req.max_new_tokens + self._spec_extra, self.block_size)
         ctx = req.context()
         full, partial = self.prefix.match(ctx) if self.prefix is not None else ([], None)
-        need_new = needed - len(full)
+        dev_full = [b for b in full if not is_spilled(b)]
+        spilled = [b for b in full if is_spilled(b)]
+        partial_spilled = partial is not None and is_spilled(partial.block)
+        need_new = needed - len(dev_full)
         if self.prefix is not None:
-            # pin matched blocks first so the free-count check below can't
-            # hand them out as eviction victims
-            self.prefix.acquire(full)
-            if partial is not None:
+            # pin matched device blocks first so the free-count check below
+            # can't hand them out as eviction victims
+            self.prefix.acquire(dev_full)
+            if partial is not None and not partial_spilled:
                 self.prefix.acquire([partial.block])
         if need_new > self.allocator.num_free:
             if self.prefix is not None:
-                self.prefix.release(full)
-                if partial is not None:
+                self.prefix.release(dev_full)
+                if partial is not None and not partial_spilled:
                     self.prefix.release([partial.block])
             return False  # out of blocks: backpressure until frees
+        payloads = {h: self.spill.pop(h) for h in spilled}
+        cow_payload = self.spill.get(partial.block) if partial_spilled else None
+        # chain state is read while the handles are still in the index
+        # (promote re-keys them)
         reg_parent = self.prefix.parent_hash(full) if self.prefix is not None else 0
         new_blocks = self.allocator.alloc(need_new)
-        req.blocks = list(full) + new_blocks
+        ni = 0
+        blocks: list[int] = []
+        for b in full:
+            if not is_spilled(b):
+                if b in self._restoring:
+                    # promoted by an earlier admission, rows still in
+                    # flight: this sharer waits on the same task
+                    req.pending_restores.add(b)
+                blocks.append(b)
+                continue
+            nb = new_blocks[ni]
+            ni += 1
+            self.prefix.promote(b, nb)
+            self._queue_restore(nb, payloads[b], cow=False, req=req)
+            blocks.append(nb)
+        req.blocks = blocks + new_blocks[ni:]
         matched = len(full) * self.block_size
         if partial is not None:
             # copy-on-write: the partially-shared block's rows move into the
             # request's first private block; its suffix is overwritten by
             # the first prefill chunk while the cached original stays put
-            copy_block_rows(self.cache, partial.block, new_blocks[0])
-            self.prefix.release([partial.block])
+            # (device tier) or parked in the spill pool (host tier)
+            dst = new_blocks[ni]
+            if partial_spilled:
+                self._queue_restore(dst, cow_payload, cow=True, req=req)
+            else:
+                copy_block_rows(self.cache, partial.block, dst)
+                self.prefix.release([partial.block])
             matched += partial.tokens
             self.prefix_partial_hits += 1
         if matched:
@@ -524,6 +718,15 @@ class InferenceEngine:
             self.prefix_hit_tokens += matched
             req.prefix_hit_tokens += matched  # accumulates across resumes
             self._c_prefix_hit.inc(matched)
+        spill_matched = len(spilled) * self.block_size + (partial.tokens if partial_spilled else 0)
+        if spill_matched:
+            self.spill_hits += 1
+            self.spill_hit_tokens += spill_matched
+            self._c_spill_hit.inc(spill_matched)
+            self.tracer.instant(
+                "spill_hit", track=slot_track(slot), req_id=req.req_id, tokens=spill_matched,
+                blocks=len(spilled) + int(partial_spilled),
+            )
         if self.prefix is not None:
             # registration resumes after the matched (already indexed) blocks
             req.reg_block = len(full)
@@ -1166,4 +1369,11 @@ class InferenceEngine:
             s["prefix_hit_tokens"] = self.prefix_hit_tokens
             s["prefix_hit_rate"] = self.prefix_hit_tokens / served if served else 0.0
             s.update({f"prefix_{k}": v for k, v in self.prefix.stats().items()})
+        if self.spill is not None:
+            s["spill_hits"] = self.spill_hits
+            s["spill_hit_tokens"] = self.spill_hit_tokens
+            s["restores"] = self.restores
+            s["restores_cancelled"] = self.restores_cancelled
+            s["restores_pending"] = len(self._restore_q)
+            s.update({f"spill_{k}": v for k, v in self.spill.stats().items()})
         return s

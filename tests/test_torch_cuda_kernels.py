@@ -25,6 +25,14 @@ plain version; verify rows beside a chunk row in one ``unified_step``
 through K2 and through the plain attention; ``truncate_block_rows``
 captured in a graph and replayed, rejected rows zero and the rest
 unchanged.
+
+KV-cache tiers: the plain dequantizing read of int8 / e4m3 pools (they
+have no kernel) against K1/K2 over fp32 pools that hold the same
+dequantized rows, within 1e-4, with scales shifted by one token row as the
+control that must miss it; a block gathered off a bf16 pool, spilled to
+host memory (``SpillPool``, staging depth 0), popped and restored into
+another block bit for bit, K2 over the restored block bit-equal to K2 over
+the original, and a restore into the neighbouring block as the control.
 """
 
 import numpy as np
@@ -490,3 +498,77 @@ def test_cuda_truncate_block_rows_in_a_graph():
                     expected[:, rows[b, pos // bs], pos % bs] = 0
             # block 0, the null block, takes the dead lanes' writes
             assert torch.equal(cache[n].cpu()[:, 1:], expected[:, 1:]), (n, ranges)
+
+
+def _quantized_case(mode, kind, seed=3, H=16, KV_=16, hd=128, bs=32, nb=16):
+    """int8 / e4m3 pools filled by ``quantize`` from random K/V, the fp32
+    pools holding the same dequantized rows, a table and the queries."""
+    from repro_torch.serving.kvquant import quantize
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B = 4 if kind == "decode" else 1
+    N = 1 + B * nb
+    pools = {}
+    for name in ("k", "v"):
+        codes, scale = quantize(torch.randn((N, bs, KV_, hd), generator=g, device="cuda"), mode)
+        pools[name], pools[f"{name}_scale"], pools[f"{name}_fp32"] = codes, scale, codes.float() * scale
+    tbl = torch.arange(1, N, dtype=torch.int32, device="cuda").reshape(B, nb)
+    if kind == "decode":
+        q = torch.randn((B, H, hd), generator=g, device="cuda")
+        lens = torch.tensor([77, 160, 291, 352], dtype=torch.int32, device="cuda")
+    else:
+        q = torch.randn((B, 128, H, hd), generator=g, device="cuda")
+        lens = torch.tensor([192], dtype=torch.int32, device="cuda")
+    return q, pools, tbl, lens
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+def test_cuda_kv_quant_read_matches_kernels(mode, kind):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, p, tbl, lens = _quantized_case(mode, kind)
+    if kind == "decode":
+        plain, kernel = K.paged_attention_quantized, K.paged_attention
+    else:
+        plain, kernel = K.paged_prefill_attention_quantized, K.paged_prefill_attention
+    got = plain(q, p["k"], p["v"], p["k_scale"], p["v_scale"], tbl, lens)
+    ref = kernel(q, p["k_fp32"], p["v_fp32"], tbl, lens)
+    shifted = plain(q, p["k"], p["v"], torch.roll(p["k_scale"], 1, dims=1), p["v_scale"], tbl, lens)
+    torch.cuda.synchronize()
+    assert _err(got, ref) < TOL[torch.float32]
+    assert _err(shifted, ref) > TOL[torch.float32], "the control (scales one row off) passes"
+    with pytest.raises(ValueError, match="quantized pools need scales"):
+        kernel(q, p["k"], p["v"], tbl, lens)
+
+
+@pytest.mark.gpu
+def test_cuda_spill_restore_round_trip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.serving import SpillPool, gather_block_rows, restore_block_rows
+
+    L, N, bs, KV_, hd, nb = 2, 12, 32, 16, 128, 8
+    g = torch.Generator(device="cuda").manual_seed(9)
+    cache = {n: torch.randn((L, N, bs, KV_, hd), generator=g, device="cuda").bfloat16() for n in ("k", "v")}
+    src, dst = 3, 10
+    pool = SpillPool(1 << 30, mode="cache", staging_depth=0)
+    h = pool.put(gather_block_rows(cache, src))
+    assert pool.stats()["staged"] == 0 and pool._payload[h]["k"].device.type == "cpu"
+    rows = pool.pop(h)
+    restore_block_rows(cache, torch.tensor([dst], dtype=torch.int32), {n: t[:, None] for n, t in rows.items()})
+    for n in cache:
+        assert torch.equal(cache[n][:, dst], cache[n][:, src]), n
+    q = torch.randn((1, 40, 16, hd), generator=g, device="cuda")
+    start = torch.tensor([200], dtype=torch.int32, device="cuda")
+    base = torch.arange(1, 1 + nb, dtype=torch.int32, device="cuda")[None]  # block src at index 2
+    moved = base.clone()
+    moved[0, src - 1] = dst
+    near = base.clone()
+    near[0, src - 1] = dst + 1  # the neighbouring block: the control
+    out = {name: K.paged_prefill_attention(q, cache["k"][0], cache["v"][0], t, start)
+           for name, t in (("base", base), ("moved", moved), ("near", near))}
+    torch.cuda.synchronize()
+    assert torch.equal(out["moved"], out["base"])
+    assert not torch.equal(out["near"], out["base"])

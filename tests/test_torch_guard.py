@@ -129,14 +129,14 @@ def test_kernel_wrappers_never_fall_back():
 
 @pytest.mark.parametrize(
     "option,value,error",
-    [("spec_decode", "bogus", ValueError), ("spec_k", 0, ValueError), ("spill_bytes", 1 << 20, NotImplementedError),
-     ("quantize_kv", "int8", NotImplementedError), ("mesh", object(), NotImplementedError),
+    [("spec_decode", "bogus", ValueError), ("spec_k", 0, ValueError), ("spill_dtype", "fp4", ValueError),
+     ("restore_budget", 0, ValueError), ("mesh", object(), NotImplementedError),
      ("cache_kind", "dense", NotImplementedError)],
 )
 def test_options_outside_the_slice_raise(option, value, error):
     """Options the port does not have yet raise ``NotImplementedError``
-    naming the option; invalid speculative settings raise the JAX engine's
-    own ``ValueError``."""
+    naming the option; invalid speculative and spill-tier settings raise
+    the JAX engine's own ``ValueError``."""
     from repro_torch.config import reduce_for_smoke
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
