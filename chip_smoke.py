@@ -5,7 +5,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and exits non-zero, printing no result, without one
 or when any check fails.  Phases:
 
-1. Card and build: the card's name and power limit, the torch and CUDA
+1. Card and build: the card's name and power limit, its board power
+   before any work (ten ``nvidia-smi`` readings), the torch and CUDA
    versions, then ``nvcc`` builds the five sources of
    ``src/repro_torch/kernels/csrc`` for ``sm_90a``, all started together,
    with the seconds each took; then the count of HGMMA (``wgmma``)
@@ -116,6 +117,28 @@ or when any check fails.  Phases:
    of a full-width bf16 pool through host memory and back into another
    block (rows and K2 over it bit-equal; a restore into the neighbouring
    block is the control) and times the copies.
+5g. Fig. 9 (``fig9``): ``repro_torch.benchmarks.llm_inference``'s
+   closed-loop arms at full width: the dense slot cache (4 slots,
+   max_seq 512) against the paged pool at the same cache bytes (block 32,
+   64 blocks, 16 slots) on 16 requests of 64-320 prompt tokens and 32 new
+   tokens; the shared-system-prompt A/B (a 96-token system prompt, 8-token
+   tails, prefix cache off / on); speculative decoding off / n-gram /
+   self-draft on the repetitive-suffix prompts; a profiled run of each
+   cache kind (``profile=True``) and the fused arm (legacy and fused).
+   Each arm prints TTFT and TPOT p50/p99, output tokens/s, decode steps
+   and tick, ``peak_active``, cache bytes, peak blocks, prefill tokens,
+   hit rate, acceptance, tokens per verify, joules per token (the H100
+   power model of ``core.telemetry``) and the profiled phases' seconds;
+   then one 4-slot decode step over the dense ring and over the paged
+   pools under ``torch.profiler``, as the profile phase.
+   It fails unless the dense cache has ``models.cache_bytes`` and the
+   paged one no more, dense and paged (and fused and legacy) tokens agree
+   up to near-ties (``FIG9_TIE_TOL``; a dense engine whose admitted rings
+   sit one slot off is the control that must differ away from one), the
+   prefix cache at least halves prefill tokens, the
+   self-draft emits more than one token per slot-step, no block stays in
+   use, K1 and K2 ran, profiling leaves the tokens as they were and the
+   requests' joules sum to the engine's.
 6. Train: FP8 training of olmo-1b at full width and depth (fp32 master
    weights, bf16 compute, K4 for every projection GEMM, remat per block),
    4 steps of 4 x 2048 tokens from random weights (seed 0), with the loss,
@@ -586,17 +609,17 @@ def top2_gap(cfg, params, device, context, quantize_kv=False) -> float:
     return float(top[0] - top[1])
 
 
-def differences(cfg, params, device, reqs, legacy_tokens, quantize_kv=False) -> list[dict]:
+def differences(cfg, params, device, reqs, legacy_tokens, quantize_kv=False, tol=PATH_TOL) -> list[dict]:
     """Each request whose tokens differ from the legacy run's: the first
     position where they do and the legacy tokens' top-2 logit gap there
     (through pools of the run's kind), a near-tie when it is below
-    ``PATH_TOL``."""
+    ``tol``."""
     differ = []
     for i, (r, ref) in enumerate(zip(reqs, legacy_tokens)):
         j = next((j for j, (a, b) in enumerate(zip(r.generated, ref)) if a != b), None)
         if j is not None:
             gap = top2_gap(cfg, params, device, r.prompt + ref[:j], quantize_kv)
-            differ.append({"request": i, "position": j, "legacy_top2_gap": gap, "near_tie": gap < PATH_TOL})
+            differ.append({"request": i, "position": j, "legacy_top2_gap": gap, "near_tie": gap < tol})
     return differ
 
 
@@ -1401,6 +1424,156 @@ def spill_restore_phase(cfg, device, iters=10) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5g: the Fig. 9 harness at full width
+# ---------------------------------------------------------------------------
+
+FIG9_DENSE_BATCH, FIG9_MAX_SEQ, FIG9_PAGED_BATCH = 4, 512, 16  # paged: 4 x 512 / 32 = 64 blocks
+FIG9_SHARED = dict(n=16, system_len=96, tail=8)  # a 3-block system prompt, 8-token tails
+JOULES_REL = 1e-9  # per-request joules against the engine's: float sums of the same terms
+# dense against paged tokens: a first difference must sit at a top-2 gap
+# below this.  The dense prefill attends its fp32 K/V unrounded while the
+# paged chunks attend bf16 rows, so near-ties flip.  Readings on an H100
+# 80GB HBM3 at 700 W: the sound walks differ at gaps up to 0.011; the
+# control (each admitted ring shifted one slot) differs at gaps far above
+# the limit (PERF.md, PR 21)
+FIG9_TIE_TOL = 2e-2
+FIG9_CONTROL_NEW = 8  # the control's tokens: its fault shows from the second token on
+
+
+def ring_one_slot_off(engine_cls):
+    """The control of the dense-against-paged gate: a dense engine whose
+    admission leaves each prompt's K/V one ring slot late (positions
+    unchanged), so every decode step reads its neighbour's keys."""
+
+    class RingOneSlotOff(engine_cls):
+        def _admit_blocking(self, req, slot):
+            admitted = super()._admit_blocking(req, slot)
+            for name in ("k", "v"):
+                self.cache[name][:, slot] = self.cache[name][:, slot].roll(1, dims=1)
+            return admitted
+
+    return RingOneSlotOff
+
+
+def fig9_readings(s: dict) -> dict:
+    """What ``fig9`` prints of one harness arm's stats."""
+    keys = ("ttft_p50_s", "ttft_p99_s", "tpot_p50_s", "tpot_p99_s", "tok_per_s", "wall_s", "decode_steps",
+            "decode_tick_p50_s", "tokens_out", "peak_active", "cache_bytes", "alloc_peak_in_use", "alloc_capacity",
+            "alloc_blocks_in_use", "prefill_tokens", "prefix_hit_tokens", "prefix_hit_rate", "acceptance_rate",
+            "accepted_per_step", "drafted_tokens", "accepted_tokens", "energy_joules", "joules_per_token",
+            "request_joules", "dispatches_per_step", "host_syncs_per_step", "profile_s")
+    return {k: s[k] for k in keys if k in s}
+
+
+def fig9_phase(cfg, params, device, max_new_tokens=32) -> dict:
+    """``repro_torch.benchmarks.llm_inference``'s closed-loop arms at full
+    width: dense (4 slots, max_seq 512) against paged at the same cache
+    bytes (block 32, 64 blocks, 16 slots) on 16 requests of 64-320 prompt
+    tokens; the shared-system-prompt A/B (prefix cache off / on, 4 slots,
+    prefill budget 128); speculative decoding off / n-gram / self-draft on
+    the repetitive-suffix prompts (``spec_k = 4``, 24 new tokens).  Then
+    one profiled run of each cache kind on the first arms' prompts, and the
+    fused arm (legacy and fused engines, each after a warm-up round) on the
+    shared prompts.  bf16 caches, an ``eos_token`` outside the vocab.
+
+    Gates: the dense cache is ``models.cache_bytes(cfg, 4, 512, bf16)`` and
+    the paged one no larger; dense and paged tokens equal up to near-ties
+    (``differences``), as the fused arm's against its legacy run; cached
+    prefill tokens at most half the uncached, hit rate above 0; the
+    self-draft emits more than one token per slot-step; no block in use
+    after any drain; the control (a dense engine whose admitted rings sit
+    one slot off) differs from the dense tokens away from a near-tie; K1 and K2 ran; the profiled runs' tokens equal the
+    unprofiled runs'; per-request joules sum to the engine's.  The n-gram
+    arm's acceptance is a reading: random weights need not continue the
+    pattern."""
+    from types import SimpleNamespace
+
+    from repro_torch.benchmarks import llm_inference as bench
+    from repro_torch.kernels import paged_attention as K
+    from repro_torch.models import cache_bytes
+    from repro_torch.serving import InferenceEngine
+
+    prompts = serving_prompts(cfg, SEED) + serving_prompts(cfg, SEED + 2)
+    shared = bench.shared_prefix_prompts(**FIG9_SHARED)
+    sizes = dict(
+        device=device, cache_dtype=torch.bfloat16, eos_token=cfg.padded_vocab, max_seq=FIG9_MAX_SEQ,
+        block_size=BLOCK_SIZE,
+    )
+    K.reset_launches()  # the harness's closed-loop arms start here
+    arms = bench.closed_loop(
+        cfg, params, dense_batch=FIG9_DENSE_BATCH, paged_batch=FIG9_PAGED_BATCH, prompts=prompts,
+        max_new=max_new_tokens, shared=shared, shared_budget=128, spec_k=SPEC_K, **sizes,
+    )
+    launches = dict(K.LAUNCHES)
+    dense_kw, paged_kw = bench.dense_paged_kwargs(
+        dense_batch=FIG9_DENSE_BATCH, paged_batch=FIG9_PAGED_BATCH, **sizes)
+    control = bench.drive(ring_one_slot_off(InferenceEngine)(cfg, params, **dense_kw), prompts,
+                          max_new=FIG9_CONTROL_NEW)  # the control of the dense-against-paged gate
+    for kind, kw in (("dense", dense_kw), ("paged", paged_kw)):  # the same arms, profiled
+        arms[f"{kind}_profiled"] = bench.drive(InferenceEngine(cfg, params, profile=True, **kw), prompts,
+                                               max_new=max_new_tokens)
+    # where a decode tick's time goes, the dense ring against the paged pools
+    decode_profiles = {kind: profile_phase(cfg, params, device, cache_kind=kind) for kind in ("dense", "paged")}
+    fused_kw = dict(max_batch=bench.SHARED_BATCH, cache_kind="paged", prefix_cache=True, prefill_budget=128, **sizes)
+    fused = {label: bench.fused_arm(cfg, params, shared, fused=f, **fused_kw)
+             for label, f in (("legacy", False), ("fused", True))}
+
+    out = {"phase": "fig9", "model": cfg.name, "requests": len(prompts), "max_new_tokens": max_new_tokens,
+           "launches": launches, "decode_step_profiles": decode_profiles}
+    for name, s in arms.items():
+        out[name] = fig9_readings(s)
+        emit({"phase": "fig9", "arm": name, **out[name]})
+    for label, a in fused.items():
+        row = {k: v for k, v in a.items() if k != "tokens"}
+        out[f"fused_arm_{label}"] = row
+        emit({"phase": "fig9", "arm": f"fused_arm_{label}", **row, "model_step_s_is": bench.MODELLED})
+
+    as_reqs = lambda ps, toks: [SimpleNamespace(prompt=p, generated=t) for p, t in zip(ps, toks)]  # noqa: E731
+    dense, paged = arms["dense"], arms["paged"]
+    out["dense_vs_paged"] = differences(cfg, params, device, as_reqs(prompts, paged["tokens"]), dense["tokens"],
+                                        tol=FIG9_TIE_TOL)
+    out["control_vs_dense"] = differences(cfg, params, device, as_reqs(prompts, control["tokens"]),
+                                          dense["tokens"], tol=FIG9_TIE_TOL)
+    out["fused_vs_legacy"] = differences(cfg, params, device, as_reqs(shared, fused["fused"]["tokens"]),
+                                         fused["legacy"]["tokens"])
+    expect_bytes = cache_bytes(cfg, FIG9_DENSE_BATCH, FIG9_MAX_SEQ, torch.bfloat16)
+    emit({"phase": "fig9", "summary": {
+        "launches": launches, "dense_cache_bytes": dense["cache_bytes"], "expected_dense_cache_bytes": expect_bytes,
+        "paged_cache_bytes": paged["cache_bytes"], "peak_active": {"dense": dense["peak_active"],
+                                                                   "paged": paged["peak_active"]},
+        "dense_vs_paged": out["dense_vs_paged"], "fused_vs_legacy": out["fused_vs_legacy"],
+        "tie_limit": FIG9_TIE_TOL, "control": "ring_one_slot_off", "control_vs_dense": out["control_vs_dense"],
+        "ngram_acceptance_rate": arms["spec_ngram"].get("acceptance_rate"),
+        "ngram_tokens_per_verify": arms["spec_ngram"].get("accepted_per_step"),
+    }})
+    if dense["cache_bytes"] != expect_bytes or paged["cache_bytes"] > dense["cache_bytes"]:
+        fail(f"fig9: cache bytes dense {dense['cache_bytes']} (expected {expect_bytes}), paged {paged['cache_bytes']}")
+    for name, s in arms.items():
+        if not all(r == "length" for r in s["finish_reasons"]):
+            fail(f"fig9 {name}: requests did not all finish by length: {s['finish_reasons']}")
+        if s.get("alloc_blocks_in_use", 0) != 0:
+            fail(f"fig9 {name}: {s['alloc_blocks_in_use']} blocks in use after the drain")
+        if abs(s["request_joules"] - s["energy_joules"]) > JOULES_REL * s["energy_joules"] or s["energy_joules"] <= 0:
+            fail(f"fig9 {name}: requests' joules {s['request_joules']} against the engine's {s['energy_joules']}")
+    for kind in ("dense", "paged"):
+        if arms[f"{kind}_profiled"]["tokens"] != arms[kind]["tokens"]:
+            fail(f"fig9: the profiled {kind} run's tokens differ from the unprofiled run's")
+    if not all(d["near_tie"] for d in out["dense_vs_paged"] + out["fused_vs_legacy"]):
+        fail(f"fig9: tokens differ away from a near-tie: {out['dense_vs_paged']} {out['fused_vs_legacy']}")
+    if all(d["near_tie"] for d in out["control_vs_dense"]):
+        fail(f"fig9: the control (rings one slot off) passes the tie gate: {out['control_vs_dense']}")
+    cached, uncached = arms["prefix_cached"], arms["prefix_uncached"]
+    if not (2 * cached["prefill_tokens"] <= uncached["prefill_tokens"] and cached["prefix_hit_rate"] > 0):
+        fail(f"fig9: cached prefill tokens {cached['prefill_tokens']} against {uncached['prefill_tokens']}, "
+             f"hit rate {cached['prefix_hit_rate']}")
+    if not arms["spec_draft"]["accepted_per_step"] > 1.0:
+        fail(f"fig9: the self-draft emits {arms['spec_draft']['accepted_per_step']} tokens per slot-step")
+    if not (launches["paged_decode"] > 0 and launches["paged_prefill"] > 0):
+        fail(f"fig9: the paged arms launched no K1 or no K2: {launches}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel path against plain path at full width
 # ---------------------------------------------------------------------------
 
@@ -1481,16 +1654,25 @@ def profiled(fn, steps: int = 1) -> tuple[dict, float, float, dict]:
     return by_name, launches / steps, wall_ms, by_span
 
 
-def profile_phase(cfg, params, device, steps=5, quantize_kv=False) -> dict:
+def profile_phase(cfg, params, device, steps=5, quantize_kv=False, cache_kind="paged") -> dict:
     """The 4-slot decode step at the kernel phase's lengths: host wall time
     per step (no profiler), then device time by kernel under
     ``torch.profiler``.  Idle share = 1 - device busy / wall.  With
-    ``quantize_kv`` the pools are int8 / e4m3 and read plain."""
+    ``quantize_kv`` the pools are int8 / e4m3 and read plain; with
+    ``cache_kind="dense"`` the step reads the dense ring cache (4 rows of
+    512 slots, each slot's history filled to its length)."""
     from repro_torch.models import decode_step, init_paged_cache
+    from repro_torch.serving.kvcache import make_engine_cache
 
     B = len(DECODE_LENS)
-    cache = init_paged_cache(cfg, 1 + B * NB, BLOCK_SIZE, B, NB, torch.bfloat16, quantized=quantize_kv, device=device)
-    cache["tbl"].copy_(torch.arange(1, 1 + B * NB, dtype=torch.int32).reshape(B, NB))
+    if cache_kind == "dense":
+        cache = make_engine_cache(cfg, B, NB * BLOCK_SIZE, torch.bfloat16, device=device)
+        for b, n in enumerate(DECODE_LENS):
+            cache["pos"][:, b, : n - 1] = torch.arange(n - 1, dtype=torch.int32, device=device)
+    else:
+        cache = init_paged_cache(cfg, 1 + B * NB, BLOCK_SIZE, B, NB, torch.bfloat16, quantized=quantize_kv,
+                                 device=device)
+        cache["tbl"].copy_(torch.arange(1, 1 + B * NB, dtype=torch.int32).reshape(B, NB))
     tok = torch.zeros((B, 1), dtype=torch.int32, device=device)
     pos = torch.tensor([n - 1 for n in DECODE_LENS], dtype=torch.int32, device=device)
 
@@ -1508,9 +1690,10 @@ def profile_phase(cfg, params, device, steps=5, quantize_kv=False) -> dict:
     by_name, launches, _, _ = profiled(step, steps)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    layout = "a bf16 ring cache" if cache_kind == "dense" else f"{quantize_kv or 'bf16'} pools"
     out = {
         "phase": "profile", "model": cfg.name,
-        "what": f"decode_step, 4 slots, {quantize_kv or 'bf16'} pools, fp32 weights",
+        "what": f"decode_step, 4 slots, {layout}, fp32 weights",
         "wall_ms": wall_ms, "device_busy_ms": busy if by_name else None,
         "idle_share": 1.0 - busy / wall_ms if by_name else None,
         "device_launches_per_step": launches,
@@ -2451,8 +2634,16 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    idle_w = []  # board power before this run puts work on the card (core.telemetry.CHIP_IDLE_W)
+    for _ in range(10):
+        idle_w.append(float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=power.draw", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True,
+        ).stdout.split()[0]))
+        time.sleep(0.2)
     emit({"phase": "card", "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-          "device": torch.cuda.get_device_name(0)})
+          "device": torch.cuda.get_device_name(0), "idle_power_w": idle_w,
+          "idle_power_median_w": float(np.median(idle_w))})
 
     device = resolve_device("cuda")  # also pins fp32 matmuls to full precision
     sources = ["paged_attention.cu", "fp8_gemm.cu", "flash_attention.cu", "babelstream.cu", "rwkv6_scan.cu"]
@@ -2529,6 +2720,7 @@ def main() -> int:
                       serving["pool_bytes"])
     tiered = phase("serving_tiered", serving_tiered_phase, cfg, params, device)
     phase("spill_restore", spill_restore_phase, cfg, device)
+    fig9 = phase("fig9", fig9_phase, cfg, params, device)
     del params  # the serving model's memory goes back before training
     torch.cuda.empty_cache()
 
@@ -2580,6 +2772,7 @@ def main() -> int:
             which = "k1_launches" if k["name"] == "paged_decode" else "k2_launches"
             k["tier_launches"] = {arm: tiered[arm][which] for arm in ("spill", "drop", "uncached", "spill_budget_32",
                                                                       "spill_fused", "drop_fused")}
+            k["fig9_launches"] = fig9["launches"][k["name"]]  # the Fig. 9 harness's closed-loop arms
             k["quantized_launches"] = {  # quantized pools read plain: none
                 run: quantized[run]["eager_launches"][k["name"]] + (quantized[run]["replay_launches"] or {}).get(k["name"], 0)
                 for run in ("int8_legacy", "int8_fused", "fp8_legacy", "fp8_fused")

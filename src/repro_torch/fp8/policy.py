@@ -62,7 +62,9 @@ def scale_keys(cfg) -> list[str]:
     return [f"{s}/{op}" for s in fp8_sites(cfg) for op in ("x", "w")]
 
 
-def make_fp8_state(cfg, precision, device="cpu") -> Fp8State:
+def make_fp8_state(cfg, precision, device=None) -> Fp8State:
+    """A fresh delayed-scaling state for ``cfg``'s FP8 sites, on the card
+    unless ``device`` says otherwise."""
     # per-tensor scales: one (history, scale) row per GEMM operand per layer
     return init_fp8_state(scale_keys(cfg), window=precision.fp8_amax_history, num_layers=cfg.num_layers, device=device)
 

@@ -21,6 +21,8 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.device import resolve_device
+
 E4M3 = torch.float8_e4m3fn
 E5M2 = torch.float8_e5m2
 
@@ -72,7 +74,10 @@ class Fp8State(NamedTuple):
     step: torch.Tensor
 
 
-def init_fp8_state(keys: list[str], window: int, num_layers: int = 1, device="cpu") -> Fp8State:
+def init_fp8_state(keys: list[str], window: int, num_layers: int = 1, device=None) -> Fp8State:
+    """Zero amax windows and unit scales for ``keys``, on the card unless
+    ``device`` says otherwise (``None``: the card, raising without one)."""
+    device = resolve_device(device)
     return Fp8State(
         amax_history={k: torch.zeros((num_layers, window), dtype=torch.float32, device=device) for k in keys},
         scale={k: torch.ones((num_layers,), dtype=torch.float32, device=device) for k in keys},

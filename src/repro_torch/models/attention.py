@@ -8,9 +8,12 @@ package's ``models/attention.py``.
   package's ``"xla"``: attention in tensor ops, differentiable, with
   optional query chunking; the train step uses it.  ``impl="flash"`` runs
   the flash-attention kernel K3 (``kernels.flash_attention``), forward only.
-* ``decode_attention``: one decode token against the dense ring cache
-  (``models.cache.init_cache``), in tensor ops, as the JAX package's
-  ``decode_attention``; the speculative drafter decodes through it.
+* ``prefill_attention`` and ``decode_attention``: the dense slot cache's
+  walk, in tensor ops as in the JAX package (no Pallas kernel there
+  either): a whole prompt's self-attention that also returns its K/V, and
+  one decode token against the dense ring cache
+  (``models.cache.init_cache``).  The engine's ``cache_kind="dense"`` and
+  the speculative drafter decode through the latter.
 * the paged functions: ``impl="kernel"`` attends through the CUDA kernel
   wrappers of ``kernels.paged_attention`` (which take the plain version for
   CPU tensors); ``impl="plain"`` calls the plain versions directly, which on
@@ -131,11 +134,13 @@ def _rope(cfg, q, k, positions):
 
 def _scores(q, k, q_per_kv, scale):
     """q: (B,Sq,H,hd), k: (B,Skv,KV,hd) -> (B,KV,G,Sq,Skv) fp32.  The
-    product is in q's dtype, as the reference's einsum."""
+    product is in the promoted dtype of q and k, as the reference's einsum
+    (fp32 queries against a bf16 cache: fp32)."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
-    qg = q.reshape(B, Sq, KV, q_per_kv, hd)
-    s = torch.einsum("bqhgk,bshk->bhgqs", qg, k)
+    dt = torch.promote_types(q.dtype, k.dtype)
+    qg = q.reshape(B, Sq, KV, q_per_kv, hd).to(dt)
+    s = torch.einsum("bqhgk,bshk->bhgqs", qg, k.to(dt))
     return s.float() * scale
 
 
@@ -233,6 +238,30 @@ def self_attention(cfg, p: dict, x: torch.Tensor, *, positions=None, q_chunk: in
         m = make_mask(positions, positions, causal=cfg.causal, window=cfg.sliding_window)
         ctx = _attend_block(cfg, q, k, v, m[:, None, None], qpk)
     return _out(cfg, p, ctx, x.dtype, fp8=fp8)
+
+
+def prefill_attention(cfg, p: dict, x: torch.Tensor, *, positions=None, q_chunk: int = 0):
+    """Self-attention that also returns the K/V tensors for the cache (the
+    dense engine's blocking prefill), in tensor ops as the JAX package's
+    ``prefill_attention``.  x: (B, S, D); positions: (B, S), default
+    ``arange(S)``; ``q_chunk`` attends that many queries at a time when it
+    divides S.  Returns (out (B, S, D), k, v (B, S, KV, hd)), K after RoPE."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device).expand(B, S)
+    q, k, v = _qkv(cfg, p, x)
+    q, k = _rope(cfg, q, k, positions)
+    qpk = cfg.q_per_kv
+    if q_chunk and S > q_chunk and S % q_chunk == 0:
+        ctxs = []
+        for c0 in range(0, S, q_chunk):
+            m = make_mask(positions[:, c0 : c0 + q_chunk], positions, causal=cfg.causal, window=cfg.sliding_window)
+            ctxs.append(_attend_block(cfg, q[:, c0 : c0 + q_chunk], k, v, m[:, None, None], qpk))
+        ctx = torch.cat(ctxs, dim=1)
+    else:
+        m = make_mask(positions, positions, causal=cfg.causal, window=cfg.sliding_window)
+        ctx = _attend_block(cfg, q, k, v, m[:, None, None], qpk)
+    return _out(cfg, p, ctx, x.dtype), k, v
 
 
 def decode_attention(cfg, p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Blocks per family: one layer's specs, its full-sequence forward
 (training, eval) and its serving steps.
 
-* dense (olmo, mistral-nemo, gemma): the forward, the chunked-prefill
-  step against a paged cache and the decode step against either cache
-  layout;
+* dense (olmo, mistral-nemo, gemma): the forward, the whole-prompt
+  prefill that returns the layer's K/V (the dense slot cache's
+  admission), the chunked-prefill step against a paged cache and the
+  decode step against either cache layout;
 * ssm (RWKV6): the forward, and the prefill and decode steps that carry
   the recurrent state (``tm_x``, ``cm_x``, ``state``).
 """
@@ -16,6 +17,7 @@ from repro_torch.models.attention import (
     decode_attention,
     paged_chunk_attention,
     paged_decode_attention,
+    prefill_attention,
     self_attention,
 )
 from repro_torch.models.ffn import ffn, ffn_specs
@@ -45,6 +47,14 @@ def dense_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8=
     h = apply_norm(cfg, p["norm1"], x)
     a = self_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk, impl=attn_impl, fp8=fp8)
     return _residual(cfg, p, x, h, a, fp8=fp8)
+
+
+def dense_block_prefill(cfg, p, x, *, positions=None, q_chunk=0):
+    """Full-sequence forward of one layer that also returns its K/V:
+    (x (B, S, D), {"k", "v": (B, S, KV, hd)})."""
+    h = apply_norm(cfg, p["norm1"], x)
+    a, k, v = prefill_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk)
+    return _residual(cfg, p, x, h, a), {"k": k, "v": v}
 
 
 def dense_block_chunk(cfg, p, x, cache, tbl_row, start, *, attn_impl="kernel", widths=None):

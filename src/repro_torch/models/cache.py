@@ -6,9 +6,10 @@ The dense ring cache (``init_cache``), as in the JAX package's
 and ``pos`` ``(B, W)``, stacked over layers, where ``W`` is the run's
 length or the sliding window (``cache_window``) and position ``t`` lives in
 ring slot ``t % W``; ``pos`` holds the absolute position in each slot, -1
-while it is empty.  Only decode reads it (the speculative drafter's
-per-slot batch=1 caches); the engine's ``cache_kind="dense"`` is not
-ported.
+while it is empty.  It backs the engine's ``cache_kind="dense"`` (one row
+per batch slot, filled from a whole-prompt ``models.prefill`` by
+``serving.kvcache``) and the speculative drafter's per-slot batch=1
+caches; ``cache_bytes`` is its size.
 
 The pools are stacked over layers, ``(L, num_blocks, block_size, kv_heads,
 head_dim)``, as in the JAX package's ``models/cache.py``; the decode block
@@ -37,6 +38,17 @@ NULL_BLOCK = 0  # physical block 0 is never allocated: inactive batch slots
 # decode writes/reads can never touch a live request's blocks.
 
 
+# growing-KV attention families page their cache; recurrent states are O(1)
+# per request and vlm's grouped layers keep the dense layout (the port
+# serves the dense family only so far)
+PAGED_FAMILIES = ("dense", "moe", "hybrid")
+
+
+def supports_paged(cfg) -> bool:
+    """Whether ``cfg``'s family pages its KV cache, as in the JAX package."""
+    return cfg.family in PAGED_FAMILIES
+
+
 def cache_window(cfg, seq_len: int) -> int:
     """Slots the attention cache needs for a decode run of length seq_len."""
     if cfg.sliding_window > 0:
@@ -59,6 +71,13 @@ def init_cache(cfg, B: int, seq_len: int, dtype, *, device="cuda") -> dict:
     cache = {name: torch.zeros((cfg.num_layers,) + shape, dtype=dt, device=device) for name, (shape, dt) in lay.items()}
     cache["pos"].fill_(-1)
     return cache
+
+
+def cache_bytes(cfg, B: int, seq_len: int, dtype) -> int:
+    """Bytes of the dense ring cache ``init_cache(cfg, B, seq_len, dtype)``
+    holds: K/V, positions, every layer."""
+    lay = layer_cache_layout(cfg, B, seq_len, dtype)
+    return cfg.num_layers * sum(math.prod(shape) * dt.itemsize for shape, dt in lay.values())
 
 
 def paged_cache_layout(

@@ -5,6 +5,9 @@ Entry points, counterparts of the JAX package's ``models/model.py``:
 * ``forward``      — training forward over whole sequences: (logits, aux),
   or (logits, aux, amaxes) with an FP8 context; the dense and ssm (RWKV6)
   families
+* ``prefill``      — a whole (right-padded) prompt: (logits at each
+  sequence's last real token, the raw K/V stacked over layers), which
+  ``serving.kvcache`` turns into a dense slot cache
 * ``prefill_step`` — one prompt chunk against the paged cache: (logits at
   the chunk's last token, cache)
 * ``verify_step``  — C candidate tokens against the paged cache: (logits at
@@ -14,7 +17,7 @@ Entry points, counterparts of the JAX package's ``models/model.py``:
 * ``unified_step`` — one fused pass over a mixed (rows, width) batch of
   decode rows and prefill chunks: (all-lane logits, cache)
 
-The serving steps serve the dense family only.  They do no host work
+The serving steps serve the dense family only.  The paged steps do no host work
 (no ``.item()``, no host-to-device copy, no shape that depends on the
 data), so ``serving/graphs.py`` can capture them in CUDA graphs.
 
@@ -31,7 +34,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import ATTN_IMPLS, SELF_ATTN_IMPLS
-from repro_torch.models.blocks import dense_block, dense_block_chunk, dense_block_decode, rwkv_block
+from repro_torch.models.blocks import dense_block, dense_block_chunk, dense_block_decode, dense_block_prefill, rwkv_block
 from repro_torch.models.cache import layer_cache
 from repro_torch.models.layers import apply_norm
 from repro_torch.models.rwkv import check_wkv_impl
@@ -138,6 +141,51 @@ def forward(
         return logits, aux
     amaxes = {k: torch.stack([o[k] for o in obs]) for k in fp8.keys}
     return logits, aux, amaxes
+
+
+@torch.no_grad()
+def prefill(cfg, params, batch, *, q_chunk=0):
+    """Inference prefill of whole prompts (the dense family).  Returns
+    (logits (B, V), raw cache).
+
+    batch: ``tokens`` (B, S) int and optional ``last_index`` (B,) int, each
+    sequence's last *real* token: the logits are taken there instead of at
+    S - 1, which makes right-padded, length-bucketed prefill exact (causal
+    attention: pad positions never reach earlier K/V or those logits).
+    The raw cache holds the full-length K/V stacked over layers, ``{"k",
+    "v": (L, B, S, KV, hd)}`` as the JAX package's layer scan stacks them;
+    ``serving.kvcache.decode_cache_from_prefill`` turns it into the ring
+    cache ``decode_step`` reads.  A Python layer loop, in tensor ops (the
+    JAX package's prefill reaches no Pallas kernel either).
+    """
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported yet")
+    tokens = batch["tokens"]
+    positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
+    x = embed_input(cfg, params, tokens, positions)
+    ks, vs = [], []
+    for p_layer in params["blocks"]:
+        x, kv = dense_block_prefill(cfg, p_layer, x, positions=positions, q_chunk=q_chunk)
+        ks.append(kv["k"])
+        vs.append(kv["v"])
+    last_index = batch.get("last_index")
+    if last_index is None:
+        x_last = x[:, -1]
+    else:
+        x_last = x[torch.arange(x.shape[0], device=x.device), last_index.long()]
+    return lm_logits(cfg, params, x_last), {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+# chunked prefill needs a paged cache and per-chunk state that the written
+# K/V captures; recurrent states absorb the whole prompt in one pass
+CHUNKED_PREFILL_FAMILIES = ("dense", "moe")
+
+
+def supports_chunked_prefill(cfg) -> bool:
+    """Whether prompts of ``cfg``'s family can stream in chunks through
+    ``prefill_step`` (and so be prefix-cached and preempted), as in the JAX
+    package; other families keep the blocking whole-prompt prefill."""
+    return cfg.family in CHUNKED_PREFILL_FAMILIES
 
 
 def _chunk_stack(cfg, params, cache, tokens, start, tbl_row, *, attn_impl="kernel", widths=None):

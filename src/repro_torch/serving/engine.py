@@ -1,7 +1,23 @@
 """Continuous-batching inference engine over a prefix-cached paged KV cache.
 
-The port's counterpart of the JAX package's ``serving/engine.py``,
-reduced to the paged dense path and its legacy step walk:
+The port's counterpart of the JAX package's ``serving/engine.py`` for the
+dense family.  Two cache layouts:
+
+* ``cache_kind="paged"`` (default): block pools and per-request block
+  tables, with everything below.
+* ``cache_kind="dense"``: the slot-granular ring cache
+  (``kvcache.make_engine_cache``), the JAX engine's A/B baseline.  A
+  request admits with one blocking whole-prompt ``models.prefill``
+  (right-padded to a power-of-two bucket, logits at the last real token),
+  its K/V written into its batch slot (``kvcache.write_prefill_into_slot``)
+  and its first token sampled from the prefill's logits; ``decode_step``
+  then reads the ring cache in tensor ops (no kernel, as in the JAX
+  package).  A freed slot is emptied (``kvcache.clear_slot``).  The paged
+  options (prefix cache, prefill budget, speculative decoding, quantized
+  pools, the spill tier) warn and are ignored, ``fused=True`` raises, and
+  no request is preempted, as in the JAX engine.
+
+The paged layout:
 
 * **Paged cache**: a global block pool per layer plus per-request block
   tables (``serving.paged.BlockAllocator``).  Admission is gated on free
@@ -63,11 +79,19 @@ reduced to the paged dense path and its legacy step walk:
 
 Dispatches and host syncs are counted at the JAX engine's seams
 (``_dispatch``, ``_host_fetch``, the first-token sample), and ``stats()``
-reports them per step.
+reports them per step.  ``profile=True`` brackets each dispatch with the
+engine's clock and a device sync (``_block_until_ready``, one counted host
+sync each): the seconds land in ``engine_profile_<phase>_seconds``
+histograms and each step span's ``phases``; off by default, when it adds
+no sync.  An ``EnergyBridge`` (``serving.metrics``, the H100's power model
+in ``core.telemetry``) charges each step's card-seconds at the step's slot
+occupancy and splits the joules over the requests that computed tokens in
+it, by tokens: ``Request.energy_j``, ``stats()["energy_joules"]`` and
+``["joules_per_token"]``.
 
 Options of the JAX engine that the port does not have yet raise
-``NotImplementedError`` naming the option: ``mesh``,
-``cache_kind="dense"`` and families other than dense.
+``NotImplementedError`` naming the option: ``mesh`` and families other
+than dense.
 
 Observability as in the JAX engine (``serving.metrics`` +
 ``serving.trace``): one injectable ``clock`` feeds every timestamp,
@@ -89,19 +113,30 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
-from repro_torch.models import decode_step, init_paged_cache, init_params, prefill_step, unified_step, verify_step
+from repro_torch.models import (
+    decode_step,
+    init_paged_cache,
+    init_params,
+    prefill,
+    prefill_step,
+    unified_step,
+    verify_step,
+)
 from repro_torch.models.attention import ATTN_IMPLS
 from repro_torch.serving.graphs import StepGraphs
 from repro_torch.serving.kvcache import (
     clear_block_row,
+    clear_slot,
     copy_block_rows,
     gather_block_rows,
+    make_engine_cache,
     make_table_row,
     restore_block_rows,
     truncate_block_rows,
+    write_prefill_into_slot,
 )
 from repro_torch.serving.kvquant import normalize_kv_quant
-from repro_torch.serving.metrics import MetricsRegistry
+from repro_torch.serving.metrics import EnergyBridge, MetricsRegistry
 from repro_torch.serving.paged import BlockAllocator, blocks_needed, truncate_blocks
 from repro_torch.serving.prefix import PrefixIndex, is_spilled
 from repro_torch.serving.sampler import fused_sample_accept, sample_token, sample_tokens, spec_accept
@@ -109,6 +144,20 @@ from repro_torch.serving.scheduler import Request, RequestState, SchedulerCore
 from repro_torch.serving.spec_decode import DraftModel, make_draft_config, ngram_draft
 from repro_torch.serving.spill import SPILL_MODES, SpillPool, warn_if_fp8_over_int8
 from repro_torch.serving.trace import SCHEDULER_TRACK, Tracer, slot_track
+
+
+def _block_until_ready(device: torch.device) -> None:
+    """Wait for the work queued on ``device``: the profiler's seam, a
+    module-level name so that a caller can count its calls (``profile=False``
+    must never reach it)."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
+# the blocking prefill pads prompts to a power-of-two bucket: exact for the
+# dense family (causal attention: pad positions never reach earlier K/V or
+# the last real token's logits)
+MIN_PREFILL_BUCKET = 8
 
 
 @dataclass
@@ -156,14 +205,16 @@ class InferenceEngine:
         metrics: Optional[MetricsRegistry] = None,
         tracer: Optional[Tracer] = None,
         trace_capacity: int = 4096,
+        profile: bool = False,
+        energy: Optional[EnergyBridge] = None,
         device="cuda",
     ):
         if cfg.is_encoder_only:
             raise ValueError(f"{cfg.name} is encoder-only; no decode serving")
         if mesh is not None:
             raise NotImplementedError(f"mesh={mesh!r} is not ported yet")
-        if cache_kind != "paged":
-            raise NotImplementedError(f"cache_kind={cache_kind!r} is not ported yet (only 'paged')")
+        if cache_kind not in ("paged", "dense"):
+            raise ValueError(f"cache_kind={cache_kind!r}")
         if cfg.family != "dense":
             raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported yet")
         if attn_impl not in ATTN_IMPLS:
@@ -182,8 +233,14 @@ class InferenceEngine:
         self.eos = eos_token
         self.cache_kind = cache_kind
         self.attn_impl = attn_impl
-        self.fused = bool(fused)
-        self.quantize_kv = normalize_kv_quant(quantize_kv)  # "int8" | "fp8" | None
+        quantize_kv = normalize_kv_quant(quantize_kv)  # "int8" | "fp8" | None
+        if quantize_kv and cache_kind != "paged":
+            warnings.warn(
+                f"quantize_kv only applies to paged block pools; ignored for cache_kind={cache_kind!r} ({cfg.name})",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+        self.quantize_kv = quantize_kv if cache_kind == "paged" else None
         if self.quantize_kv and attn_impl == "kernel":
             warnings.warn(
                 f"{self.quantize_kv} block pools have no kernel yet; decode runs the "
@@ -198,6 +255,8 @@ class InferenceEngine:
         self._clock = clock if clock is not None else time.monotonic
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.tracer = tracer if tracer is not None else Tracer(self._clock, trace_capacity)
+        self._profile = profile
+        self._phase_acc: dict[str, float] = {}  # this step's profiled seconds by phase
         M = self.metrics
         self._c_submitted = M.counter("engine_requests_submitted_total", "requests accepted by submit()")
         self._c_admitted = M.counter("engine_requests_admitted_total", "requests admitted into a batch slot")
@@ -226,12 +285,47 @@ class InferenceEngine:
         self._g_prefilling = M.gauge("engine_prefilling_slots", "slots mid chunked prefill")
         self._c_drafted = M.counter("engine_spec_drafted_total", "speculative candidate tokens proposed")
         self._c_accepted = M.counter("engine_spec_accepted_total", "speculative candidate tokens committed")
+        self._c_energy = M.counter("engine_energy_joules_total", "IT-side joules charged to serving steps")
         # dispatch/sync accounting, at the JAX engine's seams: every model or
         # sampling call counts one dispatch, every device-to-host read one sync
         self.dispatches_total = 0
         self.host_syncs_total = 0
         self._g_dispatches = M.gauge("engine_dispatches_per_step", "model and sampling calls per engine step")
         self._g_host_syncs = M.gauge("engine_host_syncs_per_step", "device->host syncs per engine step")
+
+        # DCIM bridge (paper §IV.A): each step charges card-seconds at its
+        # slot occupancy; the engine splits the joules over the requests
+        # that did work in it
+        self.energy = energy if energy is not None else EnergyBridge(chips=1)
+
+        # chunked prefill (and with it the prefix cache, speculative
+        # decoding and the fused step) needs a paged cache
+        self._chunked = cache_kind == "paged"
+        if prefix_cache and not self._chunked:
+            warnings.warn(
+                f"prefix_cache needs a paged cache; disabled for {cfg.name} ({cache_kind})",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+        if prefill_budget > 0 and not self._chunked:
+            warnings.warn(
+                f"prefill_budget requires chunked prefill (paged cache); {cfg.name} ({cache_kind}) keeps the "
+                f"blocking admission prefill",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+        if fused and not self._chunked:
+            raise ValueError(
+                f"fused=True needs a paged cache; got {cfg.name} ({cache_kind})"
+            )
+        self.fused = bool(fused)
+        if spec_decode != "off" and not self._chunked:
+            warnings.warn(
+                f"spec_decode needs a paged cache; disabled for {cfg.name} ({cache_kind})",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+            spec_decode = "off"
 
         # scheduling brain: queue ordering (SLO/FCFS), admission, preemption
         # decisions and the chunked-prefill budget live in SchedulerCore; the
@@ -265,54 +359,66 @@ class InferenceEngine:
                 device=self.device,
             )
 
-        self.block_size = block_size
-        self.max_blocks_per_seq = -(-max_seq // block_size)
-        if num_blocks is None:
-            # default: one full-length sequence per slot (+ the null block)
-            num_blocks = max_batch * self.max_blocks_per_seq + 1
-        self.num_blocks = num_blocks
-        self.allocator = BlockAllocator(num_blocks)
-        self.prefix = PrefixIndex(self.allocator, block_size) if prefix_cache is None or prefix_cache else None
-        # the allocator publishes pool occupancy into the shared registry;
-        # the engine wraps the eviction callback (the prefix index set its
-        # unmap hook) so LRU reclaims surface as trace events too
-        self.allocator.attach_metrics(self.metrics)
-        if self.prefix is not None:
-            self.prefix.attach_metrics(self.metrics)
-        self._g_frag = self.metrics.gauge("pool_fragmentation", "allocator free-list fragmentation")
-        inner_evict = self.allocator.on_evict
+        if cache_kind == "paged":
+            self.block_size = block_size
+            self.max_blocks_per_seq = -(-max_seq // block_size)
+            if num_blocks is None:
+                # default: one full-length sequence per slot (+ the null block)
+                num_blocks = max_batch * self.max_blocks_per_seq + 1
+            self.num_blocks = num_blocks
+            self.allocator = BlockAllocator(num_blocks)
+            self.prefix = PrefixIndex(self.allocator, block_size) if prefix_cache is None or prefix_cache else None
+            # the allocator publishes pool occupancy into the shared registry;
+            # the engine wraps the eviction callback (the prefix index set its
+            # unmap hook) so LRU reclaims surface as trace events too
+            self.allocator.attach_metrics(self.metrics)
+            if self.prefix is not None:
+                self.prefix.attach_metrics(self.metrics)
+            self._g_frag = self.metrics.gauge("pool_fragmentation", "allocator free-list fragmentation")
+            inner_evict = self.allocator.on_evict
 
-        def _evict_hook(block, _inner=inner_evict):
-            # the prefix index returns "spilled" when the block's rows were
-            # demoted to the host pool; the allocator counts the two apart
-            tier = _inner(block) if _inner is not None else None
-            self.tracer.instant("spill" if tier == "spilled" else "evict", track=SCHEDULER_TRACK, block=block)
-            return tier
+            def _evict_hook(block, _inner=inner_evict):
+                # the prefix index returns "spilled" when the block's rows were
+                # demoted to the host pool; the allocator counts the two apart
+                tier = _inner(block) if _inner is not None else None
+                self.tracer.instant("spill" if tier == "spilled" else "evict", track=SCHEDULER_TRACK, block=block)
+                return tier
 
-        self.allocator.on_evict = _evict_hook
-        # host spill tier: evicted prefix blocks park in host RAM and swap
-        # back in on a later hit instead of running prefill again
-        if spill_dtype not in SPILL_MODES:
-            raise ValueError(f"spill_dtype={spill_dtype!r} (choose from {SPILL_MODES})")
-        self.spill = None
-        if spill_bytes > 0:
-            if self.prefix is None:
+            self.allocator.on_evict = _evict_hook
+            # host spill tier: evicted prefix blocks park in host RAM and swap
+            # back in on a later hit instead of running prefill again
+            if spill_dtype not in SPILL_MODES:
+                raise ValueError(f"spill_dtype={spill_dtype!r} (choose from {SPILL_MODES})")
+            self.spill = None
+            if spill_bytes > 0:
+                if self.prefix is None:
+                    warnings.warn(
+                        f"spill_bytes needs the prefix cache; disabled for {cfg.name}",
+                        RuntimeWarning,
+                        stacklevel=2,
+                    )
+                else:
+                    spill_dtype = warn_if_fp8_over_int8(self.quantize_kv, spill_dtype)
+                    self.spill = SpillPool(spill_bytes, mode=spill_dtype)
+                    self.prefix.attach_spill(self.spill, self._fetch_block_rows)
+                    self.spill.attach_metrics(self.metrics)
+            self.tbl = np.zeros((max_batch, self.max_blocks_per_seq), np.int32)
+            self._tbl_dirty = True
+            self.cache = init_paged_cache(
+                cfg, num_blocks, block_size, max_batch, self.max_blocks_per_seq, cache_dtype, quantized=self.quantize_kv,
+                device=self.device,
+            )
+        else:
+            self.allocator = None
+            self.prefix = None
+            self.spill = None
+            if spill_bytes > 0:
                 warnings.warn(
-                    f"spill_bytes needs the prefix cache (paged cache + dense/moe family); disabled for {cfg.name}",
+                    f"spill_bytes only applies to paged caches; ignored for cache_kind={cache_kind!r} ({cfg.name})",
                     RuntimeWarning,
                     stacklevel=2,
                 )
-            else:
-                spill_dtype = warn_if_fp8_over_int8(self.quantize_kv, spill_dtype)
-                self.spill = SpillPool(spill_bytes, mode=spill_dtype)
-                self.prefix.attach_spill(self.spill, self._fetch_block_rows)
-                self.spill.attach_metrics(self.metrics)
-        self.tbl = np.zeros((max_batch, self.max_blocks_per_seq), np.int32)
-        self._tbl_dirty = True
-        self.cache = init_paged_cache(
-            cfg, num_blocks, block_size, max_batch, self.max_blocks_per_seq, cache_dtype, quantized=self.quantize_kv,
-            device=self.device,
-        )
+            self.cache = make_engine_cache(cfg, max_batch, max_seq, cache_dtype, device=self.device)
 
         self.pos = np.zeros((max_batch,), np.int32)  # next position per slot
         self.slots: list[Optional[Request]] = [None] * max_batch
@@ -385,15 +491,20 @@ class InferenceEngine:
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError(f"deadline_s={deadline_s} (need > 0, or None)")
         total = len(prompt) + max_new_tokens
-        span = total + self._spec_extra  # worst case + speculative headroom
-        if span > self.max_seq:
-            headroom = f" (+{self._spec_extra} spec_k headroom)" if self._spec_extra else ""
-            raise ValueError(f"prompt+max_new_tokens={total}{headroom} exceeds max_seq={self.max_seq}")
-        if blocks_needed(span, self.block_size) > self.allocator.capacity:
-            raise ValueError(
-                f"request needs {blocks_needed(span, self.block_size)} blocks, "
-                f"pool capacity is {self.allocator.capacity}"
-            )
+        if self.cache_kind == "paged":
+            span = total + self._spec_extra  # worst case + speculative headroom
+            if span > self.max_seq:
+                headroom = f" (+{self._spec_extra} spec_k headroom)" if self._spec_extra else ""
+                raise ValueError(f"prompt+max_new_tokens={total}{headroom} exceeds max_seq={self.max_seq}")
+            if blocks_needed(span, self.block_size) > self.allocator.capacity:
+                raise ValueError(
+                    f"request needs {blocks_needed(span, self.block_size)} blocks, "
+                    f"pool capacity is {self.allocator.capacity}"
+                )
+        elif self.cfg.has_attention and self.cfg.sliding_window == 0 and total > self.max_seq:
+            # full-attention ring cache: positions past max_seq would wrap the
+            # ring and overwrite the oldest entries
+            raise ValueError(f"prompt+max_new_tokens={total} exceeds max_seq={self.max_seq}")
         req = Request(
             req_id=next(self._ids),
             prompt=list(prompt),
@@ -423,13 +534,16 @@ class InferenceEngine:
         return [r for r in self.slots if r is not None]
 
     def chunked(self) -> bool:
-        return True
+        return self._chunked
 
     def can_preempt(self) -> bool:
-        return True
+        # eviction and resume ride the chunked paged path: the resumed
+        # context prefills again in chunks
+        return self._chunked
 
     def try_admit(self, req: Request, slot: int) -> bool:
-        return self._admit_chunked(req, slot)
+        admit = self._admit_chunked if self._chunked else self._admit_blocking
+        return admit(req, slot)
 
     def _release_request_blocks(self, req: Request, written: int) -> None:
         """Drop a leaving request's blocks: the tail past ``written`` frees
@@ -444,9 +558,12 @@ class InferenceEngine:
     def _clear_slot(self, slot: int) -> None:
         self.slots[slot] = None
         self.pos[slot] = 0
-        self.tbl[slot] = 0  # null block
-        self._tbl_dirty = True
-        self.cache = clear_block_row(self.cfg, self.cache, slot)
+        if self.cache_kind == "paged":
+            self.tbl[slot] = 0  # null block
+            self._tbl_dirty = True
+            self.cache = clear_block_row(self.cfg, self.cache, slot)
+        else:
+            self.cache = clear_slot(self.cfg, self.cache, slot)
 
     def preempt(self, req: Request) -> None:
         """Evict a running request: park its committed K/V in the prefix
@@ -507,9 +624,10 @@ class InferenceEngine:
                 return False
         else:  # ACTIVE: mid-prefill or decoding, holds a slot
             self.scheduler.drop_prefilling(req)
-            self._cancel_restores(req)
-            written = int(req.prefill_pos if req.prefilling else self.pos[slot])
-            self._release_request_blocks(req, written)
+            if self.cache_kind == "paged":
+                self._cancel_restores(req)
+                written = int(req.prefill_pos if req.prefilling else self.pos[slot])
+                self._release_request_blocks(req, written)
             self._clear_slot(slot)
             req.prefilling = False
             req.slot = None
@@ -601,7 +719,7 @@ class InferenceEngine:
             for name in tasks[0].payload
         }
         blocks = self._device_ints([t.dst for t in tasks])
-        self.cache = self._dispatch(restore_block_rows, self.cache, blocks, rows)
+        self.cache = self._dispatch("restore", restore_block_rows, self.cache, blocks, rows)
         now = self._clock()
         done = {t.dst for t in tasks}
         self._restoring -= done
@@ -746,6 +864,44 @@ class InferenceEngine:
         self._prefilling.append(req)
         return True
 
+    def _admit_blocking(self, req: Request, slot: int) -> bool:
+        """One-shot admission of the dense slot cache: the whole prompt in
+        one ``models.prefill`` call, its K/V copied into the slot's ring
+        rows, the first token sampled from the prefill's logits."""
+        self._note_admit(req, slot)
+        t0 = self._clock()
+        logits, raw = self._dispatch("prefill", self._run_prefill, req)
+        n = len(req.prompt)
+        self.prefill_chunks += 1
+        self.prefill_tokens += n
+        self._c_prefill_tokens.inc(n)
+        req.step_work += n
+        self._h_prefill_chunk.observe(self._clock() - t0)
+        self.tracer.span("prefill", t0, track=slot_track(slot), req_id=req.req_id, tokens=n)
+        write_prefill_into_slot(self.cfg, self.cache, raw, slot, seq_filled=n)
+        self.pos[slot] = n
+        req.state = RequestState.ACTIVE
+        req.slot = slot
+        self.slots[slot] = req
+        self.peak_active = max(self.peak_active, sum(r is not None for r in self.slots))
+        self._emit_first_token(req, logits[0])
+        return True
+
+    def _bucket_len(self, n: int) -> int:
+        """Power-of-two prefill length bucket (a bounded set of shapes)."""
+        p = MIN_PREFILL_BUCKET
+        while p < n:
+            p *= 2
+        return min(p, self.max_seq)
+
+    def _run_prefill(self, req: Request):
+        """The blocking prefill of ``req``'s prompt, right-padded to its
+        bucket, logits at its last real token."""
+        n = len(req.prompt)
+        toks = req.prompt + [0] * (self._bucket_len(n) - n)
+        batch = {"tokens": self._device_ints(toks)[None], "last_index": self._device_ints([n - 1])}
+        return prefill(self.cfg, self.params, batch)
+
     def _emit_first_token(self, req: Request, logits: torch.Tensor) -> None:
         self.dispatches_total += 1
         self.host_syncs_total += 1
@@ -769,10 +925,28 @@ class InferenceEngine:
     def _device_ints(self, values) -> torch.Tensor:
         return torch.as_tensor(np.asarray(values, np.int32), device=self.device)
 
-    def _dispatch(self, fn, *args, **kw):
-        """Run one model or step call, counted as one dispatch."""
+    def _dispatch(self, phase: str, fn, *args, **kw):
+        """Run one model or step call, counted as one dispatch.
+
+        ``profile=False`` (default) is a plain call: no timing, no sync.
+        ``profile=True`` brackets the call with the engine's clock and a
+        device sync (``_block_until_ready``, one counted host sync), so a
+        step's latency splits by phase (``engine_profile_<phase>_seconds``
+        and the step span's ``phases``)."""
         self.dispatches_total += 1
-        return fn(*args, **kw)
+        if not self._profile:
+            return fn(*args, **kw)
+        t0 = self._clock()
+        out = fn(*args, **kw)
+        _block_until_ready(self.device)
+        self.host_syncs_total += 1
+        self._note_phase(phase, self._clock() - t0)
+        return out
+
+    def _note_phase(self, phase: str, dt: float) -> None:
+        """One profiled span of ``phase``: its histogram and the step's sum."""
+        self.metrics.histogram(f"engine_profile_{phase}_seconds", f"synced {phase} dispatch time").observe(dt)
+        self._phase_acc[phase] = self._phase_acc.get(phase, 0.0) + dt
 
     def _host_fetch(self, *tensors) -> tuple:
         """Bring device results to the host as one counted sync: on the
@@ -794,7 +968,7 @@ class InferenceEngine:
         row = self._device_ints(make_table_row(req.blocks, self.max_blocks_per_seq))[None]
         t0 = self._clock()
         logits, self.cache = self._dispatch(
-            prefill_step, self.cfg, self.params, self.cache, toks, self._device_ints([start]), row,
+            "prefill_chunk", prefill_step, self.cfg, self.params, self.cache, toks, self._device_ints([start]), row,
             attn_impl=self.attn_impl,
         )
         self._h_prefill_chunk.observe(self._clock() - t0)
@@ -802,6 +976,7 @@ class InferenceEngine:
             "prefill_chunk", t0, track=slot_track(req.slot), req_id=req.req_id, pos=start, tokens=c
         )
         req.prefill_pos += c
+        req.step_work += c
         self.pos[req.slot] = req.prefill_pos
         self.prefill_chunks += 1
         self.prefill_tokens += c
@@ -851,10 +1026,11 @@ class InferenceEngine:
                 f"req {req.req_id}", req.admit_t, end=req.done_t, track=slot_track(slot),
                 req_id=req.req_id, tokens=len(req.generated), prefix_hit_tokens=req.prefix_hit_tokens,
             )
-        # token-level truncate at the final committed length: tail blocks
-        # hold unused reserve and free eagerly; the kept span routes through
-        # the prefix index
-        self._release_request_blocks(req, len(req.prompt) + len(req.generated))
+        if self.cache_kind == "paged":
+            # token-level truncate at the final committed length: tail blocks
+            # hold unused reserve and free eagerly; the kept span routes
+            # through the prefix index
+            self._release_request_blocks(req, len(req.prompt) + len(req.generated))
         self._clear_slot(slot)
         self.done.append(req)
 
@@ -878,7 +1054,7 @@ class InferenceEngine:
     def _maybe_defrag(self) -> None:
         """Auto-defrag: sort the free list when scatter exceeds the
         threshold, re-checked only after new frees."""
-        if self.defrag_threshold >= 1.0 or self.allocator.total_frees == self._frees_seen:
+        if self.allocator is None or self.defrag_threshold >= 1.0 or self.allocator.total_frees == self._frees_seen:
             return
         self._frees_seen = self.allocator.total_frees
         if self.allocator.fragmentation() > self.defrag_threshold:
@@ -886,7 +1062,7 @@ class InferenceEngine:
             self.defrag_triggers += 1
 
     def _sync_tables(self) -> None:
-        if self._tbl_dirty:
+        if self.cache_kind == "paged" and self._tbl_dirty:
             self.cache["tbl"].copy_(torch.from_numpy(self.tbl))
             self._tbl_dirty = False
 
@@ -906,6 +1082,7 @@ class InferenceEngine:
         self.spec_drafted += len(d)
         self._c_drafted.inc(len(d))
         self.verify_tokens += self.spec_k + 1  # the fed window: last committed token + spec_k lanes
+        req.step_work += self.spec_k + 1
         return d, q
 
     def _commit_verify(self, req: Request, drafts, n_acc: int, final: int, cut: int, base: int) -> None:
@@ -966,17 +1143,20 @@ class InferenceEngine:
             top_ks[s] = r.top_k
         t_decode = self._clock()
         logits, self.cache = self._dispatch(
-            verify_step, self.cfg, self.params, self.cache, self._device_ints(tokens), self._device_ints(start),
-            self.cache["tbl"], attn_impl=self.attn_impl,
+            "verify", verify_step, self.cfg, self.params, self.cache, self._device_ints(tokens),
+            self._device_ints(start), self.cache["tbl"], attn_impl=self.attn_impl,
         )
         self.steps += 1
         self.spec_steps += 1
+        t_sample = self._clock() if self._profile else 0.0
         self.dispatches_total += 1  # the spec_accept call below
         dev = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
         n_acc, final = self._host_fetch(*spec_accept(
             logits, self._device_ints(drafts), dev(qprobs) if qprobs is not None else None, dev(valid),
             dev(temps), dev(top_ks), self._gen,
         ))
+        if self._profile:  # the host fetch is the sync: the sample phase adds none
+            self._note_phase("sample", self._clock() - t_sample)
         self._h_decode.observe(self._clock() - t_decode)
         produced = 0
         t_start = np.zeros((B,), np.int32)
@@ -1000,7 +1180,7 @@ class InferenceEngine:
         if np.any(t_end > t_start):
             # one call over the whole batch zeroes every slot's rejected tail
             self._dispatch(
-                truncate_block_rows, self.cache, self._device_ints(self.tbl), self._device_ints(t_start),
+                "rollback", truncate_block_rows, self.cache, self._device_ints(self.tbl), self._device_ints(t_start),
                 self._device_ints(t_end), span=K + 1,
             )
         return produced
@@ -1080,9 +1260,10 @@ class InferenceEngine:
             temps[r.slot] = r.temperature
             top_ks[r.slot] = r.top_k
             room[r.slot] = r.max_new_tokens - len(r.generated)
+            r.step_work += 1
         inputs = dict(tokens=tokens, pos=self.pos.copy(), temps=temps, top_ks=top_ks, room=room)
         t_decode = self._clock()
-        packed = self._dispatch(self._graphs.run, ("decode", B), self._fused_decode_fn, inputs)
+        packed = self._dispatch("fused_decode", self._graphs.run, ("decode", B), self._fused_decode_fn, inputs)
         (out,) = self._host_fetch(packed)
         self._h_decode.observe(self._clock() - t_decode)
         self.steps += 1
@@ -1137,7 +1318,9 @@ class InferenceEngine:
                 start[i] = self.pos[r.slot]
                 tbl[i] = self.tbl[r.slot]
                 room[i] = r.max_new_tokens - len(r.generated)
-                if pr.kind == "verify":
+                if pr.kind == "decode":
+                    r.step_work += 1
+                else:
                     d, q = self._propose(r)
                     window[i] = d
                     tokens[i, 1 : 1 + len(d)] = d
@@ -1161,7 +1344,7 @@ class InferenceEngine:
         key = ("mixed", R, W)
         if has_verify:
             key += ("draft" if self._draft is not None else "spec",)
-        packed = self._dispatch(self._graphs.run, key, self._fused_mixed_fn, inputs)
+        packed = self._dispatch("fused_step", self._graphs.run, key, self._fused_mixed_fn, inputs)
         (out,) = self._host_fetch(packed)
         final, n_acc, cut = out[0], out[1], out[2]
         if any(pr.kind != "chunk" for pr in rows):
@@ -1188,6 +1371,7 @@ class InferenceEngine:
                 continue
             c = pr.take
             r.prefill_pos = pr.start + c
+            r.step_work += c
             self.pos[r.slot] = r.prefill_pos
             if c:
                 self.prefill_chunks += 1
@@ -1216,11 +1400,14 @@ class InferenceEngine:
         decoding slots by one batched decode step and one sampling call;
         with ``fused``, one fused tick."""
         t0 = self._clock()
+        done0 = len(self.done)
+        if self._profile:
+            self._phase_acc = {}
         self._enforce_deadlines()
         if self.fused:
             produced = self._fused_step()
             self._maybe_defrag()
-            self._note_step(t0, produced)
+            self._note_step(t0, done0, produced)
             return produced
         self.scheduler.schedule()
         self.peak_active = max(self.peak_active, sum(r is not None for r in self.slots))
@@ -1240,12 +1427,13 @@ class InferenceEngine:
                 top_ks[r.slot] = r.top_k
             t_decode = self._clock()
             logits, self.cache = self._dispatch(
-                decode_step, self.cfg, self.params, self.cache, self._device_ints(tokens), self._device_ints(self.pos),
-                attn_impl=self.attn_impl,
+                "decode", decode_step, self.cfg, self.params, self.cache, self._device_ints(tokens),
+                self._device_ints(self.pos), attn_impl=self.attn_impl,
             )
             self.steps += 1
             # one whole-batch sampling call; the all-greedy batch (the common
             # serving default) skips the sort/multinomial work
+            t_sample = self._clock() if self._profile else 0.0
             self.dispatches_total += 1  # the sampling call below
             if all(r.temperature <= 0.0 for r in active):
                 (sampled,) = self._host_fetch(torch.argmax(logits, dim=-1))
@@ -1254,6 +1442,8 @@ class InferenceEngine:
                     logits, torch.as_tensor(temps, device=self.device),
                     torch.as_tensor(top_ks, device=self.device), self._gen,
                 ))
+            if self._profile:  # the host fetch is the sync: the sample phase adds none
+                self._note_phase("sample", self._clock() - t_sample)
             self._h_decode.observe(self._clock() - t_decode)
             for r in active:
                 tok = int(sampled[r.slot])
@@ -1262,24 +1452,42 @@ class InferenceEngine:
                 produced += 1
                 self.tokens_out += 1
                 self._c_tokens.inc()
-                self._reclaim_window_blocks(r)
+                r.step_work += 1
+                if self.cache_kind == "paged":
+                    self._reclaim_window_blocks(r)
                 self._finish_if_done(r)
         self._maybe_defrag()
-        self._note_step(t0, produced)
+        self._note_step(t0, done0, produced)
         return produced
 
-    def _note_step(self, t0: float, produced: int) -> None:
-        """Per-step observability tail: step latency + span, gauges."""
+    def _note_step(self, t0: float, done0: int, produced: int) -> None:
+        """Per-step observability tail: step latency + span, gauges, and the
+        step's energy split over the requests that did work in it."""
         dt = max(self._clock() - t0, 0.0)
         self._h_step.observe(dt)
-        self.tracer.span("step", t0, end=t0 + dt, track=SCHEDULER_TRACK, produced=produced)
+        span_args = {"produced": produced}
+        if self._profile and self._phase_acc:
+            span_args["phases"] = {k: round(v, 6) for k, v in self._phase_acc.items()}
+        self.tracer.span("step", t0, end=t0 + dt, track=SCHEDULER_TRACK, **span_args)
         self._g_queue.set(len(self.queue))
         self._g_active.set(sum(r is not None and not r.prefilling for r in self.slots))
         self._g_prefilling.set(len(self._prefilling))
         if self.steps:
             self._g_dispatches.set(self.dispatches_total / self.steps)
             self._g_host_syncs.set(self.host_syncs_total / self.steps)
-        self._g_frag.set(self.allocator.fragmentation())
+        if self.allocator is not None:
+            self._g_frag.set(self.allocator.fragmentation())
+        # requests that computed tokens this step (prefill chunks, decode
+        # tokens, verify windows): still in a slot, or finished during it;
+        # the step's joules split by tokens computed
+        workers = [r for r in self.slots if r is not None and r.step_work > 0]
+        workers += [r for r in self.done[done0:] if r.step_work > 0]
+        joules = self.energy.record_step(dt, occupancy=min(len(workers) / self.max_batch, 1.0))
+        self._c_energy.inc(joules)
+        total_work = sum(r.step_work for r in workers)
+        for r in workers:
+            r.energy_j += joules * r.step_work / total_work
+            r.step_work = 0
 
     def run_until_drained(self, max_steps: int = 10_000) -> list[Request]:
         """Closed-loop drain: step until no request is waiting, prefilling
@@ -1306,8 +1514,7 @@ class InferenceEngine:
         return sum(t.numel() * t.element_size() for t in self.cache.values())
 
     def stats(self) -> dict:
-        """Engine counters, as the JAX engine's ``stats()`` for the paged
-        path.  A defensive snapshot: every value is a scalar or a fresh dict,
+        """Engine counters, as the JAX engine's ``stats()``.  A defensive snapshot: every value is a scalar or a fresh dict,
         every derived rate division-by-zero guarded.  ``done + queued +
         active + prefilling`` equals every request ever submitted."""
         ttfts = [r.ttft for r in self.done if r.ttft is not None]
@@ -1339,11 +1546,14 @@ class InferenceEngine:
             "host_syncs_total": self.host_syncs_total,
             "dispatches_per_step": self.dispatches_total / self.steps if self.steps else 0.0,
             "host_syncs_per_step": self.host_syncs_total / self.steps if self.steps else 0.0,
-            "block_size": self.block_size,
-            "defrag_triggers": self.defrag_triggers,
-            "evictions": self.allocator.evictions,
+            "energy_joules": self.energy.joules,
+            "joules_per_token": self.energy.joules / self.tokens_out if self.tokens_out else 0.0,
         }
-        s.update({f"alloc_{k}": v for k, v in self.allocator.stats().items()})
+        if self.cache_kind == "paged":
+            s["block_size"] = self.block_size
+            s["defrag_triggers"] = self.defrag_triggers
+            s["evictions"] = self.allocator.evictions
+            s.update({f"alloc_{k}": v for k, v in self.allocator.stats().items()})
         if self._graphs is not None and self._graphs.pool is not None:
             # the card's graphs: captures (with their warm-up runs), replays
             # and the kernel launches the replays ran

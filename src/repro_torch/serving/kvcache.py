@@ -1,31 +1,160 @@
-"""Paged KV-cache surgery on the engine's block pools.
+"""KV-cache surgery: prefill -> dense slot cache, and the paged block pools.
 
-``make_table_row`` pads a request's block list into a table row,
-``copy_block_rows`` is the copy-on-write step behind partial prefix hits,
-``truncate_block_rows`` the speculative-decoding rollback, and
-``gather_block_rows`` / ``restore_block_rows`` the device side of the host
-spill tier's demotion and promotion (``serving.spill``).
-Layout invariants as in the JAX package's ``serving/kvcache.py``: pools are
+Dense layout (``cache_kind="dense"``), as in the JAX package's
+``serving/kvcache.py``: ``decode_cache_from_prefill`` turns the full-length
+K/V that ``models.prefill`` returns into the fixed-size ring cache that
+``decode_step`` reads (sliding-window archs keep only the last W tokens;
+ring slot = pos % W), ``write_request_into_slot`` copies one request's
+cache into one batch slot of the engine's cache, ``write_prefill_into_slot``
+(the engine's admission) does both at once without the request-sized ring
+in between, and ``clear_slot`` empties a freed slot.  Dense family only: every leaf is ``(L, B, ...)``, so the
+batch slot is dim 1 (the JAX package finds it from the logical axes of the
+other families' caches).
+
+Paged layout: ``graft_prefill_into_blocks`` writes a whole prefill's K/V
+into a request's blocks, ``make_table_row`` pads a request's block list
+into a table row, ``copy_block_rows`` is the copy-on-write step behind
+partial prefix hits, ``truncate_block_rows`` the speculative-decoding
+rollback, and ``gather_block_rows`` / ``restore_block_rows`` the device
+side of the host spill tier's demotion and promotion (``serving.spill``).
+Layout invariants as in the JAX package: pools are
 ``(L, num_blocks, block_size, kv_heads, head_dim)``; logical position ``t``
 of a request lives in physical block ``tbl_row[t // block_size]`` at offset
 ``t % block_size``; table entries are ``NULL_BLOCK`` wherever a slot owns no
 block.  Quantized pools carry ``k_scale`` / ``v_scale`` leaves of shape
 ``(L, num_blocks, block_size, kv_heads, 1)``: every op here that moves K/V
-rows moves the scale rows with them.  Every op works in place, so the
-fused step's CUDA graphs keep the pools' addresses (``serving.graphs``).
+rows moves the scale rows with them.  Every op on an engine cache works in
+place (the JAX functions return new trees), so the fused step's CUDA graphs
+keep the pools' addresses (``serving.graphs``).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.models.cache import NULL_BLOCK
+from repro_torch.models.cache import NULL_BLOCK, cache_window, init_cache
 
 KV_LEAVES = ("k", "v", "k_scale", "v_scale")  # the leaves a block's rows live in
 
 
 def _row_leaves(pool_cache: dict) -> list[str]:
     return [name for name in KV_LEAVES if name in pool_cache]
+
+
+# ---------------------------------------------------------------------------
+# dense slot cache
+# ---------------------------------------------------------------------------
+
+
+def _ring_kv(full: torch.Tensor, seq_filled: int, W: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """full: (L, B, S, KV, hd) -> ring (L, B, W, KV, hd) and pos (B, W): the
+    last ``min(W, seq_filled)`` positions at slot ``t % W``, -1 elsewhere."""
+    L, B = full.shape[:2]
+    start = max(seq_filled - W, 0)
+    idx = torch.arange(start, start + min(W, seq_filled), device=full.device)
+    slots = idx % W
+    ring = torch.zeros((L, B, W) + tuple(full.shape[3:]), dtype=full.dtype, device=full.device)
+    ring[:, :, slots] = full[:, :, idx]
+    pos = torch.full((B, W), -1, dtype=torch.int32, device=full.device)
+    pos[:, slots] = idx.to(torch.int32)
+    return ring, pos
+
+
+def decode_cache_from_prefill(cfg, raw_cache: dict, *, seq_filled: int, decode_len: int) -> dict:
+    """The ring cache of the prompt a ``models.prefill`` call read: the first
+    ``seq_filled`` positions of its raw K/V, in a window of
+    ``cache_window(cfg, decode_len)`` slots (``decode_len``: the positions
+    the decode run must address, prompt plus new tokens).  A prompt longer
+    than a sliding window wraps the ring.  Returns ``{"k", "v": (L, B, W,
+    KV, hd), "pos": (L, B, W)}``; the layers share one position row."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"no dense cache for family {cfg.family!r} ({cfg.name}) in the port")
+    W = cache_window(cfg, decode_len)
+    k, pos = _ring_kv(raw_cache["k"], seq_filled, W)
+    v, _ = _ring_kv(raw_cache["v"], seq_filled, W)
+    return {"k": k, "v": v, "pos": pos[None].expand((k.shape[0],) + tuple(pos.shape))}
+
+
+def write_request_into_slot(cfg, engine_cache: dict, request_cache: dict, slot: int) -> dict:
+    """Copy a (batch=1) request cache into batch slot ``slot`` of the
+    engine's ring cache, in place, cast to the engine cache's dtypes."""
+    for name, leaf in engine_cache.items():
+        leaf[:, slot] = request_cache[name][:, 0].to(leaf.dtype)
+    return engine_cache
+
+
+def write_prefill_into_slot(cfg, engine_cache: dict, raw_cache: dict, slot: int, *, seq_filled: int) -> dict:
+    """The engine's admission in one step, in place: the first
+    ``seq_filled`` positions of a (batch=1) ``models.prefill``'s raw K/V
+    straight into batch slot ``slot``'s ring rows (slot ``t % W``, the last
+    W positions where a sliding window wraps), cast to the cache's dtype,
+    and the slot's position row set to match.  The same slot as
+    ``decode_cache_from_prefill`` then ``write_request_into_slot`` give, but
+    with no (L, 1, W, KV, hd) request ring built on the way; ring rows that
+    the prompt does not reach keep whatever they held, under position -1
+    (``clear_slot`` zeroes them when a request leaves)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"no dense cache for family {cfg.family!r} ({cfg.name}) in the port")
+    k = engine_cache["k"]
+    W = k.shape[2]
+    start = max(seq_filled - W, 0)
+    idx = torch.arange(start, seq_filled, device=k.device)
+    ring = idx % W
+    for name in ("k", "v"):
+        leaf = engine_cache[name]
+        leaf[:, slot, ring] = raw_cache[name][:, 0, idx].to(leaf.dtype)
+    pos = engine_cache["pos"]
+    pos[:, slot] = -1
+    pos[:, slot, ring] = idx.to(pos.dtype)
+    return engine_cache
+
+
+def clear_slot(cfg, engine_cache: dict, slot: int) -> dict:
+    """Empty one batch slot of the ring cache (a freed request), in place:
+    K/V zero, positions -1."""
+    for name, leaf in engine_cache.items():
+        leaf[:, slot] = -1 if name == "pos" else 0
+    return engine_cache
+
+
+def make_engine_cache(cfg, max_batch: int, max_seq: int, dtype=torch.bfloat16, *, device="cuda") -> dict:
+    """The engine's dense slot cache: ``max_batch`` empty ring rows of
+    ``cache_window(cfg, max_seq)`` slots."""
+    return init_cache(cfg, max_batch, max_seq, dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# paged block pools
+# ---------------------------------------------------------------------------
+
+
+def graft_prefill_into_blocks(cfg, pool_cache: dict, raw_cache: dict, blocks, seq_filled: int, slot: int) -> dict:
+    """Write a (batch=1) prefill's raw K/V into the pool blocks a request was
+    allocated, in place.  ``blocks`` cover logical positions ``[0,
+    len(blocks) * bs)``; positions at or past ``seq_filled`` (right-padded
+    bucketed prefill, the partial last block) are written as zeros, so a
+    reused block never leaks stale K/V.  Quantized pools take the rows'
+    codes and scales.  The JAX package also copies the hybrid family's
+    recurrent states into batch slot ``slot`` here; the port's dense pools
+    hold none, so ``slot`` is unused."""
+    from repro_torch.serving.kvquant import kv_quant_mode_of, quantize
+
+    bs = pool_cache["k"].shape[2]
+    span = len(blocks) * bs
+    idx = torch.as_tensor(list(blocks), dtype=torch.long, device=pool_cache["k"].device)
+    mode = kv_quant_mode_of(pool_cache["k"].dtype)
+    for name in ("k", "v"):
+        kv = raw_cache[name][:, 0]  # (L, S, KV, hd)
+        L, S = kv.shape[:2]
+        kv = F.pad(kv, (0, 0, 0, 0, 0, max(span - S, 0)))[:, :span]
+        valid = torch.arange(span, device=kv.device) < seq_filled
+        kv = torch.where(valid[None, :, None, None], kv, torch.zeros((), dtype=kv.dtype, device=kv.device))
+        leaves = {name: kv} if mode is None else dict(zip((name, f"{name}_scale"), quantize(kv, mode)))
+        for leaf_name, rows in leaves.items():
+            pool = pool_cache[leaf_name]  # (L, N, bs, ...)
+            pool[:, idx] = rows.reshape((L, len(blocks), bs) + tuple(rows.shape[2:])).to(pool.dtype)
+    return pool_cache
 
 
 def make_table_row(blocks, max_blocks_per_seq: int) -> list[int]:

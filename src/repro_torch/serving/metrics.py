@@ -29,9 +29,14 @@ Histogram percentiles interpolate linearly inside the owning bucket (the
 ``histogram_quantile`` rule) and clamp to the observed min/max, so the
 error is bounded by one bucket's width — the default buckets are a
 factor-of-2 geometric ladder over 10 µs … ~84 s, tested against a numpy
-oracle in ``tests/test_metrics.py``.  (This is a copy of the JAX package's
-``serving/metrics.py`` without its ``EnergyBridge``, whose power model is
-the TPU's.)
+oracle in ``tests/test_metrics.py``.
+
+``EnergyBridge`` reconnects the paper's DCIM accounting to serving: each
+engine step charges ``chips x seconds`` at an occupancy-derived (or
+caller-supplied roofline) utilization into ``core.telemetry.EnergyLedger``,
+giving joules/token per request, the service-side view of the
+facility-side tables in ``core/telemetry.py``.  A copy of the JAX
+package's ``serving/metrics.py``; its ledger's power model is the H100's.
 """
 
 from __future__ import annotations
@@ -39,8 +44,10 @@ from __future__ import annotations
 import json
 import math
 from bisect import bisect_left
+from dataclasses import dataclass, field
 from typing import Iterable, Optional, Sequence
 
+from repro_torch.core.telemetry import EnergyLedger
 
 
 class ManualClock:
@@ -289,3 +296,36 @@ class MetricsRegistry:
     def write_json(self, path) -> None:
         with open(path, "w") as f:
             json.dump(self.snapshot(), f, indent=1)
+
+
+@dataclass
+class EnergyBridge:
+    """Charge engine activity into the DCIM ``EnergyLedger``.
+
+    Each engine step records ``chips x seconds`` at a utilization: by
+    default the step's slot occupancy (an activity proxy for the roofline
+    compute share: an idle slot leaves its sweep's FLOPs on the floor), or
+    a fixed ``utilization`` override when the caller has a roofline-derived
+    number (``core.telemetry.train_step_utilization``).  The engine then
+    attributes the step's IT-side joules to the requests that did work that
+    step, proportional to tokens computed, which yields joules/token per
+    request: the per-request view of the paper's facility accounting.
+    """
+
+    chips: int = 1
+    job_id: str = "serving"
+    utilization: Optional[float] = None  # fixed override; None = occupancy proxy
+    ledger: EnergyLedger = field(default_factory=EnergyLedger)
+    joules: float = 0.0  # IT-side joules charged so far
+
+    def record_step(self, seconds: float, *, occupancy: float) -> float:
+        """Integrate one engine step; returns the IT-side joules charged."""
+        if seconds <= 0:
+            return 0.0
+        util = occupancy if self.utilization is None else self.utilization
+        j = self.ledger.record(self.job_id, chips=self.chips, seconds=seconds, utilization=util)
+        self.joules += j
+        return j
+
+    def report(self) -> dict:
+        return self.ledger.report()

@@ -76,7 +76,7 @@ def _check_run(run_cfg) -> None:
     if run_cfg.parallel.grad_compression != "none":
         raise NotImplementedError(
             f"grad_compression={run_cfg.parallel.grad_compression!r} is not ported yet "
-            "(tensor-parallel slice, ROADMAP Queue 1 item 2)"
+            "(the tensor-parallel item of ROADMAP Queue 1)"
         )
 
 
@@ -102,7 +102,7 @@ def make_train_step(model_cfg, run_cfg, rules=None, mesh=None, *, q_chunk=0, par
     ``grad_norm`` (before clipping); all () fp32 tensors on the card.
     """
     if rules is not None or mesh is not None or param_shardings is not None:
-        raise NotImplementedError("sharded training is not ported yet (tensor-parallel slice, ROADMAP Queue 1 item 2)")
+        raise NotImplementedError("sharded training is not ported yet (the tensor-parallel item of ROADMAP Queue 1)")
     _check_run(run_cfg)
     prec, par, tr = run_cfg.precision, run_cfg.parallel, run_cfg.train
     compute_dtype = DTYPES[prec.compute_dtype]

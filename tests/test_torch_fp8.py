@@ -250,7 +250,7 @@ def test_fp8_context_observes_each_layer_once_under_remat():
     # distinct layers: scale the second layer's weights up
     for w in params["blocks"][1]["attn"].values():
         w.mul_(3.0)
-    state = make_fp8_state(cfg, prec)
+    state = make_fp8_state(cfg, prec, device="cpu")
     tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)).astype(np.int32))
     seen = {}
     for remat in ("none", "full"):

@@ -73,6 +73,7 @@ def test_entry_points_default_to_the_card():
     from repro_torch.configs import get_config
     from repro_torch.models import init_paged_cache, init_params
     from repro_torch.serving import InferenceEngine
+    from repro_torch.serving.kvcache import make_engine_cache
 
     cfg = reduce_for_smoke(get_config("olmo-1b"))
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -82,6 +83,10 @@ def test_entry_points_default_to_the_card():
     params = init_params(cfg, 0, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceEngine(cfg, params, cache_kind="dense")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_engine_cache(cfg, 2, 16)
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax(cfg, {"embed": {}, "blocks": {}, "final_norm": {}})
     InferenceEngine(cfg, params, device="cpu")  # asked for by name: fine
@@ -93,6 +98,7 @@ def test_training_entry_points_default_to_the_card():
     from repro_torch.config import RunConfig, reduce_for_smoke
     from repro_torch.configs import get_config
     from repro_torch.data import make_batch_fn, synthetic_batch
+    from repro_torch.fp8 import init_fp8_state, make_fp8_state
     from repro_torch.launch.train import main
     from repro_torch.train import init_train_state
 
@@ -106,7 +112,12 @@ def test_training_entry_points_default_to_the_card():
         synthetic_batch(cfg, step=0, global_batch=2, seq_len=8)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_batch_fn(cfg, global_batch=2, seq_len=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_fp8_state(cfg, run.precision)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_fp8_state(["s/x"], window=2)
     init_train_state(cfg, run, device="cpu")  # asked for by name: fine
+    make_fp8_state(cfg, run.precision, device="cpu")
 
 
 def test_kernel_wrappers_never_fall_back():
@@ -131,12 +142,12 @@ def test_kernel_wrappers_never_fall_back():
     "option,value,error",
     [("spec_decode", "bogus", ValueError), ("spec_k", 0, ValueError), ("spill_dtype", "fp4", ValueError),
      ("restore_budget", 0, ValueError), ("mesh", object(), NotImplementedError),
-     ("cache_kind", "dense", NotImplementedError)],
+     ("cache_kind", "bogus", ValueError)],
 )
 def test_options_outside_the_slice_raise(option, value, error):
     """Options the port does not have yet raise ``NotImplementedError``
-    naming the option; invalid speculative and spill-tier settings raise
-    the JAX engine's own ``ValueError``."""
+    naming the option; invalid speculative, spill-tier and cache-layout
+    settings raise the JAX engine's own ``ValueError``."""
     from repro_torch.config import reduce_for_smoke
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
