@@ -139,6 +139,28 @@ or when any check fails.  Phases:
    self-draft emits more than one token per slot-step, no block stays in
    use, K1 and K2 ran, profiling leaves the tokens as they were and the
    requests' joules sum to the engine's.
+5h. Front-ends (``frontend``, ``router``), each on fresh fused engines with
+   the serving_fused phase's settings.  ``frontend``: ``serve_http`` on a
+   loopback port over an ``AsyncEngine`` (its steps on one stepping
+   thread) serves the serving phase's 8 prompts to 8 concurrent SSE
+   clients (32 new tokens), one ``"stream": false`` request and one
+   client that drops its socket after its first token, while ``/stats``,
+   ``/metrics`` and ``/healthz`` are polled as the engine captures its
+   graphs; then a graceful drain with requests in flight.  It reads the
+   clients' TTFT and TPOT (from the frames' arrival), the engine's,
+   dispatches a step, mixed and decode ticks, graphs, K1/K2 launches in
+   replays and the stepping thread, and fails unless every stream is contiguous and ends by
+   length, the tokens equal the serving phase's up to near-ties, the
+   dropped request is cancelled, polls answer 200, ``/healthz`` and a new
+   request get 503 while draining, no block stays in use and one thread
+   ran every step.  ``router``: the Fig. 9 harness's ``run_router`` (1
+   replica; 2 with affinity; 2 random; 2 with replica 0 crashed mid-run)
+   on tenant prompts with 96-token system prompts, with the reference's
+   gates and tokens up to near-ties; a router that resumes a failed-over
+   request one position off is the control the token gate must reject;
+   then a 2-replica router behind ``serve_http`` serves 4 SSE requests.
+   Each arm reads modelled and wall tokens/s, hit rate, failovers,
+   retries, replica states and peak memory.
 6. Train: FP8 training of olmo-1b at full width and depth (fp32 master
    weights, bf16 compute, K4 for every projection GEMM, remat per block),
    4 steps of 4 x 2048 tokens from random weights (seed 0), with the loss,
@@ -1574,6 +1596,395 @@ def fig9_phase(cfg, params, device, max_new_tokens=32) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5h: the always-on front-ends
+# ---------------------------------------------------------------------------
+
+# the serving_fused phase's engine settings
+FRONTEND_ENGINE = dict(max_batch=4, max_seq=512, block_size=BLOCK_SIZE, prefill_budget=128,
+                       cache_dtype=torch.bfloat16, fused=True, attn_impl="kernel")
+ROUTER_SYSTEM_LEN = 3 * BLOCK_SIZE  # the harness's tenant system prompts: 3 full blocks
+POLL_S = 0.05  # the frontend phase's /stats, /metrics and /healthz polls
+
+
+def same_up_to_ties(cfg, params, device, prompts, tokens, reference, found=None) -> bool:
+    """Token identity on the card: every request's tokens as many as the
+    reference's and equal to them, or first different where the
+    reference's top-2 logit gap is below ``PATH_TOL`` (``differences``).
+    ``found`` collects each call's differences."""
+    from types import SimpleNamespace
+
+    reqs = [SimpleNamespace(prompt=p, generated=t) for p, t in zip(prompts, tokens)]
+    differ = differences(cfg, params, device, reqs, reference)
+    if found is not None:
+        found.append(differ)
+    lengths = len(tokens) == len(reference) and all(len(a) == len(b) for a, b in zip(tokens, reference))
+    return lengths and all(d["near_tie"] for d in differ)
+
+
+def seed_one_off(router_cls):
+    """The control of the failover gate: a router whose resume seeds the
+    delivered tokens one position late (the prompt's last token first, the
+    last delivered token left out), so a failed-over request continues
+    from a context shifted by one."""
+
+    class SeedOneOff(router_cls):
+        def _place(self, rreq, rep):
+            super()._place(rreq, rep)
+            if rreq.generated:
+                rreq.engine_req.generated = [rreq.prompt[-1]] + rreq.generated[:-1]
+
+    return SeedOneOff
+
+
+async def read_response(reader, t0: float, *, on_first=None, drop_after_first=False) -> dict:
+    """One HTTP response: its status and either its SSE frames (event,
+    data, seconds since ``t0``) or its body (JSON or text)."""
+    import asyncio
+
+    head = (await reader.readuntil(b"\r\n\r\n")).decode()
+    out = {"status": int(head.split(" ", 2)[1])}
+    if "text/event-stream" not in head:
+        body = (await reader.read()).decode()
+        out["body"] = json.loads(body) if "application/json" in head else body
+        return out
+    out["frames"] = []
+    while True:
+        try:
+            block = (await reader.readuntil(b"\n\n")).decode()
+        except asyncio.IncompleteReadError:
+            return out  # the stream ended without a done frame
+        fields = dict(ln.split(": ", 1) for ln in block.strip().split("\n"))
+        out["frames"].append((fields["event"], json.loads(fields["data"]), time.perf_counter() - t0))
+        if fields["event"] == "token" and len(out["frames"]) == 1 and on_first is not None:
+            on_first()
+        if fields["event"] == "done" or drop_after_first:
+            return out
+
+
+async def send(reader, writer, method: str, path: str, payload=None, **kw) -> dict:
+    """Send one request on an open connection and read its response."""
+    t0 = time.perf_counter()
+    body = json.dumps(payload).encode() if payload is not None else b""
+    writer.write(f"{method} {path} HTTP/1.1\r\nHost: smoke\r\nContent-Length: {len(body)}\r\n\r\n".encode() + body)
+    await writer.drain()
+    try:
+        return await read_response(reader, t0, **kw)
+    finally:
+        writer.close()
+        try:
+            await writer.wait_closed()
+        except ConnectionError:
+            pass
+
+
+async def http_call(port: int, method: str, path: str, payload=None, **kw) -> dict:
+    import asyncio
+
+    return await send(*await asyncio.open_connection("127.0.0.1", port), method, path, payload, **kw)
+
+
+def stream_readings(r: dict) -> dict:
+    """Tokens of one SSE response, whether its token frames are contiguous
+    by ``index``, its done frame, and the client's TTFT and TPOT from the
+    frames' arrival times."""
+    tokens, times = [], []
+    contiguous = r["status"] == 200
+    for event, data, t in r.get("frames", []):
+        if event == "token":
+            contiguous &= data["index"] == len(tokens)
+            tokens += data["tokens"]
+            times += [t] * len(data["tokens"])
+    frames = r.get("frames", [])
+    done = frames[-1][1] if frames and frames[-1][0] == "done" else None
+    return {"tokens": tokens, "contiguous": contiguous, "done": done, "ttft_s": times[0] if times else None,
+            "tpot_s": (times[-1] - times[0]) / (len(times) - 1) if len(times) > 1 else None}
+
+
+async def serve_and_drive(engine, prompts, max_new: int, *, whole=None, dropped=None, poll=False) -> dict:
+    """``serve_http`` over ``engine`` on a loopback port, driven by one SSE
+    client per prompt, all at once, plus optionally a ``"stream": false``
+    request of ``whole``, a client that closes its socket after the first
+    token frame of ``dropped``, and ``/stats``, ``/metrics`` and
+    ``/healthz`` polls every ``POLL_S``.  Once every SSE client has its
+    first token the service is told to shut down (``shutdown_event``): on
+    two connections opened before, a ``/healthz`` probe and a new request
+    are sent once the drain began."""
+    import asyncio
+
+    from repro_torch.serving.http import serve_http
+
+    stop = asyncio.Event()
+    ready = asyncio.get_running_loop().create_future()
+    server = asyncio.create_task(serve_http(engine, port=0, shutdown_event=stop, drain_timeout_s=300.0,
+                                            on_ready=ready.set_result))
+    front = await ready
+    port = front.port
+    all_first = asyncio.Event()
+    firsts = []
+
+    def first():
+        firsts.append(time.perf_counter())
+        if len(firsts) == len(prompts):
+            all_first.set()
+
+    polls = []
+
+    async def poller():
+        while True:
+            for path in ("/stats", "/metrics", "/healthz"):
+                if stop.is_set():
+                    return
+                try:
+                    r = await http_call(port, "GET", path)
+                except ConnectionError:
+                    return  # the acceptor closed
+                graphs = r["body"].get("graphs_captured", 0) if path == "/stats" else None
+                polls.append({"path": path, "status": r["status"], "graphs_captured": graphs,
+                              "draining": front.async_engine.draining})
+            await asyncio.sleep(POLL_S)
+
+    t0 = time.perf_counter()
+    polling = asyncio.create_task(poller()) if poll else None
+    gen = "/v1/generate"
+    clients = [asyncio.create_task(http_call(port, "POST", gen, {"prompt": p, "max_new_tokens": max_new},
+                                             on_first=first)) for p in prompts]
+    extra = {}
+    if whole is not None:
+        extra["whole"] = asyncio.create_task(http_call(
+            port, "POST", gen, {"prompt": whole, "max_new_tokens": max_new, "stream": False}))
+    if dropped is not None:
+        extra["dropped"] = asyncio.create_task(http_call(
+            port, "POST", gen, {"prompt": dropped, "max_new_tokens": max_new}, drop_after_first=True))
+    await all_first.wait()
+    probes = [await asyncio.open_connection("127.0.0.1", port) for _ in range(2)]
+    stop.set()
+    while not front.async_engine.draining:
+        await asyncio.sleep(0.001)
+    inflight = sum(not c.done() for c in clients)
+    healthz = await send(*probes[0], "GET", "/healthz")
+    late = await send(*probes[1], "POST", gen, {"prompt": prompts[0][:8], "max_new_tokens": 2})
+    streams = await asyncio.gather(*clients)
+    extra = {k: await t for k, t in extra.items()}
+    if polling is not None:
+        await polling
+    await server
+    return {"streams": [stream_readings(r) for r in streams], "extra": extra, "polls": polls,
+            "healthz_draining": healthz, "late_submission": late, "inflight_at_drain": inflight,
+            "wall_s": time.perf_counter() - t0, "async_engine": front.async_engine}
+
+
+def frontend_phase(cfg, params, device, legacy_tokens, max_new_tokens=32) -> dict:
+    """The serving phase's 8 prompts through the HTTP/SSE service
+    (``serve_http`` over an ``AsyncEngine`` over a fresh fused engine with
+    ``serving_fused``'s settings), 8 concurrent SSE clients, one
+    ``"stream": false`` request of the first prompt, one client that drops
+    its socket after its first token, ``/stats``, ``/metrics`` and
+    ``/healthz`` polls while the engine captures its graphs, then a
+    graceful drain with requests still in flight.
+
+    Gates: every stream's token frames are contiguous by ``index`` and end
+    in ``done`` after 32 tokens by length; the streams' tokens (and the
+    whole request's) equal the serving phase's up to near-ties; the dropped
+    client's request finishes ``"cancelled"``; every poll before the drain
+    answers 200 and some ``/stats`` poll lands between the first and the
+    last capture; while draining, ``/healthz`` and a new request get 503
+    on connections opened before it; after the drain no block is in use
+    and allocations equal frees; every step ran on one stepping thread,
+    gone after the drain; the replays ran K1 and K2."""
+    import asyncio
+    import gc
+
+    from repro_torch.kernels import paged_attention as K
+    from repro_torch.serving import InferenceEngine
+
+    prompts = serving_prompts(cfg, SEED)
+    dropped = serving_prompts(cfg, SEED + 3)[0]
+    gc.collect()  # what earlier phases left in cycles, out of this phase's peak
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = InferenceEngine(cfg, params, eos_token=cfg.padded_vocab, device=device, **FRONTEND_ENGINE)
+    K.reset_launches()  # the main path's run starts here
+    run = asyncio.run(serve_and_drive(eng, prompts, max_new_tokens, whole=prompts[0], dropped=dropped, poll=True))
+    eager = dict(K.LAUNCHES)  # the captures' warm-up runs
+    aeng = run.pop("async_engine")
+    graphs = eng._graphs
+    s = eng.stats()
+    streams = run["streams"]
+    whole = run["extra"]["whole"]
+    dropped_reasons = [r.finish_reason for r in eng.done if r.prompt == dropped]
+    by_id = {r.req_id: r for r in eng.done}
+    served = [by_id[st["done"]["req_id"]] for st in streams if st["done"]]  # the SSE clients' requests
+    found = []
+    sound = same_up_to_ties(cfg, params, device, prompts + prompts[:1],
+                            [st["tokens"] for st in streams] + [whole["body"]["tokens"]],
+                            legacy_tokens + legacy_tokens[:1], found)
+    stats_polls = [p for p in run["polls"] if p["path"] == "/stats"]
+    during_capture = sum(0 < p["graphs_captured"] < graphs.captures for p in stats_polls)
+    before_drain = sorted({p["status"] for p in run["polls"] if not p["draining"]})
+    out = {
+        "phase": "frontend", "model": cfg.name, "clients": len(prompts), "max_new_tokens": max_new_tokens,
+        "wall_s": run["wall_s"],
+        "client_ttft_p50_s": float(np.median([st["ttft_s"] for st in streams])),
+        "client_tpot_p50_s": float(np.median([st["tpot_s"] for st in streams])),
+        "engine_ttft_p50_s": float(np.median([r.ttft for r in served])),
+        "engine_tpot_p50_s": float(np.median([r.tpot for r in served])),
+        "dispatches_per_step": s["dispatches_per_step"], "host_syncs_per_step": s["host_syncs_per_step"],
+        "ticks": tick_kinds(eng, float("-inf")),
+        "graphs_captured": graphs.captures, "capture_s": graphs.capture_s,
+        "replay_launches": dict(graphs.launches), "eager_launches": eager,
+        "step_threads": sorted(aeng.step_threads), "stepping_thread_shut_down": aeng._executor is None,
+        "polls": len(run["polls"]), "stats_polls_during_capture": during_capture,
+        "poll_statuses_before_drain": before_drain,
+        "inflight_at_drain": run["inflight_at_drain"],
+        "healthz_draining": run["healthz_draining"], "late_submission": run["late_submission"],
+        "dropped_finish": dropped_reasons, "whole": {k: v for k, v in whole["body"].items() if k != "tokens"},
+        "done_reasons": [st["done"]["reason"] if st["done"] else None for st in streams],
+        "alloc_blocks_in_use": s["alloc_blocks_in_use"], "allocs": s["alloc_total_allocs"],
+        "frees": s["alloc_total_frees"], "requests_aborted": s["requests_aborted"],
+        "differences": found[0], "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    emit(out)
+    if not all(st["contiguous"] and st["done"] and st["done"]["reason"] == "length"
+               and len(st["tokens"]) == max_new_tokens for st in streams):
+        fail(f"frontend: a stream is not contiguous or did not end by length: {out['done_reasons']}")
+    if whole["status"] != 200 or whole["body"]["reason"] != "length" or not sound:
+        fail(f"frontend: tokens differ from the serving phase's away from a near-tie: {found}")
+    if dropped_reasons != ["cancelled"]:
+        fail(f"frontend: the dropped client's request finished {dropped_reasons}")
+    if before_drain != [200] or during_capture < 1:
+        fail(f"frontend: polls answered {before_drain}, {during_capture} /stats polls between captures")
+    if run["healthz_draining"]["status"] != 503 or run["late_submission"]["status"] != 503:
+        fail(f"frontend: while draining /healthz gave {run['healthz_draining']}, a new request "
+             f"{run['late_submission']}")
+    if s["alloc_blocks_in_use"] != 0 or s["alloc_total_allocs"] != s["alloc_total_frees"]:
+        fail(f"frontend: {s['alloc_blocks_in_use']} blocks in use after the drain, "
+             f"{s['alloc_total_allocs']} allocs against {s['alloc_total_frees']} frees")
+    if len(aeng.step_threads) != 1 or "MainThread" in aeng.step_threads or aeng._executor is not None:
+        fail(f"frontend: steps ran on {aeng.step_threads}")
+    if not (graphs.launches["paged_decode"] > 0 and graphs.launches["paged_prefill"] > 0):
+        fail(f"frontend: the graph replays ran no K1 or no K2: {graphs.launches}")
+    del eng, aeng, graphs  # the engine and its graphs hold cycles
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet_launches(rows) -> dict:
+    """K1/K2 launches of the router arms' replicas: eager calls (the
+    captures' warm-ups) and graph replays, summed over replicas and arms."""
+    out = {"eager": {}, "replays": {}}
+    for row in rows:
+        for rid, stats in row["per_replica"].items():
+            for name, n in row["replica_launches"][rid].items():
+                out["eager"][name] = out["eager"].get(name, 0) + n
+            for name, n in stats.get("graph_launches", {}).items():
+                out["replays"][name] = out["replays"].get(name, 0) + n
+    return out
+
+
+def router_phase(cfg, params, device, legacy_tokens, max_new_tokens=32) -> dict:
+    """``repro_torch.benchmarks.llm_inference.run_router`` at full width
+    with ``serving_fused``'s engine settings: 1 replica, 2 with affinity,
+    2 with random routing, 2 with replica 0 crashed halfway through the
+    affinity arm's steps, on the harness's tenant prompts with 3-block (96
+    token) system prompts.  Its gates are the reference's with token
+    identity up to near-ties (``same_up_to_ties``): no lost request, at
+    least one failover, replica 0 dead, affinity's hit rate above random's
+    and the modelled scaling (on the virtual clock, where replicas run in
+    parallel; on one card they step in turns, so no wall-clock scaling is
+    claimed).  The control: the failover arm again under a router that
+    resumes one position off (``seed_one_off``), which the token gate must
+    reject.  Then a 2-replica ``Router`` behind ``serve_http`` serves 4 SSE
+    requests (two prompt families, one a replica), drained gracefully."""
+    import asyncio
+    import gc
+
+    from repro_torch.benchmarks import llm_inference as bench
+    from repro_torch.kernels import paged_attention as K
+    from repro_torch.serving import FaultPlan, ManualClock, Router
+
+    prompts = bench.tenant_prompts(system_len=ROUTER_SYSTEM_LEN)
+    kw = dict(FRONTEND_ENGINE, eos_token=cfg.padded_vocab)
+    found = []
+
+    def same(tokens, reference):
+        return same_up_to_ties(cfg, params, device, prompts, tokens, reference, found)
+
+    K.reset_launches()  # the router arms start here
+    rows = bench.run_router(cfg, params, device=device, prompts=prompts, same_tokens=same, **kw)
+    launches = fleet_launches(rows)  # the replicas' own: the token checks' K2 calls are not counted
+    arms = {r["name"].removeprefix("llm_inference_router_"): r for r in rows}
+    keys = ("tok_per_s", "wall_tok_per_s", "wall_s", "makespan_s", "prefix_hit_rate", "failovers", "retries",
+            "replica_states", "requests_done", "requests_failed", "tokens_out", "prefill_tokens", "peak_mem_bytes",
+            "replica_steps", "crash_at_step")
+    out = {"phase": "router", "model": cfg.name, "requests": len(prompts), "time_base": rows[0]["time_base"],
+           "arms": {name: {k: r.get(k) for k in keys} for name, r in arms.items()},
+           "speedup_vs_single_modelled": arms["affinity"]["speedup_vs_single"],
+           "wall_speedup_vs_single": arms["affinity"]["wall_tok_per_s"] / arms["single"]["wall_tok_per_s"],
+           "launches": launches, "differences": found}
+    for name, r in out["arms"].items():
+        emit({"phase": "router", "arm": name, **r})
+
+    # the control: the failover arm resumed one position off
+    clock = ManualClock()
+    control = bench.make_router(cfg, params, 2, clock=clock, router_cls=seed_one_off(Router), device=device,
+                                fault_plans={0: FaultPlan(crash_at_step=arms["failover"]["crash_at_step"])}, **kw)
+    cs, control_tokens = bench.drive_router(control, clock, prompts)
+    del control
+    gc.collect()
+    torch.cuda.empty_cache()
+    control_found = []
+    control_passes = same_up_to_ties(cfg, params, device, prompts, control_tokens, arms["single"]["tokens"],
+                                     control_found)
+    out["control"] = {"failovers": cs["failovers"], "differences": control_found[0], "passes": control_passes}
+
+    # the --replicas 2 --http path: a fleet behind the HTTP/SSE service
+    http_prompts = serving_prompts(cfg, SEED)[:2] + serving_prompts(cfg, SEED + 2)[:2]
+    fleet = bench.make_router(cfg, params, 2, clock=None, device=device, **kw)
+    K.reset_launches()  # the fleet's service starts here
+    run = asyncio.run(serve_and_drive(fleet, http_prompts, max_new_tokens))
+    aeng = run.pop("async_engine")
+    fs = fleet.stats()
+    http_launches = fleet_launches([{"per_replica": fs["per_replica"],
+                                     "replica_launches": {r.id: r.launches for r in fleet.replicas}}])
+    http_found = []
+    http_sound = same_up_to_ties(cfg, params, device, http_prompts[:2], [st["tokens"] for st in run["streams"][:2]],
+                                 legacy_tokens[:2], http_found)
+    out["http"] = {
+        "requests": len(http_prompts), "wall_s": run["wall_s"],
+        "client_ttft_p50_s": float(np.median([st["ttft_s"] for st in run["streams"]])),
+        "client_tpot_p50_s": float(np.median([st["tpot_s"] for st in run["streams"]])),
+        "done_reasons": [st["done"]["reason"] if st["done"] else None for st in run["streams"]],
+        "replica_states": fs["replica_states"], "failovers": fs["failovers"],
+        "served_per_replica": {i: s["requests_done"] for i, s in fs["per_replica"].items()},
+        "blocks_in_use": {i: s["alloc_blocks_in_use"] for i, s in fs["per_replica"].items()},
+        "launches": http_launches, "step_threads": sorted(aeng.step_threads),
+        "healthz_draining": run["healthz_draining"], "inflight_at_drain": run["inflight_at_drain"],
+        "differences": http_found[0],
+    }
+    del fleet, aeng
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "router", "summary": {k: v for k, v in out.items() if k != "arms"}})
+    if control_passes or cs["failovers"] < 1:
+        fail(f"router: the control (resume one position off) passes the token gate: {out['control']}")
+    h = out["http"]
+    if not all(st["contiguous"] and st["done"] and st["done"]["reason"] == "length" for st in run["streams"]):
+        fail(f"router http: a stream is not contiguous or did not end by length: {h['done_reasons']}")
+    if not http_sound:
+        fail(f"router http: tokens differ from the serving phase's away from a near-tie: {http_found}")
+    if set(h["replica_states"].values()) != {"healthy"} or min(h["served_per_replica"].values()) < 1:
+        fail(f"router http: replicas {h['replica_states']}, served {h['served_per_replica']}")
+    if any(h["blocks_in_use"].values()) or run["healthz_draining"]["status"] != 503 or len(h["step_threads"]) != 1:
+        fail(f"router http: blocks {h['blocks_in_use']}, healthz while draining {run['healthz_draining']}, "
+             f"threads {h['step_threads']}")
+    for what, counts in (("arms", launches), ("http", http_launches)):
+        if not (counts["replays"].get("paged_decode", 0) > 0 and counts["replays"].get("paged_prefill", 0) > 0):
+            fail(f"router {what}: the graph replays ran no K1 or no K2: {counts}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel path against plain path at full width
 # ---------------------------------------------------------------------------
 
@@ -2721,6 +3132,8 @@ def main() -> int:
     tiered = phase("serving_tiered", serving_tiered_phase, cfg, params, device)
     phase("spill_restore", spill_restore_phase, cfg, device)
     fig9 = phase("fig9", fig9_phase, cfg, params, device)
+    frontend = phase("frontend", frontend_phase, cfg, params, device, legacy_tokens)
+    router = phase("router", router_phase, cfg, params, device, legacy_tokens)
     del params  # the serving model's memory goes back before training
     torch.cuda.empty_cache()
 
@@ -2773,6 +3186,12 @@ def main() -> int:
             k["tier_launches"] = {arm: tiered[arm][which] for arm in ("spill", "drop", "uncached", "spill_budget_32",
                                                                       "spill_fused", "drop_fused")}
             k["fig9_launches"] = fig9["launches"][k["name"]]  # the Fig. 9 harness's closed-loop arms
+            # the front-ends' runs: graph replays and the captures' eager warm-ups
+            k["frontend_launches"] = {"replays": frontend["replay_launches"][k["name"]],
+                                      "eager": frontend["eager_launches"][k["name"]]}
+            k["router_launches"] = {run: {how: counts[how].get(k["name"], 0) for how in ("replays", "eager")}
+                                    for run, counts in (("arms", router["launches"]),
+                                                        ("http", router["http"]["launches"]))}
             k["quantized_launches"] = {  # quantized pools read plain: none
                 run: quantized[run]["eager_launches"][k["name"]] + (quantized[run]["replay_launches"] or {}).get(k["name"], 0)
                 for run in ("int8_legacy", "int8_fused", "fp8_legacy", "fp8_fused")

@@ -1,6 +1,7 @@
 """LLM inference (paper Fig. 9) on the card: paged against dense engines,
 prefix-cached against re-prefill admission, speculative decoding, open-loop
-SLO scheduling, the tiered KV cache and the fused step.
+SLO scheduling, the tiered KV cache, the fused step and the multi-replica
+router.
 
 The torch twin of the repository's ``benchmarks/llm_inference.py``, with
 its workloads, engine shapes and assertions.  The paper reports 70B
@@ -29,6 +30,13 @@ the port's continuous-batching engine (``repro_torch.serving``):
   spill tier on an over-committed pool, two rounds of 8 tenants.
 * **fused step** (``run_fused``) — the legacy walk against ``fused=True``
   on the shared-prompt workload after a warm-up round.
+* **multi-replica router** (``run_router``) — engines behind the
+  prefix-affinity ``serving.router.Router`` on a multi-tenant workload (8
+  families, each sharing a distinct 3-block system prompt): 1 replica; 2
+  with affinity routing (modelled tok/s above 1.3x one replica's, hit rate
+  within 10 points of it); 2 with random routing (affinity must beat its
+  hit rate); 2 with one replica crashed by a ``FaultPlan`` mid-run (no
+  request lost, tokens equal to the no-failure run's).
 
 Time bases.  ``run`` times each arm on the wall clock of its device (the
 card's by default; the device is named in every row).  The open-loop,
@@ -36,17 +44,19 @@ spill and fused arms advance a ``ManualClock`` by a per-step cost model
 (``STEP_OVERHEAD_S``, ``TOKEN_COST_S``, ``RESTORE_COST_S``,
 ``DISPATCH_OVERHEAD_S``), as the reference does: their TTFTs and step
 costs are **modelled, not measured**, exact and machine-independent, and
-their rows say so (``time_base``).  The fused arm's ``wall_step_s`` is
-measured.
+their rows say so (``time_base``).  The router's modelled clock charges a
+fleet round its slowest replica's step, as if replicas ran in parallel;
+on one card they step in turns, so its rows also read the measured wall
+seconds and wall tokens/s, which claim no scaling.  The fused arm's
+``wall_step_s`` is measured.
 
 Every size is a parameter whose default is the reference's constant, so
 that on the CPU, with the JAX engine's weights, the integer results equal
 the reference's.  The default model is the reference's,
 ``reduce_for_smoke(mistral-nemo-12b)``, with random weights from seed 0.
-The reference's tensor-parallel (``--tp``) and router arms are not ported
-yet.  Run::
+The reference's tensor-parallel (``--tp``) arm is not ported yet.  Run::
 
-    PYTHONPATH=src python -m repro_torch.benchmarks.llm_inference [--openloop|--spill|--fused] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.benchmarks.llm_inference [--openloop|--spill|--fused|--router] [--device cpu]
 
 Results go to ``--out`` (default ``build/llm_inference/`` of the checkout,
 which git ignores), one JSON file per scenario.
@@ -55,6 +65,7 @@ which git ignores), one JSON file per scenario.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import random
 import time
@@ -68,7 +79,7 @@ from repro_torch.config import reduce_for_smoke
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
-from repro_torch.serving import InferenceEngine
+from repro_torch.serving import FaultPlan, InferenceEngine, Replica, Router
 from repro_torch.serving.metrics import ManualClock
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "build" / "llm_inference"
@@ -495,6 +506,169 @@ def run_spill(cfg=None, params=None, *, device="cuda", out=OUT_DIR, max_seq=MAX_
     return rows
 
 
+# ---- multi-replica router: affinity, scaling, failover --------------------
+ROUTER_TENANTS = 8
+ROUTER_PER_TENANT = 2
+ROUTER_MAX_NEW = 12
+ROUTER_BUDGET = 16
+ROUTER_SCALING = 1.3  # modelled tok/s of 2 replicas over 1, at least
+ROUTER_HIT_SLACK = 0.10  # affinity keeps the hit rate within this of 1 replica's
+
+
+def tenant_prompts(tenants: int = ROUTER_TENANTS, per_tenant: int = ROUTER_PER_TENANT,
+                   system_len: int = SYSTEM_PROMPT_LEN, tail: int = UNIQUE_TAIL) -> list[list[int]]:
+    """``tenants`` families, each sharing a distinct ``system_len``-token
+    system prompt (3 full blocks at the reference's sizes), interleaved in
+    submission order: affinity keeps a family on one replica, where its
+    prefix blocks are, and random placement splits it and prefills the
+    family's prompt on every replica it lands on.  Tails stay under 256,
+    the smoke vocab, at the reference's sizes."""
+    prompts = []
+    for i in range(per_tenant):
+        for t in range(tenants):
+            system = [(13 * t + 5 * j + 7) % 197 + 2 for j in range(system_len)]
+            prompts.append(system + [192 + (t * per_tenant + i) * tail + k for k in range(tail)])
+    return prompts
+
+
+def make_router(cfg, params, n: int, *, clock, policy: str = "affinity", fault_plans=None, router_cls=Router,
+                max_batch: int = 4, max_seq: int = MAX_SEQ, block_size: int = BLOCK_SIZE,
+                prefill_budget: int = ROUTER_BUDGET, **engine_kw):
+    """``n`` paged engines with the prefix cache, each a ``Replica`` on
+    ``clock`` under its fault plan, behind a ``router_cls`` router.  The
+    engines share ``params``."""
+    replicas = [
+        Replica(i, InferenceEngine(cfg, params, max_batch=max_batch, max_seq=max_seq, cache_kind="paged",
+                                   block_size=block_size, prefix_cache=True, prefill_budget=prefill_budget,
+                                   clock=clock, **engine_kw),
+                clock=clock, fault_plan=(fault_plans or {}).get(i))
+        for i in range(n)
+    ]
+    return router_cls(replicas, policy=policy, clock=clock)
+
+
+def _replica_work(eng) -> int:
+    return eng.prefill_tokens + eng.verify_tokens + eng.tokens_out
+
+
+def drive_router(router, clock: ManualClock, prompts, *, max_new: int = ROUTER_MAX_NEW) -> tuple[dict, list]:
+    """Closed-loop fleet drain on virtual time.  Replicas run in parallel in
+    a deployment, so a fleet round costs the *slowest* replica's step: the
+    fixed step overhead plus the per-token cost of the largest replica work
+    that round.  Also reads the wall clock around the drain: on one card
+    the replicas step in turns, so the wall is the sum of their steps."""
+    reqs = [router.submit(list(p), max_new_tokens=max_new) for p in prompts]
+    device = router.replicas[0].engine.device
+    t0 = time.perf_counter()
+    while router.has_work:
+        before = {rep.id: _replica_work(rep.engine) for rep in router.replicas}
+        router.step()
+        deltas = [_replica_work(rep.engine) - before[rep.id] for rep in router.replicas]
+        clock.advance(STEP_OVERHEAD_S + TOKEN_COST_S * max(deltas, default=0))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    s = router.stats()
+    s["makespan_s"] = clock.now
+    s["tok_per_s"] = s["tokens_out"] / clock.now if clock.now else 0.0
+    s["wall_s"] = wall
+    s["wall_tok_per_s"] = s["tokens_out"] / wall
+    return s, [list(r.generated) for r in reqs]
+
+
+def run_router(cfg=None, params=None, *, device="cuda", out=OUT_DIR, prompts=None, max_new: int = ROUTER_MAX_NEW,
+               same_tokens=None, **engine_kw) -> list[dict]:
+    """Router A/B on the tenant workload: 1 replica; 2 with affinity routing
+    (modelled tok/s above ``ROUTER_SCALING`` x 1 replica's, hit rate within
+    ``ROUTER_HIT_SLACK``); 2 with random routing (affinity must beat its hit
+    rate); 2 with replica 0 crashed halfway through the steps it ran in the
+    affinity arm (no request lost, at least one failover, replica 0 dead).
+    Every arm's tokens must equal the single replica's by ``same_tokens``
+    (``same_tokens(tokens, reference) -> bool``; equality by default).
+    ``prompts`` default to ``tenant_prompts()``; ``engine_kw`` reach every
+    engine (``make_router``'s sizes, ``fused``, ``cache_dtype``,
+    ``eos_token``, ...).  The modelled numbers (``tok_per_s``,
+    ``makespan_s``) come from ``drive_router``'s virtual clock, as in the
+    reference; ``wall_s`` and ``wall_tok_per_s`` are the device's wall
+    clock, where two replicas step in turns: no scaling is claimed from
+    them.  On the card each arm's fleet is freed after it ran, and its row
+    reads the arm's peak memory."""
+    device = resolve_device(device)
+    if cfg is None:
+        cfg, params = default_model(device)
+    prompts = prompts if prompts is not None else tenant_prompts()
+    same = same_tokens if same_tokens is not None else (lambda toks, ref: toks == ref)
+    n_req = len(prompts)
+
+    def arm(n, policy="affinity", fault_plans=None):
+        gc.collect()  # what an earlier engine left in cycles
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        clock = ManualClock()
+        router = make_router(cfg, params, n, clock=clock, policy=policy, fault_plans=fault_plans, device=device,
+                             **engine_kw)
+        s, toks = drive_router(router, clock, prompts, max_new=max_new)
+        s["replica_steps"] = {rep.id: rep.steps for rep in router.replicas}
+        s["replica_launches"] = {rep.id: dict(rep.launches) for rep in router.replicas}  # eager calls
+        del router
+        gc.collect()  # the engines' hooks and graphs hold cycles
+        if device.type == "cuda":
+            s["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
+            torch.cuda.empty_cache()
+        return s, toks
+
+    single, single_toks = arm(1)
+    aff, aff_toks = arm(2)
+    rnd, rnd_toks = arm(2, policy="random")
+    # kill replica 0 halfway through the steps it ran in the healthy
+    # affinity run: requests are mid-flight there when it dies
+    crash_at = max(aff["replica_steps"][0] // 2, 1)
+    fo, fo_toks = arm(2, fault_plans={0: FaultPlan(crash_at_step=crash_at)})
+
+    _check(same(aff_toks, single_toks) and same(rnd_toks, single_toks), "replica placement changed greedy outputs")
+    _check(
+        fo["requests_done"] == n_req and fo["requests_failed"] == 0,
+        f"lost requests after replica kill: done={fo['requests_done']}/{n_req} failed={fo['requests_failed']}",
+    )
+    _check(fo["failovers"] >= 1, "the kill must have forced at least one failover")
+    _check(fo["replica_states"][0] == "dead", f"replica 0 is {fo['replica_states'][0]} after its crash")
+    _check(same(fo_toks, single_toks), "failover changed greedy outputs vs no-failure run")
+    _check(
+        aff["tok_per_s"] > ROUTER_SCALING * single["tok_per_s"],
+        f"2 replicas must scale modelled aggregate decode: {aff['tok_per_s']:.1f} vs {single['tok_per_s']:.1f} tok/s",
+    )
+    _check(
+        aff["prefix_hit_rate"] >= single["prefix_hit_rate"] - ROUTER_HIT_SLACK,
+        f"affinity routing lost the prefix cache: hit rate {aff['prefix_hit_rate']:.2f} vs "
+        f"{single['prefix_hit_rate']:.2f} on 1 replica",
+    )
+    _check(
+        aff["prefix_hit_rate"] > rnd["prefix_hit_rate"],
+        f"affinity must beat random placement on hit rate: {aff['prefix_hit_rate']:.2f} vs "
+        f"{rnd['prefix_hit_rate']:.2f}",
+    )
+
+    on = _device_name(device)
+    rows = []
+    for name, s, toks in (("single", single, single_toks), ("affinity", aff, aff_toks), ("random", rnd, rnd_toks),
+                          ("failover", fo, fo_toks)):
+        rows.append({
+            "name": f"llm_inference_router_{name}", "us_per_call": s["makespan_s"] / max(s["requests_done"], 1) * 1e6,
+            "time_base": f"tok_per_s, makespan_s: {MODELLED}; wall_s, wall_tok_per_s: wall clock, {on}",
+            "policy": s["routing_policy"], "crash_at_step": crash_at if name == "failover" else None,
+            "tokens_match_single": toks == single_toks, "tokens": toks,
+            "derived": (
+                f"tok/s={s['tok_per_s']:.1f} wall_tok/s={s['wall_tok_per_s']:.1f} hit={s['prefix_hit_rate']:.2f} "
+                f"failovers={s['failovers']:.0f} done={s['requests_done']}/{n_req}"
+            ),
+            **s,
+        })
+    rows[1]["speedup_vs_single"] = aff["tok_per_s"] / single["tok_per_s"]
+    _write(out, "llm_inference_router.json", rows)
+    return rows
+
+
 # ---- fused one-dispatch step A/B ------------------------------------------
 # per-host-round-trip overhead of the modelled step latency: the launch and
 # host-sync cost the fused step removes
@@ -582,8 +756,12 @@ def main(argv=None) -> list[dict]:
     which.add_argument("--openloop", action="store_true", help="open-loop SLO vs FCFS on virtual time")
     which.add_argument("--spill", action="store_true", help="drop-on-evict vs the host spill tier on virtual time")
     which.add_argument("--fused", action="store_true", help="legacy walk vs the fused one-dispatch step")
+    which.add_argument("--router", action="store_true",
+                       help="1 replica vs 2 behind the router: affinity, random, a mid-run crash")
     args = ap.parse_args(argv)
-    if args.fused:
+    if args.router:
+        rows = run_router(device=args.device, out=args.out)
+    elif args.fused:
         rows = run_fused(device=args.device, out=args.out)
     elif args.spill:
         rows = run_spill(device=args.device, out=args.out)

@@ -1,4 +1,7 @@
+from repro_torch.serving.async_engine import AsyncEngine, StreamEvent
 from repro_torch.serving.engine import InferenceEngine
+from repro_torch.serving.faults import FaultPlan, ReplicaCrashed, ServiceUnavailable
+from repro_torch.serving.http import HttpFrontend, serve_http
 from repro_torch.serving.kvcache import (
     clear_block_row,
     copy_block_rows,
@@ -21,18 +24,34 @@ from repro_torch.serving.kvquant import (
     quantize,
     quantize_cache,
 )
-from repro_torch.serving.prefix import is_spilled
+from repro_torch.serving.metrics import ManualClock
+from repro_torch.serving.prefix import is_spilled, routing_key
+from repro_torch.serving.replica import Replica, ReplicaState
+from repro_torch.serving.router import ROUTING_POLICIES, Router, RouterRequest
 from repro_torch.serving.scheduler import Request, RequestState
 from repro_torch.serving.spill import SPILL_MODES, SpillPool
+from repro_torch.serving.trace import replica_track
 
 __all__ = [
+    "AsyncEngine",
+    "FaultPlan",
+    "HttpFrontend",
     "InferenceEngine",
     "KV_QUANT_MODES",
+    "ManualClock",
     "QuantizedKV",
+    "ROUTING_POLICIES",
+    "Replica",
+    "ReplicaCrashed",
+    "ReplicaState",
     "Request",
     "RequestState",
+    "Router",
+    "RouterRequest",
     "SPILL_MODES",
+    "ServiceUnavailable",
     "SpillPool",
+    "StreamEvent",
     "attend_quantized",
     "cache_bytes",
     "clear_block_row",
@@ -48,6 +67,9 @@ __all__ = [
     "normalize_kv_quant",
     "quantize",
     "quantize_cache",
+    "replica_track",
     "restore_block_rows",
+    "routing_key",
+    "serve_http",
     "truncate_block_rows",
 ]

@@ -98,6 +98,14 @@ Observability as in the JAX engine (``serving.metrics`` +
 latencies land in histograms and request-lifecycle events in the tracer's
 ring buffer.  A token's timestamp is taken after its value reached the
 host, so on the card the latencies include the device work.
+
+Front-ends: ``on_token(req, new_tokens)`` and ``on_finish(req)`` (None
+by default) fire where the JAX engine fires them, on the thread that
+steps, at every emission batch and at every finish or abort.
+``serving.async_engine.AsyncEngine`` streams through them (its steps and
+aborts on one stepping thread) and ``serving.router.Router`` hooks each
+replica's engine.  ``stats()`` reads host state only, so an HTTP handler
+may call it while a step, even a graph capture, runs on another thread.
 """
 
 from __future__ import annotations
@@ -455,6 +463,11 @@ class InferenceEngine:
         self.restores_cancelled = 0  # queued swap-ins cancelled (preempt/abort)
         self._restore_q: list[_RestoreTask] = []  # FIFO, drained per scheduler pass
         self._restoring: set[int] = set()  # dst blocks with a queued task
+        # streaming hooks for the front-ends (serving.async_engine), called on
+        # the stepping thread: on_token(req, new_tokens) per emission batch,
+        # on_finish(req) when a request completes or is aborted
+        self.on_token = None
+        self.on_finish = None
 
     # ------------------------------------------------------------------
     @property
@@ -645,6 +658,8 @@ class InferenceEngine:
         )
         self._g_queue.set(len(self.queue))
         self.done.append(req)
+        if self.on_finish is not None:
+            self.on_finish(req)
         return True
 
     def _enforce_deadlines(self) -> None:
@@ -919,6 +934,8 @@ class InferenceEngine:
         if req.admit_t is not None:
             self._h_admit_first.observe(req.first_token_t - req.admit_t)
         self.tracer.instant("first_token", track=slot_track(req.slot), req_id=req.req_id)
+        if self.on_token is not None:
+            self.on_token(req, [tok])
         self._finish_if_done(req)
 
     # ------------------------------------------------------------------
@@ -1033,6 +1050,8 @@ class InferenceEngine:
             self._release_request_blocks(req, len(req.prompt) + len(req.generated))
         self._clear_slot(slot)
         self.done.append(req)
+        if self.on_finish is not None:
+            self.on_finish(req)
 
     def _reclaim_window_blocks(self, req: Request) -> None:
         """Sliding-window archs: drop blocks that slid out of the window.  A
@@ -1103,6 +1122,8 @@ class InferenceEngine:
             "spec_accept", track=slot_track(slot), req_id=req.req_id, drafted=len(drafts), accepted=n_acc,
             emitted=cut,
         )
+        if self.on_token is not None and emitted:
+            self.on_token(req, emitted)
         if self._draft is not None:
             # the drafter absorbed its own provisional tokens: truncate its
             # view to the committed prefix (the next draft re-feeds the rest)
@@ -1268,10 +1289,13 @@ class InferenceEngine:
         self._h_decode.observe(self._clock() - t_decode)
         self.steps += 1
         for r in active:
-            r.generated.append(int(out[0, r.slot]))
+            tok = int(out[0, r.slot])
+            r.generated.append(tok)
             self.pos[r.slot] += 1
             self.tokens_out += 1
             self._c_tokens.inc()
+            if self.on_token is not None:
+                self.on_token(r, [tok])
             self._reclaim_window_blocks(r)
             self._finish_if_done(r)
         return len(active)
@@ -1355,11 +1379,14 @@ class InferenceEngine:
         for i, pr in enumerate(rows):
             r = pr.req
             if pr.kind == "decode":
-                r.generated.append(int(final[i]))
+                tok = int(final[i])
+                r.generated.append(tok)
                 self.pos[r.slot] += 1
                 produced += 1
                 self.tokens_out += 1
                 self._c_tokens.inc()
+                if self.on_token is not None:
+                    self.on_token(r, [tok])
                 self._reclaim_window_blocks(r)
                 self._finish_if_done(r)
                 continue
@@ -1453,6 +1480,8 @@ class InferenceEngine:
                 self.tokens_out += 1
                 self._c_tokens.inc()
                 r.step_work += 1
+                if self.on_token is not None:
+                    self.on_token(r, [tok])
                 if self.cache_kind == "paged":
                     self._reclaim_window_blocks(r)
                 self._finish_if_done(r)

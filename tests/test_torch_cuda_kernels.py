@@ -572,3 +572,39 @@ def test_cuda_spill_restore_round_trip():
     torch.cuda.synchronize()
     assert torch.equal(out["moved"], out["base"])
     assert not torch.equal(out["near"], out["base"])
+
+
+@pytest.mark.gpu
+def test_cuda_async_engine_streams_the_drained_tokens():
+    """``AsyncEngine`` over a fused smoke engine on the card: every step on
+    its one stepping thread (which captures and replays the graphs), the
+    streamed tokens equal a closed-loop drain's, and the replays ran K1
+    and K2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import asyncio
+
+    from repro_torch.models import init_params
+    from repro_torch.serving import AsyncEngine, InferenceEngine
+
+    cfg = reduce_for_smoke(get_config("olmo-1b"))
+    params = init_params(cfg, 0, device="cuda")
+    kw = dict(max_batch=4, max_seq=128, block_size=16, prefill_budget=16, fused=True, eos_token=1 << 30)
+    prompts = [[5 + i, 9, 12, 7, 3, 11, 2, 8, 40 + i] + list(range(60, 60 + 3 * i)) for i in range(6)]
+    ref = InferenceEngine(cfg, params, **kw)
+    reqs = [ref.submit(p, max_new_tokens=12) for p in prompts]
+    ref.run_until_drained()
+    eng = InferenceEngine(cfg, params, **kw)
+
+    async def go():
+        async with AsyncEngine(eng) as aeng:
+            outs = await asyncio.gather(*(aeng.generate(p, max_new_tokens=12) for p in prompts))
+            return outs, set(aeng.step_threads)
+
+    outs, threads = asyncio.run(go())
+    assert [toks for _, toks in outs] == [r.generated for r in reqs]
+    assert all(final.reason == "length" for final, _ in outs)
+    assert len(threads) == 1 and "MainThread" not in threads
+    s = eng.stats()
+    assert s["graph_launches"]["paged_decode"] > 0 and s["graph_launches"]["paged_prefill"] > 0
+    assert s["alloc_blocks_in_use"] == 0

@@ -89,6 +89,13 @@ def test_entry_points_default_to_the_card():
         make_engine_cache(cfg, 2, 16)
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax(cfg, {"embed": {}, "blocks": {}, "final_norm": {}})
+    from repro_torch.benchmarks.llm_inference import run_router
+    from repro_torch.launch.serve import main as serve_main
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_main(["--arch", "olmo-1b", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_router(cfg, params)
     InferenceEngine(cfg, params, device="cpu")  # asked for by name: fine
 
 

@@ -25,8 +25,11 @@ import torch
 from repro.config.model import reduce_for_smoke as jax_reduce
 from repro.configs import get_config as jax_get_config
 from repro.models import init_params as jax_init_params
+from repro.serving import FaultPlan as JaxFaultPlan
 from repro.serving import InferenceEngine as JaxEngine
 from repro.serving import ManualClock as JaxClock
+from repro.serving import Replica as JaxReplica
+from repro.serving import Router as JaxRouter
 from repro_torch.benchmarks import llm_inference as B
 from repro_torch.bridge import params_from_jax
 
@@ -188,6 +191,54 @@ def test_fused_matches_jax_engines(model, tmp_path):
         assert t["dispatches_per_step"] == (eng.dispatches_total - d0) / (eng.steps - s0)
         assert t["host_syncs_per_token"] == (eng.host_syncs_total - y0) / t["tokens_out"]
     assert rows["fused"]["model_step_s"] < rows["legacy"]["model_step_s"]
+
+
+def test_router_matches_jax_routers(model, tmp_path):
+    """``run_router``'s four arms against JAX routers of the reference's
+    shapes (``_make_router``'s engines, with an ``eos_token`` outside the
+    vocab on both sides), driven by the reference's ``_drive_router`` on its
+    tenant prompts: tokens, placements' integer results, hit rates,
+    failovers, retries, replica states and the virtual clock's numbers."""
+    jcfg, jparams, tcfg, tparams = model
+    eos = 1 << 30
+    rows = {r["name"].removeprefix("llm_inference_router_"): r
+            for r in B.run_router(tcfg, tparams, device="cpu", out=tmp_path, eos_token=eos)}
+    assert (tmp_path / "llm_inference_router.json").exists()
+    assert B.tenant_prompts() == ref._tenant_prompts()
+    assert (B.ROUTER_TENANTS, B.ROUTER_PER_TENANT, B.ROUTER_MAX_NEW) == (
+        ref.ROUTER_TENANTS, ref.ROUTER_PER_TENANT, ref.ROUTER_MAX_NEW)
+
+    def arm(n, policy="affinity", fault_plans=None):
+        clock = JaxClock()
+        replicas = [
+            JaxReplica(i, JaxEngine(jcfg, jparams, max_batch=4, max_seq=ref.MAX_SEQ, cache_kind="paged",
+                                    block_size=ref.BLOCK_SIZE, prefix_cache=True, prefill_budget=16, clock=clock,
+                                    eos_token=eos),
+                       clock=clock, fault_plan=(fault_plans or {}).get(i))
+            for i in range(n)
+        ]
+        router = JaxRouter(replicas, policy=policy, clock=clock)
+        s, toks = ref._drive_router(router, clock, ref._tenant_prompts())
+        return router, s, toks
+
+    expect = {}
+    _, *expect["single"] = arm(1)
+    aff_router, *expect["affinity"] = arm(2)
+    _, *expect["random"] = arm(2, policy="random")
+    crash_at = max(aff_router.replicas[0].steps // 2, 1)
+    _, *expect["failover"] = arm(2, fault_plans={0: JaxFaultPlan(crash_at_step=crash_at)})
+    assert rows.keys() == expect.keys()
+    for name, (j, toks) in expect.items():
+        t = rows[name]
+        assert t["tokens"] == toks, name
+        for k in ("requests_submitted", "requests_done", "requests_failed", "requests_inflight", "failovers",
+                  "retries", "migrations", "tokens_out", "prefill_tokens", "prefix_hit_tokens", "prefix_hit_rate",
+                  "replica_states", "makespan_s", "tok_per_s"):
+            assert t[k] == j[k], (name, k)
+    assert rows["failover"]["crash_at_step"] == crash_at and rows["failover"]["failovers"] >= 1
+    assert all(r["tokens_match_single"] for r in rows.values())
+    assert rows["affinity"]["prefix_hit_rate"] > rows["random"]["prefix_hit_rate"]
+    assert rows["affinity"]["speedup_vs_single"] > B.ROUTER_SCALING
 
 
 def test_main_writes_where_asked(tmp_path, capsys):
