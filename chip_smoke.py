@@ -16,7 +16,8 @@ or when any check fails.  Phases:
    per head size and chunk) must hold some.
 2. Kernels: K1 (paged decode) and K2 (chunked prefill) against their plain
    PyTorch versions on the card, bf16 pools, fp32 and bf16 queries, at the
-   head shapes of olmo-1b, mistral-nemo-12b and gemma-7b, block size 32,
+   head shapes of olmo-1b, mistral-nemo-12b, gemma-7b and qwen3-moe-235b-a22b
+   (64 query heads over 4 kv heads), block size 32,
    random block tables with null padding and ragged lengths, plus one
    sliding-window and one softcap case, and for K2 the short and ragged
    chunks serving runs (C = 1 and 16 at 192, C = 40 at 200) and the
@@ -161,6 +162,34 @@ or when any check fails.  Phases:
    then a 2-replica router behind ``serve_http`` serves 4 SSE requests.
    Each arm reads modelled and wall tokens/s, hit rate, failovers,
    retries, replica states and peak memory.
+5i. The moe family, once olmo-1b's serving weights are freed, on
+   qwen3-moe-235b-a22b at full width (d_model 4096, 64 heads over 4 kv
+   heads, qk_norm, 128 experts, top 8, expert width 1536, vocab 151936
+   untied) cut from 94 layers to 4: 44.8 GB of random fp32 weights from
+   the seed.  ``moe_path``, before the model loads: one layer's
+   ``moe_ffn`` on a 128-token chunk from the seed at the published
+   capacity factor 1.25 (12 slots an expert) against the same function in
+   float64 (its router too) on the card: the share of pairs dropped, the
+   routing sets and drop masks (equal up to the first token whose set
+   differs at a near tie, an 8th/9th probability gap under
+   ``MOE_TIE_GAP``), the error on the tokens before it against
+   ``MOE_REL_TOL`` and a control (priority counted from the last token)
+   that must exceed it; ``moe_ffn``'s device time at T = 128 and T = 4
+   against its bound (every expert weight read once).  ``moe_serving``:
+   the serving phase's prompts and settings in five runs: (a) legacy and
+   fused at capacity factor 16, where no pair can be dropped, (b) fused
+   with n-gram speculation at 16, (c) legacy and fused at 1.25 (the fused
+   one after an untimed run that captures its buckets).  (a) and (b) must
+   equal the legacy tokens up to near-ties; (c) is reported (TTFT, TPOT,
+   decode and mixed ticks, pool bytes, tokens differing from (a) and
+   between the walks).  Every run must finish every request by length
+   with K1 once a layer a decode step and K2 once a layer a chunk (in the
+   fused walk: each decode graph holds one K1 a layer, each mixed graph
+   one K2 a layer).  ``profile_moe``: one fused decode tick and one eager
+   decode step at 1.25 under ``torch.profiler`` against the bound of every
+   weight the tick reads, and the four layers' ``moe_ffn`` alone on the
+   tick's rows against its experts' bound.  The moe weights are freed
+   before training.
 6. Train: FP8 training of olmo-1b at full width and depth (fp32 master
    weights, bf16 compute, K4 for every projection GEMM, remat per block),
    4 steps of 4 x 2048 tokens from random weights (seed 0), with the loss,
@@ -243,8 +272,10 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # compounds over 16 layers; logits have a standard deviation near 1
 PATH_TOL = 2e-2
 
-# (model, H, KV, hd) head shapes of the three dense configurations
-HEAD_SHAPES = [("olmo-1b", 16, 16, 128), ("mistral-nemo-12b", 32, 8, 128), ("gemma-7b", 16, 16, 256)]
+# (model, H, KV, hd) head shapes of the three dense configurations and the
+# moe phases' qwen3-moe (16 query heads per kv head)
+HEAD_SHAPES = [("olmo-1b", 16, 16, 128), ("mistral-nemo-12b", 32, 8, 128), ("gemma-7b", 16, 16, 256),
+               ("qwen3-moe-235b-a22b", 64, 4, 128)]
 DECODE_LENS = [77, 160, 291, 352]  # four slots, as the serving phase decodes
 PREFILL_START, PREFILL_C = 192, 128  # one 128-token chunk after 192 tokens of history
 NB = 16  # table width: max_seq 512 / block size 32
@@ -617,8 +648,8 @@ def tick_kinds(eng, since: float) -> dict:
             for k, v in out.items()}
 
 
-def top2_gap(cfg, params, device, context, quantize_kv=False) -> float:
-    """The top-2 logit gap after ``context``, through one ``prefill_step``
+def context_logits(cfg, params, device, context, quantize_kv=False) -> torch.Tensor:
+    """The logits after ``context``, (V,), through one ``prefill_step``
     (bf16 pools, or quantized ones)."""
     from repro_torch.models import init_paged_cache, prefill_step
 
@@ -627,7 +658,12 @@ def top2_gap(cfg, params, device, context, quantize_kv=False) -> float:
     row = torch.arange(1, 1 + nb, dtype=torch.int32, device=device)[None]
     tok = torch.tensor([context], dtype=torch.int32, device=device)
     lg, _ = prefill_step(cfg, params, cache, tok, torch.zeros(1, dtype=torch.int32, device=device), row)
-    top = torch.topk(lg[0], 2).values
+    return lg[0]
+
+
+def top2_gap(cfg, params, device, context, quantize_kv=False) -> float:
+    """The top-2 logit gap after ``context`` (``context_logits``)."""
+    top = torch.topk(context_logits(cfg, params, device, context, quantize_kv), 2).values
     return float(top[0] - top[1])
 
 
@@ -712,12 +748,20 @@ def serving_fused_phase(cfg, params, device, legacy_tokens, max_new_tokens=32) -
 
 
 def profile_fused_phase(cfg, params, device, ticks=5) -> dict:
+    """One fused pure-decode tick at the profile phase's lengths beside the
+    eager ``decode_step`` and the eager tick (``profile_ticks``)."""
+    out = {"phase": "profile_fused", **profile_ticks(cfg, params, device, ticks)}
+    emit(out)
+    return out
+
+
+def profile_ticks(cfg, params, device, ticks=5, names=("fused_tick", "eager_step", "eager_tick")) -> dict:
     """One fused pure-decode tick at the profile phase's lengths, as the
     engine runs it (stage the inputs, replay the decode graph, one host
     sync), beside the eager ``decode_step`` and the eager tick
-    (``decode_step``, argmax, one host sync), in the same run: wall per
-    call with no profiler, then device time, idle share and the launches
-    the profiler sees."""
+    (``decode_step``, argmax, one host sync), in the same run, as ``names``
+    selects: wall per call with no profiler, then device time, idle share,
+    the launches the profiler sees and the top kernels by device time."""
     from repro_torch.models import decode_step
     from repro_torch.serving import InferenceEngine
 
@@ -743,8 +787,10 @@ def profile_fused_phase(cfg, params, device, ticks=5) -> dict:
         logits, _ = decode_step(cfg, params, eng.cache, tok, pos_d)
         eng._host_fetch(torch.argmax(logits, dim=-1))
 
-    out = {"phase": "profile_fused", "model": cfg.name, "what": "4 slots, bf16 pools, fp32 weights"}
-    for name, fn in (("fused_tick", fused_tick), ("eager_step", eager_step), ("eager_tick", eager_tick)):
+    out = {"model": cfg.name, "what": "4 slots, bf16 pools, fp32 weights"}
+    calls = {"fused_tick": fused_tick, "eager_step": eager_step, "eager_tick": eager_tick}
+    for name in names:
+        fn = calls[name]
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -759,10 +805,10 @@ def profile_fused_phase(cfg, params, device, ticks=5) -> dict:
             "wall_ms": wall_ms, "device_busy_ms": busy if by_name else None,
             "idle_share": 1.0 - busy / wall_ms if by_name else None, "device_launches": launches,
             "paged_decode_ms": sum(v for k, v in by_name.items() if "paged_decode_kernel" in k),
+            "top_kernels_ms": [[k[:90], v] for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]],
         }
     out["graphs_captured"] = eng._graphs.captures
     out["graph_kernels_seen_one_by_one"] = out["fused_tick"]["device_launches"] >= out["eager_step"]["device_launches"]
-    emit(out)
     return out
 
 
@@ -1985,6 +2031,331 @@ def router_phase(cfg, params, device, legacy_tokens, max_new_tokens=32) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5i: the moe family (qwen3-moe-235b-a22b at full width, 4 layers)
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen3-moe-235b-a22b"
+MOE_LAYERS = 4  # of 94: four full-width layers and the untied head are 44.8 GB of fp32 weights
+# capacity cannot bind at cf >= num_experts / top_k = 16 (C >= T): the walks must agree there
+MOE_CF = 16.0
+MOE_PATH_T = 128  # one serving chunk; C = 12 at the published cf 1.25
+# moe_ffn in fp32 against the same function in float64, relative to the
+# reference's largest output: fp32 products over D = 4096 and F = 1536 are
+# good to about 1e-6 of it; the control drops other pairs, whose expert
+# outputs are of the output's own size
+MOE_REL_TOL = 1e-4
+# a near tie: the 8th and 9th router probabilities (float64) closer than
+# this; the fp32 router's probabilities (about 1/128) are good to about 1e-8
+MOE_TIE_GAP = 1e-7
+MOE_ENGINE = dict(max_batch=4, max_seq=512, block_size=BLOCK_SIZE, prefill_budget=128, cache_dtype=torch.bfloat16)
+
+
+def with_cf(cfg, cf: float):
+    import dataclasses
+
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+
+
+def routing_masks(r) -> tuple[torch.Tensor, torch.Tensor]:
+    """(chosen, kept): (T, E) masks of each token's experts and of its pairs
+    that fit the capacity, from a one-group ``models.moe.Routing``."""
+    chosen = torch.zeros(r.probs.shape[1:], dtype=torch.bool, device=r.probs.device)
+    return chosen.scatter(1, r.experts[0], True), chosen.scatter(1, r.experts[0], r.keep[0])
+
+
+def moe_path_phase(cfg, device) -> dict:
+    """One layer's ``moe_ffn`` at full width on a 128-token chunk from the
+    seed at cf 1.25, against the same function in float64 (the router in
+    float64 too) on the card: the share of pairs dropped, the routing sets
+    and drop masks (equal up to the first token whose set differs at a near
+    tie, which may shift every later token's slots), the error on the
+    tokens before that one, and a control that counts priority in reverse
+    token order.  Then
+    ``moe_ffn``'s device time at T = 128 and T = 4 against its bound (every
+    expert weight read once)."""
+    import dataclasses
+
+    from repro_torch.models.layers import materialize
+    from repro_torch.models.moe import capacity, moe_ffn, moe_specs, route
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    m = cfg.moe
+    g = torch.Generator(device=device).manual_seed(SEED)
+    p = tree_map(lambda s: materialize(s, g, device, torch.float32), moe_specs(cfg))
+    T, D = MOE_PATH_T, cfg.d_model
+    x = torch.randn((1, T, D), generator=g, device=device)
+    out, aux = moe_ffn(cfg, p, x)
+    chosen, kept = routing_masks(route(cfg, p["router"], x))
+    control = moe_ffn(cfg, p, x.flip(1))[0].flip(1)  # priority counted from the last token
+    cfg64 = cfg.replace(moe=dataclasses.replace(m, router_dtype="float64"))  # the router in the compute dtype
+    p64 = tree_map(lambda t: t.double(), p)
+    ref, aux64 = moe_ffn(cfg64, p64, x.double())
+    r64 = route(cfg64, p64["router"], x.double())
+    del p64
+    torch.cuda.empty_cache()
+    chosen64, kept64 = routing_masks(r64)
+    top = torch.topk(r64.probs[0], m.top_k + 1, dim=-1).values
+    gap = top[:, m.top_k - 1] - top[:, m.top_k]  # (T,) 8th minus 9th probability
+    near = (gap < MOE_TIE_GAP).cpu().numpy()
+    set_differs = (chosen != chosen64).any(dim=-1).cpu().numpy()
+    differ = set_differs | (kept != kept64).any(dim=-1).cpu().numpy()
+    first = int(np.argmax(differ)) if differ.any() else T  # routing agrees on the tokens before it
+    scale = float(ref.abs().max())
+
+    def err(o) -> float:
+        d = (o.double() - ref)[0, :first].abs()
+        return float(d.max()) / scale if d.numel() else 0.0
+
+    def bound_of(n_tokens: int) -> tuple[float, str]:
+        nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(p)) + 2 * n_tokens * D * 4
+        C = capacity(m, n_tokens)
+        flops = 2 * 3 * m.num_experts * C * D * m.expert_d_ff + 2 * n_tokens * D * m.num_experts
+        return bound(nbytes, flops, FP32_FLOPS_PER_S)
+
+    x4 = x[:, :4].contiguous()
+    times = {}
+    for n, xx in ((T, x), (4, x4)):
+        b_ms, b_by = bound_of(n)
+        times[f"T{n}"] = {"ms": timed_ms(lambda i, xx=xx: moe_ffn(cfg, p, xx), iters=10, warmup=2),
+                          "capacity": capacity(m, n), "bound_ms": b_ms, "bound_by": b_by}
+    row = {
+        "phase": "moe_path", "model": cfg.name, "T": T, "capacity": capacity(m, T),
+        "capacity_factor": m.capacity_factor,
+        "dropped_share": float(1 - kept.sum() / chosen.sum()), "dropped_share_f64": float(1 - kept64.sum() / chosen64.sum()),
+        "near_ties": int(near.sum()), "min_top8_gap": float(gap.min()),
+        "tokens_routed_differently": int(differ.sum()), "first_routed_differently": first if first < T else None,
+        "first_difference_at_near_tie": bool(first == T or (set_differs[first] and near[first])),
+        "tokens_compared": first,
+        "max_rel_err": err(out), "tol": MOE_REL_TOL, "control": "priority_reversed",
+        "control_max_rel_err": err(control), "ref_max_abs": scale,
+        "aux": float(aux), "aux_f64": float(aux64), "finite": bool(torch.isfinite(out).all()),
+        "times": times,
+    }
+    emit(row)
+    del p, out, ref, control
+    torch.cuda.empty_cache()
+    if not row["finite"] or not row["first_difference_at_near_tie"]:
+        fail(f"moe_path: routing differs from float64's away from a near tie, or the output is not finite: {row}")
+    if not row["max_rel_err"] < MOE_REL_TOL:
+        fail(f"moe_path: fp32 moe_ffn differs from float64 by {row['max_rel_err']} of its largest value")
+    if not row["dropped_share"] > 0 or not row["control_max_rel_err"] > MOE_REL_TOL:
+        fail(f"moe_path: the control (priority reversed) passes or no pair was dropped: {row}")
+    return row
+
+
+class RoutedPairs:
+    """Sums the (token, expert) pairs that ``models.moe.route`` routes and
+    drops while active, on the device (no host read): for eager runs only,
+    since a graph replay calls no Python."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.module, self.inner = moe, moe.route
+        self.pairs, self.dropped = 0, 0
+
+        def counting(cfg, router_w, xg):
+            r = self.inner(cfg, router_w, xg)
+            self.pairs += r.keep.numel()
+            self.dropped = self.dropped + (~r.keep).sum()
+            return r
+
+        moe.route = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.module.route = self.inner
+        self.dropped = int(self.dropped)
+
+
+def moe_arm(cfg, params, device, *, fused, spec_decode="off", warm=False, max_new_tokens=32):
+    """One serving run of the serving phase's prompts on the moe model:
+    its readings and tokens.  ``warm`` first serves prompts from another
+    seed, untimed, which captures the buckets the timed run uses.  Fails
+    unless every request finishes by length and each step ran K1 or K2
+    once a layer: eagerly (where it also counts the pairs routed and
+    dropped), one K1 per layer a decode step and one K2 per
+    layer a chunk; in the fused walk, each decode graph holds one K1 per
+    layer and each mixed graph one K2 per layer."""
+    import contextlib
+    import gc
+
+    from repro_torch.kernels import paged_attention as K
+    from repro_torch.serving import InferenceEngine
+
+    L = cfg.num_layers
+    eng = InferenceEngine(cfg, params, eos_token=cfg.padded_vocab, device=device, fused=fused,
+                          spec_decode=spec_decode, spec_k=SPEC_K, **MOE_ENGINE)
+    if warm:
+        for prompt in serving_prompts(cfg, SEED + 1):
+            eng.submit(prompt, max_new_tokens=max_new_tokens)
+        eng.run_until_drained()
+    graphs = eng._graphs
+    captures0, capture_s0 = (graphs.captures, graphs.capture_s) if fused else (0, 0.0)
+    replay0 = dict(graphs.launches) if fused else {}
+    s0, since = eng.stats(), eng.tracer.now()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reqs = [eng.submit(prompt, max_new_tokens=max_new_tokens) for prompt in serving_prompts(cfg, SEED)]
+    routed = RoutedPairs() if not fused else contextlib.nullcontext()
+    with routed:
+        K.reset_launches()  # the run starts here
+        t0 = time.perf_counter()
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        eager = dict(K.LAUNCHES)
+    s = eng.stats()
+    delta = lambda key: s[key] - s0[key]  # noqa: E731
+    out = {
+        "walk": "fused" if fused else "legacy", "capacity_factor": cfg.moe.capacity_factor, "spec": spec_decode,
+        "wall_s": wall, "tokens_out": delta("tokens_out"), "decode_steps": delta("decode_steps"),
+        "prefill_chunks": delta("prefill_chunks"),
+        "ttft_p50_s": float(np.median([r.ttft for r in reqs])),
+        "tpot_p50_s": float(np.median([r.tpot for r in reqs])),
+        "output_tok_s": delta("tokens_out") / wall,
+        "dispatches_per_step": delta("dispatches_total") / max(delta("decode_steps"), 1),
+        "pool_bytes": pool_bytes(eng), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "eager_launches": eager,
+    }
+    if fused:
+        keys = list(graphs._graphs)
+        out.update(
+            ticks=tick_kinds(eng, since), graphs_captured=graphs.captures - captures0,
+            capture_s=graphs.capture_s - capture_s0, graph_pool_bytes=graphs.pool_bytes(),
+            replay_launches={k: v - replay0[k] for k, v in graphs.launches.items()},
+            graph_launches={str(k): graphs._graphs[k].launches for k in keys},
+        )
+        want = {k: {"paged_decode": L if k[0] == "decode" else 0, "paged_prefill": 0 if k[0] == "decode" else L}
+                for k in keys}
+        got = {k: {n: graphs._graphs[k].launches[n] for n in ("paged_decode", "paged_prefill")} for k in keys}
+        # each capture runs the step twice (an eager warm-up, then the capture itself)
+        per_step = got == want and sum(eager[n] for n in ("paged_decode", "paged_prefill")) == 2 * L * out["graphs_captured"]
+        ran = out["replay_launches"]
+    else:
+        out.update(decode_step_p50_s=eng.metrics.histogram("engine_decode_seconds").percentile(50),
+                   prefill_chunk_p50_s=eng.metrics.histogram("engine_prefill_chunk_seconds").percentile(50),
+                   routed_pairs=routed.pairs, dropped_pairs=routed.dropped)
+        per_step = eager["paged_decode"] == L * out["decode_steps"] and eager["paged_prefill"] == L * out["prefill_chunks"]
+        ran = eager
+    if spec_decode != "off":
+        out.update(spec_steps=delta("spec_steps"), drafted_tokens=delta("drafted_tokens"),
+                   accepted_tokens=delta("accepted_tokens"))
+    tokens = [list(r.generated) for r in reqs]
+    name = f"moe {out['walk']} cf {cfg.moe.capacity_factor} spec {spec_decode}"
+    if not all(r.finish_reason == "length" and len(r.generated) == max_new_tokens for r in reqs):
+        fail(f"{name}: requests did not all finish by length: {[(r.finish_reason, len(r.generated)) for r in reqs]}")
+    if s["alloc_blocks_in_use"] != 0:
+        fail(f"{name}: {s['alloc_blocks_in_use']} blocks still in use")
+    if not per_step or ran["paged_prefill"] == 0 or (spec_decode == "off" and ran["paged_decode"] == 0):
+        fail(f"{name}: K1/K2 did not run once a layer per step: {out}")
+    del eng, graphs
+    gc.collect()  # the engine's graphs and their pool go before the next arm
+    torch.cuda.empty_cache()
+    return out, tokens
+
+
+def token_differences(tokens, reference) -> dict:
+    """Requests and token positions where ``tokens`` differ from
+    ``reference``, and each differing request's first such position."""
+    first = {i: next(j for j, (a, b) in enumerate(zip(t, r)) if a != b)
+             for i, (t, r) in enumerate(zip(tokens, reference)) if t != r}
+    positions = sum(sum(a != b for a, b in zip(t, r)) for t, r in zip(tokens, reference))
+    return {"requests": len(first), "tokens": positions, "first_position": first}
+
+
+def moe_serving_phase(cfg, params, device) -> dict:
+    """qwen3-moe at full width (4 layers) with the serving phase's traffic:
+    (a) legacy and fused at cf 16, where no pair can be dropped: the fused
+    tokens equal the legacy's up to near ties (the gate); (b) fused with
+    n-gram speculation (``spec_k = 4``) at cf 16, equal to (a) up to near
+    ties (the gate); (c) legacy and fused at the published cf 1.25,
+    reported: their differences from (a) and from each other are what
+    binding capacity does (chunks, verify windows and mixed batches route
+    different token sets), beside one 128-token chunk's pairs dropped at
+    1.25 and how far that moves its last logits from cf 16's."""
+    cfg16 = with_cf(cfg, MOE_CF)
+    prompts = serving_prompts(cfg, SEED)
+    arms, tokens = {}, {}
+    for name, c, kw in (("a_legacy", cfg16, dict(fused=False)), ("a_fused", cfg16, dict(fused=True)),
+                        ("b_fused_ngram", cfg16, dict(fused=True, spec_decode="ngram")),
+                        ("c_legacy", cfg, dict(fused=False)), ("c_fused", cfg, dict(fused=True, warm=True))):
+        arms[name], tokens[name] = moe_arm(c, params, device, **kw)
+        emit({"phase": "moe_serving", "arm": name, **arms[name]})
+    # what binding capacity does to one chunk: the longest prompt's first
+    # 128 tokens in one call at 1.25 and at 16
+    chunk = prompts[-1][:MOE_PATH_T]
+    with RoutedPairs() as routed:
+        lg = context_logits(cfg, params, device, chunk)
+    lg16 = context_logits(cfg16, params, device, chunk)
+    top = torch.topk(lg16, 2).values
+    capacity_effect = {
+        "tokens": len(chunk), "dropped_share": routed.dropped / routed.pairs,
+        "max_abs_logit_shift": float((lg - lg16).abs().max()), "top2_gap_cf16": float(top[0] - top[1]),
+        "logits_std": float(lg16.std()), "same_argmax": bool(lg.argmax() == lg16.argmax()),
+    }
+    found: list = []
+    gates = {
+        "a_fused_vs_legacy": same_up_to_ties(cfg16, params, device, prompts, tokens["a_fused"], tokens["a_legacy"], found),
+        "b_vs_a": same_up_to_ties(cfg16, params, device, prompts, tokens["b_fused_ngram"], tokens["a_legacy"], found),
+    }
+    out = {
+        "phase": "moe_serving", "model": cfg.name, "layers": cfg.num_layers, "gates": gates,
+        "differences": {"a_fused_vs_legacy": found[0], "b_vs_a": found[1]},
+        "c_reported": {
+            "capacity_effect": capacity_effect,
+            "c_legacy_vs_a": token_differences(tokens["c_legacy"], tokens["a_legacy"]),
+            "c_fused_vs_a": token_differences(tokens["c_fused"], tokens["a_legacy"]),
+            "c_fused_vs_c_legacy": token_differences(tokens["c_fused"], tokens["c_legacy"]),
+        },
+        "launches": {name: {"eager": arm["eager_launches"], "replays": arm.get("replay_launches")}
+                     for name, arm in arms.items()},
+        "peak_mem_gb": max(arm["peak_mem_gb"] for arm in arms.values()),
+    }
+    emit(out)
+    if not all(gates.values()):
+        fail(f"moe_serving: tokens differ away from a near tie at cf {MOE_CF}: {out['differences']}")
+    return out
+
+
+def profile_moe_phase(cfg, params, device, ticks=5) -> dict:
+    """One fused decode tick and one eager decode step of the moe model at
+    cf 1.25 (``profile_ticks``), then the four layers' ``moe_ffn`` alone on
+    the tick's 4 rows under the profiler: its device time and the part in
+    GEMM kernels (the expert products and the router), against the bounds
+    (the tick: every weight it reads; the experts: their weights)."""
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.utils.tree import tree_leaves
+
+    out = {"phase": "profile_moe", **profile_ticks(cfg, params, device, ticks, names=("fused_tick", "eager_step"))}
+    blocks_bytes = sum(t.numel() * t.element_size() for p in params["blocks"] for t in tree_leaves(p))
+    expert_bytes = sum(t.numel() * t.element_size() for p in params["blocks"] for n, t in p["moe"].items()
+                       if n != "router")
+    head_bytes = params["lm_head"].numel() * params["lm_head"].element_size()
+    kv_bytes = sum(DECODE_LENS) * cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim * 2  # bf16 K and V rows
+    out["tick_bound_ms"], out["tick_bound_by"] = bound(blocks_bytes + head_bytes + kv_bytes, 0, FP32_FLOPS_PER_S)
+    out["tick_bytes"] = blocks_bytes + head_bytes + kv_bytes
+    x = torch.randn((len(DECODE_LENS), 1, cfg.d_model), generator=torch.Generator(device=device).manual_seed(SEED),
+                    device=device)
+
+    def ffns():
+        for p in params["blocks"]:
+            moe_ffn(cfg, p["moe"], x)
+
+    ffns()
+    by_name, launches, wall_ms, _ = profiled(ffns, ticks)
+    gemm = {k: v for k, v in by_name.items() if "gemm" in k.lower() or "gemv" in k.lower()}
+    out["moe_ffn"] = {
+        "what": "the 4 layers' moe_ffn on 4 rows", "wall_ms": wall_ms, "device_ms": sum(by_name.values()),
+        "gemm_ms": sum(gemm.values()), "device_launches": launches,
+        "expert_bound_ms": bound(expert_bytes, 0, FP32_FLOPS_PER_S)[0], "expert_bytes": expert_bytes,
+        "top_kernels_ms": [[n[:90], ms] for n, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]],
+    }
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel path against plain path at full width
 # ---------------------------------------------------------------------------
 
@@ -3134,7 +3505,15 @@ def main() -> int:
     fig9 = phase("fig9", fig9_phase, cfg, params, device)
     frontend = phase("frontend", frontend_phase, cfg, params, device, legacy_tokens)
     router = phase("router", router_phase, cfg, params, device, legacy_tokens)
-    del params  # the serving model's memory goes back before training
+    del params  # the serving model's memory goes back before the moe model
+    torch.cuda.empty_cache()
+
+    moe_cfg = get_config(MOE_ARCH).replace(num_layers=MOE_LAYERS)  # full width, depth cut
+    phase("moe_path", moe_path_phase, moe_cfg, device)  # before the model: its float64 layer is 19.3 GB
+    moe_params = phase("moe_init", init_params, moe_cfg, SEED, device)
+    moe = phase("moe_serving", moe_serving_phase, moe_cfg, moe_params, device)
+    phase("profile_moe", profile_moe_phase, moe_cfg, moe_params, device)
+    del moe_params  # the moe model's memory goes back before training
     torch.cuda.empty_cache()
 
     state, batch, train = phase("train", train_phase, cfg, device)
@@ -3192,6 +3571,8 @@ def main() -> int:
             k["router_launches"] = {run: {how: counts[how].get(k["name"], 0) for how in ("replays", "eager")}
                                     for run, counts in (("arms", router["launches"]),
                                                         ("http", router["http"]["launches"]))}
+            k["moe_launches"] = {arm: {how: (counts[how] or {}).get(k["name"], 0) for how in ("eager", "replays")}
+                                 for arm, counts in moe["launches"].items()}  # qwen3-moe's serving arms
             k["quantized_launches"] = {  # quantized pools read plain: none
                 run: quantized[run]["eager_launches"][k["name"]] + (quantized[run]["replay_launches"] or {}).get(k["name"], 0)
                 for run in ("int8_legacy", "int8_fused", "fp8_legacy", "fp8_fused")

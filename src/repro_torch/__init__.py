@@ -4,9 +4,11 @@ Imports ``torch``, numpy and the standard library only; it never imports
 ``jax`` or anything of ``repro``.  Entry points run on the card unless the
 caller passes ``device="cpu"``.  Ported so far:
 
-* paged serving (dense family): configs, the dense model on a paged KV
-  cache, the paged-attention CUDA kernels (decode and chunked prefill) and
-  the continuous-batching engine with prefix caching and chunked prefill;
+* paged serving (dense and moe families): configs, the dense and moe
+  models on a paged KV cache (``models.moe``: GShard routing with expert
+  capacity), the paged-attention CUDA kernels (decode and chunked prefill)
+  and the continuous-batching engine with prefix caching and chunked
+  prefill;
 * training (dense family): the full-sequence forward, AdamW, synthetic
   data, FP8 training with delayed scaling through the FP8 GEMM CUDA
   kernel, the flash-attention CUDA kernel for the forward, the train step

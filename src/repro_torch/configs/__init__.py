@@ -26,10 +26,12 @@ def get_config(name: str) -> ModelConfig:
 
 # import for registration side effects
 from repro_torch.configs import (  # noqa: E402,F401
+    arctic_480b,
     bert_large,
     gemma_7b,
     mistral_nemo_12b,
     olmo_1b,
+    qwen3_moe_235b,
     rwkv6_7b,
     stablelm_12b,
 )

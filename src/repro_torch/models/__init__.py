@@ -1,4 +1,4 @@
-from repro_torch.models.cache import NULL_BLOCK, cache_bytes, init_cache, init_paged_cache, paged_cache_bytes, supports_paged
+from repro_torch.models.cache import NULL_BLOCK, SERVED_FAMILIES, cache_bytes, init_cache, init_paged_cache, paged_cache_bytes, supports_paged
 from repro_torch.models.initializers import init_params, param_specs
 from repro_torch.models.model import (
     CHUNKED_PREFILL_FAMILIES,
@@ -18,6 +18,7 @@ __all__ = [
     "CHUNKED_PREFILL_FAMILIES",
     "NULL_BLOCK",
     "REMAT_POLICIES",
+    "SERVED_FAMILIES",
     "cache_bytes",
     "decode_step",
     "embed_input",

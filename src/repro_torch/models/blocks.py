@@ -5,6 +5,9 @@
   prefill that returns the layer's K/V (the dense slot cache's
   admission), the chunked-prefill step against a paged cache and the
   decode step against either cache layout;
+* moe (qwen3-moe, arctic): the same serving steps with the routed experts
+  (``models.moe``) in place of the FFN, and arctic's dense residual FFN
+  beside them (the training forward is not ported yet);
 * ssm (RWKV6): the forward, and the prefill and decode steps that carry
   the recurrent state (``tm_x``, ``cm_x``, ``state``).
 """
@@ -22,6 +25,7 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.ffn import ffn, ffn_specs
 from repro_torch.models.layers import apply_norm, norm_specs
+from repro_torch.models.moe import moe_ffn, moe_specs
 
 
 def dense_block_specs(cfg) -> dict:
@@ -77,6 +81,64 @@ def dense_block_decode(cfg, p, x, cache, pos, *, attn_impl="kernel"):
     else:
         a = decode_attention(cfg, p["attn"], h, cache, pos)
     return _residual(cfg, p, x, h, a)
+
+
+# ---------------------------------------------------------------------------
+# MoE (arctic: + a dense residual FFN; qwen3: plain top-8)
+# ---------------------------------------------------------------------------
+
+
+def moe_block_specs(cfg) -> dict:
+    specs = {
+        "norm1": norm_specs(cfg),
+        "attn": attention_specs(cfg),
+        "norm2": norm_specs(cfg),
+        "moe": moe_specs(cfg),
+    }
+    if cfg.moe.dense_residual:
+        specs["dense_mlp"] = ffn_specs(cfg, cfg.d_ff)
+        specs["norm_dense"] = norm_specs(cfg)
+    return specs
+
+
+def _moe_residual(cfg, p, x, a):
+    """The routed experts over ``norm2`` of the attention's residual, and
+    arctic's dense FFN over ``norm_dense`` of it beside them.  Serving drops
+    the load-balance loss, as in the JAX package."""
+    x = x + a
+    mo, _aux = moe_ffn(cfg, p["moe"], apply_norm(cfg, p["norm2"], x))
+    if cfg.moe.dense_residual:
+        mo = mo + ffn(cfg, p["dense_mlp"], apply_norm(cfg, p["norm_dense"], x))
+    return x + mo
+
+
+def moe_block_prefill(cfg, p, x, *, positions=None, q_chunk=0):
+    """As ``dense_block_prefill``.  The pad positions of a bucketed prompt
+    are routed with its tokens and compete for expert capacity, as in the
+    JAX package."""
+    h = apply_norm(cfg, p["norm1"], x)
+    a, k, v = prefill_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk)
+    return _moe_residual(cfg, p, x, a), {"k": k, "v": v}
+
+
+def moe_block_chunk(cfg, p, x, cache, tbl_row, start, *, attn_impl="kernel", widths=None):
+    """As ``dense_block_chunk``.  A chunk routes exactly its own tokens; a
+    fused mixed batch (``widths``) also routes its pad lanes, which compete
+    for expert capacity, as in the JAX package."""
+    h = apply_norm(cfg, p["norm1"], x)
+    a = paged_chunk_attention(cfg, p["attn"], h, cache, tbl_row, start, impl=attn_impl, widths=widths)
+    return _moe_residual(cfg, p, x, a)
+
+
+def moe_block_decode(cfg, p, x, cache, pos, *, attn_impl="kernel"):
+    """As ``dense_block_decode``: every batch row is routed, idle slots
+    included."""
+    h = apply_norm(cfg, p["norm1"], x)
+    if "tbl" in cache:
+        a = paged_decode_attention(cfg, p["attn"], h, cache, pos, impl=attn_impl)
+    else:
+        a = decode_attention(cfg, p["attn"], h, cache, pos)
+    return _moe_residual(cfg, p, x, a)
 
 
 # ---------------------------------------------------------------------------

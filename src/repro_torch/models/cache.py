@@ -1,5 +1,6 @@
 """Decode caches: the paged KV cache (vLLM-style block pool + per-slot
-block tables) and, for the dense family, the dense ring cache.
+block tables) and the dense ring cache, for the families the port serves
+(``SERVED_FAMILIES``: dense and moe, whose layers cache the same K/V).
 
 The dense ring cache (``init_cache``), as in the JAX package's
 ``models/cache.py``: per layer ``k``/``v`` ``(B, W, kv_heads, head_dim)``
@@ -39,9 +40,11 @@ NULL_BLOCK = 0  # physical block 0 is never allocated: inactive batch slots
 
 
 # growing-KV attention families page their cache; recurrent states are O(1)
-# per request and vlm's grouped layers keep the dense layout (the port
-# serves the dense family only so far)
+# per request and vlm's grouped layers keep the dense layout
 PAGED_FAMILIES = ("dense", "moe", "hybrid")
+# the families whose serving steps and caches the port has (both cache one
+# K/V per layer)
+SERVED_FAMILIES = ("dense", "moe")
 
 
 def supports_paged(cfg) -> bool:
@@ -57,8 +60,8 @@ def cache_window(cfg, seq_len: int) -> int:
 
 
 def layer_cache_layout(cfg, B: int, seq_len: int, dtype) -> dict:
-    """(shape, dtype) of one layer's dense ring cache (dense family)."""
-    if cfg.family != "dense":
+    """(shape, dtype) of one layer's dense ring cache."""
+    if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(f"no dense cache for family {cfg.family!r} ({cfg.name}) in the port")
     W, KV, hd = cache_window(cfg, seq_len), cfg.num_kv_heads, cfg.head_dim
     return {"k": ((B, W, KV, hd), dtype), "v": ((B, W, KV, hd), dtype), "pos": ((B, W), torch.int32)}
@@ -86,7 +89,7 @@ def paged_cache_layout(
 ) -> dict:
     """(shape, dtype) of every leaf of the stacked paged cache; with
     ``quantized`` the pools hold int8/e4m3 rows beside fp32 scale leaves."""
-    if cfg.family != "dense":
+    if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(f"no paged cache for family {cfg.family!r} ({cfg.name}) in the port")
     from repro_torch.serving.kvquant import kv_storage_dtype
 

@@ -17,7 +17,9 @@ Entry points, counterparts of the JAX package's ``models/model.py``:
 * ``unified_step`` — one fused pass over a mixed (rows, width) batch of
   decode rows and prefill chunks: (all-lane logits, cache)
 
-The serving steps serve the dense family only.  The paged steps do no host work
+The serving steps serve the dense and moe families (``SERVED_FAMILIES``):
+each layer is a dense block or an MoE block (``models.moe``, the routed
+experts in place of the FFN).  The paged steps do no host work
 (no ``.item()``, no host-to-device copy, no shape that depends on the
 data), so ``serving/graphs.py`` can capture them in CUDA graphs.
 
@@ -34,8 +36,17 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import ATTN_IMPLS, SELF_ATTN_IMPLS
-from repro_torch.models.blocks import dense_block, dense_block_chunk, dense_block_decode, dense_block_prefill, rwkv_block
-from repro_torch.models.cache import layer_cache
+from repro_torch.models.blocks import (
+    dense_block,
+    dense_block_chunk,
+    dense_block_decode,
+    dense_block_prefill,
+    moe_block_chunk,
+    moe_block_decode,
+    moe_block_prefill,
+    rwkv_block,
+)
+from repro_torch.models.cache import SERVED_FAMILIES, layer_cache
 from repro_torch.models.layers import apply_norm
 from repro_torch.models.rwkv import check_wkv_impl
 
@@ -43,8 +54,17 @@ from repro_torch.models.rwkv import check_wkv_impl
 def _check_impl(cfg, attn_impl: str) -> None:
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl={attn_impl!r} (choose from {ATTN_IMPLS})")
-    if cfg.family != "dense":
+    _check_served(cfg)
+
+
+def _check_served(cfg) -> None:
+    if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported yet")
+
+
+def _serving_block(cfg, dense, moe):
+    """The family's block function of one serving step."""
+    return dense if cfg.family == "dense" else moe
 
 
 def embed_input(cfg, params, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -145,7 +165,7 @@ def forward(
 
 @torch.no_grad()
 def prefill(cfg, params, batch, *, q_chunk=0):
-    """Inference prefill of whole prompts (the dense family).  Returns
+    """Inference prefill of whole prompts (the dense and moe families).  Returns
     (logits (B, V), raw cache).
 
     batch: ``tokens`` (B, S) int and optional ``last_index`` (B,) int, each
@@ -156,16 +176,18 @@ def prefill(cfg, params, batch, *, q_chunk=0):
     "v": (L, B, S, KV, hd)}`` as the JAX package's layer scan stacks them;
     ``serving.kvcache.decode_cache_from_prefill`` turns it into the ring
     cache ``decode_step`` reads.  A Python layer loop, in tensor ops (the
-    JAX package's prefill reaches no Pallas kernel either).
+    JAX package's prefill reaches no Pallas kernel either).  For the moe
+    family the pad positions are routed with the prompt's tokens, so they
+    compete for expert capacity, as in the JAX package.
     """
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported yet")
+    _check_served(cfg)
+    block = _serving_block(cfg, dense_block_prefill, moe_block_prefill)
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
     x = embed_input(cfg, params, tokens, positions)
     ks, vs = [], []
     for p_layer in params["blocks"]:
-        x, kv = dense_block_prefill(cfg, p_layer, x, positions=positions, q_chunk=q_chunk)
+        x, kv = block(cfg, p_layer, x, positions=positions, q_chunk=q_chunk)
         ks.append(kv["k"])
         vs.append(kv["v"])
     last_index = batch.get("last_index")
@@ -192,14 +214,14 @@ def _chunk_stack(cfg, params, cache, tokens, start, tbl_row, *, attn_impl="kerne
     """Embed C tokens at ``start + [0, C)``, scatter their K/V into the paged
     cache through ``tbl_row`` and attend causally over the paged history.
     ``widths`` ((B,) int32, optional): per-row valid-lane counts; lanes at
-    or past ``widths[b]`` scatter to the null block.  Returns x (B, C, D)."""
+    or past ``widths[b]`` scatter to the null block; an MoE layer routes
+    them with the valid lanes, as in the JAX package.  Returns x (B, C, D)."""
+    block = _serving_block(cfg, dense_block_chunk, moe_block_chunk)
     C = tokens.shape[1]
     positions = start[:, None].long() + torch.arange(C, device=tokens.device)[None, :]
     x = embed_input(cfg, params, tokens, positions)
     for layer, p_layer in enumerate(params["blocks"]):
-        x = dense_block_chunk(
-            cfg, p_layer, x, layer_cache(cache, layer), tbl_row, start, attn_impl=attn_impl, widths=widths
-        )
+        x = block(cfg, p_layer, x, layer_cache(cache, layer), tbl_row, start, attn_impl=attn_impl, widths=widths)
     return x
 
 
@@ -216,7 +238,10 @@ def prefill_step(cfg, params, cache, tokens, start, tbl_row, *, attn_impl="kerne
     Writes the chunk's K/V into the request's blocks, attends causally over
     the paged history [0, start + C) and returns (logits (B, V) at the
     chunk's last token, cache).  Chaining chunks reproduces a whole-prompt
-    prefill exactly for the dense family.
+    prefill exactly for the dense family; for moe, only where expert
+    capacity does not bind, since each call routes its own tokens (the
+    JAX package's caveat: chunked, exact-length and bucketed prefill drop
+    different pairs when it binds).
     """
     _check_impl(cfg, attn_impl)
     x = _chunk_stack(cfg, params, cache, tokens, start, tbl_row, attn_impl=attn_impl)
@@ -273,9 +298,11 @@ def decode_step(cfg, params, cache, token, pos, *, attn_impl="kernel"):
 
     The cache is the paged layout (``init_paged_cache``; attention through
     ``attn_impl``) or the dense ring cache (``init_cache``; attention in
-    tensor ops whatever ``attn_impl`` says), selected by its keys."""
+    tensor ops whatever ``attn_impl`` says), selected by its keys.  Every
+    row is computed, idle slots included: an MoE layer routes them all."""
     _check_impl(cfg, attn_impl)
+    block = _serving_block(cfg, dense_block_decode, moe_block_decode)
     x = embed_input(cfg, params, token, pos[:, None])
     for layer, p_layer in enumerate(params["blocks"]):
-        x = dense_block_decode(cfg, p_layer, x, layer_cache(cache, layer), pos, attn_impl=attn_impl)
+        x = block(cfg, p_layer, x, layer_cache(cache, layer), pos, attn_impl=attn_impl)
     return lm_logits(cfg, params, x[:, 0]), cache

@@ -1,7 +1,7 @@
 """Continuous-batching inference engine over a prefix-cached paged KV cache.
 
 The port's counterpart of the JAX package's ``serving/engine.py`` for the
-dense family.  Two cache layouts:
+dense and moe families (``models.SERVED_FAMILIES``).  Two cache layouts:
 
 * ``cache_kind="paged"`` (default): block pools and per-request block
   tables, with everything below.
@@ -91,7 +91,16 @@ it, by tokens: ``Request.energy_j``, ``stats()["energy_joules"]`` and
 
 Options of the JAX engine that the port does not have yet raise
 ``NotImplementedError`` naming the option: ``mesh`` and families other
-than dense.
+than dense and moe.
+
+MoE (qwen3-moe, arctic) serves on every path dense does.  Its layers route
+every lane of a call, so expert capacity is shared by what the call holds:
+a decode step's idle slots, a fused mixed batch's pad lanes and a bucketed
+prompt's pad positions are routed like tokens, with the token ids and
+positions the JAX engine gives them.  Where capacity binds, the legacy and
+fused walks (and chunked and bucketed prefill) may drop different pairs,
+as in the JAX engine; they agree where it cannot bind
+(``capacity_factor >= num_experts / top_k``).
 
 Observability as in the JAX engine (``serving.metrics`` +
 ``serving.trace``): one injectable ``clock`` feeds every timestamp,
@@ -122,6 +131,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models import (
+    SERVED_FAMILIES,
     decode_step,
     init_paged_cache,
     init_params,
@@ -162,9 +172,12 @@ def _block_until_ready(device: torch.device) -> None:
         torch.cuda.current_stream(device).synchronize()
 
 
-# the blocking prefill pads prompts to a power-of-two bucket: exact for the
-# dense family (causal attention: pad positions never reach earlier K/V or
-# the last real token's logits)
+# families whose blocking prefill pads prompts to a power-of-two bucket:
+# exact for causal attention (pad positions never reach earlier K/V or the
+# last real token's logits; moe pads do compete for expert capacity), as
+# the JAX engine's BUCKETED_FAMILIES; other families prefill at the
+# prompt's exact length
+BUCKETED_FAMILIES = ("dense", "moe", "vlm")
 MIN_PREFILL_BUCKET = 8
 
 
@@ -223,7 +236,7 @@ class InferenceEngine:
             raise NotImplementedError(f"mesh={mesh!r} is not ported yet")
         if cache_kind not in ("paged", "dense"):
             raise ValueError(f"cache_kind={cache_kind!r}")
-        if cfg.family != "dense":
+        if cfg.family not in SERVED_FAMILIES:
             raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported yet")
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl={attn_impl!r} (choose from {ATTN_IMPLS})")
@@ -903,7 +916,10 @@ class InferenceEngine:
         return True
 
     def _bucket_len(self, n: int) -> int:
-        """Power-of-two prefill length bucket (a bounded set of shapes)."""
+        """Power-of-two prefill length bucket (a bounded set of shapes), or
+        the exact length for a family outside ``BUCKETED_FAMILIES``."""
+        if self.cfg.family not in BUCKETED_FAMILIES:
+            return n
         p = MIN_PREFILL_BUCKET
         while p < n:
             p *= 2

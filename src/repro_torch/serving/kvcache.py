@@ -7,9 +7,10 @@ K/V that ``models.prefill`` returns into the fixed-size ring cache that
 ring slot = pos % W), ``write_request_into_slot`` copies one request's
 cache into one batch slot of the engine's cache, ``write_prefill_into_slot``
 (the engine's admission) does both at once without the request-sized ring
-in between, and ``clear_slot`` empties a freed slot.  Dense family only: every leaf is ``(L, B, ...)``, so the
-batch slot is dim 1 (the JAX package finds it from the logical axes of the
-other families' caches).
+in between, and ``clear_slot`` empties a freed slot.  The dense and moe
+families only (``models.cache.SERVED_FAMILIES``): every leaf is ``(L, B,
+...)``, so the batch slot is dim 1 (the JAX package finds it from the
+logical axes of the other families' caches).
 
 Paged layout: ``graft_prefill_into_blocks`` writes a whole prefill's K/V
 into a request's blocks, ``make_table_row`` pads a request's block list
@@ -33,7 +34,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.cache import NULL_BLOCK, cache_window, init_cache
+from repro_torch.models.cache import NULL_BLOCK, SERVED_FAMILIES, cache_window, init_cache
 
 KV_LEAVES = ("k", "v", "k_scale", "v_scale")  # the leaves a block's rows live in
 
@@ -68,7 +69,7 @@ def decode_cache_from_prefill(cfg, raw_cache: dict, *, seq_filled: int, decode_l
     the decode run must address, prompt plus new tokens).  A prompt longer
     than a sliding window wraps the ring.  Returns ``{"k", "v": (L, B, W,
     KV, hd), "pos": (L, B, W)}``; the layers share one position row."""
-    if cfg.family != "dense":
+    if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(f"no dense cache for family {cfg.family!r} ({cfg.name}) in the port")
     W = cache_window(cfg, decode_len)
     k, pos = _ring_kv(raw_cache["k"], seq_filled, W)
@@ -94,7 +95,7 @@ def write_prefill_into_slot(cfg, engine_cache: dict, raw_cache: dict, slot: int,
     with no (L, 1, W, KV, hd) request ring built on the way; ring rows that
     the prompt does not reach keep whatever they held, under position -1
     (``clear_slot`` zeroes them when a request leaves)."""
-    if cfg.family != "dense":
+    if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(f"no dense cache for family {cfg.family!r} ({cfg.name}) in the port")
     k = engine_cache["k"]
     W = k.shape[2]

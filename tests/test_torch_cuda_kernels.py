@@ -33,7 +33,14 @@ control that must miss it; a block gathered off a bf16 pool, spilled to
 host memory (``SpillPool``, staging depth 0), popped and restored into
 another block bit for bit, K2 over the restored block bit-equal to K2 over
 the original, and a restore into the neighbouring block as the control.
+
+The moe family on the card: smoke qwen3-moe and arctic at capacity factor
+8 (no pair can be dropped) served through the legacy and the fused walk
+over fp32 pools, tokens equal to the same engine on CPU tensors (the plain
+attention and the same routing), with K1 and K2 launched.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -608,3 +615,34 @@ def test_cuda_async_engine_streams_the_drained_tokens():
     s = eng.stats()
     assert s["graph_launches"]["paged_decode"] > 0 and s["graph_launches"]["paged_prefill"] > 0
     assert s["alloc_blocks_in_use"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "arctic-480b"])
+def test_cuda_moe_engine_matches_the_cpu(arch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceEngine
+    from repro_torch.utils.tree import tree_map
+
+    cfg = reduce_for_smoke(get_config(arch))
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    params = init_params(cfg, 0, device="cuda")
+    kw = dict(max_batch=4, max_seq=128, block_size=16, prefill_budget=16, eos_token=1 << 30,
+              cache_dtype=torch.float32)
+    prompts = [[5 + i, 9, 12, 7, 3, 11, 2, 8, 40 + i] + list(range(60, 60 + 3 * i)) for i in range(6)]
+    ref = InferenceEngine(cfg, tree_map(lambda t: t.cpu(), params), device="cpu", **kw)
+    ref_reqs = [ref.submit(p, max_new_tokens=10) for p in prompts]
+    ref.run_until_drained()
+    want = [r.generated for r in ref_reqs]
+    for fused in (False, True):
+        K.reset_launches()
+        eng = InferenceEngine(cfg, params, fused=fused, **kw)
+        reqs = [eng.submit(p, max_new_tokens=10) for p in prompts]
+        eng.run_until_drained()
+        assert [r.generated for r in reqs] == want, f"fused={fused}"
+        s = eng.stats()
+        ran = s["graph_launches"] if fused else K.LAUNCHES
+        assert ran["paged_decode"] > 0 and ran["paged_prefill"] > 0, (fused, ran)
+        assert s["alloc_blocks_in_use"] == 0

@@ -4,13 +4,16 @@ Same weights (``bridge.params_from_jax``), same prompts: greedy tokens,
 finish reasons, every integer stat and ``cache_bytes`` equal to the JAX
 dense engine's, on smoke olmo-1b (fp32 and bf16 caches, an ``eos_token``
 outside the vocab and one these weights emit), gemma-7b and olmo-1b with a
-sliding window that the prompts outrun (the ring wraps).  The dense walk
+sliding window that the prompts outrun (the ring wraps), and the moe
+family's qwen3-moe and arctic at capacity factor 8 (the bucketed prompt's
+pad positions are routed, and no pair can be dropped).  The dense walk
 against the port's paged walk token for token at fp32, as the JAX
 package's ``tests/test_paged.py`` holds its two layouts; the same byte
 budget admits more concurrency paged.  The dense walk's refusals and
 warnings, the oversized-request rejection, abort and deadline.
 """
 
+import dataclasses
 import warnings
 
 import jax
@@ -37,6 +40,9 @@ DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfl
 
 def _models(arch, window=None):
     jcfg, tcfg = jax_reduce(jax_get_config(arch)), reduce_for_smoke(get_config(arch))
+    if jcfg.moe is not None:  # capacity cannot bind: cf >= num_experts / top_k
+        jcfg = jcfg.replace(moe=dataclasses.replace(jcfg.moe, capacity_factor=8.0))
+        tcfg = tcfg.replace(moe=dataclasses.replace(tcfg.moe, capacity_factor=8.0))
     if window is not None:
         jcfg, tcfg = jcfg.replace(sliding_window=window), tcfg.replace(sliding_window=window)
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
@@ -69,8 +75,10 @@ def _pair(arch, window=None, dtype="fp32", **kw):
         ("olmo-1b", None, "bf16", 1 << 20, 8),
         ("gemma-7b", None, "fp32", 1 << 20, 8),
         ("olmo-1b", 8, "fp32", 1 << 20, 40),
+        ("qwen3-moe-235b-a22b", None, "fp32", 1 << 20, 8),
+        ("arctic-480b", None, "fp32", 1 << 20, 8),
     ],
-    ids=["olmo-1b", "olmo-1b-eos-65", "olmo-1b-bf16", "gemma-7b", "olmo-1b-window-8"],
+    ids=["olmo-1b", "olmo-1b-eos-65", "olmo-1b-bf16", "gemma-7b", "olmo-1b-window-8", "qwen3-moe", "arctic"],
 )
 def test_dense_engine_matches_jax_engine(arch, window, dtype, eos, max_new):
     """The window case serves prompt + new tokens past max_seq: the ring
@@ -96,7 +104,9 @@ def test_dense_engine_matches_jax_engine(arch, window, dtype, eos, max_new):
         assert {r.finish_reason for r in treqs} == {"eos", "length"}
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "gemma-7b", "stablelm-12b", "mistral-nemo-12b"])
+@pytest.mark.parametrize(
+    "arch", ["olmo-1b", "gemma-7b", "stablelm-12b", "mistral-nemo-12b", "qwen3-moe-235b-a22b", "arctic-480b"]
+)
 def test_dense_matches_paged(arch):
     """The two layouts of the port decode the same greedy tokens at fp32."""
     _, tcfg, _, tparams = _models(arch)

@@ -13,9 +13,12 @@
   finish reasons and every integer stat but ``cache_bytes`` (the port keeps
   one block table, the JAX engine one per layer), including the dispatch
   and sync counts of both walks against the JAX engine's.  fp32 pools; the
-  eos id lies outside the vocab unless a case names one.
+  eos id lies outside the vocab unless a case names one.  The moe cases
+  (qwen3-moe with the prefix cache, arctic staggered) run at capacity
+  factor 8, where no pair can be dropped.
 """
 
+import dataclasses
 import warnings
 
 import jax
@@ -47,6 +50,9 @@ EOS_OUT = 1 << 30  # outside every vocab: requests run to their length
 def _bridged(arch, key=0, **overrides):
     jcfg = jax_reduce(jax_get_config(arch)).replace(**overrides)
     tcfg = reduce_for_smoke(get_config(arch)).replace(**overrides)
+    if jcfg.moe is not None:  # capacity cannot bind: cf >= num_experts / top_k
+        jcfg = jcfg.replace(moe=dataclasses.replace(jcfg.moe, capacity_factor=8.0))
+        tcfg = tcfg.replace(moe=dataclasses.replace(tcfg.moe, capacity_factor=8.0))
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(key), jnp.float32)
     return jcfg, tcfg, jparams, params_from_jax(tcfg, jax.tree.map(np.asarray, jparams), device="cpu")
 
@@ -226,6 +232,10 @@ ENGINE_CASES = {
         "olmo-1b", {}, dict(eos_token=137, prefill_budget=16),
         lambda eng: _drain(eng, _eos_prompts(), max_new=6),
     ),
+    # the moe family at capacity factor 8 (no pair dropped; test_torch_moe.py
+    # holds both walks where capacity binds)
+    "qwen3_moe_prefix": ("qwen3-moe-235b-a22b", {}, dict(prefix_cache=True), _drain),
+    "arctic": ("arctic-480b", {}, dict(max_batch=3, prefill_budget=4), _staggered),
 }
 
 

@@ -79,6 +79,8 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         init_params(cfg, 0)
     with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(reduce_for_smoke(get_config("qwen3-moe-235b-a22b")), 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
         init_paged_cache(cfg, 5, 16, 2, 2, torch.bfloat16)
     params = init_params(cfg, 0, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -165,3 +167,20 @@ def test_options_outside_the_slice_raise(option, value, error):
     extra = {"spec_decode": "ngram"} if option == "spec_k" else {}
     with pytest.raises(error, match=option):
         InferenceEngine(cfg, params, device="cpu", **{option: value}, **extra)
+
+
+def test_engine_refuses_the_families_it_does_not_serve():
+    """The engine serves the dense and moe families; any other raises
+    ``NotImplementedError`` naming the family, as the model's serving
+    steps do."""
+    from repro_torch.config import reduce_for_smoke
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params
+    from repro_torch.serving import InferenceEngine
+
+    cfg = reduce_for_smoke(get_config("rwkv6-7b"))  # the ssm family
+    params = init_params(cfg, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match=cfg.family):
+        InferenceEngine(cfg, params, device="cpu")
+    with pytest.raises(NotImplementedError, match=cfg.family):
+        decode_step(cfg, params, {}, torch.zeros((1, 1), dtype=torch.int32), torch.zeros(1, dtype=torch.int32))

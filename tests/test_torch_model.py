@@ -1,12 +1,17 @@
-"""The PyTorch port's dense model on a paged cache against the JAX package.
+"""The PyTorch port's dense and moe models on a paged cache against the JAX
+package.
 
 Both packages run the same weights (``repro_torch.bridge.params_from_jax``)
-through two prefill chunks and one decode step on smoke-size configs.  With
+through two prefill chunks and one decode step on smoke-size configs; the
+moe configs (qwen3-moe, arctic) at capacity factor 8, where no pair can be
+dropped (``tests/test_paged.py`` holds the JAX package's own moe decode so).  With
 fp32 pools the logits agree to 1e-4 absolute (same function, sums in
 another order).  With bf16 pools the K/V pass through bf16 rounding on both
 sides; a 1-ulp fp32 difference before the cast can move a value by one bf16
 ulp (2^-8 relative), so that case is held to 1e-2.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +41,9 @@ CHUNKS = (16, 4)  # two prefill chunks: the second starts mid-block
 def _configs(arch, **overrides):
     jcfg = jax_reduce(jax_get_config(arch)).replace(**overrides)
     tcfg = reduce_for_smoke(get_config(arch)).replace(**overrides)
+    if jcfg.moe is not None:  # capacity cannot bind: cf >= num_experts / top_k
+        jcfg = jcfg.replace(moe=dataclasses.replace(jcfg.moe, capacity_factor=8.0))
+        tcfg = tcfg.replace(moe=dataclasses.replace(tcfg.moe, capacity_factor=8.0))
     return jcfg, tcfg
 
 
@@ -84,6 +92,8 @@ MODEL_CASES = [
     ("mistral-nemo-12b", {"sliding_window": 8}),
     ("gemma-7b", {"attn_logit_softcap": 30.0}),
     ("stablelm-12b", {}),  # parallel residual, partial rotary, layernorm
+    ("qwen3-moe-235b-a22b", {}),  # routed experts, qk_norm, untied head
+    ("arctic-480b", {}),  # routed experts beside a dense residual FFN
 ]
 
 
@@ -123,7 +133,7 @@ def _shapes(tree, prefix="") -> dict:
     return {prefix[:-1]: tuple(tree.shape)}
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "mistral-nemo-12b", "gemma-7b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "mistral-nemo-12b", "gemma-7b", "qwen3-moe-235b-a22b", "arctic-480b"])
 def test_init_params_matches_jax_layout(arch):
     """Same leaf names and shapes as the JAX tree (per layer), same init
     scales: embeddings std 0.02, projections std 1/sqrt(fan_in)."""

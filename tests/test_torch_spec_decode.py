@@ -19,9 +19,12 @@
   against the port's plain legacy walk: greedy tokens, finish reasons and
   every integer stat but ``cache_bytes`` (the port keeps one block table,
   the JAX engine one per layer) equal.  fp32 pools; the eos id lies
-  outside the vocab unless a case names one.
+  outside the vocab unless a case names one.  The moe cases (qwen3-moe
+  with the n-gram drafter, arctic with a half-depth arctic draft) run at
+  capacity factor 8, where no pair can be dropped.
 """
 
+import dataclasses
 import warnings
 
 import jax
@@ -61,6 +64,9 @@ EOS_OUT = 1 << 30  # outside every vocab: requests run to their length
 def _bridged(arch, key=0, **overrides):
     jcfg = jax_reduce(jax_get_config(arch)).replace(**overrides)
     tcfg = reduce_for_smoke(get_config(arch)).replace(**overrides)
+    if jcfg.moe is not None:  # capacity cannot bind: cf >= num_experts / top_k
+        jcfg = jcfg.replace(moe=dataclasses.replace(jcfg.moe, capacity_factor=8.0))
+        tcfg = tcfg.replace(moe=dataclasses.replace(tcfg.moe, capacity_factor=8.0))
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(key), jnp.float32)
     return jcfg, tcfg, jparams, params_from_jax(tcfg, jax.tree.map(np.asarray, jparams), device="cpu")
 
@@ -371,6 +377,10 @@ ENGINE_CASES = {
     # capacity 7 blocks: with the 4 positions of headroom one 17-token
     # request (4 blocks) and one 10-token request (3 blocks) fit at once
     "tight_blocks": ("olmo-1b", {}, "ngram", dict(num_blocks=8), lambda eng: _drain(eng, max_new=10)),
+    # the moe family at capacity factor 8: the verify windows route like
+    # one-token decodes only where capacity cannot bind
+    "qwen3_moe_ngram": ("qwen3-moe-235b-a22b", {}, "ngram", {}, _drain),
+    "arctic_draft": ("arctic-480b", {}, "draft", {}, _drain),
 }
 
 

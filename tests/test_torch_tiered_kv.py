@@ -13,7 +13,9 @@
 * ``gather_block_rows``, ``restore_block_rows``, ``copy_block_rows`` and
   ``truncate_block_rows`` with scale leaves against the JAX ``kvcache``.
 * The JAX package's tiered cases that the port serves (olmo-1b; a window
-  of 8; int8 at rest; an int8 pool): the port's spill engine against the
+  of 8; int8 at rest; an int8 pool; qwen3-moe at capacity factor 8, as
+  ``tests/test_tiered_kv.py`` runs it) and arctic over an int8 pool at
+  capacity factor 8: the port's spill engine against the
   JAX spill engine in the legacy and the fused walk, tokens, finish reasons
   and every integer stat but ``cache_bytes``, and against the port's
   drop-on-evict engine token for token.
@@ -21,6 +23,7 @@
 * Knob validation.
 """
 
+import dataclasses
 import warnings
 
 import jax
@@ -249,9 +252,12 @@ def _drive(eng, rounds=2, max_new=5):
     return reqs
 
 
-def _bridged(window=0):
-    jcfg = jax_reduce(jax_get_config("olmo-1b"))
-    tcfg = reduce_for_smoke(get_config("olmo-1b"))
+def _bridged(window=0, arch="olmo-1b"):
+    jcfg = jax_reduce(jax_get_config(arch))
+    tcfg = reduce_for_smoke(get_config(arch))
+    if jcfg.moe is not None:  # capacity cannot bind: cf >= num_experts / top_k (the JAX test's setting)
+        jcfg = jcfg.replace(moe=dataclasses.replace(jcfg.moe, capacity_factor=8.0))
+        tcfg = tcfg.replace(moe=dataclasses.replace(tcfg.moe, capacity_factor=8.0))
     if window:
         jcfg, tcfg = jcfg.replace(sliding_window=window), tcfg.replace(sliding_window=window)
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
@@ -271,20 +277,22 @@ def _int_stats(s: dict) -> dict:
     return {k: v for k, v in s.items() if type(v) is int and k != "cache_bytes"}
 
 
-# sliding window, extra engine knobs: the JAX package's TIERED_CASES that
-# the port serves
+# sliding window, extra engine knobs, arch: the JAX package's TIERED_CASES
+# that the port serves, and an int8 pool under arctic
 TIERED_CASES = {
-    "olmo_1b": (0, {}),
-    "window_8": (8, {}),
-    "int8_at_rest": (0, {"spill_dtype": "int8"}),
-    "int8_pool": (0, {"quantize_kv": True}),
+    "olmo_1b": (0, {}, "olmo-1b"),
+    "window_8": (8, {}, "olmo-1b"),
+    "int8_at_rest": (0, {"spill_dtype": "int8"}, "olmo-1b"),
+    "int8_pool": (0, {"quantize_kv": True}, "olmo-1b"),
+    "qwen3_moe": (0, {}, "qwen3-moe-235b-a22b"),
+    "arctic_int8_pool": (0, {"quantize_kv": True}, "arctic-480b"),
 }
 
 
 @pytest.mark.parametrize("name", list(TIERED_CASES))
 def test_spill_engine_matches_jax(name):
-    window, extra = TIERED_CASES[name]
-    jcfg, tcfg, jparams, tparams = _bridged(window)
+    window, extra, arch = TIERED_CASES[name]
+    jcfg, tcfg, jparams, tparams = _bridged(window, arch)
     paged = dict(num_blocks=10, prefill_budget=8, **extra)  # 9 usable blocks
     out = {}
     for side, cls, cfg, params in (("jax", JaxEngine, jcfg, jparams), ("torch", InferenceEngine, tcfg, tparams)):
