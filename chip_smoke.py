@@ -17,7 +17,9 @@ or when any check fails.  Phases:
 2. Kernels: K1 (paged decode) and K2 (chunked prefill) against their plain
    PyTorch versions on the card, bf16 pools, fp32 and bf16 queries, at the
    head shapes of olmo-1b, mistral-nemo-12b, gemma-7b and qwen3-moe-235b-a22b
-   (64 query heads over 4 kv heads), block size 32,
+   (64 query heads over 4 kv heads), block size 32, K1 also at
+   hymba-1.5b's (25 over 5 kv heads of 64, window 1024, 4 slots of
+   77/300/1100/1400 tokens over 48-block tables),
    random block tables with null padding and ragged lengths, plus one
    sliding-window and one softcap case, and for K2 the short and ragged
    chunks serving runs (C = 1 and 16 at 192, C = 40 at 200) and the
@@ -189,7 +191,23 @@ or when any check fails.  Phases:
    decode step at 1.25 under ``torch.profiler`` against the bound of every
    weight the tick reads, and the four layers' ``moe_ffn`` alone on the
    tick's rows against its experts' bound.  The moe weights are freed
-   before training.
+   before hymba.
+5j. The hybrid family on hymba-1.5b at full width and depth (32 layers,
+   d_model 1600, 1.59 B random fp32 parameters from the seed).
+   ``hybrid_path``: 4 prompts of 77/300/1100/1400 tokens prefilled (each
+   alone, as the engine admits) into bf16 pools, then 4 decode steps
+   with ``attn_impl="kernel"`` (K1, one launch a layer a step) and
+   ``"plain"``, logits within ``PATH_TOL``; the state check over fp32
+   caches (the last decode step against a whole-prompt prefill of the
+   same context within ``STATE_TOL``; the control, the conv state zeroed
+   before that step, must exceed it).  ``hybrid_serving``: the serving
+   phase's 8 prompts and one of 1100 tokens (32 new each) on the paged
+   cache (bf16 pools, block 32, 4 slots, max_seq 1536: K1 once a layer a
+   decode step, no block left) and on the dense slot cache (no K1; its
+   tokens equal the paged run's up to near-ties), with TTFT, TPOT and the
+   decode step; then one decode step under ``torch.profiler`` against the
+   bound of the weights, the visible K/V and the states.  hymba's weights
+   are freed before training.
 6. Train: FP8 training of olmo-1b at full width and depth (fp32 master
    weights, bf16 compute, K4 for every projection GEMM, remat per block),
    4 steps of 4 x 2048 tokens from random weights (seed 0), with the loss,
@@ -227,7 +245,12 @@ or when any check fails.  Phases:
    with a chaos probe (1e-6 noise on the plain scan's outputs); then every
    layer, in bf16 and in fp32 compute, on the chunked forward's own input
    with K5, the chunked scan and a control (the late-decay scan) that the
-   limits must reject.
+   limits must reject.  ``rwkv_serving`` then serves the same weights: the
+   serving phase's 8 prompts on an engine asked for the paged cache, which
+   the ssm family turns into the dense slot cache (no kernel launch: the
+   chunked scan gives the state K5 does not), TTFT, TPOT, a decode step's
+   profile against its bound, and the state check (the control: the WKV
+   state zeroed).
 
 It then prints one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Every time is measured on the card in
@@ -279,6 +302,13 @@ HEAD_SHAPES = [("olmo-1b", 16, 16, 128), ("mistral-nemo-12b", 32, 8, 128), ("gem
 DECODE_LENS = [77, 160, 291, 352]  # four slots, as the serving phase decodes
 PREFILL_START, PREFILL_C = 192, 128  # one 128-token chunk after 192 tokens of history
 NB = 16  # table width: max_seq 512 / block size 32
+# hymba-1.5b's decode shapes: 25 query heads over 5 kv heads of 64 (five
+# query rows per kv head), a window of 1024 that the last two slots outrun,
+# a table of 48 blocks (max_seq 1536)
+HYMBA_ARCH = "hymba-1.5b"
+HYMBA_LENS = [77, 300, 1100, 1400]
+HYMBA_NB = 48
+HYMBA_WINDOW = 1024
 
 
 def emit(obj) -> None:
@@ -362,22 +392,24 @@ def host_us(fn, iters: int = 30) -> float:
 # ---------------------------------------------------------------------------
 
 
-def kernel_case(kind, H, KV, hd, q_dtype, window, softcap, device, layers=16, seed=0, C=PREFILL_C, start=PREFILL_START):
+def kernel_case(kind, H, KV, hd, q_dtype, window, softcap, device, layers=16, seed=0, C=PREFILL_C, start=PREFILL_START,
+                lens=DECODE_LENS, nb=NB):
     """Inputs of one case.  ``layers`` pools are made so that timing loops
     can read a different layer's pool each call, as the model does; their
-    total exceeds the 50 MB L2 cache.  Prefill: one C-token chunk at
+    total exceeds the 50 MB L2 cache.  Decode: one slot per length of
+    ``lens`` over tables of ``nb`` blocks.  Prefill: one C-token chunk at
     ``start``."""
     g = torch.Generator().manual_seed(seed)
-    B = len(DECODE_LENS) if kind == "decode" else 1
-    N = 1 + B * NB + 2
-    last = [n - 1 for n in DECODE_LENS] if kind == "decode" else [start + C - 1]
-    tbl = (torch.randperm(N - 1, generator=g)[: B * NB] + 1).reshape(B, NB).to(torch.int32)
+    B = len(lens) if kind == "decode" else 1
+    N = 1 + B * nb + 2
+    last = [n - 1 for n in lens] if kind == "decode" else [start + C - 1]
+    tbl = (torch.randperm(N - 1, generator=g)[: B * nb] + 1).reshape(B, nb).to(torch.int32)
     for b in range(B):
         tbl[b, last[b] // BLOCK_SIZE + 1 :] = 0  # null padding past the live blocks
     pools = [torch.randn((layers, N, BLOCK_SIZE, KV, hd), generator=g).to(torch.bfloat16) for _ in range(2)]
     if kind == "decode":
         q = torch.randn((B, H, hd), generator=g)
-        lens = torch.tensor(DECODE_LENS, dtype=torch.int32)
+        lens = torch.tensor(lens, dtype=torch.int32)
     else:
         q = torch.randn((B, C, H, hd), generator=g)
         lens = torch.tensor([start], dtype=torch.int32)
@@ -397,7 +429,7 @@ def case_work(c) -> tuple[int, int]:
     kv_row = KV * hd * c["k"].element_size() * 2  # K and V of one position
     meta = c["tbl"].numel() * 4 + c["lens"].numel() * 4
     if c["kind"] == "decode":
-        vis = [min(n, w) if w else n for n in DECODE_LENS]
+        vis = [min(n, w) if w else n for n in c["lens"].tolist()]
         kv_rows, pairs = sum(vis), sum(vis)
     else:
         start, C = c["start"], c["C"]
@@ -416,7 +448,7 @@ def library_call(c, attend):
     from repro_torch.kernels.paged_attention_ref import gather_blocks
 
     q, qpk = c["q"], c["H"] // c["KV"]
-    S = NB * BLOCK_SIZE
+    S = c["tbl"].shape[1] * BLOCK_SIZE
     kv_pos = torch.arange(S, device=q.device)
     if c["kind"] == "decode":
         qq = q[:, :, None]  # (B, H, 1, hd)
@@ -455,6 +487,9 @@ PREFILL_CASES += [("olmo-1b", (16, 16, 128), torch.float32, 0, 0.0, chunk) for c
 # the speculative verify window, C = spec_k + 1 = 5: at a block's first
 # position, mid-block, and across a block edge
 PREFILL_CASES += [("olmo-1b", (16, 16, 128), torch.float32, 0, 0.0, (5, start)) for start in (192, 203, 221)]
+# K1 at hymba-1.5b's heads under its window (its decode lengths: DECODE_SHAPES)
+KERNEL_CASES += [(HYMBA_ARCH, (25, 5, 64), dt, HYMBA_WINDOW, 0.0) for dt in (torch.float32, torch.bfloat16)]
+DECODE_SHAPES = {HYMBA_ARCH: (HYMBA_LENS, HYMBA_NB)}  # the others: DECODE_LENS over NB blocks
 
 
 def case_bound(c, route: str) -> tuple[float, str]:
@@ -486,12 +521,14 @@ def kernel_phase(device) -> dict:
 
     fns = {"decode": (K.paged_attention, paged_attention_plain), "prefill": (K.paged_prefill_attention, paged_prefill_attention_plain)}
     main = {}  # per kernel: the serving path's case (olmo-1b, fp32 queries, the 128-token chunk)
+    hymba = {}  # K1 at hymba-1.5b's heads, by q dtype
     for kind in ("decode", "prefill"):
         kernel, plain = fns[kind]
         cases = KERNEL_CASES if kind == "decode" else PREFILL_CASES
         for seed, (model, (H, KV, hd), dt, window, cap, *chunk) in enumerate(cases):
             C, start = chunk[0] if chunk else (PREFILL_C, PREFILL_START)
-            c = kernel_case(kind, H, KV, hd, dt, window, cap, device, seed=seed, C=C, start=start)
+            lens, nb = DECODE_SHAPES.get(model, (DECODE_LENS, NB)) if kind == "decode" else (DECODE_LENS, NB)
+            c = kernel_case(kind, H, KV, hd, dt, window, cap, device, seed=seed, C=C, start=start, lens=lens, nb=nb)
             kw = dict(softcap=cap, window=window)
 
             def run(fn, i, c=c, kw=kw, **extra):
@@ -527,6 +564,7 @@ def kernel_phase(device) -> dict:
             else:
                 cuda_cores, launch = K.paged_attention_cuda_cores, K._decode_launch
                 split = K._decode_split(c["q"], c["k"][0], c["tbl"], window=window)
+                row.update(lens=lens, table_blocks=nb)
             v1_err = float((run(cuda_cores, 0).float() - ref.float()).abs().max())
             row.update(
                 split=split,
@@ -546,8 +584,10 @@ def kernel_phase(device) -> dict:
                 fail(f"paged_{kind}_cuda_cores {model} {row['q_dtype']}: err {row['cuda_cores_max_abs_err']} >= {tol}")
             if model == "olmo-1b" and dt == torch.float32 and f"paged_{kind}" not in main:
                 main[f"paged_{kind}"] = row
+            if model == HYMBA_ARCH:
+                hymba[row["q_dtype"]] = row
             del c
-    return main
+    return main, hymba
 
 
 # ---------------------------------------------------------------------------
@@ -650,9 +690,13 @@ def tick_kinds(eng, since: float) -> dict:
 
 def context_logits(cfg, params, device, context, quantize_kv=False) -> torch.Tensor:
     """The logits after ``context``, (V,), through one ``prefill_step``
-    (bf16 pools, or quantized ones)."""
-    from repro_torch.models import init_paged_cache, prefill_step
+    (bf16 pools, or quantized ones); for a family without chunked prefill
+    (hybrid, ssm) through one whole-prompt ``prefill``."""
+    from repro_torch.models import init_paged_cache, prefill, prefill_step, supports_chunked_prefill
 
+    if not supports_chunked_prefill(cfg):
+        lg, _ = prefill(cfg, params, {"tokens": torch.tensor([context], dtype=torch.int32, device=device)})
+        return lg[0]
     nb = -(-len(context) // BLOCK_SIZE)
     cache = init_paged_cache(cfg, 1 + nb, BLOCK_SIZE, 1, nb, torch.bfloat16, quantized=quantize_kv, device=device)
     row = torch.arange(1, 1 + nb, dtype=torch.int32, device=device)[None]
@@ -2356,6 +2400,305 @@ def profile_moe_phase(cfg, params, device, ticks=5) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5j: the recurrent-state families (hymba-1.5b, rwkv6-7b)
+# ---------------------------------------------------------------------------
+
+HYMBA_ENGINE = dict(max_batch=4, max_seq=HYMBA_NB * BLOCK_SIZE, block_size=BLOCK_SIZE, cache_dtype=torch.bfloat16)
+HYMBA_LONG = 1100  # the hymba traffic's long prompt: K1's window (1024) binds inside the engine
+RWKV_ENGINE = dict(max_batch=4, max_seq=512, cache_dtype=torch.bfloat16)
+STATE_STEPS = 4  # decode steps of the state checks; the last one is checked
+# The state checks: each slot's last decode logits (prefill of its prompt,
+# then STATE_STEPS decode steps over fp32 caches) against a whole-prompt
+# prefill of the same context, max |difference| over the logits.  The two
+# differ in summation order (the chunked scan against the step recurrence,
+# prefill attention against K1 over the pools).  The control zeroes one
+# recurrent state before the last step (hymba: the conv state; rwkv: the
+# WKV state), which the limit must reject.  On the H100 (PERF.md, PR 24)
+# hymba read 1.8e-5 against a control of 3.65; the random-init rwkv6-7b,
+# chaotic over 32 layers, read 0.028 against a control of 6.1 (logits'
+# standard deviation 0.99).  Each limit lies between the two.
+STATE_TOL = {HYMBA_ARCH: 1e-3, "rwkv6-7b": 0.25}
+
+
+def hymba_prompts(cfg, seed) -> list[list[int]]:
+    """One prompt per length of ``HYMBA_LENS``, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [[int(t) for t in rng.integers(0, cfg.vocab_size, n)] for n in HYMBA_LENS]
+
+
+def recurrent_cache(cfg, params, device, prompts, dtype):
+    """Each prompt prefilled alone (``models.prefill``, as the engine
+    admits) into its slot: the hybrid family's K/V grafted into the slot's
+    ``HYMBA_NB`` blocks of a paged cache (table published) beside its
+    states; the ssm family's states written into a dense slot cache."""
+    from repro_torch.models import init_paged_cache, prefill
+    from repro_torch.serving.kvcache import graft_prefill_into_blocks, make_engine_cache, write_prefill_into_slot
+
+    B = len(prompts)
+    if cfg.family == "hybrid":
+        cache = init_paged_cache(cfg, 1 + B * HYMBA_NB, BLOCK_SIZE, B, HYMBA_NB, dtype, device=device)
+        cache["tbl"].copy_(torch.arange(1, 1 + B * HYMBA_NB, dtype=torch.int32).reshape(B, HYMBA_NB))
+    else:
+        cache = make_engine_cache(cfg, B, RWKV_ENGINE["max_seq"], dtype, device=device)
+    for slot, p in enumerate(prompts):
+        _, raw = prefill(cfg, params, {"tokens": torch.tensor([p], dtype=torch.int32, device=device)})
+        if cfg.family == "hybrid":
+            blocks = list(range(1 + slot * HYMBA_NB, 1 + (slot + 1) * HYMBA_NB))
+            graft_prefill_into_blocks(cfg, cache, raw, blocks, len(p), slot)
+        else:
+            write_prefill_into_slot(cfg, cache, raw, slot, seq_filled=len(p))
+        del raw
+    return cache
+
+
+def state_check(cfg, params, device, prompts, control_leaf) -> dict:
+    """The state check (``STATE_TOL``) on fp32 caches: prefill, then
+    ``STATE_STEPS`` decode steps fed tokens from the seed, the last one also
+    from a copy of the cache with ``control_leaf`` zeroed; each against a
+    whole-prompt ``prefill`` of prompt + fed tokens."""
+    from repro_torch.kernels import paged_attention as K
+    from repro_torch.models import decode_step, prefill
+
+    B = len(prompts)
+    rng = np.random.default_rng(SEED + 7)
+    fed = torch.tensor(rng.integers(0, cfg.vocab_size, (B, STATE_STEPS)), dtype=torch.int32, device=device)
+    cache = recurrent_cache(cfg, params, device, prompts, torch.float32)
+    pos0 = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=device)
+    K.reset_launches()
+    for step in range(STATE_STEPS - 1):
+        _, cache = decode_step(cfg, params, cache, fed[:, step : step + 1], pos0 + step)
+    control = {name: t.clone() for name, t in cache.items()}
+    control[control_leaf].zero_()
+    last = (fed[:, -1:], pos0 + STATE_STEPS - 1)
+    sound, _ = decode_step(cfg, params, cache, *last)
+    ctrl, _ = decode_step(cfg, params, control, *last)
+    launches = K.LAUNCHES["paged_decode"]
+    ref = torch.stack([
+        prefill(cfg, params, {"tokens": torch.cat([torch.tensor(p, dtype=torch.int32, device=device), fed[b]])[None]})[0][0]
+        for b, p in enumerate(prompts)
+    ])
+    tol = STATE_TOL[cfg.name]
+    out = {
+        "what": f"the last of {STATE_STEPS} decode steps after prefill against a prefill of the whole context, fp32 caches",
+        "contexts": [len(p) + STATE_STEPS for p in prompts], "max_abs_err": float((sound - ref).abs().max()),
+        "control": f"{control_leaf} zeroed before the last step", "control_max_abs_err": float((ctrl - ref).abs().max()),
+        "tol": tol, "logits_std": float(ref[:, : cfg.vocab_size].std()), "finite": bool(torch.isfinite(sound).all()),
+        "same_argmax": int((sound.argmax(-1) == ref.argmax(-1)).sum()), "k1_launches": launches,
+    }
+    del cache, control
+    return out
+
+
+def hybrid_path_phase(cfg, params, device) -> dict:
+    """hymba-1.5b at full width: four prompts of ``HYMBA_LENS`` (two past
+    the window) prefilled into bf16 pools, then ``STATE_STEPS`` decode steps
+    under ``attn_impl="kernel"`` (K1, one launch a layer a step) and
+    ``"plain"``, logits within ``PATH_TOL``; then the state check."""
+    from repro_torch.kernels import paged_attention as K
+    from repro_torch.models import decode_step
+
+    prompts = hymba_prompts(cfg, SEED + 3)
+    B, L = len(prompts), cfg.num_layers
+    fed = torch.tensor(np.random.default_rng(SEED + 5).integers(0, cfg.vocab_size, (B, STATE_STEPS)),
+                       dtype=torch.int32, device=device)
+    pos0 = torch.tensor(HYMBA_LENS, dtype=torch.int32, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    base = recurrent_cache(cfg, params, device, prompts, torch.bfloat16)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated() / 1e9
+    logits, launches = {}, {}
+    for impl in ("kernel", "plain"):
+        cache = {name: t.clone() for name, t in base.items()}
+        K.reset_launches()
+        logits[impl] = []
+        for step in range(STATE_STEPS):
+            lg, cache = decode_step(cfg, params, cache, fed[:, step : step + 1], pos0 + step, attn_impl=impl)
+            logits[impl].append(lg)
+        launches[impl] = K.LAUNCHES["paged_decode"]
+        del cache
+    del base
+    errs = [float((a - b).abs().max()) for a, b in zip(logits["kernel"], logits["plain"])]
+    finite = all(bool(torch.isfinite(t).all()) for t in logits["kernel"])
+    state = state_check(cfg, params, device, prompts, "conv")
+    out = {
+        "phase": "hybrid_path", "model": cfg.name, "layers": L, "lens": HYMBA_LENS, "window": cfg.sliding_window,
+        "prefill_s": prefill_s, "prefill_peak_mem_gb": prefill_peak,
+        "max_abs_err": errs, "tol": PATH_TOL, "finite": finite,
+        "logits_std": float(logits["plain"][0][:, : cfg.vocab_size].std()),  # the padded vocab's -1e9 left out
+        "k1_launches": launches, "state_check": state,
+    }
+    emit(out)
+    if not finite or max(errs) >= PATH_TOL:
+        fail(f"hymba kernel path logits differ from the plain path by {errs} (tol {PATH_TOL}) or are not finite")
+    if launches != {"kernel": L * STATE_STEPS, "plain": 0}:
+        fail(f"hymba decode launched K1 {launches} times (expected {L * STATE_STEPS} with the kernel, 0 plain)")
+    if not state["finite"] or not state["max_abs_err"] < state["tol"] or state["k1_launches"] != L * (STATE_STEPS + 1):
+        fail(f"hymba state check: {state}")
+    if not state["control_max_abs_err"] > state["tol"]:
+        fail(f"the hymba state check's control passes, which then proves nothing: {state}")
+    return out
+
+
+def serve_recurrent(cfg, params, device, prompts, *, max_new_tokens=32, **kw) -> tuple[dict, list]:
+    """One timed run of ``prompts`` on a fresh engine (``kw``) after an
+    untimed warm-up engine: readings and tokens.  Fails unless every
+    request finishes by length with its first token from the prefill."""
+    from repro_torch.kernels import paged_attention as K
+    from repro_torch.kernels import rwkv6_scan as K5
+    from repro_torch.serving import InferenceEngine
+
+    warm = InferenceEngine(cfg, params, eos_token=cfg.padded_vocab, device=device, **kw)
+    warm.submit(prompts[0][:48], max_new_tokens=2)
+    warm.run_until_drained()
+    del warm
+    eng = InferenceEngine(cfg, params, eos_token=cfg.padded_vocab, device=device, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reqs = [eng.submit(p, max_new_tokens=max_new_tokens) for p in prompts]
+    K.reset_launches()  # the run starts here
+    K5.reset_launches()
+    t0 = time.perf_counter()
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = eng.stats()
+    name = f"{cfg.name} {s['cache_kind']}"
+    if not all(r.finish_reason == "length" and len(r.generated) == max_new_tokens for r in reqs):
+        fail(f"{name}: requests did not all finish by length: {[(r.finish_reason, len(r.generated)) for r in reqs]}")
+    first_tokens = sum(1 for e in eng.tracer.events if e.name == "first_token")
+    if first_tokens != len(reqs) or s["prefill_chunks"] != len(reqs):
+        fail(f"{name}: {first_tokens} first tokens and {s['prefill_chunks']} prefills for {len(reqs)} requests")
+    h_decode = eng.metrics.histogram("engine_decode_seconds")
+    out = {
+        "cache_kind": s["cache_kind"], "requests": len(reqs), "wall_s": wall, "tokens_out": s["tokens_out"],
+        "decode_steps": s["decode_steps"], "prefill_tokens": s["prefill_tokens"], "peak_active": s["peak_active"],
+        "ttft_p50_s": float(np.median([r.ttft for r in reqs])), "tpot_p50_s": float(np.median([r.tpot for r in reqs])),
+        "ttft_s": [r.ttft for r in reqs], "decode_step_p50_s": h_decode.percentile(50),
+        "output_tok_s": s["tokens_out"] / wall, "dispatches_per_step": s["dispatches_per_step"],
+        "cache_bytes": s["cache_bytes"], "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": {"paged_decode": K.LAUNCHES["paged_decode"], "paged_prefill": K.LAUNCHES["paged_prefill"],
+                     "rwkv6_scan": K5.LAUNCHES["rwkv6_scan"]},
+    }
+    if s["cache_kind"] == "paged":
+        out.update(alloc_blocks_in_use=s["alloc_blocks_in_use"], alloc_peak_in_use=s["alloc_peak_in_use"],
+                   block_size=s["block_size"])
+    tokens = [list(r.generated) for r in reqs]
+    del eng
+    torch.cuda.empty_cache()
+    return out, tokens
+
+
+def decode_bound(cfg, params, lens, window=0) -> tuple[float, float]:
+    """(bound ms, bytes) of one decode step over ``lens``: every weight read
+    once, the bf16 K/V rows a slot's query can see, and each slot's
+    recurrent states read and written once (hybrid: conv in fp32 after the
+    first step, ssm fp32; ssm: tm_x, cm_x and the WKV state, fp32)."""
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.utils.tree import tree_leaves
+
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    L, B = cfg.num_layers, len(lens)
+    if cfg.family == "hybrid":
+        vis = sum(min(n, window) if window else n for n in lens)
+        nbytes += vis * L * 2 * cfg.num_kv_heads * cfg.head_dim * 2
+        di, K_, N = ssm_mod.d_inner(cfg), cfg.ssm.conv_width, cfg.ssm.state_size
+        nbytes += 2 * B * L * 4 * ((K_ - 1) * di + cfg.num_heads * ssm_mod.head_dim_inner(cfg) * N)
+    else:
+        H, n = cfg.num_heads, cfg.rwkv.head_size
+        nbytes += 2 * B * L * 4 * (2 * cfg.d_model + H * n * n)
+    return bound(nbytes, 0, FP32_FLOPS_PER_S)[0], nbytes
+
+
+def hybrid_serving_phase(cfg, params, device) -> dict:
+    """hymba-1.5b on ``InferenceEngine``: the serving phase's 8 prompts and
+    one of ``HYMBA_LONG`` tokens (32 new each) on the paged cache (bf16
+    pools, block 32, 4 slots, max_seq 1536; K1 one launch a layer a decode
+    step, blocks all back after the drain) and on the dense slot cache
+    (the same tokens up to near-ties, no K1); then one decode step at
+    ``HYMBA_LENS`` profiled against its bound."""
+    L = cfg.num_layers
+    prompts = serving_prompts(cfg, SEED)
+    prompts.append([int(t) for t in np.random.default_rng(SEED + 11).integers(0, cfg.vocab_size, HYMBA_LONG)])
+    paged, paged_tokens = serve_recurrent(cfg, params, device, prompts, **HYMBA_ENGINE)
+    dense, dense_tokens = serve_recurrent(cfg, params, device, prompts, cache_kind="dense", **HYMBA_ENGINE)
+    found: list = []
+    tie_gate = same_up_to_ties(cfg, params, device, prompts, dense_tokens, paged_tokens, found)
+    prof = profile_phase(cfg, params, device, lens=HYMBA_LENS, nb=HYMBA_NB)
+    bound_ms, nbytes = decode_bound(cfg, params, HYMBA_LENS, cfg.sliding_window)
+    out = {
+        "phase": "hybrid_serving", "model": cfg.name, "paged": paged, "dense": dense,
+        "dense_vs_paged": {"same_up_to_ties": tie_gate, "differences": found[0],
+                           "tokens": token_differences(dense_tokens, paged_tokens)},
+        "profile": {k: prof[k] for k in ("wall_ms", "device_busy_ms", "idle_share", "device_launches_per_step",
+                                         "paged_decode_ms", "top_kernels_ms")},
+        "step_bound_ms": bound_ms, "step_bytes": nbytes,
+    }
+    emit(out)
+    pl = paged["launches"]
+    if pl["paged_decode"] != L * paged["decode_steps"] or pl["paged_decode"] == 0 or pl["paged_prefill"] != 0:
+        fail(f"hymba paged serving: K1 did not run once a layer a decode step: {pl}, {paged['decode_steps']} steps")
+    if dense["launches"]["paged_decode"] != 0 or dense["cache_kind"] != "dense" or paged["cache_kind"] != "paged":
+        fail(f"hymba dense serving ran K1 or the layouts are wrong: {dense}")
+    if paged["alloc_blocks_in_use"] != 0:
+        fail(f"hymba paged serving left {paged['alloc_blocks_in_use']} blocks in use")
+    if not tie_gate:
+        fail(f"hymba dense tokens differ from the paged ones away from a near tie: {out['dense_vs_paged']}")
+    return out
+
+
+def rwkv_serving_phase(cfg, params, device) -> dict:
+    """rwkv6-7b at full width and depth on ``InferenceEngine`` asked for the
+    paged cache, which the ssm family turns into the dense slot cache: the
+    serving phase's 8 prompts (32 new each), 4 slots, the chunked scan in
+    prefill (no K5, which computes no state) and ``time_mix_step`` in
+    decode; one decode step profiled against its bound; the state check."""
+    from repro_torch.models import decode_step
+    from repro_torch.serving.kvcache import make_engine_cache
+
+    prompts = serving_prompts(cfg, SEED)
+    served, _ = serve_recurrent(cfg, params, device, prompts, **RWKV_ENGINE)
+    B = RWKV_ENGINE["max_batch"]
+    cache = make_engine_cache(cfg, B, RWKV_ENGINE["max_seq"], torch.bfloat16, device=device)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=device)
+    pos = torch.tensor([n - 1 for n in DECODE_LENS], dtype=torch.int32, device=device)
+
+    def step():
+        decode_step(cfg, params, cache, tok, pos)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 5
+    by_name, launches, _, _ = profiled(step, 5)
+    busy = sum(by_name.values())
+    del cache
+    bound_ms, nbytes = decode_bound(cfg, params, DECODE_LENS)
+    state = state_check(cfg, params, device, prompts[:B], "state")
+    out = {
+        "phase": "rwkv_serving", "model": cfg.name, "served": served,
+        "profile": {"what": "decode_step, 4 slots, dense slot cache, fp32 weights", "wall_ms": wall_ms,
+                    "device_busy_ms": busy if by_name else None,
+                    "idle_share": 1.0 - busy / wall_ms if by_name else None, "device_launches_per_step": launches,
+                    "top_kernels_ms": [[n[:90], ms] for n, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]]},
+        "step_bound_ms": bound_ms, "step_bytes": nbytes, "state_check": state,
+    }
+    emit(out)
+    if served["cache_kind"] != "dense" or any(served["launches"].values()):
+        fail(f"rwkv serving: not the dense slot cache, or a kernel ran (K5 computes no state): {served}")
+    if not state["finite"] or not state["max_abs_err"] < state["tol"]:
+        fail(f"rwkv state check: {state}")
+    if not state["control_max_abs_err"] > state["tol"]:
+        fail(f"the rwkv state check's control passes, which then proves nothing: {state}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel path against plain path at full width
 # ---------------------------------------------------------------------------
 
@@ -2436,27 +2779,29 @@ def profiled(fn, steps: int = 1) -> tuple[dict, float, float, dict]:
     return by_name, launches / steps, wall_ms, by_span
 
 
-def profile_phase(cfg, params, device, steps=5, quantize_kv=False, cache_kind="paged") -> dict:
+def profile_phase(cfg, params, device, steps=5, quantize_kv=False, cache_kind="paged", lens=DECODE_LENS, nb=NB) -> dict:
     """The 4-slot decode step at the kernel phase's lengths: host wall time
     per step (no profiler), then device time by kernel under
     ``torch.profiler``.  Idle share = 1 - device busy / wall.  With
     ``quantize_kv`` the pools are int8 / e4m3 and read plain; with
     ``cache_kind="dense"`` the step reads the dense ring cache (4 rows of
-    512 slots, each slot's history filled to its length)."""
+    512 slots, each slot's history filled to its length).  ``lens`` and
+    ``nb``: the slots' lengths and the table width (hymba: its decode
+    shapes, a window the last slots outrun; its states zero)."""
     from repro_torch.models import decode_step, init_paged_cache
     from repro_torch.serving.kvcache import make_engine_cache
 
-    B = len(DECODE_LENS)
+    B = len(lens)
     if cache_kind == "dense":
-        cache = make_engine_cache(cfg, B, NB * BLOCK_SIZE, torch.bfloat16, device=device)
-        for b, n in enumerate(DECODE_LENS):
+        cache = make_engine_cache(cfg, B, nb * BLOCK_SIZE, torch.bfloat16, device=device)
+        for b, n in enumerate(lens):
             cache["pos"][:, b, : n - 1] = torch.arange(n - 1, dtype=torch.int32, device=device)
     else:
-        cache = init_paged_cache(cfg, 1 + B * NB, BLOCK_SIZE, B, NB, torch.bfloat16, quantized=quantize_kv,
+        cache = init_paged_cache(cfg, 1 + B * nb, BLOCK_SIZE, B, nb, torch.bfloat16, quantized=quantize_kv,
                                  device=device)
-        cache["tbl"].copy_(torch.arange(1, 1 + B * NB, dtype=torch.int32).reshape(B, NB))
+        cache["tbl"].copy_(torch.arange(1, 1 + B * nb, dtype=torch.int32).reshape(B, nb))
     tok = torch.zeros((B, 1), dtype=torch.int32, device=device)
-    pos = torch.tensor([n - 1 for n in DECODE_LENS], dtype=torch.int32, device=device)
+    pos = torch.tensor([n - 1 for n in lens], dtype=torch.int32, device=device)
 
     def step():
         decode_step(cfg, params, cache, tok, pos)
@@ -3316,18 +3661,16 @@ def layer_readings(cfg, params, tokens, control, dtype) -> dict:
     return worst
 
 
-def rwkv_eval_phase(cfg, device, batch_size=TRAIN_B, seq=TRAIN_S) -> dict:
+def rwkv_eval_phase(cfg, params, device, batch_size=TRAIN_B, seq=TRAIN_S) -> dict:
+    """``params``: the full-width model (``init_params`` from the seed, in
+    its own phase), which the rwkv serving phase then serves."""
     from repro_torch.data import make_batch_fn
     from repro_torch.kernels import rwkv6_scan as K5
     from repro_torch.kernels.rwkv6_scan_ref import wkv6_chunked_plain
-    from repro_torch.models import forward, init_params
+    from repro_torch.models import forward
     from repro_torch.train import loss_fn
     from repro_torch.utils.tree import tree_leaves
 
-    t0 = time.perf_counter()
-    params = init_params(cfg, SEED, device)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
     batch = make_batch_fn(cfg, global_batch=batch_size, seq_len=seq, seed=SEED, device=device)(0)
 
     def evaluate(impl):
@@ -3371,7 +3714,7 @@ def rwkv_eval_phase(cfg, device, batch_size=TRAIN_B, seq=TRAIN_S) -> dict:
             "top_kernels_ms": [[name[:90], ms] for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]],
         }
         out = {"phase": "rwkv_eval", "model": cfg.name, "params": sum(t.numel() for t in tree_leaves(params)),
-               "tokens": batch_size * seq, "init_s": init_s,
+               "tokens": batch_size * seq,
                "loss": {"chunked": ref["loss"], "kernel": kern["loss"]},
                "wall_s": {"chunked": ref["wall_s"], "kernel": kern["wall_s"]},
                "peak_mem_gb": {"chunked": ref["peak_mem_gb"], "kernel": kern["peak_mem_gb"]},
@@ -3393,7 +3736,7 @@ def rwkv_eval_phase(cfg, device, batch_size=TRAIN_B, seq=TRAIN_S) -> dict:
             fail(f"the K5 and chunked rwkv blocks disagree in {dt}: {out}")
         if within(out["layers_control_vs_chunked"][dt], limits):
             fail(f"the control passes the rwkv eval's {dt} limits, which then prove nothing: {out}")
-    del params, batch
+    del batch
     torch.cuda.empty_cache()
     return out
 
@@ -3480,7 +3823,7 @@ def main() -> int:
         seconds[name] = time.perf_counter() - t0
         return out
 
-    main_rows = phase("kernel_k1_k2", kernel_phase, device)
+    main_rows, k1_hymba = phase("kernel_k1_k2", kernel_phase, device)
     flash_main = phase("kernel_k3", flash_phase, device)
     gemm_rows = phase("kernel_k4", gemm_phase, device)
     stream_rows = phase("kernel_k6", stream_phase, device)
@@ -3513,7 +3856,14 @@ def main() -> int:
     moe_params = phase("moe_init", init_params, moe_cfg, SEED, device)
     moe = phase("moe_serving", moe_serving_phase, moe_cfg, moe_params, device)
     phase("profile_moe", profile_moe_phase, moe_cfg, moe_params, device)
-    del moe_params  # the moe model's memory goes back before training
+    del moe_params  # the moe model's memory goes back before hymba
+    torch.cuda.empty_cache()
+
+    hymba_cfg = get_config(HYMBA_ARCH)  # full width and depth: 1.59 B parameters, 6.35 GB of fp32
+    hymba_params = phase("hymba_init", init_params, hymba_cfg, SEED, device)
+    hybrid_path = phase("hybrid_path", hybrid_path_phase, hymba_cfg, hymba_params, device)
+    hybrid = phase("hybrid_serving", hybrid_serving_phase, hymba_cfg, hymba_params, device)
+    del hymba_params  # hymba's memory goes back before training
     torch.cuda.empty_cache()
 
     state, batch, train = phase("train", train_phase, cfg, device)
@@ -3523,7 +3873,12 @@ def main() -> int:
     del state, batch  # the olmo-1b training state's memory goes back before rwkv6-7b
     torch.cuda.empty_cache()
 
-    rwkv = phase("rwkv_eval", rwkv_eval_phase, get_config("rwkv6-7b"), device)
+    rwkv_cfg = get_config("rwkv6-7b")  # full width and depth, 30.3 GB of fp32: one load serves both phases
+    rwkv_params = phase("rwkv_init", init_params, rwkv_cfg, SEED, device)
+    rwkv = phase("rwkv_eval", rwkv_eval_phase, rwkv_cfg, rwkv_params, device)
+    rwkv_serving = phase("rwkv_serving", rwkv_serving_phase, rwkv_cfg, rwkv_params, device)
+    del rwkv_params
+    torch.cuda.empty_cache()
     emit({"phase": "seconds", **seconds})
 
     src = "src/repro_torch/kernels/csrc/"
@@ -3573,11 +3928,21 @@ def main() -> int:
                                                         ("http", router["http"]["launches"]))}
             k["moe_launches"] = {arm: {how: (counts[how] or {}).get(k["name"], 0) for how in ("eager", "replays")}
                                  for arm, counts in moe["launches"].items()}  # qwen3-moe's serving arms
+            # hymba-1.5b's serving (paged, dense) and path runs, each its own count
+            k["hymba_launches"] = {"paged": hybrid["paged"]["launches"][k["name"]],
+                                   "dense": hybrid["dense"]["launches"][k["name"]],
+                                   "path": hybrid_path["k1_launches"]["kernel"] if k["name"] == "paged_decode" else 0}
+            k["rwkv_serving_launches"] = rwkv_serving["served"]["launches"][k["name"]]
             k["quantized_launches"] = {  # quantized pools read plain: none
                 run: quantized[run]["eager_launches"][k["name"]] + (quantized[run]["replay_launches"] or {}).get(k["name"], 0)
                 for run in ("int8_legacy", "int8_fused", "fp8_legacy", "fp8_fused")
             }
+        if k["name"] == "paged_decode":  # K1 at hymba-1.5b's heads (25 over 5, hd 64, window 1024)
+            k["hymba"] = {dt: {f: r[f] for f in ("max_abs_err", "kernel_ms", "kernel_enqueue_ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms", "split", "split1_ms", "cuda_cores_ms")}
+                          for dt, r in k1_hymba.items()}
         if k["name"] == "rwkv6_scan":  # v1 beside the chunk-parallel kernels
+            k["rwkv_serving_launches"] = rwkv_serving["served"]["launches"]["rwkv6_scan"]  # the chunked scan serves
             k.update(cuda_cores_ms=wkv_main["cuda_cores_ms"], mean_rel=wkv_main["readings"]["mean_vs_plain"])
         if k["name"] == "flash_attention":  # the bf16 route's kernel, v1 beside it
             k.update(kernel=flash_main["route"], cuda_cores_ms=flash_main["cuda_cores_ms"])

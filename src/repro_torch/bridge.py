@@ -3,7 +3,9 @@ port's, and a JAX paged cache -> the port's.
 
 The JAX tree stacks every block leaf over layers, ``(L, ...)``; the port
 keeps one dict per layer.  Leaf names and layouts are the same, so the
-bridge is a plain copy.  Arrays arrive as numpy (the caller converts with
+bridge is a plain copy, nested subtrees included (the moe blocks' ``moe``,
+the rwkv blocks' ``time_mix`` / ``channel_mix``, the hybrid blocks'
+``attn``, ``ssm``, ``mlp``, ``beta_attn`` / ``beta_ssm`` and two norms).  Arrays arrive as numpy (the caller converts with
 ``np.asarray``, e.g. ``jax.tree.map(np.asarray, state)``); bf16, which
 numpy lacks, goes through fp32.
 """
@@ -79,9 +81,11 @@ def train_state_from_jax(cfg, np_state, device="cuda", param_dtype=torch.float32
 def paged_cache_from_jax(np_cache: dict, device="cuda") -> dict:
     """A port paged cache holding the JAX cache ``np_cache`` (numpy leaves):
     the pools in their own dtype (int8 as int8, ml_dtypes' bf16 and e4m3 by
-    their bits), the fp32 scale leaves of quantized pools, and one block
-    table, the first layer's (the port keeps one for every layer; the JAX
-    package stacks a copy per layer)."""
+    their bits), the fp32 scale leaves of quantized pools, the hybrid
+    family's slot-dense ``conv`` (the cache dtype, or the compute dtype once
+    a decode step ran) and ``ssm`` (fp32) states, ``(L, max_batch, ...)``
+    as they are, and one block table, the first layer's (the port keeps one
+    for every layer; the JAX package stacks a copy per layer)."""
     device = resolve_device(device)
     by_bits = {"bfloat16": (np.uint16, torch.bfloat16), "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
     out = {}

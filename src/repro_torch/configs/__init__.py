@@ -29,6 +29,7 @@ from repro_torch.configs import (  # noqa: E402,F401
     arctic_480b,
     bert_large,
     gemma_7b,
+    hymba_1_5b,
     mistral_nemo_12b,
     olmo_1b,
     qwen3_moe_235b,

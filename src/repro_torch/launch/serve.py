@@ -4,6 +4,8 @@ synthetic request mix, or the always-on HTTP/SSE service.
     python -m repro_torch.launch.serve --arch olmo-1b --full --fused --prefill-budget 128
     python -m repro_torch.launch.serve --arch olmo-1b --full --fused --replicas 2 --shared-prefix 96
     python -m repro_torch.launch.serve --arch olmo-1b --full --fused --http --port 8731
+    python -m repro_torch.launch.serve --arch hymba-1.5b --full --max-batch 4
+    python -m repro_torch.launch.serve --arch rwkv6-7b --full --max-batch 4
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --replicas 2   # smoke size
 
 It takes the JAX launcher's flags and defaults (``src/repro/launch/serve.py``):
@@ -29,7 +31,11 @@ Queue 1), ``--tp`` above 1 exits, and ``--replicas N`` puts N engines on
 the one card: they share one params dict (an engine keeps its params by
 reference, so the card holds one copy of the weights), each with its own
 K/V pools and, with ``--fused``, its own CUDA graphs.  The router steps
-them in turns.  Every run prints the device it ran on.
+them in turns.  Every run prints the device it ran on.  The recurrent
+families serve with the engine's blocking admission (hymba-1.5b on the
+paged cache, K1 for its attention; rwkv6-7b on the dense slot cache,
+whose stats print ``cache_kind: dense``), and the chunked options warn
+and are ignored for them, as in the JAX launcher.
 """
 
 from __future__ import annotations

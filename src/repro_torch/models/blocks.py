@@ -9,12 +9,25 @@
   (``models.moe``) in place of the FFN, and arctic's dense residual FFN
   beside them (the training forward is not ported yet);
 * ssm (RWKV6): the forward, and the prefill and decode steps that carry
-  the recurrent state (``tm_x``, ``cm_x``, ``state``).
+  the recurrent state (``tm_x``, ``cm_x``, ``state``);
+* hybrid (hymba): attention heads and SSM heads (``models.ssm``) side by
+  side on one normed input, each output RMS-normed and scaled before they
+  are averaged: the prefill that returns the layer's K/V and its conv and
+  SSM states, and the decode step against either cache layout, whose
+  recurrent states stay slot-dense beside the K/V (the training forward
+  is not ported yet).
+
+Decode attention picks the cache layout by the cache's keys, as the JAX
+package's ``_decode_attn``: ``"tbl"`` is the paged layout (through
+``attn_impl``, K1 under ``"kernel"``), else the dense ring cache.
 """
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (
     attention_specs,
     decode_attention,
@@ -24,8 +37,16 @@ from repro_torch.models.attention import (
     self_attention,
 )
 from repro_torch.models.ffn import ffn, ffn_specs
-from repro_torch.models.layers import apply_norm, norm_specs
+from repro_torch.models.layers import ParamSpec, apply_norm, norm_specs
 from repro_torch.models.moe import moe_ffn, moe_specs
+
+
+def _decode_attn(cfg, p_attn, h, cache, pos, attn_impl):
+    """One decode token's attention against either cache layout (the keys
+    select it: ``"tbl"`` paged, else the dense ring), written in place."""
+    if "tbl" in cache:
+        return paged_decode_attention(cfg, p_attn, h, cache, pos, impl=attn_impl)
+    return decode_attention(cfg, p_attn, h, cache, pos)
 
 
 def dense_block_specs(cfg) -> dict:
@@ -76,10 +97,7 @@ def dense_block_decode(cfg, p, x, cache, pos, *, attn_impl="kernel"):
     it (``"tbl"``: paged, through ``attn_impl``; else the dense ring cache,
     always in tensor ops), as the JAX package's ``_decode_attn``."""
     h = apply_norm(cfg, p["norm1"], x)
-    if "tbl" in cache:
-        a = paged_decode_attention(cfg, p["attn"], h, cache, pos, impl=attn_impl)
-    else:
-        a = decode_attention(cfg, p["attn"], h, cache, pos)
+    a = _decode_attn(cfg, p["attn"], h, cache, pos, attn_impl)
     return _residual(cfg, p, x, h, a)
 
 
@@ -134,10 +152,7 @@ def moe_block_decode(cfg, p, x, cache, pos, *, attn_impl="kernel"):
     """As ``dense_block_decode``: every batch row is routed, idle slots
     included."""
     h = apply_norm(cfg, p["norm1"], x)
-    if "tbl" in cache:
-        a = paged_decode_attention(cfg, p["attn"], h, cache, pos, impl=attn_impl)
-    else:
-        a = decode_attention(cfg, p["attn"], h, cache, pos)
+    a = _decode_attn(cfg, p["attn"], h, cache, pos, attn_impl)
     return _moe_residual(cfg, p, x, a)
 
 
@@ -186,3 +201,61 @@ def rwkv_block_decode(cfg, p, x, cache, pos):
     out, cm_x = rwkv_mod.channel_mix(cfg, p["channel_mix"], h2, prev_x=cache["cm_x"])
     x = x + out
     return x, {"tm_x": tm_x, "cm_x": cm_x, "state": state}
+
+
+# ---------------------------------------------------------------------------
+# Hymba hybrid: parallel attention + SSM heads
+# ---------------------------------------------------------------------------
+
+
+def hybrid_block_specs(cfg) -> dict:
+    D = cfg.d_model
+    return {
+        "norm1": norm_specs(cfg),
+        "attn": attention_specs(cfg),
+        "ssm": ssm_mod.ssm_specs(cfg),
+        "beta_attn": ParamSpec((D,), ("embed",), "ones"),
+        "beta_ssm": ParamSpec((D,), ("embed",), "ones"),
+        "norm2": norm_specs(cfg),
+        "mlp": ffn_specs(cfg),
+    }
+
+
+def _rmsn(x, eps=1e-5):
+    """Parameter-free RMS norm in fp32, cast back to x's dtype."""
+    xf = x.float()
+    return (xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)).to(x.dtype)
+
+
+def _hybrid_combine(p, a, m, dtype):
+    """The mean of the normed attention and SSM outputs, each scaled."""
+    return 0.5 * (p["beta_attn"].to(dtype) * _rmsn(a) + p["beta_ssm"].to(dtype) * _rmsn(m))
+
+
+def _hybrid_ffn(cfg, p, x):
+    return x + ffn(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+
+
+def hybrid_block_prefill(cfg, p, x, *, positions=None, q_chunk=0):
+    """Full-sequence forward of one layer from zero states that also returns
+    its decode cache: (x (B, S, D), {"k", "v": (B, S, KV, hd), "conv": (B,
+    K-1, d_inner) in x's dtype, "ssm": (B, H, P, N) fp32})."""
+    h = apply_norm(cfg, p["norm1"], x)
+    a, k, v = prefill_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk)
+    m, (conv_state, ssm_state) = ssm_mod.ssm_mix(cfg, p["ssm"], h)
+    x = x + _hybrid_combine(p, a, m, x.dtype)
+    return _hybrid_ffn(cfg, p, x), {"k": k, "v": v, "conv": conv_state, "ssm": ssm_state}
+
+
+def hybrid_block_decode(cfg, p, x, cache, pos, *, attn_impl="kernel"):
+    """One decode token against the layer's cache: the attention against
+    either layout (``_decode_attn``), the SSM step from the slot-dense
+    ``conv`` / ``ssm`` states, which are updated in place, cast to their
+    leaves' dtypes."""
+    h = apply_norm(cfg, p["norm1"], x)
+    a = _decode_attn(cfg, p["attn"], h, cache, pos, attn_impl)
+    m, (conv_state, ssm_state) = ssm_mod.ssm_step(cfg, p["ssm"], h, cache["conv"], cache["ssm"])
+    cache["conv"].copy_(conv_state)
+    cache["ssm"].copy_(ssm_state)
+    x = x + _hybrid_combine(p, a, m, x.dtype)
+    return _hybrid_ffn(cfg, p, x)

@@ -1,16 +1,28 @@
 """Decode caches: the paged KV cache (vLLM-style block pool + per-slot
-block tables) and the dense ring cache, for the families the port serves
-(``SERVED_FAMILIES``: dense and moe, whose layers cache the same K/V).
+block tables) and the dense slot cache, for the families the port serves
+(``SERVED_FAMILIES``: dense, moe, hybrid and ssm).
 
-The dense ring cache (``init_cache``), as in the JAX package's
-``models/cache.py``: per layer ``k``/``v`` ``(B, W, kv_heads, head_dim)``
-and ``pos`` ``(B, W)``, stacked over layers, where ``W`` is the run's
-length or the sliding window (``cache_window``) and position ``t`` lives in
-ring slot ``t % W``; ``pos`` holds the absolute position in each slot, -1
-while it is empty.  It backs the engine's ``cache_kind="dense"`` (one row
-per batch slot, filled from a whole-prompt ``models.prefill`` by
-``serving.kvcache``) and the speculative drafter's per-slot batch=1
-caches; ``cache_bytes`` is its size.
+The dense slot cache (``init_cache``), as in the JAX package's
+``models/cache.py``, per layer and stacked over layers:
+
+* dense, moe: the ring cache ``k``/``v`` ``(B, W, kv_heads, head_dim)``
+  and ``pos`` ``(B, W)``, where ``W`` is the run's length or the sliding
+  window (``cache_window``) and position ``t`` lives in ring slot ``t %
+  W``; ``pos`` holds the absolute position in each slot, -1 while it is
+  empty;
+* hybrid (hymba): the ring cache and the SSM heads' recurrent states,
+  ``conv`` ``(B, conv_width - 1, d_inner)`` in the cache dtype and ``ssm``
+  ``(B, H, P, N)`` in fp32;
+* ssm (RWKV6): no K/V, the last token of each mix, ``tm_x`` and ``cm_x``
+  ``(B, D)`` in the cache dtype, and the WKV state ``state`` ``(B, H, n,
+  n)`` in fp32.
+
+It backs the engine's ``cache_kind="dense"`` (one row per batch slot,
+filled from a whole-prompt ``models.prefill`` by ``serving.kvcache``) and
+the speculative drafter's per-slot batch=1 caches; ``cache_bytes`` is its
+size.  A decode step returns the ``conv`` / ``tm_x`` / ``cm_x`` leaves in
+the dtype it computed them in, as the JAX package's layer scan does
+(``models.decode_step``).
 
 The pools are stacked over layers, ``(L, num_blocks, block_size, kv_heads,
 head_dim)``, as in the JAX package's ``models/cache.py``; the decode block
@@ -18,7 +30,11 @@ table ``tbl`` is one ``(max_batch, max_blocks_per_seq)`` int32 tensor shared
 by every layer (the JAX package stacks a copy per layer for its layer
 scan).  Physical blocks may appear in several slots' table rows at once:
 the prefix cache (``serving/prefix.py``) shares full prompt blocks by
-refcount (``serving/paged.py``).  Shared blocks are write-once.
+refcount (``serving/paged.py``).  Shared blocks are write-once.  The
+hybrid family's recurrent states stay slot-dense beside the pools: ``conv``
+``(L, max_batch, conv_width - 1, d_inner)`` and ``ssm`` ``(L, max_batch,
+H, P, N)``, O(1) a request, nothing to page.  The ssm family has no paged
+layout (its state is O(1) a request).
 
 Quantized pools (``quantized="int8"|"fp8"``, ``True`` for int8) store
 ``k``/``v`` in the ``serving.kvquant`` storage dtype with fp32
@@ -33,6 +49,7 @@ import math
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import ssm as ssm_mod
 
 NULL_BLOCK = 0  # physical block 0 is never allocated: inactive batch slots
 # and padding entries of short block tables point here, so their (masked)
@@ -42,9 +59,8 @@ NULL_BLOCK = 0  # physical block 0 is never allocated: inactive batch slots
 # growing-KV attention families page their cache; recurrent states are O(1)
 # per request and vlm's grouped layers keep the dense layout
 PAGED_FAMILIES = ("dense", "moe", "hybrid")
-# the families whose serving steps and caches the port has (both cache one
-# K/V per layer)
-SERVED_FAMILIES = ("dense", "moe")
+# the families whose serving steps and caches the port has
+SERVED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 def supports_paged(cfg) -> bool:
@@ -59,26 +75,41 @@ def cache_window(cfg, seq_len: int) -> int:
     return seq_len
 
 
+def _ssm_states(cfg, B: int, dtype) -> dict:
+    """(shape, dtype) of a hybrid layer's recurrent states for B slots."""
+    H, P = cfg.num_heads, ssm_mod.head_dim_inner(cfg)
+    di, K, N = ssm_mod.d_inner(cfg), cfg.ssm.conv_width, cfg.ssm.state_size
+    return {"conv": ((B, K - 1, di), dtype), "ssm": ((B, H, P, N), torch.float32)}
+
+
 def layer_cache_layout(cfg, B: int, seq_len: int, dtype) -> dict:
-    """(shape, dtype) of one layer's dense ring cache."""
+    """(shape, dtype) of one layer's dense slot cache."""
     if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(f"no dense cache for family {cfg.family!r} ({cfg.name}) in the port")
+    if cfg.family == "ssm":
+        H, n, D = cfg.num_heads, cfg.rwkv.head_size, cfg.d_model
+        return {"tm_x": ((B, D), dtype), "cm_x": ((B, D), dtype), "state": ((B, H, n, n), torch.float32)}
     W, KV, hd = cache_window(cfg, seq_len), cfg.num_kv_heads, cfg.head_dim
-    return {"k": ((B, W, KV, hd), dtype), "v": ((B, W, KV, hd), dtype), "pos": ((B, W), torch.int32)}
+    lay = {"k": ((B, W, KV, hd), dtype), "v": ((B, W, KV, hd), dtype), "pos": ((B, W), torch.int32)}
+    if cfg.family == "hybrid":
+        lay.update(_ssm_states(cfg, B, dtype))
+    return lay
 
 
 def init_cache(cfg, B: int, seq_len: int, dtype, *, device="cuda") -> dict:
-    """Zero dense ring cache stacked over layers, every slot empty (pos -1)."""
+    """Zero dense slot cache stacked over layers, every ring slot empty (pos
+    -1), every state zero."""
     device = resolve_device(device)
     lay = layer_cache_layout(cfg, B, seq_len, dtype)
     cache = {name: torch.zeros((cfg.num_layers,) + shape, dtype=dt, device=device) for name, (shape, dt) in lay.items()}
-    cache["pos"].fill_(-1)
+    if "pos" in cache:
+        cache["pos"].fill_(-1)
     return cache
 
 
 def cache_bytes(cfg, B: int, seq_len: int, dtype) -> int:
-    """Bytes of the dense ring cache ``init_cache(cfg, B, seq_len, dtype)``
-    holds: K/V, positions, every layer."""
+    """Bytes of the dense slot cache ``init_cache(cfg, B, seq_len, dtype)``
+    holds: K/V, positions and recurrent states, every layer."""
     lay = layer_cache_layout(cfg, B, seq_len, dtype)
     return cfg.num_layers * sum(math.prod(shape) * dt.itemsize for shape, dt in lay.values())
 
@@ -88,9 +119,11 @@ def paged_cache_layout(
     quantized: bool | str = False,
 ) -> dict:
     """(shape, dtype) of every leaf of the stacked paged cache; with
-    ``quantized`` the pools hold int8/e4m3 rows beside fp32 scale leaves."""
-    if cfg.family not in SERVED_FAMILIES:
-        raise NotImplementedError(f"no paged cache for family {cfg.family!r} ({cfg.name}) in the port")
+    ``quantized`` the pools hold int8/e4m3 rows beside fp32 scale leaves;
+    the hybrid family's ``conv`` / ``ssm`` states are slot-dense beside
+    them (``max_batch`` rows a layer, in ``dtype`` and fp32)."""
+    if not supports_paged(cfg):
+        raise ValueError(f"no paged cache for family {cfg.family!r} ({cfg.name})")
     from repro_torch.serving.kvquant import kv_storage_dtype
 
     L, KV, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
@@ -99,6 +132,9 @@ def paged_cache_layout(
     if quantized:
         scale = ((L, num_blocks, block_size, KV, 1), torch.float32)
         lay.update(k_scale=scale, v_scale=scale)
+    if cfg.family == "hybrid":
+        # recurrent states stay slot-dense: O(1) per request, nothing to page
+        lay.update({name: ((L,) + shape, dt) for name, (shape, dt) in _ssm_states(cfg, max_batch, dtype).items()})
     return lay
 
 

@@ -1,11 +1,14 @@
-"""Whole-model ParamSpec assembly and initialization (dense, moe and ssm families).
+"""Whole-model ParamSpec assembly and initialization (dense, moe, ssm and hybrid families).
 
 The parameter tree keeps the JAX package's names and per-layer layout
 (``wq (D,H,hd)``, ``wk/wv (D,KV,hd)``, ``wo (H,hd,D)``, ``w_up/w_gate
 (D,F)``, ``w_down (F,D)``, ``embed.tok (V,D)``, ``lm_head (D,V)``; the moe
 blocks' ``moe`` tree, ``router (D,E)``, ``w_gate/w_up (E,D,F)``, ``w_down
 (E,F,D)``, beside arctic's ``dense_mlp`` and ``norm_dense``; the rwkv
-blocks' ``time_mix``/``channel_mix`` trees, ``maa_w2 (5,r,D)``); the JAX
+blocks' ``time_mix``/``channel_mix`` trees, ``maa_w2 (5,r,D)``; the
+hybrid blocks' ``attn``, ``ssm`` (``in_proj (D,2di)``, ``conv_w (K,di)``,
+``a_log (H,N)``, ...), ``mlp``, ``beta_attn``/``beta_ssm (D,)`` and two
+norms); the JAX
 package stacks the layers on a leading axis for its layer scan, the port
 keeps a list of per-layer dicts under ``"blocks"``.
 """
@@ -15,12 +18,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.blocks import dense_block_specs, moe_block_specs, rwkv_block_specs
+from repro_torch.models.blocks import dense_block_specs, hybrid_block_specs, moe_block_specs, rwkv_block_specs
 from repro_torch.models.layers import ParamSpec, materialize, norm_specs
 from repro_torch.utils.tree import tree_map
 
 
-BLOCK_SPECS = {"dense": dense_block_specs, "moe": moe_block_specs, "ssm": rwkv_block_specs}
+BLOCK_SPECS = {"dense": dense_block_specs, "moe": moe_block_specs, "ssm": rwkv_block_specs, "hybrid": hybrid_block_specs}
 
 
 def param_specs(cfg) -> dict:

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 class ParamSpec(NamedTuple):
     shape: tuple[int, ...]
     axes: tuple[str | None, ...]  # logical axis names, len == ndim
-    init: str = "fan_in"  # "fan_in" | "normal" | "zeros" | "ones" | "rwkv_decay"
+    init: str = "fan_in"  # "fan_in" | "normal" | "zeros" | "ones" | "rwkv_decay" | "ssm_a" | "ssm_dt"
     scale: float = 1.0  # extra multiplier on the init stddev / value
 
 
@@ -40,7 +40,16 @@ def materialize(spec: ParamSpec, generator: torch.Generator, device, dtype) -> t
         ratio = torch.arange(n, dtype=torch.float32, device=device) / max(n - 1, 1)
         base = -6.0 + 5.0 * ratio**0.7
         return base.expand(shape).to(dtype).clone()
+    if spec.init == "ssm_a":
+        # S4D-real init: A = -(1..N) per state channel, stored as log(1..N)
+        a = torch.arange(1, shape[-1] + 1, dtype=torch.float32, device=device)
+        return torch.log(a).expand(shape).to(dtype).clone()
     out = torch.empty(shape, device=device, dtype=torch.float32)
+    if spec.init == "ssm_dt":
+        # dt bias such that softplus(bias) is log-uniform in [1e-3, 1e-1]
+        out.uniform_(0.0, 1.0, generator=generator)
+        dt = torch.exp(out * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+        return torch.log(torch.expm1(dt)).to(dtype)  # inverse softplus
     if spec.init == "normal":
         torch.nn.init.normal_(out, 0.0, spec.scale * 0.02, generator=generator)
         return out.to(dtype)

@@ -6,20 +6,26 @@ Entry points, counterparts of the JAX package's ``models/model.py``:
   or (logits, aux, amaxes) with an FP8 context; the dense and ssm (RWKV6)
   families
 * ``prefill``      — a whole (right-padded) prompt: (logits at each
-  sequence's last real token, the raw K/V stacked over layers), which
-  ``serving.kvcache`` turns into a dense slot cache
+  sequence's last real token, the raw cache stacked over layers: K/V, and
+  the recurrent states of the hybrid and ssm families), which
+  ``serving.kvcache`` turns into a dense slot cache or grafts into paged
+  blocks
 * ``prefill_step`` — one prompt chunk against the paged cache: (logits at
   the chunk's last token, cache)
 * ``verify_step``  — C candidate tokens against the paged cache: (logits at
   every lane, cache), the speculative-decoding verify pass
 * ``decode_step``  — one token per batch slot against the paged cache or
-  the dense ring cache: (logits, cache)
+  the dense slot cache: (logits, cache)
 * ``unified_step`` — one fused pass over a mixed (rows, width) batch of
   decode rows and prefill chunks: (all-lane logits, cache)
 
-The serving steps serve the dense and moe families (``SERVED_FAMILIES``):
-each layer is a dense block or an MoE block (``models.moe``, the routed
-experts in place of the FFN).  The paged steps do no host work
+The serving steps serve the dense, moe, hybrid and ssm families
+(``SERVED_FAMILIES``): each layer is a dense block, an MoE block
+(``models.moe``, the routed experts in place of the FFN), a hybrid block
+(attention and SSM heads side by side, ``models.ssm``) or an RWKV6 block.
+The hybrid and ssm families have ``prefill`` and ``decode_step`` only:
+their recurrent states absorb a whole prompt in one pass, so the chunked
+steps refuse them, as in the JAX package.  The paged steps do no host work
 (no ``.item()``, no host-to-device copy, no shape that depends on the
 data), so ``serving/graphs.py`` can capture them in CUDA graphs.
 
@@ -41,10 +47,14 @@ from repro_torch.models.blocks import (
     dense_block_chunk,
     dense_block_decode,
     dense_block_prefill,
+    hybrid_block_decode,
+    hybrid_block_prefill,
     moe_block_chunk,
     moe_block_decode,
     moe_block_prefill,
     rwkv_block,
+    rwkv_block_decode,
+    rwkv_block_prefill,
 )
 from repro_torch.models.cache import SERVED_FAMILIES, layer_cache
 from repro_torch.models.layers import apply_norm
@@ -63,8 +73,15 @@ def _check_served(cfg) -> None:
 
 
 def _serving_block(cfg, dense, moe):
-    """The family's block function of one serving step."""
+    """The family's block function of one chunked serving step."""
     return dense if cfg.family == "dense" else moe
+
+
+# the blocks of the whole-prompt prefill and of the decode step, by family
+PREFILL_BLOCKS = {"dense": dense_block_prefill, "moe": moe_block_prefill, "hybrid": hybrid_block_prefill}
+DECODE_BLOCKS = {"dense": dense_block_decode, "moe": moe_block_decode, "hybrid": hybrid_block_decode}
+# the state leaves a decode step returns in the dtype it computes them in
+STEP_DTYPE_LEAVES = ("conv", "tm_x", "cm_x")
 
 
 def embed_input(cfg, params, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -165,37 +182,43 @@ def forward(
 
 @torch.no_grad()
 def prefill(cfg, params, batch, *, q_chunk=0):
-    """Inference prefill of whole prompts (the dense and moe families).  Returns
-    (logits (B, V), raw cache).
+    """Inference prefill of whole prompts.  Returns (logits (B, V), raw
+    cache).
 
     batch: ``tokens`` (B, S) int and optional ``last_index`` (B,) int, each
     sequence's last *real* token: the logits are taken there instead of at
     S - 1, which makes right-padded, length-bucketed prefill exact (causal
-    attention: pad positions never reach earlier K/V or those logits).
-    The raw cache holds the full-length K/V stacked over layers, ``{"k",
-    "v": (L, B, S, KV, hd)}`` as the JAX package's layer scan stacks them;
-    ``serving.kvcache.decode_cache_from_prefill`` turns it into the ring
+    attention: pad positions never reach earlier K/V or those logits; the
+    recurrent families' states absorb every position, so the engine
+    prefills them at the exact length).  The raw cache holds each layer's
+    cache stacked over layers, as the JAX package's layer scan stacks
+    them: the full-length K/V ``{"k", "v": (L, B, S, KV, hd)}``, beside
+    ``"conv"`` ``(L, B, K-1, d_inner)`` and ``"ssm"`` ``(L, B, H, P, N)``
+    for the hybrid family; ``{"tm_x", "cm_x": (L, B, D), "state": (L, B,
+    H, n, n)}`` for the ssm family, whose WKV scan is the chunked one (K5
+    computes no final state).  ``serving.kvcache`` turns it into the slot
     cache ``decode_step`` reads.  A Python layer loop, in tensor ops (the
     JAX package's prefill reaches no Pallas kernel either).  For the moe
     family the pad positions are routed with the prompt's tokens, so they
     compete for expert capacity, as in the JAX package.
     """
     _check_served(cfg)
-    block = _serving_block(cfg, dense_block_prefill, moe_block_prefill)
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
     x = embed_input(cfg, params, tokens, positions)
-    ks, vs = [], []
+    layers = []
     for p_layer in params["blocks"]:
-        x, kv = block(cfg, p_layer, x, positions=positions, q_chunk=q_chunk)
-        ks.append(kv["k"])
-        vs.append(kv["v"])
+        if cfg.family == "ssm":
+            x, c = rwkv_block_prefill(cfg, p_layer, x)
+        else:
+            x, c = PREFILL_BLOCKS[cfg.family](cfg, p_layer, x, positions=positions, q_chunk=q_chunk)
+        layers.append(c)
     last_index = batch.get("last_index")
     if last_index is None:
         x_last = x[:, -1]
     else:
         x_last = x[torch.arange(x.shape[0], device=x.device), last_index.long()]
-    return lm_logits(cfg, params, x_last), {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return lm_logits(cfg, params, x_last), {name: torch.stack([c[name] for c in layers]) for name in layers[0]}
 
 
 # chunked prefill needs a paged cache and per-chunk state that the written
@@ -215,7 +238,11 @@ def _chunk_stack(cfg, params, cache, tokens, start, tbl_row, *, attn_impl="kerne
     cache through ``tbl_row`` and attend causally over the paged history.
     ``widths`` ((B,) int32, optional): per-row valid-lane counts; lanes at
     or past ``widths[b]`` scatter to the null block; an MoE layer routes
-    them with the valid lanes, as in the JAX package.  Returns x (B, C, D)."""
+    them with the valid lanes, as in the JAX package.  Returns x (B, C, D).
+    The recurrent families (hybrid, ssm) raise ``ValueError``, as in the
+    JAX package: their states cannot resume mid-prompt."""
+    if not supports_chunked_prefill(cfg):
+        raise ValueError(f"no chunked prefill for family {cfg.family!r} ({cfg.name})")
     block = _serving_block(cfg, dense_block_chunk, moe_block_chunk)
     C = tokens.shape[1]
     positions = start[:, None].long() + torch.arange(C, device=tokens.device)[None, :]
@@ -297,12 +324,28 @@ def decode_step(cfg, params, cache, token, pos, *, attn_impl="kernel"):
     position of this token.  Returns (logits (B, V), cache).
 
     The cache is the paged layout (``init_paged_cache``; attention through
-    ``attn_impl``) or the dense ring cache (``init_cache``; attention in
+    ``attn_impl``) or the dense slot cache (``init_cache``; attention in
     tensor ops whatever ``attn_impl`` says), selected by its keys.  Every
-    row is computed, idle slots included: an MoE layer routes them all."""
+    row is computed, idle slots included: an MoE layer routes them all.
+    The ssm family ignores ``pos`` (the recurrence has no positions).
+
+    The recurrent states are updated in place.  The ``conv``, ``tm_x`` and
+    ``cm_x`` leaves come back in the dtype the step computes them in (the
+    activations', the params' here): a cache made in bf16 under fp32
+    weights holds them in bf16 until the first step, then in fp32, as the
+    new cache leaves of the JAX package's layer scan do.  The step then
+    replaces those leaves of ``cache`` with new tensors."""
     _check_impl(cfg, attn_impl)
-    block = _serving_block(cfg, dense_block_decode, moe_block_decode)
     x = embed_input(cfg, params, token, pos[:, None])
+    for name in STEP_DTYPE_LEAVES:
+        if name in cache and cache[name].dtype != x.dtype:
+            cache[name] = cache[name].to(x.dtype)
     for layer, p_layer in enumerate(params["blocks"]):
-        x = block(cfg, p_layer, x, layer_cache(cache, layer), pos, attn_impl=attn_impl)
+        c = layer_cache(cache, layer)
+        if cfg.family == "ssm":
+            x, new = rwkv_block_decode(cfg, p_layer, x, c, pos)
+            for name, t in new.items():
+                c[name].copy_(t)
+        else:
+            x = DECODE_BLOCKS[cfg.family](cfg, p_layer, x, c, pos, attn_impl=attn_impl)
     return lm_logits(cfg, params, x[:, 0]), cache

@@ -4,11 +4,17 @@ from repro_torch.serving.faults import FaultPlan, ReplicaCrashed, ServiceUnavail
 from repro_torch.serving.http import HttpFrontend, serve_http
 from repro_torch.serving.kvcache import (
     clear_block_row,
+    clear_slot,
     copy_block_rows,
+    decode_cache_from_prefill,
     gather_block_rows,
+    graft_prefill_into_blocks,
+    make_engine_cache,
     make_table_row,
     restore_block_rows,
     truncate_block_rows,
+    write_prefill_into_slot,
+    write_request_into_slot,
 )
 from repro_torch.serving.kvquant import (
     KV_QUANT_MODES,
@@ -55,13 +61,17 @@ __all__ = [
     "attend_quantized",
     "cache_bytes",
     "clear_block_row",
+    "clear_slot",
     "copy_block_rows",
+    "decode_cache_from_prefill",
     "dequantize",
     "gather_block_rows",
+    "graft_prefill_into_blocks",
     "is_quantized_kv",
     "is_spilled",
     "kv_quant_mode_of",
     "kv_storage_dtype",
+    "make_engine_cache",
     "make_table_row",
     "memory_saving",
     "normalize_kv_quant",
@@ -72,4 +82,6 @@ __all__ = [
     "routing_key",
     "serve_http",
     "truncate_block_rows",
+    "write_prefill_into_slot",
+    "write_request_into_slot",
 ]

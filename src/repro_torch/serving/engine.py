@@ -1,7 +1,8 @@
 """Continuous-batching inference engine over a prefix-cached paged KV cache.
 
 The port's counterpart of the JAX package's ``serving/engine.py`` for the
-dense and moe families (``models.SERVED_FAMILIES``).  Two cache layouts:
+dense, moe, hybrid and ssm families (``models.SERVED_FAMILIES``).  Two
+cache layouts:
 
 * ``cache_kind="paged"`` (default): block pools and per-request block
   tables, with everything below.
@@ -90,8 +91,22 @@ it, by tokens: ``Request.energy_j``, ``stats()["energy_joules"]`` and
 ``["joules_per_token"]``.
 
 Options of the JAX engine that the port does not have yet raise
-``NotImplementedError`` naming the option: ``mesh`` and families other
-than dense and moe.
+``NotImplementedError`` naming the option: ``mesh`` and the vlm family.
+
+The recurrent-state families serve with blocking admission, as in the JAX
+engine: their states absorb a whole prompt in one pass and cannot resume
+mid-prompt, so there is no chunked prefill, prefix cache, speculative
+decoding, preemption or fused step for them (the options warn and are
+disabled, ``fused=True`` raises), and they prefill at the prompt's exact
+length (not in ``BUCKETED_FAMILIES``).  hybrid (hymba) pages its K/V:
+admission waits until the blocks of ``prompt + max_new_tokens`` are free
+(backpressure), grafts the prefill's K/V into them and its ``conv`` /
+``ssm`` states into the slot's rows (``kvcache.graft_prefill_into_blocks``),
+and decode runs K1 over the pools beside the SSM step; ``cache_kind="dense"``
+keeps the ring cache and the states per slot.  ssm (RWKV6) has nothing to
+page: ``cache_kind="paged"`` turns into ``"dense"`` silently and each
+slot holds ``tm_x`` / ``cm_x`` / ``state``.  A freed slot's states go to
+zero (``clear_block_row`` / ``clear_slot``).
 
 MoE (qwen3-moe, arctic) serves on every path dense does.  Its layers route
 every lane of a call, so expert capacity is shared by what the call holds:
@@ -137,6 +152,8 @@ from repro_torch.models import (
     init_params,
     prefill,
     prefill_step,
+    supports_chunked_prefill,
+    supports_paged,
     unified_step,
     verify_step,
 )
@@ -147,6 +164,7 @@ from repro_torch.serving.kvcache import (
     clear_slot,
     copy_block_rows,
     gather_block_rows,
+    graft_prefill_into_blocks,
     make_engine_cache,
     make_table_row,
     restore_block_rows,
@@ -238,6 +256,9 @@ class InferenceEngine:
             raise ValueError(f"cache_kind={cache_kind!r}")
         if cfg.family not in SERVED_FAMILIES:
             raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported yet")
+        if cache_kind == "paged" and not supports_paged(cfg):
+            # ssm states are O(1) per slot: nothing to page
+            cache_kind = "dense"
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl={attn_impl!r} (choose from {ATTN_IMPLS})")
         if spec_decode not in ("off", "ngram", "draft"):
@@ -320,29 +341,33 @@ class InferenceEngine:
         self.energy = energy if energy is not None else EnergyBridge(chips=1)
 
         # chunked prefill (and with it the prefix cache, speculative
-        # decoding and the fused step) needs a paged cache
-        self._chunked = cache_kind == "paged"
+        # decoding, preemption and the fused step) needs a paged cache and a
+        # family whose chunk state the written K/V captures
+        self._chunked = cache_kind == "paged" and supports_chunked_prefill(cfg)
         if prefix_cache and not self._chunked:
             warnings.warn(
-                f"prefix_cache needs a paged cache; disabled for {cfg.name} ({cache_kind})",
+                f"prefix_cache needs a paged cache and a chunk-resumable family (dense/moe); disabled for "
+                f"{cfg.name} ({cache_kind}/{cfg.family})",
                 RuntimeWarning,
                 stacklevel=2,
             )
         if prefill_budget > 0 and not self._chunked:
             warnings.warn(
-                f"prefill_budget requires chunked prefill (paged cache); {cfg.name} ({cache_kind}) keeps the "
-                f"blocking admission prefill",
+                f"prefill_budget requires chunked prefill (paged cache + dense/moe family); {cfg.name} "
+                f"({cache_kind}/{cfg.family}) keeps the blocking admission prefill",
                 RuntimeWarning,
                 stacklevel=2,
             )
         if fused and not self._chunked:
             raise ValueError(
-                f"fused=True needs a paged cache; got {cfg.name} ({cache_kind})"
+                f"fused=True needs a paged cache and a chunk-resumable family (dense/moe); got {cfg.name} "
+                f"({cache_kind}/{cfg.family})"
             )
         self.fused = bool(fused)
         if spec_decode != "off" and not self._chunked:
             warnings.warn(
-                f"spec_decode needs a paged cache; disabled for {cfg.name} ({cache_kind})",
+                f"spec_decode needs a paged cache and a chunk-resumable family (dense/moe); disabled for "
+                f"{cfg.name} ({cache_kind}/{cfg.family})",
                 RuntimeWarning,
                 stacklevel=2,
             )
@@ -388,7 +413,11 @@ class InferenceEngine:
                 num_blocks = max_batch * self.max_blocks_per_seq + 1
             self.num_blocks = num_blocks
             self.allocator = BlockAllocator(num_blocks)
-            self.prefix = PrefixIndex(self.allocator, block_size) if prefix_cache is None or prefix_cache else None
+            self.prefix = (
+                PrefixIndex(self.allocator, block_size)
+                if self._chunked and (prefix_cache is None or prefix_cache)
+                else None
+            )
             # the allocator publishes pool occupancy into the shared registry;
             # the engine wraps the eviction callback (the prefix index set its
             # unmap hook) so LRU reclaims surface as trace events too
@@ -414,7 +443,7 @@ class InferenceEngine:
             if spill_bytes > 0:
                 if self.prefix is None:
                     warnings.warn(
-                        f"spill_bytes needs the prefix cache; disabled for {cfg.name}",
+                        f"spill_bytes needs the prefix cache (paged cache + dense/moe family); disabled for {cfg.name}",
                         RuntimeWarning,
                         stacklevel=2,
                     )
@@ -893,9 +922,17 @@ class InferenceEngine:
         return True
 
     def _admit_blocking(self, req: Request, slot: int) -> bool:
-        """One-shot admission of the dense slot cache: the whole prompt in
-        one ``models.prefill`` call, its K/V copied into the slot's ring
-        rows, the first token sampled from the prefill's logits."""
+        """One-shot admission: the whole prompt in one ``models.prefill``
+        call, the first token sampled from the prefill's logits.  The dense
+        slot cache takes its K/V (and recurrent states) into the slot's
+        rows; a paged cache (the hybrid family's) first reserves the blocks
+        of ``prompt + max_new_tokens``, returning False (backpressure) while
+        fewer are free, then grafts the K/V into them and the states into
+        the slot, and publishes the slot's table row."""
+        if self.cache_kind == "paged":
+            needed = blocks_needed(len(req.prompt) + req.max_new_tokens, self.block_size)
+            if needed > self.allocator.num_free:
+                return False  # out of blocks: backpressure until frees
         self._note_admit(req, slot)
         t0 = self._clock()
         logits, raw = self._dispatch("prefill", self._run_prefill, req)
@@ -906,7 +943,13 @@ class InferenceEngine:
         req.step_work += n
         self._h_prefill_chunk.observe(self._clock() - t0)
         self.tracer.span("prefill", t0, track=slot_track(slot), req_id=req.req_id, tokens=n)
-        write_prefill_into_slot(self.cfg, self.cache, raw, slot, seq_filled=n)
+        if self.cache_kind == "paged":
+            req.blocks = self.allocator.alloc(needed)
+            self._dispatch("graft", graft_prefill_into_blocks, self.cfg, self.cache, raw, req.blocks, n, slot)
+            self.tbl[slot] = make_table_row(req.blocks, self.max_blocks_per_seq)
+            self._tbl_dirty = True
+        else:
+            write_prefill_into_slot(self.cfg, self.cache, raw, slot, seq_filled=n)
         self.pos[slot] = n
         req.state = RequestState.ACTIVE
         req.slot = slot

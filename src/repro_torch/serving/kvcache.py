@@ -7,10 +7,13 @@ K/V that ``models.prefill`` returns into the fixed-size ring cache that
 ring slot = pos % W), ``write_request_into_slot`` copies one request's
 cache into one batch slot of the engine's cache, ``write_prefill_into_slot``
 (the engine's admission) does both at once without the request-sized ring
-in between, and ``clear_slot`` empties a freed slot.  The dense and moe
-families only (``models.cache.SERVED_FAMILIES``): every leaf is ``(L, B,
-...)``, so the batch slot is dim 1 (the JAX package finds it from the
-logical axes of the other families' caches).
+in between, and ``clear_slot`` empties a freed slot.  The served families
+(``models.cache.SERVED_FAMILIES``): dense and moe K/V rings, the hybrid
+family's ring beside its ``conv`` / ``ssm`` states (copied as they are:
+O(1) a slot), the ssm family's ``tm_x`` / ``cm_x`` / ``state`` (no ring).
+Every leaf of these caches is ``(L, B, ...)``, so the batch slot is dim 1
+(the JAX package finds it from the logical axes; its vlm family, not
+served here, stacks ``(G, g, B, ...)`` and would break this rule).
 
 Paged layout: ``graft_prefill_into_blocks`` writes a whole prefill's K/V
 into a request's blocks, ``make_table_row`` pads a request's block list
@@ -37,6 +40,7 @@ import torch.nn.functional as F
 from repro_torch.models.cache import NULL_BLOCK, SERVED_FAMILIES, cache_window, init_cache
 
 KV_LEAVES = ("k", "v", "k_scale", "v_scale")  # the leaves a block's rows live in
+STATE_LEAVES = ("conv", "ssm", "tm_x", "cm_x", "state")  # recurrent states, one row a batch slot
 
 
 def _row_leaves(pool_cache: dict) -> list[str]:
@@ -62,19 +66,28 @@ def _ring_kv(full: torch.Tensor, seq_filled: int, W: int) -> tuple[torch.Tensor,
     return ring, pos
 
 
+def _check_served(cfg) -> None:
+    if cfg.family not in SERVED_FAMILIES:
+        raise NotImplementedError(f"no dense cache for family {cfg.family!r} ({cfg.name}) in the port")
+
+
 def decode_cache_from_prefill(cfg, raw_cache: dict, *, seq_filled: int, decode_len: int) -> dict:
-    """The ring cache of the prompt a ``models.prefill`` call read: the first
+    """The slot cache of the prompt a ``models.prefill`` call read: the first
     ``seq_filled`` positions of its raw K/V, in a window of
     ``cache_window(cfg, decode_len)`` slots (``decode_len``: the positions
     the decode run must address, prompt plus new tokens).  A prompt longer
     than a sliding window wraps the ring.  Returns ``{"k", "v": (L, B, W,
-    KV, hd), "pos": (L, B, W)}``; the layers share one position row."""
-    if cfg.family not in SERVED_FAMILIES:
-        raise NotImplementedError(f"no dense cache for family {cfg.family!r} ({cfg.name}) in the port")
+    KV, hd), "pos": (L, B, W)}``, the layers sharing one position row, and
+    beside them the hybrid family's ``conv`` / ``ssm`` states as they are;
+    the ssm family's states pass through (O(1) decode)."""
+    _check_served(cfg)
+    states = {name: t for name, t in raw_cache.items() if name in STATE_LEAVES}
+    if cfg.family == "ssm":
+        return states
     W = cache_window(cfg, decode_len)
     k, pos = _ring_kv(raw_cache["k"], seq_filled, W)
     v, _ = _ring_kv(raw_cache["v"], seq_filled, W)
-    return {"k": k, "v": v, "pos": pos[None].expand((k.shape[0],) + tuple(pos.shape))}
+    return {"k": k, "v": v, "pos": pos[None].expand((k.shape[0],) + tuple(pos.shape)), **states}
 
 
 def write_request_into_slot(cfg, engine_cache: dict, request_cache: dict, slot: int) -> dict:
@@ -94,9 +107,16 @@ def write_prefill_into_slot(cfg, engine_cache: dict, raw_cache: dict, slot: int,
     ``decode_cache_from_prefill`` then ``write_request_into_slot`` give, but
     with no (L, 1, W, KV, hd) request ring built on the way; ring rows that
     the prompt does not reach keep whatever they held, under position -1
-    (``clear_slot`` zeroes them when a request leaves)."""
-    if cfg.family not in SERVED_FAMILIES:
-        raise NotImplementedError(f"no dense cache for family {cfg.family!r} ({cfg.name}) in the port")
+    (``clear_slot`` zeroes them when a request leaves).  Recurrent states
+    (the hybrid and ssm families') go into the slot's rows as they are,
+    cast to their leaves' dtypes."""
+    _check_served(cfg)
+    for name in STATE_LEAVES:
+        if name in engine_cache:
+            leaf = engine_cache[name]
+            leaf[:, slot] = raw_cache[name][:, 0].to(leaf.dtype)
+    if cfg.family == "ssm":
+        return engine_cache
     k = engine_cache["k"]
     W = k.shape[2]
     start = max(seq_filled - W, 0)
@@ -112,16 +132,16 @@ def write_prefill_into_slot(cfg, engine_cache: dict, raw_cache: dict, slot: int,
 
 
 def clear_slot(cfg, engine_cache: dict, slot: int) -> dict:
-    """Empty one batch slot of the ring cache (a freed request), in place:
-    K/V zero, positions -1."""
+    """Empty one batch slot of the slot cache (a freed request), in place:
+    K/V and recurrent states zero, positions -1."""
     for name, leaf in engine_cache.items():
         leaf[:, slot] = -1 if name == "pos" else 0
     return engine_cache
 
 
 def make_engine_cache(cfg, max_batch: int, max_seq: int, dtype=torch.bfloat16, *, device="cuda") -> dict:
-    """The engine's dense slot cache: ``max_batch`` empty ring rows of
-    ``cache_window(cfg, max_seq)`` slots."""
+    """The engine's dense slot cache: ``max_batch`` empty rows (ring rows of
+    ``cache_window(cfg, max_seq)`` slots, zero recurrent states)."""
     return init_cache(cfg, max_batch, max_seq, dtype, device=device)
 
 
@@ -136,9 +156,9 @@ def graft_prefill_into_blocks(cfg, pool_cache: dict, raw_cache: dict, blocks, se
     len(blocks) * bs)``; positions at or past ``seq_filled`` (right-padded
     bucketed prefill, the partial last block) are written as zeros, so a
     reused block never leaks stale K/V.  Quantized pools take the rows'
-    codes and scales.  The JAX package also copies the hybrid family's
-    recurrent states into batch slot ``slot`` here; the port's dense pools
-    hold none, so ``slot`` is unused."""
+    codes and scales.  The hybrid family's ``conv`` / ``ssm`` states go into
+    batch slot ``slot`` of their slot-dense leaves, cast to the leaves'
+    dtypes."""
     from repro_torch.serving.kvquant import kv_quant_mode_of, quantize
 
     bs = pool_cache["k"].shape[2]
@@ -155,6 +175,10 @@ def graft_prefill_into_blocks(cfg, pool_cache: dict, raw_cache: dict, blocks, se
         for leaf_name, rows in leaves.items():
             pool = pool_cache[leaf_name]  # (L, N, bs, ...)
             pool[:, idx] = rows.reshape((L, len(blocks), bs) + tuple(rows.shape[2:])).to(pool.dtype)
+    for name in ("conv", "ssm"):
+        if name in pool_cache:
+            leaf = pool_cache[name]
+            leaf[:, slot] = raw_cache[name][:, 0].to(leaf.dtype)
     return pool_cache
 
 
@@ -232,9 +256,11 @@ def restore_block_rows(pool_cache: dict, blocks: torch.Tensor, rows: dict) -> di
 
 
 def clear_block_row(cfg, pool_cache: dict, slot: int) -> dict:
-    """Free a paged request's slot.  The K/V blocks need no wipe: the
-    allocator recycles them and the attention masks hide stale positions
-    until they are overwritten.  The JAX package resets the hybrid family's
-    recurrent states here; the port's dense pools hold none, so nothing
-    changes."""
+    """Free a paged request's slot, in place: the hybrid family's ``conv`` /
+    ``ssm`` states of batch slot ``slot`` go to zero.  The K/V blocks need
+    no wipe: the allocator recycles them and the attention masks hide
+    stale positions until they are overwritten."""
+    for name in ("conv", "ssm"):
+        if name in pool_cache:
+            pool_cache[name][:, slot] = 0
     return pool_cache

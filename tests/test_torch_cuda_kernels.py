@@ -38,6 +38,13 @@ The moe family on the card: smoke qwen3-moe and arctic at capacity factor
 8 (no pair can be dropped) served through the legacy and the fused walk
 over fp32 pools, tokens equal to the same engine on CPU tensors (the plain
 attention and the same routing), with K1 and K2 launched.
+
+The recurrent-state families: K1 at hymba-1.5b's heads (5 query heads per
+kv head, an odd row count for its rows of 8; head dim 16 at smoke size and
+64 at full width) with lengths past the sliding window, at the cluster
+size it picks and at every forced one; the smoke hymba engine (paged
+fp32 pools, K1 for its attention, and dense) and the smoke rwkv6-7b
+engine on the card, tokens equal to the same engine on CPU tensors.
 """
 
 import dataclasses
@@ -646,3 +653,71 @@ def test_cuda_moe_engine_matches_the_cpu(arch):
         ran = s["graph_launches"] if fused else K.LAUNCHES
         assert ran["paged_decode"] > 0 and ran["paged_prefill"] > 0, (fused, ran)
         assert s["alloc_blocks_in_use"] == 0
+
+
+# K1 at hymba-1.5b's heads: (H, KV, hd, window, lengths, table width)
+HYMBA_K1_CASES = {
+    "smoke": (5, 1, 16, 32, [5, 40, 70, 100], 6),
+    "full": (25, 5, 64, 1024, [77, 300, 1100, 1400], 48),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", list(HYMBA_K1_CASES))
+def test_cuda_decode_hymba_heads_past_the_window(case, q_dtype):
+    """K1 on bf16 pools at hymba's heads, two or three slots past the
+    window (whole blocks skipped), against the plain version: the split it
+    picks and every forced cluster size, within the K1 limits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    H, KV_, hd, window, lens, nb = HYMBA_K1_CASES[case]
+    lens = torch.tensor(lens, dtype=torch.int32)
+    q, kp, vp, tbl = _gpu_inputs(H, KV_, hd, (len(lens), H, hd), lens - 1, q_dtype, nb=nb)
+    lens = lens.cuda()
+    ref = paged_attention_plain(q, kp, vp, tbl, lens, window=window)
+    before = K.LAUNCHES["paged_decode"]
+    outs = [K.paged_attention(q, kp, vp, tbl, lens, window=window)]
+    outs += [K._decode_launch(q, kp, vp, tbl, lens, split=split, window=window) for split in range(1, 9)]
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["paged_decode"] == before + 9
+    for out in outs:
+        assert out.dtype == q_dtype and bool(torch.isfinite(out).all())
+        assert _err(out, ref) < TOL[q_dtype]
+    # the window binds: without it the rows differ
+    assert _err(paged_attention_plain(q, kp, vp, tbl, lens), ref) > TOL[q_dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kind", [("hymba-1.5b", "paged"), ("hymba-1.5b", "dense"), ("rwkv6-7b", "dense")])
+def test_cuda_recurrent_engine_matches_the_cpu(arch, kind):
+    """Smoke hymba (window 32, prompts past it) and rwkv6-7b served on the
+    card and on CPU tensors over fp32 caches: equal greedy tokens, every
+    request by length, no block left; the paged hymba engine runs K1 once a
+    layer a decode step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceEngine
+    from repro_torch.utils.tree import tree_map
+
+    cfg = reduce_for_smoke(get_config(arch))
+    params = init_params(cfg, 0, device="cuda")
+    kw = dict(max_batch=3, max_seq=96, block_size=16, cache_kind=kind, eos_token=1 << 30, cache_dtype=torch.float32)
+    prompts = [[5 + i, 9, 12, 7, 3, 11, 2, 8, 40 + i] + list(range(60, 60 + 7 * i)) for i in range(6)]
+    ref = InferenceEngine(cfg, tree_map(lambda t: t.cpu(), params), device="cpu", **kw)
+    ref_reqs = [ref.submit(p, max_new_tokens=10) for p in prompts]
+    ref.run_until_drained()
+    K.reset_launches()
+    eng = InferenceEngine(cfg, params, **kw)
+    reqs = [eng.submit(p, max_new_tokens=10) for p in prompts]
+    eng.run_until_drained()
+    assert [r.generated for r in reqs] == [r.generated for r in ref_reqs]
+    assert all(r.finish_reason == "length" for r in reqs)
+    s = eng.stats()
+    assert s["cache_kind"] == kind
+    if kind == "paged":
+        assert s["alloc_blocks_in_use"] == 0
+        assert K.LAUNCHES["paged_decode"] == cfg.num_layers * s["decode_steps"] > 0
+    else:
+        assert K.LAUNCHES["paged_decode"] == 0

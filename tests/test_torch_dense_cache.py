@@ -180,7 +180,11 @@ def test_graft_prefill_into_blocks_matches_jax(quantized):
     assert bool((k[:, [0, 2, 4, 6]] == 0).all())  # blocks not allocated to the request
 
 
-@pytest.mark.parametrize("arch,window", [("olmo-1b", None), ("gemma-7b", None), ("olmo-1b", 8), ("mistral-nemo-12b", None)])
+@pytest.mark.parametrize(
+    "arch,window",
+    [("olmo-1b", None), ("gemma-7b", None), ("olmo-1b", 8), ("mistral-nemo-12b", None), ("hymba-1.5b", None),
+     ("rwkv6-7b", None)],
+)
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16], ids=["fp32", "bf16"])
 def test_cache_bytes_and_families_match_jax(arch, window, dtype):
     jcfg, tcfg = jax_reduce(jax_get_config(arch)), reduce_for_smoke(get_config(arch))
@@ -191,13 +195,18 @@ def test_cache_bytes_and_families_match_jax(arch, window, dtype):
         assert cache_bytes(tcfg, B, seq, TORCH_DTYPE[dtype]) == expect
         made = tkv.make_engine_cache(tcfg, B, seq, TORCH_DTYPE[dtype], device="cpu")
         assert sum(t.numel() * t.element_size() for t in made.values()) == expect
-    for name in ("olmo-1b", "rwkv6-7b", "bert-large", "stablelm-12b"):
+    for name in ("olmo-1b", "rwkv6-7b", "bert-large", "stablelm-12b", "hymba-1.5b"):
         jc, tc = jax_get_config(name), get_config(name)
         assert supports_paged(tc) == jax_supports_paged(jc)
         assert supports_chunked_prefill(tc) == jax_supports_chunked(jc)
 
 
 def test_prefill_refuses_other_families():
-    cfg = reduce_for_smoke(get_config("rwkv6-7b"))
-    with pytest.raises(NotImplementedError, match="ssm"):
+    """The vlm family has no serving steps in the port yet."""
+    from repro_torch.config import VisionConfig
+
+    cfg = reduce_for_smoke(get_config("olmo-1b")).replace(
+        family="vlm", vision=VisionConfig(num_image_tokens=8, cross_attn_every=5)
+    )
+    with pytest.raises(NotImplementedError, match="vlm"):
         prefill(cfg, {}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})

@@ -40,6 +40,7 @@ def _imported_modules(path: Path) -> list[str]:
 def test_port_files_import_neither_jax_nor_repro():
     files = _port_files()
     assert len(files) > 20
+    assert PORT / "models" / "ssm.py" in files
     bad = [
         (str(f.relative_to(ROOT)), m)
         for f in files
@@ -80,6 +81,14 @@ def test_entry_points_default_to_the_card():
         init_params(cfg, 0)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_params(reduce_for_smoke(get_config("qwen3-moe-235b-a22b")), 0)
+    for arch in ("hymba-1.5b", "rwkv6-7b"):  # the recurrent families' entry points
+        rcfg = reduce_for_smoke(get_config(arch))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init_params(rcfg, 0)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            InferenceEngine(rcfg, init_params(rcfg, 0, device="cpu"))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_engine_cache(rcfg, 2, 16)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_paged_cache(cfg, 5, 16, 2, 2, torch.bfloat16)
     params = init_params(cfg, 0, device="cpu")
@@ -170,16 +179,17 @@ def test_options_outside_the_slice_raise(option, value, error):
 
 
 def test_engine_refuses_the_families_it_does_not_serve():
-    """The engine serves the dense and moe families; any other raises
-    ``NotImplementedError`` naming the family, as the model's serving
-    steps do."""
-    from repro_torch.config import reduce_for_smoke
+    """The engine serves the dense, moe, hybrid and ssm families; any other
+    (vlm) raises ``NotImplementedError`` naming the family, as the model's
+    serving steps do."""
+    from repro_torch.config import VisionConfig, reduce_for_smoke
     from repro_torch.configs import get_config
     from repro_torch.models import decode_step, init_params
     from repro_torch.serving import InferenceEngine
 
-    cfg = reduce_for_smoke(get_config("rwkv6-7b"))  # the ssm family
-    params = init_params(cfg, 0, device="cpu")
+    base = reduce_for_smoke(get_config("olmo-1b"))
+    params = init_params(base, 0, device="cpu")
+    cfg = base.replace(name="vlm-smoke", family="vlm", vision=VisionConfig(num_image_tokens=8, cross_attn_every=5))
     with pytest.raises(NotImplementedError, match=cfg.family):
         InferenceEngine(cfg, params, device="cpu")
     with pytest.raises(NotImplementedError, match=cfg.family):

@@ -198,6 +198,9 @@ SPLIT_WALK_CASES = [
     for window, softcap in ((0, 0.0), (5, 0.0), (0, 30.0))
     for lens in ((13, 27), (1, 32), (1, 1))
 ]
+# hymba-1.5b's five query rows per kv head (an odd share of K1's rows of 8),
+# with and without a window the lengths outrun
+SPLIT_WALK_CASES += [(5, window, 0.0, lens) for window in (0, 5) for lens in ((13, 27), (1, 32))]
 
 
 @pytest.mark.parametrize("qpk,window,softcap,lens", SPLIT_WALK_CASES)
