@@ -5,7 +5,11 @@ The JAX tree stacks every block leaf over layers, ``(L, ...)``; the port
 keeps one dict per layer.  Leaf names and layouts are the same, so the
 bridge is a plain copy, nested subtrees included (the moe blocks' ``moe``,
 the rwkv blocks' ``time_mix`` / ``channel_mix``, the hybrid blocks'
-``attn``, ``ssm``, ``mlp``, ``beta_attn`` / ``beta_ssm`` and two norms).  Arrays arrive as numpy (the caller converts with
+``attn``, ``ssm``, ``mlp``, ``beta_attn`` / ``beta_ssm`` and two norms).
+The vlm family's JAX tree stacks layer groups, ``blocks["self"]`` leaves
+``(G, g, ...)`` and ``blocks["cross"]`` leaves ``(G, ...)``; the port's
+``blocks`` hold one ``{"self": [g layer dicts], "cross": dict}`` a group.
+Arrays arrive as numpy (the caller converts with
 ``np.asarray``, e.g. ``jax.tree.map(np.asarray, state)``); bf16, which
 numpy lacks, goes through fp32.
 """
@@ -17,6 +21,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.fp8.quantize import Fp8State
+from repro_torch.models.cache import num_scan_groups
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.train.step import TrainState
 
@@ -37,6 +42,8 @@ def _unstack(tree, layer: int):
 def _convert(tree, device, dtype):
     if isinstance(tree, dict):
         return {k: _convert(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_convert(v, device, dtype) for v in tree]
     return _tensor(tree, device, dtype)
 
 
@@ -44,7 +51,11 @@ def params_from_jax(cfg, np_tree: dict, device="cuda", dtype=torch.float32) -> d
     """Port parameters holding the same values as the JAX tree ``np_tree``."""
     device = resolve_device(device)
     out = {k: _convert(v, device, dtype) for k, v in np_tree.items() if k != "blocks"}
-    out["blocks"] = [_convert(_unstack(np_tree["blocks"], l), device, dtype) for l in range(cfg.num_layers)]
+    groups = [_unstack(np_tree["blocks"], l) for l in range(num_scan_groups(cfg))]
+    if cfg.family == "vlm":
+        g = cfg.vision.cross_attn_every - 1
+        groups = [{"self": [_unstack(grp["self"], i) for i in range(g)], "cross": grp["cross"]} for grp in groups]
+    out["blocks"] = [_convert(grp, device, dtype) for grp in groups]
     return out
 
 

@@ -30,6 +30,7 @@ from repro_torch.configs import (  # noqa: E402,F401
     bert_large,
     gemma_7b,
     hymba_1_5b,
+    llama32_vision_90b,
     mistral_nemo_12b,
     olmo_1b,
     qwen3_moe_235b,

@@ -27,8 +27,10 @@ def _generator(seed: int, step: int) -> torch.Generator:
 
 def synthetic_batch(cfg, *, step: int, global_batch: int, seq_len: int, seed: int = 0, device="cuda") -> dict:
     """One training batch of int32 ``tokens`` and ``labels`` (B, S), made on
-    the CPU from (seed, step) and moved to ``device``."""
-    if cfg.family in ("audio", "vlm"):
+    the CPU from (seed, step) and moved to ``device``; for the vlm family
+    also ``vision_tokens`` (B, num_image_tokens, d_model) fp32, standard
+    normal, the stand-in for the stubbed vision tower's patch embeddings."""
+    if cfg.family == "audio":
         raise NotImplementedError(f"synthetic {cfg.family} batches are not ported yet ({cfg.name})")
     device = resolve_device(device)
     g = _generator(seed, step)
@@ -41,7 +43,10 @@ def synthetic_batch(cfg, *, step: int, global_batch: int, seq_len: int, seed: in
     mix = torch.rand((B, S), generator=g) < 0.3
     tokens = torch.where(mix, shift, base).to(torch.int32)
     labels = torch.roll(tokens, -1, dims=1)
-    return {"tokens": tokens.to(device), "labels": labels.to(device)}
+    batch = {"tokens": tokens.to(device), "labels": labels.to(device)}
+    if cfg.family == "vlm":
+        batch["vision_tokens"] = torch.randn((B, cfg.vision.num_image_tokens, cfg.d_model), generator=g).to(device)
+    return batch
 
 
 def make_batch_fn(cfg, *, global_batch: int, seq_len: int, seed: int = 0, device="cuda"):

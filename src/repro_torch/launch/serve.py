@@ -6,6 +6,7 @@ synthetic request mix, or the always-on HTTP/SSE service.
     python -m repro_torch.launch.serve --arch olmo-1b --full --fused --http --port 8731
     python -m repro_torch.launch.serve --arch hymba-1.5b --full --max-batch 4
     python -m repro_torch.launch.serve --arch rwkv6-7b --full --max-batch 4
+    python -m repro_torch.launch.serve --arch llama-3.2-vision-90b   # smoke size; --full is 350 GB of fp32
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --replicas 2   # smoke size
 
 It takes the JAX launcher's flags and defaults (``src/repro/launch/serve.py``):

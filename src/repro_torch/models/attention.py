@@ -14,6 +14,9 @@ package's ``models/attention.py``.
   one decode token against the dense ring cache
   (``models.cache.init_cache``).  The engine's ``cache_kind="dense"`` and
   the speculative drafter decode through the latter.
+* ``cross_attention``: the vlm family's attention onto image tokens, in
+  tensor ops as in the JAX package: unmasked, unpositioned, its output
+  scaled by ``tanh(gate)`` (``attention_specs(cfg, cross=True)``).
 * the paged functions: ``impl="kernel"`` attends through the CUDA kernel
   wrappers of ``kernels.paged_attention`` (which take the plain version for
   CPU tensors); ``impl="plain"`` calls the plain versions directly, which on
@@ -52,7 +55,7 @@ SELF_ATTN_IMPLS = ("torch", "flash")  # full-sequence self-attention
 NEG_INF = -2.0e38
 
 
-def attention_specs(cfg) -> dict:
+def attention_specs(cfg, *, cross: bool = False) -> dict:
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     specs = {
         "wq": ParamSpec((D, H, hd), ("embed", "heads", "head_dim")),
@@ -68,6 +71,10 @@ def attention_specs(cfg) -> dict:
     if cfg.qk_norm:
         specs["q_norm"] = ParamSpec((hd,), ("head_dim",), "ones")
         specs["k_norm"] = ParamSpec((hd,), ("head_dim",), "ones")
+    if cross:
+        # llama-3.2-vision gating: the cross-attention output enters the
+        # residual through a zero-initialized tanh gate
+        specs["gate"] = ParamSpec((1,), (None,), "zeros")
     return specs
 
 
@@ -88,11 +95,16 @@ def _fp8_proj(fp8, site: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return fp8.matmul(site, x, w.reshape(D, nh * hd)).reshape(x.shape[:-1] + (nh, hd))
 
 
-def _qkv(cfg, p, x, fp8=None):
+def _qkv(cfg, p, x, kv_x=None, fp8=None):
+    """q from x, k and v from ``kv_x`` (cross-attention's source; default
+    x).  The weights are cast to x's dtype first, as in the JAX package,
+    whose einsum then promotes against ``kv_x``'s dtype."""
+    kv_src = x if kv_x is None else kv_x
     if fp8 is not None:
-        q, k, v = (_fp8_proj(fp8, f"attn_{n}", x, p[f"w{n}"]) for n in ("q", "k", "v"))
+        q, k, v = (_fp8_proj(fp8, f"attn_{n}", src, p[f"w{n}"]) for n, src in (("q", x), ("k", kv_src), ("v", kv_src)))
     else:
-        q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+        q = _proj(x, p["wq"])
+        k, v = (_proj(kv_src, p[name].to(x.dtype)) for name in ("wk", "wv"))
     if cfg.use_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -238,6 +250,23 @@ def self_attention(cfg, p: dict, x: torch.Tensor, *, positions=None, q_chunk: in
         m = make_mask(positions, positions, causal=cfg.causal, window=cfg.sliding_window)
         ctx = _attend_block(cfg, q, k, v, m[:, None, None], qpk)
     return _out(cfg, p, ctx, x.dtype, fp8=fp8)
+
+
+def cross_attention(cfg, p: dict, x: torch.Tensor, kv_tokens: torch.Tensor) -> torch.Tensor:
+    """Cross-attention of x (B, S, D) onto unpositioned vision tokens (B,
+    N, D): every query sees every image token (no mask, no RoPE), the
+    output scaled by ``tanh(gate)``.  In tensor ops, as the JAX package's
+    ``jnp`` version.  Returns (B, S, D)."""
+    q, k, v = _qkv(cfg, p, x, kv_x=kv_tokens)
+    return _gated_cross(cfg, p, x, q, k, v)
+
+
+def _gated_cross(cfg, p, x, q, k, v):
+    """``tanh(gate)`` times the projected attention of q over every row of
+    k / v (the JAX package's all-zero additive mask)."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    ctx = _attend_block(cfg, q, k, v, zero, cfg.q_per_kv)
+    return torch.tanh(p["gate"].to(x.dtype)) * _out(cfg, p, ctx, x.dtype)
 
 
 def prefill_attention(cfg, p: dict, x: torch.Tensor, *, positions=None, q_chunk: int = 0):

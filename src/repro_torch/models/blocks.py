@@ -15,7 +15,13 @@
   are averaged: the prefill that returns the layer's K/V and its conv and
   SSM states, and the decode step against either cache layout, whose
   recurrent states stay slot-dense beside the K/V (the training forward
-  is not ported yet).
+  is not ported yet);
+* vlm (llama-3.2-vision): dense blocks for the self layers, and the cross
+  layer, which attends the image tokens (``cross_attention``) and gates
+  its attention and FFN into the residual through ``tanh`` of zero-init
+  scalars: its forward, the prefill that returns the projected image K/V
+  (``ck`` / ``cv``, fixed for the rest of the request) and the decode step
+  that reads them back.
 
 Decode attention picks the cache layout by the cache's keys, as the JAX
 package's ``_decode_attn``: ``"tbl"`` is the paged layout (through
@@ -29,7 +35,12 @@ import torch
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (
+    _gated_cross,
+    _proj,
+    _qkv,
+    _rms_head,
     attention_specs,
+    cross_attention,
     decode_attention,
     paged_chunk_attention,
     paged_decode_attention,
@@ -259,3 +270,54 @@ def hybrid_block_decode(cfg, p, x, cache, pos, *, attn_impl="kernel"):
     cache["ssm"].copy_(ssm_state)
     x = x + _hybrid_combine(p, a, m, x.dtype)
     return _hybrid_ffn(cfg, p, x)
+
+
+# ---------------------------------------------------------------------------
+# VLM cross-attention layer (llama-3.2-vision)
+# ---------------------------------------------------------------------------
+
+
+def cross_block_specs(cfg) -> dict:
+    return {
+        "norm1": norm_specs(cfg),
+        "attn": attention_specs(cfg, cross=True),
+        "norm2": norm_specs(cfg),
+        "mlp": ffn_specs(cfg),
+        "gate_mlp": ParamSpec((1,), (None,), "zeros"),
+    }
+
+
+def _cross_ffn(cfg, p, x):
+    """The FFN over ``norm2``, entering the residual through ``tanh(gate_mlp)``."""
+    return x + torch.tanh(p["gate_mlp"].to(x.dtype)) * ffn(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+
+
+def cross_block(cfg, p, x, vision_tokens):
+    """Full-sequence forward of one cross layer: x (B, S, D) attends the
+    vision tokens (B, N, D).  Returns (B, S, D)."""
+    x = x + cross_attention(cfg, p["attn"], apply_norm(cfg, p["norm1"], x), vision_tokens)
+    return _cross_ffn(cfg, p, x)
+
+
+def cross_block_prefill(cfg, p, x, vision_tokens):
+    """As ``cross_block``, also returning the projected image K/V for the
+    decode steps: (x, {"ck", "cv": (B, N, KV, hd)}), in the dtype the
+    projection computes them in."""
+    h = apply_norm(cfg, p["norm1"], x)
+    q, ck, cv = _qkv(cfg, p["attn"], h, kv_x=vision_tokens)
+    x = x + _gated_cross(cfg, p["attn"], h, q, ck, cv)
+    return _cross_ffn(cfg, p, x), {"ck": ck, "cv": cv}
+
+
+def cross_block_decode(cfg, p, x, cache):
+    """One decode token against the cached image K/V (``cache["ck"]`` /
+    ``["cv"]``, (B, N, KV, hd)), which it leaves as they are.  Only q is
+    projected, with ``q_norm`` where the config has it and without the
+    q bias, as in the JAX package's ``cross_block_decode``."""
+    h = apply_norm(cfg, p["norm1"], x)
+    pa = p["attn"]
+    q = _proj(h, pa["wq"])
+    if cfg.qk_norm:
+        q = _rms_head(q, pa["q_norm"], cfg.norm_eps)
+    x = x + _gated_cross(cfg, pa, h, q, cache["ck"], cache["cv"])
+    return _cross_ffn(cfg, p, x)

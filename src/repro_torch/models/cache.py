@@ -1,6 +1,6 @@
 """Decode caches: the paged KV cache (vLLM-style block pool + per-slot
 block tables) and the dense slot cache, for the families the port serves
-(``SERVED_FAMILIES``: dense, moe, hybrid and ssm).
+(``SERVED_FAMILIES``: dense, moe, hybrid, ssm and vlm).
 
 The dense slot cache (``init_cache``), as in the JAX package's
 ``models/cache.py``, per layer and stacked over layers:
@@ -15,7 +15,15 @@ The dense slot cache (``init_cache``), as in the JAX package's
   ``(B, H, P, N)`` in fp32;
 * ssm (RWKV6): no K/V, the last token of each mix, ``tm_x`` and ``cm_x``
   ``(B, D)`` in the cache dtype, and the WKV state ``state`` ``(B, H, n,
-  n)`` in fp32.
+  n)`` in fp32;
+* vlm (llama-3.2-vision): one entry per layer group
+  (``num_scan_groups``), nested as the JAX package's: ``"self"``, the ring
+  cache of the group's ``g = cross_attn_every - 1`` self layers, ``k``/``v``
+  ``(g, B, W, kv_heads, head_dim)`` and ``pos`` ``(g, B, W)``, and
+  ``"cross"``, the image tokens' projected K/V of its cross layer, ``ck``/
+  ``cv`` ``(B, num_image_tokens, kv_heads, head_dim)`` in the cache dtype.
+  Stacked over groups, the batch slot is dim 2 of the ``self`` leaves and
+  dim 1 of the ``cross`` leaves.
 
 It backs the engine's ``cache_kind="dense"`` (one row per batch slot,
 filled from a whole-prompt ``models.prefill`` by ``serving.kvcache``) and
@@ -60,7 +68,18 @@ NULL_BLOCK = 0  # physical block 0 is never allocated: inactive batch slots
 # per request and vlm's grouped layers keep the dense layout
 PAGED_FAMILIES = ("dense", "moe", "hybrid")
 # the families whose serving steps and caches the port has
-SERVED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
+SERVED_FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm")
+
+
+def num_scan_groups(cfg) -> int:
+    """Entries of the block list and of the stacked cache: the vlm family's
+    layer groups (``cross_attn_every - 1`` self layers and a cross layer),
+    else the layers."""
+    if cfg.family == "vlm":
+        if cfg.num_layers % cfg.vision.cross_attn_every:
+            raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not whole groups of {cfg.vision.cross_attn_every}")
+        return cfg.num_layers // cfg.vision.cross_attn_every
+    return cfg.num_layers
 
 
 def supports_paged(cfg) -> bool:
@@ -83,7 +102,8 @@ def _ssm_states(cfg, B: int, dtype) -> dict:
 
 
 def layer_cache_layout(cfg, B: int, seq_len: int, dtype) -> dict:
-    """(shape, dtype) of one layer's dense slot cache."""
+    """(shape, dtype) of one layer's dense slot cache (a vlm layer group's:
+    ``{"self": {...}, "cross": {...}}``)."""
     if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(f"no dense cache for family {cfg.family!r} ({cfg.name}) in the port")
     if cfg.family == "ssm":
@@ -93,25 +113,42 @@ def layer_cache_layout(cfg, B: int, seq_len: int, dtype) -> dict:
     lay = {"k": ((B, W, KV, hd), dtype), "v": ((B, W, KV, hd), dtype), "pos": ((B, W), torch.int32)}
     if cfg.family == "hybrid":
         lay.update(_ssm_states(cfg, B, dtype))
+    if cfg.family == "vlm":
+        g, N = cfg.vision.cross_attn_every - 1, cfg.vision.num_image_tokens
+        image = ((B, N, KV, hd), dtype)
+        return {"self": {name: ((g,) + shape, dt) for name, (shape, dt) in lay.items()},
+                "cross": {"ck": image, "cv": image}}
     return lay
 
 
+def _layout_leaves(lay: dict) -> list:
+    """The (shape, dtype) leaves of a (possibly nested) layout."""
+    return [leaf for v in lay.values() for leaf in (_layout_leaves(v) if isinstance(v, dict) else [v])]
+
+
 def init_cache(cfg, B: int, seq_len: int, dtype, *, device="cuda") -> dict:
-    """Zero dense slot cache stacked over layers, every ring slot empty (pos
-    -1), every state zero."""
+    """Zero dense slot cache stacked over layers (vlm: layer groups), every
+    ring slot empty (pos -1), every state zero."""
     device = resolve_device(device)
-    lay = layer_cache_layout(cfg, B, seq_len, dtype)
-    cache = {name: torch.zeros((cfg.num_layers,) + shape, dtype=dt, device=device) for name, (shape, dt) in lay.items()}
-    if "pos" in cache:
-        cache["pos"].fill_(-1)
-    return cache
+    G = num_scan_groups(cfg)
+
+    def make(lay):
+        out = {}
+        for name, v in lay.items():
+            if isinstance(v, dict):
+                out[name] = make(v)
+            else:
+                out[name] = torch.full((G,) + v[0], -1 if name == "pos" else 0, dtype=v[1], device=device)
+        return out
+
+    return make(layer_cache_layout(cfg, B, seq_len, dtype))
 
 
 def cache_bytes(cfg, B: int, seq_len: int, dtype) -> int:
     """Bytes of the dense slot cache ``init_cache(cfg, B, seq_len, dtype)``
-    holds: K/V, positions and recurrent states, every layer."""
+    holds: K/V, positions, recurrent states and image K/V, every layer."""
     lay = layer_cache_layout(cfg, B, seq_len, dtype)
-    return cfg.num_layers * sum(math.prod(shape) * dt.itemsize for shape, dt in lay.values())
+    return num_scan_groups(cfg) * sum(math.prod(shape) * dt.itemsize for shape, dt in _layout_leaves(lay))
 
 
 def paged_cache_layout(

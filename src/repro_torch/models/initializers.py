@@ -1,4 +1,4 @@
-"""Whole-model ParamSpec assembly and initialization (dense, moe, ssm and hybrid families).
+"""Whole-model ParamSpec assembly and initialization (dense, moe, ssm, hybrid and vlm families).
 
 The parameter tree keeps the JAX package's names and per-layer layout
 (``wq (D,H,hd)``, ``wk/wv (D,KV,hd)``, ``wo (H,hd,D)``, ``w_up/w_gate
@@ -8,9 +8,13 @@ blocks' ``moe`` tree, ``router (D,E)``, ``w_gate/w_up (E,D,F)``, ``w_down
 blocks' ``time_mix``/``channel_mix`` trees, ``maa_w2 (5,r,D)``; the
 hybrid blocks' ``attn``, ``ssm`` (``in_proj (D,2di)``, ``conv_w (K,di)``,
 ``a_log (H,N)``, ...), ``mlp``, ``beta_attn``/``beta_ssm (D,)`` and two
-norms); the JAX
+norms; the vlm
+cross blocks' ``attn`` with its ``gate (1,)`` beside ``gate_mlp (1,)``); the JAX
 package stacks the layers on a leading axis for its layer scan, the port
-keeps a list of per-layer dicts under ``"blocks"``.
+keeps a list of per-layer dicts under ``"blocks"``.  The vlm family scans
+layer groups in the JAX package, ``blocks["self"]`` leaves ``(G, g, ...)``
+and ``blocks["cross"]`` leaves ``(G, ...)``; the port keeps one entry per
+group, ``{"self": [g dense block dicts], "cross": cross block dict}``.
 """
 
 from __future__ import annotations
@@ -18,12 +22,35 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.blocks import dense_block_specs, hybrid_block_specs, moe_block_specs, rwkv_block_specs
+from repro_torch.models.blocks import (
+    cross_block_specs,
+    dense_block_specs,
+    hybrid_block_specs,
+    moe_block_specs,
+    rwkv_block_specs,
+)
+from repro_torch.models.cache import num_scan_groups
 from repro_torch.models.layers import ParamSpec, materialize, norm_specs
 from repro_torch.utils.tree import tree_map
 
 
-BLOCK_SPECS = {"dense": dense_block_specs, "moe": moe_block_specs, "ssm": rwkv_block_specs, "hybrid": hybrid_block_specs}
+def vlm_group_specs(cfg) -> dict:
+    """One vlm layer group: ``cross_attn_every - 1`` self layers, then a
+    cross layer."""
+    return {
+        "self": [dense_block_specs(cfg) for _ in range(cfg.vision.cross_attn_every - 1)],
+        "cross": cross_block_specs(cfg),
+    }
+
+
+# one entry of ``"blocks"`` by family: a layer, or a vlm layer group
+BLOCK_SPECS = {
+    "dense": dense_block_specs,
+    "moe": moe_block_specs,
+    "ssm": rwkv_block_specs,
+    "hybrid": hybrid_block_specs,
+    "vlm": vlm_group_specs,
+}
 
 
 def param_specs(cfg) -> dict:
@@ -33,7 +60,7 @@ def param_specs(cfg) -> dict:
     specs: dict = {"embed": {"tok": ParamSpec((V, D), ("vocab", "embed_v"), "normal")}}
     if cfg.learned_pos_embedding:
         specs["embed"]["pos"] = ParamSpec((cfg.max_position, D), (None, "embed_v"), "normal")
-    specs["blocks"] = [BLOCK_SPECS[cfg.family](cfg) for _ in range(cfg.num_layers)]
+    specs["blocks"] = [BLOCK_SPECS[cfg.family](cfg) for _ in range(num_scan_groups(cfg))]
     specs["final_norm"] = norm_specs(cfg)
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((D, V), ("embed_v", "vocab"))

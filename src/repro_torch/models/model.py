@@ -3,8 +3,8 @@
 Entry points, counterparts of the JAX package's ``models/model.py``:
 
 * ``forward``      — training forward over whole sequences: (logits, aux),
-  or (logits, aux, amaxes) with an FP8 context; the dense and ssm (RWKV6)
-  families
+  or (logits, aux, amaxes) with an FP8 context; the dense, ssm (RWKV6)
+  and vlm (llama-3.2-vision) families
 * ``prefill``      — a whole (right-padded) prompt: (logits at each
   sequence's last real token, the raw cache stacked over layers: K/V, and
   the recurrent states of the hybrid and ssm families), which
@@ -19,13 +19,16 @@ Entry points, counterparts of the JAX package's ``models/model.py``:
 * ``unified_step`` — one fused pass over a mixed (rows, width) batch of
   decode rows and prefill chunks: (all-lane logits, cache)
 
-The serving steps serve the dense, moe, hybrid and ssm families
+The serving steps serve the dense, moe, hybrid, ssm and vlm families
 (``SERVED_FAMILIES``): each layer is a dense block, an MoE block
 (``models.moe``, the routed experts in place of the FFN), a hybrid block
-(attention and SSM heads side by side, ``models.ssm``) or an RWKV6 block.
-The hybrid and ssm families have ``prefill`` and ``decode_step`` only:
-their recurrent states absorb a whole prompt in one pass, so the chunked
-steps refuse them, as in the JAX package.  The paged steps do no host work
+(attention and SSM heads side by side, ``models.ssm``) or an RWKV6 block;
+the vlm family runs layer groups of ``cross_attn_every - 1`` dense blocks
+and a cross block that attends the image tokens (``batch["vision_tokens"]``,
+(B, N, D)).  The hybrid, ssm and vlm families have ``prefill`` and
+``decode_step`` only, on the dense slot cache or (hybrid) blocking
+admission into the paged one: the chunked steps refuse them, as in the
+JAX package.  The paged steps do no host work
 (no ``.item()``, no host-to-device copy, no shape that depends on the
 data), so ``serving/graphs.py`` can capture them in CUDA graphs.
 
@@ -43,6 +46,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import ATTN_IMPLS, SELF_ATTN_IMPLS
 from repro_torch.models.blocks import (
+    cross_block,
+    cross_block_decode,
+    cross_block_prefill,
     dense_block,
     dense_block_chunk,
     dense_block_decode,
@@ -118,7 +124,16 @@ def lm_logits(cfg, params, x: torch.Tensor) -> torch.Tensor:
 REMAT_POLICIES = ("none", "full", "dots", "dots_no_batch")
 
 
-FORWARD_FAMILIES = ("dense", "ssm")
+FORWARD_FAMILIES = ("dense", "ssm", "vlm")
+
+
+def _stack_caches(caches: list) -> dict:
+    """Per-layer cache dicts (nested alike) -> one dict, each leaf stacked
+    on a new leading axis, as the JAX layer scan stacks its outputs."""
+    return {
+        name: _stack_caches([c[name] for c in caches]) if isinstance(v, dict) else torch.stack([c[name] for c in caches])
+        for name, v in caches[0].items()
+    }
 
 
 def forward(
@@ -127,15 +142,19 @@ def forward(
     """Training forward.  Returns (logits, aux_loss), or (logits, aux_loss,
     amaxes) when an ``fp8`` context (``repro_torch.fp8.Fp8Ctx``) is passed:
     amaxes maps each scale key to the (num_layers,) amaxes observed.  The
-    ssm family takes no fp8 context (ValueError, as in the JAX package).
+    ssm and vlm families take no fp8 context (ValueError, as in the JAX
+    package).
 
-    batch: ``tokens`` (B, S) int and optional ``positions`` (B, S).
+    batch: ``tokens`` (B, S) int and optional ``positions`` (B, S); the vlm
+    family also reads ``vision_tokens`` (B, N, D), cast to
+    ``compute_dtype`` with the activations.
     ``compute_dtype`` casts the activation stream, not the master weights:
     each weight use casts its own tensor (FP8 sites quantize the fp32
-    master weight directly).  ``remat="full"`` recomputes each block in the
-    backward (``torch.utils.checkpoint``, non-reentrant); ``"dots"`` and
+    master weight directly).  ``remat="full"`` recomputes each block (each
+    self and each cross layer of a vlm group) in the backward (``torch.utils.checkpoint``, non-reentrant); ``"dots"`` and
     ``"dots_no_batch"`` (save the matmul outputs) are not ported yet.
-    ``attn_impl`` (dense): ``"torch"`` (differentiable) or ``"flash"`` (K3,
+    ``attn_impl`` (dense, and vlm's self layers; its cross layers attend
+    in tensor ops): ``"torch"`` (differentiable) or ``"flash"`` (K3,
     forward only).  ``wkv_impl`` (ssm): ``"chunked"`` (differentiable) or
     ``"kernel"`` (K5, forward only, from a zero state; the forward drops
     the final state), or a scan called in K5's place
@@ -143,8 +162,9 @@ def forward(
     """
     if cfg.family not in FORWARD_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported yet")
-    if fp8 is not None and cfg.family == "ssm":
-        # the ssm family has no quantizable projections in the reference
+    if fp8 is not None and cfg.family in ("ssm", "vlm"):
+        # the reference's ssm family has no quantizable projections and its
+        # vlm family scans layer groups (its amax drain is not wired there)
         raise ValueError(f"fp8 training is not supported for family={cfg.family}")
     if attn_impl not in SELF_ATTN_IMPLS:
         raise ValueError(f"attn_impl={attn_impl!r} (choose from {SELF_ATTN_IMPLS})")
@@ -160,16 +180,29 @@ def forward(
     x = embed_input(cfg, params, tokens, positions)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
+    vision = batch.get("vision_tokens")
+    if vision is not None and compute_dtype is not None:
+        vision = vision.to(compute_dtype)
+
+    def run(block, x):
+        return checkpoint(block, x, use_reentrant=False) if remat == "full" and torch.is_grad_enabled() else block(x)
+
+    def self_layer(p_layer, handle=None):
+        return lambda x: dense_block(cfg, p_layer, x, positions=positions, q_chunk=q_chunk, attn_impl=attn_impl,
+                                     fp8=handle)
+
     obs = []
     for layer, p_layer in enumerate(params["blocks"]):
+        if cfg.family == "vlm":  # a layer group: its self layers, then its cross layer
+            for p_self in p_layer["self"]:
+                x = run(self_layer(p_self), x)
+            x = run(lambda x, p=p_layer["cross"]: cross_block(cfg, p, x, vision), x)
+            continue
         handle = fp8.bind_layer_scales(layer) if fp8 is not None else None
-
-        def block(x, p_layer=p_layer, handle=handle):
-            if cfg.family == "ssm":
-                return rwkv_block(cfg, p_layer, x, wkv_impl=wkv_impl)
-            return dense_block(cfg, p_layer, x, positions=positions, q_chunk=q_chunk, attn_impl=attn_impl, fp8=handle)
-
-        x = checkpoint(block, x, use_reentrant=False) if remat == "full" and torch.is_grad_enabled() else block(x)
+        if cfg.family == "ssm":
+            x = run(lambda x, p=p_layer: rwkv_block(cfg, p, x, wkv_impl=wkv_impl), x)
+        else:
+            x = run(self_layer(p_layer, handle), x)
         if fp8 is not None:
             obs.append(fp8.drain())
     logits = lm_logits(cfg, params, x)
@@ -196,7 +229,10 @@ def prefill(cfg, params, batch, *, q_chunk=0):
     ``"conv"`` ``(L, B, K-1, d_inner)`` and ``"ssm"`` ``(L, B, H, P, N)``
     for the hybrid family; ``{"tm_x", "cm_x": (L, B, D), "state": (L, B,
     H, n, n)}`` for the ssm family, whose WKV scan is the chunked one (K5
-    computes no final state).  ``serving.kvcache`` turns it into the slot
+    computes no final state); for the vlm family, which reads
+    ``batch["vision_tokens"]`` (B, N, D) as they are, stacked over layer
+    groups: ``{"self": {"k", "v": (G, g, B, S, KV, hd)}, "cross": {"ck",
+    "cv": (G, B, N, KV, hd)}}``.  ``serving.kvcache`` turns it into the slot
     cache ``decode_step`` reads.  A Python layer loop, in tensor ops (the
     JAX package's prefill reaches no Pallas kernel either).  For the moe
     family the pad positions are routed with the prompt's tokens, so they
@@ -210,6 +246,13 @@ def prefill(cfg, params, batch, *, q_chunk=0):
     for p_layer in params["blocks"]:
         if cfg.family == "ssm":
             x, c = rwkv_block_prefill(cfg, p_layer, x)
+        elif cfg.family == "vlm":  # a layer group: its self layers, then its cross layer
+            selfs = []
+            for p_self in p_layer["self"]:
+                x, sc = dense_block_prefill(cfg, p_self, x, positions=positions, q_chunk=q_chunk)
+                selfs.append(sc)
+            x, cc = cross_block_prefill(cfg, p_layer["cross"], x, batch["vision_tokens"])
+            c = {"self": _stack_caches(selfs), "cross": cc}
         else:
             x, c = PREFILL_BLOCKS[cfg.family](cfg, p_layer, x, positions=positions, q_chunk=q_chunk)
         layers.append(c)
@@ -218,7 +261,7 @@ def prefill(cfg, params, batch, *, q_chunk=0):
         x_last = x[:, -1]
     else:
         x_last = x[torch.arange(x.shape[0], device=x.device), last_index.long()]
-    return lm_logits(cfg, params, x_last), {name: torch.stack([c[name] for c in layers]) for name in layers[0]}
+    return lm_logits(cfg, params, x_last), _stack_caches(layers)
 
 
 # chunked prefill needs a paged cache and per-chunk state that the written
@@ -325,7 +368,9 @@ def decode_step(cfg, params, cache, token, pos, *, attn_impl="kernel"):
 
     The cache is the paged layout (``init_paged_cache``; attention through
     ``attn_impl``) or the dense slot cache (``init_cache``; attention in
-    tensor ops whatever ``attn_impl`` says), selected by its keys.  Every
+    tensor ops whatever ``attn_impl`` says), selected by its keys.  A vlm
+    group's self layers decode on its ring; its cross layer reads the
+    group's cached image K/V and leaves it as it is.  Every
     row is computed, idle slots included: an MoE layer routes them all.
     The ssm family ignores ``pos`` (the recurrence has no positions).
 
@@ -341,6 +386,11 @@ def decode_step(cfg, params, cache, token, pos, *, attn_impl="kernel"):
         if name in cache and cache[name].dtype != x.dtype:
             cache[name] = cache[name].to(x.dtype)
     for layer, p_layer in enumerate(params["blocks"]):
+        if cfg.family == "vlm":
+            for i, p_self in enumerate(p_layer["self"]):
+                x = dense_block_decode(cfg, p_self, x, {n: t[layer, i] for n, t in cache["self"].items()}, pos)
+            x = cross_block_decode(cfg, p_layer["cross"], x, {n: t[layer] for n, t in cache["cross"].items()})
+            continue
         c = layer_cache(cache, layer)
         if cfg.family == "ssm":
             x, new = rwkv_block_decode(cfg, p_layer, x, c, pos)

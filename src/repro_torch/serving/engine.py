@@ -91,7 +91,7 @@ it, by tokens: ``Request.energy_j``, ``stats()["energy_joules"]`` and
 ``["joules_per_token"]``.
 
 Options of the JAX engine that the port does not have yet raise
-``NotImplementedError`` naming the option: ``mesh`` and the vlm family.
+``NotImplementedError`` naming the option: ``mesh``.
 
 The recurrent-state families serve with blocking admission, as in the JAX
 engine: their states absorb a whole prompt in one pass and cannot resume
@@ -106,7 +106,12 @@ and decode runs K1 over the pools beside the SSM step; ``cache_kind="dense"``
 keeps the ring cache and the states per slot.  ssm (RWKV6) has nothing to
 page: ``cache_kind="paged"`` turns into ``"dense"`` silently and each
 slot holds ``tm_x`` / ``cm_x`` / ``state``.  A freed slot's states go to
-zero (``clear_block_row`` / ``clear_slot``).
+zero (``clear_block_row`` / ``clear_slot``).  vlm (llama-3.2-vision)
+serves on the dense slot cache only (``cache_kind="paged"`` turns into
+``"dense"`` silently, as in the JAX engine) with the same blocking
+admission, its prompts bucketed: each prefill gets zero image tokens
+``(1, num_image_tokens, d_model)`` fp32, as the JAX engine feeds, and the
+slot keeps their projected K/V beside its self layers' rings.
 
 MoE (qwen3-moe, arctic) serves on every path dense does.  Its layers route
 every lane of a call, so expert capacity is shared by what the call holds:
@@ -180,6 +185,7 @@ from repro_torch.serving.scheduler import Request, RequestState, SchedulerCore
 from repro_torch.serving.spec_decode import DraftModel, make_draft_config, ngram_draft
 from repro_torch.serving.spill import SPILL_MODES, SpillPool, warn_if_fp8_over_int8
 from repro_torch.serving.trace import SCHEDULER_TRACK, Tracer, slot_track
+from repro_torch.utils.tree import tree_leaves
 
 
 def _block_until_ready(device: torch.device) -> None:
@@ -257,7 +263,8 @@ class InferenceEngine:
         if cfg.family not in SERVED_FAMILIES:
             raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported yet")
         if cache_kind == "paged" and not supports_paged(cfg):
-            # ssm states are O(1) per slot: nothing to page
+            # ssm states are O(1) per slot (nothing to page); vlm keeps the
+            # grouped dense layout
             cache_kind = "dense"
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl={attn_impl!r} (choose from {ATTN_IMPLS})")
@@ -974,6 +981,10 @@ class InferenceEngine:
         n = len(req.prompt)
         toks = req.prompt + [0] * (self._bucket_len(n) - n)
         batch = {"tokens": self._device_ints(toks)[None], "last_index": self._device_ints([n - 1])}
+        if self.cfg.family == "vlm":  # no image: zero tokens, as the JAX engine feeds
+            batch["vision_tokens"] = torch.zeros(
+                (1, self.cfg.vision.num_image_tokens, self.cfg.d_model), dtype=torch.float32, device=self.device
+            )
         return prefill(self.cfg, self.params, batch)
 
     def _emit_first_token(self, req: Request, logits: torch.Tensor) -> None:
@@ -1599,7 +1610,7 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     def cache_bytes(self) -> int:
         """Device bytes held by the engine's KV cache (pools + table)."""
-        return sum(t.numel() * t.element_size() for t in self.cache.values())
+        return sum(t.numel() * t.element_size() for t in tree_leaves(self.cache))
 
     def stats(self) -> dict:
         """Engine counters, as the JAX engine's ``stats()``.  A defensive snapshot: every value is a scalar or a fresh dict,

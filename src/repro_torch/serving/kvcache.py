@@ -10,10 +10,13 @@ cache into one batch slot of the engine's cache, ``write_prefill_into_slot``
 in between, and ``clear_slot`` empties a freed slot.  The served families
 (``models.cache.SERVED_FAMILIES``): dense and moe K/V rings, the hybrid
 family's ring beside its ``conv`` / ``ssm`` states (copied as they are:
-O(1) a slot), the ssm family's ``tm_x`` / ``cm_x`` / ``state`` (no ring).
-Every leaf of these caches is ``(L, B, ...)``, so the batch slot is dim 1
-(the JAX package finds it from the logical axes; its vlm family, not
-served here, stacks ``(G, g, B, ...)`` and would break this rule).
+O(1) a slot), the ssm family's ``tm_x`` / ``cm_x`` / ``state`` (no ring),
+and the vlm family's layer groups: ``self`` rings ``(G, g, B, ...)`` and
+``cross`` image K/V ``ck`` / ``cv`` ``(G, B, N, KV, hd)``, copied as they
+are (fixed for the request).  Every leaf is ``(L, B, ...)``, the batch slot
+at dim 1, once a vlm cache is seen through ``_slot_leaves``: its ``self``
+leaves as ``(G * g, B, ...)`` views (the JAX package finds the slot from
+the logical axes instead: dim 2 of ``self``, dim 1 of ``cross``).
 
 Paged layout: ``graft_prefill_into_blocks`` writes a whole prefill's K/V
 into a request's blocks, ``make_table_row`` pads a request's block list
@@ -40,7 +43,9 @@ import torch.nn.functional as F
 from repro_torch.models.cache import NULL_BLOCK, SERVED_FAMILIES, cache_window, init_cache
 
 KV_LEAVES = ("k", "v", "k_scale", "v_scale")  # the leaves a block's rows live in
-STATE_LEAVES = ("conv", "ssm", "tm_x", "cm_x", "state")  # recurrent states, one row a batch slot
+# copied into a slot as they are, one row a batch slot: recurrent states
+# and the vlm cross layers' image K/V
+STATE_LEAVES = ("conv", "ssm", "tm_x", "cm_x", "state", "ck", "cv")
 
 
 def _row_leaves(pool_cache: dict) -> list[str]:
@@ -71,6 +76,16 @@ def _check_served(cfg) -> None:
         raise NotImplementedError(f"no dense cache for family {cfg.family!r} ({cfg.name}) in the port")
 
 
+def _slot_leaves(cfg, cache: dict) -> dict:
+    """The leaves of a slot cache or a raw prefill cache as one flat dict
+    whose batch slot is dim 1: the vlm family's ``self`` leaves ``(G, g, B,
+    ...)`` as ``(G * g, B, ...)`` views (so writes land in ``cache``) beside
+    its ``cross`` leaves; other families' caches as they are."""
+    if cfg.family != "vlm":
+        return cache
+    return {**{name: t.view((-1,) + tuple(t.shape[2:])) for name, t in cache["self"].items()}, **cache["cross"]}
+
+
 def decode_cache_from_prefill(cfg, raw_cache: dict, *, seq_filled: int, decode_len: int) -> dict:
     """The slot cache of the prompt a ``models.prefill`` call read: the first
     ``seq_filled`` positions of its raw K/V, in a window of
@@ -79,22 +94,31 @@ def decode_cache_from_prefill(cfg, raw_cache: dict, *, seq_filled: int, decode_l
     than a sliding window wraps the ring.  Returns ``{"k", "v": (L, B, W,
     KV, hd), "pos": (L, B, W)}``, the layers sharing one position row, and
     beside them the hybrid family's ``conv`` / ``ssm`` states as they are;
-    the ssm family's states pass through (O(1) decode)."""
+    the ssm family's states pass through (O(1) decode).  A vlm cache keeps
+    its nesting: ``{"self": {"k", "v": (G, g, B, W, KV, hd), "pos": (G,
+    g, B, W)}, "cross": the image K/V as they are}``."""
     _check_served(cfg)
-    states = {name: t for name, t in raw_cache.items() if name in STATE_LEAVES}
+    flat = _slot_leaves(cfg, raw_cache)
+    states = {name: t for name, t in flat.items() if name in STATE_LEAVES}
     if cfg.family == "ssm":
         return states
     W = cache_window(cfg, decode_len)
-    k, pos = _ring_kv(raw_cache["k"], seq_filled, W)
-    v, _ = _ring_kv(raw_cache["v"], seq_filled, W)
-    return {"k": k, "v": v, "pos": pos[None].expand((k.shape[0],) + tuple(pos.shape)), **states}
+    k, pos = _ring_kv(flat["k"], seq_filled, W)
+    v, _ = _ring_kv(flat["v"], seq_filled, W)
+    ring = {"k": k, "v": v, "pos": pos[None].expand((k.shape[0],) + tuple(pos.shape))}
+    if cfg.family == "vlm":
+        G, g = raw_cache["self"]["k"].shape[:2]
+        return {"self": {name: t.reshape((G, g) + tuple(t.shape[1:])) for name, t in ring.items()},
+                "cross": states}
+    return {**ring, **states}
 
 
 def write_request_into_slot(cfg, engine_cache: dict, request_cache: dict, slot: int) -> dict:
     """Copy a (batch=1) request cache into batch slot ``slot`` of the
     engine's ring cache, in place, cast to the engine cache's dtypes."""
-    for name, leaf in engine_cache.items():
-        leaf[:, slot] = request_cache[name][:, 0].to(leaf.dtype)
+    request = _slot_leaves(cfg, request_cache)
+    for name, leaf in _slot_leaves(cfg, engine_cache).items():
+        leaf[:, slot] = request[name][:, 0].to(leaf.dtype)
     return engine_cache
 
 
@@ -109,23 +133,24 @@ def write_prefill_into_slot(cfg, engine_cache: dict, raw_cache: dict, slot: int,
     the prompt does not reach keep whatever they held, under position -1
     (``clear_slot`` zeroes them when a request leaves).  Recurrent states
     (the hybrid and ssm families') go into the slot's rows as they are,
-    cast to their leaves' dtypes."""
+    cast to their leaves' dtypes, and so does the vlm family's image K/V."""
     _check_served(cfg)
+    cache, raw = _slot_leaves(cfg, engine_cache), _slot_leaves(cfg, raw_cache)
     for name in STATE_LEAVES:
-        if name in engine_cache:
-            leaf = engine_cache[name]
-            leaf[:, slot] = raw_cache[name][:, 0].to(leaf.dtype)
+        if name in cache:
+            leaf = cache[name]
+            leaf[:, slot] = raw[name][:, 0].to(leaf.dtype)
     if cfg.family == "ssm":
         return engine_cache
-    k = engine_cache["k"]
+    k = cache["k"]
     W = k.shape[2]
     start = max(seq_filled - W, 0)
     idx = torch.arange(start, seq_filled, device=k.device)
     ring = idx % W
     for name in ("k", "v"):
-        leaf = engine_cache[name]
-        leaf[:, slot, ring] = raw_cache[name][:, 0, idx].to(leaf.dtype)
-    pos = engine_cache["pos"]
+        leaf = cache[name]
+        leaf[:, slot, ring] = raw[name][:, 0, idx].to(leaf.dtype)
+    pos = cache["pos"]
     pos[:, slot] = -1
     pos[:, slot, ring] = idx.to(pos.dtype)
     return engine_cache
@@ -133,8 +158,8 @@ def write_prefill_into_slot(cfg, engine_cache: dict, raw_cache: dict, slot: int,
 
 def clear_slot(cfg, engine_cache: dict, slot: int) -> dict:
     """Empty one batch slot of the slot cache (a freed request), in place:
-    K/V and recurrent states zero, positions -1."""
-    for name, leaf in engine_cache.items():
+    K/V, recurrent states and image K/V zero, positions -1."""
+    for name, leaf in _slot_leaves(cfg, engine_cache).items():
         leaf[:, slot] = -1 if name == "pos" else 0
     return engine_cache
 

@@ -45,6 +45,11 @@ kv head, an odd row count for its rows of 8; head dim 16 at smoke size and
 size it picks and at every forced one; the smoke hymba engine (paged
 fp32 pools, K1 for its attention, and dense) and the smoke rwkv6-7b
 engine on the card, tokens equal to the same engine on CPU tensors.
+
+The vlm family: the smoke llama-3.2-vision-90b engine (two layer groups,
+cross gates open, K/V biases so that the engine's zero image tokens
+project to nonzero image K/V) on the card, tokens equal to the same engine
+on CPU tensors, no kernel launched.
 """
 
 import dataclasses
@@ -721,3 +726,40 @@ def test_cuda_recurrent_engine_matches_the_cpu(arch, kind):
         assert K.LAUNCHES["paged_decode"] == cfg.num_layers * s["decode_steps"] > 0
     else:
         assert K.LAUNCHES["paged_decode"] == 0
+
+
+@pytest.mark.gpu
+def test_cuda_vlm_engine_matches_the_cpu():
+    """Smoke llama-3.2-vision-90b with two layer groups, its cross gates
+    open (1.0) and random K/V biases, so that the engine's zero image tokens
+    project to nonzero image K/V: served on the card and on CPU tensors over
+    fp32 caches, equal greedy tokens, every request by length, no kernel
+    launched (the dense ring attends in PyTorch ops), the image K/V of every
+    slot zero after the drain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceEngine
+    from repro_torch.utils.tree import tree_map
+
+    cfg = reduce_for_smoke(get_config("llama-3.2-vision-90b")).replace(num_layers=10, use_bias=True)
+    params = init_params(cfg, 0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for group in params["blocks"]:
+        group["cross"]["attn"]["gate"].fill_(1.0)
+        group["cross"]["gate_mlp"].fill_(1.0)
+        for name in ("bk", "bv"):
+            group["cross"]["attn"][name].normal_(0.0, 0.5, generator=g)
+    kw = dict(max_batch=3, max_seq=96, eos_token=1 << 30, cache_dtype=torch.float32)
+    prompts = [[5 + i, 9, 12, 7, 3, 11, 2, 8, 40 + i] + list(range(60, 60 + 7 * i)) for i in range(6)]
+    ref = InferenceEngine(cfg, tree_map(lambda t: t.cpu(), params), device="cpu", **kw)
+    ref_reqs = [ref.submit(p, max_new_tokens=10) for p in prompts]
+    ref.run_until_drained()
+    K.reset_launches()
+    eng = InferenceEngine(cfg, params, **kw)
+    reqs = [eng.submit(p, max_new_tokens=10) for p in prompts]
+    eng.run_until_drained()
+    assert [r.generated for r in reqs] == [r.generated for r in ref_reqs]
+    assert all(r.finish_reason == "length" for r in reqs)
+    assert eng.stats()["cache_kind"] == "dense" and not any(K.LAUNCHES.values())
+    assert not bool(eng.cache["cross"]["ck"].any()) and not bool(eng.cache["cross"]["cv"].any())

@@ -81,6 +81,9 @@ FLASH_GPU_CASES = [
     (1, 4, 2, 192, 320, 128, False, 0, 0.0, torch.bfloat16),
     (1, 4, 2, 320, 192, 64, True, 32, 0.0, torch.bfloat16),  # rows >= 223 see no key
     (1, 2, 2, 96, 96, 32, True, 0, 0.0, torch.bfloat16),
+    # llama-3.2-vision-90b's 8 query heads per kv head, on both routes
+    (1, 16, 2, 320, 320, 128, True, 0, 0.0, torch.bfloat16),
+    (2, 16, 2, 256, 256, 128, True, 0, 0.0, torch.float32),
 ]
 FLASH_BF16_LIMITS = {"max_spacings": 1.0, "mean_rel": 2e-5}  # chip_smoke.py's
 

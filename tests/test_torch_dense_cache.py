@@ -195,18 +195,17 @@ def test_cache_bytes_and_families_match_jax(arch, window, dtype):
         assert cache_bytes(tcfg, B, seq, TORCH_DTYPE[dtype]) == expect
         made = tkv.make_engine_cache(tcfg, B, seq, TORCH_DTYPE[dtype], device="cpu")
         assert sum(t.numel() * t.element_size() for t in made.values()) == expect
-    for name in ("olmo-1b", "rwkv6-7b", "bert-large", "stablelm-12b", "hymba-1.5b"):
+    for name in ("olmo-1b", "rwkv6-7b", "bert-large", "stablelm-12b", "hymba-1.5b", "llama-3.2-vision-90b"):
         jc, tc = jax_get_config(name), get_config(name)
         assert supports_paged(tc) == jax_supports_paged(jc)
         assert supports_chunked_prefill(tc) == jax_supports_chunked(jc)
 
 
 def test_prefill_refuses_other_families():
-    """The vlm family has no serving steps in the port yet."""
-    from repro_torch.config import VisionConfig
-
-    cfg = reduce_for_smoke(get_config("olmo-1b")).replace(
-        family="vlm", vision=VisionConfig(num_image_tokens=8, cross_attn_every=5)
-    )
-    with pytest.raises(NotImplementedError, match="vlm"):
-        prefill(cfg, {}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    """Every decoder family the JAX package serves has a prefill in the
+    port; a family it has not (here audio, an encoder, and an unknown one)
+    raises ``NotImplementedError`` naming it, before any weight is read."""
+    base = reduce_for_smoke(get_config("olmo-1b"))
+    for family in ("audio", "unknown"):
+        with pytest.raises(NotImplementedError, match=family):
+            prefill(base.replace(family=family), {}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})

@@ -179,17 +179,21 @@ def test_options_outside_the_slice_raise(option, value, error):
 
 
 def test_engine_refuses_the_families_it_does_not_serve():
-    """The engine serves the dense, moe, hybrid and ssm families; any other
-    (vlm) raises ``NotImplementedError`` naming the family, as the model's
-    serving steps do."""
-    from repro_torch.config import VisionConfig, reduce_for_smoke
+    """The engine serves the dense, moe, hybrid, ssm and vlm families, as the
+    JAX engine does; an encoder-only config (bert-large) raises the JAX
+    engine's ``ValueError``, and a family the port does not know raises
+    ``NotImplementedError`` naming it, as the model's serving steps do."""
+    from repro_torch.config import reduce_for_smoke
     from repro_torch.configs import get_config
     from repro_torch.models import decode_step, init_params
     from repro_torch.serving import InferenceEngine
 
     base = reduce_for_smoke(get_config("olmo-1b"))
     params = init_params(base, 0, device="cpu")
-    cfg = base.replace(name="vlm-smoke", family="vlm", vision=VisionConfig(num_image_tokens=8, cross_attn_every=5))
+    encoder = reduce_for_smoke(get_config("bert-large"))
+    with pytest.raises(ValueError, match="encoder-only"):
+        InferenceEngine(encoder, init_params(encoder, 0, device="cpu"), device="cpu")
+    cfg = base.replace(name="unknown-smoke", family="unknown")
     with pytest.raises(NotImplementedError, match=cfg.family):
         InferenceEngine(cfg, params, device="cpu")
     with pytest.raises(NotImplementedError, match=cfg.family):
