@@ -248,6 +248,36 @@ or when any check fails.  Phases:
    the limits must reject.
 9. Train profile: one train step without and one under ``torch.profiler``:
    wall time, device time by kernel and the device's idle share.
+9b. Facility (``facility``), the JAX package's ``tests/test_system.py``
+   scenario on the card, once the olmo-1b training state is freed: tenants
+   "research" and "serving" under IAM (isolation checked), a
+   ``QoS.TRAINING`` job admitted by the scheduler, and olmo-1b at full
+   width cut to 4 of 16 layers (371.5 M parameters, 4.46 GB a save) trained
+   with fp8 (K4) on 4 x 2048 tokens a step under the fault-tolerant runner:
+   a clean run of 8 steps with synchronous saves every 3, the same run from
+   a fresh state with the job's second node failing at step 5 (restore from
+   step 3, 2 steps replayed), a control whose restore hands back
+   ``opt.step`` one ahead, and an asynchronous save followed by one
+   in-place step, then ``wait()`` and a restore.  It fails unless the
+   recovered run is bit-exact with the clean run (every loss ``==``, every
+   leaf equal) and the control is not, the snapshot equals its pre-step
+   clone, every step launched K4 ``4 x layers x sites`` times, the effective
+   PUE stays under 1.1 and the ledger charged energy.  The serving tenant
+   then serves the serving phase's prompts on the clean and the recovered
+   parameters (K1/K2 counted, tokens equal, no block left).  Saves go to a
+   fresh temporary directory on the machine's local disk (its free space
+   read first; deleted at the end), which is not the facility's ClusterStor
+   or VAST: it prints each save's wall and GB/s there, the restore's wall,
+   the modelled lustre and vast seconds, ``cadence_advice`` from the
+   measured step and the step ms.
+9c. Fig. 8 (``mlperf``): ``repro_torch.benchmarks.mlperf_train.run()`` on the
+   card, bert-large at full width and depth, 448 x 512 tokens a step as 14
+   microbatches of 32 (fp32 master, bf16 compute, remat full, no fp8), one
+   warm and three timed steps: its rows in the reference's
+   ``name,us_per_call,derived`` format, step seconds, tokens/s, model
+   TFLOP/s against 989, the analytical roofline step and peak memory.  It
+   fails unless every loss and gradient norm is finite and the rate is 0
+   at step 0 (warmup) and above 0 after.
 10. Kernels K6 (BabelStream) and K5 (RWKV6 WKV scan), run after phase 2:
    copy, mul, add and triad at n = 2^27 in fp32 and bf16, bit-equal to
    their plain versions, and dot on non-negative inputs, each beside its
@@ -3395,17 +3425,8 @@ def train_run_config(fp8_gemm="kernel"):
     )
 
 
-def model_flops_per_step(cfg, tokens: int, seq: int) -> float:
-    """3 x the forward's matmul FLOPs (forward + backward, recompute not
-    counted): per token 2 (L (4 D^2 + 3 D F) + D V) for the projections and
-    the tied head, plus 2 L D S for causal attention (QK^T and PV over S/2
-    keys on average)."""
-    L, D, F_, V = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.padded_vocab
-    per_token = 2 * (L * (4 * D * D + 3 * D * F_) + D * V) + 2 * L * D * seq
-    return 3.0 * tokens * per_token
-
-
 def train_phase(cfg, device):
+    from repro_torch.benchmarks.mlperf_train import FLOPS_FORMULA, model_flops_per_step
     from repro_torch.data import make_batch_fn
     from repro_torch.fp8 import fp8_sites
     from repro_torch.fp8 import gemm as K4
@@ -3452,7 +3473,7 @@ def train_phase(cfg, device):
         "tokens_per_s_steps_1_3": tokens / step_s, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "model_tflop_per_step": flops / 1e12, "model_tflop_s": flops / step_s / 1e12,
         "bf16_peak_share": flops / step_s / BF16_FLOPS_PER_S,
-        "flops_formula": "3 * T * (2 * (L * (4 D^2 + 3 D F) + D V) + 2 L D S)",
+        "flops_formula": FLOPS_FORMULA,
     }
     emit(out)
     return state, batches[TRAIN_STEPS], out
@@ -3645,6 +3666,314 @@ def train_profile_phase(cfg, state, batch) -> dict:
         "top_kernels_ms": [[name[:160], ms] for name, ms in top],
     }
     emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9b: the facility (tests/test_system.py on the card); 9c: Fig. 8
+# ---------------------------------------------------------------------------
+
+FACILITY_LAYERS = 4  # of olmo-1b's 16 at full width: 371.5 M parameters, 4.46 GB a save
+FACILITY_STEPS = 8
+FACILITY_CKPT_EVERY = 3
+FACILITY_FAIL_AT = 5  # the job's second node fails here: the runner restores step 3 and replays 2 steps
+GB = 1e9
+
+
+def facility_manager(directory, *, restore_walls, bump_step=False):
+    """A synchronous ``CheckpointManager`` (as the launcher's) that times its
+    restores; with ``bump_step`` its restores hand back ``opt.step`` one
+    ahead, the control of the bit-exact gate."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    class Manager(CheckpointManager):
+        def restore(self, like, **kw):
+            t0 = time.perf_counter()
+            tree, extra = super().restore(like, **kw)
+            torch.cuda.synchronize()
+            restore_walls.append(time.perf_counter() - t0)
+            if bump_step:
+                tree = tree._replace(opt=tree.opt._replace(step=tree.opt.step + 1))
+            return tree, extra
+
+    return Manager(directory, keep=2, async_save=False)
+
+
+def counted_steps(step_fn, records):
+    """``step_fn`` with each step's wall (ended by a host sync) and K4
+    launches appended to ``records``."""
+    from repro_torch.fp8 import gemm as K4
+
+    def fn(state, batch):
+        before = K4.LAUNCHES["fp8_gemm"]
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        records.append({"ms": (time.perf_counter() - t0) * 1e3, "k4_launches": K4.LAUNCHES["fp8_gemm"] - before})
+        return state, m
+
+    return fn
+
+
+def bit_exact(report, state, ref_report, ref_state) -> bool:
+    """The reference's gate (tests/test_fault_tolerance.py): every step's
+    loss ``==`` and every leaf of the final state equal."""
+    from repro_torch.utils.tree import flatten_with_paths
+
+    a, b = flatten_with_paths(state), flatten_with_paths(ref_state)
+    return report.losses == ref_report.losses and [p for p, _ in a] == [p for p, _ in b] and all(
+        torch.equal(x, y) for (_, x), (_, y) in zip(a, b))
+
+
+def facility_phase(cfg, device) -> dict:
+    """Two tenants under IAM, a training job admitted by the QoS scheduler,
+    olmo-1b (full width, depth cut) trained with fp8 under the
+    fault-tolerant runner: a clean run, a run whose node fails at step 5,
+    a control restoring ``opt.step`` one ahead, an async snapshot that the
+    next in-place step must not change; then the serving tenant serves the
+    clean and the recovered parameters.  Checkpoints go to a fresh
+    temporary directory on this machine's local disk, deleted at the end."""
+    import shutil
+    import tempfile
+
+    from repro_torch import core
+    from repro_torch.checkpoint import TIERS, CheckpointManager
+    from repro_torch.data import make_batch_fn
+    from repro_torch.fp8 import fp8_sites
+    from repro_torch.fp8 import gemm as K4
+    from repro_torch.kernels import paged_attention as K
+    from repro_torch.serving import InferenceEngine
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.utils.tree import flatten_with_paths, tree_size_bytes
+
+    run = train_run_config("kernel")
+    per_step = 4 * cfg.num_layers * len(fp8_sites(cfg))  # forward, recompute, dx and dw of every site
+    batch_fn = make_batch_fn(cfg, global_batch=TRAIN_B, seq_len=TRAIN_S, seed=SEED, device=device)
+    train_step = make_train_step(cfg, run)
+
+    # the facility: two tenants under IAM, the training job admitted by the scheduler
+    cluster = core.Cluster(core.ClusterSpec("phase1-mini", nodes_per_pod=6, num_pods=1))
+    iam = core.IAM(clock=lambda: 0.0)
+    admin = iam.federated_login("ops@bristol.ac.uk", "uob")
+    iam.grant("ops@bristol.ac.uk", core.Role.INFRA_ADMIN)
+    tenants = core.TenantManager(cluster, iam)
+    tenants.create_tenant("research", quota_nodes=4, admin="alice@inst", token=admin)
+    tenants.create_tenant("serving", quota_nodes=2, admin="bob@inst", token=admin)
+    tenants.grow_tenant("research", 3, token=admin)
+    tenants.grow_tenant("serving", 1, token=admin)
+    isolation = tenants.check_isolation()
+    sched = core.Scheduler(cluster)
+    job = sched.submit(core.Job("llm-train", "research", core.QoS.TRAINING, chips=8, duration=30, checkpoint_interval=5))
+    sched.tick(1)
+    if isolation or job.state != core.JobState.RUNNING:
+        fail(f"facility setup: isolation {isolation}, training job {job.state}")
+    failing_node = job.nodes[1]
+
+    def local_cluster():  # the launcher's: two nodes, heartbeats at 0
+        c = core.Cluster(core.ClusterSpec("local", nodes_per_pod=2, num_pods=1))
+        c.allocate([0, 1], "llm-train")
+        for n in c.nodes.values():
+            c.heartbeat(n.node_id, 0.0)
+        return c
+
+    def runner(directory, cluster, records, restore_walls, bump_step=False):
+        return core.FaultTolerantRunner(
+            step_fn=counted_steps(train_step, records), init_state=init_train_state(cfg, run, SEED, device),
+            batch_fn=batch_fn, cluster=cluster,
+            ckpt=facility_manager(directory, restore_walls=restore_walls, bump_step=bump_step),
+            job_id="llm-train", checkpoint_every=FACILITY_CKPT_EVERY, ledger=core.EnergyLedger())
+
+    root = tempfile.mkdtemp(prefix="facility_ckpt_")
+    try:
+        clean_steps = []
+        clean = runner(os.path.join(root, "clean"), local_cluster(), clean_steps, [])
+        usage = shutil.disk_usage(root)
+        ckpt_bytes = tree_size_bytes(clean.state)
+        emit({"phase": "facility_disk", "directory": root, "free_gb": usage.free / GB, "total_gb": usage.total / GB,
+              "checkpoint_gb": ckpt_bytes / GB, "what": "this machine's local disk, not the facility's ClusterStor "
+              "(lustre) or VAST: its GB/s are the local disk's"})
+        if usage.free < 3 * ckpt_bytes:
+            fail(f"{root} has {usage.free / GB:.1f} GB free, less than three saves of {ckpt_bytes / GB:.2f} GB")
+
+        # the clean run
+        K4.reset_launches()
+        t0 = time.perf_counter()
+        r_clean = clean.run(FACILITY_STEPS)
+        clean_wall = time.perf_counter() - t0
+        k4_clean = K4.LAUNCHES["fp8_gemm"]
+        clean_saves = clean.ckpt.records
+        shutil.rmtree(os.path.join(root, "clean"))
+
+        # the faulty run: a fresh state from the seed, on the scheduler's nodes
+        faulty_steps, faulty_restores = [], []
+        K4.reset_launches()
+        faulty = runner(os.path.join(root, "faulty"), cluster, faulty_steps, faulty_restores)
+        t0 = time.perf_counter()
+        r_faulty = faulty.run(FACILITY_STEPS, failure_schedule={FACILITY_FAIL_AT: failing_node})
+        faulty_wall = time.perf_counter() - t0
+        k4_faulty = K4.LAUNCHES["fp8_gemm"]
+        exact = bit_exact(r_faulty, faulty.state, r_clean, clean.state)
+        shutil.rmtree(os.path.join(root, "faulty"))
+
+        # the control: the same failure, restored with opt.step one ahead
+        control_steps = []
+        K4.reset_launches()
+        control = runner(os.path.join(root, "control"), local_cluster(), control_steps, [], bump_step=True)
+        r_control = control.run(FACILITY_STEPS, failure_schedule={FACILITY_FAIL_AT: 1})
+        k4_control = K4.LAUNCHES["fp8_gemm"]
+        control_exact = bit_exact(r_control, control.state, r_clean, clean.state)
+        shutil.rmtree(os.path.join(root, "control"))
+
+        # the async snapshot: save the control's state without blocking, one
+        # in-place step, then wait
+        amgr = CheckpointManager(os.path.join(root, "async"), keep=1, async_save=True)
+        state = control.state
+        del control
+        before = {p: x.clone() for p, x in flatten_with_paths(state)}
+        t0 = time.perf_counter()
+        amgr.save(state, step=FACILITY_STEPS, block=False)
+        snapshot_s = time.perf_counter() - t0
+        K4.reset_launches()
+        state, m = train_step(state, batch_fn(FACILITY_STEPS))
+        float(m["loss"])
+        k4_async = K4.LAUNCHES["fp8_gemm"]
+        moved = any(not torch.equal(x, before[p]) for p, x in flatten_with_paths(state))
+        t0 = time.perf_counter()
+        amgr.wait()
+        wait_s = time.perf_counter() - t0
+        snap, _ = amgr.restore(state)
+        snapshot_kept = all(torch.equal(x, before[p]) for p, x in flatten_with_paths(snap))
+        async_rec = amgr.records[0]
+        amgr.close()
+        del snap, before, state
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the serving tenant: the serving phase's prompts on the clean and the recovered parameters
+    kw = dict(max_batch=4, max_seq=512, block_size=BLOCK_SIZE, prefill_budget=128, cache_dtype=torch.bfloat16,
+              eos_token=cfg.padded_vocab, device=device)
+    prompts = serving_prompts(cfg, SEED)
+    served = {}
+    for name, params in (("clean", clean.state.params), ("faulty", faulty.state.params)):
+        eng = InferenceEngine(cfg, params, **kw)
+        reqs = [eng.submit(p, max_new_tokens=32) for p in prompts]
+        K.reset_launches()
+        eng.run_until_drained()
+        s = eng.stats()
+        served[name] = {"tokens": [list(r.generated) for r in reqs], "launches": dict(K.LAUNCHES),
+                        "blocks_in_use": s["alloc_blocks_in_use"], "decode_steps": s["decode_steps"],
+                        "prefill_chunks": s["prefill_chunks"],
+                        "by_length": all(r.finish_reason == "length" for r in reqs)}
+        del eng
+
+    steady = [r["ms"] for r in clean_steps[1:]]  # step 0 warms the allocator
+    step_s = float(np.mean(steady)) / 1e3
+    ledger = faulty.ledger
+    saves = [{"run": run_name, "step": r.step, "gb": r.nbytes / GB, "wall_s": r.wall_seconds,
+              "gb_per_s": r.nbytes / r.wall_seconds / GB, "modeled_lustre_s": r.modeled_seconds,
+              "modeled_vast_s": TIERS["vast"].write_seconds(r.nbytes)}
+             for run_name, recs in (("clean", clean_saves), ("faulty", faulty.ckpt.records)) for r in recs]
+    out = {
+        "phase": "facility", "model": cfg.name, "layers": cfg.num_layers,
+        "params": sum(x.numel() for _, x in flatten_with_paths(clean.state.params)),
+        "checkpoint_gb": ckpt_bytes / GB, "tokens_per_step": TRAIN_B * TRAIN_S, "failing_node": failing_node,
+        "report": {"steps_run": r_faulty.steps_run, "failures": r_faulty.failures, "restores": r_faulty.restores,
+                   "rollback_steps": r_faulty.rollback_steps, "events": r_faulty.events},
+        "losses": {"clean": r_clean.losses, "faulty": r_faulty.losses, "control": r_control.losses},
+        "bit_exact": exact, "control_bit_exact": control_exact,
+        "step_ms_mean_steps_1_7": step_s * 1e3, "step_ms": [r["ms"] for r in clean_steps],
+        "k4_launches_per_step": {"clean": [r["k4_launches"] for r in clean_steps],
+                                 "faulty": [r["k4_launches"] for r in faulty_steps]},
+        "k4_launches": {"clean": k4_clean, "faulty": k4_faulty, "control": k4_control, "async_step": k4_async},
+        "run_wall_s": {"clean": clean_wall, "faulty": faulty_wall},
+        "saves": saves, "restore_wall_s": faulty_restores, "restore_gb_per_s": [ckpt_bytes / w / GB for w in faulty_restores],
+        "async": {"snapshot_s": snapshot_s, "wait_s": wait_s, "write_wall_s": async_rec.wall_seconds,
+                  "step_moved_the_state": moved, "snapshot_kept": snapshot_kept},
+        "cadence_advice": faulty.ckpt.cadence_advice(step_seconds=step_s, nbytes=ckpt_bytes),
+        "energy": ledger.report(), "facility_kwh_unrounded": ledger.facility_kwh(),
+        "serving": {k: {f: v[f] for f in ("launches", "blocks_in_use", "decode_steps", "prefill_chunks", "by_length")}
+                    for k, v in served.items()},
+        "serving_tokens_equal": served["clean"]["tokens"] == served["faulty"]["tokens"],
+        "disk": "local disk of the card's machine, not the facility's ClusterStor (lustre) or VAST",
+    }
+    emit(out)
+    if (r_faulty.failures, r_faulty.restores, r_faulty.rollback_steps) != (1, 1, 2) or len(faulty_restores) != 1:
+        fail(f"facility: expected 1 failure, 1 restore, 2 steps rolled back: {out['report']}")
+    if not exact:
+        fail("facility: the recovered run is not bit-exact with the clean run")
+    if control_exact:
+        fail("facility: the control (opt.step one ahead) passes the bit-exact gate, which then proves nothing")
+    if not (moved and snapshot_kept):
+        fail(f"facility: the async snapshot did not survive the next in-place step: {out['async']}")
+    bad = [r["k4_launches"] for r in clean_steps + faulty_steps + control_steps if r["k4_launches"] != per_step]
+    if bad or k4_async != per_step:
+        fail(f"facility: K4 launches a step {bad or k4_async}, expected {per_step}")
+    if not (out["energy"]["effective_pue"] < 1.1 and ledger.facility_kwh() > 0):
+        fail(f"facility: energy report {out['energy']}")
+    for name, v in served.items():
+        L = cfg.num_layers
+        if not (v["by_length"] and v["blocks_in_use"] == 0 and v["launches"]["paged_decode"] == v["decode_steps"] * L
+                and v["launches"]["paged_prefill"] == v["prefill_chunks"] * L and v["launches"]["paged_decode"] > 0):
+            fail(f"facility: the serving tenant's {name} run: {out['serving'][name]}")
+    if not out["serving_tokens_equal"]:
+        fail("facility: the serving tenant's tokens differ between the clean and the recovered parameters")
+    return out
+
+
+def mlperf_phase(device) -> dict:
+    """Fig. 8: ``repro_torch.benchmarks.mlperf_train.run`` on the card, then
+    one more step of the same run from a fresh state under
+    ``torch.profiler``: device time by kernel and the idle share against
+    the run's step."""
+    from repro_torch.benchmarks import mlperf_train
+    from repro_torch.data import make_batch_fn
+    from repro_torch.train import init_train_state, make_train_step
+
+    rows = mlperf_train.run(device)
+    cfg = mlperf_train.full_config()
+    run = mlperf_train.run_config(mlperf_train.MLPERF_BATCH, mlperf_train.MLPERF_SEQ, mlperf_train.MLPERF_MICROBATCHES)
+    state = init_train_state(cfg, run, SEED, device)
+    step = make_train_step(cfg, run)
+    batch = make_batch_fn(cfg, global_batch=run.train.global_batch, seq_len=run.train.seq_len, seed=SEED,
+                          device=device)(0)
+
+    def one_step():
+        nonlocal state
+        state, m = step(state, batch)
+        float(m["loss"])
+
+    by_name, launches, prof_wall_ms, _ = profiled(one_step)
+    del state, batch
+    busy = sum(by_name.values())
+    kinds = {"gemm": ("gemm", "nvjet", "xmma", "cutlass"), "elementwise": ("elementwise_kernel",),
+             "softmax": ("softmax",)}  # cuBLAS's Hopper GEMMs are named nvjet_*
+    by_kind = {kind: sum(v for k, v in by_name.items() if any(s in k.lower() for s in subs))
+               for kind, subs in kinds.items()}
+    step_ms = rows[0]["step_seconds"] * 1e3
+    emit({"phase": "mlperf_profile", "what": "one Fig. 8 step (448 x 512, 14 microbatches) under torch.profiler",
+          "step_ms": step_ms, "wall_ms_under_profiler": prof_wall_ms, "device_busy_ms": busy if by_name else None,
+          "idle_share": 1.0 - busy / step_ms if by_name else None, "device_launches": int(launches),
+          "ms_by_kind": by_kind, "gemm_share": by_kind["gemm"] / busy if by_name else None,
+          "top_kernels_ms": [[k[:160], v] for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]]})
+    measured, roofline = rows
+    csv = [f"{r['name']},{r['us_per_call']:.1f},{r['derived']}" for r in rows]
+    steps = measured["steps"]
+    out = {"phase": "mlperf", "rows": csv, "steps": steps, "params": measured["params"],
+           "step_s": measured["step_seconds"], "tokens_per_s": measured["tokens_per_s"],
+           "model_tflop_s": measured["model_tflop_s"], "bf16_peak_share": measured["bf16_peak_share"],
+           "roofline_step_s": roofline["us_per_call"] / 1e6, "peak_mem_gb": measured["peak_mem_gb"],
+           "batch": [mlperf_train.MLPERF_BATCH, mlperf_train.MLPERF_SEQ, mlperf_train.MLPERF_MICROBATCHES],
+           "flops_formula": mlperf_train.FLOPS_FORMULA}
+    emit(out)
+    if [r["name"] for r in rows] != ["mlperf_bert_full_h100", "mlperf_bert_full_roofline"] or any(
+            len(line.split(",")) != 3 for line in csv):
+        fail(f"mlperf: rows not in the reference's name,us_per_call,derived format: {csv}")
+    if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps):
+        fail(f"mlperf: a loss or gradient norm is not finite: {steps}")
+    if steps[0]["lr"] != 0.0 or not all(s["lr"] > 0 for s in steps[1:]):
+        fail(f"mlperf: lr must be 0 at step 0 and above 0 after: {[s['lr'] for s in steps]}")
     return out
 
 
@@ -4132,7 +4461,11 @@ def main() -> int:
     state = phase("train_path", train_path_phase, cfg, state, batch)
     evaluation = phase("eval", eval_phase, cfg, state.params, batch)
     phase("train_profile", train_profile_phase, cfg, state, batch)
-    del state, batch  # the olmo-1b training state's memory goes back before rwkv6-7b
+    del state, batch  # the olmo-1b training state's memory goes back before the facility and rwkv6-7b
+    torch.cuda.empty_cache()
+    facility = phase("facility", facility_phase, cfg.replace(num_layers=FACILITY_LAYERS), device)
+    torch.cuda.empty_cache()
+    phase("mlperf", mlperf_phase, device)
     torch.cuda.empty_cache()
 
     rwkv_cfg = get_config("rwkv6-7b")  # full width and depth, 30.3 GB of fp32: one load serves both phases
@@ -4215,7 +4548,10 @@ def main() -> int:
                 "bound_by", "library_ms")}
             k["vlm_eval_launches"] = vlm_eval["k3_launches"]
             k["vlm_serving_launches"] = vlm_serving["served"]["launches"]["flash_attention"]
+        if k["name"] in ("paged_decode", "paged_prefill"):  # the facility's serving tenant, each parameter set
+            k["facility_launches"] = {run: facility["serving"][run]["launches"][k["name"]] for run in ("clean", "faulty")}
         if k["name"] == "fp8_gemm":
+            k["facility_launches"] = facility["k4_launches"]  # the facility's runs and the async check's step
             k.update(kernel_alone_ms=gemm_main["kernel_alone_ms"], layout_copy_ms=gemm_main["layout_copy_ms"],
                      layout_copies_per_call=gemm_main["layout_copies"],
                      layout_copies=train["k4_layout_copies"])

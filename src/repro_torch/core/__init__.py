@@ -1,1 +1,50 @@
-"""The AI-platform runtime's accounting: DCIM energy telemetry (``telemetry``)."""
+"""The paper's contribution: an AI-platform runtime for a leadership-class
+facility — QoS scheduling, tenancy, fault tolerance, telemetry.  The JAX
+package's ``core/`` but for ``elastic.py`` (ROADMAP Queue 1, the
+tensor-parallel item)."""
+
+from repro_torch.core.cluster import (
+    CHIPS_PER_NODE,
+    DRYRUN_MULTI,
+    DRYRUN_SINGLE,
+    PHASE1,
+    PHASE2,
+    Cluster,
+    ClusterSpec,
+    Node,
+    NodeState,
+)
+from repro_torch.core.fault import FaultTolerantRunner, RunReport
+from repro_torch.core.federation import IAM, Identity, Role
+from repro_torch.core.scheduler import Job, JobState, QoS, Reservation, Scheduler
+from repro_torch.core.straggler import StragglerDetector
+from repro_torch.core.telemetry import EnergyLedger, effective_pue, mw_check
+from repro_torch.core.tenancy import Tenant, TenantManager
+
+__all__ = [
+    "CHIPS_PER_NODE",
+    "Cluster",
+    "ClusterSpec",
+    "Node",
+    "NodeState",
+    "DRYRUN_MULTI",
+    "DRYRUN_SINGLE",
+    "PHASE1",
+    "PHASE2",
+    "FaultTolerantRunner",
+    "RunReport",
+    "IAM",
+    "Identity",
+    "Role",
+    "Job",
+    "JobState",
+    "QoS",
+    "Reservation",
+    "Scheduler",
+    "StragglerDetector",
+    "EnergyLedger",
+    "effective_pue",
+    "mw_check",
+    "Tenant",
+    "TenantManager",
+]

@@ -33,3 +33,52 @@ def tree_paths(tree, prefix: tuple = ()) -> list[tuple]:
     if isinstance(tree, list):
         return [p for i, v in enumerate(tree) for p in tree_paths(v, prefix + (i,))]
     return [prefix]
+
+
+# ---------------------------------------------------------------------------
+# path-aware walks over whole states
+# ---------------------------------------------------------------------------
+#
+# The checkpoint layer walks a whole ``TrainState``: NamedTuples (``TrainState``,
+# ``AdamWState``, ``Fp8State``) as well as dicts and lists.  As in the JAX
+# package's ``utils/pytree.py``, a leaf's path is its keys joined by ``/``
+# (dict keys, list indices, NamedTuple field names, as ``GetAttrKey`` names
+# them) and ``None`` is an empty subtree: it holds no leaf and maps to itself.
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def tree_map_with_path(fn, tree):
+    """Rebuild ``tree`` with every leaf replaced by ``fn(path, leaf)``; dicts,
+    lists and NamedTuples keep their types, ``None`` stays ``None``."""
+
+    def walk(x, prefix):
+        def sub(key):
+            return f"{prefix}/{key}" if prefix else str(key)
+
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: walk(v, sub(k)) for k, v in x.items()}
+        if isinstance(x, list):
+            return [walk(v, sub(i)) for i, v in enumerate(x)]
+        if _is_namedtuple(x):
+            return type(x)(*(walk(getattr(x, f), sub(f)) for f in x._fields))
+        return fn(prefix, x)
+
+    return walk(tree, "")
+
+
+def flatten_with_paths(tree) -> list[tuple[str, object]]:
+    """``(path, leaf)`` for every leaf of ``tree``, in walk order (dict
+    insertion order; the JAX package sorts dict keys, so compare by path)."""
+    out = []
+    tree_map_with_path(lambda p, x: out.append((p, x)), tree)
+    return out
+
+
+def tree_size_bytes(tree) -> int:
+    """Total bytes of the tensor leaves of ``tree``."""
+    return sum(x.numel() * x.element_size() for _, x in flatten_with_paths(tree))

@@ -142,3 +142,42 @@ def test_cuda_flash_attention_refuses_gradients():
     q = torch.randn((1, 2, 64, 64), device="cuda", requires_grad=True)
     with pytest.raises(RuntimeError, match="forward only"):
         K3.flash_attention_bhsd(q, q.detach(), q.detach())
+
+
+@pytest.mark.gpu
+def test_cuda_failure_replay_is_bit_exact(tmp_path):
+    """The fault-tolerant runner on the card: a smoke-size fp8 run (K4 in
+    every projection) with node 1 failing at step 4 replays from step 3's
+    checkpoint to the clean run's losses and state, bit for bit."""
+    _card()
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import PrecisionConfig, RunConfig, TrainConfig, reduce_for_smoke
+    from repro_torch.configs import get_config
+    from repro_torch.core import Cluster, ClusterSpec, FaultTolerantRunner
+    from repro_torch.data import make_batch_fn
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.utils.tree import flatten_with_paths
+
+    cfg = reduce_for_smoke(get_config("olmo-1b"))
+    run = RunConfig(arch="olmo-1b", train=TrainConfig(global_batch=4, seq_len=64, warmup_steps=1),
+                    precision=PrecisionConfig(fp8=True))
+
+    def runner(tag):
+        cluster = Cluster(ClusterSpec("t", nodes_per_pod=2, num_pods=1))
+        cluster.allocate([0, 1], "train-job")
+        for n in cluster.nodes.values():
+            cluster.heartbeat(n.node_id, 0.0)
+        return FaultTolerantRunner(
+            step_fn=make_train_step(cfg, run), init_state=init_train_state(cfg, run, 0, "cuda"),
+            batch_fn=make_batch_fn(cfg, global_batch=4, seq_len=64, seed=0, device="cuda"), cluster=cluster,
+            ckpt=CheckpointManager(tmp_path / tag, keep=2, async_save=False), checkpoint_every=3)
+
+    clean, faulty = runner("clean"), runner("faulty")
+    before = K4.LAUNCHES["fp8_gemm"]
+    r1 = clean.run(6)
+    assert K4.LAUNCHES["fp8_gemm"] > before  # the steps ran K4
+    r2 = faulty.run(6, failure_schedule={4: 1})
+    assert (r2.failures, r2.restores, r2.rollback_steps) == (1, 1, 1)
+    assert r1.losses == r2.losses
+    for (p, a), (_, b) in zip(flatten_with_paths(clean.state), flatten_with_paths(faulty.state)):
+        assert a.device.type == "cuda" and torch.equal(a, b), p

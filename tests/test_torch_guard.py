@@ -127,6 +127,16 @@ def test_training_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--steps", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--steps", "2", "--ckpt-every", "1", "--fail-at", "1"])
+    from repro_torch.benchmarks import mlperf_train
+    from repro_torch.data import ShardedLoader
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mlperf_train.run()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedLoader(lambda step: {"tokens": torch.zeros((2, 8), dtype=torch.int32)})
+    ShardedLoader(make_batch_fn(cfg, global_batch=2, seq_len=8, device="cpu"), device="cpu").get(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
         synthetic_batch(cfg, step=0, global_batch=2, seq_len=8)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_batch_fn(cfg, global_batch=2, seq_len=8)

@@ -226,14 +226,49 @@ def test_synthetic_batch_is_deterministic():
     assert 0.1 < float(follows) < 0.5  # the 0.3 mix of the shifted base token
 
 
-def test_launcher_runs_on_cpu(capsys):
+def test_launcher_runs_on_cpu(capsys, tmp_path):
     from repro_torch.launch.train import main
 
-    records = main(["--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "16", "--fp8", "--microbatches", "2"])
+    records = main(["--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "16", "--fp8", "--microbatches", "2",
+                    "--ckpt-dir", str(tmp_path)])
     assert [r["step"] for r in records] == [0, 1]
     assert all(np.isfinite(r["loss"]) and r["tokens_per_s"] > 0 for r in records)
     out = capsys.readouterr().out
     assert "fp8: ON" in out and "tok/s" in out
+    assert "failures=0 restores=0" in out and "effective_pue" in out
+
+
+def test_launcher_recovers_from_a_node_failure(capsys, tmp_path):
+    """``--ckpt-every 2 --fail-at 3``: node 1 fails at step 3, the runner
+    restores step 2's checkpoint and replays step 2 with the same loss."""
+    from repro_torch.launch.train import main
+
+    records = main(["--device", "cpu", "--steps", "5", "--batch", "2", "--seq", "16", "--ckpt-every", "2",
+                    "--fail-at", "3", "--ckpt-dir", str(tmp_path)])
+    assert [r["step"] for r in records] == [0, 1, 2, 2, 3, 4]
+    assert records[2]["loss"] == records[3]["loss"]
+    out = capsys.readouterr().out
+    assert "failures=1 restores=1" in out and "6 steps in" in out and "[train] energy:" in out
+    assert sorted(p.name for p in (tmp_path / "olmo-1b").iterdir()) == ["step_00000004", "step_00000005"]
+
+
+def test_launcher_reruns_into_one_ckpt_dir(capsys, tmp_path):
+    """A second run into the same ``--ckpt-dir`` removes the first run's
+    checkpoints: its failure at step 3 restores its own step 2, not the
+    first run's newest step."""
+    from repro_torch.launch.train import main
+
+    first = main(["--device", "cpu", "--steps", "8", "--batch", "2", "--seq", "16", "--ckpt-every", "2",
+                  "--ckpt-dir", str(tmp_path)])
+    assert sorted(p.name for p in (tmp_path / "olmo-1b").iterdir()) == ["step_00000006", "step_00000008"]
+    capsys.readouterr()
+    second = main(["--device", "cpu", "--steps", "5", "--batch", "2", "--seq", "16", "--ckpt-every", "2",
+                   "--fail-at", "3", "--ckpt-dir", str(tmp_path)])
+    assert [r["step"] for r in second] == [0, 1, 2, 2, 3, 4]
+    assert [r["loss"] for r in second] == [first[i]["loss"] for i in (0, 1, 2, 2, 3, 4)]
+    out = capsys.readouterr().out
+    assert "removed 2 checkpoints of an earlier run" in out and "failures=1 restores=1" in out
+    assert sorted(p.name for p in (tmp_path / "olmo-1b").iterdir()) == ["step_00000004", "step_00000005"]
 
 
 @pytest.mark.parametrize(
