@@ -235,16 +235,21 @@ or when any check fails.  Phases:
    4 steps of 4 x 2048 tokens from random weights (seed 0), with the loss,
    time, tokens/s and K4 launches of every step, peak memory and model
    FLOP/s.  The counters are set to 0 just before the steps.
-7. Train path: one more step from the same state with K4 in which every
-   K4 call is held against the plain GEMM, with a control (the plain GEMM
-   without its last 32 k-elements), on its own operands; and whole steps
-   with the plain GEMM, a control (the plain GEMM with its inverse scale
-   rounded to bf16) and an order probe (the plain GEMM's sums in another
-   order), compared with the kernel step by loss, gradient norm and two
-   updated tensors, against limits that the control must fail.
-8. Eval: ``loss_fn`` with ``attn_impl="flash"`` (K3) against ``"torch"``
-   under ``torch.no_grad()`` on the train batch, each timed once cold and
-   once warm, and a control (attention that also sees the next key) that
+7. Train path (``train_path_phase``, the gate every train path shares):
+   one more step from the same state with K4 in which every K4 call is
+   held against the plain GEMM, with a control (the plain GEMM without its
+   last 32 k-elements), on its own operands; and steps with the plain
+   GEMM, a control (here the plain GEMM with its inverse scale rounded to
+   bf16) and an order probe (the plain GEMM's sums in another order),
+   compared with the kernel step by loss, gradient norm and two updated
+   tensors, against limits that the control must fail.  Each step is read
+   by ``step_readings`` through the train step's own ``grads_of``, with
+   the update applied to clones of the two tensors only, so the state is
+   left as it was and is not copied.
+8. Eval, after one kernel step on the gate's batch (the gate leaves the
+   state as it was): ``loss_fn`` with ``attn_impl="flash"`` (K3) against
+   ``"torch"`` under ``torch.no_grad()`` on the train batch, each timed
+   once cold and once warm, and a control (attention that also sees the next key) that
    the limits must reject.
 9. Train profile: one train step without and one under ``torch.profiler``:
    wall time, device time by kernel and the device's idle share.
@@ -278,6 +283,23 @@ or when any check fails.  Phases:
    TFLOP/s against 989, the analytical roofline step and peak memory.  It
    fails unless every loss and gradient norm is finite and the rate is 0
    at step 0 (warmup) and above 0 after.
+9d-9f. The remaining training forwards (``moe_train``, ``hybrid_train``,
+   ``audio_train``), each model alone on the card: qwen3-moe-235b-a22b at
+   full width cut from 94 layers to 1 (3.73 B parameters with its untied
+   embedding and head; 2 x 2048 tokens, two routed groups at C = 160),
+   hymba-1.5b and hubert-xlarge at full width and depth (4 x 2048 tokens,
+   frames for hubert), each with fp8 (K4 in the attention projections, and
+   in the MLP of hymba and hubert), bf16 compute and ``remat="full"``: 3
+   steps with the loss, aux loss (qwen3-moe's load-balance loss), time and
+   K4 launches of every step and peak memory; then the train path's gate
+   (phase 7) from the state the steps reached; then the eval (phase 8) through K3 against
+   ``"torch"`` (the bidirectional hubert's control: attention without the
+   softmax's row-sum division) beside the forward's bound
+   (``forward_bound``); then one more step under ``torch.profiler``
+   (device time by kind).  The gates' control is the K4 calls' own (the
+   last 32 k-elements dropped), their limits ``FAMILY_PATH_LIMITS``.
+   The K3 cases of phase 2 include the three models' heads at these
+   shapes, the K4 cases their projections.
 10. Kernels K6 (BabelStream) and K5 (RWKV6 WKV scan), run after phase 2:
    copy, mul, add and triad at n = 2^27 in fp32 and bf16, bit-equal to
    their plain versions, and dot on non-negative inputs, each beside its
@@ -290,6 +312,14 @@ or when any check fails.  Phases:
 11. BabelStream: ``repro_torch.benchmarks.babelstream.run()``, the entry
    point of the paper's Fig. 10, on the card in fp32 (the counters set to 0
    just before, read just after) and in bf16.
+11b. Fig. 11 (``cloverleaf``): ``repro_torch.benchmarks.cloverleaf.run()``
+   at the reference's 256^2, 512^2 and 1024^2 grids and at 16384^2 (1 GiB,
+   past the L2 cache): each step's time against its bytes at 3.35 TB/s,
+   each size's first step held against the float64 step, and a control
+   (the rows edge-padded instead of wrapped) that the check must reject.
+   ``figures``: ``repro_torch.benchmarks.fp8_gemm.run()`` and
+   ``paged_attention.run()`` at their default sweeps, each K4 and K1 row
+   checked against its plain version with a control that must fail.
 12. RWKV eval, once the olmo-1b state is freed: rwkv6-7b at full width and
    depth (random fp32 weights from seed 0, bf16 compute), ``loss_fn`` on
    4 x 2048 synthetic tokens under ``torch.no_grad()`` with
@@ -313,6 +343,7 @@ H100 SXM's published peaks.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -3012,15 +3043,17 @@ def path_phase(cfg, params, device) -> dict:
 SPANS = ("fp8_layout_copy",)
 
 
-def profiled(fn, steps: int = 1) -> tuple[dict, float, float, dict]:
+def profiled(fn, steps: int = 1, cpu: bool = True) -> tuple[dict, float, float, dict]:
     """``fn()`` run ``steps`` times under ``torch.profiler``: (device ms by
     kernel name, device launches, wall ms under the profiler, device ms of
-    each span of ``SPANS``), each per run."""
+    each span of ``SPANS``), each per run.  ``cpu=False`` traces the device
+    alone (no spans): a step of tens of thousands of launches then takes
+    seconds, not tens of seconds, to read back."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
@@ -3038,6 +3071,21 @@ def profiled(fn, steps: int = 1) -> tuple[dict, float, float, dict]:
             by_name[e.name] = by_name.get(e.name, 0.0) + ms
             launches += 1
     return by_name, launches / steps, wall_ms, by_span
+
+
+# kernel kinds by name: cuBLAS's Hopper GEMMs are named nvjet_*, its GEMVs
+# gemv*; PyTorch's elementwise kernels (casts and copies among them)
+# *elementwise_kernel*
+KERNEL_KINDS = {"gemm": ("gemm", "nvjet", "xmma", "cutlass"), "gemv": ("gemv",),
+                "elementwise": ("elementwise_kernel",), "softmax": ("softmax",), "indexing": ("index",)}
+
+
+def ms_by_kind(by_name: dict) -> dict:
+    """Device ms summed by ``KERNEL_KINDS``, and the rest."""
+    out = {kind: sum(v for k, v in by_name.items() if any(s in k.lower() for s in subs))
+           for kind, subs in KERNEL_KINDS.items()}
+    out["other"] = sum(by_name.values()) - sum(out.values())
+    return out
 
 
 def profile_phase(cfg, params, device, steps=5, quantize_kv=False, cache_kind="paged", lens=DECODE_LENS, nb=NB) -> dict:
@@ -3121,7 +3169,14 @@ FLASH_CASES = [
     # llama-3.2-vision-90b's self layers at the vlm eval's shape: 8 query
     # heads per kv head
     ("llama-3.2-vision", (2, 64, 8, 2048, 2048, 128), torch.bfloat16, True, 0, 0.0, 1.0),
+    # the eval forwards of the moe, hybrid and audio training phases:
+    # qwen3-moe's 16 query heads per kv head, hymba's window of 1024 at 25
+    # heads over 5, hubert's bidirectional hd 80 (padded to 128 by TMA)
+    ("qwen3-moe-235b-a22b", (2, 64, 4, 2048, 2048, 128), torch.bfloat16, True, 0, 0.0, 1.0),
+    ("hymba-1.5b", (4, 25, 5, 2048, 2048, 64), torch.bfloat16, True, 1024, 0.0, 1.0),
+    ("hubert-xlarge", (4, 16, 16, 2048, 2048, 80), torch.bfloat16, False, 0, 0.0, 1.0),
 ]
+FAMILY_FLASH_CASES = ("qwen3-moe-235b-a22b", "hymba-1.5b", "hubert-xlarge")
 # K3 against its plain version.  Both keep scores and the sums in fp32 and P
 # at fp32 accuracy (the bf16 kernel carries P as two bf16 terms, good to
 # about 2^-17) and differ only in the order of the sums, far below a bf16
@@ -3151,7 +3206,20 @@ GEMM_CASES = [
     ("bwd dx ffn_down: g @ w.T", (M_TOK, D_MODEL, D_FF), ("e5m2", "e4m3"), (False, True)),
     ("bwd dw ffn_down: x.T @ g", (D_FF, M_TOK, D_MODEL), ("e4m3", "e5m2"), (True, False)),
     ("ragged", (1000, 1000, 1000), ("e4m3", "e4m3"), (False, False)),
+    # the projections of the moe, hybrid and audio training phases:
+    # qwen3-moe (2 x 2048 tokens, d_model 4096, 64 x 128 query and 4 x 128
+    # kv columns), hymba-1.5b (1600, 5 x 64 kv columns, FFN 5504) and
+    # hubert-xlarge (1280, FFN 5120)
+    ("qwen3-moe fwd attn_q", (4096, 4096, 8192), ("e4m3", "e4m3"), (False, False)),
+    ("qwen3-moe fwd attn_k/v", (4096, 4096, 512), ("e4m3", "e4m3"), (False, False)),
+    ("hymba fwd attn_k/v", (M_TOK, 1600, 320), ("e4m3", "e4m3"), (False, False)),
+    ("hymba fwd ffn_down", (M_TOK, 5504, 1600), ("e4m3", "e4m3"), (False, False)),
+    ("hymba bwd dw attn_k/v: x.T @ g", (1600, M_TOK, 320), ("e4m3", "e5m2"), (True, False)),
+    ("hubert fwd attn_q/k/v/o", (M_TOK, 1280, 1280), ("e4m3", "e4m3"), (False, False)),
+    ("hubert fwd ffn_up", (M_TOK, 1280, 5120), ("e4m3", "e4m3"), (False, False)),
+    ("hubert bwd dx ffn_up: g @ w.T", (M_TOK, 5120, 1280), ("e5m2", "e4m3"), (False, True)),
 ]
+FAMILY_GEMM_CASES = [name for name, *_ in GEMM_CASES if name.split()[0] in ("qwen3-moe", "hymba", "hubert")]
 # K4 against its plain version: its products are exact and its sums fp32,
 # so only the order of the fp32 sums differs; relative to the output's
 # largest magnitude.  The control, computed in every case, is the plain GEMM
@@ -3221,7 +3289,11 @@ def flash_phase(device) -> tuple[dict, dict]:
             lib_errors = finite_or_none(flash_errors(lib(0), ref))
         del ref
         nbytes, flops = flash_work(B, H, KV, Sq, Skv, hd, q.element_size(), causal, window)
-        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S if dt == torch.bfloat16 else FP32_FLOPS_PER_S)
+        rate = BF16_FLOPS_PER_S if dt == torch.bfloat16 else FP32_FLOPS_PER_S
+        bound_ms, bound_by = bound(nbytes, flops, rate)
+        # the bound counts the head dim's own work; TMA pads it to a
+        # multiple of 64, whose products the tensor cores also do
+        hd_pad = -(-hd // 64) * 64
         row = {
             "phase": "kernel", "kernel": "flash_attention", "case": name, "shape": [B, H, KV, Sq, Skv, hd],
             "dtype": str(dt).replace("torch.", ""), "route": K3.ROUTES[dt], "causal": causal, "window": window,
@@ -3236,6 +3308,7 @@ def flash_phase(device) -> tuple[dict, dict]:
             "plain_ms": timed_ms(lambda i: flash_attention_plain(q, k, v, **kw), iters=5, warmup=1),
             "library_ms": timed_ms(lib, iters=10, warmup=2) if lib else None,
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "padded_hd": hd_pad, "bound_padded_ms": bound(nbytes, flops * hd_pad / hd, rate)[0],
         }
         emit(row)
         if not flash_passes(errs, dt):
@@ -3411,15 +3484,19 @@ EVAL_LIMITS = {"loss_diff": 2e-4, "max_logits_diff": 0.5}
 # llama-3.2-vision (10 layers, vocab 128256) on the H100 (PERF.md, vlm):
 # flash against torch read a loss difference of 2.2e-4 and logits 0.109
 # apart, the control 7.9e-4 and 6.14; its loss limit lies between.
-EVAL_LIMITS_BY_MODEL = {"llama-3.2-vision-90b": {"loss_diff": 4e-4, "max_logits_diff": 0.5}}
+EVAL_LIMITS_BY_MODEL = {"llama-3.2-vision-90b": {"loss_diff": 4e-4, "max_logits_diff": 0.5},
+                        # hymba-1.5b (32 layers, 4 x 2048, window 1024) on the H100 (PERF.md,
+                        # training forwards): flash against torch read a loss difference of 2.5e-4 and
+                        # logits 0.125 apart, the control 4.7e-3 and 10.0
+                        "hymba-1.5b": {"loss_diff": 1e-3, "max_logits_diff": 0.5}}
 
 
-def train_run_config(fp8_gemm="kernel"):
+def train_run_config(fp8_gemm="kernel", arch="olmo-1b", global_batch=TRAIN_B):
     from repro_torch.config import ParallelConfig, PrecisionConfig, RunConfig, TrainConfig
 
     return RunConfig(
-        arch="olmo-1b",
-        train=TrainConfig(global_batch=TRAIN_B, seq_len=TRAIN_S, warmup_steps=2, total_steps=10),
+        arch=arch,
+        train=TrainConfig(global_batch=global_batch, seq_len=TRAIN_S, warmup_steps=2, total_steps=10),
         parallel=ParallelConfig(remat="full"),
         precision=PrecisionConfig(param_dtype="float32", compute_dtype="bfloat16", fp8=True, fp8_gemm=fp8_gemm),
     )
@@ -3479,13 +3556,52 @@ def train_phase(cfg, device):
     return state, batches[TRAIN_STEPS], out
 
 
-def clone_state(state):
-    from repro_torch.train import TrainState
-    from repro_torch.utils.tree import tree_map
+def gate_picks(cfg) -> dict:
+    """The tensors whose updates the gate compares: the first layer's wq and
+    the last layer's FFN down projection (moe: its router, whose gradient
+    comes through the gates and the load-balance loss; an expert stack is
+    3.2 GB a copy)."""
+    ffn = ("moe", "router") if cfg.family == "moe" else ("mlp", "w_down")
+    return {"blocks.0.attn.wq": ("blocks", 0, "attn", "wq"),
+            f"blocks.{cfg.num_layers - 1}.{'.'.join(ffn)}": ("blocks", cfg.num_layers - 1, *ffn)}
 
-    c = lambda t: t.clone()  # noqa: E731
-    return TrainState(params=tree_map(c, state.params), opt=type(state.opt)(state.opt.step.clone(), tree_map(c, state.opt.m), tree_map(c, state.opt.v)),
-                      compress_residual=None, fp8=type(state.fp8)(tree_map(c, state.fp8.amax_history), tree_map(c, state.fp8.scale), state.fp8.step.clone()))
+
+def leaf_at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def step_readings(cfg, run, state, batch, picks) -> dict:
+    """One train step as ``make_train_step`` takes it, through its own
+    ``grads_of`` and ``lr_schedule`` and AdamW's clip and update: the loss,
+    aux loss, gradient norm, lr and the picked tensors after the update.
+    The update is applied to clones of the picked tensors and their moments
+    only, so the state is left as it was: the kernel step and its
+    references start from one state without a copy of the model's 16 bytes
+    a parameter."""
+    from repro_torch.optim import AdamWState, adamw_update
+    from repro_torch.optim.adamw import clip_scale, clipped, global_norm
+    from repro_torch.train.step import grads_of, lr_schedule
+
+    tr = run.train
+    if run.parallel.num_microbatches != 1:
+        raise ValueError("the gate takes a step of one microbatch")
+    grads, ce, aux, _ = grads_of(cfg, run, state, batch)
+    norm = global_norm(grads)
+    scale = clip_scale(norm, tr.grad_clip)
+    picked = {name: clipped(leaf_at(grads, path), scale) for name, path in picks.items()}
+    del grads  # the model's gradients go before the picked tensors are copied
+    lr = lr_schedule(run)(state.opt.step)
+    out = {"loss": float(ce), "aux_loss": float(aux), "grad_norm": float(norm), "lr": float(lr), "params": {}}
+    for name, path in picks.items():
+        sub = lambda t: {"blocks": [{"x": t}]}  # noqa: E731  (a block leaf: AdamW's rank rule)
+        opt = AdamWState(state.opt.step, sub(leaf_at(state.opt.m, path).clone()), sub(leaf_at(state.opt.v, path).clone()))
+        new, _, _ = adamw_update(sub(leaf_at(state.params, path).clone()), sub(picked.pop(name)), opt, lr=lr,
+                                 beta1=tr.beta1, beta2=tr.beta2, eps=tr.eps, weight_decay=tr.weight_decay)
+        out["params"][name] = new["blocks"][0]["x"]
+        del opt, new
+    return out
 
 
 def path_readings(r, ref) -> dict:
@@ -3501,81 +3617,108 @@ def within(readings: dict, limits: dict) -> bool:
     return all(readings[k] <= v for k, v in limits.items())
 
 
-def train_path_phase(cfg, state, batch):
-    """One kernel step in which every K4 call is checked against the plain
-    GEMM on its own operands (with the control), and whole steps with the
-    plain GEMM, the control and the order probe.  Returns the kernel step's
-    state."""
+def order_probe(a, b, sa, sb):
+    """The plain GEMM with its sums in another fp32 order (K split in halves)."""
+    h = a.shape[1] // 2
+    return (a[:, :h].float() @ b[:h].float() + a[:, h:].float() @ b[h:].float()) * (1.0 / (sa.float() * sb.float()))
+
+
+def scale_control(a, b, sa, sb):
+    """The plain GEMM with 1/(sa sb) rounded to bf16: up to 2^-9 off."""
+    from repro_torch.fp8.gemm_ref import fp8_gemm_plain
+
+    return fp8_gemm_plain(a, b, sa, sb) * ((1 / (sa * sb)).bfloat16().float() * (sa * sb))
+
+
+def k_tail_control(a, b, sa, sb):
+    """The plain GEMM without its last 32 k-elements: a k-tile loop that
+    stops short, the K4 calls' own control."""
+    from repro_torch.fp8.gemm_ref import fp8_gemm_plain
+
+    return fp8_gemm_plain(a[:, :-32], b[:-32], sa, sb)
+
+
+def train_path_phase(cfg, state, batch, run_for, control, limits) -> dict:
+    """The train path's gate, from ``state``, which it leaves as it was: the
+    kernel step (``run_for("kernel")``'s config with every K4 call also held
+    against the plain GEMM on its own operands, with ``k_tail_control``),
+    and the steps with the plain GEMM, ``control`` and ``order_probe``, each
+    read by ``step_readings``; the kernel and the probe must pass
+    ``limits`` against the plain step, the control must fail every one."""
     from repro_torch.fp8 import fp8_gemm, fp8_sites
     from repro_torch.fp8.gemm_ref import fp8_gemm_plain
-    from repro_torch.train import make_train_step
 
-    picks = {"blocks.0.attn.wq": lambda p: p["blocks"][0]["attn"]["wq"],
-             f"blocks.{cfg.num_layers - 1}.mlp.w_down": lambda p: p["blocks"][-1]["mlp"]["w_down"]}
-
-    def run(gemm, st):  # one step with ``gemm`` as the quantized GEMMs
-        new, m = make_train_step(cfg, train_run_config(gemm))(st, batch)
-        return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]),
-                "params": {n: get(new.params).clone() for n, get in picks.items()}}, new
-
-    def control(a, b, sa, sb):
-        return fp8_gemm_plain(a, b, sa, sb) * ((1 / (sa * sb)).bfloat16().float() * (sa * sb))
-
-    def order_probe(a, b, sa, sb):
-        h = a.shape[1] // 2
-        return (a[:, :h].float() @ b[:h].float() + a[:, h:].float() @ b[h:].float()) * (1.0 / (sa.float() * sb.float()))
-
+    picks = gate_picks(cfg)
     calls = []
 
     def checked(a, b, sa, sb):  # K4, the plain GEMM and the call's control on the same operands
         out = fp8_gemm(a, b, sa, sb)
         ref = fp8_gemm_plain(a, b, sa, sb)
         tol = GEMM_RTOL * float(ref.abs().max())
-        dropped = fp8_gemm_plain(a[:, :-32], b[:-32], sa, sb)
+        dropped = k_tail_control(a, b, sa, sb)
         calls.append((float((out - ref).abs().max()), float((dropped - ref).abs().max()), tol,
                       [a.shape[0], a.shape[1], b.shape[1], str(a.dtype).split(".")[1], str(b.dtype).split(".")[1]]))
         return out
 
-    plain, _ = run("plain", clone_state(state))
-    ctl, _ = run(control, clone_state(state))
-    probe, _ = run(order_probe, clone_state(state))
-    kernel, state = run(checked, state)
+    t0 = time.perf_counter()
+    r = {name: step_readings(cfg, run_for(gemm), state, batch, picks)
+         for name, gemm in (("plain", "plain"), ("control", control), ("probe", order_probe), ("kernel", checked))}
     worst = max(calls, key=lambda c: c[0] / c[2])
     weakest_control = min(calls, key=lambda c: c[1] / c[2])
-    out = {"phase": "train_path", "k4_calls": len(calls),
+    out = {"phase": "train_path", "model": cfg.name, "control": control.__name__, "k4_calls": len(calls),
            "worst_call": {"err": worst[0], "tol": worst[2], "mkn_dtypes": worst[3]},
-           "weakest_control_call": {"err": weakest_control[1], "tol": weakest_control[2], "mkn_dtypes": weakest_control[3]},
-           "loss": {"kernel": kernel["loss"], "plain": plain["loss"]},
-           "grad_norm": {"kernel": kernel["grad_norm"], "plain": plain["grad_norm"]}, "lr": plain["lr"],
-           "kernel_vs_plain": path_readings(kernel, plain), "control_vs_plain": path_readings(ctl, plain),
-           "order_probe_vs_plain": path_readings(probe, plain), "limits": PATH_LIMITS}
+           "weakest_control_call": {"err": weakest_control[1], "tol": weakest_control[2],
+                                    "mkn_dtypes": weakest_control[3]},
+           "loss": {k: v["loss"] for k, v in r.items()}, "aux_loss": {k: v["aux_loss"] for k, v in r.items()},
+           "grad_norm": {k: v["grad_norm"] for k, v in r.items()}, "lr": r["plain"]["lr"],
+           "kernel_vs_plain": path_readings(r["kernel"], r["plain"]),
+           "control_vs_plain": path_readings(r["control"], r["plain"]),
+           "order_probe_vs_plain": path_readings(r["probe"], r["plain"]), "limits": limits,
+           "seconds": time.perf_counter() - t0}
+    del r
     emit(out)
-    per_step = 4 * cfg.num_layers * len(fp8_sites(cfg))
+    per_step = 4 * cfg.num_layers * len(fp8_sites(cfg))  # forward, recompute, dx and dw of every site
     if len(calls) != per_step:
-        fail(f"the checked kernel step made {len(calls)} K4 calls, expected {per_step}")
+        fail(f"{cfg.name}: the checked kernel step made {len(calls)} K4 calls, expected {per_step}")
     if worst[0] > worst[2]:
-        fail(f"a K4 call of the train step differs from the plain GEMM on its operands: {out}")
+        fail(f"{cfg.name}: a K4 call of the train step differs from the plain GEMM on its operands: {out}")
     if weakest_control[1] <= weakest_control[2]:
-        fail(f"the control passes a K4 call's limit, which then proves nothing: {out}")
-    if not within(out["kernel_vs_plain"], PATH_LIMITS):
-        fail(f"kernel and plain train steps differ: {out}")
-    if not within(out["order_probe_vs_plain"], PATH_LIMITS):
-        fail(f"the order probe, a sound order of the sums, fails the train path's limits: {out}")
-    for k, limit in PATH_LIMITS.items():
+        fail(f"{cfg.name}: the control passes a K4 call's limit, which then proves nothing: {out}")
+    if not within(out["kernel_vs_plain"], limits):
+        fail(f"{cfg.name}: kernel and plain train steps differ: {out}")
+    if not within(out["order_probe_vs_plain"], limits):
+        fail(f"{cfg.name}: the order probe, a sound order of the sums, fails the train path's limits: {out}")
+    for k, limit in limits.items():
         if out["control_vs_plain"][k] <= limit:
-            fail(f"the control step passes the train path's {k} limit, which then proves nothing: {out}")
+            fail(f"{cfg.name}: the control step passes the train path's {k} limit, which then proves nothing: {out}")
     torch.cuda.empty_cache()
-    return state
+    return out
 
 
 def attention_next_key(q, k, v, *, causal, window, softcap):
     """A control for the eval: causal attention in the model layout that
-    also sees the next key."""
+    also sees the next key (within the model's window, where it has one)."""
     S = q.shape[1]
     pos = torch.arange(S, device=q.device)
     mask = pos[None, :] <= pos[:, None] + 1
+    if window:
+        mask &= pos[:, None] - pos[None, :] < window
     return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                           attn_mask=mask, enable_gqa=q.shape[2] != k.shape[2]).transpose(1, 2)
+
+
+def attention_unnormalized(q, k, v, *, causal, window, softcap):
+    """A control for a bidirectional eval: attention in the model layout
+    whose output misses the softmax's division by its row sum, an epilogue
+    fault.  With random weights a bidirectional layer attends almost flat
+    over its 2048 frames, so its output is the mean of V, small, and
+    subtler faults (a key tile left out, the key heads one off) move the
+    loss less than the bf16 roundings do (PERF.md, training forwards)."""
+    qh, kh, vh = (t.transpose(1, 2).float() for t in (q, k, v))
+    rep = qh.shape[1] // kh.shape[1]
+    kh, vh = kh.repeat_interleave(rep, 1), vh.repeat_interleave(rep, 1)
+    s = qh @ kh.transpose(-1, -2) / math.sqrt(qh.shape[-1])
+    return (torch.exp(s - s.amax(-1, keepdim=True)) @ vh).to(q.dtype).transpose(1, 2)
 
 
 def self_attention_layers(cfg) -> int:
@@ -3610,7 +3753,7 @@ def eval_phase(cfg, params, batch) -> dict:
         flash = evaluate("flash")
         finite = bool(torch.isfinite(flash["logits"]).all())
         k3 = attention.flash_attention
-        attention.flash_attention = attention_next_key
+        attention.flash_attention = attention_next_key if cfg.causal else attention_unnormalized
         try:
             control = evaluate("flash")
         finally:
@@ -3947,10 +4090,7 @@ def mlperf_phase(device) -> dict:
     by_name, launches, prof_wall_ms, _ = profiled(one_step)
     del state, batch
     busy = sum(by_name.values())
-    kinds = {"gemm": ("gemm", "nvjet", "xmma", "cutlass"), "elementwise": ("elementwise_kernel",),
-             "softmax": ("softmax",)}  # cuBLAS's Hopper GEMMs are named nvjet_*
-    by_kind = {kind: sum(v for k, v in by_name.items() if any(s in k.lower() for s in subs))
-               for kind, subs in kinds.items()}
+    by_kind = ms_by_kind(by_name)
     step_ms = rows[0]["step_seconds"] * 1e3
     emit({"phase": "mlperf_profile", "what": "one Fig. 8 step (448 x 512, 14 microbatches) under torch.profiler",
           "step_ms": step_ms, "wall_ms_under_profiler": prof_wall_ms, "device_busy_ms": busy if by_name else None,
@@ -3974,6 +4114,204 @@ def mlperf_phase(device) -> dict:
         fail(f"mlperf: a loss or gradient norm is not finite: {steps}")
     if steps[0]["lr"] != 0.0 or not all(s["lr"] > 0 for s in steps[1:]):
         fail(f"mlperf: lr must be 0 at step 0 and above 0 after: {[s['lr'] for s in steps]}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 9d-9f: the moe, hybrid and audio training forwards at full width
+# ---------------------------------------------------------------------------
+
+MOE_TRAIN_LAYERS = 1  # of 94: a layer is 2.49 B parameters (40 GB of training state), the head and embedding 20 GB
+FAMILY_STEPS = 3
+# arch: (depth, or None for the published one; sequences of TRAIN_S tokens a step)
+FAMILY_TRAIN = {
+    MOE_ARCH: (MOE_TRAIN_LAYERS, 2),  # two routed groups of 2048 tokens, C = 160
+    HYMBA_ARCH: (None, TRAIN_B),
+    "hubert-xlarge": (None, TRAIN_B),
+}
+# the gate's limits by model: the dense path's PATH_LIMITS unless a model's
+# own readings on the H100 (PERF.md, training forwards; kernel and order probe against
+# the k-tail control in one run) set others.  hymba-1.5b: loss_rel 1.8e-5 and
+# 1.3e-5 against 3.9e-3, param_mean_over_lr 7.3e-3 and 7.2e-3 against 0.101
+# (the share of near-zero gradients whose sign a sum order flips is model's
+# own).  hubert-xlarge: param_mean_over_lr 2.8e-3 and 2.8e-3 against 0.0236;
+# its loss_rel (2.0e-5, 2.4e-5 against 2.4e-5) does not separate them and is
+# reported only.  qwen3-moe-235b-a22b holds PATH_LIMITS: 1.5e-6 and 1.5e-6
+# against 9.9e-4, 1.1e-3 and 1.5e-3 against 0.024.
+FAMILY_PATH_LIMITS: dict = {
+    HYMBA_ARCH: {"loss_rel": 8e-5, "param_mean_over_lr": 0.02},
+    "hubert-xlarge": {"param_mean_over_lr": 4.3e-3},
+}
+
+
+def forward_bound(cfg, params, B, S) -> tuple[float, str, float]:
+    """(bound ms, what bounds it, TFLOP) of one bf16 forward over B x S: every
+    weight but the embedding table read once in fp32, against 2 operations a
+    projection weight a token (a moe token reaches top_k of the experts),
+    the head, and 4 hd operations a visible (query, key) pair of every
+    attention head.  The SSD scan's and the norms' operations are not
+    counted: a lower bound."""
+    from repro_torch.utils.tree import tree_leaves, tree_paths
+
+    T = B * S
+    per_token = cfg.d_model * cfg.padded_vocab  # the head
+    nbytes = 0
+    for path, t in zip(tree_paths(params), tree_leaves(params)):
+        if path[:2] == ("embed", "tok") or path[:2] == ("embed", "pos"):
+            continue  # rows gathered, not read whole
+        nbytes += 4 * t.numel()
+        if path[0] != "blocks" and path != ("embed", "frame_proj"):
+            continue
+        if t.dim() < 2 or path[-1] in ("conv_w", "a_log", "maa_w2"):
+            continue  # not a projection
+        share = cfg.moe.top_k / cfg.moe.num_experts if path[-2:-1] == ("moe",) and t.dim() == 3 else 1.0
+        per_token += share * t.numel()
+    _, attn_ops = flash_work(B, 1, 1, S, S, 1, 1, cfg.causal, cfg.sliding_window)  # one head of hd 1
+    flops = 2 * T * per_token + attn_ops * cfg.head_dim * cfg.num_heads * self_attention_layers(cfg)
+    ms, by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    return ms, by, flops / 1e12
+
+
+def family_train_phase(cfg, device) -> dict:
+    """Train ``cfg`` with fp8 (K4 in every quantized projection), bf16
+    compute and ``remat="full"``, ``FAMILY_STEPS`` steps of B x ``TRAIN_S``
+    tokens (frames for audio) from random weights; then gate the kernel step
+    against the plain-GEMM step from the state the steps reached, every K4
+    call of it against the plain GEMM on its operands; then the eval
+    forward through K3 against ``"torch"`` (``eval_phase``) beside the
+    forward's bound; then one more step under ``torch.profiler``.
+
+    The gate is ``train_path_phase`` with ``k_tail_control``: olmo's
+    ``scale_control`` (the inverse scale rounded to bf16) moves these
+    models' loss and updates no more than a sound order of the sums does
+    (PERF.md, training forwards).  Its limits are ``FAMILY_PATH_LIMITS``, else
+    ``PATH_LIMITS``."""
+    from repro_torch.data import make_batch_fn
+    from repro_torch.fp8 import fp8_sites
+    from repro_torch.fp8 import gemm as K4
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.utils.tree import tree_leaves
+
+    B = FAMILY_TRAIN[cfg.name][1]
+    run = train_run_config("kernel", cfg.name, B)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, run, SEED, device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch_fn = make_batch_fn(cfg, global_batch=B, seq_len=TRAIN_S, seed=SEED, device=device)
+    batches = [batch_fn(i) for i in range(FAMILY_STEPS + 1)]
+    step = make_train_step(cfg, run)
+    per_step = 4 * cfg.num_layers * len(fp8_sites(cfg))  # forward, recompute, dx and dw of every site
+    tokens = B * TRAIN_S
+    K4.reset_launches()  # the main path's run starts here
+    steps = []
+    for i in range(FAMILY_STEPS):
+        before = K4.LAUNCHES["fp8_gemm"]
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i])
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rec = {"phase": "family_train_step", "model": cfg.name, "step": i, "loss": loss,
+               "aux_loss": float(m["aux_loss"]), "ms": dt * 1e3, "tokens_per_s": tokens / dt, "lr": float(m["lr"]),
+               "grad_norm": float(m["grad_norm"]), "k4_launches": K4.LAUNCHES["fp8_gemm"] - before}
+        emit(rec)
+        steps.append(rec)
+        if not np.isfinite(loss) or rec["k4_launches"] != per_step:
+            fail(f"{cfg.name} train step {i}: loss {loss}, {rec['k4_launches']} K4 launches (expected {per_step})")
+    k4_launches = K4.LAUNCHES["fp8_gemm"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = float(np.mean([r["ms"] for r in steps[1:]]))
+
+    batch = batches[FAMILY_STEPS]
+    train_path_phase(cfg, state, batch, lambda gemm: train_run_config(gemm, cfg.name, B), k_tail_control,
+                     FAMILY_PATH_LIMITS.get(cfg.name, PATH_LIMITS))
+    evaluation = eval_phase(cfg, state.params, batch)
+    bound_ms, bound_by, tflop = forward_bound(cfg, state.params, B, TRAIN_S)
+
+    def one_step():  # where a step's time goes: one more kernel step under torch.profiler
+        nonlocal state
+        state, m = step(state, batch)
+        float(m["loss"])
+
+    by_name, launches, prof_wall_ms, _ = profiled(one_step, cpu=False)
+    busy = sum(by_name.values())
+    k4_ms = sum(v for k, v in by_name.items() if "fp8_gemm_kernel" in k)
+    profile = {"wall_ms_under_profiler": prof_wall_ms, "device_busy_ms": busy if by_name else None,
+               "idle_share": 1.0 - busy / step_ms if by_name else None, "device_launches": int(launches),
+               "fp8_gemm_ms": k4_ms, "ms_by_kind": ms_by_kind(by_name),
+               "top_kernels_ms": [[n[:120], ms] for n, ms in
+                                                       sorted(by_name.items(), key=lambda kv: -kv[1])[:12]]}
+    out = {
+        "phase": "family_train", "model": cfg.name, "family": cfg.family, "layers": cfg.num_layers,
+        "params": sum(t.numel() for t in tree_leaves(state.params)), "tokens_per_step": tokens, "init_s": init_s,
+        "steps": FAMILY_STEPS, "losses": [s["loss"] for s in steps], "aux_losses": [s["aux_loss"] for s in steps],
+        "step_ms_mean_steps_1_2": step_ms, "tokens_per_s": tokens / step_ms * 1e3, "peak_mem_gb": peak_gb,
+        "k4_launches": k4_launches, "k4_per_step": per_step, "profile": profile,
+        "eval": {"k3_launches": evaluation["k3_launches"], "loss": evaluation["loss"],
+                 "warm_wall_s": evaluation["warm_wall_s"], "flash_vs_torch": evaluation["flash_vs_torch"],
+                 "control_vs_torch": evaluation["control_vs_torch"], "limits": evaluation["limits"],
+                 "forward_tflop": tflop, "bound_ms": bound_ms, "bound_by": bound_by},
+    }
+    emit(out)
+    del state, batches, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 9g-9h: Fig. 11 (CloverLeaf) and the last figure scripts
+# ---------------------------------------------------------------------------
+
+CLOVER_SIZES = (256, 512, 1024)  # the reference's
+CLOVER_LARGE = 16384  # 1 GiB a grid: past the 50 MB L2 cache
+
+
+def cloverleaf_phase(device) -> dict:
+    """Fig. 11's ``run()`` at the reference's sizes and at one past the L2
+    cache (its float64 check inside), and a control: the step with the rows
+    edge-padded, which the float64 check must reject."""
+    from repro_torch.benchmarks import cloverleaf
+
+    rows = cloverleaf.run(sizes=CLOVER_SIZES + (CLOVER_LARGE,), iters=10, device=device)
+    for r in rows:
+        emit({"phase": "cloverleaf", **r})
+    g = torch.Generator(device=device).manual_seed(SEED)
+    u = torch.randn((1024, 1024), generator=g, device=device)
+    rows_edge = torch.cat([u[:1], u, u[-1:]], dim=0)
+    wrong = cloverleaf.stencil(torch.cat([rows_edge[:, :1], rows_edge, rows_edge[:, -1:]], dim=1))
+    control = cloverleaf.check_step(u, wrong)
+    large = next(r for r in rows if r["name"] == f"cloverleaf_{CLOVER_LARGE}x{CLOVER_LARGE}")
+    out = {"phase": "cloverleaf", "sizes": list(CLOVER_SIZES) + [CLOVER_LARGE],
+           "large_gbps": large["achieved_gbps"], "large_hbm_fraction": large["hbm_fraction"],
+           "control_rel_err": control, "limit": cloverleaf.CHECK_RTOL,
+           "rows": {r["name"]: {k: r.get(k) for k in ("us_per_call", "bound_us", "achieved_gbps",
+                                                     "max_rel_err_vs_float64")} for r in rows}}
+    emit(out)
+    if control <= cloverleaf.CHECK_RTOL:
+        fail(f"cloverleaf: the row-edge control passes the float64 check, which then proves nothing: {out}")
+    del u, rows_edge, wrong
+    torch.cuda.empty_cache()
+    return out
+
+
+def figures_phase(device) -> dict:
+    """The §1 FP8 GEMM sweep and the §IV.F paged-attention sweep at their
+    default sizes: each K4 and K1 row passes its check against the plain
+    version, whose control fails (``run`` raises otherwise)."""
+    from repro_torch.benchmarks import fp8_gemm, paged_attention
+
+    out = {"phase": "figures", "rows": {}}
+    for mod in (fp8_gemm, paged_attention):
+        for r in mod.run(device=device):
+            emit({"phase": "figures", **r})
+            out["rows"][r["name"]] = {k: r.get(k) for k in ("us_per_call", "bound_us", "max_abs_err", "control_err")}
+    kernel_rows = [n for n in out["rows"] if n.endswith("_kernel") or "_kernel_" in n]
+    if len(kernel_rows) != len(fp8_gemm.SIZES) + len(paged_attention.CASES):
+        fail(f"figures: expected a checked kernel row per size and case: {kernel_rows}")
+    emit({"phase": "figures", "kernel_rows": len(kernel_rows)})
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4335,6 +4673,7 @@ def main() -> int:
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build
     from repro_torch.models import init_params
+    from repro_torch.train import make_train_step
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4411,6 +4750,8 @@ def main() -> int:
     stream_rows = phase("kernel_k6", stream_phase, device)
     wkv_main = phase("kernel_k5", wkv_phase, device)
     stream_launches = phase("babelstream", babelstream_phase, device)
+    phase("cloverleaf", cloverleaf_phase, device)
+    phase("figures", figures_phase, device)
 
     cfg = get_config("olmo-1b")  # full width and depth
     params = phase("init", init_params, cfg, SEED, device)
@@ -4458,7 +4799,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     state, batch, train = phase("train", train_phase, cfg, device)
-    state = phase("train_path", train_path_phase, cfg, state, batch)
+    phase("train_path", train_path_phase, cfg, state, batch, train_run_config, scale_control, PATH_LIMITS)
+    # the gate leaves the state as it was: one kernel step on its batch brings the eval and the
+    # profile to the state their limits and readings were taken at (5 steps)
+    state = phase("train_step_5", lambda: make_train_step(cfg, train_run_config())(state, batch)[0])
     evaluation = phase("eval", eval_phase, cfg, state.params, batch)
     phase("train_profile", train_profile_phase, cfg, state, batch)
     del state, batch  # the olmo-1b training state's memory goes back before the facility and rwkv6-7b
@@ -4467,6 +4811,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("mlperf", mlperf_phase, device)
     torch.cuda.empty_cache()
+    # the remaining training forwards, each alone on the card
+    family = {}
+    for name, arch in (("moe_train", MOE_ARCH), ("hybrid_train", HYMBA_ARCH), ("audio_train", "hubert-xlarge")):
+        fcfg = get_config(arch)
+        if FAMILY_TRAIN[arch][0]:
+            fcfg = fcfg.replace(num_layers=FAMILY_TRAIN[arch][0])  # full width, depth cut
+        family[arch] = phase(name, family_train_phase, fcfg, device)
+        torch.cuda.empty_cache()
 
     rwkv_cfg = get_config("rwkv6-7b")  # full width and depth, 30.3 GB of fp32: one load serves both phases
     rwkv_params = phase("rwkv_init", init_params, rwkv_cfg, SEED, device)
@@ -4548,10 +4900,22 @@ def main() -> int:
                 "bound_by", "library_ms")}
             k["vlm_eval_launches"] = vlm_eval["k3_launches"]
             k["vlm_serving_launches"] = vlm_serving["served"]["launches"]["flash_attention"]
+            # the moe, hybrid and audio eval forwards: their heads and launches
+            k["families"] = {arch: {"launches": family[arch]["eval"]["k3_launches"],
+                                    **{f: flash_rows[arch][f] for f in (
+                                        "shape", "window", "causal", "max_abs_err", "kernel_ms", "kernel_enqueue_ms",
+                                        "plain_ms", "bound_ms", "bound_by", "padded_hd", "bound_padded_ms",
+                                        "library_ms")}}
+                             for arch in FAMILY_FLASH_CASES}
         if k["name"] in ("paged_decode", "paged_prefill"):  # the facility's serving tenant, each parameter set
             k["facility_launches"] = {run: facility["serving"][run]["launches"][k["name"]] for run in ("clean", "faulty")}
         if k["name"] == "fp8_gemm":
             k["facility_launches"] = facility["k4_launches"]  # the facility's runs and the async check's step
+            k["family_launches"] = {arch: family[arch]["k4_launches"] for arch in family}  # 3 steps each
+            k["family_shapes"] = {n: {f: gemm_rows[n][f] for f in ("mkn", "dtypes", "max_abs_err", "kernel_ms",
+                                                                  "kernel_alone_ms", "plain_ms", "bound_ms",
+                                                                  "bound_by", "library_ms")}
+                                  for n in FAMILY_GEMM_CASES}
             k.update(kernel_alone_ms=gemm_main["kernel_alone_ms"], layout_copy_ms=gemm_main["layout_copy_ms"],
                      layout_copies_per_call=gemm_main["layout_copies"],
                      layout_copies=train["k4_layout_copies"])

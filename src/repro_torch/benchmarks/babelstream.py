@@ -20,10 +20,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 
 import torch
 
+from repro_torch.benchmarks.timing import device_name, time_per_call
 from repro_torch.device import resolve_device
 from repro_torch.kernels.babelstream import (
     stream_add,
@@ -37,24 +37,6 @@ from repro_torch.kernels.babelstream import (
 N = 2**27  # elements: 512 MiB per fp32 array, ten times the 50 MB L2 cache
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def _time_per_call(fn, iters: int, device: torch.device) -> float:
-    """Seconds per call of ``fn`` after one warm-up call."""
-    fn()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3 / iters
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    return (time.perf_counter() - t0) / iters
 
 
 def run(n: int = N, dtype=torch.float32, iters: int = 20, device="cuda", seed: int = 0) -> list[dict]:
@@ -75,7 +57,7 @@ def run(n: int = N, dtype=torch.float32, iters: int = 20, device="cuda", seed: i
     item = a.element_size()
     rows = []
     for name, fn in kernels.items():
-        dt = _time_per_call(fn, iters, device)
+        dt = time_per_call(fn, iters, device)
         nbytes = stream_bytes(name, n, item)
         rows.append({
             "name": f"babelstream_{name}",
@@ -85,7 +67,7 @@ def run(n: int = N, dtype=torch.float32, iters: int = 20, device="cuda", seed: i
             "hbm_fraction": nbytes / dt / HBM_BYTES_PER_S if on_card else None,
             "dtype": str(dtype).replace("torch.", ""),
             "n": n,
-            "device": torch.cuda.get_device_name(device) if on_card else "cpu",
+            "device": device_name(device),
         })
     return rows
 

@@ -29,6 +29,7 @@ from repro_torch.configs import (  # noqa: E402,F401
     arctic_480b,
     bert_large,
     gemma_7b,
+    hubert_xlarge,
     hymba_1_5b,
     llama32_vision_90b,
     mistral_nemo_12b,

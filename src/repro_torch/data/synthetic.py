@@ -1,12 +1,14 @@
-"""Deterministic synthetic token batches, the recipe of the JAX package's
+"""Deterministic synthetic batches, the recipe of the JAX package's
 ``data/synthetic.py`` on a ``torch.Generator``.
 
 A batch is a pure function of (seed, step): replaying a step gives the same
 tokens.  Tokens are Zipf-like over the vocabulary (logits ``-1.2 log rank``)
 and, with probability 0.3, the previous base token times 31 modulo V, so a
 model can learn something; ``labels`` are the tokens shifted left by one.
-The bits differ from ``jax.random``'s: parity tests hand one numpy batch to
-both packages.
+The audio family's batches hold standard normal ``frames`` instead, and
+their ``labels`` follow the frames by the JAX package's rule,
+``argmax(frames[..., :V]) % V``.  The bits differ from ``jax.random``'s:
+parity tests hand one numpy batch to both packages.
 """
 
 from __future__ import annotations
@@ -29,12 +31,15 @@ def synthetic_batch(cfg, *, step: int, global_batch: int, seq_len: int, seed: in
     """One training batch of int32 ``tokens`` and ``labels`` (B, S), made on
     the CPU from (seed, step) and moved to ``device``; for the vlm family
     also ``vision_tokens`` (B, num_image_tokens, d_model) fp32, standard
-    normal, the stand-in for the stubbed vision tower's patch embeddings."""
-    if cfg.family == "audio":
-        raise NotImplementedError(f"synthetic {cfg.family} batches are not ported yet ({cfg.name})")
+    normal, the stand-in for the stubbed vision tower's patch embeddings.
+    The audio family's batch holds ``frames`` (B, S, d_model) fp32, standard
+    normal, in place of ``tokens`` (``audio_labels`` gives its labels)."""
     device = resolve_device(device)
     g = _generator(seed, step)
     V = cfg.vocab_size
+    if cfg.family == "audio":
+        frames = torch.randn((global_batch, seq_len, cfg.d_model), generator=g)
+        return {"frames": frames.to(device), "labels": audio_labels(frames, V).to(device)}
     ranks = torch.arange(V, dtype=torch.float64) + 1.0
     probs = torch.exp(-1.2 * torch.log(ranks))
     B, S = global_batch, seq_len
@@ -47,6 +52,12 @@ def synthetic_batch(cfg, *, step: int, global_batch: int, seq_len: int, seed: in
     if cfg.family == "vlm":
         batch["vision_tokens"] = torch.randn((B, cfg.vision.num_image_tokens, cfg.d_model), generator=g).to(device)
     return batch
+
+
+def audio_labels(frames: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """The pseudo cluster targets of frames (B, S, D): int32 ``argmax(frames[...,
+    :V], -1) % V``, the JAX package's rule (learnable from the frames)."""
+    return (torch.argmax(frames[..., :vocab_size], dim=-1) % vocab_size).to(torch.int32)
 
 
 def make_batch_fn(cfg, *, global_batch: int, seq_len: int, seed: int = 0, device="cuda"):

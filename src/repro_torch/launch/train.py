@@ -4,8 +4,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3   # smoke size
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 6 --ckpt-every 2 --fail-at 3
 
-It takes the JAX launcher's flags and defaults (``--reduced`` smoke size by
-default, ``--full`` for the published widths, ``--fp8``, ``--microbatches``,
+It takes the JAX launcher's flags, archs and defaults (``--arch``: any
+registered config, hubert-xlarge, qwen3-moe-235b-a22b, arctic-480b and
+hymba-1.5b included; ``--reduced`` smoke size by default, ``--full`` for
+the published widths, ``--fp8``, ``--microbatches``,
 ``--seed``, ``--ckpt-dir``, ``--ckpt-every``, ``--fail-at``) and its
 ``RunConfig`` (``remat="full"``, ``warmup_steps=5``), plus ``--device`` (the
 card unless ``cpu`` is asked for).  The quantized GEMMs take
@@ -16,7 +18,8 @@ newest checkpoint, synchronous saves every ``--ckpt-every`` steps into
 ``<ckpt-dir>/<model>``, newest two kept) and charges them to an
 ``EnergyLedger``.  A run starts from step 0, so the checkpoints an earlier
 run left in ``<ckpt-dir>/<model>`` are removed first: the newest-k rule
-would keep them over this run's, and a failure would restore them.  It prints the loss, the step time and tokens per second
+would keep them over this run's, and a failure would restore them.  It prints the loss, the aux loss (the moe
+family's load-balance loss, else 0), the step time and tokens per second
 of every step run (replayed steps again), then the JAX launcher's summary
 (steps, first and last loss, failures, restores) and energy report.
 """
@@ -59,8 +62,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None) -> list[dict]:
-    """Run the steps; returns one record per step run (step, loss, seconds,
-    tokens/s, lr), a replayed step again."""
+    """Run the steps; returns one record per step run (step, loss, aux_loss,
+    seconds, tokens/s, lr), a replayed step again."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -96,9 +99,10 @@ def main(argv=None) -> list[dict]:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0
-        i, lr = current["step"], float(m["lr"])
-        records.append({"step": i, "loss": loss, "seconds": dt, "tokens_per_s": tokens / dt, "lr": lr})
-        print(f"[train] step {i} loss {loss:.4f} lr {lr:.2e} {dt * 1e3:.1f} ms {tokens / dt:.0f} tok/s", flush=True)
+        i, lr, aux = current["step"], float(m["lr"]), float(m["aux_loss"])
+        records.append({"step": i, "loss": loss, "aux_loss": aux, "seconds": dt, "tokens_per_s": tokens / dt, "lr": lr})
+        print(f"[train] step {i} loss {loss:.4f} aux_loss {aux:.4g} lr {lr:.2e} {dt * 1e3:.1f} ms "
+              f"{tokens / dt:.0f} tok/s", flush=True)
         return state, m
 
     cluster = Cluster(ClusterSpec("local", nodes_per_pod=2, num_pods=1))

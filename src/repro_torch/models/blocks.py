@@ -5,17 +5,18 @@
   prefill that returns the layer's K/V (the dense slot cache's
   admission), the chunked-prefill step against a paged cache and the
   decode step against either cache layout;
-* moe (qwen3-moe, arctic): the same serving steps with the routed experts
+* moe (qwen3-moe, arctic): the forward, which also returns the layer's
+  load-balance loss, and the same serving steps with the routed experts
   (``models.moe``) in place of the FFN, and arctic's dense residual FFN
-  beside them (the training forward is not ported yet);
+  beside them;
 * ssm (RWKV6): the forward, and the prefill and decode steps that carry
   the recurrent state (``tm_x``, ``cm_x``, ``state``);
 * hybrid (hymba): attention heads and SSM heads (``models.ssm``) side by
   side on one normed input, each output RMS-normed and scaled before they
-  are averaged: the prefill that returns the layer's K/V and its conv and
-  SSM states, and the decode step against either cache layout, whose
-  recurrent states stay slot-dense beside the K/V (the training forward
-  is not ported yet);
+  are averaged: the forward, the prefill that returns the layer's K/V and
+  its conv and SSM states, and the decode step against either cache
+  layout, whose recurrent states stay slot-dense beside the K/V;
+* audio (hubert): the dense blocks over frame embeddings;
 * vlm (llama-3.2-vision): dense blocks for the self layers, and the cross
   layer, which attends the image tokens (``cross_attention``) and gates
   its attention and FFN into the residual through ``tanh`` of zero-init
@@ -130,15 +131,25 @@ def moe_block_specs(cfg) -> dict:
     return specs
 
 
-def _moe_residual(cfg, p, x, a):
+def _moe_residual(cfg, p, x, a, fp8=None):
     """The routed experts over ``norm2`` of the attention's residual, and
-    arctic's dense FFN over ``norm_dense`` of it beside them.  Serving drops
-    the load-balance loss, as in the JAX package."""
+    arctic's dense FFN over ``norm_dense`` of it beside them: (x, the
+    layer's load-balance loss), which serving drops, as in the JAX package.
+    ``fp8`` quantizes the dense FFN; the routed experts stay ``torch.bmm``
+    in the compute dtype, as in the JAX package."""
     x = x + a
-    mo, _aux = moe_ffn(cfg, p["moe"], apply_norm(cfg, p["norm2"], x))
+    mo, aux = moe_ffn(cfg, p["moe"], apply_norm(cfg, p["norm2"], x))
     if cfg.moe.dense_residual:
-        mo = mo + ffn(cfg, p["dense_mlp"], apply_norm(cfg, p["norm_dense"], x))
-    return x + mo
+        mo = mo + ffn(cfg, p["dense_mlp"], apply_norm(cfg, p["norm_dense"], x), fp8=fp8)
+    return x + mo, aux
+
+
+def moe_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8=None):
+    """Full-sequence forward of one layer (training): (x (B, S, D), aux).
+    ``fp8`` quantizes the attention projections and arctic's dense FFN."""
+    h = apply_norm(cfg, p["norm1"], x)
+    a = self_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk, impl=attn_impl, fp8=fp8)
+    return _moe_residual(cfg, p, x, a, fp8=fp8)
 
 
 def moe_block_prefill(cfg, p, x, *, positions=None, q_chunk=0):
@@ -147,7 +158,7 @@ def moe_block_prefill(cfg, p, x, *, positions=None, q_chunk=0):
     JAX package."""
     h = apply_norm(cfg, p["norm1"], x)
     a, k, v = prefill_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk)
-    return _moe_residual(cfg, p, x, a), {"k": k, "v": v}
+    return _moe_residual(cfg, p, x, a)[0], {"k": k, "v": v}
 
 
 def moe_block_chunk(cfg, p, x, cache, tbl_row, start, *, attn_impl="kernel", widths=None):
@@ -156,7 +167,7 @@ def moe_block_chunk(cfg, p, x, cache, tbl_row, start, *, attn_impl="kernel", wid
     for expert capacity, as in the JAX package."""
     h = apply_norm(cfg, p["norm1"], x)
     a = paged_chunk_attention(cfg, p["attn"], h, cache, tbl_row, start, impl=attn_impl, widths=widths)
-    return _moe_residual(cfg, p, x, a)
+    return _moe_residual(cfg, p, x, a)[0]
 
 
 def moe_block_decode(cfg, p, x, cache, pos, *, attn_impl="kernel"):
@@ -164,7 +175,7 @@ def moe_block_decode(cfg, p, x, cache, pos, *, attn_impl="kernel"):
     included."""
     h = apply_norm(cfg, p["norm1"], x)
     a = _decode_attn(cfg, p["attn"], h, cache, pos, attn_impl)
-    return _moe_residual(cfg, p, x, a)
+    return _moe_residual(cfg, p, x, a)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -243,8 +254,20 @@ def _hybrid_combine(p, a, m, dtype):
     return 0.5 * (p["beta_attn"].to(dtype) * _rmsn(a) + p["beta_ssm"].to(dtype) * _rmsn(m))
 
 
-def _hybrid_ffn(cfg, p, x):
-    return x + ffn(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+def _hybrid_ffn(cfg, p, x, fp8=None):
+    return x + ffn(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x), fp8=fp8)
+
+
+def hybrid_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8=None):
+    """Full-sequence forward of one layer from zero states (training): x
+    (B, S, D) -> (B, S, D).  ``fp8`` quantizes the attention projections and
+    the MLP; the SSM heads stay in the compute dtype, as in the JAX
+    package."""
+    h = apply_norm(cfg, p["norm1"], x)
+    a = self_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk, impl=attn_impl, fp8=fp8)
+    m, _states = ssm_mod.ssm_mix(cfg, p["ssm"], h)
+    x = x + _hybrid_combine(p, a, m, x.dtype)
+    return _hybrid_ffn(cfg, p, x, fp8=fp8)
 
 
 def hybrid_block_prefill(cfg, p, x, *, positions=None, q_chunk=0):

@@ -1,4 +1,4 @@
-"""Whole-model ParamSpec assembly and initialization (dense, moe, ssm, hybrid and vlm families).
+"""Whole-model ParamSpec assembly and initialization (dense, moe, ssm, hybrid, audio and vlm families).
 
 The parameter tree keeps the JAX package's names and per-layer layout
 (``wq (D,H,hd)``, ``wk/wv (D,KV,hd)``, ``wo (H,hd,D)``, ``w_up/w_gate
@@ -15,6 +15,9 @@ keeps a list of per-layer dicts under ``"blocks"``.  The vlm family scans
 layer groups in the JAX package, ``blocks["self"]`` leaves ``(G, g, ...)``
 and ``blocks["cross"]`` leaves ``(G, ...)``; the port keeps one entry per
 group, ``{"self": [g dense block dicts], "cross": cross block dict}``.
+The audio family (hubert) runs dense blocks over frame embeddings: its
+``embed`` holds ``frame_proj (D,D)`` and learned ``pos (max_position,D)``
+and no token table, and its head is always untied, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ BLOCK_SPECS = {
     "moe": moe_block_specs,
     "ssm": rwkv_block_specs,
     "hybrid": hybrid_block_specs,
+    "audio": dense_block_specs,
     "vlm": vlm_group_specs,
 }
 
@@ -57,12 +61,16 @@ def param_specs(cfg) -> dict:
     if cfg.family not in BLOCK_SPECS:
         raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported yet")
     D, V = cfg.d_model, cfg.padded_vocab
-    specs: dict = {"embed": {"tok": ParamSpec((V, D), ("vocab", "embed_v"), "normal")}}
-    if cfg.learned_pos_embedding:
-        specs["embed"]["pos"] = ParamSpec((cfg.max_position, D), (None, "embed_v"), "normal")
+    if cfg.family == "audio":  # frame embeddings in, no token table
+        specs: dict = {"embed": {"frame_proj": ParamSpec((D, D), ("embed", "heads_x_dim")),
+                                 "pos": ParamSpec((cfg.max_position, D), (None, "embed"), "normal")}}
+    else:
+        specs = {"embed": {"tok": ParamSpec((V, D), ("vocab", "embed_v"), "normal")}}
+        if cfg.learned_pos_embedding:
+            specs["embed"]["pos"] = ParamSpec((cfg.max_position, D), (None, "embed_v"), "normal")
     specs["blocks"] = [BLOCK_SPECS[cfg.family](cfg) for _ in range(num_scan_groups(cfg))]
     specs["final_norm"] = norm_specs(cfg)
-    if not cfg.tie_embeddings:
+    if not cfg.tie_embeddings or cfg.family == "audio":
         specs["lm_head"] = ParamSpec((D, V), ("embed_v", "vocab"))
     return specs
 

@@ -3,8 +3,9 @@
 Entry points, counterparts of the JAX package's ``models/model.py``:
 
 * ``forward``      — training forward over whole sequences: (logits, aux),
-  or (logits, aux, amaxes) with an FP8 context; the dense, ssm (RWKV6)
-  and vlm (llama-3.2-vision) families
+  or (logits, aux, amaxes) with an FP8 context; every family: dense, moe
+  (whose aux is the load-balance loss), ssm (RWKV6), hybrid (hymba), audio
+  (hubert, over frame embeddings) and vlm (llama-3.2-vision)
 * ``prefill``      — a whole (right-padded) prompt: (logits at each
   sequence's last real token, the raw cache stacked over layers: K/V, and
   the recurrent states of the hybrid and ssm families), which
@@ -40,9 +41,10 @@ return a new one.
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.models.attention import ATTN_IMPLS, SELF_ATTN_IMPLS
 from repro_torch.models.blocks import (
@@ -53,8 +55,10 @@ from repro_torch.models.blocks import (
     dense_block_chunk,
     dense_block_decode,
     dense_block_prefill,
+    hybrid_block,
     hybrid_block_decode,
     hybrid_block_prefill,
+    moe_block,
     moe_block_chunk,
     moe_block_decode,
     moe_block_prefill,
@@ -91,8 +95,14 @@ STEP_DTYPE_LEAVES = ("conv", "tm_x", "cm_x")
 
 
 def embed_input(cfg, params, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """(B, S) tokens at (B, S) positions -> (B, S, D) embeddings."""
+    """(B, S) tokens at (B, S) positions -> (B, S, D) embeddings.  For the
+    audio family ``tokens`` holds the frames, (B, S, D): ``frames @
+    frame_proj`` plus the learned ``pos[:S]``, whatever ``positions`` says,
+    as in the JAX package."""
     e = params["embed"]
+    if cfg.family == "audio":
+        x = tokens @ e["frame_proj"].to(tokens.dtype)
+        return x + e["pos"][: x.shape[1]].to(x.dtype)
     x = e["tok"][tokens.long()]
     if cfg.learned_pos_embedding:
         x = x + e["pos"][positions.long()].to(x.dtype)
@@ -119,12 +129,27 @@ def lm_logits(cfg, params, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-# activation-checkpoint policies of the JAX package's layer scan; the port
-# recomputes a whole block ("full") or nothing ("none")
+# activation-checkpoint policies of the JAX package's layer scan: keep every
+# activation ("none"), recompute a whole block in the backward ("full"), or
+# recompute it but keep the outputs of its matrix products ("dots": mm,
+# addmm and bmm; "dots_no_batch": only the products with no batch dimension,
+# mm and addmm), as ``checkpoint_dots`` and
+# ``checkpoint_dots_with_no_batch_dims`` keep the outputs of ``dot_general``.
+# K4's output is written by a ctypes launch that the dispatcher does not
+# see, so the policies cannot keep it: it is recomputed, as the JAX
+# package's Pallas FP8 GEMM, whose output is no ``dot_general``, is under
+# its policies.
 REMAT_POLICIES = ("none", "full", "dots", "dots_no_batch")
+_aten = torch.ops.aten
+SAVED_PRODUCTS = {
+    "dots": [_aten.mm.default, _aten.addmm.default, _aten.bmm.default],
+    "dots_no_batch": [_aten.mm.default, _aten.addmm.default],
+}
 
-
-FORWARD_FAMILIES = ("dense", "ssm", "vlm")
+FORWARD_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+# the training block of each family that runs one per layer (ssm: rwkv_block;
+# vlm: layer groups); the moe block also returns its load-balance loss
+TRAIN_BLOCKS = {"dense": dense_block, "audio": dense_block, "moe": moe_block, "hybrid": hybrid_block}
 
 
 def _stack_caches(caches: list) -> dict:
@@ -141,23 +166,27 @@ def forward(
 ):
     """Training forward.  Returns (logits, aux_loss), or (logits, aux_loss,
     amaxes) when an ``fp8`` context (``repro_torch.fp8.Fp8Ctx``) is passed:
-    amaxes maps each scale key to the (num_layers,) amaxes observed.  The
-    ssm and vlm families take no fp8 context (ValueError, as in the JAX
-    package).
+    amaxes maps each scale key to the (num_layers,) amaxes observed.
+    aux_loss is the moe layers' load-balance losses summed and divided by
+    ``cfg.num_layers``, as in the JAX package, and 0 for the other
+    families.  The ssm and vlm families take no fp8 context (ValueError, as
+    in the JAX package).
 
-    batch: ``tokens`` (B, S) int and optional ``positions`` (B, S); the vlm
+    batch: ``tokens`` (B, S) int and optional ``positions`` (B, S); the
+    audio family reads ``frames`` (B, S, D) in place of ``tokens``; the vlm
     family also reads ``vision_tokens`` (B, N, D), cast to
     ``compute_dtype`` with the activations.
     ``compute_dtype`` casts the activation stream, not the master weights:
     each weight use casts its own tensor (FP8 sites quantize the fp32
-    master weight directly).  ``remat="full"`` recomputes each block (each
-    self and each cross layer of a vlm group) in the backward (``torch.utils.checkpoint``, non-reentrant); ``"dots"`` and
-    ``"dots_no_batch"`` (save the matmul outputs) are not ported yet.
-    ``attn_impl`` (dense, and vlm's self layers; its cross layers attend
-    in tensor ops): ``"torch"`` (differentiable) or ``"flash"`` (K3,
-    forward only).  ``wkv_impl`` (ssm): ``"chunked"`` (differentiable) or
-    ``"kernel"`` (K5, forward only, from a zero state; the forward drops
-    the final state), or a scan called in K5's place
+    master weight directly).  ``remat`` (``REMAT_POLICIES``): ``"full"``
+    recomputes each block (each self and each cross layer of a vlm group)
+    in the backward (``torch.utils.checkpoint``, non-reentrant); ``"dots"``
+    and ``"dots_no_batch"`` recompute it but keep its products' outputs
+    (``SAVED_PRODUCTS``).  ``attn_impl`` (every self-attention layer; the
+    vlm cross layers attend in tensor ops): ``"torch"`` (differentiable) or
+    ``"flash"`` (K3, forward only).  ``wkv_impl`` (ssm): ``"chunked"``
+    (differentiable) or ``"kernel"`` (K5, forward only, from a zero state;
+    the forward drops the final state), or a scan called in K5's place
     (``models.rwkv.check_wkv_impl``).
     """
     if cfg.family not in FORWARD_FAMILIES:
@@ -171,13 +200,11 @@ def forward(
     check_wkv_impl(wkv_impl)
     if remat not in REMAT_POLICIES:
         raise ValueError(f"remat={remat!r} (choose from {REMAT_POLICIES})")
-    if remat not in ("none", "full"):
-        raise NotImplementedError(f"remat={remat!r} is not ported yet (ROADMAP Queue 1, training)")
-    tokens = batch["tokens"]
+    inputs = batch["frames"] if cfg.family == "audio" else batch["tokens"]
     positions = batch.get("positions")
     if positions is None:
-        positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
-    x = embed_input(cfg, params, tokens, positions)
+        positions = torch.arange(inputs.shape[1], device=inputs.device).expand(inputs.shape[:2])
+    x = embed_input(cfg, params, inputs, positions)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
     vision = batch.get("vision_tokens")
@@ -185,28 +212,38 @@ def forward(
         vision = vision.to(compute_dtype)
 
     def run(block, x):
-        return checkpoint(block, x, use_reentrant=False) if remat == "full" and torch.is_grad_enabled() else block(x)
+        if remat == "none" or not torch.is_grad_enabled():
+            return block(x)
+        if remat == "full":
+            return checkpoint(block, x, use_reentrant=False)
+        context = partial(create_selective_checkpoint_contexts, SAVED_PRODUCTS[remat])
+        return checkpoint(block, x, use_reentrant=False, context_fn=context)
 
-    def self_layer(p_layer, handle=None):
-        return lambda x: dense_block(cfg, p_layer, x, positions=positions, q_chunk=q_chunk, attn_impl=attn_impl,
-                                     fp8=handle)
+    layer_block = TRAIN_BLOCKS.get(cfg.family, dense_block)  # vlm: its self layers
+
+    def train_layer(p_layer, handle=None):
+        return partial(layer_block, cfg, p_layer, positions=positions, q_chunk=q_chunk, attn_impl=attn_impl, fp8=handle)
 
     obs = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, p_layer in enumerate(params["blocks"]):
         if cfg.family == "vlm":  # a layer group: its self layers, then its cross layer
             for p_self in p_layer["self"]:
-                x = run(self_layer(p_self), x)
+                x = run(train_layer(p_self), x)
             x = run(lambda x, p=p_layer["cross"]: cross_block(cfg, p, x, vision), x)
             continue
         handle = fp8.bind_layer_scales(layer) if fp8 is not None else None
         if cfg.family == "ssm":
             x = run(lambda x, p=p_layer: rwkv_block(cfg, p, x, wkv_impl=wkv_impl), x)
+        elif cfg.family == "moe":
+            x, a = run(train_layer(p_layer, handle), x)
+            aux = aux + a
         else:
-            x = run(self_layer(p_layer, handle), x)
+            x = run(train_layer(p_layer, handle), x)
         if fp8 is not None:
             obs.append(fp8.drain())
     logits = lm_logits(cfg, params, x)
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)  # no auxiliary loss in these families
+    aux = aux / cfg.num_layers
     if fp8 is None:
         return logits, aux
     amaxes = {k: torch.stack([o[k] for o in obs]) for k in fp8.keys}

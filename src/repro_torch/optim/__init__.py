@@ -1,4 +1,4 @@
-from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update, clip_by_global_norm, global_norm
+from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update, global_norm
 from repro_torch.optim.schedule import make_schedule
 
-__all__ = ["AdamWState", "adamw_init", "adamw_update", "clip_by_global_norm", "global_norm", "make_schedule"]
+__all__ = ["AdamWState", "adamw_init", "adamw_update", "global_norm", "make_schedule"]

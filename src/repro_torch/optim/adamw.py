@@ -9,6 +9,14 @@ Weight decay follows the reference's rule ``wd if p.ndim >= 2`` on the
 *stacked* rank: the JAX tree stacks every block leaf over layers, so a
 per-layer norm scale ``(D,)`` is ``(L, D)`` there and is decayed.  A leaf
 under ``"blocks"`` therefore counts one extra dimension here.
+
+The update is elementwise, so it runs over each leaf in slices along its
+first dimension of at most ``CHUNK`` elements (or one row, where a row is
+larger), and the clipping scale is applied slice by slice: the fp32
+temporaries never exceed a slice (a qwen3-moe expert stack is 3.2 GB), and
+no clipped copy of the gradients is made.  Each element goes through the
+same operations as in one pass over the whole tree, so the result is the
+same bit for bit; ``tests/test_torch_adamw.py`` holds it so.
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_paths
+
+CHUNK = 1 << 26  # elements of a leaf updated at once: 256 MB of each fp32 temporary
 
 
 class AdamWState(NamedTuple):
@@ -40,11 +50,23 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The factor that brings a global norm down to ``max_norm`` (at most 1)."""
     # a true division: ``float / tensor`` would multiply by the reciprocal
-    scale = torch.clamp(torch.div(torch.full_like(norm, max_norm), torch.clamp(norm, min=1e-12)), max=1.0)
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
+    return torch.clamp(torch.div(torch.full_like(norm, max_norm), torch.clamp(norm, min=1e-12)), max=1.0)
+
+
+def clipped(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """A gradient scaled by ``clip_scale``'s factor, in its own dtype."""
+    return (g.float() * scale).to(g.dtype)
+
+
+def row_slices(t: torch.Tensor):
+    """Views of ``t`` along its first dimension, each at most ``CHUNK``
+    elements or one row; a 0-d tensor is one slice."""
+    t = t.reshape(1) if t.dim() == 0 else t
+    rows = max(1, CHUNK // max(1, t[0].numel()))
+    return [t[lo : lo + rows] for lo in range(0, t.shape[0], rows)]
 
 
 def stacked_rank(path: tuple, p: torch.Tensor) -> int:
@@ -76,8 +98,10 @@ def adamw_update(
     del layer_scan
     step = state.step + 1
     metrics = {}
+    scale = None
     if grad_clip > 0:
-        grads, gnorm = clip_by_global_norm(grads, grad_clip)
+        gnorm = global_norm(grads)
+        scale = clip_scale(gnorm, grad_clip)
         metrics["grad_norm"] = gnorm
     stepf = step.float()
     one = torch.ones((), dtype=torch.float32, device=stepf.device)
@@ -89,14 +113,18 @@ def adamw_update(
         tree_paths(params), tree_leaves(params), tree_leaves(grads), tree_leaves(state.m), tree_leaves(state.v)
     ):
         wd = weight_decay if stacked_rank(path, p) >= 2 else 0.0
-        gf = g.float()
-        mf = beta1 * m.float() + (1 - beta1) * gf
-        vf = beta2 * v.float() + (1 - beta2) * gf * gf
-        mhat = mf / b1c
-        vhat = vf / b2c
-        pf = p.float()
-        new_p = pf - lr * (mhat / (torch.sqrt(vhat) + eps) + wd * pf)
-        p.copy_(new_p)
-        m.copy_(mf)
-        v.copy_(vf)
+        # slices are views, so the state is written in place, contiguous or not
+        for ps, gs, ms, vs in zip(row_slices(p), row_slices(g), row_slices(m), row_slices(v)):
+            if scale is not None:
+                gs = clipped(gs, scale)
+            gf = gs.float()
+            mf = beta1 * ms.float() + (1 - beta1) * gf
+            vf = beta2 * vs.float() + (1 - beta2) * gf * gf
+            mhat = mf / b1c
+            vhat = vf / b2c
+            pf = ps.float()
+            new_p = pf - lr * (mhat / (torch.sqrt(vhat) + eps) + wd * pf)
+            ps.copy_(new_p)
+            ms.copy_(mf)
+            vs.copy_(vf)
     return params, AdamWState(step=step, m=state.m, v=state.v), metrics

@@ -56,9 +56,10 @@ def loss_fn(
     model_cfg, params, batch, *, q_chunk=0, remat="none", z_loss=0.0, attn_impl="torch", wkv_impl="chunked",
     compute_dtype=None, fp8=None,
 ):
-    """Returns (loss, (ce, aux)); with an ``fp8`` context the aux grows a
-    third slot, the per-site amax observations of the delayed-scaling
-    update.  ``attn_impl="flash"`` runs K3 and ``wkv_impl="kernel"`` runs
+    """Returns (loss, (ce, aux)): the loss is the cross-entropy plus the
+    forward's aux loss (the moe family's load-balance loss, else 0); with an
+    ``fp8`` context the aux grows a third slot, the per-site amax
+    observations of the delayed-scaling update.  ``attn_impl="flash"`` runs K3 and ``wkv_impl="kernel"`` runs
     K5, both forward only: call them under ``torch.no_grad()``."""
     out = forward(
         model_cfg, params, batch, q_chunk=q_chunk, remat=remat, attn_impl=attn_impl, wkv_impl=wkv_impl,
@@ -93,6 +94,40 @@ def init_train_state(model_cfg, run_cfg, generator: torch.Generator | int = 0, d
     return TrainState(params=params, opt=opt, compress_residual=None, fp8=fp8)
 
 
+def lr_schedule(run_cfg):
+    """The step's learning-rate schedule: ``schedule(opt.step)`` is the rate
+    the step applies."""
+    tr = run_cfg.train
+    return make_schedule("cosine", base_lr=tr.learning_rate, warmup_steps=tr.warmup_steps, total_steps=tr.total_steps)
+
+
+def grads_of(model_cfg, run_cfg, state: TrainState, batch, *, q_chunk=0):
+    """(grads, ce, aux, amaxes) of one (micro)batch at ``state``, which it
+    leaves as it was; a fresh FP8 context per forward, so its observations
+    belong to this batch alone (``amaxes`` is None without fp8)."""
+    prec, par, tr = run_cfg.precision, run_cfg.parallel, run_cfg.train
+    use_fp8 = _fp8_enabled(model_cfg, prec)
+    leaves = tree_leaves(state.params)
+    fp8 = make_fp8_ctx(model_cfg, prec, state.fp8) if use_fp8 else None
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            loss, aux = loss_fn(
+                model_cfg, state.params, batch, q_chunk=q_chunk, remat=par.remat, z_loss=tr.z_loss,
+                compute_dtype=DTYPES[prec.compute_dtype], fp8=fp8,
+            )
+            g = torch.autograd.grad(loss, leaves, allow_unused=True)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    g = [torch.zeros_like(p) if gi is None else gi for p, gi in zip(leaves, g)]
+    it = iter(g)
+    grads = tree_map(lambda _: next(it), state.params)
+    ce, aux_loss = aux[0].detach(), aux[1].detach()
+    return grads, ce, aux_loss, (aux[2] if use_fp8 else None)
+
+
 def make_train_step(model_cfg, run_cfg, rules=None, mesh=None, *, q_chunk=0, param_shardings=None):
     """Build step(state, batch) -> (state, metrics).
 
@@ -105,47 +140,23 @@ def make_train_step(model_cfg, run_cfg, rules=None, mesh=None, *, q_chunk=0, par
         raise NotImplementedError("sharded training is not ported yet (the tensor-parallel item of ROADMAP Queue 1)")
     _check_run(run_cfg)
     prec, par, tr = run_cfg.precision, run_cfg.parallel, run_cfg.train
-    compute_dtype = DTYPES[prec.compute_dtype]
-    schedule = make_schedule("cosine", base_lr=tr.learning_rate, warmup_steps=tr.warmup_steps, total_steps=tr.total_steps)
+    schedule = lr_schedule(run_cfg)
     use_fp8 = _fp8_enabled(model_cfg, prec)
-
-    def grads_of(state: TrainState, batch):
-        """(grads, ce, aux, amaxes) of one (micro)batch; a fresh FP8 context
-        per forward, so its observations belong to this batch alone."""
-        leaves = tree_leaves(state.params)
-        fp8 = make_fp8_ctx(model_cfg, prec, state.fp8) if use_fp8 else None
-        for t in leaves:
-            t.requires_grad_(True)
-        try:
-            with torch.enable_grad():
-                loss, aux = loss_fn(
-                    model_cfg, state.params, batch, q_chunk=q_chunk, remat=par.remat, z_loss=tr.z_loss,
-                    compute_dtype=compute_dtype, fp8=fp8,
-                )
-                g = torch.autograd.grad(loss, leaves, allow_unused=True)
-        finally:
-            for t in leaves:
-                t.requires_grad_(False)
-        g = [torch.zeros_like(p) if gi is None else gi for p, gi in zip(leaves, g)]
-        it = iter(g)
-        grads = tree_map(lambda _: next(it), state.params)
-        ce, aux_loss = aux[0].detach(), aux[1].detach()
-        return grads, ce, aux_loss, (aux[2] if use_fp8 else None)
 
     def step(state: TrainState, batch):
         nmb = par.num_microbatches
         if nmb > 1:
-            B = batch["tokens"].shape[0]
+            B = batch["labels"].shape[0]  # every family's batch has labels (audio has no tokens)
             if B % nmb:
                 raise ValueError(f"batch {B} is not a multiple of num_microbatches={nmb}")
             mb = B // nmb
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), state.params)
-            ce = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
+            ce = torch.zeros((), dtype=torch.float32, device=batch["labels"].device)
             aux = torch.zeros_like(ce)
             amaxes = {k: torch.zeros_like(s) for k, s in state.fp8.scale.items()} if use_fp8 else None
             for i in range(nmb):
                 part = {k: v[i * mb : (i + 1) * mb] for k, v in batch.items()}
-                g, c, a, am = grads_of(state, part)
+                g, c, a, am = grads_of(model_cfg, run_cfg, state, part, q_chunk=q_chunk)
                 for acc, gi in zip(tree_leaves(grads), tree_leaves(g)):
                     acc.add_(gi.float())
                 ce, aux = ce + c, aux + a
@@ -154,7 +165,7 @@ def make_train_step(model_cfg, run_cfg, rules=None, mesh=None, *, q_chunk=0, par
             grads = tree_map(lambda g: g / nmb, grads)
             ce, aux = ce / nmb, aux / nmb
         else:
-            grads, ce, aux, amaxes = grads_of(state, batch)
+            grads, ce, aux, amaxes = grads_of(model_cfg, run_cfg, state, batch, q_chunk=q_chunk)
 
         new_fp8 = state.fp8
         if use_fp8:

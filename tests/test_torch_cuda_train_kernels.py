@@ -36,10 +36,14 @@ def _fp8(shape, dtype, g):
 
 
 # shapes off the 128 x 128 x 128 tile (ragged M, N and K; K not a multiple of
-# 16, which the wrapper pads) and one of the training path, (1024, 2048, 8192)
+# 16, which the wrapper pads), one of the training path, (1024, 2048, 8192),
+# and the projections of hymba-1.5b (attn_k/v 1600 -> 320, ffn_down 5504 ->
+# 1600, the weight gradient of attn_k/v) and hubert-xlarge (attn 1280 ->
+# 1280, ffn_down 5120 -> 1280)
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "M,K,N", [(256, 128, 384), (100, 70, 36), (1000, 1000, 1000), (8, 4096, 8), (192, 4160, 320), (1024, 2048, 8192)]
+    "M,K,N", [(256, 128, 384), (100, 70, 36), (1000, 1000, 1000), (8, 4096, 8), (192, 4160, 320), (1024, 2048, 8192),
+              (1024, 1600, 320), (1024, 5504, 1600), (1600, 1024, 320), (1024, 1280, 1280), (1024, 5120, 1280)]
 )
 @pytest.mark.parametrize("fa,fb", [(E4M3, E4M3), (E5M2, E4M3), (E4M3, E5M2), (E5M2, E5M2)])
 def test_cuda_fp8_gemm_matches_plain(M, K, N, fa, fb):
@@ -84,6 +88,12 @@ FLASH_GPU_CASES = [
     # llama-3.2-vision-90b's 8 query heads per kv head, on both routes
     (1, 16, 2, 320, 320, 128, True, 0, 0.0, torch.bfloat16),
     (2, 16, 2, 256, 256, 128, True, 0, 0.0, torch.float32),
+    # the eval forwards of the moe, hybrid and audio families: qwen3-moe's
+    # 64 query heads over 4, hymba-1.5b's 25 over 5 at hd 64 with its window
+    # of 1024 past the window, hubert-xlarge's 16 bidirectional heads of 80
+    (1, 64, 4, 512, 512, 128, True, 0, 0.0, torch.bfloat16),
+    (1, 25, 5, 1536, 1536, 64, True, 1024, 0.0, torch.bfloat16),
+    (1, 16, 16, 640, 640, 80, False, 0, 0.0, torch.bfloat16),
 ]
 FLASH_BF16_LIMITS = {"max_spacings": 1.0, "mean_rel": 2e-5}  # chip_smoke.py's
 

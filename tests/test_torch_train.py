@@ -276,8 +276,9 @@ def test_launcher_reruns_into_one_ckpt_dir(capsys, tmp_path):
     ["grad_compression", "mesh", "remat_dots"],
 )
 def test_options_outside_the_slice_raise(what):
-    """Sharding and gradient compression belong to the tensor-parallel slice;
-    the "dots" remat policy is not ported."""
+    """Sharding and gradient compression belong to the tensor-parallel slice.
+    The "dots" remat policy is ported: its step equals the "full" one bit
+    for bit, and a policy the JAX package does not have raises."""
     cfg = reduce_for_smoke(get_config("olmo-1b"))
     if what == "grad_compression":
         run = RunConfig(arch="olmo-1b", parallel=ParallelConfig(grad_compression="bf16"))
@@ -289,8 +290,16 @@ def test_options_outside_the_slice_raise(what):
         with pytest.raises(NotImplementedError, match="sharded"):
             make_train_step(cfg, RunConfig(arch="olmo-1b"), mesh=object())
     else:
-        run = RunConfig(arch="olmo-1b", parallel=ParallelConfig(remat="dots"))
-        state = init_train_state(cfg, run, device="cpu")
         batch = synthetic_batch(cfg, step=0, global_batch=2, seq_len=8, device="cpu")
-        with pytest.raises(NotImplementedError, match="dots"):
-            make_train_step(cfg, run)(state, batch)
+        out = {}
+        for remat in ("full", "dots", "dots_everything"):
+            run = RunConfig(arch="olmo-1b", train=TrainConfig(warmup_steps=0), parallel=ParallelConfig(remat=remat))
+            state = init_train_state(cfg, run, device="cpu")
+            if remat == "dots_everything":
+                with pytest.raises(ValueError, match="remat"):
+                    make_train_step(cfg, run)(state, batch)
+            else:
+                out[remat] = make_train_step(cfg, run)(state, batch)
+        (full, fm), (dots, dm) = out["full"], out["dots"]
+        assert float(fm["loss"]) == float(dm["loss"]) and float(fm["grad_norm"]) == float(dm["grad_norm"])
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(full.params), tree_leaves(dots.params)))
