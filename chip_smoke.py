@@ -14,7 +14,8 @@ or when any check fails.  Phases:
    in K5's (``cuobjdump -sass``): each of K4's four kernels, K3's four bf16
    kernels, K2's eight tensor-core kernels and K5's nine chunk kernels (one
    per head size and chunk) must hold some.
-2. Kernels: K1 (paged decode) and K2 (chunked prefill) against their plain
+2. Kernels: K1 (paged decode, at the library's own cluster pick whatever
+   the autotuner's table says) and K2 (chunked prefill) against their plain
    PyTorch versions on the card, bf16 pools, fp32 and bf16 queries, at the
    head shapes of olmo-1b, mistral-nemo-12b, gemma-7b and qwen3-moe-235b-a22b
    (64 query heads over 4 kv heads), block size 32, K1 also at
@@ -52,6 +53,28 @@ or when any check fails.  Phases:
    kernel on the device sets the time, as on the serving path (the
    ``kernels`` line's ``enqueue_ms``).  K2's bound on the tensor cores
    counts its bf16 products at the bf16 rate, two terms of fp32 q and of P.
+2b. Tools (``tools_sweep``, ``tools_serving``, ``tools_dryrun``): (a) right
+   after phase 2, ``repro_torch.kernels.autotune.tune_case`` at three of
+   the kernel phase's K1/K2 shapes on its inputs (olmo-1b's heads, 16 over
+   16 of 128, qwen3-moe's 64 over 4, hymba-1.5b's 25 over 5 of 64 under its
+   window of 1024 over 48-block tables; fp32 queries, bf16 pools, block
+   32): decode over every K1 cluster split (0, the library's pick, 1, 2, 4,
+   8) and ``"prefill1"`` (K2 at C = 1), K2's 128-token chunk after 192 over
+   every split (0 to 4), each candidate's device time beside the library's
+   pick, each held to ``TOL`` against its plain version with
+   ``kernel_control`` as the control that must fail; the winners are
+   written to a temporary user cache (``$REPRO_TORCH_AUTOTUNE_CACHE``),
+   which must pass ``check_determinism``.  (b) After phase 5b, the serving
+   phase's prompts under that table in the legacy and the fused walk:
+   tokens equal to the untuned legacy run's up to near-ties, and K1/K2
+   launched as the table says (``"prefill1"``: K2 in place of K1).  (c)
+   After phase 7, the dry run on the meta device
+   (``repro_torch.launch.dryrun``): olmo-1b's ``train_4k``, ``prefill_32k``
+   and ``decode_32k`` cells at full width, then the train phase's own step
+   (fp8, 4 x 2048) costed the same way: its roofline bound must not exceed
+   the measured step time, and its peak memory estimate must lie within
+   ``PEAK_MEM_REL`` of ``torch.cuda.max_memory_allocated()`` over one step
+   of the same run (the step before the eval).
 3. Serving: the engine serves 8 greedy requests on the full-width olmo-1b
    (random weights from a seed) with bf16 pools, block size 32, 4 slots,
    a 128-token prefill budget and the prefix cache.  The launch counters
@@ -188,7 +211,9 @@ or when any check fails.  Phases:
    between the walks).  Every run must finish every request by length
    with K1 once a layer a decode step and K2 once a layer a chunk (in the
    fused walk: each decode graph holds one K1 a layer, each mixed graph
-   one K2 a layer).  ``profile_moe``: one fused decode tick and one eager
+   one K2 a layer); where the autotuner's table says ``"prefill1"`` for
+   the engine's shapes (the in-repo entry for qwen3-moe's 16 query heads
+   per kv head), K2 stands in for K1.  ``profile_moe``: one fused decode tick and one eager
    decode step at 1.25 under ``torch.profiler`` against the bound of every
    weight the tick reads, and the four layers' ``moe_ffn`` alone on the
    tick's rows against its experts' bound.  The moe weights are freed
@@ -345,8 +370,10 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -597,12 +624,21 @@ def kernel_control(c, plain, kw):
     return "mask_plus_one", plain(c["q"], c["k"][0], c["v"][0], c["tbl"], c["lens"] + 1, **kw)
 
 
+def k1(q, k_pool, v_pool, block_tables, seq_lens, **kw):
+    """K1 at the library's own cluster pick, whatever the autotuner's table
+    says for these shapes (its ``"prefill1"`` would run K2)."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import paged_attention as K
+
+    return K.launch_decode(q, k_pool, v_pool, block_tables, seq_lens, **kw, tuned=autotune.DEFAULT_CONFIG)
+
+
 def kernel_phase(device) -> dict:
     from repro_torch.kernels import paged_attention as K
     from repro_torch.kernels.flash_attention_ref import flash_errors
     from repro_torch.kernels.paged_attention_ref import paged_attention_plain, paged_prefill_attention_plain
 
-    fns = {"decode": (K.paged_attention, paged_attention_plain), "prefill": (K.paged_prefill_attention, paged_prefill_attention_plain)}
+    fns = {"decode": (k1, paged_attention_plain), "prefill": (K.paged_prefill_attention, paged_prefill_attention_plain)}
     main = {}  # per kernel: the serving path's case (olmo-1b, fp32 queries, the 128-token chunk)
     hymba = {}  # K1 at hymba-1.5b's heads, by q dtype
     for kind in ("decode", "prefill"):
@@ -671,6 +707,184 @@ def kernel_phase(device) -> dict:
                 hymba[row["q_dtype"]] = row
             del c
     return main, hymba
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: the tools — K1/K2's autotuner, serving under its table, the dry run
+# ---------------------------------------------------------------------------
+
+# the kernel phase's own K1/K2 shapes: (model, (H, KV, hd), decode lengths, table width, window)
+TOOLS_SHAPES = [("olmo-1b", (16, 16, 128), DECODE_LENS, NB, 0),
+                ("qwen3-moe-235b-a22b", (64, 4, 128), DECODE_LENS, NB, 0),
+                (HYMBA_ARCH, (25, 5, 64), HYMBA_LENS, HYMBA_NB, HYMBA_WINDOW)]
+TOOLS_ITERS = 20
+# the dry run's peak memory against the card's for the same step
+PEAK_MEM_REL = 0.2
+
+
+def tools_sweep_phase(device, cache_dir) -> dict:
+    """``kernels.autotune.tune_case`` on the card at ``TOOLS_SHAPES``: for
+    decode every K1 split and ``"prefill1"`` (K2 at C = 1), for K2's
+    128-token chunk after 192 every split, on the kernel phase's inputs
+    (fp32 queries, bf16 pools, 16 layers of pools).  ``tune_case`` holds
+    each candidate to ``TOL`` against the plain version (it raises
+    otherwise); here ``kernel_control`` on the same inputs must fail it.
+    The winners go to a user cache in ``cache_dir``, which must pass
+    ``check_determinism``."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.paged_attention_ref import paged_attention_plain, paged_prefill_attention_plain
+
+    plains = {"decode": paged_attention_plain, "prefill": paged_prefill_attention_plain}
+    table, rows = {}, {}
+    for seed, (model, (H, KV, hd), lens, nb, window) in enumerate(TOOLS_SHAPES):
+        inputs = {kind: kernel_case(kind, H, KV, hd, torch.float32, window, 0.0, device, seed=100 + seed, lens=lens,
+                                    nb=nb) for kind in ("decode", "prefill")}
+        won = autotune.tune_case(len(lens), nb, BLOCK_SIZE, H, KV, hd, "bfloat16", TOOLS_ITERS, device,
+                                 window=window, inputs=inputs)
+        controls = {}
+        for kind, c in inputs.items():
+            name, out = kernel_control(c, plains[kind], dict(softcap=0.0, window=window))
+            ref = plains[kind](c["q"], c["k"][0], c["v"][0], c["tbl"], c["lens"], window=window)
+            controls[kind] = {"control": name, "max_abs_err": float((out.float() - ref.float()).abs().max())}
+        key = autotune.cache_key(hd, BLOCK_SIZE, nb, torch.bfloat16, H // KV)
+        table[key] = {knob: won[knob] for knob in ("decode_kernel", "decode_split", "prefill_split")}
+        lib = won["library"]
+        row = {
+            "phase": "tools_sweep", "model": model, "key": key, "winner": table[key],
+            "decode_ms": won["decode_s"] * 1e3, "prefill_ms": won["prefill_s"] * 1e3,
+            "library": {"decode_ms": lib["decode_s"] * 1e3, "decode_split": lib["decode_split"],
+                        "prefill_ms": lib["prefill_s"] * 1e3, "prefill_split": lib["prefill_split"]},
+            "decode_gain": lib["decode_s"] / won["decode_s"], "prefill_gain": lib["prefill_s"] / won["prefill_s"],
+            "candidates": {kind: {name: {"ms": r["s"] * 1e3, "max_abs_err": r["max_abs_err"]} for name, r in rows_.items()}
+                           for kind, rows_ in won["candidates"].items()},
+            "tol": TOL[torch.float32], "controls": controls,
+        }
+        emit(row)
+        rows[model] = row
+        errs = [r["max_abs_err"] for rows_ in won["candidates"].values() for r in rows_.values()]
+        if not max(errs) < TOL[torch.float32]:
+            fail(f"tools_sweep {model}: a candidate's error {max(errs)} >= {TOL[torch.float32]}")
+        for kind, ctl in controls.items():
+            if not ctl["max_abs_err"] > TOL[torch.float32]:
+                fail(f"tools_sweep {model} {kind}: the control {ctl['control']} passes ({ctl['max_abs_err']}), "
+                     "which then proves nothing")
+        del inputs
+    path = os.path.join(cache_dir, "cuda_autotune.json")
+    with open(path, "w") as f:
+        json.dump(table, f, indent=2, sort_keys=True)
+        f.write("\n")
+    os.environ[autotune.CACHE_ENV] = path
+    try:
+        autotune.check_determinism()  # raises on an invalid or unstable table
+        tuned = {model: autotune.get_config(hd, BLOCK_SIZE, nb, torch.bfloat16, H // KV)
+                 for model, (H, KV, hd), _, nb, _ in TOOLS_SHAPES}
+    finally:
+        del os.environ[autotune.CACHE_ENV]
+        autotune.load_table(refresh=True)
+    if tuned != {r["model"]: r["winner"] for r in rows.values()}:
+        fail(f"tools_sweep: the tuned cache reads {tuned}, not the winners")
+    out = {"phase": "tools_table", "path": path, "table": table}
+    emit(out)
+    return {"rows": rows, "path": path, "table": table}
+
+
+def tools_serving_phase(cfg, params, device, legacy_tokens, sweep, max_new_tokens=32) -> dict:
+    """The serving phase's prompts on olmo-1b under the tuned table, in the
+    legacy and the fused walk: tokens equal to the untuned legacy run's up
+    to near-ties, every request by length, and K1/K2 launched as the table
+    says (``"prefill1"``: K2 in place of K1)."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import paged_attention as K
+    from repro_torch.serving import InferenceEngine
+
+    tuned = sweep["rows"][cfg.name]["winner"]
+    prompts = serving_prompts(cfg, SEED)
+    L = cfg.num_layers
+    out = {"phase": "tools_serving", "model": cfg.name, "tuned": tuned}
+    os.environ[autotune.CACHE_ENV] = sweep["path"]
+    autotune.load_table(refresh=True)
+    try:
+        for walk in ("legacy", "fused"):
+            eng = InferenceEngine(cfg, params, max_batch=4, max_seq=512, block_size=BLOCK_SIZE, prefill_budget=128,
+                                  cache_dtype=torch.bfloat16, eos_token=cfg.padded_vocab, device=device,
+                                  fused=walk == "fused")
+            reqs = [eng.submit(p, max_new_tokens=max_new_tokens) for p in prompts]
+            K.reset_launches()
+            t0 = time.perf_counter()
+            eng.run_until_drained()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            s = eng.stats()
+            launches = dict(K.LAUNCHES)
+            replays = dict(eng._graphs.launches) if walk == "fused" else None
+            tokens = [list(r.generated) for r in reqs]
+            found = []
+            same = same_up_to_ties(cfg, params, device, prompts, tokens, legacy_tokens, found)
+            out[walk] = {"wall_s": wall, "decode_steps": s["decode_steps"], "prefill_chunks": s["prefill_chunks"],
+                         "eager_launches": launches, "replay_launches": replays,
+                         "tpot_p50_s": float(np.median([r.tpot for r in reqs])), "same_up_to_ties": same,
+                         "differences": found[0]}
+            if not all(r.finish_reason == "length" and len(r.generated) == max_new_tokens for r in reqs):
+                fail(f"tools_serving {walk}: requests did not all finish by length")
+            if not same:
+                fail(f"tools_serving {walk}: tokens under the tuned table differ from the untuned run's away "
+                     f"from a near-tie: {found[0]}")
+            if walk == "legacy":
+                k1, k2 = s["decode_steps"] * L, s["prefill_chunks"] * L
+                expect = ({"paged_decode": 0, "paged_prefill": k1 + k2} if tuned["decode_kernel"] == "prefill1"
+                          else {"paged_decode": k1, "paged_prefill": k2})
+                if {k: launches[k] for k in expect} != expect:
+                    fail(f"tools_serving legacy: launches {launches}, the table {tuned} gives {expect}")
+            elif not replays["paged_prefill"] > 0 or (replays["paged_decode"] > 0) == (
+                    tuned["decode_kernel"] == "prefill1"):
+                fail(f"tools_serving fused: replays launched {replays} under {tuned}")
+            del eng
+    finally:
+        del os.environ[autotune.CACHE_ENV]
+        autotune.load_table(refresh=True)
+    emit(out)
+    return out
+
+
+DRYRUN_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+
+
+def tools_dryrun_phase(cfg, train, state, batch, step_mem) -> dict:
+    """``launch.dryrun.run_cell`` for olmo-1b's three cells at full width on
+    the meta device, then the train phase's own step costed the same way
+    (olmo-1b fp8 at TRAIN_B x TRAIN_S, ``train_run_config``): its roofline
+    bound must not exceed the step time this run measured, and its peak
+    estimate must lie within ``PEAK_MEM_REL`` of ``max_memory_allocated``
+    over one step (``step_mem``, read around ``train_step_5``)."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cost import storage_bytes
+    from repro_torch.launch.roofline import cell_rows, markdown_table
+
+    results = {}
+    for shape in DRYRUN_CELLS:
+        rec = dryrun.run_cell(cfg.name, shape, verbose=False)
+        results[f"{cfg.name}|{shape}"] = rec
+        emit({"phase": "tools_dryrun_cell", **rec})
+    table = markdown_table(cell_rows(results))
+    print(table, flush=True)
+    rec = dryrun.cost_step(cfg, train_run_config("kernel"), ShapeConfig("train_phase", TRAIN_S, TRAIN_B, "train"))
+    bound_s = max(rec["roofline"].values())
+    step_s = train["step_ms_mean_steps_1_3"] / 1e3
+    est, peak = rec["memory"]["peak_estimate_bytes"], step_mem["max_allocated"]
+    inputs = storage_bytes((state, batch))
+    out = {"phase": "tools_dryrun", "model": cfg.name, "cells": {k: {f: v.get(f) for f in (
+               "per_device_flops", "per_device_hbm_bytes", "roofline", "dominant", "useful_ratio", "memory", "fp8",
+               "trace_s")} for k, v in results.items()},
+           "train_step": rec, "bound_s": bound_s, "step_s": step_s, "step_over_bound": step_s / bound_s,
+           "peak_estimate_bytes": est, "max_allocated_bytes": peak, "peak_rel_err": (est - peak) / peak,
+           "allocated_before_step": step_mem["before"], "step_input_bytes": inputs}
+    emit(out)
+    if not bound_s <= step_s:
+        fail(f"tools_dryrun: the dry run's bound {bound_s} s exceeds the measured step {step_s} s")
+    if not abs(est - peak) <= PEAK_MEM_REL * peak:
+        fail(f"tools_dryrun: peak estimate {est} B is not within {PEAK_MEM_REL} of max_memory_allocated {peak} B")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2307,14 +2521,20 @@ def moe_arm(cfg, params, device, *, fused, spec_decode="off", warm=False, max_ne
     once a layer: eagerly (where it also counts the pairs routed and
     dropped), one K1 per layer a decode step and one K2 per
     layer a chunk; in the fused walk, each decode graph holds one K1 per
-    layer and each mixed graph one K2 per layer."""
+    layer and each mixed graph one K2 per layer.  Where the autotuner's
+    table says ``"prefill1"`` for the engine's shapes, K2 stands in for K1
+    in each decode step and graph."""
     import contextlib
     import gc
 
+    from repro_torch.kernels import autotune
     from repro_torch.kernels import paged_attention as K
     from repro_torch.serving import InferenceEngine
 
     L = cfg.num_layers
+    tuned = autotune.get_config(cfg.head_dim, BLOCK_SIZE, -(-MOE_ENGINE["max_seq"] // BLOCK_SIZE), torch.bfloat16,
+                                cfg.num_heads // cfg.num_kv_heads)
+    decode_kernel = "paged_prefill" if tuned["decode_kernel"] == "prefill1" else "paged_decode"
     eng = InferenceEngine(cfg, params, eos_token=cfg.padded_vocab, device=device, fused=fused,
                           spec_decode=spec_decode, spec_k=SPEC_K, **MOE_ENGINE)
     if warm:
@@ -2357,7 +2577,7 @@ def moe_arm(cfg, params, device, *, fused, spec_decode="off", warm=False, max_ne
             replay_launches={k: v - replay0[k] for k, v in graphs.launches.items()},
             graph_launches={str(k): graphs._graphs[k].launches for k in keys},
         )
-        want = {k: {"paged_decode": L if k[0] == "decode" else 0, "paged_prefill": 0 if k[0] == "decode" else L}
+        want = {k: {"paged_decode": 0, "paged_prefill": 0, (decode_kernel if k[0] == "decode" else "paged_prefill"): L}
                 for k in keys}
         got = {k: {n: graphs._graphs[k].launches[n] for n in ("paged_decode", "paged_prefill")} for k in keys}
         # each capture runs the step twice (an eager warm-up, then the capture itself)
@@ -2367,7 +2587,9 @@ def moe_arm(cfg, params, device, *, fused, spec_decode="off", warm=False, max_ne
         out.update(decode_step_p50_s=eng.metrics.histogram("engine_decode_seconds").percentile(50),
                    prefill_chunk_p50_s=eng.metrics.histogram("engine_prefill_chunk_seconds").percentile(50),
                    routed_pairs=routed.pairs, dropped_pairs=routed.dropped)
-        per_step = eager["paged_decode"] == L * out["decode_steps"] and eager["paged_prefill"] == L * out["prefill_chunks"]
+        k1_steps, k2_chunks = L * out["decode_steps"], L * out["prefill_chunks"]
+        per_step = ((eager["paged_decode"], eager["paged_prefill"]) == (k1_steps, k2_chunks) if decode_kernel == "paged_decode"
+                    else (eager["paged_decode"], eager["paged_prefill"]) == (0, k1_steps + k2_chunks))
         ran = eager
     if spec_decode != "off":
         out.update(spec_steps=delta("spec_steps"), drafted_tokens=delta("drafted_tokens"),
@@ -2378,7 +2600,8 @@ def moe_arm(cfg, params, device, *, fused, spec_decode="off", warm=False, max_ne
         fail(f"{name}: requests did not all finish by length: {[(r.finish_reason, len(r.generated)) for r in reqs]}")
     if s["alloc_blocks_in_use"] != 0:
         fail(f"{name}: {s['alloc_blocks_in_use']} blocks still in use")
-    if not per_step or ran["paged_prefill"] == 0 or (spec_decode == "off" and ran["paged_decode"] == 0):
+    out["decode_kernel"] = decode_kernel  # the autotuner's table for the engine's shapes
+    if not per_step or ran["paged_prefill"] == 0 or (spec_decode == "off" and ran[decode_kernel] == 0):
         fail(f"{name}: K1/K2 did not run once a layer per step: {out}")
     del eng, graphs
     gc.collect()  # the engine's graphs and their pool go before the next arm
@@ -4745,6 +4968,8 @@ def main() -> int:
         return out
 
     main_rows, k1_hymba = phase("kernel_k1_k2", kernel_phase, device)
+    tools_dir = tempfile.mkdtemp(prefix="repro_torch_autotune_")  # the tuned table's user cache
+    sweep = phase("tools_sweep", tools_sweep_phase, device, tools_dir)
     flash_main, flash_rows = phase("kernel_k3", flash_phase, device)
     gemm_rows = phase("kernel_k4", gemm_phase, device)
     stream_rows = phase("kernel_k6", stream_phase, device)
@@ -4760,6 +4985,8 @@ def main() -> int:
     phase("path", path_phase, cfg, params, device)
     phase("profile", profile_phase, cfg, params, device)
     phase("serving_fused", serving_fused_phase, cfg, params, device, legacy_tokens)
+    phase("tools_serving", tools_serving_phase, cfg, params, device, legacy_tokens, sweep)
+    shutil.rmtree(tools_dir)
     phase("profile_fused", profile_fused_phase, cfg, params, device)
     spec = phase("serving_spec", serving_spec_phase, cfg, params, device, legacy_tokens)
     phase("spec_rollback", spec_rollback_phase, cfg, params, device)
@@ -4802,7 +5029,12 @@ def main() -> int:
     phase("train_path", train_path_phase, cfg, state, batch, train_run_config, scale_control, PATH_LIMITS)
     # the gate leaves the state as it was: one kernel step on its batch brings the eval and the
     # profile to the state their limits and readings were taken at (5 steps)
+    torch.cuda.synchronize()
+    step_mem = {"before": torch.cuda.memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()  # the tools phase's dry run holds its estimate to this step's peak
     state = phase("train_step_5", lambda: make_train_step(cfg, train_run_config())(state, batch)[0])
+    step_mem["max_allocated"] = torch.cuda.max_memory_allocated()
+    phase("tools_dryrun", tools_dryrun_phase, cfg, train, state, batch, step_mem)
     evaluation = phase("eval", eval_phase, cfg, state.params, batch)
     phase("train_profile", train_profile_phase, cfg, state, batch)
     del state, batch  # the olmo-1b training state's memory goes back before the facility and rwkv6-7b
@@ -4885,6 +5117,11 @@ def main() -> int:
                 run: quantized[run]["eager_launches"][k["name"]] + (quantized[run]["replay_launches"] or {}).get(k["name"], 0)
                 for run in ("int8_legacy", "int8_fused", "fp8_legacy", "fp8_fused")
             }
+        if k["name"] in ("paged_decode", "paged_prefill"):  # the autotuner's sweep: each shape's candidates
+            kind = "decode" if k["name"] == "paged_decode" else "prefill"
+            k["autotune"] = {model: {"winner": r["winner"], "library": r["library"],
+                                     "candidates_ms": {n: c["ms"] for n, c in r["candidates"][kind].items()}}
+                             for model, r in sweep["rows"].items()}
         if k["name"] == "paged_decode":  # K1 at hymba-1.5b's heads (25 over 5, hd 64, window 1024)
             k["hymba"] = {dt: {f: r[f] for f in ("max_abs_err", "kernel_ms", "kernel_enqueue_ms", "plain_ms", "bound_ms",
                                                  "bound_by", "library_ms", "split", "split1_ms", "cuda_cores_ms")}

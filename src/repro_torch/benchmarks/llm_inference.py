@@ -259,11 +259,30 @@ def _write(out, name: str, rows: list[dict]) -> None:
     (out / name).write_text(json.dumps(rows, indent=1))
 
 
+def roofline_row() -> dict | None:
+    """The full 12B model's decode step at 32k from the one-card dry run
+    (``repro_torch.launch.dryrun``'s ``dryrun_h100.json`` in
+    ``launch.roofline.RESULTS_DIR``), when it holds the
+    ``mistral-nemo-12b|decode_32k`` cell: its bound, the larger roofline
+    term, and the tokens/s of a 128-request batch at that bound."""
+    from repro_torch.launch import roofline
+
+    rec = roofline.load(roofline.RESULTS_DIR).get("mistral-nemo-12b|decode_32k")
+    if not rec or rec.get("status") != "run":
+        return None
+    bound = max(rec["roofline"].values())
+    return {"name": "llm_inference_12b_decode32k_roofline", "us_per_call": bound * 1e6,
+            "derived": f"batch128 -> {128 / bound:.0f} tok/s/card, dominant={rec['dominant']}",
+            "time_base": "roofline bound, one H100 (launch.dryrun, not measured)"}
+
+
 def run(cfg=None, params=None, *, device="cuda", out=OUT_DIR, trace_out=None, **sizes) -> list[dict]:
     """Paged against dense at equal cache bytes, the shared-prompt A/B and
     speculative decoding (``closed_loop``, whose sizes ``sizes`` may set),
     checked as the reference checks them.  One row per arm; every row
-    carries its arm's stats and the device its wall clock is."""
+    carries its arm's stats and the device its wall clock is.  Where the
+    dry run costed the full 12B model's 32k decode step, its roofline row
+    follows (``roofline_row``)."""
     device = resolve_device(device)
     if cfg is None:
         cfg, params = default_model(device)
@@ -304,6 +323,9 @@ def run(cfg=None, params=None, *, device="cuda", out=OUT_DIR, trace_out=None, **
         })
     for r in rows:
         r["time_base"] = f"wall clock, {on}"
+    derived_row = roofline_row()
+    if derived_row:
+        rows.append(derived_row)
     _write(out, "llm_inference.json", rows)
     return rows
 

@@ -16,10 +16,12 @@ step time beside the per-step roofline of the full config:
   ``reduce_for_smoke(bert-large)``, 8 x 128 tokens, one warm step and
   eight timed; the time is the host's wall clock.
 
-Either way the second row is the full config's roofline step,
-``model_flops_per_step`` (an analytical count: the reference takes its
-count from the jaxpr cost model, which has no torch counterpart) over
-989e12.  ``run()`` returns rows in the reference's ``name,us_per_call,
+Either way the second row is the full config's roofline step, as the
+reference's: the FLOPs of one step of the full config at 448 x 512 with
+the reference's ``RunConfig`` (one microbatch, ``remat="full"``: the
+blocks' recompute counts), counted by ``launch.cost`` on the meta device
+(``launch.dryrun.build_train``), over 989e12; the analytical
+``model_flops_per_step`` stands beside it as ``model_flops``.  ``run()`` returns rows in the reference's ``name,us_per_call,
 derived`` format; the measured row also carries its readings (every
 step's loss, gradient norm, lr and seconds; tokens/s, TFLOP/s, peak
 memory).  Run on a machine with a card::
@@ -116,7 +118,7 @@ def train_steps(cfg, run_cfg, steps: int, device, seed: int = 0) -> dict:
 def run(device="cuda") -> list[dict]:
     device = resolve_device(device)
     full = full_config()
-    roofline_flops = model_flops_per_step(full, MLPERF_BATCH * MLPERF_SEQ, MLPERF_SEQ)
+    analytic_flops = model_flops_per_step(full, MLPERF_BATCH * MLPERF_SEQ, MLPERF_SEQ)
     if device.type == "cpu":
         cfg = reduce_for_smoke(get_config("bert-large"))
         r = train_steps(cfg, run_config(CPU_BATCH, CPU_SEQ), CPU_STEPS, device)
@@ -127,7 +129,7 @@ def run(device="cuda") -> list[dict]:
         tokens = MLPERF_BATCH * MLPERF_SEQ
         r = train_steps(full, run_config(MLPERF_BATCH, MLPERF_SEQ, MLPERF_MICROBATCHES), CARD_STEPS, device)
         losses = [s["loss"] for s in r["steps"][1:]]
-        tflop_s = roofline_flops / r["step_seconds"] / 1e12
+        tflop_s = analytic_flops / r["step_seconds"] / 1e12
         r.update(tokens_per_s=tokens / r["step_seconds"], model_tflop_s=tflop_s,
                  bf16_peak_share=tflop_s * 1e12 / BF16_FLOPS_PER_S, device=torch.cuda.get_device_name(device))
         measured = {"name": "mlperf_bert_full_h100", "us_per_call": r["step_seconds"] * 1e6,
@@ -135,9 +137,23 @@ def run(device="cuda") -> list[dict]:
                                 f"{tflop_s:.1f} TFLOP/s ({r['bf16_peak_share']:.3f} of 989) "
                                 f"peak {r['peak_mem_gb']:.1f} GB")}
     measured.update(r)
-    roofline = {"name": "mlperf_bert_full_roofline", "us_per_call": roofline_flops / BF16_FLOPS_PER_S * 1e6,
-                "derived": f"model_flops={roofline_flops:.3g} per-step @1 H100 bf16 (analytical)"}
-    return [measured, roofline]
+    return [measured, roofline_row(full, analytic_flops)]
+
+
+def roofline_row(full, model_flops: float) -> dict:
+    """The full config's step on one H100's bf16 compute roofline: the
+    FLOPs ``launch.cost`` counts on the meta device for one step at the
+    reference's ``RunConfig`` (448 x 512, one microbatch, remat full)."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch.cost import estimate_cost
+    from repro_torch.launch.dryrun import build_train
+
+    step, args = build_train(full, run_config(MLPERF_BATCH, MLPERF_SEQ), ShapeConfig("mlperf", MLPERF_SEQ,
+                                                                                  MLPERF_BATCH, "train"))
+    est = estimate_cost(step, *args)
+    return {"name": "mlperf_bert_full_roofline", "us_per_call": est["flops"] / BF16_FLOPS_PER_S * 1e6,
+            "derived": f"global_flops={est['flops']:.3g} model_flops={model_flops:.3g} per-step @1 H100 bf16",
+            "flops": est["flops"], "hbm_bytes": est["hbm_bytes"], "model_flops": model_flops}
 
 
 def main(argv=None) -> list[dict]:

@@ -14,6 +14,11 @@ events over ``iters`` calls on the card, the host's wall clock on the CPU
 (where K1's wrapper takes the plain read).  Run on a machine with a card::
 
     PYTHONPATH=src python -m repro_torch.benchmarks.paged_attention [--device cpu]
+
+``--autotune`` sweeps K1's and K2's layouts over ``CASES`` on the card and
+writes the winners to the autotuner's user cache (``--out`` another path;
+``repro_torch.kernels.autotune``); ``--check`` verifies that the merged
+table is valid and deterministic, with no sweep.
 """
 
 from __future__ import annotations
@@ -79,9 +84,25 @@ def run(cases=CASES, iters: int = 20, device="cuda", seed: int = 0) -> list[dict
 
 def main(argv=None) -> list[dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument(
+        "--autotune", action="store_true",
+        help="sweep K1/K2 layouts over the benchmark CASES on the card and write the winners to the "
+        "user autotune cache (see repro_torch.kernels.autotune)",
+    )
+    ap.add_argument("--check", action="store_true", help="verify the autotune table's determinism, no sweep")
+    ap.add_argument("--iters", type=int, default=20, help="timed calls per point (per candidate with --autotune)")
+    ap.add_argument("--dtype", default="bfloat16", help="pool dtype for the sweep")
+    ap.add_argument("--out", default=None, help="autotune cache path override")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.check or args.autotune:
+        from repro_torch.kernels import autotune
+
+        if args.check:
+            autotune.check_determinism()
+        else:
+            autotune.autotune(CASES, dtype=args.dtype, iters=args.iters, out_path=args.out, device=args.device)
+        return []
     rows = run(iters=args.iters, device=args.device)
     for r in rows:
         print(f"{r['name']},{r['us_per_call']:.1f},{r['derived']}", flush=True)

@@ -10,8 +10,10 @@ from repro_torch.config.run import (
     MeshConfig,
     ParallelConfig,
     PrecisionConfig,
+    SHAPES,
     RunConfig,
     ServeConfig,
+    ShapeConfig,
     TrainConfig,
 )
 
@@ -23,8 +25,10 @@ __all__ = [
     "PrecisionConfig",
     "RWKVConfig",
     "RunConfig",
+    "SHAPES",
     "SSMConfig",
     "ServeConfig",
+    "ShapeConfig",
     "TrainConfig",
     "VisionConfig",
     "reduce_for_smoke",

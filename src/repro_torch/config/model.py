@@ -21,6 +21,7 @@ counts are left out (the port counts the tensors it builds).
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -164,6 +165,31 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    # ------------------------------------------------------------------
+    def param_count(self) -> int:
+        """Analytic parameter count (used for 6ND roofline cross-checks),
+        from the port's own ``models.param_specs``."""
+        from repro_torch.models.initializers import param_specs
+        from repro_torch.utils.tree import tree_leaves
+
+        return sum(math.prod(s.shape) for s in tree_leaves(param_specs(self)))
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only top-k experts active)."""
+        total = self.param_count()
+        if self.family != "moe" or self.moe is None:
+            return total
+        m = self.moe
+        inactive = (m.num_experts - m.top_k) * self._expert_params() * self.num_layers
+        return total - inactive
+
+    def _expert_params(self) -> int:
+        m = self.moe
+        gated = self.activation in ("swiglu", "geglu")
+        in_w = self.d_model * m.expert_d_ff * (2 if gated else 1)
+        out_w = m.expert_d_ff * self.d_model
+        return in_w + out_w
 
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:

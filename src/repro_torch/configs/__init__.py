@@ -38,3 +38,17 @@ from repro_torch.configs import (  # noqa: E402,F401
     rwkv6_7b,
     stablelm_12b,
 )
+
+# The ten assigned architectures (dry-run set), in assignment order.
+ASSIGNED = [
+    "rwkv6-7b",
+    "olmo-1b",
+    "mistral-nemo-12b",
+    "stablelm-12b",
+    "gemma-7b",
+    "hubert-xlarge",
+    "arctic-480b",
+    "qwen3-moe-235b-a22b",
+    "hymba-1.5b",
+    "llama-3.2-vision-90b",
+]

@@ -9,6 +9,7 @@ from repro_torch.fp8.gemm import fp8_gemm
 from repro_torch.fp8.gemm_ref import fp8_gemm_plain
 from repro_torch.fp8.policy import (
     Fp8Ctx,
+    fp8_peak_applies,
     fp8_sites,
     fp8_supported,
     make_fp8_ctx,
@@ -42,6 +43,7 @@ __all__ = [
     "fp8_dot",
     "fp8_gemm",
     "fp8_gemm_plain",
+    "fp8_peak_applies",
     "fp8_sites",
     "fp8_supported",
     "init_fp8_state",

@@ -42,6 +42,17 @@ def fp8_supported(cfg) -> bool:
     return cfg.family in SUPPORTED_FAMILIES
 
 
+def fp8_peak_applies(cfg) -> bool:
+    """Whether a roofline should cost this arch's fp8 run at the FP8 peak.
+
+    Only when the quantized sites carry the *dominant* GEMM FLOPs: moe is
+    excluded, since its routed expert FFNs (the bulk of active FLOPs) stay
+    bf16, so costing the whole cell at 2x would understate compute_s by
+    about 2x.
+    """
+    return fp8_supported(cfg) and cfg.family != "moe"
+
+
 def fp8_sites(cfg) -> list[str]:
     """GEMM sites quantized for this architecture (stable order: the site
     list fixes the ``Fp8State`` structure)."""

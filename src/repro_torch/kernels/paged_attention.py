@@ -27,6 +27,16 @@ its share's K/V loads in flight together; the cluster's first block
 combines the shares through distributed shared memory.  ``paged_attention_cuda_cores`` runs K1's v1,
 the yardstick; no model path calls it.
 
+The entry points' CUDA branch reads the layout of each launch from the
+autotuner's table (``kernels.autotune.get_config``, on the host at each
+call, so a captured CUDA graph bakes it in): ``decode_kernel`` runs decode
+through K1 (``"paged"``) or through K2 at C = 1 with ``start = seq_lens -
+1`` (``"prefill1"``, the JAX package's form, ``paged_attention_ops.py``),
+``decode_split`` and ``prefill_split`` force K1's and K2's cluster sizes.
+The ``"default"`` entry (``"paged"``, 0, 0) is the library's own pick, and
+shapes without a committed entry keep it.  The CPU branch never reads the
+table.
+
 Each wrapper checks device, dtype, shape and contiguity, allocates the
 output with ``torch.empty``, launches on the current stream and raises if
 the launch failed.  ``LAUNCHES`` counts the launches of each kernel:
@@ -52,7 +62,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 from repro_torch.kernels.paged_attention_ref import (
     paged_attention_plain,
     paged_prefill_attention_plain,
@@ -147,7 +157,8 @@ def _decode_launch(q, k_pool, v_pool, block_tables, seq_lens, *, softcap: float 
     """Launch K1 on CUDA tensors: the split kernel, or v1 with
     ``cuda_cores``.  ``split``: the cluster of 1 to 8 blocks that share each
     (sequence, kv head)'s walk, 0 to let the kernel pick; the entry point
-    always passes 0, checks and timing force the others."""
+    passes the tuned table's ``decode_split`` (0 by default), checks and
+    timing force the others."""
     _check(q, k_pool, v_pool, block_tables, seq_lens, 3)
     B, H, hd = q.shape
     N, bs, KV, _ = k_pool.shape
@@ -182,14 +193,41 @@ def paged_attention(
     softcap: float = 0.0,
     window: int = 0,
 ) -> torch.Tensor:
-    """K1, decode.  Returns (B, H, hd) in q's dtype."""
+    """K1, decode (or K2 at C = 1 where the tuned table says
+    ``"prefill1"``).  Returns (B, H, hd) in q's dtype."""
     if k_pool.dtype in QUANTIZED_POOLS:
         raise ValueError("quantized pools need scales: use paged_attention_quantized")
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, block_tables, seq_lens, softcap=softcap, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu, not {q.device}")
-    return _decode_launch(q, k_pool, v_pool, block_tables, seq_lens, softcap=softcap, window=window)
+    return launch_decode(q, k_pool, v_pool, block_tables, seq_lens, softcap=softcap, window=window,
+                         tuned=tuned_config(q, k_pool, block_tables))
+
+
+def tuned_config(q: torch.Tensor, k_pool: torch.Tensor, block_tables: torch.Tensor) -> dict:
+    """The autotuner's config for these shapes (``autotune.get_config``:
+    head dim, block size, table width, pool dtype, query heads per kv
+    head); the defaults where the shapes are malformed, which the launch's
+    checks then refuse."""
+    if k_pool.dim() != 4 or block_tables.dim() != 2 or q.dim() < 3 or k_pool.shape[2] == 0:
+        return autotune.get_config(0, 0, 0, k_pool.dtype, 0)
+    return autotune.get_config(k_pool.shape[3], k_pool.shape[1], block_tables.shape[1], k_pool.dtype,
+                               q.shape[-2] // k_pool.shape[2])
+
+
+def launch_decode(q, k_pool, v_pool, block_tables, seq_lens, *, softcap: float = 0.0, window: int = 0,
+                  tuned: dict) -> torch.Tensor:
+    """Decode on CUDA tensors as the config ``tuned`` lays it out: K1 at
+    its ``decode_split``, or K2 at C = 1 from ``seq_lens - 1`` at its
+    ``prefill_split`` (``"prefill1"``: the causal and window masks of a
+    one-token chunk at the last position are the decode masks)."""
+    if tuned["decode_kernel"] == "prefill1":
+        out = _prefill_launch(q[:, None], k_pool, v_pool, block_tables, seq_lens - 1, softcap=softcap,
+                              window=window, split=tuned["prefill_split"])
+        return out[:, 0]
+    return _decode_launch(q, k_pool, v_pool, block_tables, seq_lens, softcap=softcap, window=window,
+                          split=tuned["decode_split"])
 
 
 def paged_attention_cuda_cores(
@@ -232,8 +270,8 @@ def _prefill_launch(q, k_pool, v_pool, block_tables, start, *, softcap: float = 
     """Launch K2 on CUDA tensors: the route of the pools' dtype
     (``ROUTES``), or v1 with ``cuda_cores``.  ``split`` (tensor-core route
     only): the cluster of 1 to 4 blocks that share each 64-row tile's keys,
-    0 to let the kernel pick; the entry points always pass 0, checks and
-    timing force the others."""
+    0 to let the kernel pick; the entry points pass the tuned table's
+    ``prefill_split`` (0 by default), checks and timing force the others."""
     _check(q, k_pool, v_pool, block_tables, start, 4)
     B, C, H, hd = q.shape
     N, bs, KV, _ = k_pool.shape
@@ -284,7 +322,16 @@ def paged_prefill_attention(
         return paged_prefill_attention_plain(q, k_pool, v_pool, block_tables, start, softcap=softcap, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention runs on cuda or cpu, not {q.device}")
-    return _prefill_launch(q, k_pool, v_pool, block_tables, start, softcap=softcap, window=window)
+    return launch_prefill(q, k_pool, v_pool, block_tables, start, softcap=softcap, window=window,
+                          tuned=tuned_config(q, k_pool, block_tables))
+
+
+def launch_prefill(q, k_pool, v_pool, block_tables, start, *, softcap: float = 0.0, window: int = 0,
+                   tuned: dict) -> torch.Tensor:
+    """K2 on CUDA tensors at the config's ``prefill_split`` (the
+    tensor-core route; v1 on fp32 pools has no split)."""
+    return _prefill_launch(q, k_pool, v_pool, block_tables, start, softcap=softcap, window=window,
+                           split=tuned["prefill_split"])
 
 
 def paged_prefill_attention_cuda_cores(

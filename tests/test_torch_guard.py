@@ -41,6 +41,9 @@ def test_port_files_import_neither_jax_nor_repro():
     files = _port_files()
     assert len(files) > 20
     assert PORT / "models" / "ssm.py" in files
+    for tool in ("kernels/autotune.py", "launch/specs.py", "launch/cost.py", "launch/roofline.py",
+                 "launch/dryrun.py"):  # the tools are held to the same rule
+        assert PORT / tool in files, tool
     bad = [
         (str(f.relative_to(ROOT)), m)
         for f in files
@@ -164,6 +167,27 @@ def test_kernel_wrappers_never_fall_back():
         flash_attention_bhsd(q, q, q)
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_attention(q, q, q)
+    # the paged kernels too: the dry run reaches the plain versions on meta by name, never through a wrapper
+    from repro_torch.kernels.paged_attention import paged_attention, paged_prefill_attention
+
+    kp = torch.empty((3, 16, 2, 16), device="meta")
+    tbl = torch.zeros((1, 2), dtype=torch.int32, device="meta")
+    lens = torch.ones((1,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        paged_attention(torch.empty((1, 4, 16), device="meta"), kp, kp, tbl, lens)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        paged_prefill_attention(torch.empty((1, 3, 4, 16), device="meta"), kp, kp, tbl, lens)
+
+
+def test_tools_need_no_card_but_the_tuner_does():
+    """The dry run and the roofline run on the meta device with no card;
+    the autotuner times on the card only and refuses any other device."""
+    from repro_torch.kernels.autotune import tune_case
+    from repro_torch.launch.dryrun import run_cell
+
+    assert run_cell("olmo-1b", "long_500k", verbose=False)["status"].startswith("skip")
+    with pytest.raises(ValueError, match="on the card"):
+        tune_case(4, 16, 32, 16, 16, 128, device="cpu")
 
 
 @pytest.mark.parametrize(

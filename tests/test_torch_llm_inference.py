@@ -31,6 +31,7 @@ from repro.serving import ManualClock as JaxClock
 from repro.serving import Replica as JaxReplica
 from repro.serving import Router as JaxRouter
 from repro_torch.benchmarks import llm_inference as B
+from repro_torch.launch import roofline
 from repro_torch.bridge import params_from_jax
 
 torch.set_num_threads(2)
@@ -93,10 +94,11 @@ def test_defaults_and_workloads_are_the_references():
     assert B.default_prompts() == [[1 + i, 2, 3, 4] for i in range(ref.N_REQUESTS)]
 
 
-def test_closed_loop_matches_jax_engines(model, tmp_path):
+def test_closed_loop_matches_jax_engines(model, tmp_path, monkeypatch):
     """Paged against dense at equal bytes, the shared-prompt A/B and the
     three speculative arms, as the reference's ``run()`` builds them."""
     jcfg, jparams, tcfg, tparams = model
+    monkeypatch.setattr(roofline, "RESULTS_DIR", tmp_path)  # no dry run there: no roofline row
     rows = B.run(tcfg, tparams, device="cpu", out=tmp_path, trace_out=str(tmp_path / "trace.json"))
     got = {r["name"].removeprefix("llm_inference_"): r for r in rows}
     written = json.loads((tmp_path / "llm_inference.json").read_text())
