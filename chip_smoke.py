@@ -188,6 +188,23 @@ or when any check fails.  Phases:
    then a 2-replica router behind ``serve_http`` serves 4 SSE requests.
    Each arm reads modelled and wall tokens/s, hit rate, failovers,
    retries, replica states and peak memory.
+5h2. Tensor-parallel serving (``tp_serving``): two gloo ranks on the one
+   card (``launch.mesh.run_ranks``, ``backend="gloo"``: every collective
+   staged through host memory), each drawing the weights from ``SEED`` and
+   keeping its slice (``parallel.sharding.shard_params``).  olmo-1b at
+   full width and depth serves the serving phase's prompts (legacy walk,
+   bf16 pools, K1/K2 on each rank's 8 of 16 kv heads): tokens equal on both
+   ranks and to the serving phase's up to near-ties, each rank's K1/K2
+   launches 16 a step or chunk, 34 collectives a model call, pool bytes
+   half of TP=1's, global cache bytes equal; TP=2 logits (fp32 pools) within
+   1e-4 of TP=1's, and two controls that must part from them (``b_down``
+   counted on both ranks; rank 1 reading rank 0's pool slice); K1 timed at
+   the local heads on each rank in turn; one all-reduce timed on card and
+   host tensors.  mistral-nemo-12b at full width, 4 of 40 layers (4 of 8
+   kv heads a rank, the 131072-entry vocab split in two), served at TP=1 on
+   rank 0 first, then at TP=2, with the same gates.  ``fused=True`` on the
+   gloo group must raise.  The times are gloo's through host memory with
+   both ranks' contexts on one card: not NCCL, not NVLink.
 5i. The moe family, once olmo-1b's serving weights are freed, on
    qwen3-moe-235b-a22b at full width (d_model 4096, 64 heads over 4 kv
    heads, qk_norm, 128 experts, top 8, expert width 1536, vocab 151936
@@ -950,6 +967,7 @@ def serving_phase(cfg, params, device, max_new_tokens=32) -> dict:
         "ttft_p50_s": float(np.median([r.ttft for r in reqs])),
         "tpot_p50_s": float(np.median([r.tpot for r in reqs])),
         "decode_step_p50_s": h_decode.percentile(50),
+        "step_p50_s": eng.metrics.histogram("engine_step_seconds").percentile(50),
         "decode_tok_s": decode_tokens / h_decode.sum,
         "decode_tick_tok_s": tick_tokens / tick_s,
         "output_tok_s": s["tokens_out"] / wall,
@@ -2372,6 +2390,305 @@ def router_phase(cfg, params, device, legacy_tokens, max_new_tokens=32) -> dict:
     for what, counts in (("arms", launches), ("http", http_launches)):
         if not (counts["replays"].get("paged_decode", 0) > 0 and counts["replays"].get("paged_prefill", 0) > 0):
             fail(f"router {what}: the graph replays ran no K1 or no K2: {counts}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5h2: tensor-parallel serving, two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+TP = 2
+TP_NEMO = "mistral-nemo-12b"
+TP_NEMO_LAYERS = 4  # of 40: full width (8 kv heads, 4 a rank) and the 131072-entry vocab over two ranks
+# the serving phase's engine; its prompts; eos outside the vocab
+TP_ENGINE = dict(max_batch=4, max_seq=512, block_size=BLOCK_SIZE, prefill_budget=128, cache_dtype=torch.bfloat16)
+# logits of TP=2 against TP=1 on fp32 pools, relative to the largest logit:
+# the same products with the head, hidden and vocab sums split in two and
+# added in another order
+TP_LOGIT_TOL = 1e-4
+TP_BIAS_STD = 0.5  # the bias control's FFN biases: large enough to move every logit
+
+
+def tp_prompt_cache(cfg, params, mesh, prompt, kv_heads):
+    """One prompt through ``prefill_step`` into fresh fp32 pools of
+    ``kv_heads`` heads (on the params' device), then one decode step on a
+    copy of them: (prefill logits, decode logits, the pools after the
+    prefill, the decoded token)."""
+    from repro_torch.models import decode_step, init_paged_cache, prefill_step
+
+    dev = params["embed"]["tok"].device
+    nb = -(-(len(prompt) + 1) // BLOCK_SIZE)
+    cache = init_paged_cache(cfg, 1 + nb, BLOCK_SIZE, 1, nb, torch.float32, device=dev, kv_heads=kv_heads)
+    cache["tbl"][0] = torch.arange(1, 1 + nb, dtype=torch.int32, device=dev)
+    tok = torch.tensor([prompt], dtype=torch.int32, device=dev)
+    lp, _ = prefill_step(cfg, params, cache, tok, torch.zeros(1, dtype=torch.int32, device=dev), cache["tbl"], mesh=mesh)
+    nxt = torch.argmax(lp, dim=-1).int()[:, None]
+    ld, _ = decode_step(cfg, params, {k: v.clone() for k, v in cache.items()}, nxt,
+                        torch.tensor([len(prompt)], dtype=torch.int32, device=dev), mesh=mesh)
+    return lp[0], ld[0], cache, nxt
+
+
+def with_biases(cfg, params, seed=SEED):
+    """``params`` of ``cfg.replace(use_bias=True)``: zero attention biases
+    and FFN biases ``b_up``, ``b_down`` drawn from ``seed`` (the same on every
+    rank)."""
+    dev = params["embed"]["tok"].device
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    blocks = []
+    for p in params["blocks"]:
+        a, m = dict(p["attn"]), dict(p["mlp"])
+        H, hd, D = a["wo"].shape
+        KV = a["wk"].shape[1]
+        a.update(bq=torch.zeros((H, hd), device=dev), bk=torch.zeros((KV, hd), device=dev),
+                 bv=torch.zeros((KV, hd), device=dev), bo=torch.zeros((D,), device=dev))
+        m.update(b_up=TP_BIAS_STD * torch.randn((m["w_down"].shape[0],), generator=g, device=dev),
+                 b_down=TP_BIAS_STD * torch.randn((D,), generator=g, device=dev))
+        blocks.append(dict(p, attn=a, mlp=m))
+    return dict(params, blocks=blocks)
+
+
+def rel_gap(a, ref) -> float:
+    return float((a.float() - ref.float()).abs().max() / ref.float().abs().max())
+
+
+def tp_k1_times(mesh, cfg, device) -> dict:
+    """K1 at this rank's local heads on the kernel phase's decode inputs
+    (fp32 queries, bf16 pools), timed while the other rank waits."""
+    from repro_torch.kernels.flash_attention_ref import flash_errors
+    from repro_torch.kernels.paged_attention_ref import paged_attention_plain
+
+    H, KV = cfg.num_heads // TP, cfg.num_kv_heads // TP
+    c = kernel_case("decode", H, KV, cfg.head_dim, torch.float32, 0, 0.0, device, seed=mesh.get_local_rank("model"))
+
+    def run(fn, i):
+        layer = i % c["layers"]
+        return fn(c["q"], c["k"][layer], c["v"][layer], c["tbl"], c["lens"])
+
+    err = flash_errors(run(k1, 0), run(paged_attention_plain, 0))["max_abs"]
+    out = {"shape": [H, KV, cfg.head_dim], "max_abs_err": err}
+    for turn in range(TP):
+        torch.distributed.barrier()
+        if turn == mesh.get_local_rank("model"):
+            out.update(kernel_times(lambda i: run(k1, i)), plain_ms=timed_ms(lambda i: run(paged_attention_plain, i)))
+            out["bound_ms"], out["bound_by"] = case_bound(c, "cuda_cores_fp32")
+        torch.cuda.synchronize()
+    torch.distributed.barrier()
+    return out
+
+
+def tp_collective_ms(mesh, device, shape=(4, 2048), iters=50) -> dict:
+    """Host wall time of one all-reduce on the model group (gloo), of a
+    decode step's activation (4 slots x olmo-1b's width, fp32) on the card
+    and of the same tensor on the CPU: what staging through host memory,
+    with both ranks' contexts on one card, adds to gloo's own exchange."""
+    from repro_torch.parallel.collectives import all_reduce
+
+    out = {"shape": list(shape)}
+    for where in (device, torch.device("cpu")):
+        x = torch.ones(shape, device=where)
+        for _ in range(5):
+            all_reduce(x, mesh)
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            all_reduce(x, mesh)
+        torch.cuda.synchronize()
+        out[f"{where.type}_ms"] = 1e3 * (time.perf_counter() - t0) / iters
+    return out
+
+
+def tp_serve(cfg, params, mesh, prompts, max_new_tokens, device) -> dict:
+    """The serving phase's run on one engine (one rank's under ``mesh``):
+    a warm-up request, then the prompts with every counter set to 0 just
+    before.  Rank 0 drives, the other rank follows."""
+    from repro_torch.kernels import paged_attention as K
+    from repro_torch.parallel import collectives as C
+    from repro_torch.serving import InferenceEngine
+
+    kw = dict(TP_ENGINE, eos_token=cfg.padded_vocab, device=device, mesh=mesh)
+    rank = mesh.get_local_rank("model") if mesh is not None else 0
+    warm = InferenceEngine(cfg, params, **kw)
+    if rank == 0:
+        warm.submit(prompts[0][:48], max_new_tokens=2)
+        warm.run_until_drained()
+        warm.stop_followers()
+    else:
+        warm.follow()
+    del warm
+    eng = InferenceEngine(cfg, params, **kw)
+    K.reset_launches()
+    C.reset_collectives()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if rank == 0:
+        reqs = [eng.submit(p, max_new_tokens=max_new_tokens) for p in prompts]
+        eng.run_until_drained()
+        eng.stop_followers()
+    else:
+        eng.follow()
+        reqs = sorted(eng.done, key=lambda r: r.req_id)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = eng.stats()
+    return {
+        "tokens": [list(r.generated) for r in reqs], "reasons": [r.finish_reason for r in reqs],
+        "launches": dict(K.LAUNCHES), "collectives": dict(C.COLLECTIVES), "wall_s": wall,
+        "decode_steps": s["decode_steps"], "prefill_chunks": s["prefill_chunks"], "tokens_out": s["tokens_out"],
+        "step_p50_s": eng.metrics.histogram("engine_step_seconds").percentile(50),
+        "decode_step_p50_s": eng.metrics.histogram("engine_decode_seconds").percentile(50),
+        "cache_bytes": s["cache_bytes"], "cache_bytes_per_device": s.get("cache_bytes_per_device", s["cache_bytes"]),
+        "pool_bytes": pool_bytes(eng), "kv_heads": s.get("kv_heads_per_rank", cfg.num_kv_heads),
+        "alloc_blocks_in_use": s["alloc_blocks_in_use"],
+    }
+
+
+def tp_controls(cfg, params, local, mesh, prompt) -> dict:
+    """TP=2 logits against TP=1's on fp32 pools, and two controls that must
+    part from them: (a) ``b_down`` counted on both ranks (each rank's share
+    of the row-parallel sum carries it, so the all-reduce adds it twice),
+    on the model with FFN biases; (b) rank 1 attends over rank 0's pool
+    slice (its own replaced by a broadcast from rank 0) in one decode
+    step.  ``params``: the full tree (rank 0 computes the references)."""
+    from repro_torch.models import decode_step
+    from repro_torch.parallel.sharding import executed_specs, local_kv_heads, shard_params
+
+    rank = mesh.get_local_rank("model")
+    kv = local_kv_heads(cfg, mesh)
+    out = {}
+    lp, ld, cache, nxt = tp_prompt_cache(cfg, local, mesh, prompt, kv)
+    bad = {k: v.clone() for k, v in cache.items()}
+    for name in ("k", "v"):  # rank 1's pools replaced by rank 0's slice
+        torch.distributed.broadcast(bad[name], src=0)
+    lswap, _ = decode_step(cfg, local, bad, nxt, torch.tensor([len(prompt)], dtype=torch.int32, device=nxt.device),
+                           mesh=mesh)
+    bcfg = cfg.replace(use_bias=True)
+    full_b = with_biases(cfg, params)
+    spec = executed_specs(bcfg, mesh)["executed"]
+    local_b = shard_params(bcfg, full_b, spec, mesh)
+    double = dict(local_b, blocks=[dict(p, mlp=dict(p["mlp"], b_down=2 * p["mlp"]["b_down"])) for p in local_b["blocks"]])
+    lb = tp_prompt_cache(bcfg, local_b, mesh, prompt, kv)[0]
+    lbad = tp_prompt_cache(bcfg, double, mesh, prompt, kv)[0]
+    if rank == 0:  # TP=1 on the full weights
+        rp, rd, _, _ = tp_prompt_cache(cfg, params, None, prompt, cfg.num_kv_heads)
+        rb = tp_prompt_cache(bcfg, full_b, None, prompt, cfg.num_kv_heads)[0]
+        out = {"prefill_rel": rel_gap(lp, rp), "decode_rel": rel_gap(ld, rd), "pool_swap_rel": rel_gap(lswap, rd),
+               "bias_rel": rel_gap(lb, rb), "bias_on_both_ranks_rel": rel_gap(lbad, rb), "tol": TP_LOGIT_TOL}
+    return out
+
+
+def tp_arms() -> list:
+    """(name, config) of the two arms: olmo-1b at full width and depth,
+    mistral-nemo-12b at full width cut to ``TP_NEMO_LAYERS`` layers."""
+    from repro_torch.configs import get_config
+
+    return [("olmo-1b", get_config("olmo-1b")), (TP_NEMO, get_config(TP_NEMO).replace(num_layers=TP_NEMO_LAYERS))]
+
+
+def tp_rank(rank, mesh, device_type="cuda", arms=None) -> dict:
+    """One rank of ``tp_serving``: each arm's weights drawn from ``SEED``
+    on the card (the serving phase's for olmo-1b), this rank's slice of
+    them, the refused ``fused=True``, the serving run, and for olmo-1b the
+    controls and K1 at the local heads; mistral-nemo's TP=1 reference and
+    its tie check run on rank 0 with the full weights."""
+    from repro_torch.models import init_params
+    from repro_torch.parallel.sharding import executed_specs, shard_params
+    from repro_torch.serving import InferenceEngine
+
+    device = torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda" else torch.device(device_type)
+    out = {}
+    for name, cfg in arms or tp_arms():
+        t0 = time.perf_counter()
+        params = init_params(cfg, SEED, device)
+        prompts = serving_prompts(cfg, SEED)
+        arm = {}
+        if rank == 0 and name == TP_NEMO:
+            arm["tp1"] = tp_serve(cfg, params, None, prompts, 32, device)
+        local = shard_params(cfg, params, executed_specs(cfg, mesh)["executed"], mesh)
+        try:
+            InferenceEngine(cfg, local, mesh=mesh, fused=True, device=device, **TP_ENGINE)
+            arm["fused_refusal"] = None
+        except ValueError as e:
+            arm["fused_refusal"] = str(e)
+        arm["tp2"] = tp_serve(cfg, local, mesh, prompts, 32, device)
+        if name != TP_NEMO:
+            arm["controls"] = tp_controls(cfg, params, local, mesh, prompts[0])
+            arm["k1_local"] = tp_k1_times(mesh, cfg, device)
+            arm["all_reduce"] = tp_collective_ms(mesh, device, (TP_ENGINE["max_batch"], cfg.d_model))
+        if rank == 0 and name == TP_NEMO:
+            found = []
+            arm["ties_ok"] = same_up_to_ties(cfg, params, device, prompts, arm["tp2"]["tokens"], arm["tp1"]["tokens"],
+                                             found)
+            arm["differences"] = found[0]
+        arm["seconds"] = time.perf_counter() - t0
+        del params, local
+        torch.cuda.empty_cache()
+        out[name] = arm
+    return out
+
+
+def tp_serving_phase(cfg, params, device, legacy_tokens, serving) -> dict:
+    """olmo-1b (full width and depth; its TP=1 run is the serving phase's)
+    and mistral-nemo-12b (full width, 4 layers) served by two gloo ranks on
+    the one card, each launching K1/K2 on its kv-head slice."""
+    from repro_torch.launch.mesh import run_ranks
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(tp_rank, TP, backend="gloo", device="cuda", args=("cuda",), timeout_s=900)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"tp_serving: {e}")
+    seconds = time.perf_counter() - t0
+    found = []
+    olmo_ties = same_up_to_ties(cfg, params, device, serving_prompts(cfg, SEED),
+                                ranks[0]["olmo-1b"]["tp2"]["tokens"], legacy_tokens, found)
+    out = {"phase": "tp_serving", "backend": "gloo", "ranks": TP, "seconds": seconds, "arms": {}, "launches": {}}
+    for name, L, tp1 in (("olmo-1b", cfg.num_layers, serving), (TP_NEMO, TP_NEMO_LAYERS, ranks[0][TP_NEMO]["tp1"])):
+        arm = [r[name] for r in ranks]
+        runs = [a["tp2"] for a in arm]
+        tp1_kv = tp1["pool_bytes"]
+        out["launches"][name] = [r["launches"] for r in runs]
+        out["arms"][name] = {
+            "seconds": [a["seconds"] for a in arm],
+            "tp1": {k: tp1[k] for k in ("step_p50_s", "decode_step_p50_s", "wall_s", "cache_bytes", "pool_bytes")},
+            "tp2": [{k: v for k, v in r.items() if k not in ("tokens", "reasons")} for r in runs],
+            "fused_refusal": [a["fused_refusal"] for a in arm],
+            "collectives_per_call": [(r["collectives"]["all_reduce"] + r["collectives"]["all_gather"])
+                                     / (r["decode_steps"] + r["prefill_chunks"]) for r in runs],
+            "ties": found[0] if name == "olmo-1b" else arm[0]["differences"],
+        }
+        if name == "olmo-1b":
+            out["arms"][name].update(controls=arm[0]["controls"], k1_local=[a["k1_local"] for a in arm],
+                                     all_reduce=[a["all_reduce"] for a in arm])
+        ties_ok = olmo_ties if name == "olmo-1b" else arm[0]["ties_ok"]
+        if runs[0]["tokens"] != runs[1]["tokens"]:
+            fail(f"tp_serving {name}: the ranks' tokens differ")
+        if not ties_ok:
+            fail(f"tp_serving {name}: TP=2 tokens differ from TP=1's beyond near-ties: {out['arms'][name]['ties']}")
+        for rank, (a, r) in enumerate(zip(arm, runs)):
+            if not all(x == "length" for x in r["reasons"]) or r["alloc_blocks_in_use"]:
+                fail(f"tp_serving {name} rank {rank}: {r['reasons']}, blocks in use {r['alloc_blocks_in_use']}")
+            got = r["launches"]
+            if not (got["paged_decode"] == r["decode_steps"] * L > 0 and got["paged_prefill"] == r["prefill_chunks"] * L > 0):
+                fail(f"tp_serving {name} rank {rank}: launches {got} != {r['decode_steps']} decode steps / "
+                     f"{r['prefill_chunks']} chunks x {L} layers")
+            if out["arms"][name]["collectives_per_call"][rank] != 2 * L + 2:
+                fail(f"tp_serving {name} rank {rank}: {r['collectives']} is not 2 per layer + 2 a model call")
+            if 2 * r["pool_bytes"] != tp1_kv or r["cache_bytes"] != tp1["cache_bytes"]:
+                fail(f"tp_serving {name} rank {rank}: pool bytes {r['pool_bytes']} (TP=1 {tp1_kv}), global "
+                     f"cache bytes {r['cache_bytes']} (TP=1 {tp1['cache_bytes']})")
+            if not (a["fused_refusal"] and "NCCL" in a["fused_refusal"]):
+                fail(f"tp_serving {name} rank {rank}: fused=True on a gloo group was not refused")
+    c = out["arms"]["olmo-1b"]["controls"]
+    if not max(c["prefill_rel"], c["decode_rel"], c["bias_rel"]) < TP_LOGIT_TOL:
+        fail(f"tp_serving: TP=2 logits part from TP=1's: {c}")
+    if not min(c["pool_swap_rel"], c["bias_on_both_ranks_rel"]) > TP_LOGIT_TOL:
+        fail(f"tp_serving: a control passes, which then proves nothing: {c}")
+    for r in out["arms"]["olmo-1b"]["k1_local"]:
+        if not r["max_abs_err"] < TOL[torch.float32]:
+            fail(f"tp_serving: K1 at the local heads {r['shape']}: err {r['max_abs_err']}")
+    emit(out)
     return out
 
 
@@ -4998,6 +5315,7 @@ def main() -> int:
     fig9 = phase("fig9", fig9_phase, cfg, params, device)
     frontend = phase("frontend", frontend_phase, cfg, params, device, legacy_tokens)
     router = phase("router", router_phase, cfg, params, device, legacy_tokens)
+    tp = phase("tp_serving", tp_serving_phase, cfg, params, device, legacy_tokens, serving)
     del params  # the serving model's memory goes back before the moe model
     torch.cuda.empty_cache()
 
@@ -5112,6 +5430,8 @@ def main() -> int:
                                    "dense": hybrid["dense"]["launches"][k["name"]],
                                    "path": hybrid_path["k1_launches"]["kernel"] if k["name"] == "paged_decode" else 0}
             k["rwkv_serving_launches"] = rwkv_serving["served"]["launches"][k["name"]]
+            # tensor-parallel serving: each of the two gloo ranks' own launches, by model
+            k["tp_launches"] = {arm: [counts[k["name"]] for counts in ranks] for arm, ranks in tp["launches"].items()}
             k["vlm_serving_launches"] = vlm_serving["served"]["launches"][k["name"]]  # the dense ring: none
             k["quantized_launches"] = {  # quantized pools read plain: none
                 run: quantized[run]["eager_launches"][k["name"]] + (quantized[run]["replay_launches"] or {}).get(k["name"], 0)

@@ -15,8 +15,9 @@ ops on one device:
 * the update: ``0.2 * (c + n + s + w + e)`` over the padded grid, summed
   in the reference's order.
 
-The halo exchange over cards waits for the tensor-parallel item of the
-port.  ``run`` times ``step`` (CUDA events over ``iters`` chained steps on
+The halo exchange over cards comes with the next slice of the port's
+multi-card work (tensor-parallel serving is ported; its collectives are in
+``parallel.collectives``).  ``run`` times ``step`` (CUDA events over ``iters`` chained steps on
 the card, the host's wall clock on the CPU) at the reference's sizes and
 checks each size's first step against the same step in float64.  Each row
 carries the bytes the reference counts (each cell read once and written

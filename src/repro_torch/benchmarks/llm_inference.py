@@ -37,6 +37,12 @@ the port's continuous-batching engine (``repro_torch.serving``):
   within 10 points of it); 2 with random routing (affinity must beat its
   hit rate); 2 with one replica crashed by a ``FaultPlan`` mid-run (no
   request lost, tokens equal to the no-failure run's).
+* **tensor parallelism** (``run_tp``) — one engine over ``tp`` ranks
+  (``launch.mesh.run_ranks``, ``InferenceEngine(mesh=)``) against one rank
+  on the shared-prompt workload with the prefix cache, a prefill budget of
+  32 and n-gram speculative decoding: greedy tokens and the global
+  ``cache_bytes`` must equal TP=1's; each rank's pools hold its kv-head
+  slice (``cache_bytes_per_device``).
 
 Time bases.  ``run`` times each arm on the wall clock of its device (the
 card's by default; the device is named in every row).  The open-loop,
@@ -48,15 +54,19 @@ their rows say so (``time_base``).  The router's modelled clock charges a
 fleet round its slowest replica's step, as if replicas ran in parallel;
 on one card they step in turns, so its rows also read the measured wall
 seconds and wall tokens/s, which claim no scaling.  The fused arm's
-``wall_step_s`` is measured.
+``wall_step_s`` is measured.  The tensor-parallel rows read the wall clock
+of rank 0's drain; their backend is in the row: with gloo, each
+collective is staged through host memory, and ranks that share one card
+take turns on it, so these times say nothing of NVLink or NCCL.
 
 Every size is a parameter whose default is the reference's constant, so
 that on the CPU, with the JAX engine's weights, the integer results equal
 the reference's.  The default model is the reference's,
 ``reduce_for_smoke(mistral-nemo-12b)``, with random weights from seed 0.
-The reference's tensor-parallel (``--tp``) arm is not ported yet.  Run::
+Run::
 
     PYTHONPATH=src python -m repro_torch.benchmarks.llm_inference [--openloop|--spill|--fused|--router] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.benchmarks.llm_inference --tp 2 [--backend gloo] [--device cpu]
 
 Results go to ``--out`` (default ``build/llm_inference/`` of the checkout,
 which git ignores), one JSON file per scenario.
@@ -78,9 +88,11 @@ import torch
 from repro_torch.config import reduce_for_smoke
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import BACKENDS, pick_backend, run_ranks
 from repro_torch.models import init_params
 from repro_torch.serving import FaultPlan, InferenceEngine, Replica, Router
 from repro_torch.serving.metrics import ManualClock
+from repro_torch.utils.tree import tree_map
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "build" / "llm_inference"
 
@@ -768,6 +780,81 @@ def run_fused(cfg=None, params=None, *, device="cuda", out=OUT_DIR, max_seq=MAX_
     return rows
 
 
+def drive_tp(cfg, params, prompts, mesh=None, device="cuda") -> tuple[list, dict]:
+    """One arm of ``run_tp`` on the reference's engine (the prefix cache, a
+    prefill budget of 32, n-gram drafting): (tokens, stats with
+    ``wall_s``); under a mesh rank 0 drives and releases the followers,
+    which return (None, stats)."""
+    eng = InferenceEngine(cfg, params, mesh=mesh, max_batch=4, max_seq=MAX_SEQ, cache_kind="paged",
+                          block_size=BLOCK_SIZE, prefix_cache=True, prefill_budget=32, spec_decode="ngram",
+                          spec_k=SPEC_K, device=resolve_device(device))
+    if eng.rank != 0:
+        eng.follow()
+        return None, eng.stats()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
+    eng.run_until_drained()
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize(eng.device)
+    s = eng.stats()
+    s["wall_s"] = time.perf_counter() - t0
+    eng.stop_followers()
+    return [list(r.generated) for r in reqs], s
+
+
+def _tp_rank(rank, mesh, cfg, params, prompts, device):
+    """A rank of ``run_tp``: the parent's CPU weights, or seed 0's drawn on
+    the rank's device."""
+    dev = resolve_device(device)
+    params = init_params(cfg, 0, device=dev) if params is None else tree_map(lambda t: t.to(dev), params)
+    return drive_tp(cfg, params, prompts, mesh, dev)
+
+
+def run_tp(tp: int = 2, cfg=None, params=None, *, device="cuda", backend=None, out=OUT_DIR) -> list[dict]:
+    """TP=``tp`` against TP=1 on the shared-prompt workload (the
+    reference's ``run_tp``): greedy tokens and global cache bytes equal,
+    each rank's pools its kv-head slice.  ``params`` (default: seed 0's
+    draw, made again on each rank) go to the ranks through host memory."""
+    device = resolve_device(device)
+    if cfg is None:
+        cfg = reduce_for_smoke(get_config("mistral-nemo-12b"))
+    prompts = shared_prefix_prompts()[:8]
+    base_params = init_params(cfg, 0, device=device) if params is None else tree_map(lambda t: t.to(device), params)
+    base_toks, base_stats = drive_tp(cfg, base_params, prompts, device=device)
+    del base_params
+    host = None if params is None else tree_map(lambda t: t.cpu(), params)
+    results = run_ranks(_tp_rank, tp, backend=backend, device=device, args=(cfg, host, prompts, str(device)))
+    tp_toks, tp_stats = results[0]
+    _check(tp_toks == base_toks, f"TP={tp} changed greedy tokens vs TP=1")
+    _check(tp_stats["cache_bytes"] == base_stats["cache_bytes"], "global bytes drifted")
+    on = _device_name(device)
+    used = pick_backend(tp, backend, device)
+    rows = [
+        {
+            "name": f"llm_inference_tp{n}_{device.type}",
+            "us_per_call": s["wall_s"] / max(s["decode_steps"], 1) * 1e6,
+            "tp": n,
+            "tokens_equal": True,
+            "tokens_out": s["tokens_out"],
+            "cache_bytes": s["cache_bytes"],
+            "cache_bytes_per_device": s.get("cache_bytes_per_device", s["cache_bytes"]),
+            "prefix_hit_rate": s.get("prefix_hit_rate", 0.0),
+            "accepted_per_step": s.get("accepted_per_step", 1.0),
+            "kv_heads_per_rank": s.get("kv_heads_per_rank", cfg.num_kv_heads),
+            "backend": used if n > 1 else None,
+            "device": on,
+            "time_base": f"wall clock of rank 0's drain, {on}" + (f", {used} collectives" if n > 1 else ""),
+            "derived": (
+                f"tok={s['tokens_out']} cache_bytes={s['cache_bytes']} "
+                f"per_device={s.get('cache_bytes_per_device', s['cache_bytes'])}"
+            ),
+        }
+        for n, s in ((1, base_stats), (tp, tp_stats))
+    ]
+    _write(out, "llm_inference_tp.json", rows)
+    return rows
+
+
 def main(argv=None) -> list[dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
@@ -780,8 +867,13 @@ def main(argv=None) -> list[dict]:
     which.add_argument("--fused", action="store_true", help="legacy walk vs the fused one-dispatch step")
     which.add_argument("--router", action="store_true",
                        help="1 replica vs 2 behind the router: affinity, random, a mid-run crash")
+    which.add_argument("--tp", type=int, default=1,
+                       help="the tensor-parallel A/B at this degree instead of the single-engine scenarios")
+    ap.add_argument("--backend", default=None, choices=BACKENDS, help="process-group backend of --tp")
     args = ap.parse_args(argv)
-    if args.router:
+    if args.tp > 1:
+        rows = run_tp(args.tp, device=args.device, backend=args.backend, out=args.out)
+    elif args.router:
         rows = run_router(device=args.device, out=args.out)
     elif args.fused:
         rows = run_fused(device=args.device, out=args.out)

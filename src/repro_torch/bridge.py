@@ -66,8 +66,6 @@ def train_state_from_jax(cfg, np_state, device="cuda", param_dtype=torch.float32
     ``scale``, ``step``), so both packages can continue from one state,
     mid-training included."""
     device = resolve_device(device)
-    if np_state.compress_residual is not None:
-        raise NotImplementedError("gradient compression state is not ported")
     opt = np_state.opt
     fp8 = None
     if np_state.fp8 is not None:
@@ -84,7 +82,10 @@ def train_state_from_jax(cfg, np_state, device="cuda", param_dtype=torch.float32
             m=params_from_jax(cfg, opt.m, device, opt_dtype),
             v=params_from_jax(cfg, opt.v, device, opt_dtype),
         ),
-        compress_residual=None,
+        compress_residual=(
+            None if np_state.compress_residual is None
+            else params_from_jax(cfg, np_state.compress_residual, device, torch.float32)
+        ),
         fp8=fp8,
     )
 

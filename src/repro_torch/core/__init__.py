@@ -1,7 +1,8 @@
 """The paper's contribution: an AI-platform runtime for a leadership-class
 facility — QoS scheduling, tenancy, fault tolerance, telemetry.  The JAX
-package's ``core/`` but for ``elastic.py`` (ROADMAP Queue 1, the
-tensor-parallel item)."""
+package's ``core/`` but for ``elastic.py``, which reshards a training state
+over a smaller mesh and comes with sharded training, after tensor-parallel
+serving."""
 
 from repro_torch.core.cluster import (
     CHIPS_PER_NODE,

@@ -15,7 +15,7 @@ wrapped with the failure machinery a 1,320-node system needs:
 
 The JAX package's ``core/fault.py`` on the port's train step.  Neither
 runner calls ``core.elastic``, which the port does not have yet (it
-reshards over a device mesh: the tensor-parallel item of ROADMAP Queue 1).
+reshards over a device mesh and comes with sharded training).
 One timing differs: a
 step's ``wall`` is taken after ``float(loss)`` has brought the loss to the
 host, where the reference takes it before.  Under JAX the reference's

@@ -11,8 +11,9 @@ personas, limited-duration tokens).
 
 A copy of the JAX package's ``core/tenancy.py`` but for
 ``make_tenant_mesh``, which carves a ``jax.sharding.Mesh`` there and
-raises here: device meshes wait for the tensor-parallel item of ROADMAP
-Queue 1.
+raises here: the port's meshes (``launch.mesh``) serve one engine over
+its ranks; a tenant's mesh over its share of the cards comes with sharded
+training, the next slice.
 """
 
 from __future__ import annotations
@@ -95,7 +96,8 @@ class TenantManager:
         """A device mesh over the tenant's share of the local cards: not
         ported yet."""
         raise NotImplementedError(
-            "make_tenant_mesh is not ported yet (the tensor-parallel item of ROADMAP Queue 1); "
+            "make_tenant_mesh is not ported yet: tensor-parallel serving is, tenant meshes come with sharded "
+            "training; "
             "tenant_submesh_shape gives the mesh's shape"
         )
 

@@ -17,11 +17,12 @@ on ``n_devices`` cards (1 in this port):
 ``useful_ratio`` = MODEL_FLOPS / FLOPs exposes the remat, attention and
 dispatch work beyond the model's own products.
 
-The collective term reads 0: the port has no collectives until the
-tensor-parallel item of ROADMAP Queue 1.  The JAX package takes its
-collective bytes from the partitioned HLO text (``hlo_analysis.py``'s
-``shape_bytes`` and ``collective_stats``), which has no counterpart here;
-that item supplies the bytes of its own collectives.
+The collective term reads 0: the dry run costs one card.  The JAX package
+takes its collective bytes from the partitioned HLO text
+(``hlo_analysis.py``'s ``shape_bytes`` and ``collective_stats``), which has
+no counterpart here; tensor-parallel serving counts the bytes of its own
+collectives (``parallel.collectives.COLLECTIVES``), and the term with
+``n_devices`` above 1 comes with sharded training.
 
     python -m repro_torch.launch.roofline [--out-dir DIR] [--pick]
 

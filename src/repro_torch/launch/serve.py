@@ -8,6 +8,8 @@ synthetic request mix, or the always-on HTTP/SSE service.
     python -m repro_torch.launch.serve --arch rwkv6-7b --full --max-batch 4
     python -m repro_torch.launch.serve --arch llama-3.2-vision-90b   # smoke size; --full is 350 GB of fp32
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --replicas 2   # smoke size
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --tp 2        # two gloo ranks
+    python -m repro_torch.launch.serve --arch olmo-1b --full --tp 2 --backend gloo   # two ranks on one card
 
 It takes the JAX launcher's flags and defaults (``src/repro/launch/serve.py``):
 the closed-loop drive of ``--requests`` synthetic prompts (``--shared-prefix
@@ -27,12 +29,20 @@ is asked for) and ``--reduced`` (the default, smoke size) / ``--full``
 takes the port's ``kernel`` (the default: the paged-attention kernels on
 the card, their plain versions on the CPU) or ``plain``.
 
-Until tensor parallelism is ported (the tensor-parallel item of ROADMAP
-Queue 1), ``--tp`` above 1 exits, and ``--replicas N`` puts N engines on
-the one card: they share one params dict (an engine keeps its params by
-reference, so the card holds one copy of the weights), each with its own
-K/V pools and, with ``--fused``, its own CUDA graphs.  The router steps
-them in turns.  Every run prints the device it ran on.  The recurrent
+``--tp N`` serves one engine over N tensor-parallel ranks
+(``launch.mesh.run_ranks``, one process a rank, ``InferenceEngine(mesh=)``):
+every rank draws the full weights from ``--seed`` and keeps its slice;
+rank 0 runs the prompts, or ``--http``, and prints; the other ranks
+``follow()``.  ``--backend`` is the process group's: ``nccl`` (the default
+on the card, one card a rank) or ``gloo`` (the CPU's, and on the card the
+way to put several ranks on one card, staging every collective through
+host memory).  With ``--http`` the launcher forwards SIGTERM and SIGINT to
+rank 0, which drains and then releases the others.  Replicas of
+tensor-parallel engines (``--replicas`` with ``--tp`` above 1) come in the
+next slice and exit.  ``--replicas N`` puts N engines on the one card: they
+share one params dict (an engine keeps its params by reference, so the
+card holds one copy of the weights), each with its own K/V pools and, with
+``--fused``, its own CUDA graphs.  The router steps them in turns.  Every run prints the device it ran on.  The recurrent
 families serve with the engine's blocking admission (hymba-1.5b on the
 paged cache, K1 for its attention; rwkv6-7b on the dense slot cache,
 whose stats print ``cache_kind: dense``), and the chunked options warn
@@ -49,12 +59,12 @@ import torch
 from repro_torch.config import reduce_for_smoke
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import BACKENDS, run_ranks
 from repro_torch.models import init_params
 from repro_torch.models.attention import ATTN_IMPLS
 from repro_torch.serving import InferenceEngine, Replica, Router
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
-TP_ITEM = "the tensor-parallel item of ROADMAP Queue 1"
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -92,7 +102,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--spec-k", type=int, default=4, help="drafted tokens scored per verify pass")
     ap.add_argument("--replicas", type=int, default=1,
                     help="independent engine replicas behind the prefix-affinity router (all on the one card)")
-    ap.add_argument("--tp", type=int, default=1, help=f"tensor-parallel degree (only 1 until {TP_ITEM})")
+    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel degree: ranks of one engine")
+    ap.add_argument("--backend", default=None, choices=BACKENDS,
+                    help="process-group backend of --tp (default: nccl on the card, gloo on the CPU)")
     ap.add_argument("--metrics-json", default=None, metavar="PATH",
                     help="write the metrics registry snapshot as JSON after the drain")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
@@ -113,40 +125,75 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> dict:
     """Serve; returns the engine's (or the fleet's) ``stats()`` after the
-    drain or the service's shutdown."""
+    drain or the service's shutdown (rank 0's with ``--tp``)."""
     args = parse_args(argv)
-    if args.tp > 1:
-        raise SystemExit(f"--tp {args.tp}: tensor parallelism is not ported yet ({TP_ITEM})")
     if args.replicas < 1:
         raise SystemExit(f"--replicas {args.replicas} (need >= 1)")
+    if args.tp < 1:
+        raise SystemExit(f"--tp {args.tp} (need >= 1)")
+    if args.tp > 1:
+        if args.replicas > 1:
+            raise SystemExit(
+                f"--replicas {args.replicas} with --tp {args.tp}: replicas of tensor-parallel engines, each on "
+                "cards of its own, come in the next slice"
+            )
+        return run_ranks(_serve_rank, args.tp, backend=args.backend, device=args.device, args=(args,),
+                         timeout_s=None if args.http else 600.0, forward_signals=args.http)[0]
+    return serve(args)
+
+
+def _serve_rank(rank: int, mesh, args) -> dict:
+    """One rank of ``--tp``: rank 0 serves and prints, the others follow."""
+    if rank == 0:
+        return serve(args, mesh)
+    cfg = _model_config(args)
+    eng = _build_engine(args, cfg, init_params(cfg, args.seed, device=resolve_device(args.device)), mesh)
+    eng.follow()
+    return eng.stats()
+
+
+def _model_config(args):
     cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduce_for_smoke(cfg)
+    return reduce_for_smoke(cfg) if args.reduced else cfg
+
+
+def _build_engine(args, cfg, params, mesh=None):
+    return InferenceEngine(
+        cfg, params, max_batch=args.max_batch, max_seq=256, seed=args.seed, cache_kind=args.cache,
+        block_size=args.block_size, num_blocks=args.num_blocks, cache_dtype=DTYPES[args.cache_dtype],
+        quantize_kv=args.quantize_kv, attn_impl=args.attn_impl, fused=args.fused,
+        prefix_cache=False if args.no_prefix_cache else None, prefill_budget=args.prefill_budget,
+        spill_bytes=args.spill_bytes, spill_dtype=args.spill_dtype, restore_budget=args.restore_budget,
+        policy=args.policy, spec_decode=args.spec_decode, spec_k=args.spec_k, profile=args.profile,
+        trace_capacity=65536 if args.trace_out else 4096, device=resolve_device(args.device), mesh=mesh,
+    )
+
+
+def serve(args, mesh=None) -> dict:
+    """Build the engine (or fleet) and serve ``args``; with a ``mesh``, on
+    rank 0, and the followers are released at the end."""
+    cfg = _model_config(args)
     if cfg.is_encoder_only:
         raise SystemExit(f"{args.arch} is encoder-only; no decode serving")
     device = resolve_device(args.device)
     on = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"[serve] {cfg.name} (reduced={args.reduced}) on {on}, {args.replicas} replica(s)", flush=True)
+    ranks = f", tp={args.tp} over {torch.distributed.get_backend(mesh.get_group('model'))}" if mesh is not None else ""
+    print(f"[serve] {cfg.name} (reduced={args.reduced}) on {on}, {args.replicas} replica(s){ranks}", flush=True)
 
     params = init_params(cfg, args.seed, device=device)  # one copy, shared by every replica
 
-    def build_engine():
-        return InferenceEngine(
-            cfg, params, max_batch=args.max_batch, max_seq=256, seed=args.seed, cache_kind=args.cache,
-            block_size=args.block_size, num_blocks=args.num_blocks, cache_dtype=DTYPES[args.cache_dtype],
-            quantize_kv=args.quantize_kv, attn_impl=args.attn_impl, fused=args.fused,
-            prefix_cache=False if args.no_prefix_cache else None, prefill_budget=args.prefill_budget,
-            spill_bytes=args.spill_bytes, spill_dtype=args.spill_dtype, restore_budget=args.restore_budget,
-            policy=args.policy, spec_decode=args.spec_decode, spec_k=args.spec_k, profile=args.profile,
-            trace_capacity=65536 if args.trace_out else 4096, device=device,
-        )
-
     if args.replicas > 1:
-        eng = Router([Replica(i, build_engine()) for i in range(args.replicas)],
+        eng = Router([Replica(i, _build_engine(args, cfg, params)) for i in range(args.replicas)],
                      trace_capacity=65536 if args.trace_out else 4096)
     else:
-        eng = build_engine()
+        eng = _build_engine(args, cfg, params, mesh)
+    stats = _drive(args, cfg, eng)
+    if mesh is not None:
+        eng.stop_followers()
+    return stats
 
+
+def _drive(args, cfg, eng) -> dict:
     if args.http:
         import asyncio
 

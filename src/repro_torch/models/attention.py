@@ -26,6 +26,14 @@ package's ``models/attention.py``.
   path whatever ``impl`` says: they have no kernel, in the JAX package as
   here.
 
+Tensor-parallel serving (``mesh=``, ``parallel.sharding``): a rank whose
+parameters hold a slice of the heads projects Q/K/V for those heads
+(column-parallel), reads and writes its own head slice of the paged pools,
+runs K1/K2 on it, and sums the output projection over the ranks with one
+all-reduce (``_out``).  The GQA group stays whole, since both head counts
+divide the model axis.  RoPE, the q/k norms and the window are per head
+and unchanged.
+
 With an ``fp8`` handle (``repro_torch.fp8.policy.Fp8Layer``) the q/k/v/o
 projections run through FP8 GEMMs; the head split is a free reshape around
 a 2-D GEMM.
@@ -48,6 +56,7 @@ from repro_torch.kernels.paged_attention import (
 from repro_torch.kernels.paged_attention_ref import paged_attention_plain, paged_prefill_attention_plain
 from repro_torch.models.cache import NULL_BLOCK
 from repro_torch.models.layers import ParamSpec, apply_rope, softcap
+from repro_torch.parallel.collectives import all_reduce
 
 ATTN_IMPLS = ("kernel", "plain")  # paged attention
 SELF_ATTN_IMPLS = ("torch", "flash")  # full-sequence self-attention
@@ -121,12 +130,19 @@ def _rms_head(x, scale, eps):
     return (xf * scale.float()).to(x.dtype)
 
 
-def _out(cfg, p, ctx, dtype, fp8=None):
+def _out(cfg, p, ctx, dtype, fp8=None, mesh=None):
+    """The output projection over the heads ``ctx`` holds.  Under a
+    tensor-parallel ``mesh`` whose ranks each hold a slice of the heads
+    (``wo`` has fewer than ``cfg.num_heads``), the product is row-parallel:
+    one all-reduce sums the ranks' partial outputs, and ``bo`` is added
+    once, after the sum."""
     H, hd, D = p["wo"].shape
     if fp8 is not None:
         out = fp8.matmul("attn_o", ctx.reshape(ctx.shape[:-2] + (H * hd,)), p["wo"].reshape(H * hd, D)).to(dtype)
     else:
         out = ctx.to(dtype).reshape(ctx.shape[:-2] + (H * hd,)) @ p["wo"].to(dtype).reshape(H * hd, D)
+    if mesh is not None and H != cfg.num_heads:
+        out = all_reduce(out.contiguous(), mesh)
     if cfg.use_bias:
         out = out + p["bo"].to(dtype)
     return out
@@ -167,9 +183,9 @@ def _attend_block(cfg, q, k, v, mask, q_per_kv):
         s = softcap(s, cfg.attn_logit_softcap)
     s = s + mask
     w = torch.softmax(s, dim=-1)
-    B, Sq = q.shape[0], q.shape[1]
+    B, Sq, H = q.shape[0], q.shape[1], q.shape[2]  # H: the heads this rank holds
     ctx = torch.einsum("bhgqs,bshk->bqhgk", w.to(v.dtype), v)
-    return ctx.reshape(B, Sq, cfg.num_heads, cfg.head_dim)
+    return ctx.reshape(B, Sq, H, cfg.head_dim)
 
 
 def make_mask(q_pos, kv_pos, *, causal: bool, window: int) -> torch.Tensor:
@@ -252,24 +268,24 @@ def self_attention(cfg, p: dict, x: torch.Tensor, *, positions=None, q_chunk: in
     return _out(cfg, p, ctx, x.dtype, fp8=fp8)
 
 
-def cross_attention(cfg, p: dict, x: torch.Tensor, kv_tokens: torch.Tensor) -> torch.Tensor:
+def cross_attention(cfg, p: dict, x: torch.Tensor, kv_tokens: torch.Tensor, *, mesh=None) -> torch.Tensor:
     """Cross-attention of x (B, S, D) onto unpositioned vision tokens (B,
     N, D): every query sees every image token (no mask, no RoPE), the
     output scaled by ``tanh(gate)``.  In tensor ops, as the JAX package's
     ``jnp`` version.  Returns (B, S, D)."""
     q, k, v = _qkv(cfg, p, x, kv_x=kv_tokens)
-    return _gated_cross(cfg, p, x, q, k, v)
+    return _gated_cross(cfg, p, x, q, k, v, mesh=mesh)
 
 
-def _gated_cross(cfg, p, x, q, k, v):
+def _gated_cross(cfg, p, x, q, k, v, mesh=None):
     """``tanh(gate)`` times the projected attention of q over every row of
     k / v (the JAX package's all-zero additive mask)."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     ctx = _attend_block(cfg, q, k, v, zero, cfg.q_per_kv)
-    return torch.tanh(p["gate"].to(x.dtype)) * _out(cfg, p, ctx, x.dtype)
+    return torch.tanh(p["gate"].to(x.dtype)) * _out(cfg, p, ctx, x.dtype, mesh=mesh)
 
 
-def prefill_attention(cfg, p: dict, x: torch.Tensor, *, positions=None, q_chunk: int = 0):
+def prefill_attention(cfg, p: dict, x: torch.Tensor, *, positions=None, q_chunk: int = 0, mesh=None):
     """Self-attention that also returns the K/V tensors for the cache (the
     dense engine's blocking prefill), in tensor ops as the JAX package's
     ``prefill_attention``.  x: (B, S, D); positions: (B, S), default
@@ -290,10 +306,10 @@ def prefill_attention(cfg, p: dict, x: torch.Tensor, *, positions=None, q_chunk:
     else:
         m = make_mask(positions, positions, causal=cfg.causal, window=cfg.sliding_window)
         ctx = _attend_block(cfg, q, k, v, m[:, None, None], qpk)
-    return _out(cfg, p, ctx, x.dtype), k, v
+    return _out(cfg, p, ctx, x.dtype, mesh=mesh), k, v
 
 
-def decode_attention(cfg, p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor) -> torch.Tensor:
+def decode_attention(cfg, p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor, *, mesh=None) -> torch.Tensor:
     """Single-token decode against one layer's dense ring cache.
 
     x:     (B, 1, D) current token embedding stream
@@ -318,12 +334,12 @@ def decode_attention(cfg, p: dict, x: torch.Tensor, cache: dict, pos: torch.Tens
     m = make_mask(pos[:, None], pos_c, causal=cfg.causal, window=cfg.sliding_window)  # (B, 1, W)
     m = torch.where(pos_c[:, None, :] < 0, torch.full_like(m, NEG_INF), m)  # empty slots
     ctx = _attend_block(cfg, q, k_c, v_c, m[:, None, None], cfg.q_per_kv)
-    return _out(cfg, p, ctx, x.dtype)
+    return _out(cfg, p, ctx, x.dtype, mesh=mesh)
 
 
 def paged_chunk_attention(
     cfg, p: dict, x: torch.Tensor, cache: dict, tbl_row: torch.Tensor, start: torch.Tensor, *, impl: str = "kernel",
-    widths: torch.Tensor | None = None,
+    widths: torch.Tensor | None = None, mesh=None,
 ):
     """Chunked-prefill attention against one layer's paged cache.
 
@@ -363,10 +379,12 @@ def paged_chunk_attention(
     else:
         attend = paged_prefill_attention if impl == "kernel" else paged_prefill_attention_plain
         ctx = attend(q.contiguous(), k_pool, v_pool, tbl_row, start, **kw)
-    return _out(cfg, p, ctx, x.dtype)
+    return _out(cfg, p, ctx, x.dtype, mesh=mesh)
 
 
-def paged_decode_attention(cfg, p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor, *, impl: str = "kernel"):
+def paged_decode_attention(
+    cfg, p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor, *, impl: str = "kernel", mesh=None
+):
     """Single-token decode against one layer's paged cache.
 
     x:     (B, 1, D) current token embedding stream
@@ -395,4 +413,4 @@ def paged_decode_attention(cfg, p: dict, x: torch.Tensor, cache: dict, pos: torc
     else:
         attend = paged_attention if impl == "kernel" else paged_attention_plain
         ctx = attend(q[:, 0].contiguous(), k_pool, v_pool, tbl, seq_lens, **kw)
-    return _out(cfg, p, ctx[:, None], x.dtype)
+    return _out(cfg, p, ctx[:, None], x.dtype, mesh=mesh)

@@ -53,12 +53,12 @@ from repro_torch.models.layers import ParamSpec, apply_norm, norm_specs
 from repro_torch.models.moe import moe_ffn, moe_specs
 
 
-def _decode_attn(cfg, p_attn, h, cache, pos, attn_impl):
+def _decode_attn(cfg, p_attn, h, cache, pos, attn_impl, mesh=None):
     """One decode token's attention against either cache layout (the keys
     select it: ``"tbl"`` paged, else the dense ring), written in place."""
     if "tbl" in cache:
-        return paged_decode_attention(cfg, p_attn, h, cache, pos, impl=attn_impl)
-    return decode_attention(cfg, p_attn, h, cache, pos)
+        return paged_decode_attention(cfg, p_attn, h, cache, pos, impl=attn_impl, mesh=mesh)
+    return decode_attention(cfg, p_attn, h, cache, pos, mesh=mesh)
 
 
 def dense_block_specs(cfg) -> dict:
@@ -70,12 +70,12 @@ def dense_block_specs(cfg) -> dict:
     }
 
 
-def _residual(cfg, p, x, h, a, fp8=None):
+def _residual(cfg, p, x, h, a, fp8=None, mesh=None):
     if cfg.parallel_residual:
         # GPT-NeoX / StableLM parallel form: one LN, attn + FFN both from it
-        return x + a + ffn(cfg, p["mlp"], h, fp8=fp8)
+        return x + a + ffn(cfg, p["mlp"], h, fp8=fp8, mesh=mesh)
     x = x + a
-    return x + ffn(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x), fp8=fp8)
+    return x + ffn(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x), fp8=fp8, mesh=mesh)
 
 
 def dense_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8=None):
@@ -86,31 +86,33 @@ def dense_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8=
     return _residual(cfg, p, x, h, a, fp8=fp8)
 
 
-def dense_block_prefill(cfg, p, x, *, positions=None, q_chunk=0):
+def dense_block_prefill(cfg, p, x, *, positions=None, q_chunk=0, mesh=None):
     """Full-sequence forward of one layer that also returns its K/V:
-    (x (B, S, D), {"k", "v": (B, S, KV, hd)})."""
+    (x (B, S, D), {"k", "v": (B, S, KV, hd)}).  ``mesh``, here and in every
+    serving block: the tensor-parallel serving mesh, over which the
+    row-parallel products sum (``attention``, ``ffn``, ``moe``)."""
     h = apply_norm(cfg, p["norm1"], x)
-    a, k, v = prefill_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk)
-    return _residual(cfg, p, x, h, a), {"k": k, "v": v}
+    a, k, v = prefill_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk, mesh=mesh)
+    return _residual(cfg, p, x, h, a, mesh=mesh), {"k": k, "v": v}
 
 
-def dense_block_chunk(cfg, p, x, cache, tbl_row, start, *, attn_impl="kernel", widths=None):
+def dense_block_chunk(cfg, p, x, cache, tbl_row, start, *, attn_impl="kernel", widths=None, mesh=None):
     """Chunked-prefill step: a C-token chunk written and attended through
     the request's own paged block table.  ``widths`` (fused mixed batches):
     per-row valid-lane counts; pad lanes scatter to the null block and
     their outputs are discarded upstream."""
     h = apply_norm(cfg, p["norm1"], x)
-    a = paged_chunk_attention(cfg, p["attn"], h, cache, tbl_row, start, impl=attn_impl, widths=widths)
-    return _residual(cfg, p, x, h, a)
+    a = paged_chunk_attention(cfg, p["attn"], h, cache, tbl_row, start, impl=attn_impl, widths=widths, mesh=mesh)
+    return _residual(cfg, p, x, h, a, mesh=mesh)
 
 
-def dense_block_decode(cfg, p, x, cache, pos, *, attn_impl="kernel"):
+def dense_block_decode(cfg, p, x, cache, pos, *, attn_impl="kernel", mesh=None):
     """One decode token against either cache layout: the cache's keys select
     it (``"tbl"``: paged, through ``attn_impl``; else the dense ring cache,
     always in tensor ops), as the JAX package's ``_decode_attn``."""
     h = apply_norm(cfg, p["norm1"], x)
-    a = _decode_attn(cfg, p["attn"], h, cache, pos, attn_impl)
-    return _residual(cfg, p, x, h, a)
+    a = _decode_attn(cfg, p["attn"], h, cache, pos, attn_impl, mesh)
+    return _residual(cfg, p, x, h, a, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -131,16 +133,16 @@ def moe_block_specs(cfg) -> dict:
     return specs
 
 
-def _moe_residual(cfg, p, x, a, fp8=None):
+def _moe_residual(cfg, p, x, a, fp8=None, mesh=None):
     """The routed experts over ``norm2`` of the attention's residual, and
     arctic's dense FFN over ``norm_dense`` of it beside them: (x, the
     layer's load-balance loss), which serving drops, as in the JAX package.
     ``fp8`` quantizes the dense FFN; the routed experts stay ``torch.bmm``
     in the compute dtype, as in the JAX package."""
     x = x + a
-    mo, aux = moe_ffn(cfg, p["moe"], apply_norm(cfg, p["norm2"], x))
+    mo, aux = moe_ffn(cfg, p["moe"], apply_norm(cfg, p["norm2"], x), mesh=mesh)
     if cfg.moe.dense_residual:
-        mo = mo + ffn(cfg, p["dense_mlp"], apply_norm(cfg, p["norm_dense"], x), fp8=fp8)
+        mo = mo + ffn(cfg, p["dense_mlp"], apply_norm(cfg, p["norm_dense"], x), fp8=fp8, mesh=mesh)
     return x + mo, aux
 
 
@@ -152,30 +154,30 @@ def moe_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8=No
     return _moe_residual(cfg, p, x, a, fp8=fp8)
 
 
-def moe_block_prefill(cfg, p, x, *, positions=None, q_chunk=0):
+def moe_block_prefill(cfg, p, x, *, positions=None, q_chunk=0, mesh=None):
     """As ``dense_block_prefill``.  The pad positions of a bucketed prompt
     are routed with its tokens and compete for expert capacity, as in the
     JAX package."""
     h = apply_norm(cfg, p["norm1"], x)
-    a, k, v = prefill_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk)
-    return _moe_residual(cfg, p, x, a)[0], {"k": k, "v": v}
+    a, k, v = prefill_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk, mesh=mesh)
+    return _moe_residual(cfg, p, x, a, mesh=mesh)[0], {"k": k, "v": v}
 
 
-def moe_block_chunk(cfg, p, x, cache, tbl_row, start, *, attn_impl="kernel", widths=None):
+def moe_block_chunk(cfg, p, x, cache, tbl_row, start, *, attn_impl="kernel", widths=None, mesh=None):
     """As ``dense_block_chunk``.  A chunk routes exactly its own tokens; a
     fused mixed batch (``widths``) also routes its pad lanes, which compete
     for expert capacity, as in the JAX package."""
     h = apply_norm(cfg, p["norm1"], x)
-    a = paged_chunk_attention(cfg, p["attn"], h, cache, tbl_row, start, impl=attn_impl, widths=widths)
-    return _moe_residual(cfg, p, x, a)[0]
+    a = paged_chunk_attention(cfg, p["attn"], h, cache, tbl_row, start, impl=attn_impl, widths=widths, mesh=mesh)
+    return _moe_residual(cfg, p, x, a, mesh=mesh)[0]
 
 
-def moe_block_decode(cfg, p, x, cache, pos, *, attn_impl="kernel"):
+def moe_block_decode(cfg, p, x, cache, pos, *, attn_impl="kernel", mesh=None):
     """As ``dense_block_decode``: every batch row is routed, idle slots
     included."""
     h = apply_norm(cfg, p["norm1"], x)
-    a = _decode_attn(cfg, p["attn"], h, cache, pos, attn_impl)
-    return _moe_residual(cfg, p, x, a)[0]
+    a = _decode_attn(cfg, p["attn"], h, cache, pos, attn_impl, mesh)
+    return _moe_residual(cfg, p, x, a, mesh=mesh)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -254,8 +256,8 @@ def _hybrid_combine(p, a, m, dtype):
     return 0.5 * (p["beta_attn"].to(dtype) * _rmsn(a) + p["beta_ssm"].to(dtype) * _rmsn(m))
 
 
-def _hybrid_ffn(cfg, p, x, fp8=None):
-    return x + ffn(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x), fp8=fp8)
+def _hybrid_ffn(cfg, p, x, fp8=None, mesh=None):
+    return x + ffn(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x), fp8=fp8, mesh=mesh)
 
 
 def hybrid_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8=None):
@@ -270,29 +272,29 @@ def hybrid_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8
     return _hybrid_ffn(cfg, p, x, fp8=fp8)
 
 
-def hybrid_block_prefill(cfg, p, x, *, positions=None, q_chunk=0):
+def hybrid_block_prefill(cfg, p, x, *, positions=None, q_chunk=0, mesh=None):
     """Full-sequence forward of one layer from zero states that also returns
     its decode cache: (x (B, S, D), {"k", "v": (B, S, KV, hd), "conv": (B,
     K-1, d_inner) in x's dtype, "ssm": (B, H, P, N) fp32})."""
     h = apply_norm(cfg, p["norm1"], x)
-    a, k, v = prefill_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk)
+    a, k, v = prefill_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk, mesh=mesh)
     m, (conv_state, ssm_state) = ssm_mod.ssm_mix(cfg, p["ssm"], h)
     x = x + _hybrid_combine(p, a, m, x.dtype)
-    return _hybrid_ffn(cfg, p, x), {"k": k, "v": v, "conv": conv_state, "ssm": ssm_state}
+    return _hybrid_ffn(cfg, p, x, mesh=mesh), {"k": k, "v": v, "conv": conv_state, "ssm": ssm_state}
 
 
-def hybrid_block_decode(cfg, p, x, cache, pos, *, attn_impl="kernel"):
+def hybrid_block_decode(cfg, p, x, cache, pos, *, attn_impl="kernel", mesh=None):
     """One decode token against the layer's cache: the attention against
     either layout (``_decode_attn``), the SSM step from the slot-dense
     ``conv`` / ``ssm`` states, which are updated in place, cast to their
     leaves' dtypes."""
     h = apply_norm(cfg, p["norm1"], x)
-    a = _decode_attn(cfg, p["attn"], h, cache, pos, attn_impl)
+    a = _decode_attn(cfg, p["attn"], h, cache, pos, attn_impl, mesh)
     m, (conv_state, ssm_state) = ssm_mod.ssm_step(cfg, p["ssm"], h, cache["conv"], cache["ssm"])
     cache["conv"].copy_(conv_state)
     cache["ssm"].copy_(ssm_state)
     x = x + _hybrid_combine(p, a, m, x.dtype)
-    return _hybrid_ffn(cfg, p, x)
+    return _hybrid_ffn(cfg, p, x, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -310,9 +312,9 @@ def cross_block_specs(cfg) -> dict:
     }
 
 
-def _cross_ffn(cfg, p, x):
+def _cross_ffn(cfg, p, x, mesh=None):
     """The FFN over ``norm2``, entering the residual through ``tanh(gate_mlp)``."""
-    return x + torch.tanh(p["gate_mlp"].to(x.dtype)) * ffn(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+    return x + torch.tanh(p["gate_mlp"].to(x.dtype)) * ffn(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x), mesh=mesh)
 
 
 def cross_block(cfg, p, x, vision_tokens):
@@ -322,17 +324,17 @@ def cross_block(cfg, p, x, vision_tokens):
     return _cross_ffn(cfg, p, x)
 
 
-def cross_block_prefill(cfg, p, x, vision_tokens):
+def cross_block_prefill(cfg, p, x, vision_tokens, *, mesh=None):
     """As ``cross_block``, also returning the projected image K/V for the
     decode steps: (x, {"ck", "cv": (B, N, KV, hd)}), in the dtype the
     projection computes them in."""
     h = apply_norm(cfg, p["norm1"], x)
     q, ck, cv = _qkv(cfg, p["attn"], h, kv_x=vision_tokens)
-    x = x + _gated_cross(cfg, p["attn"], h, q, ck, cv)
-    return _cross_ffn(cfg, p, x), {"ck": ck, "cv": cv}
+    x = x + _gated_cross(cfg, p["attn"], h, q, ck, cv, mesh=mesh)
+    return _cross_ffn(cfg, p, x, mesh=mesh), {"ck": ck, "cv": cv}
 
 
-def cross_block_decode(cfg, p, x, cache):
+def cross_block_decode(cfg, p, x, cache, *, mesh=None):
     """One decode token against the cached image K/V (``cache["ck"]`` /
     ``["cv"]``, (B, N, KV, hd)), which it leaves as they are.  Only q is
     projected, with ``q_norm`` where the config has it and without the
@@ -342,5 +344,5 @@ def cross_block_decode(cfg, p, x, cache):
     q = _proj(h, pa["wq"])
     if cfg.qk_norm:
         q = _rms_head(q, pa["q_norm"], cfg.norm_eps)
-    x = x + _gated_cross(cfg, pa, h, q, cache["ck"], cache["cv"])
-    return _cross_ffn(cfg, p, x)
+    x = x + _gated_cross(cfg, pa, h, q, cache["ck"], cache["cv"], mesh=mesh)
+    return _cross_ffn(cfg, p, x, mesh=mesh)

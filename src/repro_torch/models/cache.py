@@ -48,6 +48,11 @@ Quantized pools (``quantized="int8"|"fp8"``, ``True`` for int8) store
 ``k``/``v`` in the ``serving.kvquant`` storage dtype with fp32
 per-(token, head) scales in sibling ``k_scale``/``v_scale`` leaves of
 shape ``(L, num_blocks, block_size, kv_heads, 1)``.
+
+Under tensor-parallel serving each rank builds its caches at its own kv
+heads (``kv_heads=``, ``parallel.sharding.local_kv_heads``): the pools, the
+rings and the image K/V hold the rank's head slice of every block and slot,
+while the block table and the recurrent states are whole on every rank.
 """
 
 from __future__ import annotations
@@ -101,15 +106,16 @@ def _ssm_states(cfg, B: int, dtype) -> dict:
     return {"conv": ((B, K - 1, di), dtype), "ssm": ((B, H, P, N), torch.float32)}
 
 
-def layer_cache_layout(cfg, B: int, seq_len: int, dtype) -> dict:
+def layer_cache_layout(cfg, B: int, seq_len: int, dtype, *, kv_heads: int | None = None) -> dict:
     """(shape, dtype) of one layer's dense slot cache (a vlm layer group's:
-    ``{"self": {...}, "cross": {...}}``)."""
+    ``{"self": {...}, "cross": {...}}``), its K/V at ``kv_heads`` (default
+    all of them)."""
     if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(f"no dense cache for family {cfg.family!r} ({cfg.name}) in the port")
     if cfg.family == "ssm":
         H, n, D = cfg.num_heads, cfg.rwkv.head_size, cfg.d_model
         return {"tm_x": ((B, D), dtype), "cm_x": ((B, D), dtype), "state": ((B, H, n, n), torch.float32)}
-    W, KV, hd = cache_window(cfg, seq_len), cfg.num_kv_heads, cfg.head_dim
+    W, KV, hd = cache_window(cfg, seq_len), kv_heads or cfg.num_kv_heads, cfg.head_dim
     lay = {"k": ((B, W, KV, hd), dtype), "v": ((B, W, KV, hd), dtype), "pos": ((B, W), torch.int32)}
     if cfg.family == "hybrid":
         lay.update(_ssm_states(cfg, B, dtype))
@@ -126,7 +132,7 @@ def _layout_leaves(lay: dict) -> list:
     return [leaf for v in lay.values() for leaf in (_layout_leaves(v) if isinstance(v, dict) else [v])]
 
 
-def init_cache(cfg, B: int, seq_len: int, dtype, *, device="cuda") -> dict:
+def init_cache(cfg, B: int, seq_len: int, dtype, *, device="cuda", kv_heads: int | None = None) -> dict:
     """Zero dense slot cache stacked over layers (vlm: layer groups), every
     ring slot empty (pos -1), every state zero."""
     device = resolve_device(device)
@@ -141,7 +147,7 @@ def init_cache(cfg, B: int, seq_len: int, dtype, *, device="cuda") -> dict:
                 out[name] = torch.full((G,) + v[0], -1 if name == "pos" else 0, dtype=v[1], device=device)
         return out
 
-    return make(layer_cache_layout(cfg, B, seq_len, dtype))
+    return make(layer_cache_layout(cfg, B, seq_len, dtype, kv_heads=kv_heads))
 
 
 def cache_bytes(cfg, B: int, seq_len: int, dtype) -> int:
@@ -153,17 +159,18 @@ def cache_bytes(cfg, B: int, seq_len: int, dtype) -> int:
 
 def paged_cache_layout(
     cfg, num_blocks: int, block_size: int, max_batch: int, max_blocks_per_seq: int, dtype, *,
-    quantized: bool | str = False,
+    quantized: bool | str = False, kv_heads: int | None = None,
 ) -> dict:
     """(shape, dtype) of every leaf of the stacked paged cache; with
     ``quantized`` the pools hold int8/e4m3 rows beside fp32 scale leaves;
     the hybrid family's ``conv`` / ``ssm`` states are slot-dense beside
-    them (``max_batch`` rows a layer, in ``dtype`` and fp32)."""
+    them (``max_batch`` rows a layer, in ``dtype`` and fp32).  The pools
+    hold ``kv_heads`` heads (default all of them)."""
     if not supports_paged(cfg):
         raise ValueError(f"no paged cache for family {cfg.family!r} ({cfg.name})")
     from repro_torch.serving.kvquant import kv_storage_dtype
 
-    L, KV, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    L, KV, hd = cfg.num_layers, kv_heads or cfg.num_kv_heads, cfg.head_dim
     pool = ((L, num_blocks, block_size, KV, hd), kv_storage_dtype(quantized) if quantized else dtype)
     lay = {"k": pool, "v": pool, "tbl": ((max_batch, max_blocks_per_seq), torch.int32)}
     if quantized:
@@ -177,11 +184,13 @@ def paged_cache_layout(
 
 def init_paged_cache(
     cfg, num_blocks: int, block_size: int, max_batch: int, max_blocks_per_seq: int, dtype, *,
-    quantized: bool | str = False, device="cuda",
+    quantized: bool | str = False, device="cuda", kv_heads: int | None = None,
 ) -> dict:
     """Zero-initialized paged cache; tables point at the null block."""
     device = resolve_device(device)
-    lay = paged_cache_layout(cfg, num_blocks, block_size, max_batch, max_blocks_per_seq, dtype, quantized=quantized)
+    lay = paged_cache_layout(
+        cfg, num_blocks, block_size, max_batch, max_blocks_per_seq, dtype, quantized=quantized, kv_heads=kv_heads
+    )
     return {name: torch.zeros(shape, dtype=dt, device=device) for name, (shape, dt) in lay.items()}
 
 

@@ -6,6 +6,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import ACTIVATIONS, ParamSpec, gelu_tanh
+from repro_torch.parallel.collectives import all_reduce
 
 
 def is_gated(activation: str) -> bool:
@@ -36,10 +37,15 @@ def ffn_specs(cfg, d_ff: int | None = None) -> dict:
     return specs
 
 
-def ffn(cfg, p: dict, x: torch.Tensor, *, fp8=None) -> torch.Tensor:
+def ffn(cfg, p: dict, x: torch.Tensor, *, fp8=None, mesh=None) -> torch.Tensor:
     """``fp8``: an FP8 layer handle (``repro_torch.fp8.policy.Fp8Layer``)
     routes the up/gate/down GEMMs through quantized matmuls (biases and the
-    activation stay in the compute dtype)."""
+    activation stay in the compute dtype).
+
+    Under a tensor-parallel ``mesh`` whose ranks each hold a slice of the
+    hidden dim (``w_down`` has fewer than ``cfg.d_ff`` rows): up, gate and
+    ``b_up`` are column-parallel, the down product row-parallel, summed by
+    one all-reduce, and ``b_down`` is added once, after the sum."""
 
     def mm(site, a, w):
         return fp8.matmul(site, a, w) if fp8 is not None else a @ w.to(a.dtype)
@@ -53,6 +59,8 @@ def ffn(cfg, p: dict, x: torch.Tensor, *, fp8=None) -> torch.Tensor:
     else:
         h = act(up)
     out = mm("ffn_down", h, p["w_down"])
+    if mesh is not None and p["w_down"].shape[0] != cfg.d_ff:
+        out = all_reduce(out.contiguous(), mesh)
     if cfg.use_bias:
         out = out + p["b_down"].to(x.dtype)
     return out

@@ -33,6 +33,17 @@ JAX package.  The paged steps do no host work
 (no ``.item()``, no host-to-device copy, no shape that depends on the
 data), so ``serving/graphs.py`` can capture them in CUDA graphs.
 
+Tensor-parallel serving: every serving entry point takes ``mesh``, the
+``(data=1, model=tp)`` mesh of ``launch.mesh.make_serving_mesh``, with
+this rank's slice of the parameters (``parallel.sharding.shard_params``)
+and of the K/V pools.  Activations are replicated on every rank.  The
+blocks sum their row-parallel products over the model axis; the
+embedding is vocab-parallel (each rank looks up the tokens in its vocab
+range, zeros elsewhere, and one all-reduce sums them: exact) and so are
+the logits (each rank's vocab slice, masked by global column, then one
+all-gather to the full padded vocab).  A family or layer whose heads do
+not divide the model axis runs them whole on every rank.
+
 The layer loop is a Python loop over per-layer parameter dicts.  The cache
 is updated in place and returned for symmetry with the JAX functions, which
 return a new one.
@@ -69,6 +80,8 @@ from repro_torch.models.blocks import (
 from repro_torch.models.cache import SERVED_FAMILIES, layer_cache
 from repro_torch.models.layers import apply_norm
 from repro_torch.models.rwkv import check_wkv_impl
+from repro_torch.parallel.collectives import all_gather, all_reduce
+from repro_torch.parallel.sharding import model_rank
 
 
 def _check_impl(cfg, attn_impl: str) -> None:
@@ -94,16 +107,24 @@ DECODE_BLOCKS = {"dense": dense_block_decode, "moe": moe_block_decode, "hybrid":
 STEP_DTYPE_LEAVES = ("conv", "tm_x", "cm_x")
 
 
-def embed_input(cfg, params, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+def embed_input(cfg, params, tokens: torch.Tensor, positions: torch.Tensor, mesh=None) -> torch.Tensor:
     """(B, S) tokens at (B, S) positions -> (B, S, D) embeddings.  For the
     audio family ``tokens`` holds the frames, (B, S, D): ``frames @
     frame_proj`` plus the learned ``pos[:S]``, whatever ``positions`` says,
-    as in the JAX package."""
+    as in the JAX package.  Under a ``mesh`` whose ranks each hold a vocab
+    slice of the table, the lookup is vocab-parallel (module docstring)."""
     e = params["embed"]
     if cfg.family == "audio":
         x = tokens @ e["frame_proj"].to(tokens.dtype)
         return x + e["pos"][: x.shape[1]].to(x.dtype)
-    x = e["tok"][tokens.long()]
+    tok = e["tok"]
+    if mesh is not None and tok.shape[0] != cfg.padded_vocab:
+        local = tokens.long() - model_rank(mesh) * tok.shape[0]
+        mine = (local >= 0) & (local < tok.shape[0])
+        x = tok[local.clamp(0, tok.shape[0] - 1)]
+        x = all_reduce(torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device)), mesh)
+    else:
+        x = tok[tokens.long()]
     if cfg.learned_pos_embedding:
         x = x + e["pos"][positions.long()].to(x.dtype)
     if cfg.scale_embedding:
@@ -113,19 +134,27 @@ def embed_input(cfg, params, tokens: torch.Tensor, positions: torch.Tensor) -> t
     return x
 
 
-def lm_logits(cfg, params, x: torch.Tensor) -> torch.Tensor:
-    """Final norm + output projection (tied or untied; padded-vocab mask)."""
+def lm_logits(cfg, params, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Final norm + output projection (tied or untied; padded-vocab mask).
+    Under a ``mesh`` whose ranks each hold a vocab slice of the projection
+    (``lm_head`` or the tied table), each rank computes its slice of the
+    logits, masks it by global column, and one all-gather joins them."""
     x = apply_norm(cfg, params["final_norm"], x)
     if "lm_head" in params:
         logits = x @ params["lm_head"].to(x.dtype)
     else:
         logits = x @ params["embed"]["tok"].to(x.dtype).T
     logits = logits.float()
+    split = mesh is not None and logits.shape[-1] != cfg.padded_vocab
     if cfg.padded_vocab != cfg.vocab_size:
         # mask the alignment-padding columns (never predicted); out of place,
-        # so the product's gradient is kept
-        col = torch.arange(cfg.padded_vocab, device=logits.device)
+        # so the product's gradient is kept.  The columns are global ones: a
+        # rank's slice starts at rank * its width
+        first = model_rank(mesh) * logits.shape[-1] if split else 0
+        col = first + torch.arange(logits.shape[-1], device=logits.device)
         logits = logits.masked_fill(col >= cfg.vocab_size, -1e9)
+    if split:
+        logits = all_gather(logits, mesh, dim=-1)
     return logits
 
 
@@ -251,7 +280,7 @@ def forward(
 
 
 @torch.no_grad()
-def prefill(cfg, params, batch, *, q_chunk=0):
+def prefill(cfg, params, batch, *, q_chunk=0, mesh=None):
     """Inference prefill of whole prompts.  Returns (logits (B, V), raw
     cache).
 
@@ -278,7 +307,7 @@ def prefill(cfg, params, batch, *, q_chunk=0):
     _check_served(cfg)
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
-    x = embed_input(cfg, params, tokens, positions)
+    x = embed_input(cfg, params, tokens, positions, mesh)
     layers = []
     for p_layer in params["blocks"]:
         if cfg.family == "ssm":
@@ -286,19 +315,19 @@ def prefill(cfg, params, batch, *, q_chunk=0):
         elif cfg.family == "vlm":  # a layer group: its self layers, then its cross layer
             selfs = []
             for p_self in p_layer["self"]:
-                x, sc = dense_block_prefill(cfg, p_self, x, positions=positions, q_chunk=q_chunk)
+                x, sc = dense_block_prefill(cfg, p_self, x, positions=positions, q_chunk=q_chunk, mesh=mesh)
                 selfs.append(sc)
-            x, cc = cross_block_prefill(cfg, p_layer["cross"], x, batch["vision_tokens"])
+            x, cc = cross_block_prefill(cfg, p_layer["cross"], x, batch["vision_tokens"], mesh=mesh)
             c = {"self": _stack_caches(selfs), "cross": cc}
         else:
-            x, c = PREFILL_BLOCKS[cfg.family](cfg, p_layer, x, positions=positions, q_chunk=q_chunk)
+            x, c = PREFILL_BLOCKS[cfg.family](cfg, p_layer, x, positions=positions, q_chunk=q_chunk, mesh=mesh)
         layers.append(c)
     last_index = batch.get("last_index")
     if last_index is None:
         x_last = x[:, -1]
     else:
         x_last = x[torch.arange(x.shape[0], device=x.device), last_index.long()]
-    return lm_logits(cfg, params, x_last), _stack_caches(layers)
+    return lm_logits(cfg, params, x_last, mesh), _stack_caches(layers)
 
 
 # chunked prefill needs a paged cache and per-chunk state that the written
@@ -313,7 +342,7 @@ def supports_chunked_prefill(cfg) -> bool:
     return cfg.family in CHUNKED_PREFILL_FAMILIES
 
 
-def _chunk_stack(cfg, params, cache, tokens, start, tbl_row, *, attn_impl="kernel", widths=None):
+def _chunk_stack(cfg, params, cache, tokens, start, tbl_row, *, attn_impl="kernel", widths=None, mesh=None):
     """Embed C tokens at ``start + [0, C)``, scatter their K/V into the paged
     cache through ``tbl_row`` and attend causally over the paged history.
     ``widths`` ((B,) int32, optional): per-row valid-lane counts; lanes at
@@ -326,14 +355,16 @@ def _chunk_stack(cfg, params, cache, tokens, start, tbl_row, *, attn_impl="kerne
     block = _serving_block(cfg, dense_block_chunk, moe_block_chunk)
     C = tokens.shape[1]
     positions = start[:, None].long() + torch.arange(C, device=tokens.device)[None, :]
-    x = embed_input(cfg, params, tokens, positions)
+    x = embed_input(cfg, params, tokens, positions, mesh)
     for layer, p_layer in enumerate(params["blocks"]):
-        x = block(cfg, p_layer, x, layer_cache(cache, layer), tbl_row, start, attn_impl=attn_impl, widths=widths)
+        x = block(
+            cfg, p_layer, x, layer_cache(cache, layer), tbl_row, start, attn_impl=attn_impl, widths=widths, mesh=mesh
+        )
     return x
 
 
 @torch.no_grad()
-def prefill_step(cfg, params, cache, tokens, start, tbl_row, *, attn_impl="kernel"):
+def prefill_step(cfg, params, cache, tokens, start, tbl_row, *, attn_impl="kernel", mesh=None):
     """Process one prompt chunk against a paged cache.
 
     tokens:  (B, C) int32, C consecutive prompt tokens
@@ -351,12 +382,12 @@ def prefill_step(cfg, params, cache, tokens, start, tbl_row, *, attn_impl="kerne
     different pairs when it binds).
     """
     _check_impl(cfg, attn_impl)
-    x = _chunk_stack(cfg, params, cache, tokens, start, tbl_row, attn_impl=attn_impl)
-    return lm_logits(cfg, params, x[:, -1]), cache
+    x = _chunk_stack(cfg, params, cache, tokens, start, tbl_row, attn_impl=attn_impl, mesh=mesh)
+    return lm_logits(cfg, params, x[:, -1], mesh), cache
 
 
 @torch.no_grad()
-def verify_step(cfg, params, cache, tokens, start, tbl_row, *, attn_impl="kernel"):
+def verify_step(cfg, params, cache, tokens, start, tbl_row, *, attn_impl="kernel", mesh=None):
     """Score C candidate tokens against a paged cache in one pass.
 
     The chunk machinery of ``prefill_step`` (scatter, then K2 over the
@@ -368,12 +399,12 @@ def verify_step(cfg, params, cache, tokens, start, tbl_row, *, attn_impl="kernel
     commit (``serving.kvcache.truncate_block_rows``).
     """
     _check_impl(cfg, attn_impl)
-    x = _chunk_stack(cfg, params, cache, tokens, start, tbl_row, attn_impl=attn_impl)
-    return lm_logits(cfg, params, x), cache
+    x = _chunk_stack(cfg, params, cache, tokens, start, tbl_row, attn_impl=attn_impl, mesh=mesh)
+    return lm_logits(cfg, params, x, mesh), cache
 
 
 @torch.no_grad()
-def unified_step(cfg, params, cache, tokens, start, widths, tbl_rows, *, attn_impl="kernel"):
+def unified_step(cfg, params, cache, tokens, start, widths, tbl_rows, *, attn_impl="kernel", mesh=None):
     """One fused pass over a mixed row batch (the one-dispatch step).
 
     tokens:   (R, W) int32, each row feeds up to W consecutive tokens
@@ -394,12 +425,12 @@ def unified_step(cfg, params, cache, tokens, start, widths, tbl_rows, *, attn_im
     logits of every lane, so the caller can sample in the same graph.
     """
     _check_impl(cfg, attn_impl)
-    x = _chunk_stack(cfg, params, cache, tokens, start, tbl_rows, attn_impl=attn_impl, widths=widths)
-    return lm_logits(cfg, params, x), cache
+    x = _chunk_stack(cfg, params, cache, tokens, start, tbl_rows, attn_impl=attn_impl, widths=widths, mesh=mesh)
+    return lm_logits(cfg, params, x, mesh), cache
 
 
 @torch.no_grad()
-def decode_step(cfg, params, cache, token, pos, *, attn_impl="kernel"):
+def decode_step(cfg, params, cache, token, pos, *, attn_impl="kernel", mesh=None):
     """One decode step.  token: (B, 1) int32; pos: (B,) int32 absolute
     position of this token.  Returns (logits (B, V), cache).
 
@@ -418,15 +449,17 @@ def decode_step(cfg, params, cache, token, pos, *, attn_impl="kernel"):
     new cache leaves of the JAX package's layer scan do.  The step then
     replaces those leaves of ``cache`` with new tensors."""
     _check_impl(cfg, attn_impl)
-    x = embed_input(cfg, params, token, pos[:, None])
+    x = embed_input(cfg, params, token, pos[:, None], mesh)
     for name in STEP_DTYPE_LEAVES:
         if name in cache and cache[name].dtype != x.dtype:
             cache[name] = cache[name].to(x.dtype)
     for layer, p_layer in enumerate(params["blocks"]):
         if cfg.family == "vlm":
             for i, p_self in enumerate(p_layer["self"]):
-                x = dense_block_decode(cfg, p_self, x, {n: t[layer, i] for n, t in cache["self"].items()}, pos)
-            x = cross_block_decode(cfg, p_layer["cross"], x, {n: t[layer] for n, t in cache["cross"].items()})
+                x = dense_block_decode(
+                    cfg, p_self, x, {n: t[layer, i] for n, t in cache["self"].items()}, pos, mesh=mesh
+                )
+            x = cross_block_decode(cfg, p_layer["cross"], x, {n: t[layer] for n, t in cache["cross"].items()}, mesh=mesh)
             continue
         c = layer_cache(cache, layer)
         if cfg.family == "ssm":
@@ -434,5 +467,5 @@ def decode_step(cfg, params, cache, token, pos, *, attn_impl="kernel"):
             for name, t in new.items():
                 c[name].copy_(t)
         else:
-            x = DECODE_BLOCKS[cfg.family](cfg, p_layer, x, c, pos, attn_impl=attn_impl)
-    return lm_logits(cfg, params, x[:, 0]), cache
+            x = DECODE_BLOCKS[cfg.family](cfg, p_layer, x, c, pos, attn_impl=attn_impl, mesh=mesh)
+    return lm_logits(cfg, params, x[:, 0], mesh), cache

@@ -35,6 +35,15 @@ Nothing here reads a value on the host or makes a shape from the data, so
 A token sends at most one pair to an expert, so its slot in e's buffer
 depends only on the set of experts the earlier tokens chose, not on the
 order ``topk`` lists them in.
+
+Under a tensor-parallel ``mesh`` the experts shard over the model axis
+(``parallel.sharding``: the ``"expert"`` axis claims it first).
+Activations are replicated on a ``(1, tp)`` mesh, so every rank routes
+every token with the whole (replicated) router and counts capacity
+exactly as above; each rank then fills and runs the buffers of its own
+``E / tp`` experts, combines the pairs those experts took, and one
+all-reduce sums the ranks' combines, with the shared experts' partial
+outputs when their hidden dim is sharded too.
 """
 
 from __future__ import annotations
@@ -45,6 +54,8 @@ import torch
 
 from repro_torch.models.ffn import gate_fn, is_gated
 from repro_torch.models.layers import ParamSpec
+from repro_torch.parallel.collectives import all_reduce
+from repro_torch.parallel.sharding import model_rank
 
 
 def moe_specs(cfg) -> dict:
@@ -111,8 +122,11 @@ def _experts(cfg, p: dict, xe: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, p["w_down"].to(xe.dtype))
 
 
-def moe_ffn(cfg, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """MoE FFN over (B, S, D).  Returns (out (B, S, D), aux loss)."""
+def moe_ffn(cfg, p: dict, x: torch.Tensor, *, mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """MoE FFN over (B, S, D).  Returns (out (B, S, D), aux loss).  Under
+    a ``mesh`` whose ranks each hold a slice of the experts, this rank runs
+    its experts and the combine is summed over the ranks (module
+    docstring)."""
     m = cfg.moe
     B, S, D = x.shape
     T = B * S
@@ -128,21 +142,38 @@ def moe_ffn(cfg, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     group = torch.arange(ng, device=dev).view(ng, 1, 1)
     row = (r.experts * ng + group) * C + r.slot
     rows = E * ng * C
+    # this rank's experts: all of them, or its slice under a mesh
+    E_local = p["w_up"].shape[0]
+    split = mesh is not None and E_local != E
+    first = model_rank(mesh) * E_local * ng * C if split else 0
+    local_rows = E_local * ng * C
     # dispatch: the token id of every row; the dropped pairs write a dump
     # row past the end, and empty rows read row T of xt's extension: zeros
     src = torch.full((rows + 1,), T, dtype=torch.int64, device=dev)
     src.scatter_(0, torch.where(r.keep, row, rows).reshape(T * k), torch.arange(T, device=dev).repeat_interleave(k))
-    xe = torch.cat([xt, xt.new_zeros(1, D)])[src[:rows]].view(E, ng * C, D)
-    ye = _experts(cfg, p, xe).view(rows, D)
-    # combine: a dropped pair reads row 0 at gate 0
-    picked = ye[torch.where(r.keep, row, 0).reshape(T * k)].view(T, k, D)
-    gates = torch.where(r.keep, r.gates, 0.0).to(x.dtype)
+    xe = torch.cat([xt, xt.new_zeros(1, D)])[src[first : first + local_rows]].view(E_local, ng * C, D)
+    ye = _experts(cfg, p, xe).view(local_rows, D)
+    # combine: a dropped pair (or, under a mesh, one another rank's expert
+    # took) reads row 0 at gate 0
+    taken = r.keep & (row >= first) & (row < first + local_rows) if split else r.keep
+    picked = ye[torch.where(taken, row - first, 0).reshape(T * k)].view(T, k, D)
+    gates = torch.where(taken, r.gates, 0.0).to(x.dtype)
     out = (gates.reshape(T, k, 1) * picked).sum(dim=1)
+    partial = split  # whether ``out`` is this rank's share of a sum over ranks
 
     # always-on shared experts (DeepSeek-style)
     if m.num_shared_experts > 0:
         act = gate_fn(cfg.activation)
         up = xt @ p["shared_w_up"].to(xt.dtype)
         up = act(xt @ p["shared_w_gate"].to(xt.dtype)) * up if is_gated(cfg.activation) else act(up)
-        out = out + up @ p["shared_w_down"].to(xt.dtype)
+        shared = up @ p["shared_w_down"].to(xt.dtype)
+        if mesh is not None and (p["shared_w_down"].shape[0] != m.num_shared_experts * m.expert_d_ff) != partial:
+            # one part is a share of a sum, the other whole: sum the share first
+            if partial:
+                out, partial = all_reduce(out.contiguous(), mesh), False
+            else:
+                shared = all_reduce(shared.contiguous(), mesh)
+        out = out + shared
+    if partial:
+        out = all_reduce(out.contiguous(), mesh)
     return out.reshape(B, S, D), r.aux.mean() * m.aux_loss_weight

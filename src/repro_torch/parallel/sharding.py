@@ -1,0 +1,360 @@
+"""Logical-axis sharding rule engine, and the layout tensor-parallel
+serving runs.
+
+A copy of the JAX package's ``parallel/sharding.py`` rule engine: every
+parameter and cache tensor carries a tuple of *logical* axis names (the
+``ParamSpec``s of ``models``), and a **greedy, divisibility-checked**
+assignment maps them onto mesh axes:
+
+* each logical axis has an ordered candidate list of mesh axes (or axis
+  tuples, e.g. the combined FSDP axes ``("pod", "data")``);
+* per tensor, candidates are claimed first-come-first-served, in the order
+  of the rule table (dict order is the claim priority), so no mesh axis is
+  used twice on one tensor;
+* a candidate is skipped when the dim is not divisible by the mesh-axis
+  size, which is how one table serves every architecture (hymba's 25 heads
+  fall back while its FFN still shards).
+
+A spec is a plain tuple, one entry a dim: a mesh-axis name, a tuple of
+names, or ``None`` (replicated), where the JAX package has a
+``PartitionSpec``.  ``axis_sizes`` reads a ``torch.distributed``
+``DeviceMesh`` (``mesh_dim_names`` and ``shape``) or any object with a
+``.shape`` dict, so the production 16x16 geometry is checked with no ranks
+(``launch.mesh.make_production_mesh``).
+
+**The executed layout.**  GSPMD runs any layout the table gives; the port
+runs its collectives by hand (``parallel.collectives``), and so executes
+the table's claims of ``"model"`` on five logical axes only
+(``EXECUTED_AXES``): attention ``heads`` / ``kv_heads`` (column-parallel
+Q/K/V over the local heads, a row-parallel output with one all-reduce),
+FFN ``mlp`` (column-parallel up/gate, row-parallel down, one all-reduce),
+the MoE ``expert`` axis (each rank runs its experts, one all-reduce of the
+combine) and ``vocab`` (the embedding lookup summed by one all-reduce, the
+logits gathered).  Attention heads shard only when both head counts divide
+the model axis (``kernel_shardable``), so each rank's contiguous q-head
+slice keeps its GQA kv group.  Every other claim stays replicated:
+
+* ``embed``, the table's TP fallback (norm scales, biases added after a
+  sum, hymba's projections when its 25 heads do not divide): a
+  contraction over a sharded embed dim needs a further all-reduce;
+* ``head_dim`` (q/k norm scales, and the fallback of indivisible heads);
+* ``expert_router`` (sharding the router would need a gather of the router
+  logits before the top-k);
+* ``ssm_inner`` and the SSM's ``heads`` (hymba's SSM heads: ``in_proj``
+  packs x and z side by side, and ``x_proj`` contracts over the inner dim);
+* ``heads_x_dim`` (rwkv6's mixes and the audio frame projection).
+
+``executed_specs`` gives that layout beside the table's, and
+``shard_params`` cuts each rank's slice of a full parameter tree by it.
+The paged K/V pools shard on ``kv_heads`` only (``paged_cache_axes``): every
+rank holds its head slice of every physical block, so block ids, tables,
+the allocator and the prefix index are the same on every rank.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.config import MeshConfig, ParallelConfig
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_paths
+
+Candidate = tuple[str, ...]  # one candidate = tuple of mesh axes used together
+MODEL = "model"
+
+# the logical axes whose claim of the model axis the port executes
+EXECUTED_AXES = ("heads", "kv_heads", "mlp", "vocab", "expert")
+# parameter subtrees whose claims all stay replicated (hymba's SSM heads)
+REPLICATED_SUBTREES = ("ssm",)
+
+
+def axis_sizes(mesh) -> dict:
+    """{mesh axis name: size} of a ``DeviceMesh`` or of a stub whose
+    ``.shape`` is that dict."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, tuple(mesh.shape)))
+    return dict(mesh.shape)
+
+
+def _axis_size(mesh, cand: Candidate) -> int:
+    sizes = axis_sizes(mesh)
+    n = 1
+    for a in cand:
+        n *= sizes[a]
+    return n
+
+
+def model_axis_size(mesh) -> int:
+    """Size of the tensor-parallel ("model") axis; 1 when there is no mesh."""
+    if mesh is None:
+        return 1
+    return int(axis_sizes(mesh).get(MODEL, 1))
+
+
+def kernel_shardable(mesh, num_q_heads: int, num_kv_heads: int) -> bool:
+    """Whether attention runs on a local head slice: both head counts divide
+    the model axis, so the contiguous q-head slice of each rank stays
+    aligned with its GQA kv group and K1/K2 take it as they take any head
+    count.  Otherwise the heads stay replicated and every rank attends over
+    all of them."""
+    tp = model_axis_size(mesh)
+    if tp <= 1:
+        return True
+    return num_q_heads % tp == 0 and num_kv_heads % tp == 0
+
+
+def local_kv_heads(cfg, mesh) -> int:
+    """The kv heads of one rank's pools under ``mesh``."""
+    tp = model_axis_size(mesh)
+    if tp > 1 and cfg.has_attention and kernel_shardable(mesh, cfg.num_heads, cfg.num_kv_heads):
+        return cfg.num_kv_heads // tp
+    return cfg.num_kv_heads
+
+
+def paged_cache_axes(cfg, *, quantized: bool | str = False) -> dict:
+    """Logical axes of the port's stacked paged cache, as the JAX package's
+    ``paged_cache_axes``: the pools (and their scale leaves) shard along
+    ``kv_heads``; the block table (one for every layer here, one per layer
+    there) and the hybrid family's recurrent states are replicated."""
+    from repro_torch.models.cache import supports_paged
+
+    if not supports_paged(cfg):
+        raise ValueError(f"no paged cache for family {cfg.family!r} ({cfg.name})")
+    pool = ("layers", None, None, "kv_heads", None)
+    ax = {"k": pool, "v": pool, "tbl": (None, None)}
+    if quantized:
+        ax["k_scale"] = pool
+        ax["v_scale"] = pool
+    if cfg.family == "hybrid":
+        ax["conv"] = ("layers", None, None, None)
+        ax["ssm"] = ("layers", None, None, None, None)
+    return ax
+
+
+@dataclass(frozen=True)
+class ShardingRules:
+    mesh_cfg: MeshConfig
+    parallel: ParallelConfig
+
+    # ------------------------------------------------------------------
+    def _data_axes(self) -> Candidate:
+        return tuple(self.mesh_cfg.data_axes)
+
+    def param_rules(self) -> dict[str, tuple[Candidate, ...]]:
+        fsdp: tuple[Candidate, ...] = ((self._data_axes(),) if self.parallel.fsdp else ())
+        tp: tuple[Candidate, ...] = (((MODEL,),) if self.parallel.tensor_parallel else ())
+        # dict order = priority, as in the JAX package: the expert dim claims
+        # "model" first, then vocab tables, heads and the FFN hidden dim;
+        # "embed" takes the FSDP axes, with "model" as its fallback
+        return {
+            "expert": tp,
+            "vocab": tp,
+            "heads": tp,
+            "kv_heads": tp,
+            "mlp": tp,
+            # the expert FFN hidden dim falls back to the data axes in decode
+            # (fsdp off), as in the JAX package
+            "expert_mlp": tp + (() if self.parallel.fsdp else (self._data_axes(),)),
+            "heads_x_dim": tp,
+            "ssm_inner": tp,
+            "embed": fsdp + tp,
+            "embed_v": (),  # embed dim of vocab tables: never sharded
+            "expert_router": tp,
+            "head_dim": tp,
+            "layers": (),
+            "layers_inner": (),
+        }
+
+    def act_rules(self) -> dict[str, tuple[Candidate, ...]]:
+        batch: tuple[Candidate, ...] = (self._data_axes(),)
+        tp: tuple[Candidate, ...] = (((MODEL,),) if self.parallel.tensor_parallel else ())
+        seq: tuple[Candidate, ...] = (((MODEL,),) if self.parallel.sequence_parallel else ())
+        return {
+            "batch": batch,
+            "kv_batch": batch,
+            "heads": tp,
+            "kv_heads": tp,
+            "mlp": tp,
+            "expert_mlp": tp,
+            "expert": tp,
+            "vocab": tp,
+            "ssm_inner": tp,
+            "heads_x_dim": tp,
+            "seq": seq,
+            "kv_seq": (),  # claimed through the fallback of the cache rules
+            "embed": (),
+            "layers": (),
+            "layers_inner": (),
+        }
+
+    def cache_rules(self) -> dict[str, tuple[Candidate, ...]]:
+        """K/V caches: heads first, then the sequence (split-KV) fallback
+        when the head count does not divide; ``kv_seq`` goes last, so
+        ``kv_heads`` claims the model axis first."""
+        rules = dict(self.act_rules())
+        rules.pop("kv_seq", None)
+        rules["kv_seq"] = ((MODEL,),)
+        return rules
+
+    # ------------------------------------------------------------------
+    def spec_for(self, axes: tuple, dims: tuple, mesh, rules: dict) -> tuple:
+        """Greedy one-tensor assignment honouring divisibility; priority is
+        the logical axis's position in the rule table."""
+        used: set[str] = set()
+        assign: list = [None] * len(axes)
+        rule_order = {name: i for i, name in enumerate(rules)}
+        order = sorted(
+            range(len(axes)),
+            key=lambda i: (len(rules.get(axes[i], ())) == 0, rule_order.get(axes[i], len(rule_order))),
+        )
+        for i in order:
+            ax = axes[i]
+            if ax is None:
+                continue
+            for cand in rules.get(ax, ()):
+                if any(a in used for a in cand):
+                    continue
+                if dims[i] % _axis_size(mesh, cand) != 0:
+                    continue
+                assign[i] = cand if len(cand) > 1 else cand[0]
+                used.update(cand)
+                break
+        return tuple(assign)
+
+    def tree_specs(self, axes_tree, shape_tree, mesh, rules: dict):
+        """Spec tree for a (logical-axes tree, tree of leaves with ``.shape``)."""
+
+        def one(axes, leaf):
+            dims = tuple(leaf.shape)
+            if len(axes) != len(dims):
+                raise ValueError(f"axes {axes} vs shape {dims}")
+            return self.spec_for(axes, dims, mesh, rules)
+
+        return tree_map(one, axes_tree, shape_tree)  # an axes tuple is a leaf
+
+    # ------------------------------------------------------------------
+    def param_shardings(self, model_cfg, mesh):
+        """The table's spec of every parameter of ``model_cfg`` (the
+        port's per-layer tree: a block's spec is the JAX package's stacked
+        spec without its leading ``"layers"`` entry)."""
+        from repro_torch.models import param_specs
+
+        specs = param_specs(model_cfg)
+        return tree_map(lambda s: self.spec_for(s.axes, s.shape, mesh, self.param_rules()), specs)
+
+    def paged_cache_shardings(self, model_cfg, mesh, cache: dict) -> dict:
+        """The spec of every leaf of a paged cache: pools on the kv-head
+        axis (replicated when the head count does not divide), the table
+        and the hybrid recurrent states replicated."""
+        axes = paged_cache_axes(model_cfg, quantized="k_scale" in cache)
+        return self.tree_specs(axes, {k: cache[k] for k in axes}, mesh, self.cache_rules())
+
+    def logits_sharding(self, model_cfg, mesh, ndim: int = 2) -> tuple:
+        """Vocab-sharded logits (other dims replicated); replicated when the
+        padded vocab does not divide the model axis."""
+        return self.spec_for(
+            (None,) * (ndim - 1) + ("vocab",), (1,) * (ndim - 1) + (model_cfg.padded_vocab,), mesh, self.act_rules()
+        )
+
+
+
+def make_rules(mesh_cfg: MeshConfig, parallel: ParallelConfig | None = None) -> ShardingRules:
+    return ShardingRules(mesh_cfg, parallel or ParallelConfig())
+
+
+def serving_rules(parallel: ParallelConfig | None = None) -> ShardingRules:
+    """The serving engine's table: tensor parallelism, no FSDP (decode wants
+    its weights stationary), as the JAX engine's default."""
+    return make_rules(MeshConfig(), parallel or ParallelConfig(fsdp=False, tensor_parallel=True))
+
+
+# ---------------------------------------------------------------------------
+# the executed layout
+# ---------------------------------------------------------------------------
+
+
+def _executed(cfg, mesh, path: tuple, axes: tuple, spec: tuple) -> tuple:
+    heads_ok = kernel_shardable(mesh, cfg.num_heads, cfg.num_kv_heads)
+    replicated_here = any(p in REPLICATED_SUBTREES for p in path)
+    out = []
+    for ax, entry in zip(axes, spec):
+        names = () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
+        if MODEL not in names:
+            out.append(None)  # data axes have size 1 on a serving mesh
+        elif replicated_here or ax not in EXECUTED_AXES or (ax in ("heads", "kv_heads") and not heads_ok):
+            out.append(None)
+        else:
+            out.append(MODEL)
+    return tuple(out)
+
+
+def executed_specs(cfg, mesh, rules: ShardingRules | None = None) -> dict:
+    """``{"table": specs, "executed": specs}``: the rule table's spec of
+    every parameter and the layout the port runs (module docstring), as
+    trees shaped like the parameters.  An executed entry is ``"model"``
+    or ``None``."""
+    from repro_torch.models import param_specs
+
+    rules = rules or serving_rules()
+    pspecs = param_specs(cfg)
+    table = rules.param_shardings(cfg, mesh)
+    paths = tree_paths(pspecs)
+    axes = [s.axes for s in tree_leaves(pspecs)]
+    done = iter(_executed(cfg, mesh, p, a, t) for p, a, t in zip(paths, axes, tree_leaves(table)))
+    return {"table": table, "executed": tree_map(lambda _: next(done), pspecs)}
+
+
+def replicated_claims(cfg, mesh, rules: ShardingRules | None = None) -> dict:
+    """``{path: (table spec, executed spec)}`` of every parameter whose
+    table spec claims the model axis where the port keeps it replicated."""
+    specs = executed_specs(cfg, mesh, rules)
+    paths = tree_paths(specs["table"])
+    out = {}
+    for path, t, e in zip(paths, tree_leaves(specs["table"]), tree_leaves(specs["executed"])):
+        claims = [MODEL in ((x,) if isinstance(x, str) else (x or ())) for x in t]
+        if claims != [x == MODEL for x in e]:
+            out["/".join(map(str, path))] = (t, e)
+    return out
+
+
+def model_rank(mesh) -> int:
+    """This process's coordinate on the model axis (0 without a mesh)."""
+    if mesh is None or model_axis_size(mesh) == 1:
+        return 0
+    return mesh.get_local_rank(MODEL)
+
+
+def shard_tensor(t: torch.Tensor, spec: tuple, tp: int, rank: int) -> torch.Tensor:
+    """This rank's slice of a full tensor under an executed spec, as a new
+    contiguous tensor (so the full one can be freed)."""
+    for dim, entry in enumerate(spec):
+        if entry == MODEL and tp > 1:
+            if t.shape[dim] % tp:
+                raise ValueError(f"dim {dim} of shape {tuple(t.shape)} does not divide over {tp} ranks")
+            n = t.shape[dim] // tp
+            t = t.narrow(dim, rank * n, n)
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def shard_params(cfg, params, specs, mesh) -> dict:
+    """Cut this rank's local slice out of the full parameter tree
+    ``params`` by the executed ``specs`` (``executed_specs(cfg,
+    mesh)["executed"]``).  A replicated leaf comes back as it is, and so
+    does a leaf that already holds this rank's slice (its sharded dims
+    1 / tp of ``cfg``'s); any other shape raises."""
+    from repro_torch.models import param_specs
+
+    tp, rank = model_axis_size(mesh), model_rank(mesh)
+
+    def one(t, spec, ps):
+        full = tuple(ps.shape)
+        local = tuple(d // tp if e == MODEL else d for d, e in zip(full, spec))
+        if tuple(t.shape) == local:
+            return t
+        if tuple(t.shape) != full:
+            raise ValueError(f"parameter of shape {tuple(t.shape)}: neither the full {full} nor the local {local}")
+        return shard_tensor(t, spec, tp, rank)
+
+    return tree_map(one, params, specs, param_specs(cfg))

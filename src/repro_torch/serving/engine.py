@@ -90,8 +90,34 @@ occupancy and splits the joules over the requests that computed tokens in
 it, by tokens: ``Request.energy_j``, ``stats()["energy_joules"]`` and
 ``["joules_per_token"]``.
 
-Options of the JAX engine that the port does not have yet raise
-``NotImplementedError`` naming the option: ``mesh``.
+**Tensor parallelism** (``mesh=``, ``parallel=``): one engine instance
+spans the ``tp`` ranks of a ``(data=1, model=tp)`` mesh
+(``launch.mesh.make_serving_mesh``), one engine a rank.  Each rank keeps its
+slice of the params by the rule table's executed layout
+(``parallel.sharding``: heads, kv heads, FFN hidden, experts and vocab over
+``"model"``; full params are cut at construction, a tree of local slices
+is kept as it is) and its kv-head slice of every block of the pools, so
+block ids, tables, the allocator and the prefix index are the same on
+every rank, and K1/K2 run on each rank's local heads.  The blocks sum
+their row-parallel products with one all-reduce each, the logits are
+gathered to the full vocab (``models``).  Head counts that do not divide
+the model axis keep the attention replicated, with a warning: each rank
+then attends over every head, through K1/K2 all the same.
+
+Rank 0 drives and the others follow.  ``submit``, ``abort`` and ``step``
+act on rank 0 only (the front-ends wrap rank 0's engine); at the top of
+each step rank 0 broadcasts, on a gloo group of the same ranks, the
+submissions and aborts since its last step (each submission with rank 0's
+``submit_t``) and its clock reading, which decides the step's deadline
+aborts.  Every rank then runs the same deterministic host logic on the
+same inputs and the same logits, so tables and schedules agree without
+being sent.  Followers run ``follow()`` until rank 0 calls
+``stop_followers()``.  Clock readings that decide nothing (spans, TTFT)
+stay each rank's own.  ``stats()["tp"]`` is the model axis;
+``cache_bytes()`` the global bytes (mesh-invariant) and
+``cache_bytes(per_device=True)`` this rank's.  ``fused=True`` runs eagerly
+on the CPU; on the card it needs collectives a CUDA graph can capture
+(NCCL), and a gloo group holding CUDA tensors raises ``ValueError``.
 
 The recurrent-state families serve with blocking admission, as in the JAX
 engine: their states absorb a whole prompt in one pass and cannot resume
@@ -163,6 +189,16 @@ from repro_torch.models import (
     verify_step,
 )
 from repro_torch.models.attention import ATTN_IMPLS
+from repro_torch.parallel.collectives import model_group
+from repro_torch.parallel.sharding import (
+    executed_specs,
+    kernel_shardable,
+    local_kv_heads,
+    model_axis_size,
+    model_rank,
+    serving_rules,
+    shard_params,
+)
 from repro_torch.serving.graphs import StepGraphs
 from repro_torch.serving.kvcache import (
     clear_block_row,
@@ -185,7 +221,6 @@ from repro_torch.serving.scheduler import Request, RequestState, SchedulerCore
 from repro_torch.serving.spec_decode import DraftModel, make_draft_config, ngram_draft
 from repro_torch.serving.spill import SPILL_MODES, SpillPool, warn_if_fp8_over_int8
 from repro_torch.serving.trace import SCHEDULER_TRACK, Tracer, slot_track
-from repro_torch.utils.tree import tree_leaves
 
 
 def _block_until_ready(device: torch.device) -> None:
@@ -217,6 +252,10 @@ class _RestoreTask:
     t0: float
 
 
+# cache leaves with a kv-head axis: the ones a rank holds a slice of
+HEAD_LEAVES = ("k", "v", "k_scale", "v_scale", "ck", "cv")
+
+
 class InferenceEngine:
     def __init__(
         self,
@@ -246,6 +285,7 @@ class InferenceEngine:
         draft_cfg=None,
         draft_params=None,
         mesh=None,
+        parallel=None,
         clock=None,
         metrics: Optional[MetricsRegistry] = None,
         tracer: Optional[Tracer] = None,
@@ -256,8 +296,6 @@ class InferenceEngine:
     ):
         if cfg.is_encoder_only:
             raise ValueError(f"{cfg.name} is encoder-only; no decode serving")
-        if mesh is not None:
-            raise NotImplementedError(f"mesh={mesh!r} is not ported yet")
         if cache_kind not in ("paged", "dense"):
             raise ValueError(f"cache_kind={cache_kind!r}")
         if cfg.family not in SERVED_FAMILIES:
@@ -276,6 +314,42 @@ class InferenceEngine:
         if params["embed"]["tok"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed']['tok'].device}, engine on {self.device}")
         self.cfg = cfg
+        # ---- tensor parallelism: this rank's slice of the params; the pools
+        # are built at its kv heads below (module docstring)
+        if mesh is not None:
+            names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+            if {"data", "model"} - set(names):
+                raise ValueError(
+                    f"serving mesh needs ('data', 'model') axes (launch.mesh.make_serving_mesh); got {names}"
+                )
+        self.mesh = mesh
+        self.tp = model_axis_size(mesh)
+        self.rank = model_rank(mesh)
+        self._rules = None
+        self._host_group = None
+        self._events: list = []  # rank 0's submissions and aborts since its last step
+        if mesh is not None:
+            group = model_group(mesh)
+            backend = torch.distributed.get_backend(group)
+            if fused and self.device.type == "cuda" and backend != "nccl":
+                raise ValueError(
+                    f"fused=True captures each tick in a CUDA graph, which needs collectives a graph can capture "
+                    f"(NCCL); this mesh's model group runs {backend!r}, which stages CUDA tensors through host memory"
+                )
+            self._rules = serving_rules(parallel)
+            params = shard_params(cfg, params, executed_specs(cfg, mesh, self._rules)["executed"], mesh)
+            if self.tp > 1 and cfg.has_attention and not kernel_shardable(mesh, cfg.num_heads, cfg.num_kv_heads):
+                warnings.warn(
+                    f"{cfg.name}: head counts ({cfg.num_heads}/{cfg.num_kv_heads}) don't divide the model axis "
+                    f"({self.tp}); the attention heads stay replicated: every rank attends over all of them",
+                    RuntimeWarning,
+                    stacklevel=2,
+                )
+            # the step messages travel on a gloo group of the same ranks
+            self._host_group = group if backend == "gloo" else torch.distributed.new_group(
+                ranks=torch.distributed.get_process_group_ranks(group), backend="gloo"
+            )
+        self._kv_heads = local_kv_heads(cfg, mesh)
         self.params = params
         self.max_batch = max_batch
         self.max_seq = max_seq
@@ -345,7 +419,7 @@ class InferenceEngine:
         # DCIM bridge (paper §IV.A): each step charges card-seconds at its
         # slot occupancy; the engine splits the joules over the requests
         # that did work in it
-        self.energy = energy if energy is not None else EnergyBridge(chips=1)
+        self.energy = energy if energy is not None else EnergyBridge(chips=mesh.size() if mesh is not None else 1)
 
         # chunked prefill (and with it the prefix cache, speculative
         # decoding, preemption and the fused step) needs a paged cache and a
@@ -456,14 +530,16 @@ class InferenceEngine:
                     )
                 else:
                     spill_dtype = warn_if_fp8_over_int8(self.quantize_kv, spill_dtype)
-                    self.spill = SpillPool(spill_bytes, mode=spill_dtype)
+                    # each rank's share of the budget: its rows are its head slice
+                    share = spill_bytes * self._kv_heads // cfg.num_kv_heads
+                    self.spill = SpillPool(share, mode=spill_dtype)
                     self.prefix.attach_spill(self.spill, self._fetch_block_rows)
                     self.spill.attach_metrics(self.metrics)
             self.tbl = np.zeros((max_batch, self.max_blocks_per_seq), np.int32)
             self._tbl_dirty = True
             self.cache = init_paged_cache(
                 cfg, num_blocks, block_size, max_batch, self.max_blocks_per_seq, cache_dtype, quantized=self.quantize_kv,
-                device=self.device,
+                device=self.device, kv_heads=self._kv_heads,
             )
         else:
             self.allocator = None
@@ -475,7 +551,9 @@ class InferenceEngine:
                     RuntimeWarning,
                     stacklevel=2,
                 )
-            self.cache = make_engine_cache(cfg, max_batch, max_seq, cache_dtype, device=self.device)
+            self.cache = make_engine_cache(
+                cfg, max_batch, max_seq, cache_dtype, device=self.device, kv_heads=self._kv_heads
+            )
 
         self.pos = np.zeros((max_batch,), np.int32)  # next position per slot
         self.slots: list[Optional[Request]] = [None] * max_batch
@@ -544,6 +622,20 @@ class InferenceEngine:
         priority: int = 0,
         deadline_s: Optional[float] = None,
     ) -> Request:
+        """Queue a request.  Under a mesh, on rank 0 only: the followers
+        take it from rank 0's next step message."""
+        self._check_leader("submit")
+        kw = dict(max_new_tokens=max_new_tokens, online=online, temperature=temperature, top_k=top_k,
+                  priority=priority, deadline_s=deadline_s)
+        req = self._submit(list(prompt), kw, self._clock())
+        if self.mesh is not None:
+            self._events.append(("submit", req.prompt, kw, req.submit_t))
+        return req
+
+    def _submit(self, prompt: list[int], kw: dict, submit_t: float) -> Request:
+        max_new_tokens, online, priority, deadline_s = (
+            kw["max_new_tokens"], kw["online"], kw["priority"], kw["deadline_s"]
+        )
         if not prompt:
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
@@ -574,9 +666,9 @@ class InferenceEngine:
             online=online,
             priority=priority,
             deadline_s=deadline_s,
-            temperature=temperature,
-            top_k=top_k,
-            submit_t=self._clock(),
+            temperature=kw["temperature"],
+            top_k=kw["top_k"],
+            submit_t=submit_t,
         )
         self.scheduler.enqueue(req)
         self._c_submitted.inc()
@@ -675,7 +767,16 @@ class InferenceEngine:
         """Abort a queued, prefilling or decoding request, releasing its slot
         and blocks (the committed span parks in the prefix cache).  Accepts
         a ``Request`` or a request id; returns False when the request is
-        unknown or already finished."""
+        unknown or already finished.  Under a mesh, on rank 0 only: the
+        followers abort it at rank 0's next step message."""
+        self._check_leader("abort")
+        req_id = req if isinstance(req, int) else req.req_id
+        done = self._abort(req, reason)
+        if done and self.mesh is not None:
+            self._events.append(("abort", req_id, reason))
+        return done
+
+    def _abort(self, req, reason: str) -> bool:
         if isinstance(req, int):
             req = self.find_request(req)
         if req is None or req.state == RequestState.DONE:
@@ -711,16 +812,16 @@ class InferenceEngine:
             self.on_finish(req)
         return True
 
-    def _enforce_deadlines(self) -> None:
-        """Abort requests whose TTFT deadline passed with no first token."""
-        now = self._clock()
+    def _enforce_deadlines(self, now: float) -> None:
+        """Abort requests whose TTFT deadline passed with no first token by
+        ``now`` (under a mesh, rank 0's clock reading)."""
         at_risk = [
             r
             for r in list(self.queue) + [s for s in self.slots if s is not None]
             if r.first_token_t is None and now > r.deadline_t
         ]
         for r in at_risk:
-            self.abort(r, reason="deadline_exceeded")
+            self._abort(r, "deadline_exceeded")
 
     # ------------------------------------------------------------------
     def _note_admit(self, req: Request, slot: int) -> None:
@@ -985,7 +1086,7 @@ class InferenceEngine:
             batch["vision_tokens"] = torch.zeros(
                 (1, self.cfg.vision.num_image_tokens, self.cfg.d_model), dtype=torch.float32, device=self.device
             )
-        return prefill(self.cfg, self.params, batch)
+        return prefill(self.cfg, self.params, batch, mesh=self.mesh)
 
     def _emit_first_token(self, req: Request, logits: torch.Tensor) -> None:
         self.dispatches_total += 1
@@ -1056,7 +1157,7 @@ class InferenceEngine:
         t0 = self._clock()
         logits, self.cache = self._dispatch(
             "prefill_chunk", prefill_step, self.cfg, self.params, self.cache, toks, self._device_ints([start]), row,
-            attn_impl=self.attn_impl,
+            attn_impl=self.attn_impl, mesh=self.mesh,
         )
         self._h_prefill_chunk.observe(self._clock() - t0)
         self.tracer.span(
@@ -1235,7 +1336,7 @@ class InferenceEngine:
         t_decode = self._clock()
         logits, self.cache = self._dispatch(
             "verify", verify_step, self.cfg, self.params, self.cache, self._device_ints(tokens),
-            self._device_ints(start), self.cache["tbl"], attn_impl=self.attn_impl,
+            self._device_ints(start), self.cache["tbl"], attn_impl=self.attn_impl, mesh=self.mesh,
         )
         self.steps += 1
         self.spec_steps += 1
@@ -1281,7 +1382,7 @@ class InferenceEngine:
         """The pure-decode tick's step: ``decode_step`` (bit-identical
         logits to the legacy walk) with sampling folded in.  Returns
         (2, B) int32: the tokens and the done flags."""
-        logits, _ = decode_step(self.cfg, self.params, self.cache, tokens, pos, attn_impl=self.attn_impl)
+        logits, _ = decode_step(self.cfg, self.params, self.cache, tokens, pos, attn_impl=self.attn_impl, mesh=self.mesh)
         toks = sample_tokens(logits, temps, top_ks, self._gen)
         done = (toks == self.eos) | (room <= 1)
         return torch.stack([toks.int(), done.int()])
@@ -1303,7 +1404,7 @@ class InferenceEngine:
         same call (``roll_end`` 0: no rollback for the row).  Without them
         every row has an empty window."""
         logits, _ = unified_step(
-            self.cfg, self.params, self.cache, tokens, start, widths, tbl, attn_impl=self.attn_impl
+            self.cfg, self.params, self.cache, tokens, start, widths, tbl, attn_impl=self.attn_impl, mesh=self.mesh
         )
         R, W = tokens.shape
         if drafts is None:
@@ -1495,12 +1596,68 @@ class InferenceEngine:
         """One engine iteration: one scheduling pass (admission with SLO
         preemption, then the chunked-prefill budget), then advance all
         decoding slots by one batched decode step and one sampling call;
-        with ``fused``, one fused tick."""
+        with ``fused``, one fused tick.  Under a mesh, on rank 0 only: it
+        first sends the step's message to the followers."""
+        self._check_leader("step")
+        now = self._clock()
+        if self.mesh is not None:
+            self._send({"events": self._events, "now": now, "stop": False})
+            self._events = []
+        return self._step(now)
+
+    # ---- rank 0 drives, the other ranks follow -----------------------
+    def _check_leader(self, op: str) -> None:
+        if self.rank != 0:
+            raise RuntimeError(f"{op}: rank {self.rank} follows rank 0 (call follow()); {op} acts on rank 0")
+
+    def _send(self, msg: dict) -> None:
+        torch.distributed.broadcast_object_list(
+            [msg], src=torch.distributed.get_global_rank(self._host_group, 0), group=self._host_group
+        )
+
+    def _recv(self) -> dict:
+        box = [None]
+        torch.distributed.broadcast_object_list(
+            box, src=torch.distributed.get_global_rank(self._host_group, 0), group=self._host_group
+        )
+        return box[0]
+
+    def follow(self) -> int:
+        """A follower's loop (ranks other than 0 under a mesh): take each of
+        rank 0's step messages, apply its submissions and aborts, run the
+        step at rank 0's clock reading; return the steps run when rank 0
+        calls ``stop_followers``."""
+        if self.mesh is None or self.rank == 0:
+            raise RuntimeError("follow() runs on the ranks other than 0 of a mesh")
+        steps = 0
+        while True:
+            msg = self._recv()
+            for event in msg["events"]:
+                if event[0] == "submit":
+                    _, prompt, kw, submit_t = event
+                    self._submit(prompt, kw, submit_t)
+                else:
+                    _, req_id, reason = event
+                    self._abort(req_id, reason)
+            if msg["stop"]:
+                return steps
+            self._step(msg["now"])
+            steps += 1
+
+    def stop_followers(self) -> None:
+        """Rank 0: end the followers' ``follow()`` loops, after they applied
+        the submissions and aborts since the last step."""
+        self._check_leader("stop_followers")
+        if self.mesh is not None:
+            self._send({"events": self._events, "now": None, "stop": True})
+            self._events = []
+
+    def _step(self, now: float) -> int:
         t0 = self._clock()
         done0 = len(self.done)
         if self._profile:
             self._phase_acc = {}
-        self._enforce_deadlines()
+        self._enforce_deadlines(now)
         if self.fused:
             produced = self._fused_step()
             self._maybe_defrag()
@@ -1525,7 +1682,7 @@ class InferenceEngine:
             t_decode = self._clock()
             logits, self.cache = self._dispatch(
                 "decode", decode_step, self.cfg, self.params, self.cache, self._device_ints(tokens),
-                self._device_ints(self.pos), attn_impl=self.attn_impl,
+                self._device_ints(self.pos), attn_impl=self.attn_impl, mesh=self.mesh,
             )
             self.steps += 1
             # one whole-batch sampling call; the all-greedy batch (the common
@@ -1608,9 +1765,26 @@ class InferenceEngine:
         return self.done
 
     # ------------------------------------------------------------------
-    def cache_bytes(self) -> int:
-        """Device bytes held by the engine's KV cache (pools + table)."""
-        return sum(t.numel() * t.element_size() for t in tree_leaves(self.cache))
+    def cache_bytes(self, *, per_device: bool = False) -> int:
+        """Device bytes of the engine's KV cache (pools, table, states).
+        Global by default: under a mesh, the bytes the whole cache would
+        hold on one device, the same at every mesh size; ``per_device``:
+        this rank's own, whose pools hold its kv-head slice."""
+        scale = 1 if per_device else self.cfg.num_kv_heads // self._kv_heads if self._kv_heads else 1
+
+        def walk(tree) -> int:
+            return sum(
+                walk(t) if isinstance(t, dict) else t.numel() * t.element_size() * (scale if name in HEAD_LEAVES else 1)
+                for name, t in tree.items()
+            )
+
+        return walk(self.cache)
+
+    def executed_specs(self) -> Optional[dict]:
+        """The rule table's spec of every parameter beside the layout this
+        engine runs (``parallel.sharding.executed_specs``); None without a
+        mesh."""
+        return executed_specs(self.cfg, self.mesh, self._rules) if self.mesh is not None else None
 
     def stats(self) -> dict:
         """Engine counters, as the JAX engine's ``stats()``.  A defensive snapshot: every value is a scalar or a fresh dict,
@@ -1648,6 +1822,10 @@ class InferenceEngine:
             "energy_joules": self.energy.joules,
             "joules_per_token": self.energy.joules / self.tokens_out if self.tokens_out else 0.0,
         }
+        if self.mesh is not None:
+            s["tp"] = self.tp
+            s["cache_bytes_per_device"] = self.cache_bytes(per_device=True)
+            s["kv_heads_per_rank"] = self._kv_heads
         if self.cache_kind == "paged":
             s["block_size"] = self.block_size
             s["defrag_triggers"] = self.defrag_triggers

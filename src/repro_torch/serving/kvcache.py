@@ -164,10 +164,13 @@ def clear_slot(cfg, engine_cache: dict, slot: int) -> dict:
     return engine_cache
 
 
-def make_engine_cache(cfg, max_batch: int, max_seq: int, dtype=torch.bfloat16, *, device="cuda") -> dict:
+def make_engine_cache(
+    cfg, max_batch: int, max_seq: int, dtype=torch.bfloat16, *, device="cuda", kv_heads: int | None = None
+) -> dict:
     """The engine's dense slot cache: ``max_batch`` empty rows (ring rows of
-    ``cache_window(cfg, max_seq)`` slots, zero recurrent states)."""
-    return init_cache(cfg, max_batch, max_seq, dtype, device=device)
+    ``cache_window(cfg, max_seq)`` slots at ``kv_heads`` heads, zero
+    recurrent states)."""
+    return init_cache(cfg, max_batch, max_seq, dtype, device=device, kv_heads=kv_heads)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,12 @@
 """One serving replica: an ``InferenceEngine`` plus health/fault state.
 
 A replica is the router's unit of capacity and of failure, mirroring one
-Grace-Hopper node of the paper's 1,362.  Until tensor parallelism is
-ported (the tensor-parallel item of ROADMAP Queue 1), every replica's
-engine lives on the one card: replicas share the weights (one params dict,
-kept by reference), each holds its own K/V pools and, with ``fused=True``,
-its own CUDA graphs and their memory pool.  The wrapper owns exactly the
+Grace-Hopper node of the paper's 1,362.  Every replica's engine lives on
+the one card: replicas share the weights (one params dict, kept by
+reference), each holds its own K/V pools and, with ``fused=True``, its own
+CUDA graphs and their memory pool.  One engine may span several ranks
+(``InferenceEngine(mesh=)``); replicas of such engines, each on cards of
+its own (``launch.mesh.make_replica_meshes``), come in the next slice.  The wrapper owns exactly the
 state the JAX package's cluster model (``core/cluster.py`` there) keeps per
 node, translated to serving:
 

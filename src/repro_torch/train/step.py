@@ -11,11 +11,16 @@ through ``repro_torch.fp8`` (e4m3 forward, e5m2 gradients, delayed scaling):
 the state carries an ``Fp8State``, the forward reports per-layer amaxes and
 the step folds them into the next step's scales.
 
+``parallel.grad_compression`` (``"bf16"`` or ``"int8"``) compresses the
+gradients before the optimizer, with the error-feedback residual in the
+state (``compress_residual``), where the JAX package does
+(``parallel.collectives.compress_gradients``).
+
 The step updates the parameters and the AdamW moments in place (see
 ``optim.adamw``): the state it returns holds the same parameter tensors as
-the one it was given.  Sharding (``rules``, ``mesh``, ``param_shardings``)
-and gradient compression belong to the tensor-parallel slice of the port
-and raise ``NotImplementedError`` here.
+the one it was given.  Sharded training (``rules``, ``mesh``,
+``param_shardings``) raises ``NotImplementedError``: tensor-parallel
+serving is ported, sharded and FSDP training come in the next slice.
 """
 
 from __future__ import annotations
@@ -28,13 +33,14 @@ from repro_torch.device import resolve_device
 from repro_torch.fp8 import FP8_DTYPES, fp8_supported, make_fp8_ctx, make_fp8_state, update_fp8_state
 from repro_torch.models import forward, init_params
 from repro_torch.optim import AdamWState, adamw_init, adamw_update, make_schedule
+from repro_torch.parallel.collectives import COMPRESSION_METHODS, compress_gradients, init_compression_state
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 class TrainState(NamedTuple):
     params: Any
     opt: AdamWState
-    compress_residual: Any  # None: gradient compression is not ported
+    compress_residual: Any  # error-feedback residual of grad_compression, or None
     fp8: Any = None  # Fp8State unless precision.fp8 is off or unsupported
 
 
@@ -74,24 +80,22 @@ def _fp8_enabled(model_cfg, prec) -> bool:
 
 
 def _check_run(run_cfg) -> None:
-    if run_cfg.parallel.grad_compression != "none":
-        raise NotImplementedError(
-            f"grad_compression={run_cfg.parallel.grad_compression!r} is not ported yet "
-            "(the tensor-parallel item of ROADMAP Queue 1)"
-        )
+    if run_cfg.parallel.grad_compression not in COMPRESSION_METHODS:
+        raise ValueError(f"unknown grad_compression {run_cfg.parallel.grad_compression!r}")
 
 
 def init_train_state(model_cfg, run_cfg, generator: torch.Generator | int = 0, device="cuda") -> TrainState:
-    """Random parameters (``models.init_params``), zero AdamW moments and,
-    with fp8, a fresh ``Fp8State``.  Runs on the card unless ``device``
-    says otherwise."""
+    """Random parameters (``models.init_params``), zero AdamW moments, a zero
+    compression residual with ``grad_compression`` and, with fp8, a fresh
+    ``Fp8State``.  Runs on the card unless ``device`` says otherwise."""
     _check_run(run_cfg)
     device = resolve_device(device)
     prec = run_cfg.precision
     params = init_params(model_cfg, generator, device, DTYPES[prec.param_dtype])
     opt = adamw_init(params, dtype=DTYPES[prec.optimizer_dtype])
+    residual = init_compression_state(params, run_cfg.parallel.grad_compression)
     fp8 = make_fp8_state(model_cfg, prec, device) if _fp8_enabled(model_cfg, prec) else None
-    return TrainState(params=params, opt=opt, compress_residual=None, fp8=fp8)
+    return TrainState(params=params, opt=opt, compress_residual=residual, fp8=fp8)
 
 
 def lr_schedule(run_cfg):
@@ -137,7 +141,9 @@ def make_train_step(model_cfg, run_cfg, rules=None, mesh=None, *, q_chunk=0, par
     ``grad_norm`` (before clipping); all () fp32 tensors on the card.
     """
     if rules is not None or mesh is not None or param_shardings is not None:
-        raise NotImplementedError("sharded training is not ported yet (the tensor-parallel item of ROADMAP Queue 1)")
+        raise NotImplementedError(
+            "sharded training is not ported yet: tensor-parallel serving is, sharded and FSDP training come next"
+        )
     _check_run(run_cfg)
     prec, par, tr = run_cfg.precision, run_cfg.parallel, run_cfg.train
     schedule = lr_schedule(run_cfg)
@@ -171,12 +177,16 @@ def make_train_step(model_cfg, run_cfg, rules=None, mesh=None, *, q_chunk=0, par
         if use_fp8:
             new_fp8 = update_fp8_state(state.fp8, amaxes, dtype=FP8_DTYPES[prec.fp8_dtype], margin=prec.fp8_margin)
 
+        residual = state.compress_residual
+        if par.grad_compression != "none":
+            grads, residual = compress_gradients(grads, residual, par.grad_compression)
+
         lr = schedule(state.opt.step)
         new_params, new_opt, om = adamw_update(
             state.params, grads, state.opt, lr=lr, beta1=tr.beta1, beta2=tr.beta2, eps=tr.eps,
             weight_decay=tr.weight_decay, grad_clip=tr.grad_clip, layer_scan=par.optimizer_layer_scan,
         )
         metrics = {"loss": ce, "aux_loss": aux, "lr": lr, **om}
-        return TrainState(params=new_params, opt=new_opt, compress_residual=None, fp8=new_fp8), metrics
+        return TrainState(params=new_params, opt=new_opt, compress_residual=residual, fp8=new_fp8), metrics
 
     return step

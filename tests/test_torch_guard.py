@@ -42,7 +42,8 @@ def test_port_files_import_neither_jax_nor_repro():
     assert len(files) > 20
     assert PORT / "models" / "ssm.py" in files
     for tool in ("kernels/autotune.py", "launch/specs.py", "launch/cost.py", "launch/roofline.py",
-                 "launch/dryrun.py"):  # the tools are held to the same rule
+                 "launch/dryrun.py",  # the tools are held to the same rule, and so is tensor parallelism
+                 "parallel/__init__.py", "parallel/sharding.py", "parallel/collectives.py", "launch/mesh.py"):
         assert PORT / tool in files, tool
     bad = [
         (str(f.relative_to(ROOT)), m)
@@ -108,6 +109,17 @@ def test_entry_points_default_to_the_card():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_main(["--arch", "olmo-1b", "--requests", "1"])
+    from repro_torch.launch.mesh import make_replica_meshes, make_serving_mesh, run_ranks
+
+    # the ranks' device: the card unless the CPU is asked for, checked before any rank starts
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_main(["--arch", "olmo-1b", "--requests", "1", "--tp", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_ranks(print, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_serving_mesh(2, backend="gloo")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_replica_meshes(2, 1)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_router(cfg, params)
     InferenceEngine(cfg, params, device="cpu")  # asked for by name: fine
@@ -193,13 +205,15 @@ def test_tools_need_no_card_but_the_tuner_does():
 @pytest.mark.parametrize(
     "option,value,error",
     [("spec_decode", "bogus", ValueError), ("spec_k", 0, ValueError), ("spill_dtype", "fp4", ValueError),
-     ("restore_budget", 0, ValueError), ("mesh", object(), NotImplementedError),
+     ("restore_budget", 0, ValueError),
+     # the mesh is ported: an object that is no ("data", "model") serving
+     # mesh raises the JAX engine's ValueError (the case keeps its name)
+     pytest.param("mesh", object(), ValueError, id="mesh-value4-NotImplementedError"),
      ("cache_kind", "bogus", ValueError)],
 )
 def test_options_outside_the_slice_raise(option, value, error):
-    """Options the port does not have yet raise ``NotImplementedError``
-    naming the option; invalid speculative, spill-tier and cache-layout
-    settings raise the JAX engine's own ``ValueError``."""
+    """Invalid speculative, spill-tier, cache-layout and mesh settings raise
+    the JAX engine's own ``ValueError``, naming the option."""
     from repro_torch.config import reduce_for_smoke
     from repro_torch.configs import get_config
     from repro_torch.models import init_params

@@ -15,8 +15,8 @@ runs to its length.  Clocks are the reference's: ``ManualClock`` where it
 uses one, the real clock elsewhere (where no time-driven decision is made).
 
 The port's serve launcher (``repro_torch.launch.serve``) drains on the CPU
-with one engine and with two replicas; ``--tp 2`` exits naming the
-tensor-parallel item.
+with one engine and with two replicas; ``--replicas 2 --tp 2`` exits
+naming the next slice (``test_torch_tp_serving.py`` runs ``--tp 2``).
 """
 
 import asyncio
@@ -439,7 +439,9 @@ def test_serve_launcher_drains_on_the_cpu(replicas, capsys):
 
 
 def test_serve_launcher_refuses_tensor_parallelism():
+    """Tensor-parallel serving is ported; replicas of tensor-parallel
+    engines are not, and exit before any rank starts."""
     from repro_torch.launch.serve import main
 
-    with pytest.raises(SystemExit, match="tensor-parallel item of ROADMAP Queue 1"):
-        main(["--device", "cpu", "--tp", "2"])
+    with pytest.raises(SystemExit, match="next slice"):
+        main(["--device", "cpu", "--tp", "2", "--replicas", "2"])

@@ -276,15 +276,17 @@ def test_launcher_reruns_into_one_ckpt_dir(capsys, tmp_path):
     ["grad_compression", "mesh", "remat_dots"],
 )
 def test_options_outside_the_slice_raise(what):
-    """Sharding and gradient compression belong to the tensor-parallel slice.
-    The "dots" remat policy is ported: its step equals the "full" one bit
-    for bit, and a policy the JAX package does not have raises."""
+    """Sharded training comes in a later slice and raises.  Gradient
+    compression and the "dots" remat policy are ported: a compression
+    method the JAX package does not have raises, as does such a remat
+    policy, and the "dots" step equals the "full" one bit for bit
+    (``test_torch_collectives.py`` holds the compressed steps)."""
     cfg = reduce_for_smoke(get_config("olmo-1b"))
     if what == "grad_compression":
-        run = RunConfig(arch="olmo-1b", parallel=ParallelConfig(grad_compression="bf16"))
-        with pytest.raises(NotImplementedError, match="grad_compression"):
+        run = RunConfig(arch="olmo-1b", parallel=ParallelConfig(grad_compression="fp4"))
+        with pytest.raises(ValueError, match="grad_compression"):
             make_train_step(cfg, run)
-        with pytest.raises(NotImplementedError, match="grad_compression"):
+        with pytest.raises(ValueError, match="grad_compression"):
             init_train_state(cfg, run, device="cpu")
     elif what == "mesh":
         with pytest.raises(NotImplementedError, match="sharded"):

@@ -78,17 +78,20 @@ def to_torch(b):
     return {k: torch.from_numpy(v) for k, v in b.items()}
 
 
-def compare_train_steps(arch, jcfg, tcfg, prec, tight, *, nmb=1, remat="full", seed=0):
+def compare_train_steps(arch, jcfg, tcfg, prec, tight, *, nmb=1, remat="full", seed=0, grad_compression="none"):
     """Three train steps of both packages from one bridged mid-training
     state, held to the module docstring's tolerances.  ``prec`` is the
     JAX ``PrecisionConfig``'s overrides; its ``fp8_gemm="pallas"`` is the
-    port's ``"kernel"``."""
+    port's ``"kernel"``.  ``grad_compression`` compresses both packages'
+    gradients, the residual bridged with the state."""
     tr = dict(global_batch=B, seq_len=S, learning_rate=LR, warmup_steps=2, total_steps=10)
     jrun = JaxRunConfig(arch=arch, train=JaxTrainConfig(**tr),
-                        parallel=JaxParallelConfig(remat=remat, num_microbatches=nmb),
+                        parallel=JaxParallelConfig(remat=remat, num_microbatches=nmb,
+                                                   grad_compression=grad_compression),
                         precision=JaxPrecisionConfig(**prec))
     tprec = dict(prec, fp8_gemm="kernel") if prec.get("fp8") else prec
-    trun = RunConfig(arch=arch, train=TrainConfig(**tr), parallel=ParallelConfig(remat=remat, num_microbatches=nmb),
+    trun = RunConfig(arch=arch, train=TrainConfig(**tr),
+                     parallel=ParallelConfig(remat=remat, num_microbatches=nmb, grad_compression=grad_compression),
                      precision=PrecisionConfig(**tprec))
     data = batches(jcfg, 4, seed=seed)
     jstate = jax_init_train_state(jcfg, jrun, jax.random.PRNGKey(seed))
