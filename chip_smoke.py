@@ -40,7 +40,9 @@ or when any check fails.  Phases:
    the kernel its dtype runs (``route``), with SDPA's errors and the
    CUDA-core kernel's time on the bf16 inputs beside the tensor-core
    kernel's, and K4 (FP8 GEMM) at the forward and backward shapes of
-   olmo-1b's training step and a ragged case, each with a control (the
+   olmo-1b's training step, at one rank's shapes of its sharded step (TP=2:
+   the column and row slices of the FFN, down's dx on the transposed slice;
+   DP=2: half the rows) and a ragged case, each with a control (the
    plain GEMM without its last 32 k-elements), ``torch._scaled_mm``'s error
    and the wrapper's layout copies.  One JSON line per case with the error, the kernel's,
    the plain version's and the library's time, and the case's bound.  K3
@@ -317,6 +319,29 @@ or when any check fails.  Phases:
    or VAST: it prints each save's wall and GB/s there, the restore's wall,
    the modelled lustre and vast seconds, ``cadence_advice`` from the
    measured step and the step ms.
+9b2. Sharded and FSDP training (``sharded_train``), once the facility's
+   state is freed: two gloo ranks on the one card (``launch.mesh.run_ranks``,
+   ``backend="gloo"``: every collective staged through host memory), each
+   drawing olmo-1b's state from the seed (full width, 4 of 16 layers, fp8
+   through K4 on every projection, bf16 compute, remat full, 4 x 2048
+   tokens, warmup 0).  Rank 0 first runs the one-rank step (3 steps, then 2
+   on the shrink's 2-row batches) as the reference.  Then 3 steps at
+   ``(1, 2)`` (tensor parallelism) and at ``(2, 1)`` (FSDP and data
+   parallelism), each rank cutting its slices out of the full state
+   (``parallel.sharding.shard_state``): each step's wall time, the
+   training collectives' calls and bytes (``TRAIN_COLLECTIVES``), the K4
+   launches and ``max_memory_allocated`` of each rank; the gathered
+   parameters, losses and gradient norms against the reference within
+   ``SHARD_LIMITS``, and a control for each, two steps from the same state
+   (the copy-to-model backward without its all-reduce; FSDP's gather
+   backward keeping the rank's own gradient slice unsummed), that must
+   fail them.  Last, ``plan_resize`` to one rank,
+   ``make_elastic_mesh`` and ``reshard_state`` move the ``(2, 1)`` state
+   onto rank 0 alone (bit for bit), which takes 2 steps on
+   ``resize_batch``'s batches held to the reference's.  Every rank must
+   launch K4 112 times a step (4 a site a layer).  The times are gloo's
+   through host memory with both ranks' contexts on one card: not NCCL,
+   not NVLink.
 9c. Fig. 8 (``mlperf``): ``repro_torch.benchmarks.mlperf_train.run()`` on the
    card, bert-large at full width and depth, 448 x 512 tokens a step as 14
    microbatches of 32 (fp32 master, bf16 compute, remat full, no fp8), one
@@ -3758,8 +3783,16 @@ GEMM_CASES = [
     ("hubert fwd attn_q/k/v/o", (M_TOK, 1280, 1280), ("e4m3", "e4m3"), (False, False)),
     ("hubert fwd ffn_up", (M_TOK, 1280, 5120), ("e4m3", "e4m3"), (False, False)),
     ("hubert bwd dx ffn_up: g @ w.T", (M_TOK, 5120, 1280), ("e5m2", "e4m3"), (False, True)),
+    # olmo-1b's projections on one rank of the sharded_train phase: TP=2
+    # (the column slice of up/gate, the row slice of down, down's dx on the
+    # transposed slice) and DP=2 (half the rows, the gathered weight)
+    ("tp2 fwd ffn_up/gate", (M_TOK, D_MODEL, D_FF // 2), ("e4m3", "e4m3"), (False, False)),
+    ("tp2 fwd ffn_down", (M_TOK, D_FF // 2, D_MODEL), ("e4m3", "e4m3"), (False, False)),
+    ("tp2 bwd dx ffn_down: g @ w.T", (M_TOK, D_MODEL, D_FF // 2), ("e5m2", "e4m3"), (False, True)),
+    ("dp2 fwd ffn_up/gate", (M_TOK // 2, D_MODEL, D_FF), ("e4m3", "e4m3"), (False, False)),
 ]
 FAMILY_GEMM_CASES = [name for name, *_ in GEMM_CASES if name.split()[0] in ("qwen3-moe", "hymba", "hubert")]
+SHARDED_GEMM_CASES = [name for name, *_ in GEMM_CASES if name.split()[0] in ("tp2", "dp2")]
 # K4 against its plain version: its products are exact and its sums fp32,
 # so only the order of the fp32 sums differs; relative to the output's
 # largest magnitude.  The control, computed in every case, is the plain GEMM
@@ -4605,6 +4638,241 @@ def facility_phase(cfg, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9b2: sharded and FSDP training on two gloo ranks of the one card
+# ---------------------------------------------------------------------------
+
+SHARD_STEPS = 3
+SHARD_ELASTIC_STEPS = 2
+# The sharded steps against the one-rank step in the same run, both with fp8
+# through K4 and bf16 compute: the tensor-parallel sums add bf16 partial
+# outputs after rounding, FSDP reduce-scatters bf16 and fp32 gradients, and
+# the fp8 casts turn a last-bit difference into a flipped fp8 value.  The
+# limits are the CPU tests' fp8 ones (tests/test_torch_sharded_train.py):
+# losses 2e-3 relative, gradient norms 5e-2, every parameter within 2 lr a
+# step and their mean within lr / 5.  The controls (two steps each) must
+# fail one: the copy-to-model backward without its all-reduce (TP), FSDP's
+# gather backward without the sum over the data ranks (FSDP + DP).
+SHARD_LIMITS = {"loss_rel": 2e-3, "grad_norm_rel": 5e-2, "param_max_over_lr_per_step": 2.0, "param_mean_over_lr": 0.2}
+
+
+def shard_run_config(global_batch=TRAIN_B, seq_len=TRAIN_S):
+    from repro_torch.config import ParallelConfig, PrecisionConfig, RunConfig, TrainConfig
+
+    return RunConfig(  # warmup 0: every step moves the parameters
+        arch="olmo-1b", train=TrainConfig(global_batch=global_batch, seq_len=seq_len, warmup_steps=0, total_steps=10),
+        parallel=ParallelConfig(remat="full"),
+        precision=PrecisionConfig(param_dtype="float32", compute_dtype="bfloat16", fp8=True, fp8_gemm="kernel"),
+    )
+
+
+def shard_readings(metrics, params, ref_metrics, ref_params, lr: float) -> dict:
+    """Loss and gradient norm (the largest relative gap over the steps) and
+    the parameters (largest and mean gap, in units of lr) against the
+    one-rank run's."""
+    rel = lambda k: max(abs(m[k] - r[k]) / abs(r[k]) for m, r in zip(metrics, ref_metrics))  # noqa: E731
+    top, total, n = 0.0, 0.0, 0
+    for a, b in zip(params, ref_params):
+        d = (a - b).abs()
+        top, total, n = max(top, float(d.max())), total + float(d.double().sum()), n + d.numel()
+    return {"loss_rel": rel("loss"), "grad_norm_rel": rel("grad_norm"),
+            "param_max_over_lr_per_step": top / lr / len(metrics), "param_mean_over_lr": total / n / lr}
+
+
+def shard_passes(r: dict) -> bool:
+    return all(r[k] <= lim for k, lim in SHARD_LIMITS.items())
+
+
+def shard_control_copy_backward(ctx, g):
+    """The TP control: the copy-to-model backward without its all-reduce,
+    so a replicated input keeps one rank's partial gradient."""
+    return g, None
+
+
+def shard_control_unsummed_backward(ctx, g):
+    """The FSDP control: the gather's backward keeps this rank's slice of
+    its own gradient, not the sum over the data ranks."""
+    n = g.shape[ctx.dim] // ctx.n
+    return g.narrow(ctx.dim, torch.distributed.get_rank(ctx.group) * n, n).contiguous(), None, None, None
+
+
+def shard_steps(step, state, batches, mesh=None) -> tuple:
+    """(state, metrics, readings) of ``batches`` on this rank: each step's
+    wall seconds, the collectives and K4 launches over the steps, the
+    state's bytes (params, m, v), the memory allocated before the steps and
+    its peak during them."""
+    from repro_torch.fp8 import gemm as K4
+    from repro_torch.parallel import collectives as C
+    from repro_torch.utils.tree import tree_size_bytes
+
+    C.reset_collectives()
+    K4.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    metrics, walls = [], []
+    for batch in batches:
+        if mesh is not None:
+            torch.distributed.barrier()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})  # the host reads the step's metrics
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    return state, metrics, {
+        "wall_s": walls, "collectives": dict(C.TRAIN_COLLECTIVES), "k4": dict(K4.LAUNCHES),
+        "state_bytes": sum(tree_size_bytes(t) for t in (state.params, state.opt.m, state.opt.v)),
+        "resident_bytes": resident, "max_memory_allocated": peak, "step_peak_above_resident": peak - resident,
+    }
+
+
+def sharded_rank(rank, mesh_tp, device_type="cuda", cfg=None, batch=(TRAIN_B, TRAIN_S)) -> dict:
+    """One rank of ``sharded_train``: the one-rank reference (rank 0), the
+    TP (1, 2) and FSDP + DP (2, 1) runs from the seed's full state, each
+    followed by its control, and the shrink of (2, 1) to (1, 1).
+    ``device_type``, ``cfg`` and ``batch`` (a smoke model on the CPU) serve
+    rehearsals."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_elastic_mesh, plan_resize, reshard_state, resize_batch
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.sharding import shard_state, state_shardings, training_rules, unshard_state
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    device = torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda" else torch.device(device_type)
+    cfg = cfg or get_config("olmo-1b").replace(num_layers=FACILITY_LAYERS)
+    run = shard_run_config(*batch)
+    lr = run.train.learning_rate
+    rules = training_rules(run.parallel)
+    batches = [synthetic_batch(cfg, step=s, global_batch=batch[0], seq_len=batch[1], seed=SEED, device=device)
+               for s in range(SHARD_STEPS + SHARD_ELASTIC_STEPS)]
+    meshes = {"tp": mesh_tp, "fsdp_dp": make_local_mesh(2, 1, backend="gloo", device=device_type)}
+    plan = plan_resize(old_chips=2, new_chips=1, model_parallel=1, global_batch=batch[0])
+    full = init_train_state(cfg, run, SEED, device)
+    out = {"rank": rank}
+    ref = {}
+    if rank == 0:  # the one-rank run: 3 steps, then 2 on the resized batches
+        copy = lambda tree: tree_map(torch.clone, tree)  # noqa: E731  (the step updates in place)
+        state = full._replace(params=copy(full.params), opt=full.opt._replace(m=copy(full.opt.m), v=copy(full.opt.v)))
+        step = make_train_step(cfg, run)
+        state, m1, _ = shard_steps(step, state, batches[:2])
+        ref["params_2"] = [t.clone() for t in tree_leaves(state.params)]
+        state, m2, got = shard_steps(step, state, batches[2:SHARD_STEPS])
+        ref["metrics"], ref["params"] = m1 + m2, [t.clone() for t in tree_leaves(state.params)]
+        state, m3, _ = shard_steps(step, state, [resize_batch(b, plan) for b in batches[SHARD_STEPS:]])
+        ref["elastic_metrics"], ref["elastic_params"] = m3, [t.clone() for t in tree_leaves(state.params)]
+        out["one_rank"] = {"metrics": ref["metrics"], **{k: got[k] for k in (
+            "wall_s", "state_bytes", "resident_bytes", "max_memory_allocated", "step_peak_above_resident")},
+            "k4_a_step": got["k4"]["fp8_gemm"]}
+        del state
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    # each arm, then its control: two steps from the full state (the rate is
+    # 0 at the first) with one collective changed, against the one-rank steps
+    controls = {"tp": (C._CopyToModel, "backward", staticmethod(shard_control_copy_backward)),
+                "fsdp_dp": (C._GatherOverData, "backward", staticmethod(shard_control_unsummed_backward))}
+    for name, mesh in meshes.items():
+        specs = state_shardings(cfg, run, rules, mesh)
+        state, metrics, got = shard_steps(make_train_step(cfg, run, rules, mesh), shard_state(full, specs, mesh),
+                                          batches[:SHARD_STEPS], mesh)
+        gathered = unshard_state(state, specs, mesh)
+        out[name] = {"metrics": metrics, **got, "mesh": list(mesh.shape)}
+        if rank == 0:
+            out[name]["readings"] = shard_readings(metrics, tree_leaves(gathered.params), ref["metrics"], ref["params"],
+                                                   lr)
+        if name == "fsdp_dp":
+            kept_run = (state, specs, gathered)  # the shrink's starting point
+        del state, gathered
+        owner, attr, wrong = controls[name]
+        kept = owner.__dict__[attr]
+        setattr(owner, attr, wrong)
+        try:
+            state, metrics, _ = shard_steps(make_train_step(cfg, run, rules, mesh), shard_state(full, specs, mesh),
+                                            batches[:2], mesh)
+        finally:
+            setattr(owner, attr, kept)
+        params = tree_leaves(unshard_state(state, specs, mesh).params)
+        if rank == 0:
+            out[name]["control"] = shard_readings(metrics, params, ref["metrics"][:2], ref["params_2"], lr)
+        del state, params
+        torch.cuda.empty_cache()
+    del full
+    # elastic: the (2, 1) run's state onto the surviving rank, then 2 steps on the resized batches
+    state, specs, gathered = kept_run
+    del kept_run
+    new_mesh = make_elastic_mesh(plan)
+    new_specs = state_shardings(cfg, run, rules, new_mesh) if new_mesh is not None else None
+    state = reshard_state(state, old_specs=specs, old_mesh=meshes["fsdp_dp"], new_specs=new_specs, new_mesh=new_mesh)
+    if new_mesh is not None:
+        same = all(torch.equal(a, b) for x, y in ((gathered.params, state.params), (gathered.opt.m, state.opt.m),
+                                                  (gathered.opt.v, state.opt.v))
+                   for a, b in zip(tree_leaves(x), tree_leaves(y)))
+        del gathered
+        state, metrics, got = shard_steps(make_train_step(cfg, run, rules, new_mesh), state,
+                                          [resize_batch(b, plan) for b in batches[SHARD_STEPS:]])
+        out["elastic"] = {"mesh": list(new_mesh.shape), "new_global_batch": plan.new_global_batch,
+                          "bit_exact": same, "metrics": metrics, **got,
+                          "readings": shard_readings(metrics, tree_leaves(state.params), ref["elastic_metrics"],
+                                                     ref["elastic_params"], lr)}
+    del state
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    return out
+
+
+def sharded_train_phase() -> dict:
+    """olmo-1b (full width, 4 of 16 layers, fp8 through K4, remat full, 4 x
+    2048) trained on two gloo ranks of the one card at (1, 2) and (2, 1),
+    each held to the one-rank step of the same run with a control, then the
+    (2, 1) state shrunk to one rank (``sharded_rank``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.fp8 import fp8_sites
+    from repro_torch.launch.mesh import run_ranks
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(sharded_rank, 2, backend="gloo", device="cuda", timeout_s=900)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"sharded_train: {e}")
+    cfg = get_config("olmo-1b").replace(num_layers=FACILITY_LAYERS)
+    per_step = 4 * cfg.num_layers * len(fp8_sites(cfg))  # forward, recompute, dx and dw of every site
+    out = {"phase": "sharded_train", "backend": "gloo", "ranks": 2, "seconds": time.perf_counter() - t0,
+           "model": cfg.name, "layers": cfg.num_layers, "batch": [TRAIN_B, TRAIN_S], "steps": SHARD_STEPS,
+           "limits": SHARD_LIMITS, "one_rank": ranks[0]["one_rank"]}
+    for name in ("tp", "fsdp_dp"):
+        arm = [r[name] for r in ranks]
+        out[name] = {
+            "mesh": arm[0]["mesh"], "step_wall_s": [a["wall_s"] for a in arm],
+            "collectives_per_step": [{k: v / SHARD_STEPS for k, v in a["collectives"].items() if v} for a in arm],
+            "k4_launches": [a["k4"]["fp8_gemm"] for a in arm], "k4_layout_copies": [a["k4"]["fp8_layout_copy"] for a in arm],
+            **{k: [a[k] for a in arm] for k in ("state_bytes", "resident_bytes", "max_memory_allocated",
+                                                  "step_peak_above_resident")},
+            "losses": [m["loss"] for m in arm[0]["metrics"]], "readings": arm[0]["readings"], "control": arm[0]["control"],
+        }
+    el = ranks[0].get("elastic")
+    out["elastic"] = el and {k: v for k, v in el.items() if k != "metrics"}
+    emit(out)  # before the gates, so a failing run still shows its readings
+    for name in ("tp", "fsdp_dp"):
+        arm = [r[name] for r in ranks]
+        if arm[0]["metrics"] != arm[1]["metrics"]:
+            fail(f"sharded_train {name}: the ranks' metrics differ")
+        if not shard_passes(arm[0]["readings"]):
+            fail(f"sharded_train {name}: the sharded steps part from the one-rank steps: {arm[0]['readings']}")
+        if shard_passes(arm[0]["control"]):
+            fail(f"sharded_train {name}: the control passes the limits, which then prove nothing: {arm[0]['control']}")
+        if out[name]["k4_launches"] != [per_step * SHARD_STEPS] * 2:
+            fail(f"sharded_train {name}: K4 launches {out[name]['k4_launches']}, expected {per_step * SHARD_STEPS} a rank")
+    if el is None or "elastic" in ranks[1]:
+        fail("sharded_train: the shrink to one rank did not leave rank 0 alone on the new mesh")
+    if not (el["bit_exact"] and shard_passes(el["readings"]) and el["k4"]["fp8_gemm"] == per_step * SHARD_ELASTIC_STEPS):
+        fail(f"sharded_train elastic: {out['elastic']}")
+    return out
+
+
 def mlperf_phase(device) -> dict:
     """Fig. 8: ``repro_torch.benchmarks.mlperf_train.run`` on the card, then
     one more step of the same run from a fresh state under
@@ -5359,6 +5627,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     facility = phase("facility", facility_phase, cfg.replace(num_layers=FACILITY_LAYERS), device)
     torch.cuda.empty_cache()
+    sharded = phase("sharded_train", sharded_train_phase)
+    torch.cuda.empty_cache()
     phase("mlperf", mlperf_phase, device)
     torch.cuda.empty_cache()
     # the remaining training forwards, each alone on the card
@@ -5469,6 +5739,13 @@ def main() -> int:
         if k["name"] == "fp8_gemm":
             k["facility_launches"] = facility["k4_launches"]  # the facility's runs and the async check's step
             k["family_launches"] = {arch: family[arch]["k4_launches"] for arch in family}  # 3 steps each
+            # sharded training: each of the two gloo ranks' launches over 3 steps, by mesh, and the shrink's 2
+            k["sharded_launches"] = {**{arm: sharded[arm]["k4_launches"] for arm in ("tp", "fsdp_dp")},
+                                     "elastic": sharded["elastic"]["k4"]["fp8_gemm"]}
+            k["sharded_shapes"] = {n: {f: gemm_rows[n][f] for f in ("mkn", "dtypes", "max_abs_err", "kernel_ms",
+                                                                   "kernel_alone_ms", "plain_ms", "bound_ms",
+                                                                   "bound_by", "library_ms")}
+                                   for n in SHARDED_GEMM_CASES}
             k["family_shapes"] = {n: {f: gemm_rows[n][f] for f in ("mkn", "dtypes", "max_abs_err", "kernel_ms",
                                                                   "kernel_alone_ms", "plain_ms", "bound_ms",
                                                                   "bound_by", "library_ms")}

@@ -9,6 +9,7 @@ the rwkv blocks' ``time_mix`` / ``channel_mix``, the hybrid blocks'
 The vlm family's JAX tree stacks layer groups, ``blocks["self"]`` leaves
 ``(G, g, ...)`` and ``blocks["cross"]`` leaves ``(G, ...)``; the port's
 ``blocks`` hold one ``{"self": [g layer dicts], "cross": dict}`` a group.
+A train state can also arrive as one rank's slices of a sharded state.
 Arrays arrive as numpy (the caller converts with
 ``np.asarray``, e.g. ``jax.tree.map(np.asarray, state)``); bf16, which
 numpy lacks, goes through fp32.
@@ -59,12 +60,22 @@ def params_from_jax(cfg, np_tree: dict, device="cuda", dtype=torch.float32) -> d
     return out
 
 
-def train_state_from_jax(cfg, np_state, device="cuda", param_dtype=torch.float32, opt_dtype=torch.float32) -> TrainState:
+def train_state_from_jax(
+    cfg, np_state, device="cuda", param_dtype=torch.float32, opt_dtype=torch.float32, *, specs=None, mesh=None
+) -> TrainState:
     """A port ``TrainState`` holding the values of the JAX ``TrainState``
     ``np_state`` (numpy leaves): parameters, the AdamW ``step``/``m``/``v``
     (unstacked like the parameters) and the ``Fp8State`` (``amax_history``,
     ``scale``, ``step``), so both packages can continue from one state,
-    mid-training included."""
+    mid-training included.  With ``specs``
+    (``parallel.sharding.state_shardings``) and a training ``mesh``: this
+    rank's slices of it (``parallel.sharding.shard_state``)."""
+    if (specs is None) != (mesh is None):
+        raise ValueError("a sharded state takes both specs and a mesh")
+    if mesh is not None:
+        from repro_torch.parallel.sharding import shard_state
+
+        return shard_state(train_state_from_jax(cfg, np_state, device, param_dtype, opt_dtype), specs, mesh)
     device = resolve_device(device)
     opt = np_state.opt
     fp8 = None

@@ -6,9 +6,11 @@ difference: ``PrecisionConfig.fp8_gemm`` names the port's two FP8 GEMMs,
 (its plain PyTorch version), or a callable with K4's signature (a check
 hands its GEMM to the train step so); the JAX package's ``"ref"`` lets XLA lower the
 product, which has no counterpart here, and its ``"pallas"`` corresponds to
-``"kernel"``.  ``MeshConfig`` and the sharding knobs of ``ParallelConfig``
-describe the TPU pod; the port runs on one card and the train step raises
-on the options that need a mesh (see ``repro_torch.train.step``).
+``"kernel"``.  ``MeshConfig`` describes the TPU pod's production mesh;
+the port's sharded training runs ``ParallelConfig``'s ``fsdp`` and
+``tensor_parallel`` over a ``(data, model)`` mesh of ``torch.distributed``
+ranks (``repro_torch.train.step``), and raises for
+``sequence_parallel``.
 """
 
 from __future__ import annotations
@@ -55,7 +57,8 @@ class MeshConfig:
 @dataclass(frozen=True)
 class ParallelConfig:
     """How logical tensor axes map onto the mesh (the JAX package's
-    ``parallel/sharding.py``; the port runs on one card)."""
+    ``parallel/sharding.py``; the port executes ``fsdp`` and
+    ``tensor_parallel`` over its ranks, ``repro_torch.train.step``)."""
 
     # ZeRO-3/FSDP: shard params + optimizer state over the data axes.
     fsdp: bool = True
@@ -70,7 +73,7 @@ class ParallelConfig:
     #   "none" | "full" (nothing saveable) | "dots" (dots saveable)
     remat: str = "full"
     # Gradient all-reduce compression: "none" | "bf16" | "int8" (the JAX
-    # package's parallel/collectives.py; not ported). Applied to the
+    # package's parallel/collectives.py, in the train step). Applied to the
     # cross-pod gradient sync.
     grad_compression: str = "none"
     # Apply Adam one layer-slice at a time (bounds fp32 update temps on

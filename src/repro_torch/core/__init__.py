@@ -1,8 +1,6 @@
 """The paper's contribution: an AI-platform runtime for a leadership-class
-facility — QoS scheduling, tenancy, fault tolerance, telemetry.  The JAX
-package's ``core/`` but for ``elastic.py``, which reshards a training state
-over a smaller mesh and comes with sharded training, after tensor-parallel
-serving."""
+facility — QoS scheduling, tenancy, elasticity, fault tolerance,
+telemetry: the JAX package's ``core/``."""
 
 from repro_torch.core.cluster import (
     CHIPS_PER_NODE,
@@ -15,6 +13,7 @@ from repro_torch.core.cluster import (
     Node,
     NodeState,
 )
+from repro_torch.core.elastic import ElasticPlan, make_elastic_mesh, plan_resize, reshard_state, resize_batch
 from repro_torch.core.fault import FaultTolerantRunner, RunReport
 from repro_torch.core.federation import IAM, Identity, Role
 from repro_torch.core.scheduler import Job, JobState, QoS, Reservation, Scheduler
@@ -32,6 +31,11 @@ __all__ = [
     "DRYRUN_SINGLE",
     "PHASE1",
     "PHASE2",
+    "ElasticPlan",
+    "make_elastic_mesh",
+    "plan_resize",
+    "reshard_state",
+    "resize_batch",
     "FaultTolerantRunner",
     "RunReport",
     "IAM",

@@ -14,9 +14,9 @@ wrapped with the failure machinery a 1,320-node system needs:
 * straggler observations feed ``core.straggler`` and can drain slow nodes.
 
 The JAX package's ``core/fault.py`` on the port's train step.  Neither
-runner calls ``core.elastic``, which the port does not have yet (it
-reshards over a device mesh and comes with sharded training).
-One timing differs: a
+runner calls ``core.elastic`` itself (in neither package): a caller
+shrinks a sharded job with ``plan_resize``, ``make_elastic_mesh`` and
+``reshard_state``.  One timing differs: a
 step's ``wall`` is taken after ``float(loss)`` has brought the loss to the
 host, where the reference takes it before.  Under JAX the reference's
 reading is the dispatch time; in eager PyTorch a host clock before the

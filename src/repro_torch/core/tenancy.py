@@ -9,11 +9,11 @@ chips; ``tenant_submesh_shape`` gives its (data, model) shape.
 assignment, and RBAC via ``core.federation`` (tenant-admin vs infra-admin
 personas, limited-duration tokens).
 
-A copy of the JAX package's ``core/tenancy.py`` but for
-``make_tenant_mesh``, which carves a ``jax.sharding.Mesh`` there and
-raises here: the port's meshes (``launch.mesh``) serve one engine over
-its ranks; a tenant's mesh over its share of the cards comes with sharded
-training, the next slice.
+A copy of the JAX package's ``core/tenancy.py``.  ``make_tenant_mesh``
+carves a ``jax.sharding.Mesh`` out of ``jax.devices()`` there; here it
+carves a ``(data, model)`` device mesh out of the ranks of the initialized
+``torch.distributed`` world (``launch.mesh.make_submesh``), the mesh a
+tenant's sharded training runs on.
 """
 
 from __future__ import annotations
@@ -93,13 +93,32 @@ class TenantManager:
         return (chips // model_parallel, model_parallel)
 
     def make_tenant_mesh(self, name: str, model_parallel: int = 1):
-        """A device mesh over the tenant's share of the local cards: not
-        ported yet."""
-        raise NotImplementedError(
-            "make_tenant_mesh is not ported yet: tensor-parallel serving is, tenant meshes come with sharded "
-            "training; "
-            "tenant_submesh_shape gives the mesh's shape"
-        )
+        """A ``(data, model)`` mesh over the tenant's share of the world's
+        ranks.
+
+        As the JAX package carves the tenant's proportional slice of
+        ``jax.devices()``: the world's ranks times the tenant's share of
+        the nodes, rounded down to a multiple of ``model_parallel`` (at
+        least one group), the first ranks of the world reshaped to
+        ``(share // model_parallel, model_parallel)``.  Every rank of the
+        world calls it (a device mesh makes its groups collectively); a
+        rank outside the share gets None.  A world with fewer ranks than
+        one model group raises ``ValueError``, where the JAX package's
+        reshape fails."""
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import make_submesh
+
+        t = self.tenants[name]
+        if not dist.is_initialized():
+            raise RuntimeError("no process group: a tenant mesh spans the ranks of an initialized world")
+        total_nodes = len(self.cluster.nodes)
+        world = dist.get_world_size()
+        share = max(1, world * len(t.nodes) // max(total_nodes, 1))
+        share = (share // model_parallel) * model_parallel or model_parallel
+        if share > world:
+            raise ValueError(f"tenant {name!r}: model_parallel={model_parallel} needs {share} ranks, the world has {world}")
+        return make_submesh(share // model_parallel, model_parallel)
 
     # ------------------------------------------------------------------
     def check_isolation(self) -> list[str]:

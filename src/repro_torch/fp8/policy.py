@@ -100,7 +100,8 @@ class Fp8Layer:
         if self.ctx.observing(self.layer):
             self.ctx._observe(kx, tensor_amax(x2))
             self.ctx._observe(kw, tensor_amax(w))
-        out = fp8_dot(x2, w, self.scales[kx], self.scales[kw], self.ctx.fwd_dtype, self.ctx.gemm_fn)
+        out = fp8_dot(x2, w, self.scales[kx], self.scales[kw], self.ctx.fwd_dtype, self.ctx.gemm_fn,
+                      self.ctx.amax_reduce)
         return out.to(x.dtype).reshape(x.shape[:-1] + (w.shape[-1],))
 
 
@@ -108,10 +109,13 @@ class Fp8Ctx:
     """Routes projection matmuls through FP8 and collects amax observations.
 
     One context serves one forward (one microbatch).  See the module
-    docstring for the bind / matmul / drain protocol.
+    docstring for the bind / matmul / drain protocol.  ``amax_reduce``
+    (sharded training) takes the amax of a rank's shard of a backward
+    gradient to the whole gradient's (``fp8_dot``); the forward's
+    observations are reduced by the train step.
     """
 
-    def __init__(self, cfg, precision, state: Fp8State):
+    def __init__(self, cfg, precision, state: Fp8State, amax_reduce=None):
         if precision.fp8_dtype not in FP8_DTYPES:
             raise ValueError(f"precision.fp8_dtype={precision.fp8_dtype!r}: expected one of {sorted(FP8_DTYPES)}")
         gemm_fn = precision.fp8_gemm
@@ -120,6 +124,7 @@ class Fp8Ctx:
         self.fwd_dtype = FP8_DTYPES[precision.fp8_dtype]
         self.gemm_fn = gemm_fn if callable(gemm_fn) else GEMM_IMPLS[gemm_fn]
         self.state = state
+        self.amax_reduce = amax_reduce
         self.keys = scale_keys(cfg)
         self._amax: dict[str, torch.Tensor] = {}
         self._open: int | None = None
@@ -151,5 +156,5 @@ class Fp8Ctx:
         return obs
 
 
-def make_fp8_ctx(cfg, precision, state: Fp8State) -> Fp8Ctx:
-    return Fp8Ctx(cfg, precision, state)
+def make_fp8_ctx(cfg, precision, state: Fp8State, amax_reduce=None) -> Fp8Ctx:
+    return Fp8Ctx(cfg, precision, state, amax_reduce)

@@ -109,11 +109,12 @@ def update_fp8_state(state: Fp8State, amaxes: dict, dtype=E4M3, margin: float = 
 
 class _Fp8Dot(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, x_scale, w_scale, fwd_dtype, gemm_fn):
+    def forward(ctx, x, w, x_scale, w_scale, fwd_dtype, gemm_fn, amax_reduce):
         qx = quantize(x, x_scale, fwd_dtype)
         qw = quantize(w, w_scale, fwd_dtype)
         ctx.save_for_backward(qx, qw, x_scale, w_scale)
         ctx.gemm_fn = gemm_fn
+        ctx.amax_reduce = amax_reduce
         ctx.dtypes = (x.dtype, w.dtype)
         return gemm_fn(qx, qw, x_scale, w_scale)
 
@@ -124,18 +125,23 @@ class _Fp8Dot(torch.autograd.Function):
         dx = g @ w^T and dw = x^T @ g reuse the *quantized* forward operands,
         the values the forward consumed, so the quantization gradient is
         straight-through (saturation included).  The transposes are views:
-        the GEMM takes each operand with its strides.
+        the GEMM takes each operand with its strides.  Where ``g`` is one
+        rank's shard of the gradient (sharded training), ``amax_reduce``
+        takes its amax to the whole tensor's.
         """
         qx, qw, sx, sw = ctx.saved_tensors
         x_dtype, w_dtype = ctx.dtypes
-        g_scale = compute_scale(tensor_amax(g), E5M2)
+        amax = tensor_amax(g)
+        if ctx.amax_reduce is not None:
+            amax = ctx.amax_reduce(amax)
+        g_scale = compute_scale(amax, E5M2)
         qg = quantize(g, g_scale, E5M2)
         dx = ctx.gemm_fn(qg, qw.T, g_scale, sw).to(x_dtype)
         dw = ctx.gemm_fn(qx.T, qg, sx, g_scale).to(w_dtype)
-        return dx, dw, None, None, None, None
+        return dx, dw, None, None, None, None, None
 
 
-def fp8_dot(x, w, x_scale, w_scale, fwd_dtype, gemm_fn) -> torch.Tensor:
+def fp8_dot(x, w, x_scale, w_scale, fwd_dtype, gemm_fn, amax_reduce=None) -> torch.Tensor:
     """``x @ w`` through the FP8 path: quantize both operands with the given
     (delayed) scales, run the fp32-accumulating FP8 GEMM, dequantize.
 
@@ -143,6 +149,8 @@ def fp8_dot(x, w, x_scale, w_scale, fwd_dtype, gemm_fn) -> torch.Tensor:
     port's FP8 GEMMs (``fp8.gemm.fp8_gemm``, the kernel, or
     ``fp8.gemm_ref.fp8_gemm_plain``) with signature
     ``(a_q, b_q, a_scale, b_scale) -> fp32``.  Differentiable in x and w;
-    the scales get no gradient.
+    the scales get no gradient.  ``amax_reduce`` (sharded training): maps
+    the amax of the backward's local gradient to the whole gradient's, so
+    every rank scales it alike (``parallel.collectives.all_reduce_max``).
     """
-    return _Fp8Dot.apply(x, w, x_scale, w_scale, fwd_dtype, gemm_fn)
+    return _Fp8Dot.apply(x, w, x_scale, w_scale, fwd_dtype, gemm_fn, amax_reduce)

@@ -7,7 +7,10 @@ ranks of an initialized process group, one rank a process:
 * ``make_serving_mesh(tp)``: the ``(data=1, model=tp)`` mesh one serving
   engine spans (``InferenceEngine(mesh=)``), over a world of ``tp`` ranks.
 * ``make_local_mesh(data, model)``: any ``(data, model)`` shape over the
-  world.
+  world, the mesh of sharded and FSDP training.
+* ``make_submesh(data, model)``: a ``(data, model)`` mesh over the first
+  ranks of the world (``core.elastic``, ``core.tenancy``), None on the
+  ranks outside it.
 * ``make_replica_meshes(replicas, tp)``: ``replicas`` disjoint ``(1, tp)``
   meshes, replica ``i`` on ranks ``[i*tp, (i+1)*tp)``, with the
   reference's errors when ``replicas * tp`` exceeds the cards.
@@ -23,8 +26,14 @@ tensors and stages each collective through host memory: exact, but slow,
 and a CUDA graph cannot capture it.  On the CPU the backend is gloo.
 
 ``run_ranks(fn, tp)`` spawns ``tp`` rank processes (the ``spawn`` start
-method, a free loopback port), initializes the process group in each, runs
-``fn(rank, mesh, *args)`` and returns every rank's result in rank order.
+method; the parent holds the group's store on a loopback port the system
+picks, so concurrent spawns cannot race for one), initializes the process
+group in each, runs
+``fn(rank, mesh, *args)`` on the ``(1, tp)`` serving mesh and returns every
+rank's result in rank order; ``run_ranks(fn, (data, model))`` spawns
+``data * model`` ranks and hands each the ``(data, model)`` mesh of
+``make_local_mesh`` (sharded training: rank ``r`` sits at data ``r //
+model``, model ``r % model``).
 The ranks import ``torch`` and ``repro_torch`` (and ``fn``'s module); a rank
 that raises fails the call with its traceback, after the other ranks are
 stopped.  A rank asked for ``cuda`` on a host without a card raises.
@@ -50,6 +59,7 @@ from repro_torch.device import resolve_device
 AXES = ("data", "model")
 UNBOUNDED = datetime.timedelta(days=365)  # the collectives' timeout of a service that may idle
 BACKENDS = ("nccl", "gloo")
+POLL_S = 1.0  # run_ranks looks for ranks that died without a result this often
 NCCL_ONE_RANK_A_CARD = (
     "NCCL refuses two ranks on one device; pass backend='gloo' to stage the collectives through host memory"
 )
@@ -124,10 +134,29 @@ def make_serving_mesh(tp: int = 1, *, backend: str | None = None, device="cuda")
 
 
 def make_local_mesh(data: int = 1, model: int = 1, *, backend: str | None = None, device="cpu"):
-    """A ``(data, model)`` mesh over the whole process group, for tests."""
+    """A ``(data, model)`` mesh over the whole process group: sharded
+    training's (``train.step``), and the tests'."""
     backend = pick_backend(data * model, backend, device)
     _check_world(data * model, backend)
     return _device_mesh(backend, (data, model))
+
+
+def make_submesh(data: int, model: int):
+    """A ``(data, model)`` mesh over the first ``data * model`` ranks of
+    the initialized process group (an elastic survivor mesh, a tenant's
+    share), on the group's backend.  Every rank of the world calls it, as
+    ``DeviceMesh`` makes its groups collectively; a rank outside the mesh
+    gets None."""
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: start the ranks with run_ranks or torch.distributed.init_process_group")
+    need = data * model
+    if min(data, model) < 1 or need > dist.get_world_size():
+        raise ValueError(f"a ({data}, {model}) mesh needs {need} ranks; the world has {dist.get_world_size()}")
+    from torch.distributed.device_mesh import DeviceMesh
+
+    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    mesh = DeviceMesh(kind, torch.arange(need).reshape(data, model), mesh_dim_names=AXES)
+    return mesh if dist.get_rank() < need else None
 
 
 def make_replica_meshes(replicas: int, tp: int = 1, *, backend: str | None = None, device="cuda") -> list:
@@ -166,19 +195,22 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank, tp, backend, device, port, timeout_s, fn, args, out, quiet_followers) -> None:
+def _timeout(timeout_s: float | None) -> datetime.timedelta:
+    return datetime.timedelta(seconds=timeout_s) if timeout_s is not None else UNBOUNDED
+
+
+def _rank_main(rank, shape, backend, device, port, timeout_s, fn, args, out, quiet_followers) -> None:
     try:
         if quiet_followers and rank != 0:
             signal.signal(signal.SIGINT, signal.SIG_IGN)  # rank 0 drains, then releases this rank
         dev = resolve_device(device)
         if dev.type == "cuda":
             torch.cuda.set_device(rank % torch.cuda.device_count())
-        dist.init_process_group(
-            backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=tp,
-            timeout=datetime.timedelta(seconds=timeout_s) if timeout_s is not None else UNBOUNDED,
-        )
+        world = shape[0] * shape[1]
+        store = dist.TCPStore("127.0.0.1", port, world, is_master=False, timeout=_timeout(timeout_s))
+        dist.init_process_group(backend, store=store, rank=rank, world_size=world, timeout=_timeout(timeout_s))
         try:
-            mesh = make_serving_mesh(tp, backend=backend, device=device)
+            mesh = make_local_mesh(*shape, backend=backend, device=device)
             result = fn(rank, mesh, *args)
         finally:
             dist.destroy_process_group()
@@ -188,25 +220,33 @@ def _rank_main(rank, tp, backend, device, port, timeout_s, fn, args, out, quiet_
 
 
 def run_ranks(
-    fn, tp: int, *, backend: str | None = None, device="cuda", args: tuple = (), timeout_s: float | None = 600.0,
-    forward_signals: bool = False,
+    fn, tp: int | tuple, *, backend: str | None = None, device="cuda", args: tuple = (),
+    timeout_s: float | None = 600.0, forward_signals: bool = False,
 ):
     """Run ``fn(rank, mesh, *args)`` on ``tp`` spawned ranks of one
-    ``(1, tp)`` serving mesh; returns the ranks' results in rank order.
+    ``(1, tp)`` serving mesh, or on the ranks of a ``(data, model)`` mesh
+    when ``tp`` is that pair; returns the ranks' results in rank order.
     ``fn`` and ``args`` must pickle (a module-level function).  Raises the
-    first failing rank's traceback; every rank is stopped before this
-    returns or raises.  ``timeout_s`` bounds each collective and the wait
+    first failing rank's traceback, or the exit code of a rank that died
+    with no result; every rank is stopped before this returns or raises.  ``timeout_s`` bounds each collective and the wait
     for each result (None: unbounded, for a service that may idle).
     ``forward_signals`` (the main thread only): SIGTERM and SIGINT sent to
     this process go to rank 0 as SIGTERM, and the other ranks ignore
     SIGINT, so rank 0 can drain a service and then release them."""
+    shape = tuple(tp) if isinstance(tp, tuple) else (1, tp)
+    if len(shape) != 2 or min(shape) < 1:
+        raise ValueError(f"mesh shape {tp} (need tp >= 1 or (data, model) >= (1, 1))")
+    tp = shape[0] * shape[1]
     backend = pick_backend(tp, backend, device)
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
-    port = free_port()
+    # the group's store, held here (for as long as the ranks run) on a port
+    # the system picks as it binds
+    store = dist.TCPStore("127.0.0.1", 0, tp, is_master=True, wait_for_workers=False, timeout=_timeout(timeout_s))
+    port = store.port
     procs = [
         ctx.Process(
-            target=_rank_main, args=(r, tp, backend, str(device), port, timeout_s, fn, args, out, forward_signals),
+            target=_rank_main, args=(r, shape, backend, str(device), port, timeout_s, fn, args, out, forward_signals),
             daemon=True,
         )
         for r in range(tp)
@@ -219,14 +259,23 @@ def run_ranks(
             previous[sig] = signal.signal(sig, lambda *_: os.kill(procs[0].pid, signal.SIGTERM))
     results: dict = {}
     try:
+        waited = 0.0
         while len(results) < tp:
             try:
-                rank, ok, value = out.get(timeout=timeout_s)
+                rank, ok, value = out.get(timeout=POLL_S)
             except queue.Empty:
-                raise TimeoutError(f"ranks {sorted(set(range(tp)) - set(results))} gave no result in {timeout_s} s")
+                waited += POLL_S
+                # a rank that died without a word (killed, or lost at start-up)
+                dead = [r for r, p in enumerate(procs) if p.exitcode is not None and r not in results]
+                if dead and out.empty():
+                    raise RuntimeError(f"rank {dead[0]} exited with code {procs[dead[0]].exitcode} and no result")
+                if timeout_s is not None and waited >= timeout_s:
+                    raise TimeoutError(f"ranks {sorted(set(range(tp)) - set(results))} gave no result in {timeout_s} s")
+                continue
             if not ok:
                 raise RuntimeError(f"rank {rank} failed:\n{value}")
             results[rank] = value
+            waited = 0.0
     finally:
         for sig, handler in previous.items():
             signal.signal(sig, handler)

@@ -32,7 +32,11 @@ parameters hold a slice of the heads projects Q/K/V for those heads
 runs K1/K2 on it, and sums the output projection over the ranks with one
 all-reduce (``_out``).  The GQA group stays whole, since both head counts
 divide the model axis.  RoPE, the q/k norms and the window are per head
-and unchanged.
+and unchanged.  Sharded training (``self_attention(mesh=)``) runs the
+same layout under autograd: the input goes through ``copy_to_model``
+(its gradient summed over the ranks), and so do the q/k norm scales, which
+every rank applies to its own heads only; the output's sum is
+``sum_over_model``, the identity backward.
 
 With an ``fp8`` handle (``repro_torch.fp8.policy.Fp8Layer``) the q/k/v/o
 projections run through FP8 GEMMs; the head split is a free reshape around
@@ -56,7 +60,7 @@ from repro_torch.kernels.paged_attention import (
 from repro_torch.kernels.paged_attention_ref import paged_attention_plain, paged_prefill_attention_plain
 from repro_torch.models.cache import NULL_BLOCK
 from repro_torch.models.layers import ParamSpec, apply_rope, softcap
-from repro_torch.parallel.collectives import all_reduce
+from repro_torch.parallel.collectives import copy_to_model, sum_over_model
 
 ATTN_IMPLS = ("kernel", "plain")  # paged attention
 SELF_ATTN_IMPLS = ("torch", "flash")  # full-sequence self-attention
@@ -104,10 +108,16 @@ def _fp8_proj(fp8, site: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return fp8.matmul(site, x, w.reshape(D, nh * hd)).reshape(x.shape[:-1] + (nh, hd))
 
 
-def _qkv(cfg, p, x, kv_x=None, fp8=None):
+def _qkv(cfg, p, x, kv_x=None, fp8=None, mesh=None):
     """q from x, k and v from ``kv_x`` (cross-attention's source; default
     x).  The weights are cast to x's dtype first, as in the JAX package,
-    whose einsum then promotes against ``kv_x``'s dtype."""
+    whose einsum then promotes against ``kv_x``'s dtype.  Under a training
+    ``mesh`` whose ranks each hold a slice of the heads, x and the q/k norm
+    scales pass through ``copy_to_model`` (module docstring)."""
+    norms = {n: p[n] for n in ("q_norm", "k_norm") if cfg.qk_norm}
+    if mesh is not None and p["wq"].shape[1] != cfg.num_heads:
+        x = copy_to_model(x, mesh)
+        norms = {n: copy_to_model(t, mesh) for n, t in norms.items()}
     kv_src = x if kv_x is None else kv_x
     if fp8 is not None:
         q, k, v = (_fp8_proj(fp8, f"attn_{n}", src, p[f"w{n}"]) for n, src in (("q", x), ("k", kv_src), ("v", kv_src)))
@@ -119,8 +129,8 @@ def _qkv(cfg, p, x, kv_x=None, fp8=None):
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
     if cfg.qk_norm:
-        q = _rms_head(q, p["q_norm"], cfg.norm_eps)
-        k = _rms_head(k, p["k_norm"], cfg.norm_eps)
+        q = _rms_head(q, norms["q_norm"], cfg.norm_eps)
+        k = _rms_head(k, norms["k_norm"], cfg.norm_eps)
     return q, k, v
 
 
@@ -134,15 +144,16 @@ def _out(cfg, p, ctx, dtype, fp8=None, mesh=None):
     """The output projection over the heads ``ctx`` holds.  Under a
     tensor-parallel ``mesh`` whose ranks each hold a slice of the heads
     (``wo`` has fewer than ``cfg.num_heads``), the product is row-parallel:
-    one all-reduce sums the ranks' partial outputs, and ``bo`` is added
-    once, after the sum."""
+    one all-reduce (``sum_over_model``: in place when serving, under
+    autograd when training) sums the ranks' partial outputs, and ``bo`` is
+    added once, after the sum."""
     H, hd, D = p["wo"].shape
     if fp8 is not None:
         out = fp8.matmul("attn_o", ctx.reshape(ctx.shape[:-2] + (H * hd,)), p["wo"].reshape(H * hd, D)).to(dtype)
     else:
         out = ctx.to(dtype).reshape(ctx.shape[:-2] + (H * hd,)) @ p["wo"].to(dtype).reshape(H * hd, D)
     if mesh is not None and H != cfg.num_heads:
-        out = all_reduce(out.contiguous(), mesh)
+        out = sum_over_model(out.contiguous(), mesh)
     if cfg.use_bias:
         out = out + p["bo"].to(dtype)
     return out
@@ -228,25 +239,28 @@ def _write_kv(cache: dict, phys: torch.Tensor, off: torch.Tensor, k: torch.Tenso
 # ---------------------------------------------------------------------------
 
 
-def self_attention(cfg, p: dict, x: torch.Tensor, *, positions=None, q_chunk: int = 0, impl: str = "torch", fp8=None):
+def self_attention(
+    cfg, p: dict, x: torch.Tensor, *, positions=None, q_chunk: int = 0, impl: str = "torch", fp8=None, mesh=None
+):
     """Full-sequence self-attention (training / forward).  x: (B, S, D);
     positions: (B, S), default ``arange(S)``.  Returns (B, S, D).
 
     ``q_chunk``: with ``impl="torch"``, attend ``q_chunk`` queries at a time
     (each chunk recomputed in the backward), bounding the scores to
     ``q_chunk x S``.  ``impl="flash"`` ignores it: K3 never holds the scores.
+    ``mesh``: sharded training's (module docstring).
     """
     if impl not in SELF_ATTN_IMPLS:
         raise ValueError(f"impl={impl!r} (choose from {SELF_ATTN_IMPLS})")
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
-    q, k, v = _qkv(cfg, p, x, fp8=fp8)
+    q, k, v = _qkv(cfg, p, x, fp8=fp8, mesh=mesh)
     q, k = _rope(cfg, q, k, positions)
 
     if impl == "flash":
         ctx = flash_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
-        return _out(cfg, p, ctx, x.dtype, fp8=fp8)
+        return _out(cfg, p, ctx, x.dtype, fp8=fp8, mesh=mesh)
 
     qpk = cfg.q_per_kv
     if q_chunk and S > q_chunk and S % q_chunk == 0:
@@ -265,7 +279,7 @@ def self_attention(cfg, p: dict, x: torch.Tensor, *, positions=None, q_chunk: in
     else:
         m = make_mask(positions, positions, causal=cfg.causal, window=cfg.sliding_window)
         ctx = _attend_block(cfg, q, k, v, m[:, None, None], qpk)
-    return _out(cfg, p, ctx, x.dtype, fp8=fp8)
+    return _out(cfg, p, ctx, x.dtype, fp8=fp8, mesh=mesh)
 
 
 def cross_attention(cfg, p: dict, x: torch.Tensor, kv_tokens: torch.Tensor, *, mesh=None) -> torch.Tensor:

@@ -78,12 +78,14 @@ def _residual(cfg, p, x, h, a, fp8=None, mesh=None):
     return x + ffn(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x), fp8=fp8, mesh=mesh)
 
 
-def dense_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8=None):
+def dense_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8=None, mesh=None):
     """Full-sequence forward of one layer (training): x (B, S, D) -> (B, S, D).
-    ``fp8``: this layer's FP8 handle, or None."""
+    ``fp8``: this layer's FP8 handle, or None.  ``mesh``: sharded
+    training's (``p`` then holds this rank's model slices, its FSDP leaves
+    already gathered by ``models.forward``)."""
     h = apply_norm(cfg, p["norm1"], x)
-    a = self_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk, impl=attn_impl, fp8=fp8)
-    return _residual(cfg, p, x, h, a, fp8=fp8)
+    a = self_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk, impl=attn_impl, fp8=fp8, mesh=mesh)
+    return _residual(cfg, p, x, h, a, fp8=fp8, mesh=mesh)
 
 
 def dense_block_prefill(cfg, p, x, *, positions=None, q_chunk=0, mesh=None):

@@ -6,7 +6,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import ACTIVATIONS, ParamSpec, gelu_tanh
-from repro_torch.parallel.collectives import all_reduce
+from repro_torch.parallel.collectives import copy_to_model, sum_over_model
 
 
 def is_gated(activation: str) -> bool:
@@ -45,11 +45,16 @@ def ffn(cfg, p: dict, x: torch.Tensor, *, fp8=None, mesh=None) -> torch.Tensor:
     Under a tensor-parallel ``mesh`` whose ranks each hold a slice of the
     hidden dim (``w_down`` has fewer than ``cfg.d_ff`` rows): up, gate and
     ``b_up`` are column-parallel, the down product row-parallel, summed by
-    one all-reduce, and ``b_down`` is added once, after the sum."""
+    one all-reduce, and ``b_down`` is added once, after the sum.  Under
+    autograd (sharded training) x passes through ``copy_to_model`` and the
+    sum is ``sum_over_model``'s (``parallel.collectives``)."""
 
     def mm(site, a, w):
         return fp8.matmul(site, a, w) if fp8 is not None else a @ w.to(a.dtype)
 
+    split = mesh is not None and p["w_down"].shape[0] != cfg.d_ff
+    if split:
+        x = copy_to_model(x, mesh)
     act = gate_fn(cfg.activation)
     up = mm("ffn_up", x, p["w_up"])
     if cfg.use_bias:
@@ -59,8 +64,8 @@ def ffn(cfg, p: dict, x: torch.Tensor, *, fp8=None, mesh=None) -> torch.Tensor:
     else:
         h = act(up)
     out = mm("ffn_down", h, p["w_down"])
-    if mesh is not None and p["w_down"].shape[0] != cfg.d_ff:
-        out = all_reduce(out.contiguous(), mesh)
+    if split:
+        out = sum_over_model(out.contiguous(), mesh)
     if cfg.use_bias:
         out = out + p["b_down"].to(x.dtype)
     return out

@@ -44,6 +44,18 @@ the logits (each rank's vocab slice, masked by global column, then one
 all-gather to the full padded vocab).  A family or layer whose heads do
 not divide the model axis runs them whole on every rank.
 
+Sharded and FSDP training: ``forward(mesh=)`` takes the ``(data, model)``
+mesh of ``launch.mesh.make_local_mesh`` and this rank's slices of the
+parameters (``parallel.sharding.shard_state``), for the dense family.  The
+model slices run as in serving, under autograd (``copy_to_model`` before
+each column-parallel product, ``sum_over_model`` after each row-parallel
+one, both in ``parallel.collectives``); each leaf sharded over ``"data"``
+(FSDP) is gathered inside the block that uses it (``fsdp_gather``), after
+its cast to the compute dtype, so bf16 crosses the wire and no gathered
+copy of the whole tree exists; under ``remat="full"`` the gather is
+recomputed in the backward, as ZeRO-3 does.  The logits stay local: the
+train step's cross-entropy is vocab-parallel.
+
 The layer loop is a Python loop over per-layer parameter dicts.  The cache
 is updated in place and returned for symmetry with the JAX functions, which
 return a new one.
@@ -80,8 +92,9 @@ from repro_torch.models.blocks import (
 from repro_torch.models.cache import SERVED_FAMILIES, layer_cache
 from repro_torch.models.layers import apply_norm
 from repro_torch.models.rwkv import check_wkv_impl
-from repro_torch.parallel.collectives import all_gather, all_reduce
-from repro_torch.parallel.sharding import model_rank
+from repro_torch.models.initializers import param_specs
+from repro_torch.parallel.collectives import all_gather, copy_to_model, gather_over_data, sum_over_model
+from repro_torch.parallel.sharding import FSDP_AXES, model_rank
 
 
 def _check_impl(cfg, attn_impl: str) -> None:
@@ -122,7 +135,7 @@ def embed_input(cfg, params, tokens: torch.Tensor, positions: torch.Tensor, mesh
         local = tokens.long() - model_rank(mesh) * tok.shape[0]
         mine = (local >= 0) & (local < tok.shape[0])
         x = tok[local.clamp(0, tok.shape[0] - 1)]
-        x = all_reduce(torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device)), mesh)
+        x = sum_over_model(torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device)), mesh)
     else:
         x = tok[tokens.long()]
     if cfg.learned_pos_embedding:
@@ -134,12 +147,17 @@ def embed_input(cfg, params, tokens: torch.Tensor, positions: torch.Tensor, mesh
     return x
 
 
-def lm_logits(cfg, params, x: torch.Tensor, mesh=None) -> torch.Tensor:
+def lm_logits(cfg, params, x: torch.Tensor, mesh=None, *, gather: bool = True) -> torch.Tensor:
     """Final norm + output projection (tied or untied; padded-vocab mask).
     Under a ``mesh`` whose ranks each hold a vocab slice of the projection
     (``lm_head`` or the tied table), each rank computes its slice of the
-    logits, masks it by global column, and one all-gather joins them."""
+    logits, masks it by global column, and one all-gather joins them;
+    ``gather=False`` (training) returns the rank's slice."""
     x = apply_norm(cfg, params["final_norm"], x)
+    if mesh is not None:
+        head = params["lm_head"].shape[-1] if "lm_head" in params else params["embed"]["tok"].shape[0]
+        if head != cfg.padded_vocab:
+            x = copy_to_model(x, mesh)
     if "lm_head" in params:
         logits = x @ params["lm_head"].to(x.dtype)
     else:
@@ -153,7 +171,7 @@ def lm_logits(cfg, params, x: torch.Tensor, mesh=None) -> torch.Tensor:
         first = model_rank(mesh) * logits.shape[-1] if split else 0
         col = first + torch.arange(logits.shape[-1], device=logits.device)
         logits = logits.masked_fill(col >= cfg.vocab_size, -1e9)
-    if split:
+    if split and gather:
         logits = all_gather(logits, mesh, dim=-1)
     return logits
 
@@ -176,6 +194,12 @@ SAVED_PRODUCTS = {
 }
 
 FORWARD_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+# the families whose forward runs sharded over a training mesh
+SHARDED_FAMILIES = ("dense",)
+# leaves their block uses in the compute dtype (cast before FSDP gathers
+# them), and the projections, which an fp8 site quantizes from the master
+PROJECTIONS = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down")
+COMPUTE_DTYPE_LEAVES = PROJECTIONS + ("bq", "bk", "bv", "bo", "b_up", "b_down")
 # the training block of each family that runs one per layer (ssm: rwkv_block;
 # vlm: layer groups); the moe block also returns its load-balance loss
 TRAIN_BLOCKS = {"dense": dense_block, "audio": dense_block, "moe": moe_block, "hybrid": hybrid_block}
@@ -190,8 +214,33 @@ def _stack_caches(caches: list) -> dict:
     }
 
 
+def fsdp_gather(tree: dict, specs: dict, mesh, compute_dtype=None, fp8: bool = False) -> dict:
+    """``tree`` (a layer's parameters, or any subtree) with each leaf that
+    FSDP shards (an ``"embed"`` dim smaller than its ``ParamSpec``'s)
+    gathered over the data axis.  A leaf its block uses in the compute
+    dtype (``COMPUTE_DTYPE_LEAVES``) is cast first, but for the projections
+    of an fp8 layer, which quantize the fp32 master; the norm scales stay
+    in the parameters' dtype, as their blocks read them.  The gather's
+    backward reduce-scatters the gradient (``gather_over_data``)."""
+
+    def one(name, t, spec):
+        if isinstance(t, dict):
+            return {k: one(k, v, spec[k]) for k, v in t.items()}
+        dims = [i for i, (a, n) in enumerate(zip(spec.axes, spec.shape)) if a in FSDP_AXES and t.shape[i] != n]
+        if not dims:
+            return t
+        if compute_dtype is not None and name in COMPUTE_DTYPE_LEAVES and not (fp8 and name in PROJECTIONS):
+            t = t.to(compute_dtype)
+        for i in dims:
+            t = gather_over_data(t, mesh, i)
+        return t
+
+    return {k: one(k, v, specs[k]) for k, v in tree.items()}
+
+
 def forward(
-    cfg, params, batch, *, q_chunk=0, remat="none", attn_impl="torch", wkv_impl="chunked", compute_dtype=None, fp8=None
+    cfg, params, batch, *, q_chunk=0, remat="none", attn_impl="torch", wkv_impl="chunked", compute_dtype=None, fp8=None,
+    mesh=None,
 ):
     """Training forward.  Returns (logits, aux_loss), or (logits, aux_loss,
     amaxes) when an ``fp8`` context (``repro_torch.fp8.Fp8Ctx``) is passed:
@@ -216,10 +265,17 @@ def forward(
     ``"flash"`` (K3, forward only).  ``wkv_impl`` (ssm): ``"chunked"``
     (differentiable) or ``"kernel"`` (K5, forward only, from a zero state;
     the forward drops the final state), or a scan called in K5's place
-    (``models.rwkv.check_wkv_impl``).
+    (``models.rwkv.check_wkv_impl``).  ``mesh``: sharded training's
+    ``(data, model)`` mesh, with this rank's parameter slices and batch
+    rows (module docstring); the logits are then this rank's vocab slice.
     """
     if cfg.family not in FORWARD_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported yet")
+    if mesh is not None and cfg.family not in SHARDED_FAMILIES:
+        raise NotImplementedError(
+            f"sharded training of family {cfg.family!r} ({cfg.name}) is not ported yet: {SHARDED_FAMILIES} train "
+            "over a mesh"
+        )
     if fp8 is not None and cfg.family in ("ssm", "vlm"):
         # the reference's ssm family has no quantizable projections and its
         # vlm family scans layer groups (its amax drain is not wired there)
@@ -233,9 +289,10 @@ def forward(
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(inputs.shape[1], device=inputs.device).expand(inputs.shape[:2])
-    x = embed_input(cfg, params, inputs, positions)
+    x = embed_input(cfg, params, inputs, positions, mesh)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
+    specs = param_specs(cfg) if mesh is not None else None
     vision = batch.get("vision_tokens")
     if vision is not None and compute_dtype is not None:
         vision = vision.to(compute_dtype)
@@ -250,8 +307,13 @@ def forward(
 
     layer_block = TRAIN_BLOCKS.get(cfg.family, dense_block)  # vlm: its self layers
 
-    def train_layer(p_layer, handle=None):
-        return partial(layer_block, cfg, p_layer, positions=positions, q_chunk=q_chunk, attn_impl=attn_impl, fp8=handle)
+    def train_layer(p_layer, handle=None, layer=0):
+        kw = dict(positions=positions, q_chunk=q_chunk, attn_impl=attn_impl, fp8=handle)
+        if mesh is None:
+            return partial(layer_block, cfg, p_layer, **kw)
+        # the gather inside the block, so remat recomputes it
+        gathered = partial(fsdp_gather, p_layer, specs["blocks"][layer], mesh, compute_dtype, handle is not None)
+        return lambda x: layer_block(cfg, gathered(), x, mesh=mesh, **kw)
 
     obs = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -268,10 +330,14 @@ def forward(
             x, a = run(train_layer(p_layer, handle), x)
             aux = aux + a
         else:
-            x = run(train_layer(p_layer, handle), x)
+            x = run(train_layer(p_layer, handle, layer), x)
         if fp8 is not None:
             obs.append(fp8.drain())
-    logits = lm_logits(cfg, params, x)
+    if mesh is None:
+        logits = lm_logits(cfg, params, x)
+    else:
+        head = dict(params, final_norm=fsdp_gather(params["final_norm"], specs["final_norm"], mesh))
+        logits = lm_logits(cfg, head, x, mesh, gather=False)
     aux = aux / cfg.num_layers
     if fp8 is None:
         return logits, aux

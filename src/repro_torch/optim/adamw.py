@@ -17,6 +17,11 @@ temporaries never exceed a slice (a qwen3-moe expert stack is 3.2 GB), and
 no clipped copy of the gradients is made.  Each element goes through the
 same operations as in one pass over the whole tree, so the result is the
 same bit for bit; ``tests/test_torch_adamw.py`` holds it so.
+
+Under a training mesh (sharded and FSDP training) each rank updates its
+own shards: the update is elementwise, so only the clipping norm needs the
+other ranks (``global_norm(specs=, mesh=)``).  The decay rank is the
+leaf's rank, which sharding does not change.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.parallel.collectives import all_reduce_over
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_paths
 
 CHUNK = 1 << 26  # elements of a leaf updated at once: 256 MB of each fp32 temporary
@@ -45,9 +51,21 @@ def adamw_init(params, *, dtype=torch.float32) -> AdamWState:
     )
 
 
-def global_norm(tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
+    """The L2 norm of every leaf of ``tree``.  Under a training ``mesh``
+    the leaves are this rank's shards and ``specs`` their executed specs
+    (``parallel.sharding``): each leaf's square sum is summed over exactly
+    the mesh axes that shard it (one collective for each set of axes), so
+    a replicated leaf counts once, not once a rank."""
+    if mesh is None:
+        leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+        return torch.sqrt(torch.sum(torch.stack(leaves)))
+    by_axes: dict = {}
+    # paired by key: a bridged tree may order its dict keys otherwise
+    for x, spec in tree_leaves(tree_map(lambda x, s: (x, s), tree, specs)):
+        by_axes.setdefault(tuple(a for a in ("data", "model") if a in spec), []).append(torch.sum(torch.square(x.float())))
+    sums = [all_reduce_over(torch.sum(torch.stack(v)), mesh, axes) for axes, v in by_axes.items()]
+    return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
 def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -87,9 +105,13 @@ def adamw_update(
     weight_decay: float = 0.1,
     grad_clip: float = 0.0,
     layer_scan: bool = False,
+    specs=None,
+    mesh=None,
 ):
     """One AdamW step, in place.  Returns (params, new state, metrics); the
     params and moment tensors returned are the ones passed in, updated.
+    ``specs`` and ``mesh``: a rank's shards under sharded training, for
+    the clipping norm (``global_norm``).
 
     ``layer_scan`` is accepted for the reference's signature and has no
     effect: each layer's leaves are separate tensors already, so the fp32
@@ -100,7 +122,7 @@ def adamw_update(
     metrics = {}
     scale = None
     if grad_clip > 0:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, specs, mesh)
         scale = clip_scale(gnorm, grad_clip)
         metrics["grad_norm"] = gnorm
     stepf = step.float()

@@ -18,6 +18,35 @@ serving primitives on a mesh's model axis.
    adds one to ``COLLECTIVES[name]`` and its operand's bytes to
    ``COLLECTIVES[name + "_bytes"]``, where it calls the collective and
    nowhere else.  A failed collective raises.
+4. The training collectives of sharded and FSDP training
+   (``train.step``), ``torch.autograd.Function``s where autograd must see
+   them:
+
+   * ``copy_to_model``: the identity forward, an all-reduce of the
+     gradient over ``"model"`` backward; it goes before every
+     column-parallel product (the replicated input's gradient is the sum
+     of the ranks' partial ones), and on a replicated leaf used inside the
+     head split (the q/k norm scales);
+   * ``sum_over_model``: an all-reduce over ``"model"`` forward, the
+     identity backward; after every row-parallel product and the
+     vocab-parallel embedding.  Without autograd (serving, under
+     ``torch.no_grad()``) it is the in-place ``all_reduce``;
+   * ``gather_over_data``: FSDP's all-gather of one leaf along its
+     data-sharded dim forward, a reduce-scatter (sum) of its gradient
+     backward;
+   * ``all_reduce_over``, ``all_reduce_max`` and ``max_over_model``,
+     outside autograd: sums over ``"data"`` (the loss metrics, the
+     gradients of leaves replicated over data) or over the axes a leaf is
+     sharded on (the gradient norm), counted as ``all_reduce_sum``; maxima over the mesh's ranks (the fp8 amaxes, the
+     int8 scales) and over ``"model"`` (the vocab-parallel cross-entropy's
+     max).  A reduction over both axes runs one collective an axis, so it
+     covers the mesh's ranks, not the whole world (an elastic mesh).
+
+   Each adds one to ``TRAIN_COLLECTIVES[name]`` and its operand's bytes to
+   ``TRAIN_COLLECTIVES[name + "_bytes"]`` where it calls the collective:
+   ``copy_to_model`` and ``gather_over_data`` in their backward too (as
+   ``copy_to_model`` and ``reduce_scatter_data``).  ``reset_collectives``
+   sets both tables to 0.
 """
 
 from __future__ import annotations
@@ -27,7 +56,7 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
-from repro_torch.utils.tree import tree_leaves, tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_paths
 
 # ---------------------------------------------------------------------------
 # gradient compression (with error feedback)
@@ -36,34 +65,63 @@ from repro_torch.utils.tree import tree_leaves, tree_map
 COMPRESSION_METHODS = ("none", "bf16", "int8")
 
 
-def _quantize_int8(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    scale = torch.clamp(torch.max(torch.abs(g)), min=1e-12) / 127.0
+def _quantize_int8(g: torch.Tensor, amax: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8 codes of ``g`` and their per-tensor scale, ``max|g|`` / 127;
+    ``amax`` is ``max|g|`` over the whole leaf where ``g`` is one shard."""
+    amax = torch.max(torch.abs(g)) if amax is None else amax
+    scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
 
 
-def compress_gradients(grads, residual, method: str = "none"):
+def compress_gradients(grads, residual, method: str = "none", mesh=None):
     """Returns (compressed-then-decompressed grads, new residual).
 
     ``residual`` is the error-feedback state: a tree like ``grads`` of
-    fp32 tensors (``init_compression_state``)."""
+    fp32 tensors (``init_compression_state``).  int8's per-tensor scale
+    is the JAX package's: ``max|g|`` over the whole leaf of the JAX tree,
+    which stacks every layer's leaf (``blocks/<layer>/attn/wq`` of all
+    layers is one leaf there), so the port takes the maximum over the
+    layers' leaves of one name.  Under a training ``mesh`` the leaves are
+    this rank's shards and the maximum is also taken over the mesh's ranks
+    (one collective for every leaf; a replicated leaf's copies are equal).
+    The residual stays sharded."""
     if method == "none":
         return grads, residual
     if method not in COMPRESSION_METHODS:
         raise ValueError(f"unknown grad_compression {method!r}")
+    pairs = tree_leaves(tree_map(lambda g, r: (g, r), grads, residual))  # by key
+    gfs = [g.float() + r for g, r in pairs]
+    amaxes = [None] * len(gfs)
+    if method == "int8":
+        amaxes = _stacked_amaxes(grads, [torch.max(torch.abs(gf)) for gf in gfs], mesh)
 
-    def one(g, r):
-        gf = g.float() + r
+    def one(g, gf, amax):
         if method == "bf16":
             gq = gf.to(torch.bfloat16).float()
         else:
-            q, scale = _quantize_int8(gf)
+            q, scale = _quantize_int8(gf, amax)
             gq = q.float() * scale
         return gq.to(g.dtype), gf - gq
 
-    out = [one(g, r) for g, r in zip(tree_leaves(grads), tree_leaves(residual))]
+    out = [one(g, gf, a) for (g, _), gf, a in zip(pairs, gfs, amaxes)]
     it_g, it_r = iter(o[0] for o in out), iter(o[1] for o in out)
     return tree_map(lambda _: next(it_g), grads), tree_map(lambda _: next(it_r), grads)
+
+
+def _stacked_amaxes(tree, amaxes: list, mesh=None) -> list:
+    """Each leaf's ``max|g|`` over its stacked leaf: the maximum of
+    ``amaxes`` over the leaves whose paths differ only in list indices
+    (the layers, and a vlm group's self layers), then over the mesh."""
+    keys = [tuple(p for p in path if not isinstance(p, int)) for path in tree_paths(tree)]
+    stacked = torch.stack(amaxes)
+    out = stacked.clone()
+    for key in dict.fromkeys(keys):
+        idx = [i for i, k in enumerate(keys) if k == key]
+        out[idx] = torch.max(stacked[idx])
+    if mesh is not None:
+        out = all_reduce_max(out, mesh)
+    return list(out.unbind())
 
 
 def init_compression_state(grads_like, method: str = "none"):
@@ -112,11 +170,16 @@ class CollectiveModel:
 
 # calls and operand bytes of each primitive (reset with ``reset_collectives``)
 COLLECTIVES = {"all_reduce": 0, "all_reduce_bytes": 0, "all_gather": 0, "all_gather_bytes": 0}
+# the same for the training collectives (section 4 of the module docstring)
+TRAIN_NAMES = ("copy_to_model", "sum_over_model", "gather_over_data", "reduce_scatter_data", "all_reduce_sum",
+               "all_reduce_max", "max_over_model")
+TRAIN_COLLECTIVES = {f"{n}{s}": 0 for n in TRAIN_NAMES for s in ("", "_bytes")}
 
 
 def reset_collectives() -> None:
-    for name in COLLECTIVES:
-        COLLECTIVES[name] = 0
+    for table in (COLLECTIVES, TRAIN_COLLECTIVES):
+        for name in table:
+            table[name] = 0
 
 
 def model_group(mesh):
@@ -143,3 +206,123 @@ def all_gather(x: torch.Tensor, mesh, dim: int = -1) -> torch.Tensor:
     COLLECTIVES["all_gather"] += 1
     COLLECTIVES["all_gather_bytes"] += x.numel() * x.element_size()
     return torch.cat(parts, dim=dim)
+
+
+# ---------------------------------------------------------------------------
+# training collectives: the autograd-aware pair, FSDP's gather, reductions
+# ---------------------------------------------------------------------------
+
+
+def _count(name: str, x: torch.Tensor) -> None:
+    TRAIN_COLLECTIVES[name] += 1
+    TRAIN_COLLECTIVES[name + "_bytes"] += x.numel() * x.element_size()
+
+
+def _size(mesh, axis: str) -> int:
+    return 1 if mesh is None else mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def _summed(x: torch.Tensor, group, name: str, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """A new contiguous tensor holding ``x`` reduced over ``group``."""
+    y = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=op, group=group)
+    _count(name, y)
+    return y
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.group, "copy_to_model"), None
+
+
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _summed(x, group, "sum_over_model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherOverData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, n):
+        ctx.group, ctx.dim, ctx.n = group, dim, n
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=group)
+        _count("gather_over_data", x)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the ranks' gradients of the whole leaf, summed, and this rank's
+        # slice of the sum: a reduce-scatter along dim 0 of the moved view
+        rows = g.movedim(ctx.dim, 0).contiguous()
+        out = torch.empty((rows.shape[0] // ctx.n,) + rows.shape[1:], dtype=g.dtype, device=g.device)
+        dist.reduce_scatter_tensor(out, rows, group=ctx.group)
+        _count("reduce_scatter_data", rows)
+        return out.movedim(0, ctx.dim), None, None, None
+
+
+def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` as it is; autograd sums its gradient over the model axis.
+    The identity where autograd does not record (serving) or the model
+    axis is 1."""
+    if _size(mesh, "model") == 1 or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _CopyToModel.apply(x, model_group(mesh))
+
+
+def sum_over_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over the model axis: out of place and the identity
+    backward where autograd records, else the serving ``all_reduce`` in
+    place (``x`` must then be contiguous)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SumOverModel.apply(x, model_group(mesh))
+    return all_reduce(x, mesh)
+
+
+def gather_over_data(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """The whole leaf from every data rank's slice along ``dim`` (rank
+    order); the backward reduce-scatters (sums) the gradient."""
+    n = _size(mesh, "data")
+    if n == 1:
+        return x
+    return _GatherOverData.apply(x, mesh.get_group("data"), dim, n)
+
+
+def _over(x: torch.Tensor, mesh, axes: tuple, name: str, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` reduced over the mesh ``axes`` in turn, one collective an axis
+    of more than one rank (a new tensor; ``x`` itself where there is none).
+    Over both axes this is the reduction over the mesh's ranks, which need
+    not be the whole world (an elastic or a tenant mesh)."""
+    for axis in axes:
+        if _size(mesh, axis) > 1:
+            x = _summed(x, mesh.get_group(axis), name, op)
+    return x
+
+
+def all_reduce_max(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over every rank of the mesh."""
+    return _over(x.detach(), mesh, ("data", "model"), "all_reduce_max", dist.ReduceOp.MAX)
+
+
+def max_over_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the model axis, outside
+    autograd (detached)."""
+    return _over(x.detach(), mesh, ("model",), "max_over_model", dist.ReduceOp.MAX)
+
+
+def all_reduce_over(x: torch.Tensor, mesh, axes: tuple) -> torch.Tensor:
+    """``x`` summed over the mesh ``axes`` (a subset of ``("data",
+    "model")``), outside autograd: a new tensor, or ``x`` itself where no
+    axis has more than one rank."""
+    return _over(x, mesh, tuple(a for a in ("data", "model") if a in axes), "all_reduce_sum")

@@ -44,8 +44,21 @@ slice keeps its GQA kv group.  Every other claim stays replicated:
   packs x and z side by side, and ``x_proj`` contracts over the inner dim);
 * ``heads_x_dim`` (rwkv6's mixes and the audio frame projection).
 
+**Training** (``train.step``, sharded and FSDP) executes the same model
+claims and, where the table's ``ParallelConfig`` has ``fsdp``, every claim
+of ``"data"`` on an ``"embed"`` dim (``FSDP_AXES``): a rank stores 1 / d of
+such a leaf, of its AdamW moments and of its compression residual, and the
+forward gathers it inside the layer that uses it
+(``parallel.collectives.gather_over_data``).  Every other leaf is
+replicated over ``"data"``: the token table and the head (their embed dim
+is ``embed_v``), the q/k norm scales.
+
 ``executed_specs`` gives that layout beside the table's, and
 ``shard_params`` cuts each rank's slice of a full parameter tree by it.
+``state_shardings`` is the layout of a whole train state (the moments and
+the residual inherit the parameters' specs; the step and the fp8 state are
+replicated), ``shard_state`` cuts a rank's slices out of a full state and
+``unshard_state`` gathers them back, bit for bit.
 The paged K/V pools shard on ``kv_heads`` only (``paged_cache_axes``): every
 rank holds its head slice of every physical block, so block ids, tables,
 the allocator and the prefix index are the same on every rank.
@@ -56,17 +69,21 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.config import MeshConfig, ParallelConfig
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_paths
 
 Candidate = tuple[str, ...]  # one candidate = tuple of mesh axes used together
 MODEL = "model"
+DATA = "data"
 
 # the logical axes whose claim of the model axis the port executes
 EXECUTED_AXES = ("heads", "kv_heads", "mlp", "vocab", "expert")
 # parameter subtrees whose claims all stay replicated (hymba's SSM heads)
 REPLICATED_SUBTREES = ("ssm",)
+# the logical axes whose claim of the data axis the port executes (FSDP)
+FSDP_AXES = ("embed",)
 
 
 def axis_sizes(mesh) -> dict:
@@ -282,7 +299,8 @@ def _executed(cfg, mesh, path: tuple, axes: tuple, spec: tuple) -> tuple:
     for ax, entry in zip(axes, spec):
         names = () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
         if MODEL not in names:
-            out.append(None)  # data axes have size 1 on a serving mesh
+            # FSDP: the data claim of an embed dim (the serving table has none)
+            out.append(DATA if names == (DATA,) and ax in FSDP_AXES and not replicated_here else None)
         elif replicated_here or ax not in EXECUTED_AXES or (ax in ("heads", "kv_heads") and not heads_ok):
             out.append(None)
         else:
@@ -293,8 +311,9 @@ def _executed(cfg, mesh, path: tuple, axes: tuple, spec: tuple) -> tuple:
 def executed_specs(cfg, mesh, rules: ShardingRules | None = None) -> dict:
     """``{"table": specs, "executed": specs}``: the rule table's spec of
     every parameter and the layout the port runs (module docstring), as
-    trees shaped like the parameters.  An executed entry is ``"model"``
-    or ``None``."""
+    trees shaped like the parameters.  An executed entry is ``"model"``,
+    ``"data"`` (FSDP, under a table with ``fsdp``) or ``None``.  The
+    default table is the serving one (``serving_rules``)."""
     from repro_torch.models import param_specs
 
     rules = rules or serving_rules()
@@ -326,15 +345,29 @@ def model_rank(mesh) -> int:
     return mesh.get_local_rank(MODEL)
 
 
-def shard_tensor(t: torch.Tensor, spec: tuple, tp: int, rank: int) -> torch.Tensor:
+def _coords(mesh, spec: tuple) -> list:
+    """(dim, ranks, this rank) of every dim of ``spec`` sharded over an
+    axis of more than one rank."""
+    sizes = axis_sizes(mesh)
+    return [(dim, sizes[e], mesh.get_local_rank(e)) for dim, e in enumerate(spec)
+            if e in (DATA, MODEL) and sizes.get(e, 1) > 1]
+
+
+def local_shape(shape: tuple, spec: tuple, mesh) -> tuple:
+    """A leaf's shape on one rank under its executed ``spec``."""
+    shape = list(shape)
+    for dim, n, _ in _coords(mesh, spec):
+        shape[dim] //= n
+    return tuple(shape)
+
+
+def shard_tensor(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     """This rank's slice of a full tensor under an executed spec, as a new
     contiguous tensor (so the full one can be freed)."""
-    for dim, entry in enumerate(spec):
-        if entry == MODEL and tp > 1:
-            if t.shape[dim] % tp:
-                raise ValueError(f"dim {dim} of shape {tuple(t.shape)} does not divide over {tp} ranks")
-            n = t.shape[dim] // tp
-            t = t.narrow(dim, rank * n, n)
+    for dim, n, rank in _coords(mesh, spec):
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of shape {tuple(t.shape)} does not divide over {n} ranks")
+        t = t.narrow(dim, rank * (t.shape[dim] // n), t.shape[dim] // n)
     return t.clone(memory_format=torch.contiguous_format)
 
 
@@ -343,18 +376,94 @@ def shard_params(cfg, params, specs, mesh) -> dict:
     ``params`` by the executed ``specs`` (``executed_specs(cfg,
     mesh)["executed"]``).  A replicated leaf comes back as it is, and so
     does a leaf that already holds this rank's slice (its sharded dims
-    1 / tp of ``cfg``'s); any other shape raises."""
+    1 / n of ``cfg``'s); any other shape raises."""
     from repro_torch.models import param_specs
-
-    tp, rank = model_axis_size(mesh), model_rank(mesh)
 
     def one(t, spec, ps):
         full = tuple(ps.shape)
-        local = tuple(d // tp if e == MODEL else d for d, e in zip(full, spec))
+        local = local_shape(full, spec, mesh)
         if tuple(t.shape) == local:
             return t
         if tuple(t.shape) != full:
             raise ValueError(f"parameter of shape {tuple(t.shape)}: neither the full {full} nor the local {local}")
-        return shard_tensor(t, spec, tp, rank)
+        return shard_tensor(t, spec, mesh)
 
     return tree_map(one, params, specs, param_specs(cfg))
+
+
+# ---------------------------------------------------------------------------
+# train states over a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+
+def training_rules(parallel: ParallelConfig) -> ShardingRules:
+    """The training table of a run's ``ParallelConfig`` on a ``("data",
+    "model")`` mesh (one pod: the data axes are ``("data",)``)."""
+    return make_rules(MeshConfig(), parallel)
+
+
+def state_shardings(cfg, run_cfg, rules: ShardingRules, mesh):
+    """The executed spec of every leaf of a train state of ``run_cfg``,
+    shaped like one (a ``TrainState`` whose leaves are specs): params by
+    the executed layout, ``m``, ``v`` and the residual inheriting their
+    specs, the step and every fp8 leaf replicated (``()``), as the JAX
+    package's ``state_shardings``."""
+    from repro_torch.fp8 import Fp8State, scale_keys
+    from repro_torch.optim import AdamWState
+    from repro_torch.train.step import TrainState, _fp8_enabled
+
+    specs = executed_specs(cfg, mesh, rules)["executed"]
+    fp8 = None
+    if _fp8_enabled(cfg, run_cfg.precision):
+        keys = scale_keys(cfg)
+        fp8 = Fp8State(amax_history={k: () for k in keys}, scale={k: () for k in keys}, step=())
+    residual = specs if run_cfg.parallel.grad_compression != "none" else None
+    return TrainState(params=specs, opt=AdamWState(step=(), m=specs, v=specs), compress_residual=residual, fp8=fp8)
+
+
+def _state_map(fn, state, specs):
+    """``fn(leaf, spec)`` over the params, moments and residual of a train
+    state; the step and the fp8 state are replicated and cloned."""
+    fp8 = state.fp8
+    if fp8 is not None:
+        fp8 = type(fp8)(amax_history=tree_map(torch.clone, fp8.amax_history), scale=tree_map(torch.clone, fp8.scale),
+                        step=fp8.step.clone())
+    each = lambda tree, sp: None if tree is None else tree_map(fn, tree, sp)  # noqa: E731
+    return state._replace(
+        params=each(state.params, specs.params),
+        opt=state.opt._replace(step=state.opt.step.clone(), m=each(state.opt.m, specs.opt.m),
+                               v=each(state.opt.v, specs.opt.v)),
+        compress_residual=each(state.compress_residual, specs.compress_residual),
+        fp8=fp8,
+    )
+
+
+def shard_state(state, specs, mesh):
+    """This rank's train state: the slices of the full ``state`` by
+    ``specs`` (``state_shardings``), each a new contiguous tensor."""
+    return _state_map(lambda t, spec: shard_tensor(t, spec, mesh), state, specs)
+
+
+def unshard_tensor(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The full tensor from every rank's slice under ``spec``: one
+    all-gather over each sharded axis, in rank order (data motion only)."""
+    for dim, n, _ in _coords(mesh, spec):
+        group = mesh.get_group(spec[dim])
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t, group=group)
+        t = torch.cat(parts, dim=dim)
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def unshard_state(state, specs, mesh):
+    """The full train state on every rank of ``mesh`` from each rank's
+    ``state`` (``shard_state``'s inverse, bit for bit)."""
+    return _state_map(lambda t, spec: unshard_tensor(t, spec, mesh), state, specs)
+
+
+def replicated_leaves(specs, mesh) -> list[str]:
+    """The paths of the leaves that every rank of ``mesh`` holds whole
+    under ``specs`` (a params-shaped tree of executed specs): no dim
+    sharded over an axis of more than one rank."""
+    return ["/".join(map(str, p)) for p, s in zip(tree_paths(specs), tree_leaves(specs)) if not _coords(mesh, s)]

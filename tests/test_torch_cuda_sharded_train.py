@@ -1,0 +1,56 @@
+"""Sharded training on the card: two gloo ranks on one card, each with its
+slice of the smoke olmo-1b (TP=2: 2 of 4 query heads, 64 of 128 FFN
+columns).  Needs no JAX: ``python -m pytest -m gpu
+tests/test_torch_cuda_sharded_train.py``.  It skips on a host without CUDA.
+
+* K4 on each rank's local slices, the forward of ``w_up``'s column slice and
+  the input gradient through ``w_down``'s transposed row slice, against the
+  plain GEMM within ``chip_smoke.py``'s ``GEMM_RTOL`` (1e-5 of the output's
+  largest magnitude), each launched once.
+* The TP=2 step (fp8 through K4, remat full) over 3 steps against TP=1
+  from one state within the fp8 limits of ``test_torch_sharded_train.py``
+  (losses 2e-3 relative, gradient norms 5e-2, every parameter within 2 lr a
+  step, their mean within lr / 5); every rank launches K4 4 times a site a
+  layer a step.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.launch.mesh import run_ranks
+
+import torch_sharded_ranks
+
+pytestmark = pytest.mark.gpu
+
+GEMM_RTOL = 1e-5
+LR, STEPS, LAYERS, SITES = 1e-3, 3, 2, 7
+
+
+@pytest.fixture(scope="module")
+def ranks():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return run_ranks(torch_sharded_ranks.cuda_checks, 2, backend="gloo", device="cuda", timeout_s=600)
+
+
+def test_cuda_k4_on_local_slices(ranks):
+    for r in ranks:
+        assert r["local_mlp"] == ((64, 64), (64, 64))
+        assert max(r["k4_errs"].values()) < GEMM_RTOL, r["k4_errs"]
+        assert r["kernel_launches"] == 2
+
+
+def test_cuda_tp2_step_equals_tp1(ranks):
+    tp1 = ranks[0]["tp1"]
+    for r in ranks:
+        assert r["tp2"]["metrics"] == ranks[0]["tp2"]["metrics"]
+        assert r["step_launches"] == 4 * LAYERS * SITES * STEPS
+        assert not r["jax_loaded"]
+    got = ranks[0]["tp2"]
+    for a, b in zip(got["metrics"], tp1["metrics"]):
+        assert abs(a["loss"] - b["loss"]) <= 2e-3 * abs(b["loss"])
+        assert abs(a["grad_norm"] - b["grad_norm"]) <= 5e-2 * abs(b["grad_norm"])
+    diff = np.concatenate([np.abs(a - b).ravel() for a, b in zip(got["params"], tp1["params"])])
+    assert float(diff.max()) <= 2 * LR * STEPS and float(diff.mean()) < LR / 5

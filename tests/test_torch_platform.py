@@ -7,8 +7,9 @@ states, tenants' nodes, straggler actions.  The two must be equal, and the
 reference's own assertions must hold on the port.  The cases of
 ``tests/test_scheduler.py`` run here as parametrised cases, its two
 property tests over seeded job streams (``hypothesis`` is not installed
-here, so the reference's module skips).  ``make_tenant_mesh`` raises in the
-port; the whole ``tests/test_system.py`` scenario runs on the port.
+here, so the reference's module skips).  ``make_tenant_mesh`` needs a
+process group (``test_torch_elastic.py`` carves it on four gloo ranks); the
+whole ``tests/test_system.py`` scenario runs on the port.
 """
 
 import numpy as np
@@ -287,6 +288,9 @@ def test_platform_scenario_matches_jax(scenario):
 
 
 def test_make_tenant_mesh_raises():
+    """Without a process group ``make_tenant_mesh`` raises, naming it (its
+    meshes on four ranks: ``test_torch_elastic.py``); the submesh shape
+    needs no ranks."""
     cluster = core.Cluster(core.ClusterSpec("t", nodes_per_pod=4, num_pods=1))
     iam = core.IAM(clock=lambda: 0.0)
     tok = iam.federated_login("ops", "uob")
@@ -294,7 +298,7 @@ def test_make_tenant_mesh_raises():
     mgr = core.TenantManager(cluster, iam)
     mgr.create_tenant("t1", quota_nodes=2, admin="a", token=tok)
     mgr.grow_tenant("t1", 2, token=tok)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+    with pytest.raises(RuntimeError, match="process group"):
         mgr.make_tenant_mesh("t1", model_parallel=2)
     assert mgr.tenant_submesh_shape("t1", model_parallel=2) == (4, 2)
 

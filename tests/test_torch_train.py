@@ -276,7 +276,9 @@ def test_launcher_reruns_into_one_ckpt_dir(capsys, tmp_path):
     ["grad_compression", "mesh", "remat_dots"],
 )
 def test_options_outside_the_slice_raise(what):
-    """Sharded training comes in a later slice and raises.  Gradient
+    """Sharded training runs the dense family
+    (``test_torch_sharded_train.py``): another family's sharded step
+    raises, as do sequence parallelism and a mesh without rules.  Gradient
     compression and the "dots" remat policy are ported: a compression
     method the JAX package does not have raises, as does such a remat
     policy, and the "dots" step equals the "full" one bit for bit
@@ -289,8 +291,18 @@ def test_options_outside_the_slice_raise(what):
         with pytest.raises(ValueError, match="grad_compression"):
             init_train_state(cfg, run, device="cpu")
     elif what == "mesh":
-        with pytest.raises(NotImplementedError, match="sharded"):
-            make_train_step(cfg, RunConfig(arch="olmo-1b"), mesh=object())
+        from repro_torch.parallel.sharding import training_rules
+
+        run = RunConfig(arch="olmo-1b")
+        rules = training_rules(run.parallel)
+        moe = reduce_for_smoke(get_config("qwen3-moe-235b-a22b"))
+        with pytest.raises(NotImplementedError, match="sharded training of family 'moe'"):
+            make_train_step(moe, run, rules, mesh=object())
+        seq = RunConfig(arch="olmo-1b", parallel=ParallelConfig(sequence_parallel=True))
+        with pytest.raises(NotImplementedError, match="sequence parallelism"):
+            make_train_step(cfg, seq, rules, mesh=object())
+        with pytest.raises(ValueError, match="rules and a mesh"):
+            make_train_step(cfg, run, mesh=object())
     else:
         batch = synthetic_batch(cfg, step=0, global_batch=2, seq_len=8, device="cpu")
         out = {}
