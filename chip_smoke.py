@@ -342,6 +342,31 @@ or when any check fails.  Phases:
    launch K4 112 times a step (4 a site a layer).  The times are gloo's
    through host memory with both ranks' contexts on one card: not NCCL,
    not NVLink.
+9b3. Sharded training of the moe, hybrid and audio families
+   (``sharded_families``), after ``sharded_train``: two gloo ranks on the
+   one card, fp8 through K4 on each rank's local slices, bf16 compute,
+   remat full, warmup 0, 3 steps an arm: qwen3-moe-235b-a22b at full width
+   cut to 1 of 94 layers (2 x 2048 tokens; at ``(1, 2)`` only: 64 experts,
+   32 query heads over 2 kv heads and half the vocab a rank), hymba-1.5b
+   and hubert-xlarge at full width cut to 4 layers (4 x 2048 tokens, frames
+   for hubert; at ``(1, 2)`` and ``(2, 1)``).  Each arm is held to the
+   one-rank step of the same run, which rank 0 runs first with nothing
+   else on the card and keeps on the host; each rank then draws its slices
+   leaf by leaf from the seed (``init_train_state(rules=, mesh=)``: the
+   full qwen3-moe state, 44.8 GB, is never held twice).  It prints each
+   mesh's step wall against the one-rank step, the collectives and their
+   bytes a step, K4 launches and layout copies, state bytes and step peak a
+   rank, the readings against the reference and, at ``(1, 2)``, the gap
+   between the model ranks' copies of every replicated leaf
+   (``FAMILY_LIMITS``: ``SHARD_LIMITS`` and a gap of 0), and a control's
+   (moe: the gates' ``copy_to_model`` left out, and the expert split's two
+   as a reported probe; hybrid: the FFN input's ``copy_to_model`` moved to
+   the block input; audio at ``(2, 1)``: FSDP's gather backward without
+   the data sum), and for moe the pairs routed and dropped, the pairs a
+   near tie flipped against the one-rank run, the aux losses and the
+   router's and the moe norm's own readings (``group_readings``).  It fails when the ranks' metrics differ, an
+   arm parts from the reference, a control passes, or a rank's K4
+   launches differ from ``4 x layers x len(fp8_sites)`` a step.
 9c. Fig. 8 (``mlperf``): ``repro_torch.benchmarks.mlperf_train.run()`` on the
    card, bert-large at full width and depth, 448 x 512 tokens a step as 14
    microbatches of 32 (fp32 master, bf16 compute, remat full, no fp8), one
@@ -409,6 +434,7 @@ H100 SXM's published peaks.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -2833,18 +2859,26 @@ def moe_path_phase(cfg, device) -> dict:
 class RoutedPairs:
     """Sums the (token, expert) pairs that ``models.moe.route`` routes and
     drops while active, on the device (no host read): for eager runs only,
-    since a graph replay calls no Python."""
+    since a graph replay calls no Python.  ``record`` also keeps each
+    call's (tokens, E) mask of the chosen experts on the host, in call
+    order (``flipped_pairs``)."""
+
+    def __init__(self, record: bool = False):
+        self.record = record
 
     def __enter__(self):
         from repro_torch.models import moe
 
         self.module, self.inner = moe, moe.route
-        self.pairs, self.dropped = 0, 0
+        self.pairs, self.dropped, self.chosen = 0, 0, []
 
         def counting(cfg, router_w, xg):
             r = self.inner(cfg, router_w, xg)
             self.pairs += r.keep.numel()
             self.dropped = self.dropped + (~r.keep).sum()
+            if self.record:
+                sets = torch.zeros(r.probs.shape, dtype=torch.bool, device=r.probs.device)
+                self.chosen.append(sets.scatter_(-1, r.experts, True).reshape(-1, r.probs.shape[-1]).cpu())
             return r
 
         moe.route = counting
@@ -3790,6 +3824,11 @@ GEMM_CASES = [
     ("tp2 fwd ffn_down", (M_TOK, D_FF // 2, D_MODEL), ("e4m3", "e4m3"), (False, False)),
     ("tp2 bwd dx ffn_down: g @ w.T", (M_TOK, D_MODEL, D_FF // 2), ("e5m2", "e4m3"), (False, True)),
     ("dp2 fwd ffn_up/gate", (M_TOK // 2, D_MODEL, D_FF), ("e4m3", "e4m3"), (False, False)),
+    # one rank's projections in the sharded_families phase at TP=2:
+    # qwen3-moe's attn_q (2 x 2048 tokens, 32 of 64 query heads of 128) and
+    # hymba's ffn_up (2752 of 5504 columns: N not a multiple of 128)
+    ("tp2 qwen3-moe fwd attn_q", (4096, 4096, 4096), ("e4m3", "e4m3"), (False, False)),
+    ("tp2 hymba fwd ffn_up/gate", (M_TOK, 1600, 5504 // 2), ("e4m3", "e4m3"), (False, False)),
 ]
 FAMILY_GEMM_CASES = [name for name, *_ in GEMM_CASES if name.split()[0] in ("qwen3-moe", "hymba", "hubert")]
 SHARDED_GEMM_CASES = [name for name, *_ in GEMM_CASES if name.split()[0] in ("tp2", "dp2")]
@@ -4656,11 +4695,11 @@ SHARD_ELASTIC_STEPS = 2
 SHARD_LIMITS = {"loss_rel": 2e-3, "grad_norm_rel": 5e-2, "param_max_over_lr_per_step": 2.0, "param_mean_over_lr": 0.2}
 
 
-def shard_run_config(global_batch=TRAIN_B, seq_len=TRAIN_S):
+def shard_run_config(global_batch=TRAIN_B, seq_len=TRAIN_S, arch="olmo-1b"):
     from repro_torch.config import ParallelConfig, PrecisionConfig, RunConfig, TrainConfig
 
     return RunConfig(  # warmup 0: every step moves the parameters
-        arch="olmo-1b", train=TrainConfig(global_batch=global_batch, seq_len=seq_len, warmup_steps=0, total_steps=10),
+        arch=arch, train=TrainConfig(global_batch=global_batch, seq_len=seq_len, warmup_steps=0, total_steps=10),
         parallel=ParallelConfig(remat="full"),
         precision=PrecisionConfig(param_dtype="float32", compute_dtype="bfloat16", fp8=True, fp8_gemm="kernel"),
     )
@@ -4669,12 +4708,17 @@ def shard_run_config(global_batch=TRAIN_B, seq_len=TRAIN_S):
 def shard_readings(metrics, params, ref_metrics, ref_params, lr: float) -> dict:
     """Loss and gradient norm (the largest relative gap over the steps) and
     the parameters (largest and mean gap, in units of lr) against the
-    one-rank run's."""
+    one-rank run's.  ``params`` may be an iterator (one gathered leaf at a
+    time) and ``ref_params`` on the host."""
     rel = lambda k: max(abs(m[k] - r[k]) / abs(r[k]) for m, r in zip(metrics, ref_metrics))  # noqa: E731
     top, total, n = 0.0, 0.0, 0
     for a, b in zip(params, ref_params):
-        d = (a - b).abs()
-        top, total, n = max(top, float(d.max())), total + float(d.double().sum()), n + d.numel()
+        # in slices of 64 M elements: a leaf of qwen3-moe's experts is 3.2 GB
+        for sa, sb in zip(a.reshape(-1).split(1 << 26), b.reshape(-1).split(1 << 26)):
+            d = (sa - sb.to(sa.device)).abs_()
+            total, top = total + float(d.sum(dtype=torch.float64)), max(top, float(d.max()))
+            del d
+        n += a.numel()
     return {"loss_rel": rel("loss"), "grad_norm_rel": rel("grad_norm"),
             "param_max_over_lr_per_step": top / lr / len(metrics), "param_mean_over_lr": total / n / lr}
 
@@ -4870,6 +4914,317 @@ def sharded_train_phase() -> dict:
         fail("sharded_train: the shrink to one rank did not leave rank 0 alone on the new mesh")
     if not (el["bit_exact"] and shard_passes(el["readings"]) and el["k4"]["fp8_gemm"] == per_step * SHARD_ELASTIC_STEPS):
         fail(f"sharded_train elastic: {out['elastic']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9b3: sharded training of the moe, hybrid and audio families
+# ---------------------------------------------------------------------------
+
+FAMILY_SHARD_STEPS = 3  # an arm's and each of its controls'
+FAMILY_SHARD_LAYERS = 4  # hymba-1.5b's 32 and hubert-xlarge's 48 cut to 4 (qwen3-moe: MOE_TRAIN_LAYERS)
+# A tensor-parallel arm's readings add ``replica_gap``: every model rank's
+# copy of each replicated leaf against model rank 0's, which must be equal
+# (``FAMILY_LIMITS``).  It is what sees the moe arm's control, the gates'
+# ``copy_to_model`` left out: at full width from random weights the
+# load-balance loss's gradient dominates the router's and the moe layer's
+# input's (66% of the pairs dropped at cf 1.25), so on an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md section 6) that control and the expert split's two
+# sums left out moved no reading against the one-rank run beyond the sound
+# arm's bf16 noise: the router's and the moe norm's AdamW second moments by
+# 0.60-0.68% of themselves against the sound arm's 0.37-0.40%.  The copies diverge
+# all the same, since each rank keeps its own experts' part.  The
+# expert split's two sums left out run as a probe beside it, reported only,
+# with the moe groups' own readings (``group_readings``).
+FAMILY_LIMITS = {**SHARD_LIMITS, "replica_gap": 0.0}
+
+
+def free_card() -> None:
+    """Give the memory of the tensors just dropped back to the card.  A
+    cyclic collection first: the first ``torch.utils.checkpoint`` call of a
+    process imports ``torch._dynamo``, and that import's frames stay in a
+    reference cycle that holds the whole calling stack, the train state of
+    the first remat step included, until the cyclic collector runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_shard_arms() -> dict:
+    """name -> (config at full width, depth cut; sequences of TRAIN_S a
+    step; meshes; the mesh its controls run on; its controls: the first
+    must fail the limits, the others are probes, reported only)."""
+    from repro_torch.configs import get_config
+
+    return {
+        # (1, 2) only: FSDP would gather 2.4 B fp32 expert parameters twice a step
+        "moe": (get_config(MOE_ARCH).replace(num_layers=MOE_TRAIN_LAYERS), 2, ((1, 2),), (1, 2),
+                ("gates_sum_dropped", "expert_split_sums_dropped")),
+        "hybrid": (get_config(HYMBA_ARCH).replace(num_layers=FAMILY_SHARD_LAYERS), TRAIN_B, ((1, 2), (2, 1)), (1, 2),
+                   ("branches_counted_twice",)),
+        "audio": (get_config("hubert-xlarge").replace(num_layers=FAMILY_SHARD_LAYERS), TRAIN_B, ((1, 2), (2, 1)),
+                  (2, 1), ("gather_backward_unsummed",)),
+    }
+
+
+def family_control(name: str, cfg) -> list:
+    """(owner, attribute, replacement) of each change a family control
+    makes: the moe expert split's two ``copy_to_model`` left out (the
+    dispatch input's and the gates' gradients keep this rank's pairs
+    only), or the gates' alone; hymba's FFN input ``copy_to_model`` moved to
+    the block input (the replicated attention and SSM branches' gradients
+    summed over ranks that hold them whole); FSDP's gather backward
+    without the sum over the data ranks."""
+    from repro_torch.models import ffn as ffn_mod
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel import collectives as C
+
+    if name == "expert_split_sums_dropped":
+        return [(moe_mod, "copy_to_model", lambda x, mesh: x)]
+    if name == "gates_sum_dropped":
+        k, inner = cfg.moe.top_k, moe_mod.copy_to_model
+        return [(moe_mod, "copy_to_model", lambda x, mesh: x if x.shape[-1] == k else inner(x, mesh))]
+    if name == "branches_counted_twice":
+        block = model_mod.TRAIN_BLOCKS["hybrid"]
+
+        def summed_input(cfg, p, x, *, mesh=None, **kw):
+            return block(cfg, p, C.copy_to_model(x, mesh), mesh=mesh, **kw)
+
+        return [(ffn_mod, "copy_to_model", lambda x, mesh: x),
+                (model_mod, "TRAIN_BLOCKS", dict(model_mod.TRAIN_BLOCKS, hybrid=summed_input))]
+    if name == "gather_backward_unsummed":
+        return [(C._GatherOverData, "backward", staticmethod(shard_control_unsummed_backward))]
+    raise ValueError(name)
+
+
+def gathered_leaves(tree, specs, mesh, only=None):
+    """Each leaf of a params-shaped ``tree`` (or each of the leaf indices
+    ``only``) gathered whole over ``mesh``, one at a time (every rank takes
+    part in each gather)."""
+    from repro_torch.parallel.sharding import unshard_tensor
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    for i, (t, spec) in enumerate(tree_leaves(tree_map(lambda t, s: (t, s), tree, specs))):
+        if only is None or i in only:
+            yield unshard_tensor(t, spec, mesh)
+
+
+def replica_gap(params, specs, mesh) -> float:
+    """The largest difference, over the leaves the model axis leaves whole
+    and over the ranks, between a rank's copy and the copy of model rank 0
+    of its group: 0 when every gradient that reached a replicated leaf was
+    summed once over ``"model"`` or computed whole on every rank (trap 1 of
+    ``models.moe``), whatever the kernels' summation orders, since each
+    partial sum meets an all-reduce before a replicated leaf."""
+    from repro_torch.parallel.collectives import model_group
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    group = model_group(mesh)
+    first = torch.distributed.get_global_rank(group, 0)
+    top = torch.zeros((), dtype=torch.float64)
+    for t, spec in tree_leaves(tree_map(lambda t, s: (t, s), params, specs)):
+        if "model" in spec:
+            continue
+        theirs = t.detach().clone()
+        torch.distributed.broadcast(theirs, src=first, group=group)
+        top = torch.maximum(top, (t - theirs).abs().max().double().cpu())
+    torch.distributed.all_reduce(top, op=torch.distributed.ReduceOp.MAX)
+    return float(top)
+
+
+def group_readings(state, specs, mesh, groups, ref_params, ref_v, lr) -> dict:
+    """Each leaf group's own readings against the one-rank run's, the
+    largest over the mesh's ranks: a replicated leaf has a copy on every
+    rank, each of which must match the reference.  ``<name>_mean_over_lr``
+    is the parameters' mean gap in units of lr, ``<name>_v_rel`` the
+    relative L1 gap of their AdamW second moments (the gradients'
+    squares, which AdamW's update m / sqrt(v) does not normalise away).
+    ``ref_params`` and ``ref_v`` hold the reference's leaves of the groups,
+    in leaf order, on every rank."""
+    watched = sorted(set().union(*groups.values()))
+    got = list(gathered_leaves(state.params, specs.params, mesh, set(watched)))
+    got_v = list(gathered_leaves(state.opt.v, specs.opt.v, mesh, set(watched)))
+    values = []
+    for idx in groups.values():
+        pick = [j for j, i in enumerate(watched) if i in idx]
+        gap = sum(float((got[j] - ref_params[j].to(got[j].device)).abs().sum(dtype=torch.float64)) for j in pick)
+        n = sum(got[j].numel() for j in pick)
+        num = sum(float((got_v[j] - ref_v[j].to(got_v[j].device)).abs().sum(dtype=torch.float64)) for j in pick)
+        den = sum(float(ref_v[j].abs().sum(dtype=torch.float64)) for j in pick)
+        values += [gap / n / lr, num / den]
+    top = torch.tensor(values, dtype=torch.float64)
+    torch.distributed.all_reduce(top, op=torch.distributed.ReduceOp.MAX)
+    names = [f"{name}_{what}" for name in groups for what in ("mean_over_lr", "v_rel")]
+    return dict(zip(names, top.tolist()))
+
+
+def flipped_pairs(chosen, ref_chosen) -> int:
+    """(token, expert) pairs routed differently from the reference run,
+    over the calls both made in the same order."""
+    return sum(int((a != b).sum()) for a, b in zip(chosen, ref_chosen)) // 2
+
+
+def family_arm(rank, cfg, B, seq, meshes, control_mesh, controls, device) -> dict:
+    """One arm of ``sharded_families`` on this rank: the one-rank reference
+    (rank 0, the other ranks waiting), then each mesh's steps from the
+    seed's slices and, on ``control_mesh``, each control's steps."""
+    from repro_torch.data import make_batch_fn
+    from repro_torch.models import param_specs
+    from repro_torch.parallel.sharding import state_shardings, training_rules
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.utils.tree import tree_leaves, tree_paths
+
+    run = shard_run_config(B, seq, cfg.name)
+    lr, rules = run.train.learning_rate, training_rules(run.parallel)
+    batch_fn = make_batch_fn(cfg, global_batch=B, seq_len=seq, seed=SEED, device=device)
+    batches = [batch_fn(s) for s in range(FAMILY_SHARD_STEPS)]
+    moe = cfg.family == "moe"
+    out, ref = {}, {}
+    paths = ["/".join(map(str, p)) for p in tree_paths(param_specs(cfg))]  # the order of the state's leaves
+    # the moe layer's readings by group: its router (the gates' gradient) and
+    # the scale of the norm before it, whose gradient comes through the moe
+    # layer alone (the dispatch input's and the router's)
+    groups = {"router": {i for i, p in enumerate(paths) if p.endswith("/router")},
+              "norm2": {i for i, p in enumerate(paths) if "/norm2/" in p}} if moe else {}
+    watched = set().union(*groups.values())
+    if rank == 0:  # the one-rank run, alone on the card: its readings kept on the host
+        state = init_train_state(cfg, run, SEED, device)
+        step = make_train_step(cfg, run)
+        with RoutedPairs(record=moe) as routes:
+            state, metrics, got = shard_steps(step, state, batches)
+        ref["metrics"], ref["params"], ref["routes"] = metrics, [t.cpu() for t in tree_leaves(state.params)], routes
+        ref["groups"] = ([ref["params"][i] for i in sorted(watched)],
+                         [t.cpu() for i, t in enumerate(tree_leaves(state.opt.v)) if i in watched])
+        out["one_rank"] = {"metrics": ref["metrics"], **{k: got[k] for k in (
+            "wall_s", "state_bytes", "resident_bytes", "max_memory_allocated", "step_peak_above_resident")},
+            "k4_a_step": got["k4"]["fp8_gemm"] / len(metrics)}
+        if moe:
+            out["one_rank"]["routed"] = {"pairs": routes.pairs, "dropped": int(routes.dropped)}
+        del state
+        free_card()
+        out["one_rank"]["left_allocated"] = torch.cuda.memory_allocated()
+    shared = [ref.get("groups")]
+    torch.distributed.broadcast_object_list(shared, src=0)  # the groups' small reference leaves, to every rank
+    for shape, mesh in meshes.items():
+        specs = state_shardings(cfg, run, rules, mesh)
+        rec = out[f"{shape[0]}x{shape[1]}"] = {"mesh": list(shape)}
+        for what in ("arm",) + (controls if shape == control_mesh else ()):
+            changes = family_control(what, cfg) if what != "arm" else []
+            kept = [(owner, attr, owner.__dict__[attr]) for owner, attr, _ in changes]
+            for owner, attr, new in changes:
+                setattr(owner, attr, new)
+            try:
+                state = init_train_state(cfg, run, SEED, device, rules=rules, mesh=mesh)
+                with RoutedPairs(record=moe) as routes:
+                    state, metrics, got = shard_steps(make_train_step(cfg, run, rules, mesh), state, batches, mesh)
+            finally:
+                for owner, attr, old in kept:
+                    setattr(owner, attr, old)
+            free_card()  # the steps' cached blocks, before the gathers
+            by_group = group_readings(state, specs, mesh, groups, *shared[0], lr) if groups else {}
+            if shape[1] > 1:
+                by_group["replica_gap"] = replica_gap(state.params, specs.params, mesh)
+            leaves = gathered_leaves(state.params, specs.params, mesh)
+            if rank == 0:
+                readings = {**shard_readings(metrics, leaves, ref["metrics"], ref["params"], lr), **by_group}
+            else:
+                for _ in leaves:  # take part in every gather
+                    pass
+            del state
+            free_card()
+            if what == "arm":
+                rec.update(metrics=metrics, **got)
+                if moe:
+                    rec["routed"] = {"pairs": routes.pairs, "dropped": int(routes.dropped)}
+                if rank == 0:
+                    rec["readings"] = readings
+                    if moe:
+                        rec["flipped_pairs"] = flipped_pairs(routes.chosen, ref["routes"].chosen)
+            elif rank == 0:
+                done = {"name": what, "readings": readings}
+                if what == controls[0]:
+                    rec["control"] = done
+                else:
+                    rec.setdefault("probes", []).append(done)
+    torch.distributed.barrier()
+    return out
+
+
+def family_shard_rank(rank, mesh_tp, device_type="cuda", arms=None, seq=TRAIN_S) -> dict:
+    """One rank of ``sharded_families``: every arm of ``family_shard_arms``
+    (``arms``, ``seq`` and ``device_type`` serve rehearsals with smoke
+    models on the CPU)."""
+    from repro_torch.launch.mesh import make_local_mesh
+
+    device = torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda" else torch.device(device_type)
+    meshes = {(1, 2): mesh_tp, (2, 1): make_local_mesh(2, 1, backend="gloo", device=device_type)}
+    out = {"rank": rank}
+    for name, (cfg, B, shapes, control_mesh, controls) in (arms or family_shard_arms()).items():
+        t0 = time.perf_counter()
+        out[name] = family_arm(rank, cfg, B, seq, {s: meshes[s] for s in shapes}, control_mesh, controls, device)
+        out[name]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def sharded_families_phase() -> dict:
+    """The moe, hybrid and audio families trained on two gloo ranks of the
+    one card, each arm held to its one-rank step with a control
+    (``family_shard_rank``)."""
+    from repro_torch.launch.mesh import run_ranks
+
+    free_card()  # this process's first remat step left its train state in a reference cycle
+    parent = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(family_shard_rank, 2, backend="gloo", device="cuda", timeout_s=900)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"sharded_families: {e}")
+    return family_report(ranks, family_shard_arms(), time.perf_counter() - t0, parent_allocated=parent)
+
+
+def family_report(ranks, arms, seconds, seq=TRAIN_S, parent_allocated=0) -> dict:
+    """``sharded_families``' line from the ranks' results, then its gates."""
+    from repro_torch.fp8 import fp8_sites
+
+    out = {"phase": "sharded_families", "backend": "gloo", "ranks": 2, "seconds": seconds,
+           "steps": FAMILY_SHARD_STEPS, "parent_allocated_bytes": parent_allocated}
+    gates = []
+    for name, (cfg, B, shapes, control_mesh, controls) in arms.items():
+        per_step = 4 * cfg.num_layers * len(fp8_sites(cfg))  # forward, recompute, dx and dw of every site
+        arm = {"model": cfg.name, "layers": cfg.num_layers, "batch": [B, seq], "limits": FAMILY_LIMITS,
+               "k4_per_step": per_step, "seconds": [r[name]["seconds"] for r in ranks],
+               "one_rank": ranks[0][name]["one_rank"]}
+        for shape in shapes:
+            key = f"{shape[0]}x{shape[1]}"
+            recs = [r[name][key] for r in ranks]
+            arm[key] = {
+                "step_wall_s": [a["wall_s"] for a in recs],
+                "collectives_per_step": [{k: v / FAMILY_SHARD_STEPS for k, v in a["collectives"].items() if v}
+                                         for a in recs],
+                "k4_launches": [a["k4"]["fp8_gemm"] for a in recs],
+                "k4_layout_copies": [a["k4"]["fp8_layout_copy"] for a in recs],
+                **{k: [a[k] for a in recs] for k in ("state_bytes", "resident_bytes", "max_memory_allocated",
+                                                      "step_peak_above_resident")},
+                "losses": [m["loss"] for m in recs[0]["metrics"]], "aux_losses": [m["aux_loss"] for m in recs[0]["metrics"]],
+                "readings": recs[0]["readings"],
+                **{k: recs[0][k] for k in ("control", "probes") if k in recs[0]},
+                **({"routed": [a["routed"] for a in recs], "flipped_pairs": recs[0]["flipped_pairs"]}
+                   if cfg.family == "moe" else {}),
+            }
+            gates.append((name, key, recs, per_step, {k: v for k, v in FAMILY_LIMITS.items() if k in recs[0]["readings"]}))
+        out[name] = arm
+    emit(out)  # before the gates, so a failing run still shows its readings
+    within_limits = lambda r, limits: all(r[k] <= lim for k, lim in limits.items())  # noqa: E731
+    for name, key, recs, per_step, limits in gates:
+        if recs[0]["metrics"] != recs[1]["metrics"]:
+            fail(f"sharded_families {name} {key}: the ranks' metrics differ")
+        if not within_limits(recs[0]["readings"], limits):
+            fail(f"sharded_families {name} {key}: the sharded steps part from the one-rank steps: {recs[0]['readings']}")
+        if "control" in recs[0] and within_limits(recs[0]["control"]["readings"], limits):
+            fail(f"sharded_families {name} {key}: the control passes the limits: {recs[0]['control']}")
+        if [a["k4"]["fp8_gemm"] for a in recs] != [per_step * FAMILY_SHARD_STEPS] * 2:
+            fail(f"sharded_families {name} {key}: K4 launches {[a['k4']['fp8_gemm'] for a in recs]}, expected "
+                 f"{per_step * FAMILY_SHARD_STEPS} a rank")
     return out
 
 
@@ -5629,6 +5984,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded = phase("sharded_train", sharded_train_phase)
     torch.cuda.empty_cache()
+    sharded_families = phase("sharded_families", sharded_families_phase)
+    torch.cuda.empty_cache()
     phase("mlperf", mlperf_phase, device)
     torch.cuda.empty_cache()
     # the remaining training forwards, each alone on the card
@@ -5742,6 +6099,10 @@ def main() -> int:
             # sharded training: each of the two gloo ranks' launches over 3 steps, by mesh, and the shrink's 2
             k["sharded_launches"] = {**{arm: sharded[arm]["k4_launches"] for arm in ("tp", "fsdp_dp")},
                                      "elastic": sharded["elastic"]["k4"]["fp8_gemm"]}
+            # the moe, hybrid and audio families' sharded arms: each rank's launches over 3 steps, by mesh
+            k["family_sharded_launches"] = {
+                name: {key: arm[key]["k4_launches"] for key in arm if key in ("1x2", "2x1")}
+                for name, arm in sharded_families.items() if isinstance(arm, dict) and "k4_per_step" in arm}
             k["sharded_shapes"] = {n: {f: gemm_rows[n][f] for f in ("mkn", "dtypes", "max_abs_err", "kernel_ms",
                                                                    "kernel_alone_ms", "plain_ms", "bound_ms",
                                                                    "bound_by", "library_ms")}

@@ -37,13 +37,23 @@ model``, model ``r % model``).
 The ranks import ``torch`` and ``repro_torch`` (and ``fn``'s module); a rank
 that raises fails the call with its traceback, after the other ranks are
 stopped.  A rank asked for ``cuda`` on a host without a card raises.
+
+A rank's result crosses to the parent **by value**: the rank moves every
+tensor in it to the host (``.cpu()``, a view cut to its own bytes) and
+pickles the whole result into bytes with the standard pickler before it
+puts them on the queue.  The queue's own pickler would send a CPU tensor
+as a shared-memory handle that the parent fetches from the rank, which
+fails once the rank has exited (``FileNotFoundError``); bytes need no live
+rank, and keep every dtype (bf16 and fp8 included) bit for bit.
 """
 
 from __future__ import annotations
 
+import copy
 import datetime
 import multiprocessing as mp
 import os
+import pickle
 import queue
 import signal
 import socket
@@ -199,6 +209,26 @@ def _timeout(timeout_s: float | None) -> datetime.timedelta:
     return datetime.timedelta(seconds=timeout_s) if timeout_s is not None else UNBOUNDED
 
 
+def _to_host(obj):
+    """``obj`` with every tensor in it (through dicts, lists and tuples,
+    named tuples included) moved to the host and detached; a view keeps
+    only its own bytes, so pickling it does not copy the whole storage."""
+    if isinstance(obj, torch.Tensor):
+        t = obj.detach().cpu()
+        if t.untyped_storage().nbytes() != t.numel() * t.element_size() or not t.is_contiguous():
+            t = t.clone(memory_format=torch.contiguous_format)
+        return t
+    if isinstance(obj, dict):
+        out = copy.copy(obj)  # a dict subclass keeps its type (and a defaultdict its factory)
+        out.update((k, _to_host(v)) for k, v in obj.items())
+        return out
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):  # a named tuple
+        return type(obj)(*(_to_host(v) for v in obj))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
 def _rank_main(rank, shape, backend, device, port, timeout_s, fn, args, out, quiet_followers) -> None:
     try:
         if quiet_followers and rank != 0:
@@ -214,7 +244,8 @@ def _rank_main(rank, shape, backend, device, port, timeout_s, fn, args, out, qui
             result = fn(rank, mesh, *args)
         finally:
             dist.destroy_process_group()
-        out.put((rank, True, result))
+        # by value (module docstring): the parent may read it after this rank exits
+        out.put((rank, True, pickle.dumps(_to_host(result), protocol=pickle.HIGHEST_PROTOCOL)))
     except BaseException:  # reported to the parent, which raises it
         out.put((rank, False, traceback.format_exc()))
 
@@ -225,7 +256,8 @@ def run_ranks(
 ):
     """Run ``fn(rank, mesh, *args)`` on ``tp`` spawned ranks of one
     ``(1, tp)`` serving mesh, or on the ranks of a ``(data, model)`` mesh
-    when ``tp`` is that pair; returns the ranks' results in rank order.
+    when ``tp`` is that pair; returns the ranks' results in rank order,
+    each received by value with its tensors on the host (module docstring).
     ``fn`` and ``args`` must pickle (a module-level function).  Raises the
     first failing rank's traceback, or the exit code of a rank that died
     with no result; every rank is stopped before this returns or raises.  ``timeout_s`` bounds each collective and the wait
@@ -274,7 +306,7 @@ def run_ranks(
                 continue
             if not ok:
                 raise RuntimeError(f"rank {rank} failed:\n{value}")
-            results[rank] = value
+            results[rank] = pickle.loads(value)
             waited = 0.0
     finally:
         for sig, handler in previous.items():

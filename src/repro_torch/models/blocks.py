@@ -148,12 +148,15 @@ def _moe_residual(cfg, p, x, a, fp8=None, mesh=None):
     return x + mo, aux
 
 
-def moe_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8=None):
+def moe_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8=None, mesh=None):
     """Full-sequence forward of one layer (training): (x (B, S, D), aux).
-    ``fp8`` quantizes the attention projections and arctic's dense FFN."""
+    ``fp8`` quantizes the attention projections and arctic's dense FFN.
+    ``mesh``: sharded training's, as ``dense_block``'s (the experts split
+    over the model axis, the routing groups over the data axis:
+    ``models.moe``)."""
     h = apply_norm(cfg, p["norm1"], x)
-    a = self_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk, impl=attn_impl, fp8=fp8)
-    return _moe_residual(cfg, p, x, a, fp8=fp8)
+    a = self_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk, impl=attn_impl, fp8=fp8, mesh=mesh)
+    return _moe_residual(cfg, p, x, a, fp8=fp8, mesh=mesh)
 
 
 def moe_block_prefill(cfg, p, x, *, positions=None, q_chunk=0, mesh=None):
@@ -262,16 +265,21 @@ def _hybrid_ffn(cfg, p, x, fp8=None, mesh=None):
     return x + ffn(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x), fp8=fp8, mesh=mesh)
 
 
-def hybrid_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8=None):
+def hybrid_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8=None, mesh=None):
     """Full-sequence forward of one layer from zero states (training): x
     (B, S, D) -> (B, S, D).  ``fp8`` quantizes the attention projections and
     the MLP; the SSM heads stay in the compute dtype, as in the JAX
-    package."""
+    package.  ``mesh``: sharded training's, as ``dense_block``'s.  The SSM
+    heads stay whole on every rank (``parallel.sharding``'s
+    ``REPLICATED_SUBTREES``), and so does the attention where its heads do
+    not divide the model axis (hymba's 25 over 5): only the FFN's input
+    then takes ``copy_to_model`` (inside ``ffn``), since the replicated
+    branches' gradients are whole already (trap 1 of ``models.moe``)."""
     h = apply_norm(cfg, p["norm1"], x)
-    a = self_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk, impl=attn_impl, fp8=fp8)
+    a = self_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk, impl=attn_impl, fp8=fp8, mesh=mesh)
     m, _states = ssm_mod.ssm_mix(cfg, p["ssm"], h)
     x = x + _hybrid_combine(p, a, m, x.dtype)
-    return _hybrid_ffn(cfg, p, x, fp8=fp8)
+    return _hybrid_ffn(cfg, p, x, fp8=fp8, mesh=mesh)
 
 
 def hybrid_block_prefill(cfg, p, x, *, positions=None, q_chunk=0, mesh=None):

@@ -75,12 +75,22 @@ def param_specs(cfg) -> dict:
     return specs
 
 
-def init_params(cfg, generator: torch.Generator | int = 0, device="cuda", dtype=torch.float32) -> dict:
+def init_params(cfg, generator: torch.Generator | int = 0, device="cuda", dtype=torch.float32, *, shardings=None,
+                mesh=None) -> dict:
     """Random parameters with the JAX package's init kinds and scales (normal
     x0.02 for embeddings, truncated-normal fan-in for projections).  An int
-    ``generator`` seeds a new ``torch.Generator`` on ``device``."""
+    ``generator`` seeds a new ``torch.Generator`` on ``device``.  With
+    ``shardings`` (the executed specs of ``parallel.sharding``) and a
+    training ``mesh``: this rank's slices of the same parameters, each leaf
+    drawn whole from the generator in turn and cut at once, so no more than
+    one whole leaf is ever held."""
     device = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=device).manual_seed(generator)
     specs = param_specs(cfg)
-    return tree_map(lambda s: materialize(s, generator, device, dtype), specs)
+    if mesh is None:
+        return tree_map(lambda s: materialize(s, generator, device, dtype), specs)
+    from repro_torch.parallel.sharding import shard_tensor
+
+    return tree_map(lambda s, spec: shard_tensor(materialize(s, generator, device, dtype), spec, mesh), specs,
+                    shardings)

@@ -46,7 +46,10 @@ not divide the model axis runs them whole on every rank.
 
 Sharded and FSDP training: ``forward(mesh=)`` takes the ``(data, model)``
 mesh of ``launch.mesh.make_local_mesh`` and this rank's slices of the
-parameters (``parallel.sharding.shard_state``), for the dense family.  The
+parameters (``parallel.sharding.shard_state``), for the dense, moe, hybrid
+and audio families (``SHARDED_FAMILIES``; the moe layers' expert and
+data-spanning routing: ``models.moe``; the audio family's frame
+projection and positions gathered before the embedding).  The
 model slices run as in serving, under autograd (``copy_to_model`` before
 each column-parallel product, ``sum_over_model`` after each row-parallel
 one, both in ``parallel.collectives``); each leaf sharded over ``"data"``
@@ -195,7 +198,7 @@ SAVED_PRODUCTS = {
 
 FORWARD_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 # the families whose forward runs sharded over a training mesh
-SHARDED_FAMILIES = ("dense",)
+SHARDED_FAMILIES = ("dense", "moe", "hybrid", "audio")
 # leaves their block uses in the compute dtype (cast before FSDP gathers
 # them), and the projections, which an fp8 site quantizes from the master
 PROJECTIONS = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down")
@@ -219,9 +222,11 @@ def fsdp_gather(tree: dict, specs: dict, mesh, compute_dtype=None, fp8: bool = F
     FSDP shards (an ``"embed"`` dim smaller than its ``ParamSpec``'s)
     gathered over the data axis.  A leaf its block uses in the compute
     dtype (``COMPUTE_DTYPE_LEAVES``) is cast first, but for the projections
-    of an fp8 layer, which quantize the fp32 master; the norm scales stay
-    in the parameters' dtype, as their blocks read them.  The gather's
-    backward reduce-scatters the gradient (``gather_over_data``)."""
+    of an fp8 layer, which quantize the fp32 master (a moe layer's experts
+    too, which cast after the gather); the norm scales, the router and
+    hymba's branch scales stay in the parameters' dtype, as their blocks
+    read them.  The gather's backward reduce-scatters the gradient
+    (``gather_over_data``)."""
 
     def one(name, t, spec):
         if isinstance(t, dict):
@@ -289,10 +294,17 @@ def forward(
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(inputs.shape[1], device=inputs.device).expand(inputs.shape[:2])
-    x = embed_input(cfg, params, inputs, positions, mesh)
+    specs = param_specs(cfg) if mesh is not None else None
+    embed_params = params
+    if mesh is not None and cfg.family == "audio":
+        # FSDP shards the frame projection's and the positions' embed dim:
+        # gathered here, the positions cut to the S they add first
+        e = params["embed"]
+        embed_params = dict(params, embed=fsdp_gather({"frame_proj": e["frame_proj"], "pos": e["pos"][: inputs.shape[1]]},
+                                                      specs["embed"], mesh))
+    x = embed_input(cfg, embed_params, inputs, positions, mesh)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
-    specs = param_specs(cfg) if mesh is not None else None
     vision = batch.get("vision_tokens")
     if vision is not None and compute_dtype is not None:
         vision = vision.to(compute_dtype)
@@ -327,7 +339,7 @@ def forward(
         if cfg.family == "ssm":
             x = run(lambda x, p=p_layer: rwkv_block(cfg, p, x, wkv_impl=wkv_impl), x)
         elif cfg.family == "moe":
-            x, a = run(train_layer(p_layer, handle), x)
+            x, a = run(train_layer(p_layer, handle, layer), x)
             aux = aux + a
         else:
             x = run(train_layer(p_layer, handle, layer), x)

@@ -43,7 +43,35 @@ every token with the whole (replicated) router and counts capacity
 exactly as above; each rank then fills and runs the buffers of its own
 ``E / tp`` experts, combines the pairs those experts took, and one
 all-reduce sums the ranks' combines, with the shared experts' partial
-outputs when their hidden dim is sharded too.
+outputs when their hidden dim is sharded too.  Every rank issues the same
+collectives in the same order, a rank whose experts took no pair too.
+
+**Sharded training** (``models.forward(mesh=)``) runs the same layout
+under autograd, with two traps:
+
+1. *Every gradient that reaches a replicated tensor is either summed once
+   over ``"model"`` or computed whole on every rank, never both.*  The
+   router and the load-balance loss are computed whole on every rank; the
+   dispatch gathers only this rank's experts' tokens and the combine only
+   their pairs, so the gradient into the dispatch's input and into the
+   gates is partial: ``copy_to_model`` sums it, on the tensor that feeds
+   only the dispatch (not the token rows, which also feed the router) and
+   on the gates before the other ranks' pairs are masked out.  The
+   combine's sum is ``sum_over_model`` (the identity backward); serving,
+   under ``torch.no_grad()``, keeps the in-place all-reduce.
+2. *Capacity from the global token order.*  Each data rank holds
+   contiguous rows of each microbatch (``train.step.local_rows``), so its
+   tokens sit at ``[r T, (r + 1) T)`` of the microbatch's flattened order,
+   and a routed group of ``group_size`` tokens may span data ranks
+   (``route_spanning``).  The group length and ``C`` come from the global
+   group; a token's slot counts the earlier tokens of the whole group (the
+   lower data ranks' per-expert counts, ``exchange_counts``, plus this
+   rank's exclusive count); ``frac`` and ``mean_prob`` are the group's
+   global means, the latter through ``sum_over_data``, whose backward sums
+   too (each rank's loss holds the whole group's aux, which depends on
+   every rank's probabilities).  A rank fills only its own tokens' rows of
+   the buffers of the groups it holds, and the experts act row by row, so
+   its tokens' outputs are the reference's.
 """
 
 from __future__ import annotations
@@ -54,8 +82,8 @@ import torch
 
 from repro_torch.models.ffn import gate_fn, is_gated
 from repro_torch.models.layers import ParamSpec
-from repro_torch.parallel.collectives import all_reduce
-from repro_torch.parallel.sharding import model_rank
+from repro_torch.parallel.collectives import copy_to_model, exchange_counts, sum_over_data, sum_over_model
+from repro_torch.parallel.sharding import data_axis, model_rank
 
 
 def moe_specs(cfg) -> dict:
@@ -99,19 +127,72 @@ class Routing(NamedTuple):
     aux: torch.Tensor  # (G,) load-balance loss of each group, unscaled
 
 
-def route(cfg, router_w: torch.Tensor, xg: torch.Tensor) -> Routing:
-    """Route groups of tokens, ``xg`` (G, T, D)."""
+def _router(cfg, router_w: torch.Tensor, x: torch.Tensor):
+    """(probs, experts, gates, chosen) of tokens ``x`` (..., D): the router
+    softmax, the top-k experts, their renormalized gates and the (..., E)
+    int32 mask of the chosen experts."""
     m = cfg.moe
-    rdt = torch.float32 if m.router_dtype == "float32" else xg.dtype
-    probs = torch.softmax(xg.to(rdt) @ router_w.to(rdt), dim=-1)
+    rdt = torch.float32 if m.router_dtype == "float32" else x.dtype
+    probs = torch.softmax(x.to(rdt) @ router_w.to(rdt), dim=-1)
     top, experts = torch.topk(probs, m.top_k, dim=-1)
     gates = top / top.sum(dim=-1, keepdim=True)
     chosen = torch.zeros(probs.shape, dtype=torch.int32, device=probs.device).scatter_(-1, experts, 1)
+    return probs, experts, gates, chosen
+
+
+def route(cfg, router_w: torch.Tensor, xg: torch.Tensor) -> Routing:
+    """Route groups of tokens, ``xg`` (G, T, D)."""
+    m = cfg.moe
+    probs, experts, gates, chosen = _router(cfg, router_w, xg)
     frac = chosen.to(probs.dtype).mean(dim=-2)  # (G, E) share of tokens routed to each expert
     aux = m.num_experts * (frac * probs.mean(dim=-2)).sum(dim=-1)
     before = torch.cumsum(chosen, dim=-2) - chosen  # earlier tokens of the group that chose each expert
     slot = torch.gather(before, -1, experts)
     return Routing(probs, experts, gates, slot, slot < capacity(m, xg.shape[1]), aux)
+
+
+def lower_ranks(counts: torch.Tensor, rank: int) -> torch.Tensor:
+    """The (groups, E) per-expert counts of the data ranks before ``rank``,
+    from every rank's ``counts`` (ranks, groups, E): where this rank's
+    tokens start counting each expert's slots in each group."""
+    return counts[:rank].sum(dim=0)
+
+
+def route_spanning(cfg, router_w: torch.Tensor, xt: torch.Tensor, mesh, G: int) -> tuple[Routing, torch.Tensor, int]:
+    """Route this data rank's tokens ``xt`` (T, D), which sit at ``[r T, (r
+    + 1) T)`` of the microbatch's global token order over the ``d`` data
+    ranks of ``mesh``, in the global groups of ``G`` tokens (trap 2 of the
+    module docstring).  Returns (routing, grp, nl): the routing of the
+    tokens as one row (``probs`` (1, T, E), ``experts`` ... ``keep`` (1, T,
+    k)) with ``aux`` (ng,), the load-balance loss of every global group,
+    the same on every rank; ``grp`` (T,), each token's group among this
+    rank's ``nl`` groups (the first of which holds its first token).  One
+    ``exchange_counts`` and one ``sum_over_data`` over the data axis, on
+    every rank whatever its tokens chose."""
+    m = cfg.moe
+    E, (d, r), T = m.num_experts, data_axis(mesh), xt.shape[0]
+    ng, first = T * d // G, r * T
+    g0 = first // G
+    nl = (first + T - 1) // G - g0 + 1
+    dev = xt.device
+    grp = (first + torch.arange(T, device=dev)) // G - g0
+    probs, experts, gates, chosen = _router(cfg, router_w, xt)
+    counts = torch.zeros((ng, E), dtype=torch.int32, device=dev).index_add_(0, grp + g0, chosen)
+    counts = exchange_counts(counts, mesh)  # (d, ng, E): every data rank's, exact
+    # the probabilities' per-group sums as a product with the (T, ng) one-hot
+    # of the tokens' global groups: one summation order on every model rank
+    member = torch.zeros((T, ng), dtype=probs.dtype, device=dev).scatter_(1, (grp + g0)[:, None], 1.0)
+    frac = counts.sum(dim=0).to(probs.dtype) / G  # (ng, E) the group's share of tokens routed to each expert
+    mean_prob = sum_over_data(member.T @ probs, mesh) / G
+    aux = E * (frac * mean_prob).sum(dim=-1)  # (ng,)
+    # a token's slot: the lower ranks' tokens of its group, then this rank's earlier ones
+    cum = torch.cumsum(chosen, dim=0) - chosen  # this rank's earlier tokens, over all its groups
+    mine = counts[r, g0 : g0 + nl]  # (nl, E) this rank's counts of each of its groups
+    earlier_groups = torch.cumsum(mine, dim=0) - mine  # this rank's tokens in its earlier groups
+    before = lower_ranks(counts, r)[g0 + grp] + cum - earlier_groups[grp]
+    slot = torch.gather(before, -1, experts)
+    keep = slot < capacity(m, G)
+    return Routing(probs[None], experts[None], gates[None], slot[None], keep[None], aux), grp, nl
 
 
 def _experts(cfg, p: dict, xe: torch.Tensor) -> torch.Tensor:
@@ -125,55 +206,70 @@ def _experts(cfg, p: dict, xe: torch.Tensor) -> torch.Tensor:
 def moe_ffn(cfg, p: dict, x: torch.Tensor, *, mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN over (B, S, D).  Returns (out (B, S, D), aux loss).  Under
     a ``mesh`` whose ranks each hold a slice of the experts, this rank runs
-    its experts and the combine is summed over the ranks (module
-    docstring)."""
+    its experts and the combine is summed over the ranks; under a training
+    mesh with more than one data rank, ``x`` is this rank's rows of the
+    microbatch and the groups, capacity and aux are the global batch's
+    (module docstring)."""
     m = cfg.moe
     B, S, D = x.shape
     T = B * S
     E, k = m.num_experts, m.top_k
     xt = x.reshape(T, D)
-    G = group_len(m, T)
-    ng = T // G
-    C = capacity(m, G)
-    r = route(cfg, p["router"], xt.reshape(ng, G, D))
-
-    # each pair's row of the expert buffers, expert-major, then group, then slot
     dev = x.device
-    group = torch.arange(ng, device=dev).view(ng, 1, 1)
-    row = (r.experts * ng + group) * C + r.slot
-    rows = E * ng * C
+    d = data_axis(mesh)[0]
+    G = group_len(m, T * d)
+    C = capacity(m, G)
+    if d == 1:
+        ng = T // G
+        r = route(cfg, p["router"], xt.reshape(ng, G, D))
+        grp, nl = torch.arange(T, device=dev) // G, ng
+    else:
+        r, grp, nl = route_spanning(cfg, p["router"], xt, mesh, G)
+    experts, slot, keep = (t.reshape(T, k) for t in (r.experts, r.slot, r.keep))
+
+    # each pair's row of the expert buffers, expert-major, then (this
+    # rank's) group, then slot
+    row = (experts * nl + grp[:, None]) * C + slot
+    rows = E * nl * C
     # this rank's experts: all of them, or its slice under a mesh
     E_local = p["w_up"].shape[0]
     split = mesh is not None and E_local != E
-    first = model_rank(mesh) * E_local * ng * C if split else 0
-    local_rows = E_local * ng * C
+    first = model_rank(mesh) * E_local * nl * C if split else 0
+    local_rows = E_local * nl * C
     # dispatch: the token id of every row; the dropped pairs write a dump
-    # row past the end, and empty rows read row T of xt's extension: zeros
+    # row past the end, and empty rows read row T of xt's extension: zeros.
+    # Trap 1: only this rank's experts' rows are gathered, so the gradient
+    # into the dispatch's input is partial (the router's input ``xt`` is not)
     src = torch.full((rows + 1,), T, dtype=torch.int64, device=dev)
-    src.scatter_(0, torch.where(r.keep, row, rows).reshape(T * k), torch.arange(T, device=dev).repeat_interleave(k))
-    xe = torch.cat([xt, xt.new_zeros(1, D)])[src[first : first + local_rows]].view(E_local, ng * C, D)
+    src.scatter_(0, torch.where(keep, row, rows).reshape(T * k), torch.arange(T, device=dev).repeat_interleave(k))
+    xd = copy_to_model(xt, mesh) if split else xt
+    xe = torch.cat([xd, xd.new_zeros(1, D)])[src[first : first + local_rows]].view(E_local, nl * C, D)
     ye = _experts(cfg, p, xe).view(local_rows, D)
     # combine: a dropped pair (or, under a mesh, one another rank's expert
-    # took) reads row 0 at gate 0
-    taken = r.keep & (row >= first) & (row < first + local_rows) if split else r.keep
+    # took) reads row 0 at gate 0.  Trap 1: the gates' gradient from the
+    # combine is partial, summed before the mask
+    taken = keep & (row >= first) & (row < first + local_rows) if split else keep
     picked = ye[torch.where(taken, row - first, 0).reshape(T * k)].view(T, k, D)
-    gates = torch.where(taken, r.gates, 0.0).to(x.dtype)
+    gates = copy_to_model(r.gates.reshape(T, k), mesh) if split else r.gates.reshape(T, k)
+    gates = torch.where(taken, gates, 0.0).to(x.dtype)
     out = (gates.reshape(T, k, 1) * picked).sum(dim=1)
     partial = split  # whether ``out`` is this rank's share of a sum over ranks
 
     # always-on shared experts (DeepSeek-style)
     if m.num_shared_experts > 0:
         act = gate_fn(cfg.activation)
-        up = xt @ p["shared_w_up"].to(xt.dtype)
-        up = act(xt @ p["shared_w_gate"].to(xt.dtype)) * up if is_gated(cfg.activation) else act(up)
-        shared = up @ p["shared_w_down"].to(xt.dtype)
-        if mesh is not None and (p["shared_w_down"].shape[0] != m.num_shared_experts * m.expert_d_ff) != partial:
+        shared_split = mesh is not None and p["shared_w_down"].shape[0] != m.num_shared_experts * m.expert_d_ff
+        xs = copy_to_model(xt, mesh) if shared_split else xt
+        up = xs @ p["shared_w_up"].to(xs.dtype)
+        up = act(xs @ p["shared_w_gate"].to(xs.dtype)) * up if is_gated(cfg.activation) else act(up)
+        shared = up @ p["shared_w_down"].to(xs.dtype)
+        if shared_split != partial:
             # one part is a share of a sum, the other whole: sum the share first
             if partial:
-                out, partial = all_reduce(out.contiguous(), mesh), False
+                out, partial = sum_over_model(out.contiguous(), mesh), False
             else:
-                shared = all_reduce(shared.contiguous(), mesh)
+                shared = sum_over_model(shared.contiguous(), mesh)
         out = out + shared
     if partial:
-        out = all_reduce(out.contiguous(), mesh)
+        out = sum_over_model(out.contiguous(), mesh)
     return out.reshape(B, S, D), r.aux.mean() * m.aux_loss_weight

@@ -34,6 +34,16 @@ serving primitives on a mesh's model axis.
    * ``gather_over_data``: FSDP's all-gather of one leaf along its
      data-sharded dim forward, a reduce-scatter (sum) of its gradient
      backward;
+   * ``sum_over_data``: an all-reduce over ``"data"`` in both directions,
+     for a quantity of the global batch that every data rank computes
+     whole from every rank's part (the moe load-balance loss of a routed
+     group whose tokens span data ranks: each rank's loss term depends on
+     every rank's router probabilities, so the gradient of the sum is the
+     sum of the ranks' gradients);
+   * ``exchange_counts``: an all-gather over ``"data"`` of integer counts,
+     outside autograd (the moe routing's per-expert counts, from which a
+     rank places its tokens after the lower data ranks' in the global
+     token order);
    * ``all_reduce_over``, ``all_reduce_max`` and ``max_over_model``,
      outside autograd: sums over ``"data"`` (the loss metrics, the
      gradients of leaves replicated over data) or over the axes a leaf is
@@ -44,8 +54,9 @@ serving primitives on a mesh's model axis.
 
    Each adds one to ``TRAIN_COLLECTIVES[name]`` and its operand's bytes to
    ``TRAIN_COLLECTIVES[name + "_bytes"]`` where it calls the collective:
-   ``copy_to_model`` and ``gather_over_data`` in their backward too (as
-   ``copy_to_model`` and ``reduce_scatter_data``).  ``reset_collectives``
+   ``copy_to_model``, ``gather_over_data`` and ``sum_over_data`` in their
+   backward too (as ``copy_to_model``, ``reduce_scatter_data`` and
+   ``sum_over_data``).  ``reset_collectives``
    sets both tables to 0.
 """
 
@@ -172,7 +183,7 @@ class CollectiveModel:
 COLLECTIVES = {"all_reduce": 0, "all_reduce_bytes": 0, "all_gather": 0, "all_gather_bytes": 0}
 # the same for the training collectives (section 4 of the module docstring)
 TRAIN_NAMES = ("copy_to_model", "sum_over_model", "gather_over_data", "reduce_scatter_data", "all_reduce_sum",
-               "all_reduce_max", "max_over_model")
+               "all_reduce_max", "max_over_model", "sum_over_data", "exchange_counts")
 TRAIN_COLLECTIVES = {f"{n}{s}": 0 for n in TRAIN_NAMES for s in ("", "_bytes")}
 
 
@@ -272,6 +283,17 @@ class _GatherOverData(torch.autograd.Function):
         return out.movedim(0, ctx.dim), None, None, None
 
 
+class _SumOverData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _summed(x, group, "sum_over_data")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.group, "sum_over_data"), None
+
+
 def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
     """``x`` as it is; autograd sums its gradient over the model axis.
     The identity where autograd does not record (serving) or the model
@@ -297,6 +319,31 @@ def gather_over_data(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
     if n == 1:
         return x
     return _GatherOverData.apply(x, mesh.get_group("data"), dim, n)
+
+
+def sum_over_data(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over the data axis, out of place; where autograd
+    records, the backward sums the gradient over the data axis too (the
+    loss of every data rank depends on every rank's ``x``).  ``x`` itself
+    where the data axis is 1."""
+    if _size(mesh, "data") == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SumOverData.apply(x, mesh.get_group("data"))
+    return _summed(x, mesh.get_group("data"), "sum_over_data")
+
+
+def exchange_counts(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every data rank's integer ``x``, stacked in data-rank order on a new
+    leading axis, outside autograd; ``x[None]`` where the data axis is 1."""
+    n = _size(mesh, "data")
+    if n == 1:
+        return x[None]
+    x = x.detach().contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=mesh.get_group("data"))
+    _count("exchange_counts", x)
+    return torch.stack(parts)
 
 
 def _over(x: torch.Tensor, mesh, axes: tuple, name: str, op=dist.ReduceOp.SUM) -> torch.Tensor:

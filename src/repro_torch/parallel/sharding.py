@@ -49,9 +49,13 @@ claims and, where the table's ``ParallelConfig`` has ``fsdp``, every claim
 of ``"data"`` on an ``"embed"`` dim (``FSDP_AXES``): a rank stores 1 / d of
 such a leaf, of its AdamW moments and of its compression residual, and the
 forward gathers it inside the layer that uses it
-(``parallel.collectives.gather_over_data``).  Every other leaf is
-replicated over ``"data"``: the token table and the head (their embed dim
-is ``embed_v``), the q/k norm scales.
+(``parallel.collectives.gather_over_data``): the moe router and experts
+(the experts' ``"embed"`` dim; their hidden dim ``expert_mlp`` stays whole,
+since ``"expert"`` claims ``"model"`` first and the table gives
+``expert_mlp`` no data axis under ``fsdp``), hymba's branch scales, the
+audio frame projection and positions.  Every other leaf is replicated over
+``"data"``: the token table and the head (their embed dim is ``embed_v``),
+the q/k norm scales, hymba's SSM heads (``REPLICATED_SUBTREES``).
 
 ``executed_specs`` gives that layout beside the table's, and
 ``shard_params`` cuts each rank's slice of a full parameter tree by it.
@@ -345,6 +349,13 @@ def model_rank(mesh) -> int:
     return mesh.get_local_rank(MODEL)
 
 
+def data_axis(mesh) -> tuple[int, int]:
+    """(ranks on the data axis, this process's coordinate there): (1, 0)
+    without a mesh or on a serving mesh."""
+    n = int(axis_sizes(mesh).get(DATA, 1)) if mesh is not None else 1
+    return (n, mesh.get_local_rank(DATA)) if n > 1 else (1, 0)
+
+
 def _coords(mesh, spec: tuple) -> list:
     """(dim, ranks, this rank) of every dim of ``spec`` sharded over an
     axis of more than one rank."""
@@ -446,14 +457,18 @@ def shard_state(state, specs, mesh):
 
 def unshard_tensor(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     """The full tensor from every rank's slice under ``spec``: one
-    all-gather over each sharded axis, in rank order (data motion only)."""
-    for dim, n, _ in _coords(mesh, spec):
+    all-gather over each sharded axis, in rank order (data motion only);
+    a new contiguous tensor either way."""
+    coords = _coords(mesh, spec)
+    if not coords:
+        return t.clone(memory_format=torch.contiguous_format)
+    for dim, n, _ in coords:
         group = mesh.get_group(spec[dim])
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(n)]
         dist.all_gather(parts, t, group=group)
-        t = torch.cat(parts, dim=dim)
-    return t.clone(memory_format=torch.contiguous_format)
+        t = torch.cat(parts, dim=dim)  # new and contiguous
+    return t
 
 
 def unshard_state(state, specs, mesh):

@@ -21,7 +21,8 @@ The step updates the parameters and the AdamW moments in place (see
 the one it was given.
 
 **Sharded and FSDP training** (``make_train_step(cfg, run, rules, mesh)``,
-the dense family): one state spans the ``(data, model)`` mesh of
+the dense, moe, hybrid and audio families, ``models.model.SHARDED_FAMILIES``):
+one state spans the ``(data, model)`` mesh of
 ``launch.mesh.make_local_mesh``, each rank holding its slices
 (``parallel.sharding.shard_state``; ``init_train_state(rules=, mesh=)``
 draws the full state from the seed, then keeps the rank's).  The step
@@ -30,7 +31,9 @@ takes the global batch and computes the JAX package's step on it:
 * the batch is split into microbatches first, then each microbatch over
   ``"data"`` (each data rank takes its contiguous rows of each), as the
   JAX step reshapes the global batch to ``(nmb, B / nmb, ...)`` before
-  sharding it;
+  sharding it (a moe layer routes each microbatch's groups in that global
+  token order, however its groups fall over the data ranks:
+  ``models.moe``);
 * the forward runs the model slices under autograd with FSDP gathers
   inside the layers (``models.forward(mesh=)``) and the cross-entropy is
   vocab-parallel (``cross_entropy(mesh=)``): the max, the sum of
@@ -39,7 +42,9 @@ takes the global batch and computes the JAX package's step on it:
 * gradients: FSDP's reduce-scatter sums the sharded leaves over the data
   ranks inside the backward; the leaves replicated over ``"data"`` are
   summed by one all-reduce after the microbatches; all are divided by the
-  data degree, and the loss and aux metrics are their data ranks' mean;
+  data degree, and the loss and aux metrics are their data ranks' mean
+  (every rank computes the moe aux of the whole microbatch, so its mean is
+  the reference's aux);
 * fp8: the amaxes of each microbatch are reduced with ``MAX`` over the
   mesh before ``update_fp8_state`` (so every rank holds the same scales),
   and each backward gradient's just-in-time scale too (``fp8_dot``);
@@ -47,7 +52,7 @@ takes the global batch and computes the JAX package's step on it:
   the clipping norm counts every leaf once (``optim.adamw.global_norm``).
 
 The JAX package executes the same function through GSPMD; its sequence
-parallelism and the other families' sharded steps are not ported
+parallelism and the ssm and vlm families' sharded steps are not ported
 (``NotImplementedError``).
 """
 
@@ -163,23 +168,25 @@ def init_train_state(
     """Random parameters (``models.init_params``), zero AdamW moments, a zero
     compression residual with ``grad_compression`` and, with fp8, a fresh
     ``Fp8State``.  Runs on the card unless ``device`` says otherwise.
-    With ``rules`` and a ``mesh`` (sharded training) it draws the full
-    state from the seed, as one card would, and returns this rank's slices
-    of it (``parallel.sharding.shard_state``)."""
+    With ``rules`` and a ``mesh`` (sharded training) it draws the
+    parameters from the seed leaf by leaf, as one card would, keeps this
+    rank's slice of each as it goes, and makes the rest of the state at
+    the slices' shapes: ``parallel.sharding.shard_state`` of the full
+    state, bit for bit, without ever holding it."""
     _check_run(run_cfg)
     _check_sharded(model_cfg, run_cfg, rules, mesh)
     device = resolve_device(device)
     prec = run_cfg.precision
-    params = init_params(model_cfg, generator, device, DTYPES[prec.param_dtype])
+    shardings = None
+    if mesh is not None:
+        from repro_torch.parallel.sharding import executed_specs
+
+        shardings = executed_specs(model_cfg, mesh, rules)["executed"]
+    params = init_params(model_cfg, generator, device, DTYPES[prec.param_dtype], shardings=shardings, mesh=mesh)
     opt = adamw_init(params, dtype=DTYPES[prec.optimizer_dtype])
     residual = init_compression_state(params, run_cfg.parallel.grad_compression)
     fp8 = make_fp8_state(model_cfg, prec, device) if _fp8_enabled(model_cfg, prec) else None
-    state = TrainState(params=params, opt=opt, compress_residual=residual, fp8=fp8)
-    if mesh is None:
-        return state
-    from repro_torch.parallel.sharding import shard_state, state_shardings
-
-    return shard_state(state, state_shardings(model_cfg, run_cfg, rules, mesh), mesh)
+    return TrainState(params=params, opt=opt, compress_residual=residual, fp8=fp8)
 
 
 def lr_schedule(run_cfg):

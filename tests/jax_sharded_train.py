@@ -4,9 +4,11 @@ forced host devices, run as its own process by
 starts):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \\
-        python tests/jax_sharded_train.py BATCHES.npz OUT.npz
+        python tests/jax_sharded_train.py BATCHES.npz OUT.npz [--arch ARCH]
 
-It initialises the smoke olmo-1b state from ``PRNGKey(0)`` (fp32 compute,
+It initialises the smoke state of ``ARCH`` (default olmo-1b; the sharded
+tests of the moe, hybrid and audio families pass theirs) from
+``PRNGKey(0)`` (fp32 compute,
 remat full, the default ``fsdp`` and ``tensor_parallel``), jits
 ``make_train_step(cfg, run, rules, mesh, param_shardings=...)`` with the
 ``state_shardings`` of ``make_rules(MeshConfig(), run.parallel)``, as the
@@ -15,7 +17,7 @@ dry run lowers it, takes one step per batch of ``BATCHES.npz`` (``tokens_i``,
 their ``/``-joined path) and the executed specs of ``wq`` and ``w_down`` to ``OUT.npz``.
 """
 
-import sys
+import argparse
 
 import jax
 import jax.numpy as jnp
@@ -31,19 +33,20 @@ from repro.train.step import abstract_train_state, init_train_state, make_train_
 STEPS_TRAIN = dict(learning_rate=1e-3, warmup_steps=2, total_steps=10)
 
 
-def main(batches_path: str, out_path: str) -> None:
+def main(batches_path: str, out_path: str, arch: str = "olmo-1b") -> None:
     data = np.load(batches_path)
-    n = len([k for k in data if k.startswith("tokens_")])
-    batches = [{"tokens": data[f"tokens_{i}"], "labels": data[f"labels_{i}"]} for i in range(n)]
-    B, S = batches[0]["tokens"].shape
-    cfg = reduce_for_smoke(get_config("olmo-1b"))
-    run = RunConfig(arch="olmo-1b", train=TrainConfig(global_batch=B, seq_len=S, **STEPS_TRAIN),
+    n = len([k for k in data if k.startswith("labels_")])
+    keys = sorted({k.rsplit("_", 1)[0] for k in data})
+    batches = [{k: data[f"{k}_{i}"] for k in keys} for i in range(n)]
+    B, S = batches[0]["labels"].shape
+    cfg = reduce_for_smoke(get_config(arch))
+    run = RunConfig(arch=arch, train=TrainConfig(global_batch=B, seq_len=S, **STEPS_TRAIN),
                     parallel=ParallelConfig(remat="full"), precision=PrecisionConfig(compute_dtype="float32"))
     mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
     rules = make_rules(MeshConfig(), run.parallel)
     st_sh = state_shardings(cfg, run, rules, mesh, abstract_train_state(cfg, run))
     rep = NamedSharding(mesh, P())
-    b_sh = {"tokens": NamedSharding(mesh, P("data", None)), "labels": NamedSharding(mesh, P("data", None))}
+    b_sh = {k: NamedSharding(mesh, P("data", *([None] * (v.ndim - 1)))) for k, v in batches[0].items()}
     step = make_train_step(cfg, run, rules, mesh, param_shardings=st_sh.params)
     metrics_sh = {"loss": rep, "aux_loss": rep, "lr": rep, "grad_norm": rep}
     with mesh:
@@ -52,15 +55,23 @@ def main(batches_path: str, out_path: str) -> None:
         out = {}
         for i, b in enumerate(batches):
             state, m = jstep(state, {k: jnp.asarray(v) for k, v in b.items()})
-            for k in ("loss", "grad_norm", "lr"):
+            for k in ("loss", "aux_loss", "grad_norm", "lr"):
                 out[f"{k}_{i}"] = np.asarray(m[k])
     for path, leaf in jax.tree_util.tree_leaves_with_path(state.params):
         out["param/" + "/".join(str(p.key) for p in path)] = np.asarray(leaf)
+    for path, sh in jax.tree_util.tree_leaves_with_path(st_sh.params):
+        out["spec/" + "/".join(str(p.key) for p in path)] = np.array(repr(tuple(sh.spec)))
     blocks = st_sh.params["blocks"]
-    out["spec_wq"] = np.array(repr(tuple(blocks["attn"]["wq"].spec)))
-    out["spec_w_down"] = np.array(repr(tuple(blocks["mlp"]["w_down"].spec)))
+    if "attn" in blocks and "mlp" in blocks:
+        out["spec_wq"] = np.array(repr(tuple(blocks["attn"]["wq"].spec)))
+        out["spec_w_down"] = np.array(repr(tuple(blocks["mlp"]["w_down"].spec)))
     np.savez(out_path, **out)
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:3])
+    parser = argparse.ArgumentParser()
+    parser.add_argument("batches")
+    parser.add_argument("out")
+    parser.add_argument("--arch", default="olmo-1b")
+    a = parser.parse_args()
+    main(a.batches, a.out, a.arch)

@@ -15,7 +15,12 @@
   compute, so the train tests' bf16 tolerances), and the residual after
   the steps close to the JAX package's.
 * The serving primitives ``all_reduce`` / ``all_gather`` on a two-rank gloo
-  mesh, with their counters.
+  mesh, with their counters; the data-axis pair of sharded moe training,
+  ``sum_over_data`` (a sum both ways) and ``exchange_counts`` (int32
+  counts in data-rank order), on a ``(2, 1)`` mesh, with theirs.
+* ``run_ranks`` returns a large state: 200 fp32 tensors of (256, 1024)
+  from each of two ranks, exactly, in three calls in a row (a rank's
+  result crosses by value, so the parent reads it after the rank exits).
 """
 
 import jax
@@ -30,6 +35,7 @@ from repro_torch.parallel import collectives as T
 from repro_torch.utils.tree import tree_leaves
 
 import torch_parity
+import torch_sharded_ranks
 import torch_tp_ranks
 
 torch.set_num_threads(2)
@@ -115,6 +121,29 @@ def test_serving_primitives_on_two_ranks():
         assert shapes["serving"] == (("data", "model"), (1, 2)) and shapes["local_2x1"] == (2, 1)
         assert [r for r, _ in shapes["replicas"]] == [[0], [1]]
         assert [c is not None for _, c in shapes["replicas"]] == [rank == 0, rank == 1]
+
+
+def test_data_axis_pair_on_two_ranks():
+    """On a (2, 1) mesh: ``sum_over_data`` of rank r's (r + 1) * x is 3 x on
+    both ranks and its backward sums the ranks' upstream gradients (rank r
+    sends r + 1: 3 on both); ``exchange_counts`` stacks both ranks' counts
+    in rank order; one count a call, the backward's too."""
+    results = run_ranks(torch_sharded_ranks.data_primitives, (2, 1), device="cpu", timeout_s=120)
+    for rank, r in enumerate(results):
+        assert r["sum"] == [3.0, 6.0] and r["grad"] == [3.0, 3.0]
+        assert r["counts"] == [[[1, 0], [0, 1]], [[2, 0], [0, 2]]] and r["counts_dtype"] == "torch.int32"
+        assert r["collectives"] == {"sum_over_data": 2, "sum_over_data_bytes": 16, "exchange_counts": 1,
+                                    "exchange_counts_bytes": 16}
+
+
+def test_run_ranks_returns_a_large_state():
+    n, shape = 200, (256, 1024)
+    expected = {r: torch_sharded_ranks.large_state(r, None, n, shape) for r in range(2)}
+    for _ in range(3):
+        got = run_ranks(torch_sharded_ranks.large_state, 2, device="cpu", timeout_s=300, args=(n, shape))
+        for rank, tensors in enumerate(got):
+            assert len(tensors) == n
+            assert all(t.dtype == torch.float32 and torch.equal(t, e) for t, e in zip(tensors, expected[rank]))
 
 
 def test_backend_rules():

@@ -12,6 +12,13 @@ tests/test_torch_cuda_sharded_train.py``.  It skips on a host without CUDA.
   (losses 2e-3 relative, gradient norms 5e-2, every parameter within 2 lr a
   step, their mean within lr / 5); every rank launches K4 4 times a site a
   layer a step.
+* One short case a family (``torch_sharded_ranks.cuda_family_checks``):
+  the smoke qwen3-moe at ``(1, 2)`` (2 of 4 experts a rank; capacity factor
+  E / k, so bf16's near-tie flips move one token's output), hymba at
+  ``(1, 2)`` (the attention and SSM heads whole, the FFN split) and hubert
+  at ``(2, 1)`` (FSDP), 3 fp8 steps each against the one-rank steps within
+  the same fp8 limits (the aux loss with the loss), and K4 4 times a site a
+  layer a step on every rank.
 """
 
 import numpy as np
@@ -53,4 +60,31 @@ def test_cuda_tp2_step_equals_tp1(ranks):
         assert abs(a["loss"] - b["loss"]) <= 2e-3 * abs(b["loss"])
         assert abs(a["grad_norm"] - b["grad_norm"]) <= 5e-2 * abs(b["grad_norm"])
     diff = np.concatenate([np.abs(a - b).ravel() for a, b in zip(got["params"], tp1["params"])])
+    assert float(diff.max()) <= 2 * LR * STEPS and float(diff.mean()) < LR / 5
+
+
+@pytest.fixture(scope="module")
+def family_ranks():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return run_ranks(torch_sharded_ranks.cuda_family_checks, 2, backend="gloo", device="cuda", timeout_s=600)
+
+
+@pytest.mark.parametrize("arch", [a for a, _ in torch_sharded_ranks.CUDA_FAMILY_CASES])
+def test_cuda_family_sharded_step_equals_one_rank(family_ranks, arch):
+    from repro_torch.config import reduce_for_smoke
+    from repro_torch.configs import get_config
+    from repro_torch.fp8 import fp8_sites
+
+    cfg = reduce_for_smoke(get_config(arch))
+    got, one = family_ranks[0][arch]["sharded"], family_ranks[0][arch]["one_rank"]
+    for r in family_ranks:
+        assert r[arch]["sharded"]["metrics"] == got["metrics"]
+        assert r[arch]["launches"] == 4 * cfg.num_layers * len(fp8_sites(cfg)) * STEPS
+        assert not r["jax_loaded"]
+    for a, b in zip(got["metrics"], one["metrics"]):
+        for k in ("loss", "aux_loss"):
+            assert abs(a[k] - b[k]) <= 2e-3 * abs(b[k]), (k, a[k], b[k])
+        assert abs(a["grad_norm"] - b["grad_norm"]) <= 5e-2 * abs(b["grad_norm"])
+    diff = np.concatenate([np.abs(a - b).ravel() for a, b in zip(got["params"], one["params"])])
     assert float(diff.max()) <= 2 * LR * STEPS and float(diff.mean()) < LR / 5

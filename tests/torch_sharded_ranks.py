@@ -34,6 +34,14 @@ from repro_torch.utils.tree import tree_leaves, tree_paths, tree_size_bytes
 
 # the controls that must fail the limits, each a change to one collective
 CONTROLS = ("copy_to_model_backward_dropped", "replicated_leaf_counted_on_every_rank", "int8_scale_from_local_shard")
+# the moe, hybrid and audio families' controls (test_torch_sharded_{moe,hybrid,audio}.py)
+FAMILY_CONTROLS = (
+    "moe_gates_sum_dropped",  # the gates' copy_to_model left out: their gradient keeps this rank's pairs only
+    "moe_capacity_per_data_rank",  # each data rank counts its experts' slots from 0 in a spanning group
+    "moe_aux_data_sum_identity_backward",  # the aux's sum over data with the identity backward
+    "hybrid_branches_counted_twice",  # the FFN input's copy_to_model moved to the block input
+    "fsdp_gather_backward_unsummed",  # FSDP's gather backward keeps this rank's own gradient slice
+)
 
 
 def _numpy_state(state) -> dict:
@@ -64,8 +72,53 @@ def train(case: dict, mesh) -> dict:
     return {"metrics": metrics, "state": _numpy_state(full) if rank == 0 else None}
 
 
-def _control(name: str):
+def _hybrid_input_summed(block):
+    """``block`` with its input through ``copy_to_model``: the gradient of
+    the replicated attention and SSM branches (and of the residual) summed
+    over the model ranks, which hold it whole already."""
+    from repro_torch.parallel.collectives import copy_to_model
+
+    def wrapped(cfg, p, x, *, mesh=None, **kw):
+        return block(cfg, p, copy_to_model(x, mesh), mesh=mesh, **kw)
+
+    return wrapped
+
+
+def _unsummed_gather_backward(ctx, g):
+    n = g.shape[ctx.dim] // ctx.n
+    return g.narrow(ctx.dim, torch.distributed.get_rank(ctx.group) * n, n).contiguous(), None, None, None
+
+
+def _family_control(name: str, case: dict):
+    """(owner, attribute, replacement) of a family control; a control
+    needing two changes returns a list of them."""
+    from repro_torch.models import ffn as ffn_mod
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import moe as moe_mod
+
+    if name == "moe_gates_sum_dropped":
+        k, inner = case["cfg"].moe.top_k, moe_mod.copy_to_model
+        return [(moe_mod, "copy_to_model", lambda x, mesh: x if x.shape[-1] == k else inner(x, mesh))]
+    if name == "moe_capacity_per_data_rank":
+        return [(moe_mod, "lower_ranks", lambda counts, rank: torch.zeros_like(counts[0]))]
+    if name == "moe_aux_data_sum_identity_backward":
+        return [(collectives._SumOverData, "backward", staticmethod(lambda ctx, g: (g, None)))]
+    if name == "hybrid_branches_counted_twice":
+        blocks = dict(model_mod.TRAIN_BLOCKS, hybrid=_hybrid_input_summed(model_mod.TRAIN_BLOCKS["hybrid"]))
+        return [(ffn_mod, "copy_to_model", lambda x, mesh: x), (model_mod, "TRAIN_BLOCKS", blocks)]
+    if name == "fsdp_gather_backward_unsummed":
+        return [(collectives._GatherOverData, "backward", staticmethod(_unsummed_gather_backward))]
+    raise ValueError(name)
+
+
+def _control(name: str, case: dict):
     """Install control ``name`` in this process; returns its undo."""
+    if name in FAMILY_CONTROLS:
+        changes = _family_control(name, case)
+        kept = [(owner, attr, owner.__dict__[attr]) for owner, attr, _ in changes]
+        for owner, attr, new in changes:
+            setattr(owner, attr, new)
+        return lambda: [setattr(owner, attr, old) for owner, attr, old in kept]
     if name == "copy_to_model_backward_dropped":
         cls, attr = collectives._CopyToModel, "backward"
         new = staticmethod(lambda ctx, g: (g, None))
@@ -83,6 +136,28 @@ def _control(name: str):
     return lambda: setattr(cls, attr, old)
 
 
+def large_state(rank, mesh, n: int, shape: tuple) -> list:
+    """``n`` fp32 tensors of ``shape`` drawn from a generator seeded with
+    the rank: what ``test_torch_collectives.py`` holds ``run_ranks``'s
+    results to."""
+    g = torch.Generator().manual_seed(rank)
+    return [torch.randn(shape, generator=g) for _ in range(n)]
+
+
+def data_primitives(rank, mesh) -> dict:
+    """``test_torch_collectives.py``'s data-axis pair on a (2, 1) mesh:
+    ``sum_over_data`` forward and backward, ``exchange_counts``, and the
+    counters they add."""
+    collectives.reset_collectives()
+    x = torch.tensor([1.0, 2.0]) * (rank + 1)
+    x.requires_grad_(True)
+    y = collectives.sum_over_data(x, mesh)
+    (g,) = torch.autograd.grad(y, x, grad_outputs=torch.full((2,), float(rank + 1)))
+    counts = collectives.exchange_counts(torch.eye(2, dtype=torch.int32) * (rank + 1), mesh)
+    return {"sum": y.tolist(), "grad": g.tolist(), "counts": counts.tolist(), "counts_dtype": str(counts.dtype),
+            "collectives": {k: v for k, v in collectives.TRAIN_COLLECTIVES.items() if v}}
+
+
 def jax_loaded() -> bool:
     return any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
 
@@ -97,25 +172,30 @@ def bridged_shard(mesh, case: dict, np_state) -> bool:
     specs = state_shardings(cfg, run, training_rules(run.parallel), mesh)
     got = train_state_from_jax(cfg, np_state, "cpu", specs=specs, mesh=mesh)
     ref = shard_state(case["state"], specs, mesh)
-    trees = lambda s: (s.params, s.opt.m, s.opt.v, [s.opt.step], s.fp8.scale, s.fp8.amax_history)  # noqa: E731
+    fp8 = lambda s: () if s.fp8 is None else (s.fp8.scale, s.fp8.amax_history)  # noqa: E731
+    trees = lambda s: (s.params, s.opt.m, s.opt.v, [s.opt.step], *fp8(s))  # noqa: E731
     return all(torch.equal(a, b) for x, y in zip(trees(got), trees(ref)) for a, b in zip(tree_leaves(x), tree_leaves(y)))
 
 
-def train_cases(rank, mesh, cases: list, controls: dict, memory_of=None, bridged=None) -> list:
-    """Every case of ``test_torch_sharded_train.py`` on this mesh, then
-    each control ``{name: case}`` with its change installed, then
-    ``memory(*memory_of)`` and ``bridged_shard(*bridged)`` where given;
+def train_cases(rank, mesh, cases: list, controls: dict, memory_of=None, bridged=None, shrinks=()) -> list:
+    """Every case of a sharded-training test file on this mesh, then each
+    control ``{name: case}`` with its change installed, then
+    ``memory(*memory_of)`` where given and ``elastic_shrink(mesh, *s)`` for
+    each of ``shrinks``, then ``bridged_shard(*bridged)`` where given;
     last, whether this rank loaded JAX."""
     torch.set_num_threads(1)
     out = [train(case, mesh) for case in cases]
     for name, case in controls.items():
-        undo = _control(name)
+        undo = _control(name, case)
         try:
             out.append(train(case, mesh))
         finally:
             undo()
     if memory_of is not None:
         out.append(memory(mesh, *memory_of))
+    out += [elastic_shrink(mesh, *s) for s in shrinks]
+    if shrinks:
+        torch.distributed.barrier()  # no rank leaves while the survivors step
     bridge_ok = bridged_shard(mesh, *bridged) if bridged is not None else None
     return out + [{"jax_loaded": jax_loaded(), "bridged_shard": bridge_ok}]
 
@@ -279,3 +359,67 @@ def cuda_checks(rank, mesh, device="cuda") -> dict:
             "kernel_launches": kernel_launches, "tp1": tp1, "step_launches": K4.LAUNCHES["fp8_gemm"],
             "tp2": {"metrics": metrics, "params": [t.cpu().numpy() for t in tree_leaves(gathered.params)]},
             "jax_loaded": jax_loaded()}
+
+
+# test_torch_cuda_sharded_train.py's family cases: arch, mesh, capacity factor
+# (moe: E / k, where capacity cannot bind, so a near tie that bf16 flips moves
+# one token's output, not every later token's slot)
+CUDA_FAMILY_CASES = (("qwen3-moe-235b-a22b", (1, 2)), ("hymba-1.5b", (1, 2)), ("hubert-xlarge", (2, 1)))
+
+
+def cuda_family_checks(rank, mesh, device="cuda") -> dict:
+    """``test_torch_cuda_sharded_train.py``'s family cases on two gloo ranks
+    of the card: for each of ``CUDA_FAMILY_CASES``, the smoke model's 3
+    steps (fp8 through K4, bf16 compute, remat full, warmup 0, 4 x 32
+    tokens or frames) on its mesh against the one-rank steps on rank 0 from
+    one state, and each rank's K4 launches over the sharded steps."""
+    import dataclasses
+
+    from repro_torch.config import ParallelConfig, PrecisionConfig, RunConfig, TrainConfig, reduce_for_smoke
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch_fn
+    from repro_torch.fp8 import gemm as K4
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train import init_train_state
+    from repro_torch.utils.tree import tree_map
+
+    torch.set_num_threads(1)
+    meshes = {(1, 2): mesh, (2, 1): make_local_mesh(2, 1, backend="gloo", device=device)}
+    out = {"jax_loaded": jax_loaded()}
+    for arch, shape in CUDA_FAMILY_CASES:
+        cfg = reduce_for_smoke(get_config(arch))
+        if cfg.moe is not None:
+            cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+        run = RunConfig(arch=arch, train=TrainConfig(global_batch=4, seq_len=32, learning_rate=1e-3, warmup_steps=0,
+                                                     total_steps=10),
+                        parallel=ParallelConfig(remat="full"), precision=PrecisionConfig(fp8=True, fp8_gemm="kernel"))
+        batch_fn = make_batch_fn(cfg, global_batch=4, seq_len=32, seed=0, device=device)
+        batches = [batch_fn(s) for s in range(3)]
+        full = init_train_state(cfg, run, 0, device=device)
+        one = None
+        if rank == 0:
+            copy = lambda tree: tree_map(torch.clone, tree)  # noqa: E731  (the step updates in place)
+            state = full._replace(params=copy(full.params), opt=full.opt._replace(m=copy(full.opt.m),
+                                                                                  v=copy(full.opt.v)))
+            step = make_train_step(cfg, run)
+            metrics = []
+            for b in batches:
+                state, m = step(state, b)
+                metrics.append({k: float(v) for k, v in m.items()})
+            one = {"metrics": metrics, "params": [t.cpu().numpy() for t in tree_leaves(state.params)]}
+        torch.distributed.barrier()
+        m = meshes[shape]
+        rules = training_rules(run.parallel)
+        specs = state_shardings(cfg, run, rules, m)
+        local = shard_state(full, specs, m)
+        step = make_train_step(cfg, run, rules, m)
+        K4.reset_launches()
+        metrics = []
+        for b in batches:
+            local, mt = step(local, b)
+            metrics.append({k: float(v) for k, v in mt.items()})
+        launches = K4.LAUNCHES["fp8_gemm"]
+        gathered = unshard_state(local, specs, m)
+        out[arch] = {"mesh": shape, "one_rank": one, "launches": launches, "layers": cfg.num_layers,
+                     "sharded": {"metrics": metrics, "params": [t.cpu().numpy() for t in tree_leaves(gathered.params)]}}
+    return out
