@@ -324,18 +324,19 @@ or when any check fails.  Phases:
    ``backend="gloo"``: every collective staged through host memory), each
    drawing olmo-1b's state from the seed (full width, 4 of 16 layers, fp8
    through K4 on every projection, bf16 compute, remat full, 4 x 2048
-   tokens, warmup 0).  Rank 0 first runs the one-rank step (3 steps, then 2
-   on the shrink's 2-row batches) as the reference.  Then 3 steps at
+   tokens, warmup 0).  Rank 0 first runs the one-rank step (2 steps, then 2
+   on the shrink's 2-row batches) as the reference.  Then 2 steps at
    ``(1, 2)`` (tensor parallelism) and at ``(2, 1)`` (FSDP and data
    parallelism), each rank cutting its slices out of the full state
    (``parallel.sharding.shard_state``): each step's wall time, the
    training collectives' calls and bytes (``TRAIN_COLLECTIVES``), the K4
-   launches and ``max_memory_allocated`` of each rank; the gathered
-   parameters, losses and gradient norms against the reference within
-   ``SHARD_LIMITS``, and a control for each, two steps from the same state
-   (the copy-to-model backward without its all-reduce; FSDP's gather
-   backward keeping the rank's own gradient slice unsummed), that must
-   fail them.  Last, ``plan_resize`` to one rank,
+   launches and ``max_memory_allocated`` of each rank; each rank's
+   parameter slices against the reference's (sent once a mesh:
+   ``reference_slices``, ``mesh_param_gaps``), losses and gradient norms
+   within ``SHARD_LIMITS``, and a control for each, the same steps from
+   the same state (the copy-to-model backward without its all-reduce;
+   FSDP's gather backward keeping the rank's own gradient slice unsummed),
+   that must fail them.  Last, ``plan_resize`` to one rank,
    ``make_elastic_mesh`` and ``reshard_state`` move the ``(2, 1)`` state
    onto rank 0 alone (bit for bit), which takes 2 steps on
    ``resize_batch``'s batches held to the reference's.  Every rank must
@@ -359,14 +360,24 @@ or when any check fails.  Phases:
    rank, the readings against the reference and, at ``(1, 2)``, the gap
    between the model ranks' copies of every replicated leaf
    (``FAMILY_LIMITS``: ``SHARD_LIMITS`` and a gap of 0), and a control's
-   (moe: the gates' ``copy_to_model`` left out, and the expert split's two
-   as a reported probe; hybrid: the FFN input's ``copy_to_model`` moved to
+   (moe: the gates' ``copy_to_model`` left out; hybrid: the FFN input's ``copy_to_model`` moved to
    the block input; audio at ``(2, 1)``: FSDP's gather backward without
    the data sum), and for moe the pairs routed and dropped, the pairs a
    near tie flipped against the one-rank run, the aux losses and the
    router's and the moe norm's own readings (``group_readings``).  It fails when the ranks' metrics differ, an
    arm parts from the reference, a control passes, or a rank's K4
    launches differ from ``4 x layers x len(fp8_sites)`` a step.
+9b4. Sharded training of the ssm and vlm families (``sharded_ssm_vlm``,
+   ``ssm_vlm_arms``), in the same spawn and by the same rules, without
+   fp8: rwkv6-7b cut to 4 of 32 layers (4 x 2048, fp32 at lr 1e-5, the
+   reasons at ``SSM_RATE``) at ``(1, 2)``, its time mix whole on every
+   rank, with a control (the channel mix's ``copy_to_model`` moved to the
+   block input) and a sharded eval through K5 held per layer against the
+   chunked scan; llama-3.2-vision cut to one group of a self and the cross
+   layer (1 x 2048, 1600 image tokens a row, the gates opened) at
+   ``(1, 2)``, with a control (the cross query's ``copy_to_model`` left
+   out) and a sharded eval through K3 at the local heads.  Each eval is
+   held to the one-rank eval (``shard_eval_gates``).
 9c. Fig. 8 (``mlperf``): ``repro_torch.benchmarks.mlperf_train.run()`` on the
    card, bert-large at full width and depth, 448 x 512 tokens a step as 14
    microbatches of 32 (fp32 master, bf16 compute, remat full, no fp8), one
@@ -445,6 +456,8 @@ import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -4681,7 +4694,7 @@ def facility_phase(cfg, device) -> dict:
 # phase 9b2: sharded and FSDP training on two gloo ranks of the one card
 # ---------------------------------------------------------------------------
 
-SHARD_STEPS = 3
+SHARD_STEPS = 2  # an arm's and its control's: the rate is 0 at the first
 SHARD_ELASTIC_STEPS = 2
 # The sharded steps against the one-rank step in the same run, both with fp8
 # through K4 and bf16 compute: the tensor-parallel sums add bf16 partial
@@ -4689,36 +4702,64 @@ SHARD_ELASTIC_STEPS = 2
 # the fp8 casts turn a last-bit difference into a flipped fp8 value.  The
 # limits are the CPU tests' fp8 ones (tests/test_torch_sharded_train.py):
 # losses 2e-3 relative, gradient norms 5e-2, every parameter within 2 lr a
-# step and their mean within lr / 5.  The controls (two steps each) must
-# fail one: the copy-to-model backward without its all-reduce (TP), FSDP's
-# gather backward without the sum over the data ranks (FSDP + DP).
+# step and their mean within lr / 5.  The controls must fail one: the
+# copy-to-model backward without its all-reduce (TP), FSDP's gather
+# backward without the sum over the data ranks (FSDP + DP).
 SHARD_LIMITS = {"loss_rel": 2e-3, "grad_norm_rel": 5e-2, "param_max_over_lr_per_step": 2.0, "param_mean_over_lr": 0.2}
 
 
-def shard_run_config(global_batch=TRAIN_B, seq_len=TRAIN_S, arch="olmo-1b"):
+@contextmanager
+def ranks_allocator():
+    """Spawned ranks' allocator: segments that grow in place, so a rank
+    near the card's capacity reuses freed blocks across shapes (qwen3-moe's
+    first sharded steps took 14.4 and 16.5 s without, 2.0 and 2.8 s with on
+    an NVIDIA H100 80GB HBM3 at 700 W: PERF.md section 6).  The variable is read by each rank's allocator at its
+    start; this process's own allocator is set already."""
+    kept = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        yield
+    finally:
+        if kept is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = kept
+
+
+def shard_run_config(global_batch=TRAIN_B, seq_len=TRAIN_S, arch="olmo-1b", fp8=True, lr=None,
+                     compute_dtype="bfloat16"):
     from repro_torch.config import ParallelConfig, PrecisionConfig, RunConfig, TrainConfig
 
+    rate = {} if lr is None else {"learning_rate": lr}
     return RunConfig(  # warmup 0: every step moves the parameters
-        arch=arch, train=TrainConfig(global_batch=global_batch, seq_len=seq_len, warmup_steps=0, total_steps=10),
+        arch=arch, train=TrainConfig(global_batch=global_batch, seq_len=seq_len, warmup_steps=0, total_steps=10,
+                                     **rate),
         parallel=ParallelConfig(remat="full"),
-        precision=PrecisionConfig(param_dtype="float32", compute_dtype="bfloat16", fp8=True, fp8_gemm="kernel"),
+        precision=PrecisionConfig(param_dtype="float32", compute_dtype=compute_dtype, fp8=fp8, fp8_gemm="kernel"),
     )
 
 
-def shard_readings(metrics, params, ref_metrics, ref_params, lr: float) -> dict:
-    """Loss and gradient norm (the largest relative gap over the steps) and
-    the parameters (largest and mean gap, in units of lr) against the
-    one-rank run's.  ``params`` may be an iterator (one gathered leaf at a
-    time) and ``ref_params`` on the host."""
-    rel = lambda k: max(abs(m[k] - r[k]) / abs(r[k]) for m, r in zip(metrics, ref_metrics))  # noqa: E731
+def param_gaps(pairs) -> tuple[float, float, int]:
+    """(largest |a - b|, their sum, elements) over (tensor, reference)
+    pairs; ``b`` may lie on the host."""
     top, total, n = 0.0, 0.0, 0
-    for a, b in zip(params, ref_params):
+    for a, b in pairs:
         # in slices of 64 M elements: a leaf of qwen3-moe's experts is 3.2 GB
         for sa, sb in zip(a.reshape(-1).split(1 << 26), b.reshape(-1).split(1 << 26)):
             d = (sa - sb.to(sa.device)).abs_()
             total, top = total + float(d.sum(dtype=torch.float64)), max(top, float(d.max()))
             del d
         n += a.numel()
+    return top, total, n
+
+
+def shard_readings(metrics, ref_metrics, lr: float, gaps) -> dict:
+    """Loss and gradient norm (the largest relative gap over the steps)
+    against the one-rank run's, and the parameters' ``gaps``
+    (``param_gaps``, or ``mesh_param_gaps`` over a mesh: the largest and
+    the mean gap, in units of lr)."""
+    rel = lambda k: max(abs(m[k] - r[k]) / abs(r[k]) for m, r in zip(metrics, ref_metrics))  # noqa: E731
+    top, total, n = gaps
     return {"loss_rel": rel("loss"), "grad_norm_rel": rel("grad_norm"),
             "param_max_over_lr_per_step": top / lr / len(metrics), "param_mean_over_lr": total / n / lr}
 
@@ -4774,9 +4815,10 @@ def shard_steps(step, state, batches, mesh=None) -> tuple:
 def sharded_rank(rank, mesh_tp, device_type="cuda", cfg=None, batch=(TRAIN_B, TRAIN_S)) -> dict:
     """One rank of ``sharded_train``: the one-rank reference (rank 0), the
     TP (1, 2) and FSDP + DP (2, 1) runs from the seed's full state, each
-    followed by its control, and the shrink of (2, 1) to (1, 1).
-    ``device_type``, ``cfg`` and ``batch`` (a smoke model on the CPU) serve
-    rehearsals."""
+    followed by its control, and the shrink of (2, 1) to (1, 1).  Each run
+    is read against the reference's slices (``reference_slices``,
+    ``mesh_param_gaps``).  ``device_type``, ``cfg`` and ``batch`` (a smoke
+    model on the CPU) serve rehearsals."""
     from repro_torch.configs import get_config
     from repro_torch.core import make_elastic_mesh, plan_resize, reshard_state, resize_batch
     from repro_torch.data import synthetic_batch
@@ -4796,52 +4838,52 @@ def sharded_rank(rank, mesh_tp, device_type="cuda", cfg=None, batch=(TRAIN_B, TR
     meshes = {"tp": mesh_tp, "fsdp_dp": make_local_mesh(2, 1, backend="gloo", device=device_type)}
     plan = plan_resize(old_chips=2, new_chips=1, model_parallel=1, global_batch=batch[0])
     full = init_train_state(cfg, run, SEED, device)
+    shapes = [t.shape for t in tree_leaves(full.params)]
     out = {"rank": rank}
     ref = {}
-    if rank == 0:  # the one-rank run: 3 steps, then 2 on the resized batches
+    if rank == 0:  # the one-rank run, then 2 steps on the resized batches
         copy = lambda tree: tree_map(torch.clone, tree)  # noqa: E731  (the step updates in place)
         state = full._replace(params=copy(full.params), opt=full.opt._replace(m=copy(full.opt.m), v=copy(full.opt.v)))
         step = make_train_step(cfg, run)
-        state, m1, _ = shard_steps(step, state, batches[:2])
-        ref["params_2"] = [t.clone() for t in tree_leaves(state.params)]
-        state, m2, got = shard_steps(step, state, batches[2:SHARD_STEPS])
-        ref["metrics"], ref["params"] = m1 + m2, [t.clone() for t in tree_leaves(state.params)]
+        state, ref["metrics"], got = shard_steps(step, state, batches[:SHARD_STEPS])
+        # a copy on the host, which reference_slices sends from (the steps below update in place)
+        ref["params"] = [t.to("cpu", copy=True) for t in tree_leaves(state.params)]
         state, m3, _ = shard_steps(step, state, [resize_batch(b, plan) for b in batches[SHARD_STEPS:]])
         ref["elastic_metrics"], ref["elastic_params"] = m3, [t.clone() for t in tree_leaves(state.params)]
         out["one_rank"] = {"metrics": ref["metrics"], **{k: got[k] for k in (
             "wall_s", "state_bytes", "resident_bytes", "max_memory_allocated", "step_peak_above_resident")},
-            "k4_a_step": got["k4"]["fp8_gemm"]}
+            "k4_a_step": got["k4"]["fp8_gemm"] / SHARD_STEPS}
         del state
         torch.cuda.empty_cache()
     torch.distributed.barrier()
-    # each arm, then its control: two steps from the full state (the rate is
-    # 0 at the first) with one collective changed, against the one-rank steps
+    # each arm, then its control: the same steps from the full state with
+    # one collective changed, against the one-rank steps
     controls = {"tp": (C._CopyToModel, "backward", staticmethod(shard_control_copy_backward)),
                 "fsdp_dp": (C._GatherOverData, "backward", staticmethod(shard_control_unsummed_backward))}
     for name, mesh in meshes.items():
         specs = state_shardings(cfg, run, rules, mesh)
+        mine = reference_slices(ref.get("params"), specs.params, shapes, mesh)  # once for the arm and its control
+
+        def readings(state, metrics):
+            gaps = mesh_param_gaps(state.params, specs.params, mesh, mine, ref.get("params"))
+            return shard_readings(metrics, ref["metrics"], lr, gaps) if rank == 0 else None
+
         state, metrics, got = shard_steps(make_train_step(cfg, run, rules, mesh), shard_state(full, specs, mesh),
                                           batches[:SHARD_STEPS], mesh)
-        gathered = unshard_state(state, specs, mesh)
-        out[name] = {"metrics": metrics, **got, "mesh": list(mesh.shape)}
-        if rank == 0:
-            out[name]["readings"] = shard_readings(metrics, tree_leaves(gathered.params), ref["metrics"], ref["params"],
-                                                   lr)
-        if name == "fsdp_dp":
-            kept_run = (state, specs, gathered)  # the shrink's starting point
-        del state, gathered
+        out[name] = {"metrics": metrics, **got, "mesh": list(mesh.shape), "readings": readings(state, metrics)}
+        if name == "fsdp_dp":  # the shrink's starting point, gathered whole (the moments too) for its bit-exact check
+            kept_run = (state, specs, unshard_state(state, specs, mesh))
+        del state
         owner, attr, wrong = controls[name]
         kept = owner.__dict__[attr]
         setattr(owner, attr, wrong)
         try:
             state, metrics, _ = shard_steps(make_train_step(cfg, run, rules, mesh), shard_state(full, specs, mesh),
-                                            batches[:2], mesh)
+                                            batches[:SHARD_STEPS], mesh)
         finally:
             setattr(owner, attr, kept)
-        params = tree_leaves(unshard_state(state, specs, mesh).params)
-        if rank == 0:
-            out[name]["control"] = shard_readings(metrics, params, ref["metrics"][:2], ref["params_2"], lr)
-        del state, params
+        out[name]["control"] = readings(state, metrics)
+        del state, mine
         torch.cuda.empty_cache()
     del full
     # elastic: the (2, 1) run's state onto the surviving rank, then 2 steps on the resized batches
@@ -4857,10 +4899,10 @@ def sharded_rank(rank, mesh_tp, device_type="cuda", cfg=None, batch=(TRAIN_B, TR
         del gathered
         state, metrics, got = shard_steps(make_train_step(cfg, run, rules, new_mesh), state,
                                           [resize_batch(b, plan) for b in batches[SHARD_STEPS:]])
+        gaps = param_gaps(zip(tree_leaves(state.params), ref["elastic_params"]))
         out["elastic"] = {"mesh": list(new_mesh.shape), "new_global_batch": plan.new_global_batch,
                           "bit_exact": same, "metrics": metrics, **got,
-                          "readings": shard_readings(metrics, tree_leaves(state.params), ref["elastic_metrics"],
-                                                     ref["elastic_params"], lr)}
+                          "readings": shard_readings(metrics, ref["elastic_metrics"], lr, gaps)}
     del state
     torch.cuda.empty_cache()
     torch.distributed.barrier()
@@ -4879,7 +4921,8 @@ def sharded_train_phase() -> dict:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     try:
-        ranks = run_ranks(sharded_rank, 2, backend="gloo", device="cuda", timeout_s=900)
+        with ranks_allocator():
+            ranks = run_ranks(sharded_rank, 2, backend="gloo", device="cuda", timeout_s=900)
     except (RuntimeError, TimeoutError) as e:
         fail(f"sharded_train: {e}")
     cfg = get_config("olmo-1b").replace(num_layers=FACILITY_LAYERS)
@@ -4921,66 +4964,96 @@ def sharded_train_phase() -> dict:
 # phase 9b3: sharded training of the moe, hybrid and audio families
 # ---------------------------------------------------------------------------
 
-FAMILY_SHARD_STEPS = 3  # an arm's and each of its controls'
+FAMILY_SHARD_STEPS = 3  # an arm's and its control's
 FAMILY_SHARD_LAYERS = 4  # hymba-1.5b's 32 and hubert-xlarge's 48 cut to 4 (qwen3-moe: MOE_TRAIN_LAYERS)
+# The rwkv6-7b arm's run settings, which depart from ``shard_run_config``'s,
+# both measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6).
+# rwkv6-7b (4 layers, full width, random weights): at the default rate
+# (3e-4) its one-rank run read a loss of 11.49, 11.47, then 32.67, so it
+# trains at 1e-5.  And its gradient norm moves with any bf16 rounding: in
+# one process (tests/bf16_split_probe.py), the channel mix's product summed
+# from two halves in bf16, what the (1, 2) split computes, read 28.08
+# against 17.44 unsplit and 16.92 in fp32; the (1, 2) arm parted from the
+# one-rank run by that 0.615.  The
+# JAX package's own split does the same at smoke size: on the CPU its (1, 2)
+# step moves the bf16 norm by -9.2% to +1.0% over four batches, its fp32
+# norm by 0.04% at most.  So bf16 cannot tell a sound split from a faulty
+# one here: the arm computes in fp32.  Its (2, 1) mesh (17-20 s a step
+# through gloo on one card in fp32) is left to the CPU tests and the GPU
+# test's smoke case (tests/test_torch_cuda_sharded_train.py) for the
+# script's time limit.
+SSM_RATE = 1e-5
 # A tensor-parallel arm's readings add ``replica_gap``: every model rank's
 # copy of each replicated leaf against model rank 0's, which must be equal
 # (``FAMILY_LIMITS``).  It is what sees the moe arm's control, the gates'
 # ``copy_to_model`` left out: at full width from random weights the
 # load-balance loss's gradient dominates the router's and the moe layer's
 # input's (66% of the pairs dropped at cf 1.25), so on an NVIDIA H100 80GB
-# HBM3 at 700 W (PERF.md section 6) that control and the expert split's two
-# sums left out moved no reading against the one-rank run beyond the sound
-# arm's bf16 noise: the router's and the moe norm's AdamW second moments by
-# 0.60-0.68% of themselves against the sound arm's 0.37-0.40%.  The copies diverge
-# all the same, since each rank keeps its own experts' part.  The
-# expert split's two sums left out run as a probe beside it, reported only,
-# with the moe groups' own readings (``group_readings``).
+# HBM3 at 700 W (PERF.md section 6) that control moved no reading against
+# the one-rank run beyond the sound arm's bf16 noise: the router's and the
+# moe norm's AdamW second moments by 0.60-0.68% of themselves against the
+# sound arm's 0.37-0.40% (the moe groups' own readings, ``group_readings``,
+# reported only).  The copies diverge all the same, since each rank keeps
+# its own experts' part.
 FAMILY_LIMITS = {**SHARD_LIMITS, "replica_gap": 0.0}
 
 
 def free_card() -> None:
-    """Give the memory of the tensors just dropped back to the card.  A
-    cyclic collection first: the first ``torch.utils.checkpoint`` call of a
-    process imports ``torch._dynamo``, and that import's frames stay in a
-    reference cycle that holds the whole calling stack, the train state of
-    the first remat step included, until the cyclic collector runs."""
+    """Give the memory of the tensors just dropped back to the card, a
+    cyclic collection first (any reference cycle that still holds a
+    tensor; ``make_train_step`` imports ``torch._dynamo`` itself, whose
+    first import in a step left that step's state in one)."""
     gc.collect()
     torch.cuda.empty_cache()
 
 
+class Arm(NamedTuple):
+    """One arm of the sharded family phases: the config at full width, depth
+    cut; sequences of TRAIN_S a step; its meshes; the mesh its control runs
+    on; its control (``family_control``), which must fail the limits; its
+    eval, None or (the eval of ``shard_eval``, the mesh it runs on);
+    ``shard_run_config`` overrides."""
+
+    cfg: Any
+    batch: int
+    meshes: tuple
+    control_mesh: Any
+    control: str
+    evaluation: Any = None
+    run: Any = None
+
+
 def family_shard_arms() -> dict:
-    """name -> (config at full width, depth cut; sequences of TRAIN_S a
-    step; meshes; the mesh its controls run on; its controls: the first
-    must fail the limits, the others are probes, reported only)."""
+    """name -> ``Arm`` of the moe, hybrid and audio families."""
     from repro_torch.configs import get_config
 
     return {
         # (1, 2) only: FSDP would gather 2.4 B fp32 expert parameters twice a step
-        "moe": (get_config(MOE_ARCH).replace(num_layers=MOE_TRAIN_LAYERS), 2, ((1, 2),), (1, 2),
-                ("gates_sum_dropped", "expert_split_sums_dropped")),
-        "hybrid": (get_config(HYMBA_ARCH).replace(num_layers=FAMILY_SHARD_LAYERS), TRAIN_B, ((1, 2), (2, 1)), (1, 2),
-                   ("branches_counted_twice",)),
-        "audio": (get_config("hubert-xlarge").replace(num_layers=FAMILY_SHARD_LAYERS), TRAIN_B, ((1, 2), (2, 1)),
-                  (2, 1), ("gather_backward_unsummed",)),
+        "moe": Arm(get_config(MOE_ARCH).replace(num_layers=MOE_TRAIN_LAYERS), 2, ((1, 2),), (1, 2),
+                   "gates_sum_dropped"),
+        "hybrid": Arm(get_config(HYMBA_ARCH).replace(num_layers=FAMILY_SHARD_LAYERS), TRAIN_B, ((1, 2), (2, 1)),
+                      (1, 2), "branches_counted_twice"),
+        "audio": Arm(get_config("hubert-xlarge").replace(num_layers=FAMILY_SHARD_LAYERS), TRAIN_B, ((1, 2), (2, 1)),
+                     (2, 1), "gather_backward_unsummed"),
     }
 
 
 def family_control(name: str, cfg) -> list:
     """(owner, attribute, replacement) of each change a family control
-    makes: the moe expert split's two ``copy_to_model`` left out (the
-    dispatch input's and the gates' gradients keep this rank's pairs
-    only), or the gates' alone; hymba's FFN input ``copy_to_model`` moved to
+    makes: the moe gates' ``copy_to_model`` left out (the gates' gradient
+    keeps this rank's pairs only); hymba's FFN input ``copy_to_model`` moved to
     the block input (the replicated attention and SSM branches' gradients
     summed over ranks that hold them whole); FSDP's gather backward
-    without the sum over the data ranks."""
+    without the sum over the data ranks; rwkv6's channel-mix
+    ``copy_to_model`` moved to the block input (the whole time mix's
+    gradients summed over ranks that hold them whole); the vlm cross
+    layer's query input without its ``copy_to_model`` (the residual keeps
+    one rank's heads' part of the cross attention's input gradient)."""
     from repro_torch.models import ffn as ffn_mod
     from repro_torch.models import model as model_mod
     from repro_torch.models import moe as moe_mod
     from repro_torch.parallel import collectives as C
 
-    if name == "expert_split_sums_dropped":
-        return [(moe_mod, "copy_to_model", lambda x, mesh: x)]
     if name == "gates_sum_dropped":
         k, inner = cfg.moe.top_k, moe_mod.copy_to_model
         return [(moe_mod, "copy_to_model", lambda x, mesh: x if x.shape[-1] == k else inner(x, mesh))]
@@ -4994,7 +5067,89 @@ def family_control(name: str, cfg) -> list:
                 (model_mod, "TRAIN_BLOCKS", dict(model_mod.TRAIN_BLOCKS, hybrid=summed_input))]
     if name == "gather_backward_unsummed":
         return [(C._GatherOverData, "backward", staticmethod(shard_control_unsummed_backward))]
+    if name == "time_mix_summed_twice":
+        from repro_torch.models import rwkv as rwkv_mod
+
+        block = model_mod.TRAIN_BLOCKS["ssm"]
+
+        def summed_block_input(cfg, p, x, *, mesh=None, **kw):
+            return block(cfg, p, C.copy_to_model(x, mesh), mesh=mesh, **kw)
+
+        return [(rwkv_mod, "copy_to_model", lambda x, mesh: x),
+                (model_mod, "TRAIN_BLOCKS", dict(model_mod.TRAIN_BLOCKS, ssm=summed_block_input))]
+    if name == "cross_query_sum_dropped":
+        from repro_torch.models import attention as attn_mod
+
+        inner = attn_mod._qkv
+
+        def qkv(cfg, p, x, kv_x=None, fp8=None, mesh=None):
+            return inner(cfg, p, x, kv_x, fp8, mesh if kv_x is None else None)
+
+        return [(attn_mod, "_qkv", qkv)]
     raise ValueError(name)
+
+
+class RankView:
+    """A mesh seen from another of its ranks: its axes and that rank's
+    coordinates, what ``parallel.sharding.shard_tensor`` reads."""
+
+    def __init__(self, mesh, rank: int):
+        self.mesh_dim_names, self.shape = mesh.mesh_dim_names, tuple(mesh.shape)
+        self.coords = dict(zip(mesh.mesh_dim_names, (mesh.mesh == rank).nonzero()[0].tolist()))
+
+    def get_local_rank(self, axis: str) -> int:
+        return self.coords[axis]
+
+
+def reference_slices(ref_params, specs, shapes, mesh) -> dict:
+    """{leaf index: this rank's slice of the reference's leaf} for every
+    leaf that ``specs`` shards over ``mesh`` (``shapes``: the leaves' full
+    shapes), on the host: rank 0 holds the reference (``ref_params``), cuts
+    every rank's slice and sends the other ranks theirs, once for all the
+    runs of a mesh, point to point from host memory (no gather of the runs'
+    own slices)."""
+    from repro_torch.parallel.sharding import local_shape, shard_tensor
+    from repro_torch.utils.tree import tree_leaves
+
+    me, ranks = torch.distributed.get_rank(), mesh.mesh.flatten().tolist()
+    out = {}
+    for i, (spec, shape) in enumerate(zip(tree_leaves(specs), shapes)):
+        local = local_shape(shape, spec, mesh)
+        if local == tuple(shape):
+            continue
+        if me == 0:
+            for r in ranks:
+                part = shard_tensor(ref_params[i], spec, RankView(mesh, r))
+                if r == 0:
+                    out[i] = part
+                else:
+                    torch.distributed.send(part, dst=r)
+        else:
+            out[i] = torch.empty(local, dtype=torch.float32)
+            torch.distributed.recv(out[i], src=0)
+    return out
+
+
+def mesh_param_gaps(params, specs, mesh, mine: dict, ref_params) -> tuple[float, float, int]:
+    """``param_gaps`` of every leaf against the reference over the mesh: each
+    rank its sharded slices against ``mine`` (``reference_slices``), rank 0
+    the leaves no axis shards, which every rank holds alike (``replica_gap``
+    checks it at TP), against its whole reference leaf; then the largest
+    and the sums over the ranks."""
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    me, pairs = torch.distributed.get_rank(), []
+    for i, (t, spec) in enumerate(tree_leaves(tree_map(lambda t, s: (t, s), params, specs))):
+        if i in mine:
+            pairs.append((t, mine[i]))
+        elif me == 0:
+            pairs.append((t, ref_params[i]))
+    top, total, n = param_gaps(pairs)
+    sums = torch.tensor([total, float(n)], dtype=torch.float64)
+    top_t = torch.tensor([top], dtype=torch.float64)
+    torch.distributed.all_reduce(sums)
+    torch.distributed.all_reduce(top_t, op=torch.distributed.ReduceOp.MAX)
+    return float(top_t), float(sums[0]), int(sums[1])
 
 
 def gathered_leaves(tree, specs, mesh, only=None):
@@ -5064,23 +5219,54 @@ def flipped_pairs(chosen, ref_chosen) -> int:
     return sum(int((a != b).sum()) for a, b in zip(chosen, ref_chosen)) // 2
 
 
-def family_arm(rank, cfg, B, seq, meshes, control_mesh, controls, device) -> dict:
+class PartClock:
+    """Seconds since the last call, by part: ``clock(name)`` closes the
+    part ``name`` (``parts``)."""
+
+    def __init__(self):
+        self.parts, self.t0 = {}, time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        t = time.perf_counter()
+        self.parts[name], self.t0 = t - self.t0, t
+
+
+def fresh_train_state(cfg, run, device, rules=None, mesh=None):
+    """The seed's train state (with ``rules`` and a ``mesh``: this rank's
+    slices, drawn leaf by leaf), a vlm model's cross gates opened
+    (``open_gates``: random init leaves them at 0, the cross layers the
+    identity)."""
+    from repro_torch.train import init_train_state
+
+    state = init_train_state(cfg, run, SEED, device, rules=rules, mesh=mesh)
+    if cfg.family == "vlm":
+        open_gates(state.params)
+    return state
+
+
+def family_arm(rank, cfg, B, seq, meshes, control_mesh, control, device, evaluation=None, run_kw=None) -> dict:
     """One arm of ``sharded_families`` on this rank: the one-rank reference
     (rank 0, the other ranks waiting), then each mesh's steps from the
-    seed's slices and, on ``control_mesh``, each control's steps."""
+    seed's slices and, on ``control_mesh``, the control's steps.
+    ``evaluation``: (an eval of ``shard_eval``, its mesh), run on the
+    one-rank model first and on that mesh's slices before their steps,
+    from the seed's parameters both.  ``run_kw``: ``shard_run_config``
+    overrides."""
     from repro_torch.data import make_batch_fn
+    from repro_torch.fp8 import fp8_supported
     from repro_torch.models import param_specs
     from repro_torch.parallel.sharding import state_shardings, training_rules
-    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train import make_train_step
     from repro_torch.utils.tree import tree_leaves, tree_paths
 
-    run = shard_run_config(B, seq, cfg.name)
+    run = shard_run_config(B, seq, cfg.name, fp8=fp8_supported(cfg), **(run_kw or {}))
     lr, rules = run.train.learning_rate, training_rules(run.parallel)
     batch_fn = make_batch_fn(cfg, global_batch=B, seq_len=seq, seed=SEED, device=device)
     batches = [batch_fn(s) for s in range(FAMILY_SHARD_STEPS)]
     moe = cfg.family == "moe"
     out, ref = {}, {}
     paths = ["/".join(map(str, p)) for p in tree_paths(param_specs(cfg))]  # the order of the state's leaves
+    shapes = [s.shape for s in tree_leaves(param_specs(cfg))]
     # the moe layer's readings by group: its router (the gates' gradient) and
     # the scale of the norm before it, whose gradient comes through the moe
     # layer alone (the dispatch input's and the router's)
@@ -5088,19 +5274,30 @@ def family_arm(rank, cfg, B, seq, meshes, control_mesh, controls, device) -> dic
               "norm2": {i for i, p in enumerate(paths) if "/norm2/" in p}} if moe else {}
     watched = set().union(*groups.values())
     if rank == 0:  # the one-rank run, alone on the card: its readings kept on the host
-        state = init_train_state(cfg, run, SEED, device)
+        clock = PartClock()
+        state = fresh_train_state(cfg, run, device)
+        clock("init")
+        one_eval = shard_eval(evaluation[0], cfg, state.params, batches[0]) if evaluation else None
+        clock("eval")
         step = make_train_step(cfg, run)
         with RoutedPairs(record=moe) as routes:
             state, metrics, got = shard_steps(step, state, batches)
+        clock("steps")
         ref["metrics"], ref["params"], ref["routes"] = metrics, [t.cpu() for t in tree_leaves(state.params)], routes
         ref["groups"] = ([ref["params"][i] for i in sorted(watched)],
                          [t.cpu() for i, t in enumerate(tree_leaves(state.opt.v)) if i in watched])
         out["one_rank"] = {"metrics": ref["metrics"], **{k: got[k] for k in (
             "wall_s", "state_bytes", "resident_bytes", "max_memory_allocated", "step_peak_above_resident")},
             "k4_a_step": got["k4"]["fp8_gemm"] / len(metrics)}
+        if one_eval is not None:
+            out["one_rank"]["eval"] = one_eval
+        clock("to_host")
+        out["one_rank"]["parts_s"] = clock.parts
         if moe:
             out["one_rank"]["routed"] = {"pairs": routes.pairs, "dropped": int(routes.dropped)}
         del state
+        # the reference's state is gone before any cyclic collection (make_train_step imports torch._dynamo)
+        out["one_rank"]["left_before_collect"] = torch.cuda.memory_allocated()
         free_card()
         out["one_rank"]["left_allocated"] = torch.cuda.memory_allocated()
     shared = [ref.get("groups")]
@@ -5108,15 +5305,24 @@ def family_arm(rank, cfg, B, seq, meshes, control_mesh, controls, device) -> dic
     for shape, mesh in meshes.items():
         specs = state_shardings(cfg, run, rules, mesh)
         rec = out[f"{shape[0]}x{shape[1]}"] = {"mesh": list(shape)}
-        for what in ("arm",) + (controls if shape == control_mesh else ()):
+        t0 = time.perf_counter()
+        mine = reference_slices(ref.get("params"), specs.params, shapes, mesh)  # once for the mesh's runs
+        rec["reference_slices_s"] = time.perf_counter() - t0
+        for what in ("arm",) + ((control,) if shape == control_mesh else ()):
             changes = family_control(what, cfg) if what != "arm" else []
             kept = [(owner, attr, owner.__dict__[attr]) for owner, attr, _ in changes]
             for owner, attr, new in changes:
                 setattr(owner, attr, new)
+            clock = PartClock()
             try:
-                state = init_train_state(cfg, run, SEED, device, rules=rules, mesh=mesh)
+                state = fresh_train_state(cfg, run, device, rules, mesh)
+                clock("init")
+                if what == "arm" and evaluation and evaluation[1] == shape:
+                    rec["eval"] = shard_eval(evaluation[0], cfg, state.params, batches[0], mesh)
+                    clock("eval")
                 with RoutedPairs(record=moe) as routes:
                     state, metrics, got = shard_steps(make_train_step(cfg, run, rules, mesh), state, batches, mesh)
+                clock("steps")
             finally:
                 for owner, attr, old in kept:
                     setattr(owner, attr, old)
@@ -5124,14 +5330,13 @@ def family_arm(rank, cfg, B, seq, meshes, control_mesh, controls, device) -> dic
             by_group = group_readings(state, specs, mesh, groups, *shared[0], lr) if groups else {}
             if shape[1] > 1:
                 by_group["replica_gap"] = replica_gap(state.params, specs.params, mesh)
-            leaves = gathered_leaves(state.params, specs.params, mesh)
+            gaps = mesh_param_gaps(state.params, specs.params, mesh, mine, ref.get("params"))
             if rank == 0:
-                readings = {**shard_readings(metrics, leaves, ref["metrics"], ref["params"], lr), **by_group}
-            else:
-                for _ in leaves:  # take part in every gather
-                    pass
+                readings = {**shard_readings(metrics, ref["metrics"], lr, gaps), **by_group}
             del state
             free_card()
+            clock("readings")
+            rec.setdefault("parts_s", {})[what] = clock.parts
             if what == "arm":
                 rec.update(metrics=metrics, **got)
                 if moe:
@@ -5141,17 +5346,15 @@ def family_arm(rank, cfg, B, seq, meshes, control_mesh, controls, device) -> dic
                     if moe:
                         rec["flipped_pairs"] = flipped_pairs(routes.chosen, ref["routes"].chosen)
             elif rank == 0:
-                done = {"name": what, "readings": readings}
-                if what == controls[0]:
-                    rec["control"] = done
-                else:
-                    rec.setdefault("probes", []).append(done)
+                rec["control"] = {"name": what, "readings": readings}
+        del mine
     torch.distributed.barrier()
     return out
 
 
 def family_shard_rank(rank, mesh_tp, device_type="cuda", arms=None, seq=TRAIN_S) -> dict:
-    """One rank of ``sharded_families``: every arm of ``family_shard_arms``
+    """One rank of ``sharded_families`` (or of ``sharded_ssm_vlm``, whose
+    ``arms`` its phase passes): every arm of ``family_shard_arms``
     (``arms``, ``seq`` and ``device_type`` serve rehearsals with smoke
     models on the CPU)."""
     from repro_torch.launch.mesh import make_local_mesh
@@ -5159,38 +5362,49 @@ def family_shard_rank(rank, mesh_tp, device_type="cuda", arms=None, seq=TRAIN_S)
     device = torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda" else torch.device(device_type)
     meshes = {(1, 2): mesh_tp, (2, 1): make_local_mesh(2, 1, backend="gloo", device=device_type)}
     out = {"rank": rank}
-    for name, (cfg, B, shapes, control_mesh, controls) in (arms or family_shard_arms()).items():
+    for name, arm in (arms or family_shard_arms()).items():
         t0 = time.perf_counter()
-        out[name] = family_arm(rank, cfg, B, seq, {s: meshes[s] for s in shapes}, control_mesh, controls, device)
+        out[name] = family_arm(rank, arm.cfg, arm.batch, seq, {s: meshes[s] for s in arm.meshes}, arm.control_mesh,
+                               arm.control, device, arm.evaluation, arm.run)
         out[name]["seconds"] = time.perf_counter() - t0
     return out
 
 
-def sharded_families_phase() -> dict:
-    """The moe, hybrid and audio families trained on two gloo ranks of the
-    one card, each arm held to its one-rank step with a control
-    (``family_shard_rank``)."""
+def sharded_families_phase() -> tuple[dict, dict]:
+    """Every sharded family arm in one spawn of two gloo ranks on the one
+    card (``family_shard_rank``): the moe, hybrid and audio families'
+    (``family_shard_arms``), then the ssm and vlm families' with their
+    sharded evals (``ssm_vlm_arms``), each held to its one-rank step with a
+    control.  Returns the ``sharded_families`` and ``sharded_ssm_vlm``
+    reports."""
     from repro_torch.launch.mesh import run_ranks
 
-    free_card()  # this process's first remat step left its train state in a reference cycle
+    free_card()  # the memory the earlier phases' tensors left cached
     parent = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
+    families, ssm_vlm = family_shard_arms(), ssm_vlm_arms()
     try:
-        ranks = run_ranks(family_shard_rank, 2, backend="gloo", device="cuda", timeout_s=900)
+        with ranks_allocator():
+            ranks = run_ranks(family_shard_rank, 2, backend="gloo", device="cuda", timeout_s=900,
+                              args=("cuda", {**families, **ssm_vlm}))
     except (RuntimeError, TimeoutError) as e:
         fail(f"sharded_families: {e}")
-    return family_report(ranks, family_shard_arms(), time.perf_counter() - t0, parent_allocated=parent)
+    seconds = time.perf_counter() - t0
+    return (family_report(ranks, families, seconds, parent_allocated=parent),
+            family_report(ranks, ssm_vlm, seconds, parent_allocated=parent, phase="sharded_ssm_vlm"))
 
 
-def family_report(ranks, arms, seconds, seq=TRAIN_S, parent_allocated=0) -> dict:
-    """``sharded_families``' line from the ranks' results, then its gates."""
-    from repro_torch.fp8 import fp8_sites
+def family_report(ranks, arms, seconds, seq=TRAIN_S, parent_allocated=0, phase="sharded_families") -> dict:
+    """``sharded_families``' (or ``phase``'s) line from the ranks' results,
+    then its gates."""
+    from repro_torch.fp8 import fp8_sites, fp8_supported
 
-    out = {"phase": "sharded_families", "backend": "gloo", "ranks": 2, "seconds": seconds,
+    out = {"phase": phase, "backend": "gloo", "ranks": 2, "seconds": seconds,
            "steps": FAMILY_SHARD_STEPS, "parent_allocated_bytes": parent_allocated}
     gates = []
-    for name, (cfg, B, shapes, control_mesh, controls) in arms.items():
-        per_step = 4 * cfg.num_layers * len(fp8_sites(cfg))  # forward, recompute, dx and dw of every site
+    for name, (cfg, B, shapes, _, _, _, _) in arms.items():
+        # forward, recompute, dx and dw of every site; none where the family takes no fp8
+        per_step = 4 * cfg.num_layers * len(fp8_sites(cfg)) if fp8_supported(cfg) else 0
         arm = {"model": cfg.name, "layers": cfg.num_layers, "batch": [B, seq], "limits": FAMILY_LIMITS,
                "k4_per_step": per_step, "seconds": [r[name]["seconds"] for r in ranks],
                "one_rank": ranks[0][name]["one_rank"]}
@@ -5206,26 +5420,154 @@ def family_report(ranks, arms, seconds, seq=TRAIN_S, parent_allocated=0) -> dict
                 **{k: [a[k] for a in recs] for k in ("state_bytes", "resident_bytes", "max_memory_allocated",
                                                       "step_peak_above_resident")},
                 "losses": [m["loss"] for m in recs[0]["metrics"]], "aux_losses": [m["aux_loss"] for m in recs[0]["metrics"]],
-                "readings": recs[0]["readings"],
-                **{k: recs[0][k] for k in ("control", "probes") if k in recs[0]},
+                "readings": recs[0]["readings"], "parts_s": recs[0]["parts_s"],
+                "reference_slices_s": recs[0]["reference_slices_s"],
+                **{k: recs[0][k] for k in ("control",) if k in recs[0]},
                 **({"routed": [a["routed"] for a in recs], "flipped_pairs": recs[0]["flipped_pairs"]}
                    if cfg.family == "moe" else {}),
             }
+            if "eval" in recs[0]:
+                arm[key]["eval"] = [a["eval"] for a in recs]
             gates.append((name, key, recs, per_step, {k: v for k, v in FAMILY_LIMITS.items() if k in recs[0]["readings"]}))
         out[name] = arm
     emit(out)  # before the gates, so a failing run still shows its readings
     within_limits = lambda r, limits: all(r[k] <= lim for k, lim in limits.items())  # noqa: E731
     for name, key, recs, per_step, limits in gates:
         if recs[0]["metrics"] != recs[1]["metrics"]:
-            fail(f"sharded_families {name} {key}: the ranks' metrics differ")
+            fail(f"{phase} {name} {key}: the ranks' metrics differ")
         if not within_limits(recs[0]["readings"], limits):
-            fail(f"sharded_families {name} {key}: the sharded steps part from the one-rank steps: {recs[0]['readings']}")
+            fail(f"{phase} {name} {key}: the sharded steps part from the one-rank steps: {recs[0]['readings']}")
         if "control" in recs[0] and within_limits(recs[0]["control"]["readings"], limits):
-            fail(f"sharded_families {name} {key}: the control passes the limits: {recs[0]['control']}")
+            fail(f"{phase} {name} {key}: the control passes the limits: {recs[0]['control']}")
         if [a["k4"]["fp8_gemm"] for a in recs] != [per_step * FAMILY_SHARD_STEPS] * 2:
-            fail(f"sharded_families {name} {key}: K4 launches {[a['k4']['fp8_gemm'] for a in recs]}, expected "
+            fail(f"{phase} {name} {key}: K4 launches {[a['k4']['fp8_gemm'] for a in recs]}, expected "
                  f"{per_step * FAMILY_SHARD_STEPS} a rank")
+        if "eval" in recs[0]:
+            shard_eval_gates(f"{phase} {name} {key}", arms[name].cfg, [a["eval"] for a in recs],
+                             out[name]["one_rank"]["eval"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9b4: sharded training of the ssm and vlm families
+# ---------------------------------------------------------------------------
+
+SSM_SHARD_LAYERS = 4  # rwkv6-7b's 32 cut to 4: 1.42 B parameters, 22.7 GB of fp32 state and gradients
+# llama-3.2-vision cut 100 -> 2: one group of a self layer and the cross layer
+# (cross_attn_every 2), 3.81 B parameters (61 GB of state and gradients on one
+# rank); one group of 4 self layers and the cross layer would be 102 GB
+VLM_SHARD_LAYERS = 2
+# The vlm arm's batch, 1 x 2048: the dry run on the meta device
+# (``launch.dryrun.cost_step``) put the one-rank step's peak at 2 x 2048 at
+# 65.39 GB, and the two (1, 2) ranks, which together hold about what that
+# step holds plus a second CUDA context and each allocator's cached blocks,
+# ran out of the card's 79.18 GiB at 2 x 2048 (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md section 6); the width stays whole.
+VLM_SHARD_BATCH = 1
+
+
+def shard_eval(kind, cfg, params, batch, mesh=None) -> dict:
+    """An eval forward of ``params`` (the one-rank model, or this rank's
+    slices on ``mesh``), bf16, without gradients.  ``kind`` ``"wkv"``
+    (rwkv6-7b): the loss through K5 and through the control scan
+    (``wkv_late_decay``), K5's launches in the first, and per layer K5 and
+    the control against the chunked scan (``layer_readings``).
+    ``"attention"``: the loss and this rank's logits through the torch
+    attention, K3 and the control attention (``attention_next_key``), K3's
+    launches, flash and the control against torch (the logits' largest gap
+    over the ranks)."""
+    from repro_torch.kernels import flash_attention as K3
+    from repro_torch.kernels import rwkv6_scan as K5
+    from repro_torch.models import attention, forward
+    from repro_torch.train import loss_fn
+
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        if kind == "wkv":
+            control = on_model_layout(wkv_late_decay)
+            K5.reset_launches()
+            loss = float(loss_fn(cfg, params, batch, wkv_impl="kernel", compute_dtype=bf16, mesh=mesh)[0])
+            launches = K5.LAUNCHES["rwkv6_scan"]
+            control_loss = float(loss_fn(cfg, params, batch, wkv_impl=control, compute_dtype=bf16, mesh=mesh)[0])
+            layers = layer_readings(cfg, params, batch["tokens"], control, bf16, mesh)
+            return {"loss": loss, "control_loss": control_loss, "k5_launches": launches,
+                    "layers_kernel_vs_chunked": layers["sound"], "layers_control_vs_chunked": layers["control"]}
+
+        def run(impl):
+            K3.reset_launches()
+            loss = float(loss_fn(cfg, params, batch, attn_impl=impl, compute_dtype=bf16, mesh=mesh)[0])
+            launches = K3.LAUNCHES["flash_attention"]  # one forward's
+            return loss, forward(cfg, params, batch, attn_impl=impl, compute_dtype=bf16, mesh=mesh)[0], launches
+
+        loss_torch, ref, _ = run("torch")
+        loss_flash, logits, launches = run("flash")
+        finite = bool(torch.isfinite(logits).all())
+        k3, attention.flash_attention = attention.flash_attention, attention_next_key
+        try:
+            control_loss, control, _ = run("flash")
+        finally:
+            attention.flash_attention = k3
+        gaps = torch.stack([(logits - ref).abs().max(), (control - ref).abs().max()]).float()
+        if mesh is not None:
+            torch.distributed.all_reduce(gaps, op=torch.distributed.ReduceOp.MAX)
+        del ref, logits, control
+    return {"loss": loss_flash, "control_loss": control_loss, "k3_launches": launches, "finite": finite,
+            "flash_vs_torch": {"loss_diff": abs(loss_flash - loss_torch), "max_logits_diff": float(gaps[0])},
+            "control_vs_torch": {"loss_diff": abs(control_loss - loss_torch), "max_logits_diff": float(gaps[1])}}
+
+
+def shard_eval_gates(where: str, cfg, evals: list, one: dict) -> None:
+    """The sharded eval's gates: the ranks read the same losses; K5 or K3
+    against the same ranks' plain path within the eval's limits
+    (``RWKV_LAYER_LIMITS``, ``EVAL_LIMITS_BY_MODEL``) and the control
+    outside them; the loss within the eval's loss limit of the one-rank
+    eval's and the control's loss outside it; every rank launches K5 once
+    a layer (the whole time mix) or K3 once a self layer."""
+    e = evals[0]
+    if any((r["loss"], r["control_loss"]) != (e["loss"], e["control_loss"]) for r in evals):
+        fail(f"{where} eval: the ranks' losses differ: {evals}")
+    if "k5_launches" in e:
+        limits, loss_limit = RWKV_LAYER_LIMITS[torch.bfloat16], EVAL_LIMITS["loss_diff"]
+        sound, control = e["layers_kernel_vs_chunked"], e["layers_control_vs_chunked"]
+        launches, expected = [r["k5_launches"] for r in evals], cfg.num_layers
+    else:
+        limits = EVAL_LIMITS_BY_MODEL.get(cfg.name, EVAL_LIMITS)
+        loss_limit = limits["loss_diff"]
+        sound, control = e["flash_vs_torch"], e["control_vs_torch"]
+        launches, expected = [r["k3_launches"] for r in evals], self_attention_layers(cfg)
+        if not all(r["finite"] for r in evals):
+            fail(f"{where} eval: K3's logits are not finite")
+    if launches != [expected] * len(evals):
+        fail(f"{where} eval: kernel launches {launches}, expected {expected} a rank")
+    if not within(sound, limits):
+        fail(f"{where} eval: the kernel and the plain path part on the ranks: {sound}")
+    if within(control, limits):
+        fail(f"{where} eval: the control passes the eval's limits, which then prove nothing: {control}")
+    if abs(e["loss"] - one["loss"]) > loss_limit:
+        fail(f"{where} eval: the sharded loss {e['loss']} parts from the one-rank eval's {one['loss']}")
+    if abs(e["control_loss"] - one["loss"]) <= loss_limit:
+        fail(f"{where} eval: the control's loss {e['control_loss']} passes against the one-rank eval's {one['loss']}")
+
+
+def ssm_vlm_arms() -> dict:
+    """name -> ``Arm`` of the ssm and vlm families: rwkv6-7b (4 of 32
+    layers, 4 x 2048, fp32 at ``SSM_RATE``, its reasons there) at (1, 2)
+    with its control and K5's eval; llama-3.2-vision (one group of a self
+    and the cross layer, ``VLM_SHARD_BATCH`` x 2048, 1600 image tokens a
+    row, the gates opened) at (1, 2) only, as qwen3-moe: FSDP would move
+    tens of GB through gloo a step."""
+    from repro_torch.config import VisionConfig
+    from repro_torch.configs import get_config
+
+    rwkv = get_config("rwkv6-7b").replace(num_layers=SSM_SHARD_LAYERS)
+    vlm = get_config(VLM_ARCH)
+    vlm = vlm.replace(num_layers=VLM_SHARD_LAYERS, vision=VisionConfig(num_image_tokens=vlm.vision.num_image_tokens,
+                                                                      cross_attn_every=VLM_SHARD_LAYERS))
+    return {
+        "ssm": Arm(rwkv, TRAIN_B, ((1, 2),), (1, 2), "time_mix_summed_twice", ("wkv", (1, 2)),
+                   {"lr": SSM_RATE, "compute_dtype": "float32"}),
+        "vlm": Arm(vlm, VLM_SHARD_BATCH, ((1, 2),), (1, 2), "cross_query_sum_dropped", ("attention", (1, 2))),
+    }
 
 
 def mlperf_phase(device) -> dict:
@@ -5723,20 +6065,22 @@ RWKV_LAYER_LIMITS = {
 WKV_NOISE = 1e-6  # the chaos probe: relative noise on every plain WKV output
 
 
-def layer_readings(cfg, params, tokens, control, dtype) -> dict:
+def layer_readings(cfg, params, tokens, control, dtype, mesh=None) -> dict:
     """Per layer, on the chunked forward's own input in ``dtype``: K5 and
-    the control scan against the chunked scan (see RWKV_LAYER_LIMITS)."""
+    the control scan against the chunked scan (see RWKV_LAYER_LIMITS).
+    ``mesh``: a tensor-parallel mesh whose slices ``params`` holds (the
+    blocks' channel mixes then sum over it)."""
     from repro_torch.models import embed_input
     from repro_torch.models.blocks import rwkv_block
 
     limits = RWKV_LAYER_LIMITS[dtype]
     worst = {"sound": dict.fromkeys(limits, 0.0), "control": dict.fromkeys(limits, 0.0)}
-    x = embed_input(cfg, params, tokens, None).to(dtype)
+    x = embed_input(cfg, params, tokens, None, mesh).to(dtype)
     for p in params["blocks"]:
-        ref = rwkv_block(cfg, p, x, wkv_impl="chunked")
+        ref = rwkv_block(cfg, p, x, wkv_impl="chunked", mesh=mesh)
         inc = (ref.float() - x.float()).abs()
         for name, impl in (("sound", "kernel"), ("control", control)):
-            d = (rwkv_block(cfg, p, x, wkv_impl=impl).float() - ref.float()).abs()
+            d = (rwkv_block(cfg, p, x, wkv_impl=impl, mesh=mesh).float() - ref.float()).abs()
             w = worst[name]
             w["layer_mean_rel"] = max(w["layer_mean_rel"], float(d.mean() / inc.mean()))
             w["layer_max_rel"] = max(w["layer_max_rel"], float(d.max() / inc.max()))
@@ -5984,7 +6328,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded = phase("sharded_train", sharded_train_phase)
     torch.cuda.empty_cache()
-    sharded_families = phase("sharded_families", sharded_families_phase)
+    sharded_families, sharded_ssm_vlm = phase("sharded_families", sharded_families_phase)
     torch.cuda.empty_cache()
     phase("mlperf", mlperf_phase, device)
     torch.cuda.empty_cache()
@@ -6075,6 +6419,8 @@ def main() -> int:
                           for dt, r in k1_hymba.items()}
         if k["name"] == "rwkv6_scan":  # v1 beside the chunk-parallel kernels
             k["rwkv_serving_launches"] = rwkv_serving["served"]["launches"]["rwkv6_scan"]  # the chunked scan serves
+            # the sharded eval of rwkv6-7b (4 layers, the time mix whole): each gloo rank's launches
+            k["sharded_eval_launches"] = [r["k5_launches"] for r in sharded_ssm_vlm["ssm"]["1x2"]["eval"]]
             k.update(cuda_cores_ms=wkv_main["cuda_cores_ms"], mean_rel=wkv_main["readings"]["mean_vs_plain"])
         if k["name"] == "flash_attention":  # the bf16 route's kernel, v1 beside it
             k.update(kernel=flash_main["route"], cuda_cores_ms=flash_main["cuda_cores_ms"])
@@ -6083,6 +6429,8 @@ def main() -> int:
                 "shape", "max_abs_err", "kernel_ms", "kernel_enqueue_ms", "cuda_cores_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms")}
             k["vlm_eval_launches"] = vlm_eval["k3_launches"]
+            # the sharded eval of llama-3.2-vision (one self layer at 32 over 4 heads a rank): each gloo rank's
+            k["vlm_sharded_eval_launches"] = [r["k3_launches"] for r in sharded_ssm_vlm["vlm"]["1x2"]["eval"]]
             k["vlm_serving_launches"] = vlm_serving["served"]["launches"]["flash_attention"]
             # the moe, hybrid and audio eval forwards: their heads and launches
             k["families"] = {arch: {"launches": family[arch]["eval"]["k3_launches"],
@@ -6096,7 +6444,7 @@ def main() -> int:
         if k["name"] == "fp8_gemm":
             k["facility_launches"] = facility["k4_launches"]  # the facility's runs and the async check's step
             k["family_launches"] = {arch: family[arch]["k4_launches"] for arch in family}  # 3 steps each
-            # sharded training: each of the two gloo ranks' launches over 3 steps, by mesh, and the shrink's 2
+            # sharded training: each of the two gloo ranks' launches over 2 steps, by mesh, and the shrink's 2
             k["sharded_launches"] = {**{arm: sharded[arm]["k4_launches"] for arm in ("tp", "fsdp_dp")},
                                      "elastic": sharded["elastic"]["k4"]["fp8_gemm"]}
             # the moe, hybrid and audio families' sharded arms: each rank's launches over 3 steps, by mesh

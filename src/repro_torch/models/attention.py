@@ -286,14 +286,18 @@ def cross_attention(cfg, p: dict, x: torch.Tensor, kv_tokens: torch.Tensor, *, m
     """Cross-attention of x (B, S, D) onto unpositioned vision tokens (B,
     N, D): every query sees every image token (no mask, no RoPE), the
     output scaled by ``tanh(gate)``.  In tensor ops, as the JAX package's
-    ``jnp`` version.  Returns (B, S, D)."""
-    q, k, v = _qkv(cfg, p, x, kv_x=kv_tokens)
+    ``jnp`` version.  Returns (B, S, D).  Under a training ``mesh`` whose
+    ranks each hold a slice of the heads, the query input passes through
+    ``copy_to_model`` (``_qkv``); the vision tokens carry no gradient."""
+    q, k, v = _qkv(cfg, p, x, kv_x=kv_tokens, mesh=mesh)
     return _gated_cross(cfg, p, x, q, k, v, mesh=mesh)
 
 
 def _gated_cross(cfg, p, x, q, k, v, mesh=None):
     """``tanh(gate)`` times the projected attention of q over every row of
-    k / v (the JAX package's all-zero additive mask)."""
+    k / v (the JAX package's all-zero additive mask).  The gate multiplies
+    after ``_out``'s sum over the model ranks, so the replicated ``gate``
+    takes its whole gradient on every rank."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     ctx = _attend_block(cfg, q, k, v, zero, cfg.q_per_kv)
     return torch.tanh(p["gate"].to(x.dtype)) * _out(cfg, p, ctx, x.dtype, mesh=mesh)

@@ -199,35 +199,43 @@ def rwkv_block_specs(cfg) -> dict:
     }
 
 
-def rwkv_block(cfg, p, x, *, wkv_impl="chunked"):
+def rwkv_block(cfg, p, x, *, wkv_impl="chunked", mesh=None):
     """Full-sequence forward of one layer from a zero state; the final
-    state is dropped, so ``wkv_impl="kernel"`` (K5) may compute the scan."""
+    state is dropped, so ``wkv_impl="kernel"`` (K5) may compute the scan.
+    ``mesh``: sharded training's, as ``dense_block``'s.  The time mix runs
+    whole on every rank (``parallel.sharding.WHOLE_OVER_MODEL``) and the
+    channel mix splits its hidden dim (``models.rwkv.channel_mix``): only
+    the channel mix's ``xk`` takes ``copy_to_model``, since the time mix's
+    and the norms' gradients are whole already (trap 1 of ``models.moe``)."""
     out, _state = rwkv_mod.time_mix(cfg, p["time_mix"], apply_norm(cfg, p["norm1"], x), wkv_impl=wkv_impl)
     x = x + out
-    out, _cmx = rwkv_mod.channel_mix(cfg, p["channel_mix"], apply_norm(cfg, p["norm2"], x))
+    out, _cmx = rwkv_mod.channel_mix(cfg, p["channel_mix"], apply_norm(cfg, p["norm2"], x), mesh=mesh)
     return x + out
 
 
-def rwkv_block_prefill(cfg, p, x):
+def rwkv_block_prefill(cfg, p, x, *, mesh=None):
     """Forward that also returns the layer's decode cache: the last token of
-    each mix and the WKV state (the chunked scan: K5 computes no state)."""
+    each mix and the WKV state (the chunked scan: K5 computes no state).
+    ``mesh``, here and in ``rwkv_block_decode``: the tensor-parallel serving
+    mesh, over which the channel mix splits its hidden dim (the time mix
+    runs whole on every rank)."""
     h = apply_norm(cfg, p["norm1"], x)
     out, (tm_x, state) = rwkv_mod.time_mix(cfg, p["time_mix"], h)
     x = x + out
     h2 = apply_norm(cfg, p["norm2"], x)
-    out, cm_x = rwkv_mod.channel_mix(cfg, p["channel_mix"], h2)
+    out, cm_x = rwkv_mod.channel_mix(cfg, p["channel_mix"], h2, mesh=mesh)
     x = x + out
     return x, {"tm_x": tm_x, "cm_x": cm_x, "state": state}
 
 
-def rwkv_block_decode(cfg, p, x, cache, pos):
+def rwkv_block_decode(cfg, p, x, cache, pos, *, mesh=None):
     """One token per sequence against the layer's cache; ``pos`` is unused
     (the recurrence has no positions), as in the JAX package."""
     h = apply_norm(cfg, p["norm1"], x)
     out, (tm_x, state) = rwkv_mod.time_mix_step(cfg, p["time_mix"], h, cache["tm_x"], cache["state"])
     x = x + out
     h2 = apply_norm(cfg, p["norm2"], x)
-    out, cm_x = rwkv_mod.channel_mix(cfg, p["channel_mix"], h2, prev_x=cache["cm_x"])
+    out, cm_x = rwkv_mod.channel_mix(cfg, p["channel_mix"], h2, prev_x=cache["cm_x"], mesh=mesh)
     x = x + out
     return x, {"tm_x": tm_x, "cm_x": cm_x, "state": state}
 
@@ -327,11 +335,13 @@ def _cross_ffn(cfg, p, x, mesh=None):
     return x + torch.tanh(p["gate_mlp"].to(x.dtype)) * ffn(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x), mesh=mesh)
 
 
-def cross_block(cfg, p, x, vision_tokens):
+def cross_block(cfg, p, x, vision_tokens, *, mesh=None):
     """Full-sequence forward of one cross layer: x (B, S, D) attends the
-    vision tokens (B, N, D).  Returns (B, S, D)."""
-    x = x + cross_attention(cfg, p["attn"], apply_norm(cfg, p["norm1"], x), vision_tokens)
-    return _cross_ffn(cfg, p, x)
+    vision tokens (B, N, D).  Returns (B, S, D).  ``mesh``: sharded
+    training's, as ``dense_block``'s: the cross attention's heads and the
+    FFN's hidden dim split over the model axis, the gates stay whole."""
+    x = x + cross_attention(cfg, p["attn"], apply_norm(cfg, p["norm1"], x), vision_tokens, mesh=mesh)
+    return _cross_ffn(cfg, p, x, mesh=mesh)
 
 
 def cross_block_prefill(cfg, p, x, vision_tokens, *, mesh=None):

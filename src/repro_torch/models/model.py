@@ -46,10 +46,14 @@ not divide the model axis runs them whole on every rank.
 
 Sharded and FSDP training: ``forward(mesh=)`` takes the ``(data, model)``
 mesh of ``launch.mesh.make_local_mesh`` and this rank's slices of the
-parameters (``parallel.sharding.shard_state``), for the dense, moe, hybrid
-and audio families (``SHARDED_FAMILIES``; the moe layers' expert and
+parameters (``parallel.sharding.shard_state``), for every family of
+``FORWARD_FAMILIES`` (the moe layers' expert and
 data-spanning routing: ``models.moe``; the audio family's frame
-projection and positions gathered before the embedding).  The
+projection and positions gathered before the embedding; the ssm
+family's time mix whole on every model rank, its channel mix split as an
+FFN: ``models.rwkv``; each vlm self and cross layer gathered by its own
+spec of the group, ``specs["blocks"][g]["self"][i]`` and
+``["cross"]``).  The
 model slices run as in serving, under autograd (``copy_to_model`` before
 each column-parallel product, ``sum_over_model`` after each row-parallel
 one, both in ``parallel.collectives``); each leaf sharded over ``"data"``
@@ -197,15 +201,15 @@ SAVED_PRODUCTS = {
 }
 
 FORWARD_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
-# the families whose forward runs sharded over a training mesh
-SHARDED_FAMILIES = ("dense", "moe", "hybrid", "audio")
 # leaves their block uses in the compute dtype (cast before FSDP gathers
 # them), and the projections, which an fp8 site quantizes from the master
 PROJECTIONS = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down")
-COMPUTE_DTYPE_LEAVES = PROJECTIONS + ("bq", "bk", "bv", "bo", "b_up", "b_down")
-# the training block of each family that runs one per layer (ssm: rwkv_block;
-# vlm: layer groups); the moe block also returns its load-balance loss
-TRAIN_BLOCKS = {"dense": dense_block, "audio": dense_block, "moe": moe_block, "hybrid": hybrid_block}
+# (rwkv6's projections: its mixes' w_r / w_k / w_v / w_g / w_o)
+COMPUTE_DTYPE_LEAVES = PROJECTIONS + ("bq", "bk", "bv", "bo", "b_up", "b_down", "w_r", "w_k", "w_v", "w_g", "w_o")
+# the training block of each family that runs one per layer (vlm: layer
+# groups of dense and cross blocks); the moe block also returns its
+# load-balance loss
+TRAIN_BLOCKS = {"dense": dense_block, "audio": dense_block, "moe": moe_block, "hybrid": hybrid_block, "ssm": rwkv_block}
 
 
 def _stack_caches(caches: list) -> dict:
@@ -276,11 +280,6 @@ def forward(
     """
     if cfg.family not in FORWARD_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported yet")
-    if mesh is not None and cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(
-            f"sharded training of family {cfg.family!r} ({cfg.name}) is not ported yet: {SHARDED_FAMILIES} train "
-            "over a mesh"
-        )
     if fp8 is not None and cfg.family in ("ssm", "vlm"):
         # the reference's ssm family has no quantizable projections and its
         # vlm family scans layer groups (its amax drain is not wired there)
@@ -317,32 +316,37 @@ def forward(
         context = partial(create_selective_checkpoint_contexts, SAVED_PRODUCTS[remat])
         return checkpoint(block, x, use_reentrant=False, context_fn=context)
 
-    layer_block = TRAIN_BLOCKS.get(cfg.family, dense_block)  # vlm: its self layers
-
-    def train_layer(p_layer, handle=None, layer=0):
-        kw = dict(positions=positions, q_chunk=q_chunk, attn_impl=attn_impl, fp8=handle)
+    def train_block(block, p, spec, handle=None, **kw):
+        """``block(cfg, p, x, **kw)`` as a function of x; under a mesh the
+        FSDP gather of ``p`` by its executed ``spec`` runs inside it, so
+        remat recomputes it."""
         if mesh is None:
-            return partial(layer_block, cfg, p_layer, **kw)
-        # the gather inside the block, so remat recomputes it
-        gathered = partial(fsdp_gather, p_layer, specs["blocks"][layer], mesh, compute_dtype, handle is not None)
-        return lambda x: layer_block(cfg, gathered(), x, mesh=mesh, **kw)
+            return partial(block, cfg, p, **kw)
+        gathered = partial(fsdp_gather, p, spec, mesh, compute_dtype, handle is not None)
+        return lambda x: block(cfg, gathered(), x, mesh=mesh, **kw)
 
+    layer_block = TRAIN_BLOCKS.get(cfg.family, dense_block)  # vlm: its self layers
     obs = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, p_layer in enumerate(params["blocks"]):
+        spec = specs["blocks"][layer] if mesh is not None else None
         if cfg.family == "vlm":  # a layer group: its self layers, then its cross layer
-            for p_self in p_layer["self"]:
-                x = run(train_layer(p_self), x)
-            x = run(lambda x, p=p_layer["cross"]: cross_block(cfg, p, x, vision), x)
+            for i, p_self in enumerate(p_layer["self"]):
+                x = run(train_block(dense_block, p_self, spec and spec["self"][i], positions=positions,
+                                    q_chunk=q_chunk, attn_impl=attn_impl), x)
+            x = run(train_block(cross_block, p_layer["cross"], spec and spec["cross"], vision_tokens=vision), x)
+            continue
+        if cfg.family == "ssm":
+            x = run(train_block(layer_block, p_layer, spec, wkv_impl=wkv_impl), x)
             continue
         handle = fp8.bind_layer_scales(layer) if fp8 is not None else None
-        if cfg.family == "ssm":
-            x = run(lambda x, p=p_layer: rwkv_block(cfg, p, x, wkv_impl=wkv_impl), x)
-        elif cfg.family == "moe":
-            x, a = run(train_layer(p_layer, handle, layer), x)
+        block = train_block(layer_block, p_layer, spec, handle, positions=positions, q_chunk=q_chunk,
+                            attn_impl=attn_impl, fp8=handle)
+        if cfg.family == "moe":
+            x, a = run(block, x)
             aux = aux + a
         else:
-            x = run(train_layer(p_layer, handle, layer), x)
+            x = run(block, x)
         if fp8 is not None:
             obs.append(fp8.drain())
     if mesh is None:
@@ -389,7 +393,7 @@ def prefill(cfg, params, batch, *, q_chunk=0, mesh=None):
     layers = []
     for p_layer in params["blocks"]:
         if cfg.family == "ssm":
-            x, c = rwkv_block_prefill(cfg, p_layer, x)
+            x, c = rwkv_block_prefill(cfg, p_layer, x, mesh=mesh)
         elif cfg.family == "vlm":  # a layer group: its self layers, then its cross layer
             selfs = []
             for p_self in p_layer["self"]:
@@ -541,7 +545,7 @@ def decode_step(cfg, params, cache, token, pos, *, attn_impl="kernel", mesh=None
             continue
         c = layer_cache(cache, layer)
         if cfg.family == "ssm":
-            x, new = rwkv_block_decode(cfg, p_layer, x, c, pos)
+            x, new = rwkv_block_decode(cfg, p_layer, x, c, pos, mesh=mesh)
             for name, t in new.items():
                 c[name].copy_(t)
         else:

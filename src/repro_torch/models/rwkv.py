@@ -16,6 +16,14 @@ carries the state), or through the WKV kernel K5 (``wkv_impl="kernel"``,
 final state and has no gradient, as in the JAX package.  A callable with
 ``wkv6``'s signature takes K5's place where a check substitutes another
 scan.  Single tokens go through ``time_mix_step``.
+
+Sharded training and tensor-parallel serving (``channel_mix(mesh=)``):
+the channel mix splits its hidden dim over the mesh's ``"model"`` axis as
+an FFN does (``w_k`` column-parallel, its input ``xk`` through
+``copy_to_model``; ``w_v`` row-parallel, then one ``sum_over_model``),
+while ``w_r`` stays whole and gates the summed product.  The time mix runs whole on every model rank
+(``parallel.sharding.WHOLE_OVER_MODEL``): each rank computes all of its
+leaves' gradients, which no collective may sum again.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels.rwkv6_scan import wkv6
 from repro_torch.kernels.rwkv6_scan_ref import wkv_chunk
 from repro_torch.models.layers import ParamSpec, group_norm_heads
+from repro_torch.parallel.collectives import copy_to_model, sum_over_model
 
 WKV_IMPLS = ("chunked", "kernel")
 
@@ -216,12 +225,24 @@ def time_mix_step(cfg, p, x, prev_x, state):
 # ---------------------------------------------------------------------------
 
 
-def channel_mix(cfg, p, x, *, prev_x=None):
+def channel_mix(cfg, p, x, *, prev_x=None, mesh=None):
+    """Returns (out, the last token).  Under a ``mesh`` (training's or
+    tensor-parallel serving's) whose ranks each hold a slice of the hidden
+    dim (``w_v`` has fewer than ``cfg.d_ff`` rows), ``xk`` passes through
+    ``copy_to_model`` after the token-shift mix, so ``maa_k``'s gradient is
+    the ranks' sum too, and ``kv`` is summed once (in place where autograd
+    does not record); ``xr``, ``w_r`` and ``maa_r`` take whole gradients on
+    every rank."""
     dt = x.dtype
     x_prev = token_shift(x, prev_x)
     sx = x_prev - x
     xk = x + sx * p["maa_k"].to(dt)
     xr = x + sx * p["maa_r"].to(dt)
+    split = mesh is not None and p["w_v"].shape[0] != cfg.d_ff
+    if split:
+        xk = copy_to_model(xk, mesh)
     k = torch.square(F.relu(xk @ p["w_k"].to(dt)))
     kv = k @ p["w_v"].to(dt)
+    if split:
+        kv = sum_over_model(kv, mesh)
     return torch.sigmoid(xr @ p["w_r"].to(dt)) * kv, x[:, -1]

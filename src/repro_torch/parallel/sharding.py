@@ -42,7 +42,12 @@ slice keeps its GQA kv group.  Every other claim stays replicated:
   logits before the top-k);
 * ``ssm_inner`` and the SSM's ``heads`` (hymba's SSM heads: ``in_proj``
   packs x and z side by side, and ``x_proj`` contracts over the inner dim);
-* ``heads_x_dim`` (rwkv6's mixes and the audio frame projection).
+* ``heads_x_dim`` (rwkv6's mixes and the audio frame projection);
+* every claim inside rwkv6's time mix (``WHOLE_OVER_MODEL``), whose
+  ``bonus`` alone is indexed by ``heads``: the time mix runs whole on
+  every model rank, so none of its head-indexed leaves splits (a split
+  ``bonus`` beside whole r / k / v would hand the WKV scan half the
+  heads' bonus).  Its channel mix splits ``mlp`` as an FFN does.
 
 **Training** (``train.step``, sharded and FSDP) executes the same model
 claims and, where the table's ``ParallelConfig`` has ``fsdp``, every claim
@@ -55,7 +60,8 @@ since ``"expert"`` claims ``"model"`` first and the table gives
 ``expert_mlp`` no data axis under ``fsdp``), hymba's branch scales, the
 audio frame projection and positions.  Every other leaf is replicated over
 ``"data"``: the token table and the head (their embed dim is ``embed_v``),
-the q/k norm scales, hymba's SSM heads (``REPLICATED_SUBTREES``).
+the q/k norm scales, hymba's SSM heads (``REPLICATED_SUBTREES``).  FSDP
+takes the embed dims of rwkv6's time mix like any other's.
 
 ``executed_specs`` gives that layout beside the table's, and
 ``shard_params`` cuts each rank's slice of a full parameter tree by it.
@@ -86,6 +92,9 @@ DATA = "data"
 EXECUTED_AXES = ("heads", "kv_heads", "mlp", "vocab", "expert")
 # parameter subtrees whose claims all stay replicated (hymba's SSM heads)
 REPLICATED_SUBTREES = ("ssm",)
+# parameter subtrees that run whole on every model rank, but whose embed dims
+# FSDP still takes (rwkv6's time mix)
+WHOLE_OVER_MODEL = ("time_mix",)
 # the logical axes whose claim of the data axis the port executes (FSDP)
 FSDP_AXES = ("embed",)
 
@@ -299,13 +308,14 @@ def serving_rules(parallel: ParallelConfig | None = None) -> ShardingRules:
 def _executed(cfg, mesh, path: tuple, axes: tuple, spec: tuple) -> tuple:
     heads_ok = kernel_shardable(mesh, cfg.num_heads, cfg.num_kv_heads)
     replicated_here = any(p in REPLICATED_SUBTREES for p in path)
+    whole_here = replicated_here or any(p in WHOLE_OVER_MODEL for p in path)
     out = []
     for ax, entry in zip(axes, spec):
         names = () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
         if MODEL not in names:
             # FSDP: the data claim of an embed dim (the serving table has none)
             out.append(DATA if names == (DATA,) and ax in FSDP_AXES and not replicated_here else None)
-        elif replicated_here or ax not in EXECUTED_AXES or (ax in ("heads", "kv_heads") and not heads_ok):
+        elif whole_here or ax not in EXECUTED_AXES or (ax in ("heads", "kv_heads") and not heads_ok):
             out.append(None)
         else:
             out.append(MODEL)

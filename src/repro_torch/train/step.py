@@ -21,7 +21,7 @@ The step updates the parameters and the AdamW moments in place (see
 the one it was given.
 
 **Sharded and FSDP training** (``make_train_step(cfg, run, rules, mesh)``,
-the dense, moe, hybrid and audio families, ``models.model.SHARDED_FAMILIES``):
+every family of ``models.model.FORWARD_FAMILIES``):
 one state spans the ``(data, model)`` mesh of
 ``launch.mesh.make_local_mesh``, each rank holding its slices
 (``parallel.sharding.shard_state``; ``init_train_state(rules=, mesh=)``
@@ -51,9 +51,11 @@ takes the global batch and computes the JAX package's step on it:
 * int8 compression takes each leaf's scale from its whole gradient, and
   the clipping norm counts every leaf once (``optim.adamw.global_norm``).
 
-The JAX package executes the same function through GSPMD; its sequence
-parallelism and the ssm and vlm families' sharded steps are not ported
-(``NotImplementedError``).
+The ssm family's time mix runs whole on every model rank and the vlm
+family's cross layers split their heads like the self layers (a batch's
+``vision_tokens`` are split by rows with the rest).  The JAX package
+executes the same function through GSPMD; its sequence parallelism is not
+ported (``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -67,7 +69,6 @@ from functools import partial
 from repro_torch.device import resolve_device
 from repro_torch.fp8 import FP8_DTYPES, fp8_supported, make_fp8_ctx, make_fp8_state, update_fp8_state
 from repro_torch.models import forward, init_params
-from repro_torch.models.model import SHARDED_FAMILIES
 from repro_torch.optim import AdamWState, adamw_init, adamw_update, make_schedule
 from repro_torch.parallel.collectives import (
     COMPRESSION_METHODS,
@@ -151,11 +152,6 @@ def _check_sharded(model_cfg, run_cfg, rules, mesh) -> None:
         raise ValueError("sharded training takes both rules and a mesh")
     if mesh is None:
         return
-    if model_cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(
-            f"sharded training of family {model_cfg.family!r} ({model_cfg.name}) is not ported yet: "
-            f"{SHARDED_FAMILIES} train over a mesh"
-        )
     if run_cfg.parallel.sequence_parallel:
         raise NotImplementedError("sequence parallelism is not ported yet")
     if tuple(getattr(mesh, "mesh_dim_names", ())) != ("data", "model"):
@@ -258,6 +254,12 @@ def make_train_step(model_cfg, run_cfg, rules=None, mesh=None, *, q_chunk=0, par
     """
     _check_run(run_cfg)
     _check_sharded(model_cfg, run_cfg, rules, mesh)
+    # The first torch.utils.checkpoint call of a process imports torch._dynamo,
+    # and that import's frames stay in a reference cycle holding the calling
+    # stack (the first step's state included) until the cyclic collector runs.
+    # Imported here, before any step holds a state: every forward may
+    # checkpoint (remat, the chunked WKV scan, q_chunk).
+    import torch._dynamo  # noqa: F401
     if param_shardings is not None and mesh is None:
         raise ValueError("param_shardings needs a mesh")
     specs = None

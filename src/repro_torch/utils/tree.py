@@ -50,25 +50,25 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def tree_map_with_path(fn, tree):
+def tree_map_with_path(fn, tree, prefix: str = ""):
     """Rebuild ``tree`` with every leaf replaced by ``fn(path, leaf)``; dicts,
-    lists and NamedTuples keep their types, ``None`` stays ``None``."""
+    lists and NamedTuples keep their types, ``None`` stays ``None``.  A
+    plain recursion: a nested walk that calls itself would sit in a
+    reference cycle with ``fn``, and with whatever ``fn`` holds (the leaves
+    ``flatten_with_paths`` collects), until the cyclic collector runs."""
 
-    def walk(x, prefix):
-        def sub(key):
-            return f"{prefix}/{key}" if prefix else str(key)
+    def sub(key):
+        return f"{prefix}/{key}" if prefix else str(key)
 
-        if x is None:
-            return None
-        if isinstance(x, dict):
-            return {k: walk(v, sub(k)) for k, v in x.items()}
-        if isinstance(x, list):
-            return [walk(v, sub(i)) for i, v in enumerate(x)]
-        if _is_namedtuple(x):
-            return type(x)(*(walk(getattr(x, f), sub(f)) for f in x._fields))
-        return fn(prefix, x)
-
-    return walk(tree, "")
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, sub(k)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map_with_path(fn, v, sub(i)) for i, v in enumerate(tree)]
+    if _is_namedtuple(tree):
+        return type(tree)(*(tree_map_with_path(fn, getattr(tree, f), sub(f)) for f in tree._fields))
+    return fn(prefix, tree)
 
 
 def flatten_with_paths(tree) -> list[tuple[str, object]]:

@@ -4,16 +4,19 @@ forced host devices, run as its own process by
 starts):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \\
-        python tests/jax_sharded_train.py BATCHES.npz OUT.npz [--arch ARCH]
+        python tests/jax_sharded_train.py BATCHES.npz OUT.npz [--arch ARCH] [--open-gates G]
 
 It initialises the smoke state of ``ARCH`` (default olmo-1b; the sharded
-tests of the moe, hybrid and audio families pass theirs) from
-``PRNGKey(0)`` (fp32 compute,
-remat full, the default ``fsdp`` and ``tensor_parallel``), jits
+tests of the other families pass theirs) from ``PRNGKey(0)`` (fp32
+compute, remat full, the default ``fsdp`` and ``tensor_parallel``);
+``--open-gates G`` then sets every vlm cross layer's ``gate`` and
+``gate_mlp`` to G (random init leaves them at 0, which makes the cross
+layers the identity).  It jits
 ``make_train_step(cfg, run, rules, mesh, param_shardings=...)`` with the
 ``state_shardings`` of ``make_rules(MeshConfig(), run.parallel)``, as the
 dry run lowers it, takes one step per batch of ``BATCHES.npz`` (``tokens_i``,
-``labels_i``) and writes each step's metrics, the final parameters (by
+``labels_i``, and every other key ``<name>_i`` of a batch, such as
+``vision_tokens_i``) and writes each step's metrics, the final parameters (by
 their ``/``-joined path) and the executed specs of ``wq`` and ``w_down`` to ``OUT.npz``.
 """
 
@@ -33,7 +36,16 @@ from repro.train.step import abstract_train_state, init_train_state, make_train_
 STEPS_TRAIN = dict(learning_rate=1e-3, warmup_steps=2, total_steps=10)
 
 
-def main(batches_path: str, out_path: str, arch: str = "olmo-1b") -> None:
+def open_gates(state, value: float):
+    """``state`` with every cross layer's ``gate`` and ``gate_mlp`` set to
+    ``value``."""
+    cross = state.params["blocks"]["cross"]
+    cross = dict(cross, attn=dict(cross["attn"], gate=jnp.full_like(cross["attn"]["gate"], value)),
+                 gate_mlp=jnp.full_like(cross["gate_mlp"], value))
+    return state._replace(params=dict(state.params, blocks=dict(state.params["blocks"], cross=cross)))
+
+
+def main(batches_path: str, out_path: str, arch: str = "olmo-1b", gates: float | None = None) -> None:
     data = np.load(batches_path)
     n = len([k for k in data if k.startswith("labels_")])
     keys = sorted({k.rsplit("_", 1)[0] for k in data})
@@ -51,7 +63,10 @@ def main(batches_path: str, out_path: str, arch: str = "olmo-1b") -> None:
     metrics_sh = {"loss": rep, "aux_loss": rep, "lr": rep, "grad_norm": rep}
     with mesh:
         jstep = jax.jit(step, in_shardings=(st_sh, b_sh), out_shardings=(st_sh, metrics_sh))
-        state = jax.device_put(init_train_state(cfg, run, jax.random.PRNGKey(0)), st_sh)
+        state = init_train_state(cfg, run, jax.random.PRNGKey(0))
+        if gates is not None:
+            state = open_gates(state, gates)
+        state = jax.device_put(state, st_sh)
         out = {}
         for i, b in enumerate(batches):
             state, m = jstep(state, {k: jnp.asarray(v) for k, v in b.items()})
@@ -73,5 +88,6 @@ if __name__ == "__main__":
     parser.add_argument("batches")
     parser.add_argument("out")
     parser.add_argument("--arch", default="olmo-1b")
+    parser.add_argument("--open-gates", type=float, default=None)
     a = parser.parse_args()
-    main(a.batches, a.out, a.arch)
+    main(a.batches, a.out, a.arch, a.open_gates)

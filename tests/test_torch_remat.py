@@ -21,7 +21,20 @@ training forward, on the CPU at smoke size.
   A key bias's gradient is rounding noise (softmax cancels a shift of a
   query row's scores), so it is held to 1e-6 of the model's largest
   gradient instead of its own.
+* A train state dropped after a remat step is freed at once: the first
+  ``torch.utils.checkpoint`` call of a process imports ``torch._dynamo``,
+  whose frames would otherwise keep the calling stack, the state included,
+  in a reference cycle until the cyclic collector runs (``make_train_step``
+  imports it first); a caller that measured the state with
+  ``utils.tree.tree_size_bytes`` or ``flatten_with_paths`` held it in one
+  too (a nested walk that called itself).  In a fresh process with the
+  collector off.
 """
+
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -174,3 +187,39 @@ def test_policies_match_jax(family, remat, fp8):
     for path, g, r in zip(tree_paths(tparams), grads, ref):
         scale = 0.1 * largest if path[-1] == "bk" else float(r.abs().max())
         assert float((g - r).abs().max()) <= 1e-5 * scale, path
+
+
+# one train step in a fresh process with the cyclic collector off: whether a
+# parameter of the state is still alive after ``del``
+DROPPED_STATE = """
+import gc, sys, weakref
+gc.disable()
+from repro_torch.config import ParallelConfig, RunConfig, TrainConfig, reduce_for_smoke
+from repro_torch.configs import get_config
+from repro_torch.data import synthetic_batch
+from repro_torch.train import init_train_state, make_train_step
+from repro_torch.utils.tree import flatten_with_paths, tree_size_bytes
+
+arch, remat = sys.argv[1:3]
+cfg = reduce_for_smoke(get_config(arch))
+run = RunConfig(arch=arch, train=TrainConfig(warmup_steps=0), parallel=ParallelConfig(remat=remat))
+state = init_train_state(cfg, run, device="cpu")
+step = make_train_step(cfg, run)
+state, metrics = step(state, synthetic_batch(cfg, step=0, global_batch=2, seq_len=32, device="cpu"))
+assert tree_size_bytes(state.params) > 0 and len(flatten_with_paths(state)) > 0
+leaf = weakref.ref(state.params["embed"]["tok"])
+del state, metrics
+print("alive" if leaf() is not None else "freed", "torch._dynamo" in sys.modules)
+"""
+
+
+@pytest.mark.parametrize("arch,remat", [("olmo-1b", "full"), ("rwkv6-7b", "none")])
+def test_dropped_state_is_freed_without_the_collector(arch, remat):
+    """rwkv6-7b's chunked WKV scan checkpoints each chunk whatever the remat
+    policy, so its first step hits the import too."""
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    out = subprocess.run([sys.executable, "-c", DROPPED_STATE, arch, remat], env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split() == ["freed", "True"], out.stdout

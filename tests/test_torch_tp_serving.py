@@ -27,7 +27,8 @@ reasons, deadline aborts included, equal TP=1's on rank 0's clock: the
 decisions come from rank 0.  The Fig. 9 harness's ``--tp 2`` arm and the
 serve launcher's ``--tp 2`` (offline, and ``--http`` with one request)
 run once each.  Every case runs fp32 pools, so no near-tie can flip an
-argmax.
+argmax.  Smoke rwkv6-7b (no attention, no pools) serves at TP=2 against
+TP=1 in a test and a spawn of its own.
 """
 
 import dataclasses
@@ -275,3 +276,24 @@ def test_serve_launcher_tp2_http():
     req = eng.submit([5, 9, 12, 7], max_new_tokens=5)
     eng.run_until_drained()
     assert tokens == req.generated, (raw, out)
+
+
+def test_tp2_serving_of_the_ssm_family():
+    """Smoke rwkv6-7b (the seed's weights) on two gloo ranks: its channel
+    mix splits its hidden dim and sums ``kv`` once, its time mix runs
+    whole; greedy tokens and finish reasons equal TP=1's on both ranks, one
+    prefill's logits within 1e-5 of TP=1's, relative to the largest logit."""
+    cfg = reduce_for_smoke(get_config("rwkv6-7b"))
+    params = init_params(cfg, 0, "cpu")
+    prompts = [[11, 12, 13, 14, 7, 3, 9, 4, 5], [5, 9, 12, 5, 9, 12, 2], [21, 22, 23, 24]]
+    case = {"cfg": cfg, "params": params, "prompts": prompts, "clock": None,
+            "submit": [dict(max_new_tokens=6)] * len(prompts),
+            "engine": dict(max_batch=2, max_seq=64, block_size=8, cache_dtype=torch.float32, eos_token=1 << 30)}
+    ref = torch_tp_ranks.serve(cfg, params, case)
+    logits = torch_tp_ranks.prefill_logits(cfg, params, prompts[0])
+    ranks = run_ranks(torch_tp_ranks.run_serving_cases, 2, device="cpu", args=([case],), timeout_s=300)
+    r0, r1 = ranks[0][0], ranks[1][0]
+    assert r0["local_shapes"]["tok"][0] == cfg.vocab_size // 2  # the vocab split, as every family's
+    for r in (r0, r1):
+        assert r["tokens"] == ref["tokens"] and r["reasons"] == ref["reasons"]
+        assert float(np.abs(r["logits"] - logits).max()) <= 1e-5 * float(np.abs(logits).max())

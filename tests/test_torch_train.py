@@ -276,16 +276,14 @@ def test_launcher_reruns_into_one_ckpt_dir(capsys, tmp_path):
     ["grad_compression", "mesh", "remat_dots"],
 )
 def test_options_outside_the_slice_raise(what):
-    """Sharded training runs the dense, moe, hybrid and audio families
-    (``test_torch_sharded_train.py``, ``test_torch_sharded_{moe,hybrid,audio}.py``):
-    the ssm and vlm families' sharded steps and forwards raise
-    ``NotImplementedError``, as do sequence parallelism and a mesh without
-    rules; the four ported families pass the family check and meet the
-    mesh's (an object that is no ``("data", "model")`` mesh).  Gradient
-    compression and the "dots" remat policy are ported: a compression
-    method the JAX package does not have raises, as does such a remat
-    policy, and the "dots" step equals the "full" one bit for bit
-    (``test_torch_collectives.py`` holds the compressed steps)."""
+    """Sharded training runs every family (``test_torch_sharded_train.py``,
+    ``test_torch_sharded_{moe,hybrid,audio,ssm,vlm}.py``): each family's
+    config passes the family check and meets the mesh's (an object that is
+    no ``("data", "model")`` mesh); sequence parallelism and a mesh without
+    rules raise.  Gradient compression and the "dots" remat policy are
+    ported: a compression method the JAX package does not have raises, as
+    does such a remat policy, and the "dots" step equals the "full" one bit
+    for bit (``test_torch_collectives.py`` holds the compressed steps)."""
     cfg = reduce_for_smoke(get_config("olmo-1b"))
     if what == "grad_compression":
         run = RunConfig(arch="olmo-1b", parallel=ParallelConfig(grad_compression="fp4"))
@@ -296,17 +294,10 @@ def test_options_outside_the_slice_raise(what):
     elif what == "mesh":
         from repro_torch.parallel.sharding import training_rules
 
-        from repro_torch.models import forward
-
         run = RunConfig(arch="olmo-1b")
         rules = training_rules(run.parallel)
-        for arch, family in (("rwkv6-7b", "ssm"), ("llama-3.2-vision-90b", "vlm")):
-            other = reduce_for_smoke(get_config(arch))
-            with pytest.raises(NotImplementedError, match=f"sharded training of family '{family}'"):
-                make_train_step(other, run, rules, mesh=object())
-            with pytest.raises(NotImplementedError, match=f"sharded training of family '{family}'"):
-                forward(other, {}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, mesh=object())
-        for arch in ("olmo-1b", "qwen3-moe-235b-a22b", "hymba-1.5b", "hubert-xlarge"):
+        for arch in ("olmo-1b", "qwen3-moe-235b-a22b", "hymba-1.5b", "hubert-xlarge", "rwkv6-7b",
+                     "llama-3.2-vision-90b"):
             with pytest.raises(ValueError, match=r"\('data', 'model'\) mesh"):
                 make_train_step(reduce_for_smoke(get_config(arch)), run, rules, mesh=object())
             seq = RunConfig(arch=arch, parallel=ParallelConfig(sequence_parallel=True))

@@ -57,7 +57,9 @@ def bridged(jcfg, tcfg, seed=1):
 
 def batches(cfg, n, seed=0, batch=B, seq=S):
     """``n`` numpy batches: tokens (or, for the audio family, standard
-    normal frames) and random labels."""
+    normal frames) and random labels; for the vlm family also standard
+    normal ``vision_tokens`` (B, ``cfg.vision.num_image_tokens``, D), drawn
+    after the labels."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
@@ -66,6 +68,9 @@ def batches(cfg, n, seed=0, batch=B, seq=S):
         else:
             b = {"tokens": rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)}
         b["labels"] = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+        if cfg.family == "vlm":
+            shape = (batch, cfg.vision.num_image_tokens, cfg.d_model)
+            b["vision_tokens"] = rng.standard_normal(shape).astype(np.float32)
         out.append(b)
     return out
 

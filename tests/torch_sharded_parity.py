@@ -1,17 +1,19 @@
-"""Shared helpers of the sharded-training parity tests of the moe, hybrid
-and audio families (``test_torch_sharded_moe.py``,
-``test_torch_sharded_hybrid.py``, ``test_torch_sharded_audio.py``), on the
-pattern of ``test_torch_sharded_train.py`` (the dense family).
+"""Shared helpers of the sharded-training parity tests of the moe, hybrid,
+audio, ssm and vlm families (``test_torch_sharded_{moe,hybrid,audio,ssm,vlm}.py``),
+on the pattern of ``test_torch_sharded_train.py`` (the dense family).
 
 A case starts from one state: the JAX package initialises and takes one
 step (so the AdamW moments, the step counter and the fp8 amax history are
 mid-training), ``bridge.train_state_from_jax`` copies it into the port,
 and three more steps follow on the same numpy batches (``torch_parity``'s:
-tokens, or frames for audio, and random labels; warmup 2, so the
-parameters move) in the JAX package, in the port on one process, and in
+tokens, or frames for audio, random labels and, for vlm, image tokens;
+warmup 2, so the parameters move) in the JAX package, in the port on one process, and in
 the port on the ranks of each mesh (``torch_sharded_ranks.train_cases``,
 one spawn a mesh for every case and control of a file).  The ranks gather
-the state back (``unshard_state``) and rank 0 returns it.
+the state back (``unshard_state``) and rank 0 returns it.  A vlm case opens
+every cross layer's gates (``gates``) in the JAX state before its first
+step, and the JAX sharded run after its initialisation: random init leaves
+them at 0, which makes the cross layers the identity.
 
 Limits (``close``), from ``test_torch_train.py``'s tight and loose ones:
 
@@ -25,6 +27,17 @@ Limits (``close``), from ``test_torch_train.py``'s tight and loose ones:
   losses 1e-3 relative (2e-3 with fp8), gradient norms 5e-2, every
   parameter 2 lr a step, their mean lr / 10 (lr / 5 with fp8), the fp8
   scales and amax history 0.1 relative;
+* the ssm family's bf16 gradient norms: 1e-1 (``LOOSE_GRAD_NORM``).  The
+  norm is the token table's gradient (20.0 of 20.5 on the smoke rwkv6-7b),
+  which ``norm1`` of the 0.02-scale embeddings amplifies about 50-fold, so
+  one more bf16 rounding moves it.  The JAX package's own tensor-parallel
+  split does: its (1, 2) step moves the smoke model's step-1 bf16 norm by
+  +1.0%, -2.8%, -2.1% and -9.2% of its unsharded step's on four batches
+  (-9.9% at (1, 4)), its fp32 norm by 3.5e-4 at most and its (2, 1) step
+  neither (``tests/bf16_split_probe.py --jax``); the port's split in one
+  process moves it by 2.2% (``port_rows``), and the JAX package's
+  unsharded step parts from the port's by up to 7.3% on other seeds'
+  batches;
 * ``"int8"`` (int8 gradient compression in fp32 compute): a code whose
   gradient lies within rounding of a half step takes its neighbour,
   moving that element by one quantum for a step.  Losses as tight,
@@ -43,6 +56,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import torch
+from jax_sharded_train import open_gates
 from torch_parity import batches, to_jax, to_torch
 
 import torch_sharded_ranks
@@ -61,6 +75,8 @@ from repro_torch.utils.tree import tree_leaves, tree_paths
 ROOT = Path(__file__).resolve().parents[1]
 B, S, LR = 4, 32, 1e-3
 MESHES = [(1, 2), (2, 1), (2, 2)]
+# the bf16 and fp8 gradient-norm limit of a family whose norm one rounding moves (module docstring)
+LOOSE_GRAD_NORM = {"ssm": 1e-1}
 # the run against the JAX package's sharded step: fresh states, 8 x 16, fp32
 SHARDED_B, SHARDED_S = 8, 16
 
@@ -91,12 +107,13 @@ def port_tuples(np_state):
                       compress_residual=np_state.compress_residual, fp8=fp8)
 
 
-def make_case(arch, jcfg, tcfg, prec: dict, par: dict, seed=0, data=None):
+def make_case(arch, jcfg, tcfg, prec: dict, par: dict, seed=0, data=None, gates=None):
     """One case: (JAX readings, the port's unsharded readings, the case for
     the ranks, the parameters before the three steps, the numpy JAX state
     they start from).  ``prec`` is the port's ``PrecisionConfig``
     overrides; fp8 runs the JAX package's ``"pallas"`` GEMM.  ``data``:
-    the four numpy batches (default ``torch_parity.batches``)."""
+    the four numpy batches (default ``torch_parity.batches``); ``gates``:
+    the value the vlm cross layers' gates take before the first step."""
     jprec = dict(prec, fp8_gemm="pallas") if prec.get("fp8") else prec
     jrun = JaxRunConfig(arch=arch, train=JaxTrainConfig(**_train()), parallel=JaxParallelConfig(**par),
                         precision=JaxPrecisionConfig(**jprec))
@@ -104,6 +121,8 @@ def make_case(arch, jcfg, tcfg, prec: dict, par: dict, seed=0, data=None):
                      precision=PrecisionConfig(**prec))
     data = batches(jcfg, 4, seed=seed) if data is None else data
     jstate = jax_init_train_state(jcfg, jrun, jax.random.PRNGKey(seed))
+    if gates is not None:
+        jstate = open_gates(jstate, gates)
     jstep = jax.jit(jax_make_train_step(jcfg, jrun))
     jstate, _ = jstep(jstate, to_jax(data[0]))
     start_np = np_tree(jstate)
@@ -125,31 +144,36 @@ def make_case(arch, jcfg, tcfg, prec: dict, par: dict, seed=0, data=None):
     return jax_ref, port_ref, case, before, start_np
 
 
-def start_jax_sharded(arch, jcfg, tmp: Path, data=None):
+def start_jax_sharded(arch, jcfg, tmp: Path, data=None, gates=None):
     """Start the JAX package's sharded step on a (2, 2) mesh of four forced
     host devices in a process of its own (``tests/jax_sharded_train.py
-    --arch``) on ``data`` (default: ``torch_parity.batches`` of 8 x 16);
-    returns (the process, its output file, the batches)."""
+    --arch``, ``--open-gates`` with ``gates``) on ``data`` (default:
+    ``torch_parity.batches`` of 8 x 16); returns (the process, its output
+    file, the batches)."""
     data = batches(jcfg, 4, seed=5, batch=SHARDED_B, seq=SHARDED_S) if data is None else data
     np.savez(tmp / "batches.npz", **{f"{k}_{i}": b[k] for i, b in enumerate(data) for k in b})
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4", JAX_PLATFORMS="cpu",
                PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.Popen([sys.executable, str(ROOT / "tests" / "jax_sharded_train.py"), str(tmp / "batches.npz"),
-                             str(tmp / "out.npz"), "--arch", arch], env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT)
+                             str(tmp / "out.npz"), "--arch", arch]
+                            + ([] if gates is None else ["--open-gates", str(gates)]),
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     return proc, tmp / "out.npz", data
 
 
-def fresh_case(arch, jcfg, tcfg, data):
+def fresh_case(arch, jcfg, tcfg, data, gates=None):
     """The port's case of the run against the JAX sharded step: the fresh
-    JAX initialisation bridged, fp32, remat full, the sharded run's
-    batches."""
+    JAX initialisation (its gates set to ``gates``) bridged, fp32, remat
+    full, the sharded run's batches."""
     tr = _train(batch=SHARDED_B, seq=SHARDED_S)
     jrun = JaxRunConfig(arch=arch, train=JaxTrainConfig(**tr), parallel=JaxParallelConfig(remat="full"),
                         precision=JaxPrecisionConfig(compute_dtype="float32"))
     trun = RunConfig(arch=arch, train=TrainConfig(**tr), parallel=ParallelConfig(remat="full"),
                      precision=PrecisionConfig(compute_dtype="float32"))
-    fresh = train_state_from_jax(tcfg, np_tree(jax_init_train_state(jcfg, jrun, jax.random.PRNGKey(0))), "cpu")
+    fresh = jax_init_train_state(jcfg, jrun, jax.random.PRNGKey(0))
+    if gates is not None:
+        fresh = open_gates(fresh, gates)
+    fresh = train_state_from_jax(tcfg, np_tree(fresh), "cpu")
     return {"cfg": tcfg, "run": trun, "state": fresh, "batches": [to_torch(b) for b in data]}
 
 
@@ -179,7 +203,7 @@ def close(got, ref, before, cfg, kind, paths) -> dict:
     bridged state's, whose dict keys are sorted)."""
     tight = kind in ("tight", "int8")
     rel_loss = 1e-6 if tight else (2e-3 if kind == "fp8" else 1e-3)
-    rel_norm = {"tight": 1e-5, "int8": 1e-4}.get(kind, 5e-2)
+    rel_norm = {"tight": 1e-5, "int8": 1e-4}.get(kind, LOOSE_GRAD_NORM.get(cfg.family, 5e-2))
     rel = lambda a, b: max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))  # noqa: E731
     out = {"loss": (rel(got["loss"], ref["loss"]), rel_loss),
            "grad_norm": (rel(got["grad_norm"], ref["grad_norm"]), rel_norm)}
@@ -237,30 +261,32 @@ def ranks_agree(ranks, i) -> bool:
 SHRINK = dict(old_chips=2, new_chips=1, model_parallel=1, global_batch=B)
 
 
-def run_family(arch, cases: list, controls: dict, tmp: Path, *, bridged_case: str, shrink_case=None, wrap=None):
+def run_family(arch, cases: list, controls: dict, tmp: Path, *, bridged_case: str, shrink_case=None, wrap=None,
+               gates=None):
     """Every case of a family's test file on each of ``MESHES``, one spawn
     a mesh; the JAX package's sharded step meanwhile in its own process.
     ``cases``: ``(name, (jcfg, tcfg), prec, par)``; ``controls``: ``{name:
     (mesh, case name)}``; ``bridged_case``: the case whose bridged slices
     the ranks check; ``shrink_case``: the case the ``(2, 1)`` ranks shrink
     to one rank after its first two steps (``SHRINK``); ``wrap``: a context
-    manager factory each unsharded run goes under.  Returns a dict: ``refs``
+    manager factory each unsharded run goes under; ``gates``: the vlm
+    cross layers' gates before the first step.  Returns a dict: ``refs``
     ``{name: (JAX readings, port readings)}``, ``befores``, ``cases``,
     ``ranks`` ``{mesh: each rank's results}``, ``jout`` (the JAX sharded
     run's), ``wrapped`` ``{name: the context manager}``."""
     from contextlib import nullcontext
 
     jcfg, tcfg = cases[0][1]
-    proc, out_path, sharded_batches = start_jax_sharded(arch, jcfg, tmp)
+    proc, out_path, sharded_batches = start_jax_sharded(arch, jcfg, tmp, gates=gates)
     try:
         refs, built, befores, wrapped = {}, {}, {}, {}
         for name, (jc, tc), prec, par in cases:
             with (wrap() if wrap else nullcontext()) as w:
-                jax_ref, port_ref, case, before, start_np = make_case(arch, jc, tc, prec, par)
+                jax_ref, port_ref, case, before, start_np = make_case(arch, jc, tc, prec, par, gates=gates)
             refs[name], built[name], befores[name], wrapped[name] = (jax_ref, port_ref), case, before, w
             if name == bridged_case:
                 bridged = (case, port_tuples(start_np))
-        vs_jax_sharded = fresh_case(arch, jcfg, tcfg, sharded_batches)
+        vs_jax_sharded = fresh_case(arch, jcfg, tcfg, sharded_batches, gates)
         ranks = {}
         for mesh in MESHES:
             todo = [built[c[0]] for c in cases] + ([vs_jax_sharded] if mesh == (2, 2) else [])
@@ -301,25 +327,58 @@ def check_control(runs: dict, control: str) -> None:
     assert not passes(r), f"{control} passes the limits: {r}"
 
 
+# The ssm family's limits against the JAX package's sharded step (gradient
+# norm relative, parameters absolute): from fresh smoke rwkv6-7b weights the
+# norm grows to 49 by the third step, and the port's own unsharded fp32
+# steps read 6.9e-5 and 9.8e-6 against that run, and 5.5e-5 and 9.7e-6
+# against the JAX package's unsharded steps on the same batches (whose
+# parameters lie 2.2e-6 from the sharded run's).  The JAX package's own
+# split moves this norm as much in fp32: its (1, 2) step-1 norm parts from
+# its unsharded one by 3.5e-4 on one of four batches
+# (``tests/bf16_split_probe.py --jax``).
+JAX_SHARDED_LIMITS = {"ssm": {"grad_norm": 2e-4, "params": 5e-5}}
+
+
 def check_jax_sharded(runs: dict) -> None:
     """The port at (2, 2) against the JAX package's sharded step: four
     fresh fp32 steps of 8 x 16, the tight limits (a key bias's rounding
-    noise held to 2 lr a step)."""
+    noise held to 2 lr a step; the ssm family's ``JAX_SHARDED_LIMITS``)."""
     got = got_readings(runs["ranks"][(2, 2)], len(runs["names"]))
     jout, n = runs["jout"], len(got["loss"])
-    for k, lim in (("loss", 1e-6), ("aux_loss", 1e-6), ("grad_norm", 1e-5)):
+    family = JAX_SHARDED_LIMITS.get(runs["cfg"].family, {})
+    for k, lim in (("loss", 1e-6), ("aux_loss", 1e-6), ("grad_norm", family.get("grad_norm", 1e-5))):
         ref = [float(jout[f"{k}_{i}"]) for i in range(n)]
         assert all(abs(a - b) <= lim * abs(b) for a, b in zip(got[k], ref)), (k, got[k], ref)
     for path, a, b in zip(runs["paths"], got["params"], jax_sharded_params(runs["cfg"], jout)):
-        lim = 2 * LR * n if path.endswith("/bk") else 1e-6
-        assert float(np.abs(a - b).max()) < lim, path
+        lim = 2 * LR * n if path.endswith("/bk") else family.get("params", 1e-6)
+        assert float(np.abs(a - b).max()) < lim, (path, float(np.abs(a - b).max()))
 
 
 def jax_spec(runs: dict, path: str) -> tuple:
     """The JAX sharded run's spec of the stacked leaf ``path``, without its
-    layer entry where it has one."""
+    layer entries where it has them (a vlm self layer's two)."""
     spec = eval(str(runs["jout"][f"spec/{path}"]))  # a repr of a tuple of None / str / tuple
-    return tuple(spec[1:]) if path.startswith("blocks/") else tuple(spec)
+    lead = 2 if path.startswith("blocks/self/") else 1 if path.startswith("blocks/") else 0  # vlm: (G, g, ...)
+    return tuple(spec[lead:])
+
+
+def check_specs_against_jax(runs: dict) -> dict:
+    """Every parameter's executed spec at (2, 2) against the JAX sharded
+    run's spec of its stacked leaf: equal, but that the port keeps the leaves
+    ``replicated_claims`` lists whole over ``"model"``.  Returns those."""
+    from repro_torch.config import ParallelConfig
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.parallel.sharding import executed_specs, replicated_claims, training_rules
+
+    mesh, rules = MeshShape({"data": 2, "model": 2}), training_rules(ParallelConfig(remat="full"))
+    port = executed_specs(runs["cfg"], mesh, rules)["executed"]
+    kept = replicated_claims(runs["cfg"], mesh, rules)
+    for path, spec in zip(leaf_paths(port), tree_leaves(port)):
+        want = jax_spec(runs, "/".join(k for k in path.split("/") if not k.isdigit()))
+        if path in kept:
+            want = tuple(None if e == "model" else e for e in want)
+        assert spec == want, (path, spec, want)
+    return kept
 
 
 def check_shrink(runs: dict) -> None:

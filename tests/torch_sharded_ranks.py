@@ -34,13 +34,15 @@ from repro_torch.utils.tree import tree_leaves, tree_paths, tree_size_bytes
 
 # the controls that must fail the limits, each a change to one collective
 CONTROLS = ("copy_to_model_backward_dropped", "replicated_leaf_counted_on_every_rank", "int8_scale_from_local_shard")
-# the moe, hybrid and audio families' controls (test_torch_sharded_{moe,hybrid,audio}.py)
+# the moe, hybrid, audio, ssm and vlm families' controls (test_torch_sharded_<family>.py)
 FAMILY_CONTROLS = (
     "moe_gates_sum_dropped",  # the gates' copy_to_model left out: their gradient keeps this rank's pairs only
     "moe_capacity_per_data_rank",  # each data rank counts its experts' slots from 0 in a spanning group
     "moe_aux_data_sum_identity_backward",  # the aux's sum over data with the identity backward
     "hybrid_branches_counted_twice",  # the FFN input's copy_to_model moved to the block input
     "fsdp_gather_backward_unsummed",  # FSDP's gather backward keeps this rank's own gradient slice
+    "ssm_time_mix_summed_twice",  # the channel mix's copy_to_model moved to the block input
+    "vlm_cross_query_sum_dropped",  # the cross layers' query input without its copy_to_model
 )
 
 
@@ -72,10 +74,11 @@ def train(case: dict, mesh) -> dict:
     return {"metrics": metrics, "state": _numpy_state(full) if rank == 0 else None}
 
 
-def _hybrid_input_summed(block):
+def _input_summed(block):
     """``block`` with its input through ``copy_to_model``: the gradient of
-    the replicated attention and SSM branches (and of the residual) summed
-    over the model ranks, which hold it whole already."""
+    the branches each rank computes whole (hymba's attention and SSM
+    heads, rwkv6's time mix) and of the residual summed over the model
+    ranks, which hold it whole already."""
     from repro_torch.parallel.collectives import copy_to_model
 
     def wrapped(cfg, p, x, *, mesh=None, **kw):
@@ -92,9 +95,11 @@ def _unsummed_gather_backward(ctx, g):
 def _family_control(name: str, case: dict):
     """(owner, attribute, replacement) of a family control; a control
     needing two changes returns a list of them."""
+    from repro_torch.models import attention as attn_mod
     from repro_torch.models import ffn as ffn_mod
     from repro_torch.models import model as model_mod
     from repro_torch.models import moe as moe_mod
+    from repro_torch.models import rwkv as rwkv_mod
 
     if name == "moe_gates_sum_dropped":
         k, inner = case["cfg"].moe.top_k, moe_mod.copy_to_model
@@ -104,8 +109,18 @@ def _family_control(name: str, case: dict):
     if name == "moe_aux_data_sum_identity_backward":
         return [(collectives._SumOverData, "backward", staticmethod(lambda ctx, g: (g, None)))]
     if name == "hybrid_branches_counted_twice":
-        blocks = dict(model_mod.TRAIN_BLOCKS, hybrid=_hybrid_input_summed(model_mod.TRAIN_BLOCKS["hybrid"]))
+        blocks = dict(model_mod.TRAIN_BLOCKS, hybrid=_input_summed(model_mod.TRAIN_BLOCKS["hybrid"]))
         return [(ffn_mod, "copy_to_model", lambda x, mesh: x), (model_mod, "TRAIN_BLOCKS", blocks)]
+    if name == "ssm_time_mix_summed_twice":
+        blocks = dict(model_mod.TRAIN_BLOCKS, ssm=_input_summed(model_mod.TRAIN_BLOCKS["ssm"]))
+        return [(rwkv_mod, "copy_to_model", lambda x, mesh: x), (model_mod, "TRAIN_BLOCKS", blocks)]
+    if name == "vlm_cross_query_sum_dropped":
+        inner = attn_mod._qkv
+
+        def qkv(cfg, p, x, kv_x=None, fp8=None, mesh=None):
+            return inner(cfg, p, x, kv_x, fp8, mesh if kv_x is None else None)
+
+        return [(attn_mod, "_qkv", qkv)]
     if name == "fsdp_gather_backward_unsummed":
         return [(collectives._GatherOverData, "backward", staticmethod(_unsummed_gather_backward))]
     raise ValueError(name)
@@ -361,26 +376,38 @@ def cuda_checks(rank, mesh, device="cuda") -> dict:
             "jax_loaded": jax_loaded()}
 
 
-# test_torch_cuda_sharded_train.py's family cases: arch, mesh, capacity factor
-# (moe: E / k, where capacity cannot bind, so a near tie that bf16 flips moves
-# one token's output, not every later token's slot)
-CUDA_FAMILY_CASES = (("qwen3-moe-235b-a22b", (1, 2)), ("hymba-1.5b", (1, 2)), ("hubert-xlarge", (2, 1)))
+# test_torch_cuda_sharded_train.py's family cases: arch, mesh (the moe
+# capacity factor E / k, where capacity cannot bind, so a near tie that bf16
+# flips moves one token's output, not every later token's slot)
+CUDA_FAMILY_CASES = (("qwen3-moe-235b-a22b", (1, 2)), ("hymba-1.5b", (1, 2)), ("hubert-xlarge", (2, 1)),
+                     ("rwkv6-7b", (1, 2)), ("rwkv6-7b", (2, 1)), ("llama-3.2-vision-90b", (1, 2)))
+
+
+def cuda_case_id(arch: str, shape: tuple) -> str:
+    return f"{arch} {shape[0]}x{shape[1]}"
 
 
 def cuda_family_checks(rank, mesh, device="cuda") -> dict:
     """``test_torch_cuda_sharded_train.py``'s family cases on two gloo ranks
     of the card: for each of ``CUDA_FAMILY_CASES``, the smoke model's 3
-    steps (fp8 through K4, bf16 compute, remat full, warmup 0, 4 x 32
-    tokens or frames) on its mesh against the one-rank steps on rank 0 from
-    one state, and each rank's K4 launches over the sharded steps."""
+    steps (fp8 through K4 where the family takes it, bf16 compute, remat
+    full, warmup 0, 4 x 32 tokens or frames; a vlm model's gates opened to
+    1.0) on its mesh against the one-rank steps on rank 0 from one state,
+    and each rank's K4 launches over the sharded steps; for the ssm and vlm
+    families also each rank's K5 or K3 launches in one sharded eval
+    forward (``wkv_impl="kernel"``, ``attn_impl="flash"``) from that
+    state."""
     import dataclasses
 
     from repro_torch.config import ParallelConfig, PrecisionConfig, RunConfig, TrainConfig, reduce_for_smoke
     from repro_torch.configs import get_config
     from repro_torch.data import make_batch_fn
+    from repro_torch.fp8 import fp8_supported
     from repro_torch.fp8 import gemm as K4
+    from repro_torch.kernels import flash_attention as K3
+    from repro_torch.kernels import rwkv6_scan as K5
     from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.train import init_train_state
+    from repro_torch.train import init_train_state, loss_fn
     from repro_torch.utils.tree import tree_map
 
     torch.set_num_threads(1)
@@ -392,10 +419,14 @@ def cuda_family_checks(rank, mesh, device="cuda") -> dict:
             cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
         run = RunConfig(arch=arch, train=TrainConfig(global_batch=4, seq_len=32, learning_rate=1e-3, warmup_steps=0,
                                                      total_steps=10),
-                        parallel=ParallelConfig(remat="full"), precision=PrecisionConfig(fp8=True, fp8_gemm="kernel"))
+                        parallel=ParallelConfig(remat="full"),
+                        precision=PrecisionConfig(fp8=fp8_supported(cfg), fp8_gemm="kernel"))
         batch_fn = make_batch_fn(cfg, global_batch=4, seq_len=32, seed=0, device=device)
         batches = [batch_fn(s) for s in range(3)]
         full = init_train_state(cfg, run, 0, device=device)
+        for group in full.params["blocks"] if cfg.family == "vlm" else ():
+            group["cross"]["attn"]["gate"].fill_(1.0)
+            group["cross"]["gate_mlp"].fill_(1.0)
         one = None
         if rank == 0:
             copy = lambda tree: tree_map(torch.clone, tree)  # noqa: E731  (the step updates in place)
@@ -412,6 +443,14 @@ def cuda_family_checks(rank, mesh, device="cuda") -> dict:
         rules = training_rules(run.parallel)
         specs = state_shardings(cfg, run, rules, m)
         local = shard_state(full, specs, m)
+        eval_launches = None
+        if cfg.family in ("ssm", "vlm"):
+            K3.reset_launches()
+            K5.reset_launches()
+            with torch.no_grad():
+                loss_fn(cfg, local.params, batches[0], wkv_impl="kernel", attn_impl="flash",
+                        compute_dtype=torch.bfloat16, mesh=m)
+            eval_launches = K5.LAUNCHES["rwkv6_scan"] if cfg.family == "ssm" else K3.LAUNCHES["flash_attention"]
         step = make_train_step(cfg, run, rules, m)
         K4.reset_launches()
         metrics = []
@@ -420,6 +459,7 @@ def cuda_family_checks(rank, mesh, device="cuda") -> dict:
             metrics.append({k: float(v) for k, v in mt.items()})
         launches = K4.LAUNCHES["fp8_gemm"]
         gathered = unshard_state(local, specs, m)
-        out[arch] = {"mesh": shape, "one_rank": one, "launches": launches, "layers": cfg.num_layers,
+        out[cuda_case_id(arch, shape)] = {"mesh": shape, "one_rank": one, "launches": launches, "layers": cfg.num_layers,
+                     "eval_launches": eval_launches,
                      "sharded": {"metrics": metrics, "params": [t.cpu().numpy() for t in tree_leaves(gathered.params)]}}
     return out

@@ -25,11 +25,13 @@ STEP_S = 0.01  # rank 0's manual clock advances this much before each step
 
 
 class RecordingEngine(InferenceEngine):
-    """An engine that keeps its host block table after every step."""
+    """An engine that keeps its host block table after every step (none
+    where its cache is not paged)."""
 
     def _step(self, now):
         out = super()._step(now)
-        self.tables.append(self.tbl.copy())
+        if hasattr(self, "tbl"):
+            self.tables.append(self.tbl.copy())
         return out
 
 
@@ -93,8 +95,8 @@ def run_serving_cases(rank, mesh, cases) -> list[dict]:
         local = shard_params(cfg, case["params"], executed_specs(cfg, mesh)["executed"], mesh)
         r = serve(cfg, local, case, mesh)
         r["logits"] = prefill_logits(cfg, local, case["prompts"][0], mesh)
-        r["local_shapes"] = {"wq": tuple(local["blocks"][0]["attn"]["wq"].shape),
-                             "tok": tuple(local["embed"]["tok"].shape)}
+        attn = local["blocks"][0].get("attn")  # none in the ssm family
+        r["local_shapes"] = {"wq": attn and tuple(attn["wq"].shape), "tok": tuple(local["embed"]["tok"].shape)}
         out.append(r)
     return out + [{"jax_loaded": any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)}]
 
