@@ -342,7 +342,20 @@ or when any check fails.  Phases:
    ``resize_batch``'s batches held to the reference's.  Every rank must
    launch K4 112 times a step (4 a site a layer).  The times are gloo's
    through host memory with both ranks' contexts on one card: not NCCL,
-   not NVLink.
+   not NVLink.  Between the two meshes, the sequence-parallel arm
+   (``ParallelConfig(sequence_parallel=True)`` at ``(1, 2)``: the residual
+   stream between the sublayers split over the two ranks, each sublayer's
+   input gathered over seq and its output reduce-scattered) takes the same
+   2 steps, held to the reference and to the TP arm's slices and metrics
+   within ``SHARD_LIMITS``; its control, ``reduce_scatter_seq`` as a plain
+   slice of each rank's partial output, must fail them (olmo-1b's LayerNorm
+   has no scale, so a dropped norm-scale sum cannot show here: the CPU test
+   holds that control on a variant with RMS norms).  It prints the
+   gathers' and reduce-scatters' calls and bytes a step against TP's
+   all-reduces, and the step peak a rank against TP's.  Then the sharded
+   eval with sequence parallelism (K3 at 8 of 16 heads a rank over the
+   gathered sequence, flash against torch with the next-key control, the
+   loss against rank 0's one-rank eval of the same state and batch).
 9b3. Sharded training of the moe, hybrid and audio families
    (``sharded_families``), after ``sharded_train``: two gloo ranks on the
    one card, fp8 through K4 on each rank's local slices, bf16 compute,
@@ -445,6 +458,7 @@ H100 SXM's published peaks.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -4114,6 +4128,13 @@ EVAL_LIMITS_BY_MODEL = {"llama-3.2-vision-90b": {"loss_diff": 4e-4, "max_logits_
                         # training forwards): flash against torch read a loss difference of 2.5e-4 and
                         # logits 0.125 apart, the control 4.7e-3 and 10.0
                         "hymba-1.5b": {"loss_diff": 1e-3, "max_logits_diff": 0.5}}
+# olmo-1b's sharded eval in ``sharded_train`` (4 of 16 layers, 8 of 16 heads a
+# rank at (1, 2), 4 x 2048) on the H100 (PERF.md section 6): flash against torch
+# read a loss difference of 3.85e-4 and logits 0.086 apart, with and without
+# sequence parallelism bit for bit alike (each rank's bf16 partial attention
+# outputs are rounded before their sum, which one rank does not do), the
+# next-key control 2.19e-3 and 5.11; its loss limit lies between.
+SHARDED_EVAL_LIMITS = {"olmo-1b": {"loss_diff": 1e-3, "max_logits_diff": 0.5}}
 
 
 def train_run_config(fp8_gemm="kernel", arch="olmo-1b", global_batch=TRAIN_B):
@@ -4774,6 +4795,14 @@ def shard_control_copy_backward(ctx, g):
     return g, None
 
 
+def shard_control_unsummed_reduce_scatter(ctx, x, group, n):
+    """The sequence-parallel control: ``reduce_scatter_seq``'s forward as
+    a plain slice of this rank's partial output, without the sum."""
+    ctx.group, ctx.n = group, n
+    s = x.shape[1] // n
+    return x.narrow(1, torch.distributed.get_rank(group) * s, s).contiguous()
+
+
 def shard_control_unsummed_backward(ctx, g):
     """The FSDP control: the gather's backward keeps this rank's slice of
     its own gradient, not the sum over the data ranks."""
@@ -4831,11 +4860,13 @@ def sharded_rank(rank, mesh_tp, device_type="cuda", cfg=None, batch=(TRAIN_B, TR
     device = torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda" else torch.device(device_type)
     cfg = cfg or get_config("olmo-1b").replace(num_layers=FACILITY_LAYERS)
     run = shard_run_config(*batch)
+    sp_run = dataclasses.replace(run, parallel=dataclasses.replace(run.parallel, sequence_parallel=True))
+    runs = {"tp": run, "sp": sp_run, "fsdp_dp": run}
     lr = run.train.learning_rate
     rules = training_rules(run.parallel)
     batches = [synthetic_batch(cfg, step=s, global_batch=batch[0], seq_len=batch[1], seed=SEED, device=device)
                for s in range(SHARD_STEPS + SHARD_ELASTIC_STEPS)]
-    meshes = {"tp": mesh_tp, "fsdp_dp": make_local_mesh(2, 1, backend="gloo", device=device_type)}
+    meshes = {"tp": mesh_tp, "sp": mesh_tp, "fsdp_dp": make_local_mesh(2, 1, backend="gloo", device=device_type)}
     plan = plan_resize(old_chips=2, new_chips=1, model_parallel=1, global_batch=batch[0])
     full = init_train_state(cfg, run, SEED, device)
     shapes = [t.shape for t in tree_leaves(full.params)]
@@ -4855,22 +4886,34 @@ def sharded_rank(rank, mesh_tp, device_type="cuda", cfg=None, batch=(TRAIN_B, TR
             "k4_a_step": got["k4"]["fp8_gemm"] / SHARD_STEPS}
         del state
         torch.cuda.empty_cache()
+        out["one_rank_eval"] = shard_eval("attention", cfg, full.params, batches[0])
     torch.distributed.barrier()
     # each arm, then its control: the same steps from the full state with
     # one collective changed, against the one-rank steps
     controls = {"tp": (C._CopyToModel, "backward", staticmethod(shard_control_copy_backward)),
+                "sp": (C._ReduceScatterSeq, "forward", staticmethod(shard_control_unsummed_reduce_scatter)),
                 "fsdp_dp": (C._GatherOverData, "backward", staticmethod(shard_control_unsummed_backward))}
     for name, mesh in meshes.items():
-        specs = state_shardings(cfg, run, rules, mesh)
+        arm_run = runs[name]
+        specs = state_shardings(cfg, arm_run, rules, mesh)
         mine = reference_slices(ref.get("params"), specs.params, shapes, mesh)  # once for the arm and its control
 
         def readings(state, metrics):
             gaps = mesh_param_gaps(state.params, specs.params, mesh, mine, ref.get("params"))
             return shard_readings(metrics, ref["metrics"], lr, gaps) if rank == 0 else None
 
-        state, metrics, got = shard_steps(make_train_step(cfg, run, rules, mesh), shard_state(full, specs, mesh),
+        state, metrics, got = shard_steps(make_train_step(cfg, arm_run, rules, mesh), shard_state(full, specs, mesh),
                                           batches[:SHARD_STEPS], mesh)
         out[name] = {"metrics": metrics, **got, "mesh": list(mesh.shape), "readings": readings(state, metrics)}
+        if name == "tp":  # this rank's slices, which the sequence-parallel arm's share its layout with
+            tp_kept = (metrics, [t.clone() for t in tree_leaves(state.params)])
+            out["tp"]["eval"] = shard_eval("attention", cfg, shard_state(full, specs, mesh).params, batches[0], mesh)
+        if name == "sp":  # against the TP arm: the same slices on every rank, its metrics
+            gaps = mesh_param_gaps(state.params, specs.params, mesh, dict(enumerate(tp_kept[1])), None)
+            out["sp"]["vs_tp"] = shard_readings(metrics, tp_kept[0], lr, gaps) if rank == 0 else None
+            del tp_kept
+            out["sp"]["eval"] = shard_eval("attention", cfg, shard_state(full, specs, mesh).params, batches[0], mesh,
+                                           sequence_parallel=True)
         if name == "fsdp_dp":  # the shrink's starting point, gathered whole (the moments too) for its bit-exact check
             kept_run = (state, specs, unshard_state(state, specs, mesh))
         del state
@@ -4878,8 +4921,8 @@ def sharded_rank(rank, mesh_tp, device_type="cuda", cfg=None, batch=(TRAIN_B, TR
         kept = owner.__dict__[attr]
         setattr(owner, attr, wrong)
         try:
-            state, metrics, _ = shard_steps(make_train_step(cfg, run, rules, mesh), shard_state(full, specs, mesh),
-                                            batches[:SHARD_STEPS], mesh)
+            state, metrics, _ = shard_steps(make_train_step(cfg, arm_run, rules, mesh),
+                                            shard_state(full, specs, mesh), batches[:SHARD_STEPS], mesh)
         finally:
             setattr(owner, attr, kept)
         out[name]["control"] = readings(state, metrics)
@@ -4911,9 +4954,10 @@ def sharded_rank(rank, mesh_tp, device_type="cuda", cfg=None, batch=(TRAIN_B, TR
 
 def sharded_train_phase() -> dict:
     """olmo-1b (full width, 4 of 16 layers, fp8 through K4, remat full, 4 x
-    2048) trained on two gloo ranks of the one card at (1, 2) and (2, 1),
-    each held to the one-rank step of the same run with a control, then the
-    (2, 1) state shrunk to one rank (``sharded_rank``)."""
+    2048) trained on two gloo ranks of the one card at (1, 2), at (1, 2)
+    with sequence parallelism (then its sharded eval) and at (2, 1), each
+    held to the one-rank step of the same run with a control, then the (2,
+    1) state shrunk to one rank (``sharded_rank``)."""
     from repro_torch.configs import get_config
     from repro_torch.fp8 import fp8_sites
     from repro_torch.launch.mesh import run_ranks
@@ -4930,7 +4974,7 @@ def sharded_train_phase() -> dict:
     out = {"phase": "sharded_train", "backend": "gloo", "ranks": 2, "seconds": time.perf_counter() - t0,
            "model": cfg.name, "layers": cfg.num_layers, "batch": [TRAIN_B, TRAIN_S], "steps": SHARD_STEPS,
            "limits": SHARD_LIMITS, "one_rank": ranks[0]["one_rank"]}
-    for name in ("tp", "fsdp_dp"):
+    for name in ("tp", "sp", "fsdp_dp"):
         arm = [r[name] for r in ranks]
         out[name] = {
             "mesh": arm[0]["mesh"], "step_wall_s": [a["wall_s"] for a in arm],
@@ -4940,10 +4984,15 @@ def sharded_train_phase() -> dict:
                                                   "step_peak_above_resident")},
             "losses": [m["loss"] for m in arm[0]["metrics"]], "readings": arm[0]["readings"], "control": arm[0]["control"],
         }
+    sp = [r["sp"] for r in ranks]
+    out["tp"]["eval"] = [r["tp"]["eval"] for r in ranks]
+    out["sp"].update(vs_tp=sp[0]["vs_tp"], eval=[a["eval"] for a in sp], one_rank_eval=ranks[0]["one_rank_eval"],
+                     step_peak_against_tp=[a["step_peak_above_resident"] / b["step_peak_above_resident"]
+                                           for a, b in zip(sp, (r["tp"] for r in ranks))])
     el = ranks[0].get("elastic")
     out["elastic"] = el and {k: v for k, v in el.items() if k != "metrics"}
     emit(out)  # before the gates, so a failing run still shows its readings
-    for name in ("tp", "fsdp_dp"):
+    for name in ("tp", "sp", "fsdp_dp"):
         arm = [r[name] for r in ranks]
         if arm[0]["metrics"] != arm[1]["metrics"]:
             fail(f"sharded_train {name}: the ranks' metrics differ")
@@ -4953,6 +5002,15 @@ def sharded_train_phase() -> dict:
             fail(f"sharded_train {name}: the control passes the limits, which then prove nothing: {arm[0]['control']}")
         if out[name]["k4_launches"] != [per_step * SHARD_STEPS] * 2:
             fail(f"sharded_train {name}: K4 launches {out[name]['k4_launches']}, expected {per_step * SHARD_STEPS} a rank")
+    if not shard_passes(sp[0]["vs_tp"]):
+        fail(f"sharded_train sp: the sequence-parallel steps part from the TP arm's: {sp[0]['vs_tp']}")
+    if not all(a["collectives"]["gather_seq"] and a["collectives"]["reduce_scatter_seq"] for a in sp):
+        fail(f"sharded_train sp: no sequence collective: {out['sp']['collectives_per_step']}")
+    if [(e["loss"], e["flash_vs_torch"]) for e in out["sp"]["eval"]] != [(e["loss"], e["flash_vs_torch"])
+                                                                       for e in out["tp"]["eval"]]:
+        fail(f"sharded_train sp: the sequence-parallel eval parts from the TP eval: {out['sp']['eval']}")
+    shard_eval_gates("sharded_train sp", cfg, out["sp"]["eval"], out["sp"]["one_rank_eval"],
+                     SHARDED_EVAL_LIMITS[cfg.name])
     if el is None or "elastic" in ranks[1]:
         fail("sharded_train: the shrink to one rank did not leave rank 0 alone on the new mesh")
     if not (el["bit_exact"] and shard_passes(el["readings"]) and el["k4"]["fp8_gemm"] == per_step * SHARD_ELASTIC_STEPS):
@@ -4964,7 +5022,7 @@ def sharded_train_phase() -> dict:
 # phase 9b3: sharded training of the moe, hybrid and audio families
 # ---------------------------------------------------------------------------
 
-FAMILY_SHARD_STEPS = 3  # an arm's and its control's
+FAMILY_SHARD_STEPS = 2  # an arm's and its control's: 2 keep the script inside its 1200 s
 FAMILY_SHARD_LAYERS = 4  # hymba-1.5b's 32 and hubert-xlarge's 48 cut to 4 (qwen3-moe: MOE_TRAIN_LAYERS)
 # The rwkv6-7b arm's run settings, which depart from ``shard_run_config``'s,
 # both measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6).
@@ -5082,8 +5140,8 @@ def family_control(name: str, cfg) -> list:
 
         inner = attn_mod._qkv
 
-        def qkv(cfg, p, x, kv_x=None, fp8=None, mesh=None):
-            return inner(cfg, p, x, kv_x, fp8, mesh if kv_x is None else None)
+        def qkv(cfg, p, x, kv_x=None, fp8=None, mesh=None, sp=False):
+            return inner(cfg, p, x, kv_x, fp8, mesh if kv_x is None else None, sp)
 
         return [(attn_mod, "_qkv", qkv)]
     raise ValueError(name)
@@ -5466,9 +5524,10 @@ VLM_SHARD_LAYERS = 2
 VLM_SHARD_BATCH = 1
 
 
-def shard_eval(kind, cfg, params, batch, mesh=None) -> dict:
+def shard_eval(kind, cfg, params, batch, mesh=None, sequence_parallel=False) -> dict:
     """An eval forward of ``params`` (the one-rank model, or this rank's
-    slices on ``mesh``), bf16, without gradients.  ``kind`` ``"wkv"``
+    slices on ``mesh``, with ``sequence_parallel`` if asked), bf16, without
+    gradients.  ``kind`` ``"wkv"``
     (rwkv6-7b): the loss through K5 and through the control scan
     (``wkv_late_decay``), K5's launches in the first, and per layer K5 and
     the control against the chunked scan (``layer_readings``).
@@ -5494,10 +5553,11 @@ def shard_eval(kind, cfg, params, batch, mesh=None) -> dict:
                     "layers_kernel_vs_chunked": layers["sound"], "layers_control_vs_chunked": layers["control"]}
 
         def run(impl):
+            kw = dict(attn_impl=impl, compute_dtype=bf16, mesh=mesh, sequence_parallel=sequence_parallel)
             K3.reset_launches()
-            loss = float(loss_fn(cfg, params, batch, attn_impl=impl, compute_dtype=bf16, mesh=mesh)[0])
+            loss = float(loss_fn(cfg, params, batch, **kw)[0])
             launches = K3.LAUNCHES["flash_attention"]  # one forward's
-            return loss, forward(cfg, params, batch, attn_impl=impl, compute_dtype=bf16, mesh=mesh)[0], launches
+            return loss, forward(cfg, params, batch, **kw)[0], launches
 
         loss_torch, ref, _ = run("torch")
         loss_flash, logits, launches = run("flash")
@@ -5516,7 +5576,7 @@ def shard_eval(kind, cfg, params, batch, mesh=None) -> dict:
             "control_vs_torch": {"loss_diff": abs(control_loss - loss_torch), "max_logits_diff": float(gaps[1])}}
 
 
-def shard_eval_gates(where: str, cfg, evals: list, one: dict) -> None:
+def shard_eval_gates(where: str, cfg, evals: list, one: dict, limits=None) -> None:
     """The sharded eval's gates: the ranks read the same losses; K5 or K3
     against the same ranks' plain path within the eval's limits
     (``RWKV_LAYER_LIMITS``, ``EVAL_LIMITS_BY_MODEL``) and the control
@@ -5531,7 +5591,7 @@ def shard_eval_gates(where: str, cfg, evals: list, one: dict) -> None:
         sound, control = e["layers_kernel_vs_chunked"], e["layers_control_vs_chunked"]
         launches, expected = [r["k5_launches"] for r in evals], cfg.num_layers
     else:
-        limits = EVAL_LIMITS_BY_MODEL.get(cfg.name, EVAL_LIMITS)
+        limits = limits or EVAL_LIMITS_BY_MODEL.get(cfg.name, EVAL_LIMITS)
         loss_limit = limits["loss_diff"]
         sound, control = e["flash_vs_torch"], e["control_vs_torch"]
         launches, expected = [r["k3_launches"] for r in evals], self_attention_layers(cfg)

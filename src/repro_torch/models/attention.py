@@ -36,7 +36,15 @@ and unchanged.  Sharded training (``self_attention(mesh=)``) runs the
 same layout under autograd: the input goes through ``copy_to_model``
 (its gradient summed over the ranks), and so do the q/k norm scales, which
 every rank applies to its own heads only; the output's sum is
-``sum_over_model``, the identity backward.
+``sum_over_model``, the identity backward.  Under sequence parallelism
+(``sp=True``) the input is the block's ``SeqGather`` of its seq slices
+and the output this rank's seq slice: where the heads split, the
+attention reads the gathered sequence's ``split()`` view (whose backward
+sums the ranks' gradients) and its row-parallel sum is
+``reduce_scatter_seq``; where they do not divide the model axis it runs
+whole on every rank, as under tensor parallelism, on the ``whole()``
+view, and ``scatter_seq`` cuts its output.  ``bo`` and a cross layer's
+gate, which act on the slice, take ``copy_to_model``.
 
 With an ``fp8`` handle (``repro_torch.fp8.policy.Fp8Layer``) the q/k/v/o
 projections run through FP8 GEMMs; the head split is a free reshape around
@@ -60,7 +68,7 @@ from repro_torch.kernels.paged_attention import (
 from repro_torch.kernels.paged_attention_ref import paged_attention_plain, paged_prefill_attention_plain
 from repro_torch.models.cache import NULL_BLOCK
 from repro_torch.models.layers import ParamSpec, apply_rope, softcap
-from repro_torch.parallel.collectives import copy_to_model, sum_over_model
+from repro_torch.parallel.collectives import copy_to_model, reduce_scatter_seq, scatter_seq, sum_over_model
 
 ATTN_IMPLS = ("kernel", "plain")  # paged attention
 SELF_ATTN_IMPLS = ("torch", "flash")  # full-sequence self-attention
@@ -108,15 +116,22 @@ def _fp8_proj(fp8, site: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return fp8.matmul(site, x, w.reshape(D, nh * hd)).reshape(x.shape[:-1] + (nh, hd))
 
 
-def _qkv(cfg, p, x, kv_x=None, fp8=None, mesh=None):
+def _split(cfg, p, mesh) -> bool:
+    """Whether ``p`` holds this rank's slice of the heads."""
+    return mesh is not None and p["wq"].shape[1] != cfg.num_heads
+
+
+def _qkv(cfg, p, x, kv_x=None, fp8=None, mesh=None, sp=False):
     """q from x, k and v from ``kv_x`` (cross-attention's source; default
     x).  The weights are cast to x's dtype first, as in the JAX package,
     whose einsum then promotes against ``kv_x``'s dtype.  Under a training
-    ``mesh`` whose ranks each hold a slice of the heads, x and the q/k norm
-    scales pass through ``copy_to_model`` (module docstring)."""
+    ``mesh`` whose ranks each hold a slice of the heads, x (but for the
+    gathered sequence of ``sp``) and the q/k norm scales pass through
+    ``copy_to_model`` (module docstring)."""
     norms = {n: p[n] for n in ("q_norm", "k_norm") if cfg.qk_norm}
-    if mesh is not None and p["wq"].shape[1] != cfg.num_heads:
-        x = copy_to_model(x, mesh)
+    if _split(cfg, p, mesh):
+        if not sp:
+            x = copy_to_model(x, mesh)
         norms = {n: copy_to_model(t, mesh) for n, t in norms.items()}
     kv_src = x if kv_x is None else kv_x
     if fp8 is not None:
@@ -140,22 +155,26 @@ def _rms_head(x, scale, eps):
     return (xf * scale.float()).to(x.dtype)
 
 
-def _out(cfg, p, ctx, dtype, fp8=None, mesh=None):
+def _out(cfg, p, ctx, dtype, fp8=None, mesh=None, sp=False):
     """The output projection over the heads ``ctx`` holds.  Under a
     tensor-parallel ``mesh`` whose ranks each hold a slice of the heads
     (``wo`` has fewer than ``cfg.num_heads``), the product is row-parallel:
     one all-reduce (``sum_over_model``: in place when serving, under
     autograd when training) sums the ranks' partial outputs, and ``bo`` is
-    added once, after the sum."""
+    added once, after the sum.  ``sp``: this rank's seq slice of the
+    output, reduce-scattered where the heads split, else cut from the
+    whole output by ``scatter_seq``; ``bo`` then takes ``copy_to_model``."""
     H, hd, D = p["wo"].shape
     if fp8 is not None:
         out = fp8.matmul("attn_o", ctx.reshape(ctx.shape[:-2] + (H * hd,)), p["wo"].reshape(H * hd, D)).to(dtype)
     else:
         out = ctx.to(dtype).reshape(ctx.shape[:-2] + (H * hd,)) @ p["wo"].to(dtype).reshape(H * hd, D)
     if mesh is not None and H != cfg.num_heads:
-        out = sum_over_model(out.contiguous(), mesh)
+        out = reduce_scatter_seq(out, mesh) if sp else sum_over_model(out.contiguous(), mesh)
+    elif sp:
+        out = scatter_seq(out, mesh)
     if cfg.use_bias:
-        out = out + p["bo"].to(dtype)
+        out = out + (copy_to_model(p["bo"], mesh) if sp else p["bo"]).to(dtype)
     return out
 
 
@@ -239,8 +258,17 @@ def _write_kv(cache: dict, phys: torch.Tensor, off: torch.Tensor, k: torch.Tenso
 # ---------------------------------------------------------------------------
 
 
+def _gathered(cfg, p, x, mesh, sp):
+    """The attention's input: under ``sp`` the view of the ``SeqGather``
+    ``x`` that its heads' split calls for (module docstring)."""
+    if not sp:
+        return x
+    return x.split() if _split(cfg, p, mesh) else x.whole()
+
+
 def self_attention(
-    cfg, p: dict, x: torch.Tensor, *, positions=None, q_chunk: int = 0, impl: str = "torch", fp8=None, mesh=None
+    cfg, p: dict, x: torch.Tensor, *, positions=None, q_chunk: int = 0, impl: str = "torch", fp8=None, mesh=None,
+    sp: bool = False,
 ):
     """Full-sequence self-attention (training / forward).  x: (B, S, D);
     positions: (B, S), default ``arange(S)``.  Returns (B, S, D).
@@ -248,19 +276,22 @@ def self_attention(
     ``q_chunk``: with ``impl="torch"``, attend ``q_chunk`` queries at a time
     (each chunk recomputed in the backward), bounding the scores to
     ``q_chunk x S``.  ``impl="flash"`` ignores it: K3 never holds the scores.
-    ``mesh``: sharded training's (module docstring).
+    ``mesh``: sharded training's (module docstring); ``sp``: sequence
+    parallelism, x a ``SeqGather`` of this rank's seq slice, the output
+    this rank's seq slice.
     """
     if impl not in SELF_ATTN_IMPLS:
         raise ValueError(f"impl={impl!r} (choose from {SELF_ATTN_IMPLS})")
+    x = _gathered(cfg, p, x, mesh, sp)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
-    q, k, v = _qkv(cfg, p, x, fp8=fp8, mesh=mesh)
+    q, k, v = _qkv(cfg, p, x, fp8=fp8, mesh=mesh, sp=sp)
     q, k = _rope(cfg, q, k, positions)
 
     if impl == "flash":
         ctx = flash_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
-        return _out(cfg, p, ctx, x.dtype, fp8=fp8, mesh=mesh)
+        return _out(cfg, p, ctx, x.dtype, fp8=fp8, mesh=mesh, sp=sp)
 
     qpk = cfg.q_per_kv
     if q_chunk and S > q_chunk and S % q_chunk == 0:
@@ -279,28 +310,33 @@ def self_attention(
     else:
         m = make_mask(positions, positions, causal=cfg.causal, window=cfg.sliding_window)
         ctx = _attend_block(cfg, q, k, v, m[:, None, None], qpk)
-    return _out(cfg, p, ctx, x.dtype, fp8=fp8, mesh=mesh)
+    return _out(cfg, p, ctx, x.dtype, fp8=fp8, mesh=mesh, sp=sp)
 
 
-def cross_attention(cfg, p: dict, x: torch.Tensor, kv_tokens: torch.Tensor, *, mesh=None) -> torch.Tensor:
+def cross_attention(cfg, p: dict, x: torch.Tensor, kv_tokens: torch.Tensor, *, mesh=None, sp=False) -> torch.Tensor:
     """Cross-attention of x (B, S, D) onto unpositioned vision tokens (B,
     N, D): every query sees every image token (no mask, no RoPE), the
     output scaled by ``tanh(gate)``.  In tensor ops, as the JAX package's
     ``jnp`` version.  Returns (B, S, D).  Under a training ``mesh`` whose
     ranks each hold a slice of the heads, the query input passes through
-    ``copy_to_model`` (``_qkv``); the vision tokens carry no gradient."""
-    q, k, v = _qkv(cfg, p, x, kv_x=kv_tokens, mesh=mesh)
-    return _gated_cross(cfg, p, x, q, k, v, mesh=mesh)
+    ``copy_to_model`` (``_qkv``); the vision tokens carry no gradient.
+    ``sp``: x is a ``SeqGather`` of this rank's seq slice and the output
+    this rank's slice; the vision tokens are whole on every rank."""
+    x = _gathered(cfg, p, x, mesh, sp)
+    q, k, v = _qkv(cfg, p, x, kv_x=kv_tokens, mesh=mesh, sp=sp)
+    return _gated_cross(cfg, p, x, q, k, v, mesh=mesh, sp=sp)
 
 
-def _gated_cross(cfg, p, x, q, k, v, mesh=None):
+def _gated_cross(cfg, p, x, q, k, v, mesh=None, sp=False):
     """``tanh(gate)`` times the projected attention of q over every row of
     k / v (the JAX package's all-zero additive mask).  The gate multiplies
     after ``_out``'s sum over the model ranks, so the replicated ``gate``
-    takes its whole gradient on every rank."""
+    takes its whole gradient on every rank; under ``sp`` it multiplies
+    this rank's slice and takes ``copy_to_model``."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     ctx = _attend_block(cfg, q, k, v, zero, cfg.q_per_kv)
-    return torch.tanh(p["gate"].to(x.dtype)) * _out(cfg, p, ctx, x.dtype, mesh=mesh)
+    gate = copy_to_model(p["gate"], mesh) if sp else p["gate"]
+    return torch.tanh(gate.to(x.dtype)) * _out(cfg, p, ctx, x.dtype, mesh=mesh, sp=sp)
 
 
 def prefill_attention(cfg, p: dict, x: torch.Tensor, *, positions=None, q_chunk: int = 0, mesh=None):

@@ -27,6 +27,20 @@
 Decode attention picks the cache layout by the cache's keys, as the JAX
 package's ``_decode_attn``: ``"tbl"`` is the paged layout (through
 ``attn_impl``, K1 under ``"kernel"``), else the dense ring cache.
+
+Sequence parallelism (the training blocks' ``sp=True``, with a mesh): x
+and the block's output are this rank's seq slice ``(B, S / tp, D)``.
+Each sublayer's norm runs on the slice (its scale and bias through
+``copy_to_model``), then a ``SeqGather`` hands the sublayer the whole
+sequence, which returns its slice (``reduce_scatter_seq`` after a
+row-parallel product).  The parallel-residual form gathers ``h`` once for
+both sublayers, and hymba gathers it once for its attention and SSM heads.
+A branch that runs whole on every rank (hymba's SSM heads, and its
+attention where the heads do not divide; rwkv6's time mix) reads the
+gather's ``whole()`` view and ``scatter_seq`` cuts its output, so its
+leaves take their whole gradients on every rank, as under tensor
+parallelism; the leaves that act on the slice (hymba's ``beta_*``, the
+vlm gates) take ``copy_to_model``.
 """
 
 from __future__ import annotations
@@ -51,6 +65,7 @@ from repro_torch.models.attention import (
 from repro_torch.models.ffn import ffn, ffn_specs
 from repro_torch.models.layers import ParamSpec, apply_norm, norm_specs
 from repro_torch.models.moe import moe_ffn, moe_specs
+from repro_torch.parallel.collectives import SeqGather, copy_to_model, scatter_seq
 
 
 def _decode_attn(cfg, p_attn, h, cache, pos, attn_impl, mesh=None):
@@ -70,22 +85,33 @@ def dense_block_specs(cfg) -> dict:
     }
 
 
-def _residual(cfg, p, x, h, a, fp8=None, mesh=None):
+def _normed(cfg, p_norm, x, mesh=None, sp=False):
+    """A sublayer's input: ``apply_norm`` of x; under ``sp`` normed on this
+    rank's slice, then a ``SeqGather`` of it (module docstring)."""
+    if not sp:
+        return apply_norm(cfg, p_norm, x)
+    return SeqGather(apply_norm(cfg, p_norm, x, seq_mesh=mesh), mesh)
+
+
+def _residual(cfg, p, x, h, a, fp8=None, mesh=None, sp=False):
     if cfg.parallel_residual:
         # GPT-NeoX / StableLM parallel form: one LN, attn + FFN both from it
-        return x + a + ffn(cfg, p["mlp"], h, fp8=fp8, mesh=mesh)
+        return x + a + ffn(cfg, p["mlp"], h, fp8=fp8, mesh=mesh, sp=sp)
     x = x + a
-    return x + ffn(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x), fp8=fp8, mesh=mesh)
+    return x + ffn(cfg, p["mlp"], _normed(cfg, p["norm2"], x, mesh, sp), fp8=fp8, mesh=mesh, sp=sp)
 
 
-def dense_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8=None, mesh=None):
+def dense_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8=None, mesh=None, sp=False):
     """Full-sequence forward of one layer (training): x (B, S, D) -> (B, S, D).
     ``fp8``: this layer's FP8 handle, or None.  ``mesh``: sharded
     training's (``p`` then holds this rank's model slices, its FSDP leaves
-    already gathered by ``models.forward``)."""
-    h = apply_norm(cfg, p["norm1"], x)
-    a = self_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk, impl=attn_impl, fp8=fp8, mesh=mesh)
-    return _residual(cfg, p, x, h, a, fp8=fp8, mesh=mesh)
+    already gathered by ``models.forward``); ``sp``: sequence parallelism,
+    x and the output this rank's seq slice (module docstring), the
+    ``positions`` the whole sequence's."""
+    h = _normed(cfg, p["norm1"], x, mesh, sp)
+    a = self_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk, impl=attn_impl, fp8=fp8, mesh=mesh,
+                       sp=sp)
+    return _residual(cfg, p, x, h, a, fp8=fp8, mesh=mesh, sp=sp)
 
 
 def dense_block_prefill(cfg, p, x, *, positions=None, q_chunk=0, mesh=None):
@@ -135,28 +161,29 @@ def moe_block_specs(cfg) -> dict:
     return specs
 
 
-def _moe_residual(cfg, p, x, a, fp8=None, mesh=None):
+def _moe_residual(cfg, p, x, a, fp8=None, mesh=None, sp=False):
     """The routed experts over ``norm2`` of the attention's residual, and
     arctic's dense FFN over ``norm_dense`` of it beside them: (x, the
     layer's load-balance loss), which serving drops, as in the JAX package.
     ``fp8`` quantizes the dense FFN; the routed experts stay ``torch.bmm``
     in the compute dtype, as in the JAX package."""
     x = x + a
-    mo, aux = moe_ffn(cfg, p["moe"], apply_norm(cfg, p["norm2"], x), mesh=mesh)
+    mo, aux = moe_ffn(cfg, p["moe"], _normed(cfg, p["norm2"], x, mesh, sp), mesh=mesh, sp=sp)
     if cfg.moe.dense_residual:
-        mo = mo + ffn(cfg, p["dense_mlp"], apply_norm(cfg, p["norm_dense"], x), fp8=fp8, mesh=mesh)
+        mo = mo + ffn(cfg, p["dense_mlp"], _normed(cfg, p["norm_dense"], x, mesh, sp), fp8=fp8, mesh=mesh, sp=sp)
     return x + mo, aux
 
 
-def moe_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8=None, mesh=None):
+def moe_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8=None, mesh=None, sp=False):
     """Full-sequence forward of one layer (training): (x (B, S, D), aux).
     ``fp8`` quantizes the attention projections and arctic's dense FFN.
-    ``mesh``: sharded training's, as ``dense_block``'s (the experts split
-    over the model axis, the routing groups over the data axis:
-    ``models.moe``)."""
-    h = apply_norm(cfg, p["norm1"], x)
-    a = self_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk, impl=attn_impl, fp8=fp8, mesh=mesh)
-    return _moe_residual(cfg, p, x, a, fp8=fp8, mesh=mesh)
+    ``mesh`` and ``sp``: sharded training's, as ``dense_block``'s (the
+    experts split over the model axis, the routing groups over the data
+    axis: ``models.moe``)."""
+    h = _normed(cfg, p["norm1"], x, mesh, sp)
+    a = self_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk, impl=attn_impl, fp8=fp8, mesh=mesh,
+                       sp=sp)
+    return _moe_residual(cfg, p, x, a, fp8=fp8, mesh=mesh, sp=sp)
 
 
 def moe_block_prefill(cfg, p, x, *, positions=None, q_chunk=0, mesh=None):
@@ -199,17 +226,21 @@ def rwkv_block_specs(cfg) -> dict:
     }
 
 
-def rwkv_block(cfg, p, x, *, wkv_impl="chunked", mesh=None):
+def rwkv_block(cfg, p, x, *, wkv_impl="chunked", mesh=None, sp=False):
     """Full-sequence forward of one layer from a zero state; the final
     state is dropped, so ``wkv_impl="kernel"`` (K5) may compute the scan.
     ``mesh``: sharded training's, as ``dense_block``'s.  The time mix runs
     whole on every rank (``parallel.sharding.WHOLE_OVER_MODEL``) and the
     channel mix splits its hidden dim (``models.rwkv.channel_mix``): only
     the channel mix's ``xk`` takes ``copy_to_model``, since the time mix's
-    and the norms' gradients are whole already (trap 1 of ``models.moe``)."""
-    out, _state = rwkv_mod.time_mix(cfg, p["time_mix"], apply_norm(cfg, p["norm1"], x), wkv_impl=wkv_impl)
-    x = x + out
-    out, _cmx = rwkv_mod.channel_mix(cfg, p["channel_mix"], apply_norm(cfg, p["norm2"], x), mesh=mesh)
+    and the norms' gradients are whole already (trap 1 of ``models.moe``).
+    Under ``sp`` the time mix runs whole on the gathered sequence and
+    ``scatter_seq`` cuts its output; the channel mix gathers before its
+    token shift, so the shift crosses the slices' edges."""
+    h = _normed(cfg, p["norm1"], x, mesh, sp)
+    out, _state = rwkv_mod.time_mix(cfg, p["time_mix"], h.whole() if sp else h, wkv_impl=wkv_impl)
+    x = x + (scatter_seq(out, mesh) if sp else out)
+    out, _cmx = rwkv_mod.channel_mix(cfg, p["channel_mix"], _normed(cfg, p["norm2"], x, mesh, sp), mesh=mesh, sp=sp)
     return x + out
 
 
@@ -264,16 +295,21 @@ def _rmsn(x, eps=1e-5):
     return (xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)).to(x.dtype)
 
 
-def _hybrid_combine(p, a, m, dtype):
-    """The mean of the normed attention and SSM outputs, each scaled."""
-    return 0.5 * (p["beta_attn"].to(dtype) * _rmsn(a) + p["beta_ssm"].to(dtype) * _rmsn(m))
+def _hybrid_combine(p, a, m, dtype, seq_mesh=None):
+    """The mean of the normed attention and SSM outputs, each scaled;
+    ``seq_mesh``: a and m are this rank's seq slices, so the scales take
+    ``copy_to_model``."""
+    b_attn, b_ssm = p["beta_attn"], p["beta_ssm"]
+    if seq_mesh is not None:
+        b_attn, b_ssm = copy_to_model(b_attn, seq_mesh), copy_to_model(b_ssm, seq_mesh)
+    return 0.5 * (b_attn.to(dtype) * _rmsn(a) + b_ssm.to(dtype) * _rmsn(m))
 
 
-def _hybrid_ffn(cfg, p, x, fp8=None, mesh=None):
-    return x + ffn(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x), fp8=fp8, mesh=mesh)
+def _hybrid_ffn(cfg, p, x, fp8=None, mesh=None, sp=False):
+    return x + ffn(cfg, p["mlp"], _normed(cfg, p["norm2"], x, mesh, sp), fp8=fp8, mesh=mesh, sp=sp)
 
 
-def hybrid_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8=None, mesh=None):
+def hybrid_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8=None, mesh=None, sp=False):
     """Full-sequence forward of one layer from zero states (training): x
     (B, S, D) -> (B, S, D).  ``fp8`` quantizes the attention projections and
     the MLP; the SSM heads stay in the compute dtype, as in the JAX
@@ -282,12 +318,16 @@ def hybrid_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8
     ``REPLICATED_SUBTREES``), and so does the attention where its heads do
     not divide the model axis (hymba's 25 over 5): only the FFN's input
     then takes ``copy_to_model`` (inside ``ffn``), since the replicated
-    branches' gradients are whole already (trap 1 of ``models.moe``)."""
-    h = apply_norm(cfg, p["norm1"], x)
-    a = self_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk, impl=attn_impl, fp8=fp8, mesh=mesh)
-    m, _states = ssm_mod.ssm_mix(cfg, p["ssm"], h)
-    x = x + _hybrid_combine(p, a, m, x.dtype)
-    return _hybrid_ffn(cfg, p, x, fp8=fp8, mesh=mesh)
+    branches' gradients are whole already (trap 1 of ``models.moe``).
+    Under ``sp`` both branches read the one gathered ``h``: the SSM heads
+    its ``whole()`` view, their output cut by ``scatter_seq`` (module
+    docstring)."""
+    h = _normed(cfg, p["norm1"], x, mesh, sp)
+    a = self_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk, impl=attn_impl, fp8=fp8, mesh=mesh,
+                       sp=sp)
+    m, _states = ssm_mod.ssm_mix(cfg, p["ssm"], h.whole() if sp else h)
+    x = x + _hybrid_combine(p, a, scatter_seq(m, mesh) if sp else m, x.dtype, mesh if sp else None)
+    return _hybrid_ffn(cfg, p, x, fp8=fp8, mesh=mesh, sp=sp)
 
 
 def hybrid_block_prefill(cfg, p, x, *, positions=None, q_chunk=0, mesh=None):
@@ -330,18 +370,22 @@ def cross_block_specs(cfg) -> dict:
     }
 
 
-def _cross_ffn(cfg, p, x, mesh=None):
+def _cross_ffn(cfg, p, x, mesh=None, sp=False):
     """The FFN over ``norm2``, entering the residual through ``tanh(gate_mlp)``."""
-    return x + torch.tanh(p["gate_mlp"].to(x.dtype)) * ffn(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x), mesh=mesh)
+    gate = copy_to_model(p["gate_mlp"], mesh) if sp else p["gate_mlp"]
+    return x + torch.tanh(gate.to(x.dtype)) * ffn(cfg, p["mlp"], _normed(cfg, p["norm2"], x, mesh, sp), mesh=mesh,
+                                                  sp=sp)
 
 
-def cross_block(cfg, p, x, vision_tokens, *, mesh=None):
+def cross_block(cfg, p, x, vision_tokens, *, mesh=None, sp=False):
     """Full-sequence forward of one cross layer: x (B, S, D) attends the
     vision tokens (B, N, D).  Returns (B, S, D).  ``mesh``: sharded
     training's, as ``dense_block``'s: the cross attention's heads and the
-    FFN's hidden dim split over the model axis, the gates stay whole."""
-    x = x + cross_attention(cfg, p["attn"], apply_norm(cfg, p["norm1"], x), vision_tokens, mesh=mesh)
-    return _cross_ffn(cfg, p, x, mesh=mesh)
+    FFN's hidden dim split over the model axis, the gates stay whole.
+    ``sp``: x is this rank's seq slice; the vision tokens stay whole."""
+    h = _normed(cfg, p["norm1"], x, mesh, sp)
+    x = x + cross_attention(cfg, p["attn"], h, vision_tokens, mesh=mesh, sp=sp)
+    return _cross_ffn(cfg, p, x, mesh=mesh, sp=sp)
 
 
 def cross_block_prefill(cfg, p, x, vision_tokens, *, mesh=None):

@@ -6,7 +6,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import ACTIVATIONS, ParamSpec, gelu_tanh
-from repro_torch.parallel.collectives import copy_to_model, sum_over_model
+from repro_torch.parallel.collectives import copy_to_model, reduce_scatter_seq, scatter_seq, sum_over_model
 
 
 def is_gated(activation: str) -> bool:
@@ -37,7 +37,7 @@ def ffn_specs(cfg, d_ff: int | None = None) -> dict:
     return specs
 
 
-def ffn(cfg, p: dict, x: torch.Tensor, *, fp8=None, mesh=None) -> torch.Tensor:
+def ffn(cfg, p: dict, x: torch.Tensor, *, fp8=None, mesh=None, sp=False) -> torch.Tensor:
     """``fp8``: an FP8 layer handle (``repro_torch.fp8.policy.Fp8Layer``)
     routes the up/gate/down GEMMs through quantized matmuls (biases and the
     activation stay in the compute dtype).
@@ -47,13 +47,22 @@ def ffn(cfg, p: dict, x: torch.Tensor, *, fp8=None, mesh=None) -> torch.Tensor:
     ``b_up`` are column-parallel, the down product row-parallel, summed by
     one all-reduce, and ``b_down`` is added once, after the sum.  Under
     autograd (sharded training) x passes through ``copy_to_model`` and the
-    sum is ``sum_over_model``'s (``parallel.collectives``)."""
+    sum is ``sum_over_model``'s (``parallel.collectives``).
+
+    ``sp`` (sequence parallelism): x is the block's ``SeqGather`` of this
+    rank's seq slice and the output this rank's seq slice: where the
+    hidden dim splits, the FFN reads the ``split()`` view and its down
+    product is reduce-scattered; else it runs whole on every rank on the
+    ``whole()`` view and ``scatter_seq`` cuts its output.  ``b_down``,
+    added to the slice, takes ``copy_to_model``."""
 
     def mm(site, a, w):
         return fp8.matmul(site, a, w) if fp8 is not None else a @ w.to(a.dtype)
 
     split = mesh is not None and p["w_down"].shape[0] != cfg.d_ff
-    if split:
+    if sp:
+        x = x.split() if split else x.whole()
+    elif split:
         x = copy_to_model(x, mesh)
     act = gate_fn(cfg.activation)
     up = mm("ffn_up", x, p["w_up"])
@@ -65,7 +74,9 @@ def ffn(cfg, p: dict, x: torch.Tensor, *, fp8=None, mesh=None) -> torch.Tensor:
         h = act(up)
     out = mm("ffn_down", h, p["w_down"])
     if split:
-        out = sum_over_model(out.contiguous(), mesh)
+        out = reduce_scatter_seq(out, mesh) if sp else sum_over_model(out.contiguous(), mesh)
+    elif sp:
+        out = scatter_seq(out, mesh)
     if cfg.use_bias:
-        out = out + p["b_down"].to(x.dtype)
+        out = out + (copy_to_model(p["b_down"], mesh) if sp else p["b_down"]).to(x.dtype)
     return out

@@ -13,6 +13,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.collectives import copy_leaves_to_model
+
 
 class ParamSpec(NamedTuple):
     shape: tuple[int, ...]
@@ -77,8 +79,14 @@ def norm_specs(cfg, d: int | None = None) -> dict:
     raise ValueError(f"unknown norm {cfg.norm!r}")
 
 
-def apply_norm(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Normalize in fp32, cast back to input dtype (standard LM practice)."""
+def apply_norm(cfg, p: dict, x: torch.Tensor, seq_mesh=None) -> torch.Tensor:
+    """Normalize in fp32, cast back to input dtype (standard LM practice).
+    ``seq_mesh``: under sequence parallelism, the mesh over whose model
+    axis ``x`` is this rank's seq slice; the replicated scale and bias
+    then take ``copy_to_model``, since each rank's gradient of them is its
+    positions' share."""
+    if seq_mesh is not None:
+        p = copy_leaves_to_model(p, seq_mesh)
     dtype = x.dtype
     xf = x.float()
     if cfg.norm == "rmsnorm":

@@ -63,6 +63,20 @@ copy of the whole tree exists; under ``remat="full"`` the gather is
 recomputed in the backward, as ZeRO-3 does.  The logits stay local: the
 train step's cross-entropy is vocab-parallel.
 
+Sequence parallelism (``forward(sequence_parallel=True)`` with a mesh
+whose model axis divides the sequence: ``parallel.sharding.seq_split``):
+the residual stream between the blocks is each model rank's contiguous
+slice of the sequence, ``(B, S / tp, D)``, as the JAX package's rule
+engine lays out ``("batch", "seq", "embed")``.  The vocab-parallel
+embedding's sum becomes ``reduce_scatter_seq``, a replicated table's
+lookup (the audio frames' projection and positions, learned positions)
+is cut by ``scatter_seq``; each block gathers its sublayers' inputs and
+reduce-scatters their outputs (``models.blocks``); the head normalises the
+slice, gathers the sequence (the JAX package's ``"seq_unsharded"`` before
+the head) and projects it vocab-parallel, so the cross-entropy sees whole
+rows (a replicated head projects the ``whole()`` view).  RoPE takes the
+whole sequence's positions after the gathers.
+
 The layer loop is a Python loop over per-layer parameter dicts.  The cache
 is updated in place and returned for symmetry with the JAX functions, which
 return a new one.
@@ -100,8 +114,17 @@ from repro_torch.models.cache import SERVED_FAMILIES, layer_cache
 from repro_torch.models.layers import apply_norm
 from repro_torch.models.rwkv import check_wkv_impl
 from repro_torch.models.initializers import param_specs
-from repro_torch.parallel.collectives import all_gather, copy_to_model, gather_over_data, sum_over_model
-from repro_torch.parallel.sharding import FSDP_AXES, model_rank
+from repro_torch.parallel.collectives import (
+    SeqGather,
+    all_gather,
+    copy_to_model,
+    gather_over_data,
+    gather_seq,
+    reduce_scatter_seq,
+    scatter_seq,
+    sum_over_model,
+)
+from repro_torch.parallel.sharding import FSDP_AXES, data_axis, model_rank, seq_split
 
 
 def _check_impl(cfg, attn_impl: str) -> None:
@@ -127,26 +150,33 @@ DECODE_BLOCKS = {"dense": dense_block_decode, "moe": moe_block_decode, "hybrid":
 STEP_DTYPE_LEAVES = ("conv", "tm_x", "cm_x")
 
 
-def embed_input(cfg, params, tokens: torch.Tensor, positions: torch.Tensor, mesh=None) -> torch.Tensor:
+def embed_input(cfg, params, tokens: torch.Tensor, positions: torch.Tensor, mesh=None, sp=False) -> torch.Tensor:
     """(B, S) tokens at (B, S) positions -> (B, S, D) embeddings.  For the
     audio family ``tokens`` holds the frames, (B, S, D): ``frames @
     frame_proj`` plus the learned ``pos[:S]``, whatever ``positions`` says,
     as in the JAX package.  Under a ``mesh`` whose ranks each hold a vocab
-    slice of the table, the lookup is vocab-parallel (module docstring)."""
+    slice of the table, the lookup is vocab-parallel (module docstring).
+    ``sp``: this rank's seq slice, (B, S / tp, D): the vocab-parallel sum
+    reduce-scattered, a replicated table's rows cut by ``scatter_seq``."""
     e = params["embed"]
     if cfg.family == "audio":
         x = tokens @ e["frame_proj"].to(tokens.dtype)
-        return x + e["pos"][: x.shape[1]].to(x.dtype)
+        x = x + e["pos"][: x.shape[1]].to(x.dtype)
+        return scatter_seq(x, mesh) if sp else x
     tok = e["tok"]
     if mesh is not None and tok.shape[0] != cfg.padded_vocab:
         local = tokens.long() - model_rank(mesh) * tok.shape[0]
         mine = (local >= 0) & (local < tok.shape[0])
         x = tok[local.clamp(0, tok.shape[0] - 1)]
-        x = sum_over_model(torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device)), mesh)
+        x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+        x = reduce_scatter_seq(x, mesh) if sp else sum_over_model(x, mesh)
     else:
         x = tok[tokens.long()]
+        if sp:
+            x = scatter_seq(x, mesh)
     if cfg.learned_pos_embedding:
-        x = x + e["pos"][positions.long()].to(x.dtype)
+        pos = e["pos"][positions.long()]
+        x = x + (scatter_seq(pos, mesh) if sp else pos).to(x.dtype)
     if cfg.scale_embedding:
         # the scale rounded to x's dtype on the host: a Python float, so no
         # host-to-device copy (which a CUDA graph capture refuses)
@@ -154,16 +184,22 @@ def embed_input(cfg, params, tokens: torch.Tensor, positions: torch.Tensor, mesh
     return x
 
 
-def lm_logits(cfg, params, x: torch.Tensor, mesh=None, *, gather: bool = True) -> torch.Tensor:
+def lm_logits(cfg, params, x: torch.Tensor, mesh=None, *, gather: bool = True, sp: bool = False) -> torch.Tensor:
     """Final norm + output projection (tied or untied; padded-vocab mask).
     Under a ``mesh`` whose ranks each hold a vocab slice of the projection
     (``lm_head`` or the tied table), each rank computes its slice of the
     logits, masks it by global column, and one all-gather joins them;
-    ``gather=False`` (training) returns the rank's slice."""
-    x = apply_norm(cfg, params["final_norm"], x)
+    ``gather=False`` (training) returns the rank's slice.  ``sp``: x is
+    this rank's seq slice; the norm runs on it (its scale and bias through
+    ``copy_to_model``), then the whole sequence is gathered, so the logits
+    cover every position (a replicated head, computed whole on every rank,
+    reads the gather's ``whole()`` view)."""
+    x = apply_norm(cfg, params["final_norm"], x, seq_mesh=mesh if sp else None)
     if mesh is not None:
         head = params["lm_head"].shape[-1] if "lm_head" in params else params["embed"]["tok"].shape[0]
-        if head != cfg.padded_vocab:
+        if sp:
+            x = gather_seq(x, mesh) if head != cfg.padded_vocab else SeqGather(x, mesh).whole()
+        elif head != cfg.padded_vocab:
             x = copy_to_model(x, mesh)
     if "lm_head" in params:
         logits = x @ params["lm_head"].to(x.dtype)
@@ -249,7 +285,7 @@ def fsdp_gather(tree: dict, specs: dict, mesh, compute_dtype=None, fp8: bool = F
 
 def forward(
     cfg, params, batch, *, q_chunk=0, remat="none", attn_impl="torch", wkv_impl="chunked", compute_dtype=None, fp8=None,
-    mesh=None,
+    mesh=None, sequence_parallel=False,
 ):
     """Training forward.  Returns (logits, aux_loss), or (logits, aux_loss,
     amaxes) when an ``fp8`` context (``repro_torch.fp8.Fp8Ctx``) is passed:
@@ -277,6 +313,10 @@ def forward(
     (``models.rwkv.check_wkv_impl``).  ``mesh``: sharded training's
     ``(data, model)`` mesh, with this rank's parameter slices and batch
     rows (module docstring); the logits are then this rank's vocab slice.
+    ``sequence_parallel`` (``ParallelConfig.sequence_parallel``): under a
+    ``mesh``, the residual stream splits over seq where
+    ``parallel.sharding.seq_split`` says so (module docstring); the
+    logits still cover the whole sequence.
     """
     if cfg.family not in FORWARD_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported yet")
@@ -301,7 +341,8 @@ def forward(
         e = params["embed"]
         embed_params = dict(params, embed=fsdp_gather({"frame_proj": e["frame_proj"], "pos": e["pos"][: inputs.shape[1]]},
                                                       specs["embed"], mesh))
-    x = embed_input(cfg, embed_params, inputs, positions, mesh)
+    sp = seq_split(mesh, (inputs.shape[0] * data_axis(mesh)[0], inputs.shape[1], cfg.d_model), sequence_parallel)
+    x = embed_input(cfg, embed_params, inputs, positions, mesh, sp)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
     vision = batch.get("vision_tokens")
@@ -323,7 +364,7 @@ def forward(
         if mesh is None:
             return partial(block, cfg, p, **kw)
         gathered = partial(fsdp_gather, p, spec, mesh, compute_dtype, handle is not None)
-        return lambda x: block(cfg, gathered(), x, mesh=mesh, **kw)
+        return lambda x: block(cfg, gathered(), x, mesh=mesh, sp=sp, **kw)
 
     layer_block = TRAIN_BLOCKS.get(cfg.family, dense_block)  # vlm: its self layers
     obs = []
@@ -353,7 +394,7 @@ def forward(
         logits = lm_logits(cfg, params, x)
     else:
         head = dict(params, final_norm=fsdp_gather(params["final_norm"], specs["final_norm"], mesh))
-        logits = lm_logits(cfg, head, x, mesh, gather=False)
+        logits = lm_logits(cfg, head, x, mesh, gather=False, sp=sp)
     aux = aux / cfg.num_layers
     if fp8 is None:
         return logits, aux

@@ -72,6 +72,16 @@ under autograd, with two traps:
    every rank's probabilities).  A rank fills only its own tokens' rows of
    the buffers of the groups it holds, and the experts act row by row, so
    its tokens' outputs are the reference's.
+
+**Sequence parallelism** (``moe_ffn(sp=True)``): the layer takes the
+block's ``SeqGather`` of its seq slices, so every rank routes the whole
+sequence's tokens in the same order as above, and returns this rank's seq
+slice.  The router and the load-balance loss are computed whole on every
+rank, so they read the ``whole()`` view (this rank's slice of their
+gradient); the dispatch of this rank's experts reads the ``split()`` view
+(the reduce-scatter sums the ranks' shares) and the combine's sum is
+``reduce_scatter_seq``.  A part that runs whole on every rank reads the
+``whole()`` view and ``scatter_seq`` cuts its output.
 """
 
 from __future__ import annotations
@@ -82,7 +92,14 @@ import torch
 
 from repro_torch.models.ffn import gate_fn, is_gated
 from repro_torch.models.layers import ParamSpec
-from repro_torch.parallel.collectives import copy_to_model, exchange_counts, sum_over_data, sum_over_model
+from repro_torch.parallel.collectives import (
+    copy_to_model,
+    exchange_counts,
+    reduce_scatter_seq,
+    scatter_seq,
+    sum_over_data,
+    sum_over_model,
+)
 from repro_torch.parallel.sharding import data_axis, model_rank
 
 
@@ -203,18 +220,30 @@ def _experts(cfg, p: dict, xe: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, p["w_down"].to(xe.dtype))
 
 
-def moe_ffn(cfg, p: dict, x: torch.Tensor, *, mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(cfg, p: dict, x: torch.Tensor, *, mesh=None, sp=False) -> tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN over (B, S, D).  Returns (out (B, S, D), aux loss).  Under
     a ``mesh`` whose ranks each hold a slice of the experts, this rank runs
     its experts and the combine is summed over the ranks; under a training
     mesh with more than one data rank, ``x`` is this rank's rows of the
     microbatch and the groups, capacity and aux are the global batch's
-    (module docstring)."""
+    (module docstring).  ``sp``: x is a ``SeqGather`` of this rank's seq
+    slice and ``out`` this rank's seq slice, (B, S / tp, D)."""
     m = cfg.moe
+    gathered = x if sp else None
+    if sp:
+        x = gathered.whole()  # the router's input, computed whole on every rank
     B, S, D = x.shape
     T = B * S
     E, k = m.num_experts, m.top_k
     xt = x.reshape(T, D)
+
+    def part_input(split: bool) -> torch.Tensor:
+        """The (T, D) tokens of a part whose ranks each hold a share
+        (``split``) or that runs whole."""
+        if sp:
+            return (gathered.split() if split else gathered.whole()).reshape(T, D)
+        return copy_to_model(xt, mesh) if split else xt
+
     dev = x.device
     d = data_axis(mesh)[0]
     G = group_len(m, T * d)
@@ -242,7 +271,7 @@ def moe_ffn(cfg, p: dict, x: torch.Tensor, *, mesh=None) -> tuple[torch.Tensor, 
     # into the dispatch's input is partial (the router's input ``xt`` is not)
     src = torch.full((rows + 1,), T, dtype=torch.int64, device=dev)
     src.scatter_(0, torch.where(keep, row, rows).reshape(T * k), torch.arange(T, device=dev).repeat_interleave(k))
-    xd = copy_to_model(xt, mesh) if split else xt
+    xd = part_input(split)
     xe = torch.cat([xd, xd.new_zeros(1, D)])[src[first : first + local_rows]].view(E_local, nl * C, D)
     ye = _experts(cfg, p, xe).view(local_rows, D)
     # combine: a dropped pair (or, under a mesh, one another rank's expert
@@ -255,14 +284,20 @@ def moe_ffn(cfg, p: dict, x: torch.Tensor, *, mesh=None) -> tuple[torch.Tensor, 
     out = (gates.reshape(T, k, 1) * picked).sum(dim=1)
     partial = split  # whether ``out`` is this rank's share of a sum over ranks
 
+    shared, shared_split = None, False
     # always-on shared experts (DeepSeek-style)
     if m.num_shared_experts > 0:
         act = gate_fn(cfg.activation)
         shared_split = mesh is not None and p["shared_w_down"].shape[0] != m.num_shared_experts * m.expert_d_ff
-        xs = copy_to_model(xt, mesh) if shared_split else xt
+        xs = part_input(shared_split)
         up = xs @ p["shared_w_up"].to(xs.dtype)
         up = act(xs @ p["shared_w_gate"].to(xs.dtype)) * up if is_gated(cfg.activation) else act(up)
         shared = up @ p["shared_w_down"].to(xs.dtype)
+    aux = r.aux.mean() * m.aux_loss_weight
+    if sp:
+        shared = None if shared is None else shared.reshape(B, S, D)
+        return _seq_combine(out.reshape(B, S, D), partial, shared, shared_split, mesh), aux
+    if shared is not None:
         if shared_split != partial:
             # one part is a share of a sum, the other whole: sum the share first
             if partial:
@@ -272,4 +307,20 @@ def moe_ffn(cfg, p: dict, x: torch.Tensor, *, mesh=None) -> tuple[torch.Tensor, 
         out = out + shared
     if partial:
         out = sum_over_model(out.contiguous(), mesh)
-    return out.reshape(B, S, D), r.aux.mean() * m.aux_loss_weight
+    return out.reshape(B, S, D), aux
+
+
+def _seq_combine(out, partial: bool, shared, shared_partial: bool, mesh):
+    """Under sequence parallelism: this rank's seq slice of ``out`` plus
+    ``shared`` (either None), each (B, S, D) rows of the whole sequence: the
+    parts that are shares of a sum over the model ranks summed and
+    reduce-scattered, the whole ones cut by ``scatter_seq``."""
+    parts = [(out, partial)] + ([(shared, shared_partial)] if shared is not None else [])
+    shares = [t for t, is_share in parts if is_share]
+    wholes = [t for t, is_share in parts if not is_share]
+    got = []
+    if shares:
+        got.append(reduce_scatter_seq(shares[0] if len(shares) == 1 else shares[0] + shares[1], mesh))
+    if wholes:
+        got.append(scatter_seq(wholes[0] if len(wholes) == 1 else wholes[0] + wholes[1], mesh))
+    return got[0] if len(got) == 1 else got[0] + got[1]

@@ -35,7 +35,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels.rwkv6_scan import wkv6
 from repro_torch.kernels.rwkv6_scan_ref import wkv_chunk
 from repro_torch.models.layers import ParamSpec, group_norm_heads
-from repro_torch.parallel.collectives import copy_to_model, sum_over_model
+from repro_torch.parallel.collectives import (
+    copy_leaves_to_model,
+    copy_to_model,
+    reduce_scatter_seq,
+    seq_slice,
+    sum_over_model,
+)
 
 WKV_IMPLS = ("chunked", "kernel")
 
@@ -225,24 +231,40 @@ def time_mix_step(cfg, p, x, prev_x, state):
 # ---------------------------------------------------------------------------
 
 
-def channel_mix(cfg, p, x, *, prev_x=None, mesh=None):
+def channel_mix(cfg, p, x, *, prev_x=None, mesh=None, sp=False):
     """Returns (out, the last token).  Under a ``mesh`` (training's or
     tensor-parallel serving's) whose ranks each hold a slice of the hidden
     dim (``w_v`` has fewer than ``cfg.d_ff`` rows), ``xk`` passes through
     ``copy_to_model`` after the token-shift mix, so ``maa_k``'s gradient is
     the ranks' sum too, and ``kv`` is summed once (in place where autograd
     does not record); ``xr``, ``w_r`` and ``maa_r`` take whole gradients on
-    every rank."""
+    every rank.
+
+    ``sp`` (sequence parallelism): x is the block's ``SeqGather``, whose
+    ``split()`` view the mix reads, so the token shift crosses the slices'
+    edges, and the output this rank's seq slice: ``kv`` reduce-scattered
+    (or, where the hidden dim does not split, cut from the whole ``kv``,
+    ``w_k`` and ``w_v`` then through ``copy_to_model``), ``xr`` cut to the
+    slice; ``maa_k``, ``maa_r`` and ``w_r`` take ``copy_to_model``, since
+    each rank's gradient of them is its share."""
+    if sp:
+        x = x.split()
     dt = x.dtype
+    split = mesh is not None and p["w_v"].shape[0] != cfg.d_ff
+    if sp:
+        p = copy_leaves_to_model(p, mesh, ("maa_k", "maa_r", "w_r") + (() if split else ("w_k", "w_v")))
     x_prev = token_shift(x, prev_x)
     sx = x_prev - x
     xk = x + sx * p["maa_k"].to(dt)
     xr = x + sx * p["maa_r"].to(dt)
-    split = mesh is not None and p["w_v"].shape[0] != cfg.d_ff
-    if split:
+    if split and not sp:
         xk = copy_to_model(xk, mesh)
     k = torch.square(F.relu(xk @ p["w_k"].to(dt)))
     kv = k @ p["w_v"].to(dt)
     if split:
-        kv = sum_over_model(kv, mesh)
+        kv = reduce_scatter_seq(kv, mesh) if sp else sum_over_model(kv, mesh)
+    elif sp:
+        kv = seq_slice(kv, mesh)
+    if sp:
+        xr = seq_slice(xr, mesh)
     return torch.sigmoid(xr @ p["w_r"].to(dt)) * kv, x[:, -1]

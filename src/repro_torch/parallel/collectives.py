@@ -52,12 +52,47 @@ serving primitives on a mesh's model axis.
      max).  A reduction over both axes runs one collective an axis, so it
      covers the mesh's ranks, not the whole world (an elastic mesh).
 
+5. Sequence parallelism (``models.forward(sequence_parallel=True)``): the
+   residual stream between the sublayers is this rank's contiguous slice
+   ``(B, S / tp, ...)`` of the sequence (dim 1), the Megatron layout that
+   GSPMD runs for the JAX package's ``"seq"`` rule.  Autograd-aware, each
+   the identity where the model axis is 1:
+
+   * ``SeqGather``: one all-gather of a sublayer input's slices, in two
+     views: ``split()`` (its gradient the reduce-scatter, a sum, of the
+     ranks' shares: a column-parallel product's input, where tensor
+     parallelism has ``copy_to_model``; ``gather_seq`` makes one) and
+     ``whole()`` (for a branch that every rank computes whole, as tensor
+     parallelism does: this rank's slice of the whole gradient, no
+     collective);
+   * ``reduce_scatter_seq``: the ranks' partial outputs summed and this
+     rank's slice kept forward (a row-parallel product's output, where
+     tensor parallelism has ``sum_over_model``), the all-gather of the
+     gradient backward;
+   * ``scatter_seq``: this rank's slice of a tensor that every rank holds
+     whole forward (a whole branch's output, the embedding of a replicated
+     table), the all-gather of the gradient backward, so what made the
+     tensor takes its whole gradient on every rank, as under tensor
+     parallelism;
+   * ``seq_slice`` (no collective): a plain slice, whose gradient is this
+     rank's share;
+   * ``copy_leaves_to_model``: ``copy_to_model`` on the replicated leaves
+     that act on the slice (a norm's scale and bias, a bias added after a
+     reduce-scatter, a gate), whose gradient on each rank is its
+     positions' share.
+
+   Each rank issues them in the same order, a remat recompute included.
+
    Each adds one to ``TRAIN_COLLECTIVES[name]`` and its operand's bytes to
    ``TRAIN_COLLECTIVES[name + "_bytes"]`` where it calls the collective:
    ``copy_to_model``, ``gather_over_data`` and ``sum_over_data`` in their
    backward too (as ``copy_to_model``, ``reduce_scatter_data`` and
-   ``sum_over_data``).  ``reset_collectives``
-   sets both tables to 0.
+   ``sum_over_data``).  The sequence collectives count by the collective
+   they issue: ``gather_seq`` (an all-gather of slices: ``SeqGather``'s
+   forward, the backward of ``reduce_scatter_seq`` and ``scatter_seq``;
+   the bytes of the slice) and ``reduce_scatter_seq`` (``reduce_scatter_seq``'s
+   forward, ``split()``'s backward; the bytes of the whole sequence).
+   ``reset_collectives`` sets both tables to 0.
 """
 
 from __future__ import annotations
@@ -183,7 +218,8 @@ class CollectiveModel:
 COLLECTIVES = {"all_reduce": 0, "all_reduce_bytes": 0, "all_gather": 0, "all_gather_bytes": 0}
 # the same for the training collectives (section 4 of the module docstring)
 TRAIN_NAMES = ("copy_to_model", "sum_over_model", "gather_over_data", "reduce_scatter_data", "all_reduce_sum",
-               "all_reduce_max", "max_over_model", "sum_over_data", "exchange_counts")
+               "all_reduce_max", "max_over_model", "sum_over_data", "exchange_counts", "gather_seq",
+               "reduce_scatter_seq")
 TRAIN_COLLECTIVES = {f"{n}{s}": 0 for n in TRAIN_NAMES for s in ("", "_bytes")}
 
 
@@ -373,3 +409,165 @@ def all_reduce_over(x: torch.Tensor, mesh, axes: tuple) -> torch.Tensor:
     "model")``), outside autograd: a new tensor, or ``x`` itself where no
     axis has more than one rank."""
     return _over(x, mesh, tuple(a for a in ("data", "model") if a in axes), "all_reduce_sum")
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism: the residual stream split over "model" along dim 1
+# ---------------------------------------------------------------------------
+
+SEQ_DIM = 1
+
+
+def _all_gather_seq(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along the seq dim in rank order."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    _count("gather_seq", x)
+    return torch.cat(parts, dim=SEQ_DIM)
+
+
+def _reduce_scatter_seq(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The ranks' ``x`` summed, and this rank's slice along the seq dim of
+    the sum."""
+    rows = x.movedim(SEQ_DIM, 0).contiguous()
+    if rows.shape[0] % n:
+        raise ValueError(f"seq {rows.shape[0]} does not split over {n} ranks")
+    out = torch.empty((rows.shape[0] // n,) + rows.shape[1:], dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, rows, group=group)
+    _count("reduce_scatter_seq", rows)
+    return out.movedim(0, SEQ_DIM)
+
+
+def _own_slice(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    s = x.shape[SEQ_DIM] // n
+    return x.narrow(SEQ_DIM, dist.get_rank(group) * s, s)
+
+
+class _SplitEdge(torch.autograd.Function):
+    """The gathered sequence ``full`` (gathered from ``x``) as a function
+    of ``x`` whose gradient is each rank's share: reduce-scattered."""
+
+    @staticmethod
+    def forward(ctx, x, full, group, n):
+        ctx.group, ctx.n = group, n
+        return full.view_as(full)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter_seq(g, ctx.group, ctx.n), None, None, None
+
+
+class _WholeEdge(torch.autograd.Function):
+    """The gathered sequence ``full`` as a function of ``x`` whose gradient
+    every rank computes whole: this rank's slice of it."""
+
+    @staticmethod
+    def forward(ctx, x, full, group, n):
+        ctx.group, ctx.n = group, n
+        return full.view_as(full)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_slice(g, ctx.group, ctx.n).contiguous(), None, None, None
+
+
+class _ReduceScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return _reduce_scatter_seq(x, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_seq(g, ctx.group, ctx.n), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return _own_slice(x, group, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_seq(g, ctx.group, ctx.n), None, None
+
+
+class SeqGather:
+    """This rank's seq slice ``x`` (B, S / tp, ...) and the whole sequence,
+    all-gathered once (on first use) for every sublayer that reads it, in
+    two views that differ only in their backward (section 5 of the module
+    docstring):
+
+    * ``split()``: for a sublayer whose ranks each compute a share of the
+      gradient (a column-parallel product): the reduce-scatter (sum) of
+      the ranks' gradients;
+    * ``whole()``: for a branch that every rank computes whole, its output
+      cut by ``scatter_seq``: this rank's slice of the whole gradient, no
+      collective.
+
+    Each view is made once, so two sublayers that read one view (the
+    parallel residual's attention and FFN) share its backward collective.
+    Where the model axis is 1 both views are ``x``."""
+
+    def __init__(self, x: torch.Tensor, mesh):
+        self.x, self.mesh, self.n = x, mesh, _size(mesh, "model")
+        self._full = None
+        self._views = {}
+
+    def _view(self, edge) -> torch.Tensor:
+        if self.n == 1:
+            return self.x
+        if edge not in self._views:
+            group = model_group(self.mesh)
+            if self._full is None:
+                self._full = _all_gather_seq(self.x.detach(), group, self.n)
+            self._views[edge] = edge.apply(self.x, self._full, group, self.n)
+        return self._views[edge]
+
+    def split(self) -> torch.Tensor:
+        return self._view(_SplitEdge)
+
+    def whole(self) -> torch.Tensor:
+        return self._view(_WholeEdge)
+
+
+def _seq_apply(fn, x: torch.Tensor, mesh) -> torch.Tensor:
+    n = _size(mesh, "model")
+    return x if n == 1 else fn.apply(x, model_group(mesh), n)
+
+
+def gather_seq(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The whole sequence from every model rank's slice ``x`` (B, S / tp,
+    ...): an all-gather forward, a reduce-scatter (sum) of the gradient
+    backward (``SeqGather(x, mesh).split()``)."""
+    return SeqGather(x, mesh).split()
+
+
+def reduce_scatter_seq(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's slice of the model ranks' ``x`` (B, S, ...) summed: a
+    reduce-scatter forward, an all-gather of the gradient backward."""
+    return _seq_apply(_ReduceScatterSeq, x, mesh)
+
+
+def scatter_seq(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's slice of ``x`` (B, S, ...), which every model rank holds
+    whole: no collective forward, an all-gather of the gradient backward,
+    so what made ``x`` takes its whole gradient on every rank."""
+    return _seq_apply(_ScatterSeq, x, mesh)
+
+
+def seq_slice(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's slice of ``x`` (B, S, ...) along the seq dim, a plain
+    slice (autograd gives the rest of ``x`` a zero gradient)."""
+    n = _size(mesh, "model")
+    return x if n == 1 else _own_slice(x, model_group(mesh), n)
+
+
+def copy_leaves_to_model(tree: dict, mesh, names=None) -> dict:
+    """``tree`` (a dict of leaves) with each leaf of ``names`` (default:
+    every one) through ``copy_to_model``: the replicated leaves whose
+    gradient on each rank is that rank's share (a norm's scale acting on
+    the seq slice)."""
+    return {k: copy_to_model(v, mesh) if names is None or k in names else v for k, v in tree.items()}

@@ -63,6 +63,15 @@ audio frame projection and positions.  Every other leaf is replicated over
 the q/k norm scales, hymba's SSM heads (``REPLICATED_SUBTREES``).  FSDP
 takes the embed dims of rwkv6's time mix like any other's.
 
+**Sequence parallelism** (``ParallelConfig.sequence_parallel``, training
+and the sharded evals): the act rule of ``"seq"`` claims ``"model"`` after
+the TP dims have claimed it, so inside attention and the FFN the heads
+and ``mlp`` split, and between them the residual stream ``(batch, seq,
+embed)`` splits on seq.  ``seq_split`` is the one decision: the executed
+spec of that stream under ``act_rules``, which honours divisibility as
+``spec_for`` does, so a sequence the model axis does not divide runs
+unsplit, as plain tensor parallelism.
+
 ``executed_specs`` gives that layout beside the table's, and
 ``shard_params`` cuts each rank's slice of a full parameter tree by it.
 ``state_shardings`` is the layout of a whole train state (the moments and
@@ -288,6 +297,18 @@ class ShardingRules:
             (None,) * (ndim - 1) + ("vocab",), (1,) * (ndim - 1) + (model_cfg.padded_vocab,), mesh, self.act_rules()
         )
 
+
+
+def seq_split(mesh, shape: tuple, sequence_parallel: bool) -> bool:
+    """Whether the residual stream of the global ``shape`` (batch, seq,
+    embed) splits its seq dim over ``mesh``'s model axis: the executed
+    spec of ``("batch", "seq", "embed")`` under the act rules of a table
+    with ``sequence_parallel`` (module docstring).  False without a mesh
+    or on a model axis of 1."""
+    if mesh is None or model_axis_size(mesh) == 1 or not sequence_parallel:
+        return False
+    rules = training_rules(ParallelConfig(sequence_parallel=True))
+    return rules.spec_for(("batch", "seq", "embed"), tuple(shape), mesh, rules.act_rules())[1] == MODEL
 
 
 def make_rules(mesh_cfg: MeshConfig, parallel: ParallelConfig | None = None) -> ShardingRules:

@@ -53,9 +53,12 @@ takes the global batch and computes the JAX package's step on it:
 
 The ssm family's time mix runs whole on every model rank and the vlm
 family's cross layers split their heads like the self layers (a batch's
-``vision_tokens`` are split by rows with the rest).  The JAX package
-executes the same function through GSPMD; its sequence parallelism is not
-ported (``NotImplementedError``).
+``vision_tokens`` are split by rows with the rest).  With
+``parallel.sequence_parallel`` the residual stream between the sublayers
+is each model rank's slice of the sequence where the model axis divides
+it (``models.forward(sequence_parallel=)``, ``parallel.sharding.seq_split``);
+the loss and the metrics are the same function's.  The JAX package
+executes the same function through GSPMD.
 """
 
 from __future__ import annotations
@@ -120,7 +123,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *, z_loss: float =
 
 def loss_fn(
     model_cfg, params, batch, *, q_chunk=0, remat="none", z_loss=0.0, attn_impl="torch", wkv_impl="chunked",
-    compute_dtype=None, fp8=None, mesh=None,
+    compute_dtype=None, fp8=None, mesh=None, sequence_parallel=False,
 ):
     """Returns (loss, (ce, aux)): the loss is the cross-entropy plus the
     forward's aux loss (the moe family's load-balance loss, else 0); with an
@@ -128,10 +131,11 @@ def loss_fn(
     observations of the delayed-scaling update.  ``attn_impl="flash"`` runs K3 and ``wkv_impl="kernel"`` runs
     K5, both forward only: call them under ``torch.no_grad()``.  ``mesh``:
     sharded training's, with this rank's slices and rows (the loss is then
-    this rank's rows' mean)."""
+    this rank's rows' mean); ``sequence_parallel``: the run's
+    ``ParallelConfig.sequence_parallel`` (``models.forward``)."""
     out = forward(
         model_cfg, params, batch, q_chunk=q_chunk, remat=remat, attn_impl=attn_impl, wkv_impl=wkv_impl,
-        compute_dtype=compute_dtype, fp8=fp8, mesh=mesh,
+        compute_dtype=compute_dtype, fp8=fp8, mesh=mesh, sequence_parallel=sequence_parallel,
     )
     vocab_split = mesh is not None and out[0].shape[-1] != model_cfg.padded_vocab
     ce = cross_entropy(out[0], batch["labels"], z_loss=z_loss, mesh=mesh if vocab_split else None)
@@ -152,8 +156,6 @@ def _check_sharded(model_cfg, run_cfg, rules, mesh) -> None:
         raise ValueError("sharded training takes both rules and a mesh")
     if mesh is None:
         return
-    if run_cfg.parallel.sequence_parallel:
-        raise NotImplementedError("sequence parallelism is not ported yet")
     if tuple(getattr(mesh, "mesh_dim_names", ())) != ("data", "model"):
         raise ValueError(f"sharded training runs a ('data', 'model') mesh, not {mesh!r}")
 
@@ -208,7 +210,7 @@ def grads_of(model_cfg, run_cfg, state: TrainState, batch, *, q_chunk=0, mesh=No
         with torch.enable_grad():
             loss, aux = loss_fn(
                 model_cfg, state.params, batch, q_chunk=q_chunk, remat=par.remat, z_loss=tr.z_loss,
-                compute_dtype=DTYPES[prec.compute_dtype], fp8=fp8, mesh=mesh,
+                compute_dtype=DTYPES[prec.compute_dtype], fp8=fp8, mesh=mesh, sequence_parallel=par.sequence_parallel,
             )
             g = torch.autograd.grad(loss, leaves, allow_unused=True)
     finally:

@@ -48,7 +48,7 @@ def split_channel_mix(halves):
     to x's dtype first: what a ``(1, 2)`` mesh computes, in one process."""
     from repro_torch.models.rwkv import token_shift
 
-    def mix(cfg, p, x, *, prev_x=None, mesh=None):
+    def mix(cfg, p, x, *, prev_x=None, mesh=None, sp=False):  # one process: no mesh, no sequence split
         dt = x.dtype
         sx = token_shift(x, prev_x) - x
         xk = x + sx * p["maa_k"].to(dt)

@@ -4,14 +4,17 @@ forced host devices, run as its own process by
 starts):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \\
-        python tests/jax_sharded_train.py BATCHES.npz OUT.npz [--arch ARCH] [--open-gates G]
+        python tests/jax_sharded_train.py BATCHES.npz OUT.npz [--arch ARCH] [--open-gates G] \\
+            [--sequence-parallel]
 
 It initialises the smoke state of ``ARCH`` (default olmo-1b; the sharded
 tests of the other families pass theirs) from ``PRNGKey(0)`` (fp32
 compute, remat full, the default ``fsdp`` and ``tensor_parallel``);
 ``--open-gates G`` then sets every vlm cross layer's ``gate`` and
 ``gate_mlp`` to G (random init leaves them at 0, which makes the cross
-layers the identity).  It jits
+layers the identity); ``--sequence-parallel`` sets
+``ParallelConfig(sequence_parallel=True)``, so the rule engine splits the
+residual stream's ``"seq"`` over ``"model"`` between the blocks.  It jits
 ``make_train_step(cfg, run, rules, mesh, param_shardings=...)`` with the
 ``state_shardings`` of ``make_rules(MeshConfig(), run.parallel)``, as the
 dry run lowers it, takes one step per batch of ``BATCHES.npz`` (``tokens_i``,
@@ -45,7 +48,8 @@ def open_gates(state, value: float):
     return state._replace(params=dict(state.params, blocks=dict(state.params["blocks"], cross=cross)))
 
 
-def main(batches_path: str, out_path: str, arch: str = "olmo-1b", gates: float | None = None) -> None:
+def main(batches_path: str, out_path: str, arch: str = "olmo-1b", gates: float | None = None,
+         sequence_parallel: bool = False) -> None:
     data = np.load(batches_path)
     n = len([k for k in data if k.startswith("labels_")])
     keys = sorted({k.rsplit("_", 1)[0] for k in data})
@@ -53,7 +57,8 @@ def main(batches_path: str, out_path: str, arch: str = "olmo-1b", gates: float |
     B, S = batches[0]["labels"].shape
     cfg = reduce_for_smoke(get_config(arch))
     run = RunConfig(arch=arch, train=TrainConfig(global_batch=B, seq_len=S, **STEPS_TRAIN),
-                    parallel=ParallelConfig(remat="full"), precision=PrecisionConfig(compute_dtype="float32"))
+                    parallel=ParallelConfig(remat="full", sequence_parallel=sequence_parallel),
+                    precision=PrecisionConfig(compute_dtype="float32"))
     mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
     rules = make_rules(MeshConfig(), run.parallel)
     st_sh = state_shardings(cfg, run, rules, mesh, abstract_train_state(cfg, run))
@@ -89,5 +94,6 @@ if __name__ == "__main__":
     parser.add_argument("out")
     parser.add_argument("--arch", default="olmo-1b")
     parser.add_argument("--open-gates", type=float, default=None)
+    parser.add_argument("--sequence-parallel", action="store_true")
     a = parser.parse_args()
-    main(a.batches, a.out, a.arch, a.open_gates)
+    main(a.batches, a.out, a.arch, a.open_gates, a.sequence_parallel)

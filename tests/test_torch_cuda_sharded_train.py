@@ -26,6 +26,14 @@ tests/test_torch_cuda_sharded_train.py``.  It skips on a host without CUDA.
   within 1e-1 (``torch_sharded_parity.LOOSE_GRAD_NORM``), and one sharded
   eval forward launching K5 once a layer or K3 once a self layer on every
   rank.
+* One sequence-parallel case a family (``CUDA_SP_CASES``: smoke olmo-1b,
+  qwen3-moe, hymba, hubert, rwkv6-7b and llama-3.2-vision at ``(1, 2)``,
+  the residual stream split over the two ranks): the same steps and limits
+  against the one-rank steps, K4 4 times a site a layer a step on every
+  rank where the family takes fp8, and a sharded eval in fp32 with
+  sequence parallelism through K3 (once a self layer: at the local heads,
+  or whole in hymba) or K5 (once a layer) against the same eval through
+  the plain attention and scan, within ``SP_EVAL_REL``.
 """
 
 import numpy as np
@@ -40,6 +48,7 @@ pytestmark = pytest.mark.gpu
 
 GEMM_RTOL = 1e-5
 LR, STEPS, LAYERS, SITES = 1e-3, 3, 2, 7
+SP_EVAL_REL = 1e-5  # fp32: K3's CUDA-core route, K5's 3xTF32 products
 
 
 @pytest.fixture(scope="module")
@@ -80,12 +89,25 @@ def family_ranks():
 @pytest.mark.parametrize("arch,shape", torch_sharded_ranks.CUDA_FAMILY_CASES,
                          ids=[torch_sharded_ranks.cuda_case_id(*c) for c in torch_sharded_ranks.CUDA_FAMILY_CASES])
 def test_cuda_family_sharded_step_equals_one_rank(family_ranks, arch, shape):
+    _check_family_case(family_ranks, arch, shape, sp=False)
+
+
+@pytest.mark.parametrize("arch,shape", torch_sharded_ranks.CUDA_SP_CASES,
+                         ids=[torch_sharded_ranks.cuda_case_id(*c, sp=True) for c in torch_sharded_ranks.CUDA_SP_CASES])
+def test_cuda_sequence_parallel_step_equals_one_rank(family_ranks, arch, shape):
+    _check_family_case(family_ranks, arch, shape, sp=True)
+    for r in family_ranks:
+        kernel, plain = r[torch_sharded_ranks.cuda_case_id(arch, shape, True)]["eval_losses"]
+        assert abs(kernel - plain) <= SP_EVAL_REL * abs(plain), (kernel, plain)
+
+
+def _check_family_case(family_ranks, arch, shape, sp):
     from repro_torch.config import reduce_for_smoke
     from repro_torch.configs import get_config
     from repro_torch.fp8 import fp8_sites, fp8_supported
 
     cfg = reduce_for_smoke(get_config(arch))
-    case = torch_sharded_ranks.cuda_case_id(arch, shape)
+    case = torch_sharded_ranks.cuda_case_id(arch, shape, sp)
     got, one = family_ranks[0][case]["sharded"], family_ranks[0][case]["one_rank"]
     k4 = 4 * cfg.num_layers * len(fp8_sites(cfg)) * STEPS if fp8_supported(cfg) else 0
     kernel = None  # the eval's K5 or K3 launches a rank
@@ -93,6 +115,8 @@ def test_cuda_family_sharded_step_equals_one_rank(family_ranks, arch, shape):
         kernel = cfg.num_layers  # the time mix whole on every rank
     elif cfg.family == "vlm":
         kernel = cfg.num_layers - cfg.num_layers // cfg.vision.cross_attn_every  # the self layers
+    elif sp:
+        kernel = cfg.num_layers  # every layer's self attention
     for r in family_ranks:
         assert r[case]["sharded"]["metrics"] == got["metrics"]
         assert r[case]["launches"] == k4

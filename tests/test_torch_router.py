@@ -11,8 +11,14 @@ states, and the router's ``stats()`` with the timing keys and
 engine keeps one per layer).  Then the reference test's own assertions run
 on the port's observations.  Both sides use fp32 pools, so no near-tie can
 flip an argmax, and an ``eos_token`` outside the vocab, so every request
-runs to its length.  Clocks are the reference's: ``ManualClock`` where it
-uses one, the real clock elsewhere (where no time-driven decision is made).
+runs to its length.  Every router and its replicas' engines read a
+``ManualClock`` on each side: the reference's where it uses one, else one
+that ticks 1e-4 s a read (``make_router``).  The router's health sweep is
+time-driven (each ``step`` ages the replicas' heartbeats against
+``suspect_after`` and ``fail_after``, and a replica's heartbeat moves only
+when it steps), so on the host's clock a slow step under load, such as a
+first step that compiles, marks the other replica suspect or failed on one
+side only.
 
 The port's serve launcher (``repro_torch.launch.serve``) drains on the CPU
 with one engine and with two replicas; ``--replicas 2 --tp 2`` exits
@@ -70,6 +76,10 @@ def make_engine(S, **kw):
 
 
 def make_router(S, n, *, clock=None, fault_plans=None, engine_kw=None, **router_kw):
+    """``n`` replicas of ``make_engine`` behind a router, every one reading
+    ``clock`` (default: a fresh ``ManualClock`` ticking 1e-4 s a read, so
+    no heartbeat ages with the host's load)."""
+    clock = S.mod.ManualClock(tick=1e-4) if clock is None else clock
     replicas = [
         S.mod.Replica(
             i,

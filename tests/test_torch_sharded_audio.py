@@ -16,6 +16,11 @@ microbatches without remat; bf16 compute.
 The control (``(2, 1)``, fp32) gives FSDP's gather a backward without the
 sum over the data ranks (each rank keeps its own gradient's slice), and
 must fail the limits.
+
+Sequence parallelism: the ``fp32`` case runs again at ``(1, 2)`` and
+``(2, 2)`` with the residual stream split over seq (the frame embedding
+cut by ``scatter_seq``), held to the case's references and to the case's
+sharded run on the mesh.
 """
 
 import pytest
@@ -46,7 +51,7 @@ assert set(CONTROLS) <= set(torch_sharded_ranks.FAMILY_CONTROLS)
 def runs(tmp_path_factory):
     cfgs = configs(ARCH)
     return P.run_family(ARCH, [(name, cfgs, prec, par) for name, prec, par in CASES], CONTROLS,
-                        tmp_path_factory.mktemp("jax_sharded_audio"), bridged_case="bf16")
+                        tmp_path_factory.mktemp("jax_sharded_audio"), bridged_case="bf16", sp_of=("fp32",))
 
 
 @pytest.mark.parametrize("mesh", P.MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
@@ -58,6 +63,15 @@ def test_sharded_step_matches_the_unsharded_steps(runs, name, mesh):
 @pytest.mark.parametrize("control", list(CONTROLS))
 def test_controls_fail_the_limits(runs, control):
     P.check_control(runs, control)
+
+
+@pytest.mark.parametrize("mesh", P.SP_MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("name", ["fp32"])
+def test_sequence_parallel_step_matches_the_sharded_steps(runs, name, mesh):
+    """The case with sequence parallelism within its limits of the port's
+    and the JAX package's unsharded steps and of its own sharded run on
+    the mesh, the residual stream split (``check_sp_step``)."""
+    P.check_sp_step(runs, name, mesh)
 
 
 def test_matches_the_jax_sharded_step(runs):

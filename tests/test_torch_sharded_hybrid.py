@@ -20,6 +20,13 @@ them whole (trap 1 of ``models.moe``), and must fail the limits.  The
 ``(2, 1)`` ranks also shrink to one rank after two fp32 steps
 (``core.elastic``): the state reshards bit for bit and one more step stays
 within the fp32 limits of the unsharded run on the resized batch.
+
+Sequence parallelism: the ``fp32`` case runs again at ``(1, 2)`` and
+``(2, 2)`` with the residual stream split over seq; hymba's whole
+attention and SSM heads run on the gathered sequence on every rank and
+``scatter_seq`` cuts their outputs; ``beta_attn`` / ``beta_ssm`` act on
+the slice and sum their gradients (``copy_to_model``).  It is held to the
+case's references and to the case's sharded run on the mesh.
 """
 
 import pytest
@@ -50,7 +57,8 @@ assert set(CONTROLS) <= set(torch_sharded_ranks.FAMILY_CONTROLS)
 def runs(tmp_path_factory):
     cfgs = configs(ARCH)
     return P.run_family(ARCH, [(name, cfgs, prec, par) for name, prec, par in CASES], CONTROLS,
-                        tmp_path_factory.mktemp("jax_sharded_hybrid"), bridged_case="bf16", shrink_case="fp32")
+                        tmp_path_factory.mktemp("jax_sharded_hybrid"), bridged_case="bf16", shrink_case="fp32",
+                        sp_of=("fp32",))
 
 
 @pytest.mark.parametrize("mesh", P.MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
@@ -62,6 +70,15 @@ def test_sharded_step_matches_the_unsharded_steps(runs, name, mesh):
 @pytest.mark.parametrize("control", list(CONTROLS))
 def test_controls_fail_the_limits(runs, control):
     P.check_control(runs, control)
+
+
+@pytest.mark.parametrize("mesh", P.SP_MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("name", ["fp32"])
+def test_sequence_parallel_step_matches_the_sharded_steps(runs, name, mesh):
+    """The case with sequence parallelism within its limits of the port's
+    and the JAX package's unsharded steps and of its own sharded run on
+    the mesh, the residual stream split (``check_sp_step``)."""
+    P.check_sp_step(runs, name, mesh)
 
 
 def test_layout_keeps_the_replicated_branches_whole():

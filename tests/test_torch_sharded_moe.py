@@ -40,6 +40,16 @@ gradient comes out half the reference's).  The ``(2, 1)`` ranks also
 shrink to one rank after two fp32 steps (``core.elastic``): the state
 reshards bit for bit and one more step stays within the fp32 limits of
 the unsharded run on the resized batch.
+
+Sequence parallelism (``ParallelConfig(sequence_parallel=True)``): the
+``fp32`` and spanning cases run again at ``(1, 2)`` and ``(2, 2)`` with the
+residual stream split over seq between the blocks; each layer gathers its
+tokens before the router (computed whole on every rank), so the routing
+order, capacity and aux are the sharded run's, and the combine is
+reduce-scattered.  Each is held to the
+references of its case and to its case's sharded run on the mesh, and the
+fp32 steps at ``(2, 2)`` to the JAX package's sharded step with sequence
+parallelism.
 """
 
 import dataclasses
@@ -107,7 +117,8 @@ def runs(tmp_path_factory):
     cases = [(name, _configs(cf), prec, par) for name, cf, prec, par in CASES]
     # the JAX sharded run routes at the smoke cf 1.25: cases[1]'s configs first
     return P.run_family(ARCH, [cases[1], cases[0], cases[2]], CONTROLS, tmp_path_factory.mktemp("jax_sharded_moe"),
-                        bridged_case="fp32-mb2-spanning", shrink_case="fp32", wrap=_Drops)
+                        bridged_case="fp32-mb2-spanning", shrink_case="fp32", wrap=_Drops,
+                        sp_of=("fp32", "fp32-mb2-spanning"), jax_sp=True)
 
 
 @pytest.mark.parametrize("mesh", P.MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
@@ -136,6 +147,22 @@ def test_capacity_binds_in_the_spanning_case(runs):
 @pytest.mark.parametrize("control", list(CONTROLS))
 def test_controls_fail_the_limits(runs, control):
     P.check_control(runs, control)
+
+
+@pytest.mark.parametrize("mesh", P.SP_MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("name", ["fp32", "fp32-mb2-spanning"])
+def test_sequence_parallel_step_matches_the_sharded_steps(runs, name, mesh):
+    """The case with sequence parallelism within its limits of the port's
+    and the JAX package's unsharded steps and of its own sharded run on
+    the mesh, the residual stream split (``check_sp_step``)."""
+    P.check_sp_step(runs, name, mesh)
+
+
+def test_sequence_parallel_matches_the_jax_sharded_step(runs):
+    """The port at (2, 2) with sequence parallelism against the JAX
+    package's sharded step with ``sequence_parallel=True`` (the rule engine
+    splits the residual stream's "seq" over "model"), fresh fp32 steps."""
+    P.check_jax_sharded(runs, sp=True)
 
 
 def test_matches_the_jax_sharded_step(runs):

@@ -21,6 +21,18 @@ computes whole, and the residual's are then summed over the model ranks
 ranks also shrink to one rank after two fp32 steps (``core.elastic``): the
 state reshards bit for bit and one more step stays within the fp32 limits
 of the unsharded run on the resized batch.
+
+Sequence parallelism: the ``fp32`` case runs again at ``(1, 2)`` and
+``(2, 2)`` with the residual stream split over seq: the time mix runs
+whole on every rank on the gathered sequence, as under tensor
+parallelism, and ``scatter_seq`` cuts its output (whose backward gathers
+the gradient, so the leaves take their whole gradients); the channel mix
+gathers before its token shift.  It is held to the case's references, to the case's sharded
+run on the mesh and, at ``(2, 2)``, to the JAX package's sharded step
+with sequence parallelism.  Its control (``(1, 2)``) leaves the time
+mix's leaves unsummed: ``scatter_seq`` does not gather the time mix's
+output gradient, so each rank's gradient of its leaves is its slice's
+share.
 """
 
 import pytest
@@ -45,7 +57,8 @@ CASES = [
     ("bf16", {}, {"remat": "full"}),
 ]
 NAMES = [c[0] for c in CASES]
-CONTROLS = {"ssm_time_mix_summed_twice": ((1, 2), "fp32")}
+CONTROLS = {"ssm_time_mix_summed_twice": ((1, 2), "fp32"),
+            "ssm_time_mix_leaves_unsummed": ((1, 2), "fp32-sp")}
 assert set(CONTROLS) <= set(torch_sharded_ranks.FAMILY_CONTROLS)
 # the leaves whose model claim the port leaves whole, in each block
 WHOLE = {"time_mix/bonus", "time_mix/w_r", "time_mix/w_k", "time_mix/w_v", "time_mix/w_g", "time_mix/w_o",
@@ -56,7 +69,8 @@ WHOLE = {"time_mix/bonus", "time_mix/w_r", "time_mix/w_k", "time_mix/w_v", "time
 def runs(tmp_path_factory):
     cfgs = configs(ARCH)
     return P.run_family(ARCH, [(name, cfgs, prec, par) for name, prec, par in CASES], CONTROLS,
-                        tmp_path_factory.mktemp("jax_sharded_ssm"), bridged_case="bf16", shrink_case="fp32")
+                        tmp_path_factory.mktemp("jax_sharded_ssm"), bridged_case="bf16", shrink_case="fp32",
+                        sp_of=("fp32",), jax_sp=True)
 
 
 @pytest.mark.parametrize("mesh", P.MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
@@ -68,6 +82,22 @@ def test_sharded_step_matches_the_unsharded_steps(runs, name, mesh):
 @pytest.mark.parametrize("control", list(CONTROLS))
 def test_controls_fail_the_limits(runs, control):
     P.check_control(runs, control)
+
+
+@pytest.mark.parametrize("mesh", P.SP_MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("name", ["fp32"])
+def test_sequence_parallel_step_matches_the_sharded_steps(runs, name, mesh):
+    """The case with sequence parallelism within its limits of the port's
+    and the JAX package's unsharded steps and of its own sharded run on
+    the mesh, the residual stream split (``check_sp_step``)."""
+    P.check_sp_step(runs, name, mesh)
+
+
+def test_sequence_parallel_matches_the_jax_sharded_step(runs):
+    """The port at (2, 2) with sequence parallelism against the JAX
+    package's sharded step with ``sequence_parallel=True`` (the rule engine
+    splits the residual stream's "seq" over "model"), fresh fp32 steps."""
+    P.check_jax_sharded(runs, sp=True)
 
 
 @pytest.mark.parametrize("arch", ["smoke", "full"])

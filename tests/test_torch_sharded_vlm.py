@@ -20,6 +20,12 @@ The control (``(1, 2)``, fp32) leaves out the cross layer's query
 ``copy_to_model``: the residual then keeps one rank's heads' part of the
 cross attention's input gradient, and must fail the limits.  The ``(2,
 1)`` ranks also shrink to one rank after two fp32 steps (``core.elastic``).
+
+Sequence parallelism: the ``fp32`` case runs again at ``(1, 2)`` and
+``(2, 2)`` with the residual stream split over seq (the cross layers
+gather their query input; the image tokens stay whole; the gates act on
+the slice and sum their gradients), held to the case's references and to
+the case's sharded run on the mesh.
 """
 
 import pytest
@@ -49,7 +55,7 @@ def runs(tmp_path_factory):
     cfgs = configs(ARCH)
     return P.run_family(ARCH, [(name, cfgs, prec, par) for name, prec, par in CASES], CONTROLS,
                         tmp_path_factory.mktemp("jax_sharded_vlm"), bridged_case="bf16", shrink_case="fp32",
-                        gates=GATES)
+                        gates=GATES, sp_of=("fp32",))
 
 
 @pytest.mark.parametrize("mesh", P.MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
@@ -61,6 +67,15 @@ def test_sharded_step_matches_the_unsharded_steps(runs, name, mesh):
 @pytest.mark.parametrize("control", list(CONTROLS))
 def test_controls_fail_the_limits(runs, control):
     P.check_control(runs, control)
+
+
+@pytest.mark.parametrize("mesh", P.SP_MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("name", ["fp32"])
+def test_sequence_parallel_step_matches_the_sharded_steps(runs, name, mesh):
+    """The case with sequence parallelism within its limits of the port's
+    and the JAX package's unsharded steps and of its own sharded run on
+    the mesh, the residual stream split (``check_sp_step``)."""
+    P.check_sp_step(runs, name, mesh)
 
 
 def test_gates_are_open(runs):

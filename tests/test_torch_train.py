@@ -271,6 +271,20 @@ def test_launcher_reruns_into_one_ckpt_dir(capsys, tmp_path):
     assert sorted(p.name for p in (tmp_path / "olmo-1b").iterdir()) == ["step_00000004", "step_00000005"]
 
 
+class _Geometry:
+    """A ``(1, 2)`` ``("data", "model")`` mesh's geometry: what building a
+    sharded step reads (no ranks)."""
+
+    mesh_dim_names = ("data", "model")
+    shape = (1, 2)
+
+    def size(self, dim: int) -> int:
+        return self.shape[dim]
+
+
+_GEOMETRY = _Geometry()
+
+
 @pytest.mark.parametrize(
     "what",
     ["grad_compression", "mesh", "remat_dots"],
@@ -279,8 +293,9 @@ def test_options_outside_the_slice_raise(what):
     """Sharded training runs every family (``test_torch_sharded_train.py``,
     ``test_torch_sharded_{moe,hybrid,audio,ssm,vlm}.py``): each family's
     config passes the family check and meets the mesh's (an object that is
-    no ``("data", "model")`` mesh); sequence parallelism and a mesh without
-    rules raise.  Gradient compression and the "dots" remat policy are
+    no ``("data", "model")`` mesh), with sequence parallelism too, which
+    builds a step on a ``("data", "model")`` mesh's geometry; a mesh
+    without rules raises.  Gradient compression and the "dots" remat policy are
     ported: a compression method the JAX package does not have raises, as
     does such a remat policy, and the "dots" step equals the "full" one bit
     for bit (``test_torch_collectives.py`` holds the compressed steps)."""
@@ -301,8 +316,9 @@ def test_options_outside_the_slice_raise(what):
             with pytest.raises(ValueError, match=r"\('data', 'model'\) mesh"):
                 make_train_step(reduce_for_smoke(get_config(arch)), run, rules, mesh=object())
             seq = RunConfig(arch=arch, parallel=ParallelConfig(sequence_parallel=True))
-            with pytest.raises(NotImplementedError, match="sequence parallelism"):
+            with pytest.raises(ValueError, match=r"\('data', 'model'\) mesh"):
                 make_train_step(reduce_for_smoke(get_config(arch)), seq, rules, mesh=object())
+            assert callable(make_train_step(reduce_for_smoke(get_config(arch)), seq, rules, mesh=_GEOMETRY))
         with pytest.raises(ValueError, match="rules and a mesh"):
             make_train_step(cfg, run, mesh=object())
     else:

@@ -46,8 +46,17 @@ Limits (``close``), from ``test_torch_train.py``'s tight and loose ones:
 
 Every reading but ``moved`` (the parameters' mean move, which must exceed
 lr / 2) must stay within its limit; a control must fail one.
+
+Sequence parallelism (``run_family(sp_of=)``): a case of ``sp_of`` runs
+again with ``ParallelConfig(sequence_parallel=True)`` at ``(1, 2)`` and
+``(2, 2)`` (at ``(2, 1)`` the model axis is 1 and nothing splits), in the
+same spawns, held to the same references as its case and to its case's
+sharded run on the same mesh (``check_sp_step``); ``jax_sp=True`` also runs
+the JAX package's sharded step with sequence parallelism at ``(2, 2)``
+(``check_jax_sharded(runs, sp=True)``).
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -75,6 +84,8 @@ from repro_torch.utils.tree import tree_leaves, tree_paths
 ROOT = Path(__file__).resolve().parents[1]
 B, S, LR = 4, 32, 1e-3
 MESHES = [(1, 2), (2, 1), (2, 2)]
+# the meshes a sequence-parallel case runs on: those whose model axis splits
+SP_MESHES = [(1, 2), (2, 2)]
 # the bf16 and fp8 gradient-norm limit of a family whose norm one rounding moves (module docstring)
 LOOSE_GRAD_NORM = {"ssm": 1e-1}
 # the run against the JAX package's sharded step: fresh states, 8 x 16, fp32
@@ -144,21 +155,29 @@ def make_case(arch, jcfg, tcfg, prec: dict, par: dict, seed=0, data=None, gates=
     return jax_ref, port_ref, case, before, start_np
 
 
-def start_jax_sharded(arch, jcfg, tmp: Path, data=None, gates=None):
+def start_jax_sharded(arch, jcfg, tmp: Path, data=None, gates=None, sequence_parallel=False):
     """Start the JAX package's sharded step on a (2, 2) mesh of four forced
     host devices in a process of its own (``tests/jax_sharded_train.py
-    --arch``, ``--open-gates`` with ``gates``) on ``data`` (default:
-    ``torch_parity.batches`` of 8 x 16); returns (the process, its output
-    file, the batches)."""
+    --arch``, ``--open-gates`` with ``gates``, ``--sequence-parallel``) on
+    ``data`` (default: ``torch_parity.batches`` of 8 x 16); returns (the
+    process, its output file, the batches)."""
     data = batches(jcfg, 4, seed=5, batch=SHARDED_B, seq=SHARDED_S) if data is None else data
-    np.savez(tmp / "batches.npz", **{f"{k}_{i}": b[k] for i, b in enumerate(data) for k in b})
+    tag = "_sp" if sequence_parallel else ""
+    np.savez(tmp / f"batches{tag}.npz", **{f"{k}_{i}": b[k] for i, b in enumerate(data) for k in b})
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4", JAX_PLATFORMS="cpu",
                PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.Popen([sys.executable, str(ROOT / "tests" / "jax_sharded_train.py"), str(tmp / "batches.npz"),
-                             str(tmp / "out.npz"), "--arch", arch]
-                            + ([] if gates is None else ["--open-gates", str(gates)]),
+    proc = subprocess.Popen([sys.executable, str(ROOT / "tests" / "jax_sharded_train.py"),
+                             str(tmp / f"batches{tag}.npz"), str(tmp / f"out{tag}.npz"), "--arch", arch]
+                            + ([] if gates is None else ["--open-gates", str(gates)])
+                            + (["--sequence-parallel"] if sequence_parallel else []),
                             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    return proc, tmp / "out.npz", data
+    return proc, tmp / f"out{tag}.npz", data
+
+
+def with_sp(case: dict) -> dict:
+    """``case`` with ``ParallelConfig(sequence_parallel=True)``."""
+    run = case["run"]
+    return dict(case, run=dataclasses.replace(run, parallel=dataclasses.replace(run.parallel, sequence_parallel=True)))
 
 
 def fresh_case(arch, jcfg, tcfg, data, gates=None):
@@ -262,7 +281,7 @@ SHRINK = dict(old_chips=2, new_chips=1, model_parallel=1, global_batch=B)
 
 
 def run_family(arch, cases: list, controls: dict, tmp: Path, *, bridged_case: str, shrink_case=None, wrap=None,
-               gates=None):
+               gates=None, sp_of=(), jax_sp=False):
     """Every case of a family's test file on each of ``MESHES``, one spawn
     a mesh; the JAX package's sharded step meanwhile in its own process.
     ``cases``: ``(name, (jcfg, tcfg), prec, par)``; ``controls``: ``{name:
@@ -270,14 +289,21 @@ def run_family(arch, cases: list, controls: dict, tmp: Path, *, bridged_case: st
     the ranks check; ``shrink_case``: the case the ``(2, 1)`` ranks shrink
     to one rank after its first two steps (``SHRINK``); ``wrap``: a context
     manager factory each unsharded run goes under; ``gates``: the vlm
-    cross layers' gates before the first step.  Returns a dict: ``refs``
+    cross layers' gates before the first step; ``sp_of``: the cases that
+    also run with sequence parallelism at ``(1, 2)`` and ``(2, 2)`` (as
+    ``<name>-sp``; a control may run one); ``jax_sp``: also the JAX
+    sharded step with sequence parallelism.  Returns a dict: ``refs``
     ``{name: (JAX readings, port readings)}``, ``befores``, ``cases``,
-    ``ranks`` ``{mesh: each rank's results}``, ``jout`` (the JAX sharded
-    run's), ``wrapped`` ``{name: the context manager}``."""
+    ``ranks`` ``{mesh: each rank's results}``, ``index`` ``{mesh: {case or
+    control: its place in the ranks' results}}``, ``jout`` (the JAX sharded
+    run's) and ``jout_sp``, ``wrapped`` ``{name: the context manager}``."""
     from contextlib import nullcontext
 
     jcfg, tcfg = cases[0][1]
     proc, out_path, sharded_batches = start_jax_sharded(arch, jcfg, tmp, gates=gates)
+    procs = [proc]
+    if jax_sp:
+        procs.append(start_jax_sharded(arch, jcfg, tmp, sharded_batches, gates, sequence_parallel=True)[0])
     try:
         refs, built, befores, wrapped = {}, {}, {}, {}
         for name, (jc, tc), prec, par in cases:
@@ -286,27 +312,37 @@ def run_family(arch, cases: list, controls: dict, tmp: Path, *, bridged_case: st
             refs[name], built[name], befores[name], wrapped[name] = (jax_ref, port_ref), case, before, w
             if name == bridged_case:
                 bridged = (case, port_tuples(start_np))
-        vs_jax_sharded = fresh_case(arch, jcfg, tcfg, sharded_batches, gates)
-        ranks = {}
+        kinds = {c[0]: kind_of(c[2], c[3]) for c in cases}
+        for name in sp_of:
+            sp = f"{name}-sp"
+            built[sp], refs[sp], befores[sp], kinds[sp] = with_sp(built[name]), refs[name], befores[name], kinds[name]
+        fresh = {"vs_jax": fresh_case(arch, jcfg, tcfg, sharded_batches, gates)}
+        if jax_sp:
+            fresh["vs_jax_sp"] = with_sp(fresh["vs_jax"])
+        ranks, index = {}, {}
         for mesh in MESHES:
-            todo = [built[c[0]] for c in cases] + ([vs_jax_sharded] if mesh == (2, 2) else [])
+            todo = [(c[0], built[c[0]]) for c in cases] + (list(fresh.items()) if mesh == (2, 2) else [])
+            todo += [(f"{n}-sp", built[f"{n}-sp"]) for n in sp_of if mesh != (2, 1)]
             here = {c: built[case] for c, (m, case) in controls.items() if m == mesh}
+            index[mesh] = {key: i for i, key in enumerate([k for k, _ in todo] + list(here))}
             shrinks = [(built[shrink_case], SHRINK, 1)] if shrink_case and mesh == (2, 1) else []
             ranks[mesh] = run_ranks(torch_sharded_ranks.train_cases, mesh, device="cpu", timeout_s=300,
-                                    args=(todo, here, None, bridged, shrinks))
+                                    args=([c for _, c in todo], here, None, bridged, shrinks))
         jout = finish_jax_sharded(proc, out_path)
+        jout_sp = finish_jax_sharded(procs[1], tmp / "out_sp.npz") if jax_sp else None
     finally:
-        if proc.poll() is None:
-            proc.kill()
-    return {"refs": refs, "befores": befores, "cases": built, "ranks": ranks, "jout": jout, "wrapped": wrapped,
-            "names": [c[0] for c in cases], "kinds": {c[0]: kind_of(c[2], c[3]) for c in cases}, "cfg": tcfg,
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    return {"refs": refs, "befores": befores, "cases": built, "ranks": ranks, "index": index, "jout": jout,
+            "jout_sp": jout_sp, "wrapped": wrapped, "names": [c[0] for c in cases], "kinds": kinds, "cfg": tcfg,
             "controls": controls, "shrink_case": shrink_case, "paths": leaf_paths(built[cases[0][0]]["state"].params)}
 
 
 def check_step(runs: dict, name: str, mesh) -> None:
     """Case ``name`` at ``mesh`` within its limits of the port's unsharded
     step and of the JAX package's; every rank reads the same metrics."""
-    i = runs["names"].index(name)
+    i = runs["index"][mesh][name]
     ranks = runs["ranks"][mesh]
     assert ranks_agree(ranks, i), "ranks disagree"
     got = got_readings(ranks, i)
@@ -316,12 +352,28 @@ def check_step(runs: dict, name: str, mesh) -> None:
         assert passes(r), f"{name} at {mesh} against the {which} step: {r}"
 
 
+def check_sp_step(runs: dict, name: str, mesh) -> None:
+    """``<name>-sp`` at ``mesh``: within the limits of ``check_step`` and of
+    its case's sharded run on the same mesh, the residual stream split
+    (gathers and reduce-scatters along seq issued, and no more
+    ``sum_over_model`` than the vocab-parallel cross-entropy's, where the
+    sharded run has one after each row-parallel product)."""
+    check_step(runs, f"{name}-sp", mesh)
+    ranks, index = runs["ranks"][mesh], runs["index"][mesh]
+    sp, tp = ranks[0][index[f"{name}-sp"]], ranks[0][index[name]]
+    r = close(readings(sp["metrics"], sp["state"]), readings(tp["metrics"], tp["state"]), runs["befores"][name],
+              runs["cfg"], runs["kinds"][name], runs["paths"])
+    assert passes(r), f"{name}-sp at {mesh} against its sharded run: {r}"
+    assert sp["collectives"]["gather_seq"] > 0 and sp["collectives"]["reduce_scatter_seq"] > 0, sp["collectives"]
+    assert "gather_seq" not in tp["collectives"], tp["collectives"]
+    assert sp["collectives"]["sum_over_model"] < tp["collectives"]["sum_over_model"]
+
+
 def check_control(runs: dict, control: str) -> None:
     """Control ``control`` fails the limits its case passes against the
     port's unsharded step."""
     mesh, name = runs["controls"][control]
-    here = [c for c, (m, _) in runs["controls"].items() if m == mesh]
-    i = len(runs["names"]) + (1 if mesh == (2, 2) else 0) + here.index(control)
+    i = runs["index"][mesh][control]
     r = close(got_readings(runs["ranks"][mesh], i), runs["refs"][name][1], runs["befores"][name], runs["cfg"],
               runs["kinds"][name], runs["paths"])
     assert not passes(r), f"{control} passes the limits: {r}"
@@ -339,12 +391,14 @@ def check_control(runs: dict, control: str) -> None:
 JAX_SHARDED_LIMITS = {"ssm": {"grad_norm": 2e-4, "params": 5e-5}}
 
 
-def check_jax_sharded(runs: dict) -> None:
+def check_jax_sharded(runs: dict, sp: bool = False) -> None:
     """The port at (2, 2) against the JAX package's sharded step: four
     fresh fp32 steps of 8 x 16, the tight limits (a key bias's rounding
-    noise held to 2 lr a step; the ssm family's ``JAX_SHARDED_LIMITS``)."""
-    got = got_readings(runs["ranks"][(2, 2)], len(runs["names"]))
-    jout, n = runs["jout"], len(got["loss"])
+    noise held to 2 lr a step; the ssm family's ``JAX_SHARDED_LIMITS``);
+    ``sp``: both with sequence parallelism."""
+    got = got_readings(runs["ranks"][(2, 2)], runs["index"][(2, 2)]["vs_jax_sp" if sp else "vs_jax"])
+    jout = runs["jout_sp" if sp else "jout"]
+    n = len(got["loss"])
     family = JAX_SHARDED_LIMITS.get(runs["cfg"].family, {})
     for k, lim in (("loss", 1e-6), ("aux_loss", 1e-6), ("grad_norm", family.get("grad_norm", 1e-5))):
         ref = [float(jout[f"{k}_{i}"]) for i in range(n)]

@@ -34,6 +34,11 @@ from repro_torch.utils.tree import tree_leaves, tree_paths, tree_size_bytes
 
 # the controls that must fail the limits, each a change to one collective
 CONTROLS = ("copy_to_model_backward_dropped", "replicated_leaf_counted_on_every_rank", "int8_scale_from_local_shard")
+# sequence parallelism's controls (test_torch_sequence_parallel.py)
+SP_CONTROLS = (
+    "sp_norm_scale_sum_dropped",  # a norm's scale and bias on the seq slice without their copy_to_model
+    "sp_reduce_scatter_unsummed",  # reduce_scatter_seq as a plain slice of this rank's partial output
+)
 # the moe, hybrid, audio, ssm and vlm families' controls (test_torch_sharded_<family>.py)
 FAMILY_CONTROLS = (
     "moe_gates_sum_dropped",  # the gates' copy_to_model left out: their gradient keeps this rank's pairs only
@@ -43,6 +48,9 @@ FAMILY_CONTROLS = (
     "fsdp_gather_backward_unsummed",  # FSDP's gather backward keeps this rank's own gradient slice
     "ssm_time_mix_summed_twice",  # the channel mix's copy_to_model moved to the block input
     "vlm_cross_query_sum_dropped",  # the cross layers' query input without its copy_to_model
+    # under sequence parallelism, the whole time mix's output gradient not gathered (scatter_seq's backward keeps
+    # this rank's slice), so its leaves keep this rank's share of their gradients, unsummed
+    "ssm_time_mix_leaves_unsummed",
 )
 
 
@@ -58,20 +66,23 @@ def _numpy_state(state) -> dict:
 
 
 def train(case: dict, mesh) -> dict:
-    """The case's steps on this rank: metrics a step and (rank 0) the full
-    state gathered back."""
+    """The case's steps on this rank: metrics a step, the training
+    collectives the steps issued (``TRAIN_COLLECTIVES``, calls only) and
+    (rank 0) the full state gathered back."""
     cfg, run = case["cfg"], case["run"]
     rules = training_rules(run.parallel)
     specs = state_shardings(cfg, run, rules, mesh)
     state = shard_state(case["state"], specs, mesh)
     step = make_train_step(cfg, run, rules, mesh)
     metrics = []
+    collectives.reset_collectives()
     for batch in case["batches"]:
         state, m = step(state, batch)
         metrics.append({k: float(v) for k, v in m.items()})
+    issued = {k: v for k, v in collectives.TRAIN_COLLECTIVES.items() if v and not k.endswith("_bytes")}
     full = unshard_state(state, specs, mesh)
     rank = torch.distributed.get_rank()
-    return {"metrics": metrics, "state": _numpy_state(full) if rank == 0 else None}
+    return {"metrics": metrics, "collectives": issued, "state": _numpy_state(full) if rank == 0 else None}
 
 
 def _input_summed(block):
@@ -85,6 +96,23 @@ def _input_summed(block):
         return block(cfg, p, copy_to_model(x, mesh), mesh=mesh, **kw)
 
     return wrapped
+
+
+def _ungathered_scatter_backward(ctx, g):
+    """``scatter_seq``'s backward without the all-gather: this rank's
+    slice of the gradient, zeros elsewhere."""
+    out = g.new_zeros(g.shape[:1] + (g.shape[1] * ctx.n,) + g.shape[2:])
+    s = g.shape[1]
+    out.narrow(1, torch.distributed.get_rank(ctx.group) * s, s).copy_(g)
+    return out, None, None
+
+
+def _unsummed_reduce_scatter(ctx, x, group, n):
+    """``reduce_scatter_seq``'s forward without the sum: this rank's slice
+    of its own partial output."""
+    ctx.group, ctx.n = group, n
+    s = x.shape[1] // n
+    return x.narrow(1, torch.distributed.get_rank(group) * s, s).contiguous()
 
 
 def _unsummed_gather_backward(ctx, g):
@@ -117,10 +145,12 @@ def _family_control(name: str, case: dict):
     if name == "vlm_cross_query_sum_dropped":
         inner = attn_mod._qkv
 
-        def qkv(cfg, p, x, kv_x=None, fp8=None, mesh=None):
-            return inner(cfg, p, x, kv_x, fp8, mesh if kv_x is None else None)
+        def qkv(cfg, p, x, kv_x=None, fp8=None, mesh=None, sp=False):
+            return inner(cfg, p, x, kv_x, fp8, mesh if kv_x is None else None, sp)
 
         return [(attn_mod, "_qkv", qkv)]
+    if name == "ssm_time_mix_leaves_unsummed":  # rwkv6's only scatter_seq: its vocab splits
+        return [(collectives._ScatterSeq, "backward", staticmethod(_ungathered_scatter_backward))]
     if name == "fsdp_gather_backward_unsummed":
         return [(collectives._GatherOverData, "backward", staticmethod(_unsummed_gather_backward))]
     raise ValueError(name)
@@ -144,6 +174,14 @@ def _control(name: str, case: dict):
     elif name == "int8_scale_from_local_shard":
         cls, attr = collectives, "all_reduce_max"
         new = lambda x, mesh: x  # noqa: E731
+    elif name == "sp_norm_scale_sum_dropped":
+        from repro_torch.models import layers
+
+        cls, attr = layers, "copy_leaves_to_model"
+        new = lambda tree, mesh, names=None: tree  # noqa: E731
+    elif name == "sp_reduce_scatter_unsummed":
+        cls, attr = collectives._ReduceScatterSeq, "forward"
+        new = staticmethod(_unsummed_reduce_scatter)
     else:
         raise ValueError(name)
     old = cls.__dict__[attr]
@@ -173,6 +211,58 @@ def data_primitives(rank, mesh) -> dict:
             "collectives": {k: v for k, v in collectives.TRAIN_COLLECTIVES.items() if v}}
 
 
+def seq_primitives(rank, mesh) -> dict:
+    """``test_torch_sequence_parallel.py``'s sequence collectives on a
+    ``(1, 2)`` mesh (``whole_seq``: ``SeqGather``'s ``whole()`` view): each
+    one's output and its input's gradient, fp32, on
+    inputs and output gradients made from the rank (``seq_inputs``), with
+    the collectives each issued."""
+    out = {}
+    for name in ("gather_seq", "whole_seq", "reduce_scatter_seq", "scatter_seq"):
+        collectives.reset_collectives()
+        x, g = seq_inputs(name, rank)
+        x.requires_grad_(True)
+        y = collectives.SeqGather(x, mesh).whole() if name == "whole_seq" else getattr(collectives, name)(x, mesh)
+        (gx,) = torch.autograd.grad(y, x, grad_outputs=g)
+        out[name] = {"y": y.detach().numpy(), "grad": gx.numpy(),
+                     "collectives": {k: v for k, v in collectives.TRAIN_COLLECTIVES.items() if v}}
+    return out
+
+
+# the sequence collectives' test shapes: batch, slice length, width, ranks
+SEQ_B, SEQ_SL, SEQ_D, SEQ_N = 2, 3, 4, 2
+
+
+def seq_inputs(name: str, rank: int) -> tuple:
+    """(input, output gradient) of collective ``name`` on ``rank``: the
+    slice (B, SL, D) in and the whole sequence out for ``gather_seq`` and
+    ``whole_seq`` (``SeqGather.whole``), the whole sequence in and the
+    slice out for ``reduce_scatter_seq`` and ``scatter_seq``; distinct
+    integers scaled by the rank, so every sum is exact."""
+    whole = (SEQ_B, SEQ_SL * SEQ_N, SEQ_D)
+    part = (SEQ_B, SEQ_SL, SEQ_D)
+    shape_in, shape_out = {"gather_seq": (part, whole), "whole_seq": (part, whole),
+                           "reduce_scatter_seq": (whole, part), "scatter_seq": (whole, part)}[name]
+    make = lambda shape, k: torch.arange(float(torch.Size(shape).numel())).reshape(shape) * (rank + 1) + k  # noqa: E731
+    return make(shape_in, 0.0), make(shape_out, 100.0)
+
+
+def sp_eval(mesh, cfg, params, batch, kw: dict) -> dict:
+    """A sharded eval under sequence parallelism: ``loss_fn`` of this
+    rank's slices of the full ``params`` (``shard_params`` by the executed
+    layout) on ``batch`` without gradients, ``kw`` its keywords (the
+    attention and scan impls, the compute dtype)."""
+    from repro_torch.config import ParallelConfig
+    from repro_torch.parallel.sharding import executed_specs, shard_params
+    from repro_torch.train import loss_fn
+
+    rules = training_rules(ParallelConfig(sequence_parallel=True))
+    local = shard_params(cfg, params, executed_specs(cfg, mesh, rules)["executed"], mesh)
+    with torch.no_grad():
+        loss, _ = loss_fn(cfg, local, batch, mesh=mesh, sequence_parallel=True, **kw)
+    return {"loss": float(loss)}
+
+
 def jax_loaded() -> bool:
     return any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
 
@@ -192,12 +282,13 @@ def bridged_shard(mesh, case: dict, np_state) -> bool:
     return all(torch.equal(a, b) for x, y in zip(trees(got), trees(ref)) for a, b in zip(tree_leaves(x), tree_leaves(y)))
 
 
-def train_cases(rank, mesh, cases: list, controls: dict, memory_of=None, bridged=None, shrinks=()) -> list:
+def train_cases(rank, mesh, cases: list, controls: dict, memory_of=None, bridged=None, shrinks=(), evals=()) -> list:
     """Every case of a sharded-training test file on this mesh, then each
     control ``{name: case}`` with its change installed, then
     ``memory(*memory_of)`` where given and ``elastic_shrink(mesh, *s)`` for
-    each of ``shrinks``, then ``bridged_shard(*bridged)`` where given;
-    last, whether this rank loaded JAX."""
+    each of ``shrinks``, then ``sp_eval(mesh, *e)`` for each of ``evals``,
+    then ``bridged_shard(*bridged)`` where given; last, whether this rank
+    loaded JAX."""
     torch.set_num_threads(1)
     out = [train(case, mesh) for case in cases]
     for name, case in controls.items():
@@ -211,6 +302,7 @@ def train_cases(rank, mesh, cases: list, controls: dict, memory_of=None, bridged
     out += [elastic_shrink(mesh, *s) for s in shrinks]
     if shrinks:
         torch.distributed.barrier()  # no rank leaves while the survivors step
+    out += [sp_eval(mesh, *e) for e in evals]
     bridge_ok = bridged_shard(mesh, *bridged) if bridged is not None else None
     return out + [{"jax_loaded": jax_loaded(), "bridged_shard": bridge_ok}]
 
@@ -381,10 +473,13 @@ def cuda_checks(rank, mesh, device="cuda") -> dict:
 # flips moves one token's output, not every later token's slot)
 CUDA_FAMILY_CASES = (("qwen3-moe-235b-a22b", (1, 2)), ("hymba-1.5b", (1, 2)), ("hubert-xlarge", (2, 1)),
                      ("rwkv6-7b", (1, 2)), ("rwkv6-7b", (2, 1)), ("llama-3.2-vision-90b", (1, 2)))
+# one sequence-parallel case a family, at (1, 2): the residual stream split over the two ranks
+CUDA_SP_CASES = tuple((arch, (1, 2)) for arch in ("olmo-1b", "qwen3-moe-235b-a22b", "hymba-1.5b", "hubert-xlarge",
+                                                   "rwkv6-7b", "llama-3.2-vision-90b"))
 
 
-def cuda_case_id(arch: str, shape: tuple) -> str:
-    return f"{arch} {shape[0]}x{shape[1]}"
+def cuda_case_id(arch: str, shape: tuple, sp: bool = False) -> str:
+    return f"{arch} {shape[0]}x{shape[1]}" + (" sp" if sp else "")
 
 
 def cuda_family_checks(rank, mesh, device="cuda") -> dict:
@@ -396,7 +491,10 @@ def cuda_family_checks(rank, mesh, device="cuda") -> dict:
     and each rank's K4 launches over the sharded steps; for the ssm and vlm
     families also each rank's K5 or K3 launches in one sharded eval
     forward (``wkv_impl="kernel"``, ``attn_impl="flash"``) from that
-    state."""
+    state.  Then each of ``CUDA_SP_CASES`` the same way with sequence
+    parallelism, its sharded eval (fp32 compute, sequence parallelism)
+    through K3 or K5 and through the plain attention and scan, with K3's
+    or K5's launches."""
     import dataclasses
 
     from repro_torch.config import ParallelConfig, PrecisionConfig, RunConfig, TrainConfig, reduce_for_smoke
@@ -413,13 +511,14 @@ def cuda_family_checks(rank, mesh, device="cuda") -> dict:
     torch.set_num_threads(1)
     meshes = {(1, 2): mesh, (2, 1): make_local_mesh(2, 1, backend="gloo", device=device)}
     out = {"jax_loaded": jax_loaded()}
-    for arch, shape in CUDA_FAMILY_CASES:
+    cases = [(a, m, False) for a, m in CUDA_FAMILY_CASES] + [(a, m, True) for a, m in CUDA_SP_CASES]
+    for arch, shape, sp in cases:
         cfg = reduce_for_smoke(get_config(arch))
         if cfg.moe is not None:
             cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
         run = RunConfig(arch=arch, train=TrainConfig(global_batch=4, seq_len=32, learning_rate=1e-3, warmup_steps=0,
                                                      total_steps=10),
-                        parallel=ParallelConfig(remat="full"),
+                        parallel=ParallelConfig(remat="full", sequence_parallel=sp),
                         precision=PrecisionConfig(fp8=fp8_supported(cfg), fp8_gemm="kernel"))
         batch_fn = make_batch_fn(cfg, global_batch=4, seq_len=32, seed=0, device=device)
         batches = [batch_fn(s) for s in range(3)]
@@ -443,14 +542,19 @@ def cuda_family_checks(rank, mesh, device="cuda") -> dict:
         rules = training_rules(run.parallel)
         specs = state_shardings(cfg, run, rules, m)
         local = shard_state(full, specs, m)
-        eval_launches = None
-        if cfg.family in ("ssm", "vlm"):
+        eval_launches, eval_losses = None, None
+        if cfg.family in ("ssm", "vlm") or sp:
+            dtype = torch.float32 if sp else torch.bfloat16
             K3.reset_launches()
             K5.reset_launches()
             with torch.no_grad():
-                loss_fn(cfg, local.params, batches[0], wkv_impl="kernel", attn_impl="flash",
-                        compute_dtype=torch.bfloat16, mesh=m)
-            eval_launches = K5.LAUNCHES["rwkv6_scan"] if cfg.family == "ssm" else K3.LAUNCHES["flash_attention"]
+                kernel = float(loss_fn(cfg, local.params, batches[0], wkv_impl="kernel", attn_impl="flash",
+                                       compute_dtype=dtype, mesh=m, sequence_parallel=sp)[0])
+                eval_launches = K5.LAUNCHES["rwkv6_scan"] if cfg.family == "ssm" else K3.LAUNCHES["flash_attention"]
+                if sp:
+                    plain = float(loss_fn(cfg, local.params, batches[0], compute_dtype=dtype, mesh=m,
+                                          sequence_parallel=True)[0])
+                    eval_losses = (kernel, plain)
         step = make_train_step(cfg, run, rules, m)
         K4.reset_launches()
         metrics = []
@@ -459,7 +563,7 @@ def cuda_family_checks(rank, mesh, device="cuda") -> dict:
             metrics.append({k: float(v) for k, v in mt.items()})
         launches = K4.LAUNCHES["fp8_gemm"]
         gathered = unshard_state(local, specs, m)
-        out[cuda_case_id(arch, shape)] = {"mesh": shape, "one_rank": one, "launches": launches, "layers": cfg.num_layers,
-                     "eval_launches": eval_launches,
+        out[cuda_case_id(arch, shape, sp)] = {"mesh": shape, "one_rank": one, "launches": launches,
+                     "layers": cfg.num_layers, "eval_launches": eval_launches, "eval_losses": eval_losses,
                      "sharded": {"metrics": metrics, "params": [t.cpu().numpy() for t in tree_leaves(gathered.params)]}}
     return out
