@@ -70,13 +70,15 @@ or when any check fails.  Phases:
    phase's prompts under that table in the legacy and the fused walk:
    tokens equal to the untuned legacy run's up to near-ties, and K1/K2
    launched as the table says (``"prefill1"``: K2 in place of K1).  (c)
-   After phase 7, the dry run on the meta device
-   (``repro_torch.launch.dryrun``): olmo-1b's ``train_4k``, ``prefill_32k``
-   and ``decode_32k`` cells at full width, then the train phase's own step
-   (fp8, 4 x 2048) costed the same way: its roofline bound must not exceed
-   the measured step time, and its peak memory estimate must lie within
-   ``PEAK_MEM_REL`` of ``torch.cuda.max_memory_allocated()`` over one step
-   of the same run (the step before the eval).
+   The dry run on the meta device (``repro_torch.launch.dryrun``):
+   olmo-1b's ``train_4k``, ``prefill_32k`` and ``decode_32k`` cells at full
+   width, and the same three cells as one rank of the 256-device mesh
+   (``mesh="single"``: its collectives, ``collective_s`` and the rank's
+   peak, reported only), on the host while ``nvcc`` builds; after phase 7
+   the train phase's own step (fp8, 4 x 2048) costed the same way: its roofline bound
+   must not exceed the measured step time, and its peak memory estimate
+   must lie within ``PEAK_MEM_REL`` of ``torch.cuda.max_memory_allocated()``
+   over one step of the same run (the step before the eval).
 3. Serving: the engine serves 8 greedy requests on the full-width olmo-1b
    (random weights from a seed) with bf16 pools, block size 32, 4 slots,
    a 128-token prefill budget and the prefix cache.  The launch counters
@@ -207,6 +209,21 @@ or when any check fails.  Phases:
    rank 0 first, then at TP=2, with the same gates.  ``fused=True`` on the
    gloo group must raise.  The times are gloo's through host memory with
    both ranks' contexts on one card: not NCCL, not NVLink.
+5h3. Replicas of tensor-parallel engines (``replicas_tp``): four gloo ranks
+   on the one card, two replicas of TP=2 olmo-1b engines at full width and
+   depth (``make_replica_meshes(2, 2)``; legacy walk, bf16 pools, K1/K2 on
+   each rank's 8 of 16 kv heads) behind the router on rank 0, which leads
+   replica 0 and drives replica 1's lead through a
+   ``serving.remote.RemoteEngine``, on the router phase's 16 prompts (8
+   tenants, 2 requests each, 96-token system prompts, 12 new tokens):
+   an affinity arm, then replica 0 crashed halfway through the steps it
+   ran there (its requests resume on replica 1 with their delivered tokens
+   seeded), each with tokens equal to the router phase's TP=1 fleet up to
+   near-ties, no request lost, replica 0 dead after its crash, and every
+   rank's K1/K2 launches 16 a decode step or chunk of its engine; the
+   control, the crash under a stand-in that never sends the resume's seed
+   to the lead, must fail the token gate.  The times are gloo's through
+   host memory, four ranks' contexts on one card.
 5i. The moe family, once olmo-1b's serving weights are freed, on
    qwen3-moe-235b-a22b at full width (d_model 4096, 64 heads over 4 kv
    heads, qk_norm, 128 experts, top 8, expert width 1536, vocab 151936
@@ -340,7 +357,10 @@ or when any check fails.  Phases:
    ``make_elastic_mesh`` and ``reshard_state`` move the ``(2, 1)`` state
    onto rank 0 alone (bit for bit), which takes 2 steps on
    ``resize_batch``'s batches held to the reference's.  Every rank must
-   launch K4 112 times a step (4 a site a layer).  The times are gloo's
+   launch K4 112 times a step (4 a site a layer).  ``tools_dryrun_mesh``
+   then costs the same three runs on meta as rank 0 of a fake world of two
+   (``launch.dryrun.cost_rank``): each collective's calls and operand bytes
+   a step must equal what each rank counted, exactly.  The times are gloo's
    through host memory with both ranks' contexts on one card: not NCCL,
    not NVLink.  Between the two meshes, the sequence-parallel arm
    (``ParallelConfig(sequence_parallel=True)`` at ``(1, 2)``: the residual
@@ -359,10 +379,10 @@ or when any check fails.  Phases:
 9b3. Sharded training of the moe, hybrid and audio families
    (``sharded_families``), after ``sharded_train``: two gloo ranks on the
    one card, fp8 through K4 on each rank's local slices, bf16 compute,
-   remat full, warmup 0, 3 steps an arm: qwen3-moe-235b-a22b at full width
+   remat full, warmup 0, 2 steps an arm: qwen3-moe-235b-a22b at full width
    cut to 1 of 94 layers (2 x 2048 tokens; at ``(1, 2)`` only: 64 experts,
    32 query heads over 2 kv heads and half the vocab a rank), hymba-1.5b
-   and hubert-xlarge at full width cut to 4 layers (4 x 2048 tokens, frames
+   and hubert-xlarge at full width cut to 2 layers (4 x 2048 tokens, frames
    for hubert; at ``(1, 2)`` and ``(2, 1)``).  Each arm is held to the
    one-rank step of the same run, which rank 0 runs first with nothing
    else on the card and keeps on the host; each rank then draws its slices
@@ -403,8 +423,8 @@ or when any check fails.  Phases:
    ``audio_train``), each model alone on the card: qwen3-moe-235b-a22b at
    full width cut from 94 layers to 1 (3.73 B parameters with its untied
    embedding and head; 2 x 2048 tokens, two routed groups at C = 160),
-   hymba-1.5b and hubert-xlarge at full width and depth (4 x 2048 tokens,
-   frames for hubert), each with fp8 (K4 in the attention projections, and
+   hymba-1.5b and hubert-xlarge at full width cut to 8 of 32 and 16 of 48
+   layers (4 x 2048 tokens, frames for hubert), each with fp8 (K4 in the attention projections, and
    in the MLP of hymba and hubert), bf16 compute and ``remat="full"``: 3
    steps with the loss, aux loss (qwen3-moe's load-balance loss), time and
    K4 launches of every step and peak memory; then the train path's gate
@@ -433,6 +453,12 @@ or when any check fails.  Phases:
    past the L2 cache): each step's time against its bytes at 3.35 TB/s,
    each size's first step held against the float64 step, and a control
    (the rows edge-padded instead of wrapped) that the check must reject.
+   ``cloverleaf_ranks``: ``run(ranks=(2, 4))`` at the reference's sizes on 2
+   and 4 gloo ranks of the one card, one world of 4 (each rank's row block,
+   the halo rows sent to the neighbouring ranks with ``batch_isend_irecv``
+   through host memory): each rank's first step bit for bit against its
+   rows of the one-device step, and the control (each rank wrapping its own
+   rows) must differ; every rank's time a step.
    ``figures``: ``repro_torch.benchmarks.fp8_gemm.run()`` and
    ``paged_attention.run()`` at their default sweeps, each K4 and K1 row
    checked against its plain version with a control that must fail.
@@ -944,25 +970,36 @@ def tools_serving_phase(cfg, params, device, legacy_tokens, sweep, max_new_token
 DRYRUN_CELLS = ("train_4k", "prefill_32k", "decode_32k")
 
 
-def tools_dryrun_phase(cfg, train, state, batch, step_mem) -> dict:
-    """``launch.dryrun.run_cell`` for olmo-1b's three cells at full width on
-    the meta device, then the train phase's own step costed the same way
-    (olmo-1b fp8 at TRAIN_B x TRAIN_S, ``train_run_config``): its roofline
-    bound must not exceed the step time this run measured, and its peak
-    estimate must lie within ``PEAK_MEM_REL`` of ``max_memory_allocated``
-    over one step (``step_mem``, read around ``train_step_5``)."""
+def dryrun_cells(name: str = "olmo-1b") -> tuple[dict, dict]:
+    """``launch.dryrun.run_cell`` for the model's three cells at full width
+    on the meta device, on one card and as one rank of the 256-device mesh
+    (reported only): host work alone, which ``main`` runs while ``nvcc``
+    builds the kernels."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import cell_rows, markdown_table
+
+    cells = {"one_card": {}, "single": {}}
+    for mesh, results in cells.items():
+        for shape in DRYRUN_CELLS:
+            rec = dryrun.run_cell(name, shape, verbose=False, mesh=mesh)
+            results[f"{name}|{shape}"] = rec
+            emit({"phase": "tools_dryrun_cell", **rec})
+        print(markdown_table(cell_rows(results)), flush=True)
+    return cells["one_card"], cells["single"]
+
+
+def tools_dryrun_phase(cfg, train, state, batch, step_mem, cells) -> dict:
+    """The train phase's own step costed on the meta device (olmo-1b fp8 at
+    TRAIN_B x TRAIN_S, ``train_run_config``): its roofline bound must not
+    exceed the step time this run measured, and its peak estimate must lie
+    within ``PEAK_MEM_REL`` of ``max_memory_allocated`` over one step
+    (``step_mem``, read around ``train_step_5``); beside it the cells of
+    ``dryrun_cells``."""
     from repro_torch.config import ShapeConfig
     from repro_torch.launch import dryrun
     from repro_torch.launch.cost import storage_bytes
-    from repro_torch.launch.roofline import cell_rows, markdown_table
 
-    results = {}
-    for shape in DRYRUN_CELLS:
-        rec = dryrun.run_cell(cfg.name, shape, verbose=False)
-        results[f"{cfg.name}|{shape}"] = rec
-        emit({"phase": "tools_dryrun_cell", **rec})
-    table = markdown_table(cell_rows(results))
-    print(table, flush=True)
+    results, on_mesh = cells
     rec = dryrun.cost_step(cfg, train_run_config("kernel"), ShapeConfig("train_phase", TRAIN_S, TRAIN_B, "train"))
     bound_s = max(rec["roofline"].values())
     step_s = train["step_ms_mean_steps_1_3"] / 1e3
@@ -971,6 +1008,9 @@ def tools_dryrun_phase(cfg, train, state, batch, step_mem) -> dict:
     out = {"phase": "tools_dryrun", "model": cfg.name, "cells": {k: {f: v.get(f) for f in (
                "per_device_flops", "per_device_hbm_bytes", "roofline", "dominant", "useful_ratio", "memory", "fp8",
                "trace_s")} for k, v in results.items()},
+           "single": {k: {f: v.get(f) for f in ("n_devices", "per_device_flops", "per_device_hbm_bytes", "roofline",
+                                                 "dominant", "memory", "collectives", "rank_trace_s")}
+                      for k, v in on_mesh.items()},
            "train_step": rec, "bound_s": bound_s, "step_s": step_s, "step_over_bound": step_s / bound_s,
            "peak_estimate_bytes": est, "max_allocated_bytes": peak, "peak_rel_err": (est - peak) / peak,
            "allocated_before_step": step_mem["before"], "step_input_bytes": inputs}
@@ -2453,6 +2493,7 @@ def router_phase(cfg, params, device, legacy_tokens, max_new_tokens=32) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "router", "summary": {k: v for k, v in out.items() if k != "arms"}})
+    out["tokens"] = {name: r["tokens"] for name, r in arms.items()}  # replicas_tp's reference
     if control_passes or cs["failovers"] < 1:
         fail(f"router: the control (resume one position off) passes the token gate: {out['control']}")
     h = out["http"]
@@ -2767,6 +2808,175 @@ def tp_serving_phase(cfg, params, device, legacy_tokens, serving) -> dict:
         if not r["max_abs_err"] < TOL[torch.float32]:
             fail(f"tp_serving: K1 at the local heads {r['shape']}: err {r['max_abs_err']}")
     emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5h3: replicas of tensor-parallel engines behind the router, four
+# gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+REPLICAS = 2
+REPLICAS_ENGINE = dict(max_batch=4, max_seq=512, block_size=BLOCK_SIZE, prefill_budget=128,
+                       cache_dtype=torch.bfloat16, cache_kind="paged", prefix_cache=True, attn_impl="kernel")
+
+
+def seed_dropping(remote_cls):
+    """The control of ``replicas_tp``: a stand-in for the remote replica
+    that keeps the failover resume's seed on its mirror and never sends it
+    to the lead, whose request starts over; the router then forwards the
+    regenerated tokens as fresh ones."""
+
+    class SeedDropping(remote_cls):
+        def _seed(self, req_id, tokens):
+            pass
+
+    return SeedDropping
+
+
+def replicas_rank(rank, mesh, device_type="cuda", cfg=None, prompts=None, max_new_tokens=None) -> dict:
+    """One of the four ranks of ``replicas_tp``: two replicas of TP=2
+    engines (``make_replica_meshes(2, 2)``: ranks 0-1 and 2-3), the router
+    on rank 0, which leads replica 0 and drives replica 1's lead (rank 2)
+    through a ``RemoteEngine``.  Three arms on the same weights (this
+    rank's slice of the seed's): affinity; replica 0 crashed halfway
+    through the steps it ran in the affinity arm; the same crash under
+    ``seed_dropping`` (the control).  Every rank reads its K1/K2 launches
+    and its engine's steps and chunks an arm; rank 0 the tokens, the
+    router's counts and the wall."""
+    from repro_torch.benchmarks import llm_inference as bench
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_attention as K
+    from repro_torch.launch.mesh import make_replica_meshes
+    from repro_torch.models import init_params
+    from repro_torch.parallel.sharding import executed_specs, shard_params
+    from repro_torch.serving import FaultPlan, InferenceEngine, ManualClock, Replica, Router
+    from repro_torch.serving.remote import RemoteEngine, fleet_group, lead_ranks, serve_remote
+
+    device = torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda" else torch.device(device_type)
+    cfg = cfg or get_config("olmo-1b")
+    prompts = prompts or bench.tenant_prompts(system_len=ROUTER_SYSTEM_LEN)  # the router phase's 16
+    max_new_tokens = max_new_tokens or bench.ROUTER_MAX_NEW
+    meshes = make_replica_meshes(REPLICAS, TP, backend="gloo", device=device_type)
+    fleet = fleet_group(REPLICAS, TP)
+    replica, local_rank = divmod(rank, TP)
+    params = init_params(cfg, SEED, device)
+    local = shard_params(cfg, params, executed_specs(cfg, meshes[replica])["executed"], meshes[replica])
+    del params
+    torch.cuda.empty_cache()
+    kw = dict(REPLICAS_ENGINE, eos_token=cfg.padded_vocab, device=device)
+    out, crash_at = {}, None
+    for arm in ("affinity", "failover", "control"):
+        if arm != "affinity":  # rank 0 knows the crash step: the others take it from it
+            box = [crash_at]
+            torch.distributed.broadcast_object_list(box, src=0)
+            crash_at = box[0]
+        K.reset_launches()
+        torch.cuda.synchronize()
+        if rank == 0:
+            clock = ManualClock(tick=1e-4)  # no heartbeat ages with gloo's step times
+            remote = seed_dropping(RemoteEngine) if arm == "control" else RemoteEngine
+            engines = [InferenceEngine(cfg, local, mesh=meshes[0], clock=clock, **kw)]
+            engines += [remote(lead, fleet) for lead in lead_ranks(REPLICAS, TP)[1:]]
+            plans = {0: FaultPlan(crash_at_step=crash_at)} if arm != "affinity" else {}
+            router = Router([Replica(i, e, clock=clock, fault_plan=plans.get(i)) for i, e in enumerate(engines)],
+                            clock=clock, backoff_base_s=1e-4)
+            t0 = time.perf_counter()
+            reqs = [router.submit(p, max_new_tokens=max_new_tokens) for p in prompts]
+            placed = [r.replica_id for r in reqs]
+            router.run_until_drained()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            s = router.stats()
+            for e in engines:  # every replica's ranks, the crashed one's too
+                e.stop_followers()
+            steps = {r.id: r.steps for r in router.replicas}
+            if arm == "affinity":
+                crash_at = max(steps[0] // 2, 1)
+            own = engines[0].stats()
+            res = {"tokens": [list(r.generated) for r in reqs], "placed": placed,
+                   "finished_on": [r.replica_id for r in reqs], "wall_s": wall, "replica_steps": steps,
+                   **{k: s[k] for k in ("requests_done", "requests_failed", "failovers", "retries", "replica_states",
+                                        "prefix_hit_rate", "tokens_out")},
+                   "tpot_p50_s": {i: st["tpot_p50_s"] for i, st in s["per_replica"].items()},
+                   "replica_launches": {r.id: dict(r.launches) for r in router.replicas},
+                   "blocks_in_use": {i: st["alloc_blocks_in_use"] for i, st in s["per_replica"].items()}}
+            del router, engines
+        else:
+            eng = InferenceEngine(cfg, local, mesh=meshes[replica], **kw)
+            if local_rank == 0:
+                serve_remote(eng, fleet)
+            else:
+                eng.follow()
+            own, res = eng.stats(), {}
+            del eng
+        torch.cuda.synchronize()
+        res.update(launches=dict(K.LAUNCHES), decode_steps=own["decode_steps"], prefill_chunks=own["prefill_chunks"],
+                   engine_blocks_in_use=own["alloc_blocks_in_use"])
+        out[arm] = res
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["crash_at_step"] = crash_at
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+    return out
+
+
+def replicas_tp_phase(cfg, params, device, router) -> dict:
+    """Full-width olmo-1b served by two replicas of TP=2 engines on four
+    gloo ranks of the one card (``replicas_rank``), on the router phase's
+    16 prompts (8 tenants, 2 requests each): the affinity and failover arms'
+    tokens must equal the router phase's 2-replica TP=1 tokens (fused
+    engines; its affinity arm) up to near-ties, no request may be lost,
+    replica 0 must be dead after its crash, every rank must launch K1 and
+    K2 (16 a decode step or chunk of its engine), and the control (the
+    resume's seed never sent to the lead) must fail the token gate."""
+    from repro_torch.launch.mesh import run_ranks
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(replicas_rank, (REPLICAS, TP), backend="gloo", device="cuda", args=("cuda",),
+                          timeout_s=900)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"replicas_tp: {e}")
+    seconds = time.perf_counter() - t0
+    from repro_torch.benchmarks import llm_inference as bench
+
+    prompts = bench.tenant_prompts(system_len=ROUTER_SYSTEM_LEN)
+    reference = router["tokens"]["affinity"]
+    r0 = ranks[0]
+    out = {"phase": "replicas_tp", "backend": "gloo", "replicas": REPLICAS, "tp": TP, "ranks": REPLICAS * TP,
+           "model": cfg.name, "requests": len(prompts), "seconds": seconds, "crash_at_step": r0["crash_at_step"],
+           "launches": [r["affinity"]["launches"] for r in ranks],
+           "max_memory_allocated": [r["max_memory_allocated"] for r in ranks], "arms": {}}
+    for arm in ("affinity", "failover", "control"):
+        found = []
+        sound = same_up_to_ties(cfg, params, device, prompts, r0[arm]["tokens"], reference, found)
+        out["arms"][arm] = {**{k: v for k, v in r0[arm].items() if k != "tokens"}, "ties_ok": sound,
+                            "differences": found[0], "rank_launches": [r[arm]["launches"] for r in ranks],
+                            "rank_steps": [(r[arm]["decode_steps"], r[arm]["prefill_chunks"]) for r in ranks]}
+    emit(out)
+    for arm in ("affinity", "failover"):
+        a = out["arms"][arm]
+        if not a["ties_ok"]:
+            fail(f"replicas_tp {arm}: tokens differ from the router phase's TP=1 fleet beyond near-ties: "
+                 f"{a['differences']}")
+        if a["requests_done"] != len(prompts) or a["requests_failed"]:
+            fail(f"replicas_tp {arm}: done {a['requests_done']}, failed {a['requests_failed']}")
+        dead = {0} if arm == "failover" else set()
+        if {i for i, st in a["replica_states"].items() if st == "dead"} != dead or (dead and a["failovers"] < 1):
+            fail(f"replicas_tp {arm}: replica states {a['replica_states']}, failovers {a['failovers']}")
+        if any(n for i, n in a["blocks_in_use"].items() if i not in dead):
+            fail(f"replicas_tp {arm}: blocks left in use {a['blocks_in_use']}")
+    if set(out["arms"]["affinity"]["placed"]) != {0, 1}:
+        fail(f"replicas_tp: a replica took no request: {out['arms']['affinity']['placed']}")
+    for rank, (got, (steps, chunks)) in enumerate(zip(out["launches"], out["arms"]["affinity"]["rank_steps"])):
+        L = cfg.num_layers
+        if not (got["paged_decode"] == steps * L > 0 and got["paged_prefill"] == chunks * L > 0):
+            fail(f"replicas_tp rank {rank}: launches {got} != {steps} decode steps / {chunks} chunks x {L} layers")
+    c = out["arms"]["control"]
+    if c["ties_ok"] or c["failovers"] < 1:
+        fail(f"replicas_tp: the control (the resume's seed dropped) passes the token gate: {c['differences']}")
     return out
 
 
@@ -5018,12 +5228,54 @@ def sharded_train_phase() -> dict:
     return out
 
 
+def tools_dryrun_mesh_phase(sharded) -> dict:
+    """The dry run of ``sharded_train``'s own runs on its meshes: one
+    rank's step of olmo-1b (4 layers, fp8, 4 x 2048) traced on meta in a
+    fake world of two ranks (``launch.dryrun.cost_rank``) at ``(1, 2)``
+    (TP and the SP arm's run) and ``(2, 1)``: each collective's calls and
+    operand bytes a step must equal what each rank of ``sharded_train``
+    counted (``TRAIN_COLLECTIVES`` over its steps, a step's share),
+    exactly; ``collective_s`` at ``NVLINK_BW`` and the rank's estimated
+    arguments, temporaries and peak are reported beside the measured step
+    peak above the resident state and ``max_memory_allocated``."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import NVLINK_BW
+
+    cfg = get_config("olmo-1b").replace(num_layers=FACILITY_LAYERS)
+    run = shard_run_config()
+    runs = {"tp": (run, (1, 2)),
+            "sp": (dataclasses.replace(run, parallel=dataclasses.replace(run.parallel, sequence_parallel=True)), (1, 2)),
+            "fsdp_dp": (run, (2, 1))}
+    shape = ShapeConfig("sharded_train", TRAIN_S, TRAIN_B, "train")
+    out = {"phase": "tools_dryrun_mesh", "model": cfg.name, "layers": cfg.num_layers, "arms": {}}
+    for name, (arm_run, (data, model)) in runs.items():
+        rec = dryrun.cost_rank(cfg, arm_run, shape, data, model)
+        colls = rec["collectives"]
+        measured = sharded[name]["collectives_per_step"]
+        meta = {**colls["count"], **{k + "_bytes": v for k, v in colls["operand_bytes"].items()}}
+        out["arms"][name] = {"mesh": [data, model], "collectives": colls, "measured_per_step": measured,
+                             "equal": [m == meta for m in measured],
+                             "collective_s": colls["total_operand_bytes"] / NVLINK_BW,
+                             "memory": rec["memory"],
+                             "measured_step_peak_above_resident": sharded[name]["step_peak_above_resident"],
+                             "measured_max_memory_allocated": sharded[name]["max_memory_allocated"],
+                             "trace_s": rec["rank_trace_s"]}
+    emit(out)
+    for name, a in out["arms"].items():
+        if not all(a["equal"]):
+            fail(f"tools_dryrun_mesh {name}: the meta step's collectives {a['collectives']} are not "
+                 f"sharded_train's {a['measured_per_step']}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 9b3: sharded training of the moe, hybrid and audio families
 # ---------------------------------------------------------------------------
 
 FAMILY_SHARD_STEPS = 2  # an arm's and its control's: 2 keep the script inside its 1200 s
-FAMILY_SHARD_LAYERS = 4  # hymba-1.5b's 32 and hubert-xlarge's 48 cut to 4 (qwen3-moe: MOE_TRAIN_LAYERS)
+FAMILY_SHARD_LAYERS = 2  # hymba-1.5b's 32 and hubert-xlarge's 48 cut to 2 (qwen3-moe: MOE_TRAIN_LAYERS)
 # The rwkv6-7b arm's run settings, which depart from ``shard_run_config``'s,
 # both measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6).
 # rwkv6-7b (4 layers, full width, random weights): at the default rate
@@ -5652,7 +5904,7 @@ def mlperf_phase(device) -> dict:
         state, m = step(state, batch)
         float(m["loss"])
 
-    by_name, launches, prof_wall_ms, _ = profiled(one_step)
+    by_name, launches, prof_wall_ms, _ = profiled(one_step, cpu=False)  # ~99 k launches: the device's events only
     del state, batch
     busy = sum(by_name.values())
     by_kind = ms_by_kind(by_name)
@@ -5691,8 +5943,8 @@ FAMILY_STEPS = 3
 # arch: (depth, or None for the published one; sequences of TRAIN_S tokens a step)
 FAMILY_TRAIN = {
     MOE_ARCH: (MOE_TRAIN_LAYERS, 2),  # two routed groups of 2048 tokens, C = 160
-    HYMBA_ARCH: (None, TRAIN_B),
-    "hubert-xlarge": (None, TRAIN_B),
+    HYMBA_ARCH: (8, TRAIN_B),  # 8 of 32 layers
+    "hubert-xlarge": (16, TRAIN_B),  # 16 of 48 layers
 }
 # the gate's limits by model: the dense path's PATH_LIMITS unless a model's
 # own readings on the H100 (PERF.md, training forwards; kernel and order probe against
@@ -5858,6 +6110,34 @@ def cloverleaf_phase(device) -> dict:
         fail(f"cloverleaf: the row-edge control passes the float64 check, which then proves nothing: {out}")
     del u, rows_edge, wrong
     torch.cuda.empty_cache()
+    return out
+
+
+CLOVER_RANKS = (2, 4)
+
+
+def cloverleaf_ranks_phase(device) -> dict:
+    """Fig. 11 over ranks: ``cloverleaf.run(ranks=(2, 4))`` at the reference's
+    sizes on 2 and 4 gloo ranks of the one card, one spawn (the halo rows staged
+    through host memory): each rank's first step bit for bit against its
+    rows of the one-device step on the whole grid, and the control (each
+    rank wrapping its own rows) different from it; the slowest rank's time
+    a step beside every rank's."""
+    from repro_torch.benchmarks import cloverleaf
+
+    out = {"phase": "cloverleaf_ranks", "backend": "gloo", "rows": {}}
+    try:
+        rows = cloverleaf.run(sizes=CLOVER_SIZES, iters=10, device=device, ranks=CLOVER_RANKS)  # one world of 4
+    except (AssertionError, RuntimeError, TimeoutError) as e:
+        fail(f"cloverleaf_ranks: {e}")
+    for r in rows:
+        if "ranks" in r:
+            emit({"phase": "cloverleaf_ranks", **r})
+            out["rows"][r["name"]] = {k: r[k] for k in ("us_per_call", "rank_us", "achieved_gbps", "bound_us",
+                                                        "halo_bytes_per_step", "bit_exact", "control_bit_exact")}
+    emit(out)
+    if len(out["rows"]) != len(CLOVER_SIZES) * len(CLOVER_RANKS) or not all(r["bit_exact"] for r in out["rows"].values()):
+        fail(f"cloverleaf_ranks: a size is missing or not bit-exact: {out['rows']}")
     return out
 
 
@@ -6268,7 +6548,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all started together
-        built = list(pool.map(timed_build, sources))
+        builds = pool.map(timed_build, sources)
+        cells = dryrun_cells()  # host work on the meta device meanwhile
+        seconds = {"dryrun_cells": time.perf_counter() - t0}
+        built = list(builds)
     for src, secs, lib, log in built:
         emit({"phase": "build", "source": src, "seconds": secs, "library": os.path.relpath(lib, ROOT),
               "ptxas": [ln.strip() for ln in log.splitlines() if "registers" in ln or "Compiling" in ln]})
@@ -6302,7 +6585,7 @@ def main() -> int:
     if len(k5_tc) != 9 or min(hmma_k5[n] for n in k5_tc) == 0:
         fail(f"rwkv6_scan.cu: K5 needs nine chunk kernels that each hold HMMA: {hmma_k5}")
 
-    seconds = {"build": time.perf_counter() - t0}
+    seconds["build"] = time.perf_counter() - t0  # the dry run's cells inside it
 
     def phase(name, fn, *args):
         t0 = time.perf_counter()
@@ -6320,6 +6603,7 @@ def main() -> int:
     wkv_main = phase("kernel_k5", wkv_phase, device)
     stream_launches = phase("babelstream", babelstream_phase, device)
     phase("cloverleaf", cloverleaf_phase, device)
+    phase("cloverleaf_ranks", cloverleaf_ranks_phase, device)
     phase("figures", figures_phase, device)
 
     cfg = get_config("olmo-1b")  # full width and depth
@@ -6343,6 +6627,7 @@ def main() -> int:
     frontend = phase("frontend", frontend_phase, cfg, params, device, legacy_tokens)
     router = phase("router", router_phase, cfg, params, device, legacy_tokens)
     tp = phase("tp_serving", tp_serving_phase, cfg, params, device, legacy_tokens, serving)
+    replicas = phase("replicas_tp", replicas_tp_phase, cfg, params, device, router)
     del params  # the serving model's memory goes back before the moe model
     torch.cuda.empty_cache()
 
@@ -6379,7 +6664,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()  # the tools phase's dry run holds its estimate to this step's peak
     state = phase("train_step_5", lambda: make_train_step(cfg, train_run_config())(state, batch)[0])
     step_mem["max_allocated"] = torch.cuda.max_memory_allocated()
-    phase("tools_dryrun", tools_dryrun_phase, cfg, train, state, batch, step_mem)
+    phase("tools_dryrun", tools_dryrun_phase, cfg, train, state, batch, step_mem, cells)
     evaluation = phase("eval", eval_phase, cfg, state.params, batch)
     phase("train_profile", train_profile_phase, cfg, state, batch)
     del state, batch  # the olmo-1b training state's memory goes back before the facility and rwkv6-7b
@@ -6388,6 +6673,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded = phase("sharded_train", sharded_train_phase)
     torch.cuda.empty_cache()
+    phase("tools_dryrun_mesh", tools_dryrun_mesh_phase, sharded)
     sharded_families, sharded_ssm_vlm = phase("sharded_families", sharded_families_phase)
     torch.cuda.empty_cache()
     phase("mlperf", mlperf_phase, device)
@@ -6463,6 +6749,8 @@ def main() -> int:
             k["rwkv_serving_launches"] = rwkv_serving["served"]["launches"][k["name"]]
             # tensor-parallel serving: each of the two gloo ranks' own launches, by model
             k["tp_launches"] = {arm: [counts[k["name"]] for counts in ranks] for arm, ranks in tp["launches"].items()}
+            # replicas of TP=2 engines behind the router: each of the four ranks' own, the affinity arm
+            k["tp_launches"]["replicas_tp"] = [counts[k["name"]] for counts in replicas["launches"]]
             k["vlm_serving_launches"] = vlm_serving["served"]["launches"][k["name"]]  # the dense ring: none
             k["quantized_launches"] = {  # quantized pools read plain: none
                 run: quantized[run]["eager_launches"][k["name"]] + (quantized[run]["replay_launches"] or {}).get(k["name"], 0)

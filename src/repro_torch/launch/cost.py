@@ -41,7 +41,11 @@ counted twice): ``peak_bytes`` is the most bytes live at once, the
 arguments' storages included, the counterpart of the compiled
 ``memory_analysis()`` the JAX dry run reads.
 
-Numbers are global: one call on one card.
+Numbers are those of the call traced: the global step on one card, or one
+rank's step on a mesh (``launch.dryrun``).  A collective (an op of the
+``c10d`` namespace, such as ``allreduce_``) costs no FLOPs and no HBM
+bytes here: its operand bytes are counted where the port issues it
+(``parallel.collectives``); ``collective_ops`` counts the ops seen.
 """
 
 from __future__ import annotations
@@ -213,6 +217,7 @@ class CostMode(TorchDispatchMode):
         self.peak = 0
         self._seen: set[int] = set()
         self._width = WeakIdKeyDictionary()  # fp8 tensors widened by a cast: their 1-byte width
+        self.collective_ops: dict[str, int] = {}  # the c10d ops seen, by name
 
     # storages -------------------------------------------------------------
     def track(self, *trees) -> None:
@@ -295,7 +300,10 @@ class CostMode(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        self._count(func, args, kwargs, out)
+        if func.namespace == "c10d":  # a collective: its bytes are counted where it is issued
+            self.collective_ops[_name(func)] = self.collective_ops.get(_name(func), 0) + 1
+        else:
+            self._count(func, args, kwargs, out)
         name = _name(func)
         outs = _tensors(out)
         if outs and args and isinstance(args[0], torch.Tensor):
@@ -328,4 +336,5 @@ def estimate_cost(fn, *meta_args, **meta_kwargs) -> dict:
     with mode:
         out = fn(*meta_args, **meta_kwargs)
     del out
-    return {"flops": float(mode.flops), "hbm_bytes": float(mode.hbm_bytes), "peak_bytes": int(mode.peak)}
+    return {"flops": float(mode.flops), "hbm_bytes": float(mode.hbm_bytes), "peak_bytes": int(mode.peak),
+            "collective_ops": dict(mode.collective_ops)}

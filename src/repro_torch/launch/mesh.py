@@ -169,11 +169,11 @@ def make_submesh(data: int, model: int):
     return mesh if dist.get_rank() < need else None
 
 
-def make_replica_meshes(replicas: int, tp: int = 1, *, backend: str | None = None, device="cuda") -> list:
-    """``replicas`` disjoint ``(data=1, model=tp)`` meshes: replica ``i``
-    owns ranks ``[i*tp, (i+1)*tp)``.  Every rank of the world calls it, as
-    ``DeviceMesh`` makes each group collectively.  On the card it needs
-    ``replicas * tp`` cards (one a rank) unless ``backend="gloo"``."""
+def check_replica_devices(replicas: int, tp: int = 1, *, backend: str | None = None, device="cuda") -> int:
+    """The ranks ``replicas`` disjoint ``(1, tp)`` meshes take, or the
+    reference's error where they need more cards than there are (one a
+    rank) and ``backend`` is not ``"gloo"``.  Needs no process group: a
+    launcher checks before it spawns."""
     if replicas < 1:
         raise ValueError(f"replicas={replicas} (need >= 1)")
     if tp < 1:
@@ -184,6 +184,15 @@ def make_replica_meshes(replicas: int, tp: int = 1, *, backend: str | None = Non
         raise ValueError(
             f"replicas={replicas} x tp={tp} needs {need} devices, have {_cards(device)}; {NCCL_ONE_RANK_A_CARD}"
         )
+    return need
+
+
+def make_replica_meshes(replicas: int, tp: int = 1, *, backend: str | None = None, device="cuda") -> list:
+    """``replicas`` disjoint ``(data=1, model=tp)`` meshes: replica ``i``
+    owns ranks ``[i*tp, (i+1)*tp)``.  Every rank of the world calls it, as
+    ``DeviceMesh`` makes each group collectively.  On the card it needs
+    ``replicas * tp`` cards (one a rank) unless ``backend="gloo"``."""
+    need = check_replica_devices(replicas, tp, backend=backend, device=device)
     backend = pick_backend(need, backend, device)
     _check_world(need, backend)
     from torch.distributed.device_mesh import DeviceMesh

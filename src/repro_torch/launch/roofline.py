@@ -4,11 +4,11 @@ The counterpart of the JAX package's ``launch/roofline.py`` and of the
 roofline terms of its ``launch/hlo_analysis.py`` (``peak_flops``,
 ``roofline_terms``, ``dominant_term``), at the H100 SXM's published peaks,
 the constants ``chip_smoke.py`` uses.  Definitions, per (arch x shape) cell
-on ``n_devices`` cards (1 in this port):
+on ``n_devices`` cards (1, or the 256 or 512 of a production mesh):
 
     compute_s     = FLOPs / (cards x 989e12), 1979e12 for fp8 cells  [launch.cost]
     memory_s      = HBM bytes / (cards x 3.35e12)                    [launch.cost]
-    collective_s  = collective operand bytes / NVLINK_BW
+    collective_s  = one rank's collective operand bytes / NVLINK_BW  [parallel.collectives]
     bound_s       = max of the three -> the dominant bottleneck
     model_time_s  = MODEL_FLOPS / (cards x peak), MODEL_FLOPS = 6·N·D
                     (2·N·D for inference kinds; N = active params for MoE)
@@ -17,16 +17,20 @@ on ``n_devices`` cards (1 in this port):
 ``useful_ratio`` = MODEL_FLOPS / FLOPs exposes the remat, attention and
 dispatch work beyond the model's own products.
 
-The collective term reads 0: the dry run costs one card.  The JAX package
-takes its collective bytes from the partitioned HLO text
-(``hlo_analysis.py``'s ``shape_bytes`` and ``collective_stats``), which has
-no counterpart here; tensor-parallel serving counts the bytes of its own
-collectives (``parallel.collectives.COLLECTIVES``), and the term with
-``n_devices`` above 1 comes with sharded training.
+The JAX package takes its collective bytes from the partitioned HLO text
+(``hlo_analysis.py``'s ``shape_bytes`` and ``collective_stats``): operand
+bytes per device over one step.  The port's collectives count their own
+operand bytes where they are issued (``parallel.collectives``), and the
+dry run on a mesh traces one rank's step (``launch.dryrun``), so the term
+is the same quantity; on one card it is 0.  ``NVLINK_BW`` is one card's
+NVLink rate: a model axis wider than an NVLink domain (8 cards) crosses
+the slower network, so on the 16-wide model axis the term is a lower
+bound.
 
-    python -m repro_torch.launch.roofline [--out-dir DIR] [--pick]
+    python -m repro_torch.launch.roofline [--mesh one_card|single|multi] [--out-dir DIR] [--pick]
 
-reads ``dryrun_h100.json`` (``launch.dryrun``) and needs no card.
+reads ``dryrun_h100.json`` (one card) or ``dryrun_<mesh>.json``
+(``launch.dryrun``) and needs no card.
 """
 
 from __future__ import annotations
@@ -42,7 +46,13 @@ NVLINK_BW = 450e9  # H100 SXM NVLink, bytes/s each way
 HBM_LIMIT = 80e9  # H100 device memory, bytes
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
-RESULTS_FILE = "dryrun_h100.json"
+RESULTS_FILE = "dryrun_h100.json"  # the one-card run's
+MESHES = ("one_card", "single", "multi")
+
+
+def results_file(mesh: str = "one_card") -> str:
+    """The results file of a mesh's dry run."""
+    return RESULTS_FILE if mesh == "one_card" else f"dryrun_{mesh}.json"
 
 # one-sentence improvement lever per dominant term, in the port's terms
 NOTES = {
@@ -78,8 +88,8 @@ def dominant_term(terms: dict) -> str:
     return max(("compute_s", "memory_s", "collective_s"), key=lambda k: terms[k])
 
 
-def load(out_dir: Path = RESULTS_DIR) -> dict:
-    p = Path(out_dir) / RESULTS_FILE
+def load(out_dir: Path = RESULTS_DIR, mesh: str = "one_card") -> dict:
+    p = Path(out_dir) / results_file(mesh)
     return json.loads(p.read_text()) if p.exists() else {}
 
 
@@ -160,10 +170,11 @@ def pick_hillclimb(rows: list[dict]) -> dict:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out-dir", default=str(RESULTS_DIR), help="directory of dryrun_h100.json")
+    ap.add_argument("--mesh", default="one_card", choices=MESHES, help="whose dry run to read")
+    ap.add_argument("--out-dir", default=str(RESULTS_DIR), help="directory of the dry run's results files")
     ap.add_argument("--pick", action="store_true", help="print hillclimb cell selection")
     args = ap.parse_args(argv)
-    rows = cell_rows(load(Path(args.out_dir)))
+    rows = cell_rows(load(Path(args.out_dir), args.mesh))
     print(markdown_table(rows))
     if args.pick and any(r.get("status") == "ok" for r in rows):
         sel = pick_hillclimb(rows)

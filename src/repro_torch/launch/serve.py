@@ -9,7 +9,9 @@ synthetic request mix, or the always-on HTTP/SSE service.
     python -m repro_torch.launch.serve --arch llama-3.2-vision-90b   # smoke size; --full is 350 GB of fp32
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --replicas 2   # smoke size
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --tp 2        # two gloo ranks
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --replicas 2 --tp 2   # four gloo ranks
     python -m repro_torch.launch.serve --arch olmo-1b --full --tp 2 --backend gloo   # two ranks on one card
+    python -m repro_torch.launch.serve --arch olmo-1b --full --replicas 2 --tp 2 --backend gloo   # four
 
 It takes the JAX launcher's flags and defaults (``src/repro/launch/serve.py``):
 the closed-loop drive of ``--requests`` synthetic prompts (``--shared-prefix
@@ -37,9 +39,17 @@ rank 0 runs the prompts, or ``--http``, and prints; the other ranks
 on the card, one card a rank) or ``gloo`` (the CPU's, and on the card the
 way to put several ranks on one card, staging every collective through
 host memory).  With ``--http`` the launcher forwards SIGTERM and SIGINT to
-rank 0, which drains and then releases the others.  Replicas of
-tensor-parallel engines (``--replicas`` with ``--tp`` above 1) come in the
-next slice and exit.  ``--replicas N`` puts N engines on the one card: they
+rank 0, which drains and then releases the others.
+
+``--replicas R --tp T`` with T above 1 serves R tensor-parallel engines
+behind one router, as the JAX launcher's fleet: R x T ranks, replica ``i``
+on ranks ``[i T, (i + 1) T)`` (``launch.mesh.make_replica_meshes``), the
+router on rank 0, which leads replica 0 and drives every other replica's
+lead through a ``serving.remote.RemoteEngine`` (the leads run
+``serving.remote.serve_remote``, the other ranks ``follow()``); at the
+end rank 0 releases every replica's ranks.  On the card it needs R x T
+cards unless ``--backend gloo`` is given (the reference's error).
+``--replicas N`` alone puts N engines on the one card: they
 share one params dict (an engine keeps its params by reference, so the
 card holds one copy of the weights), each with its own K/V pools and, with
 ``--fused``, its own CUDA graphs.  The router steps them in turns.  Every run prints the device it ran on.  The recurrent
@@ -55,14 +65,16 @@ import argparse
 import random
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.config import reduce_for_smoke
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import BACKENDS, run_ranks
+from repro_torch.launch.mesh import BACKENDS, check_replica_devices, make_replica_meshes, run_ranks
 from repro_torch.models import init_params
 from repro_torch.models.attention import ATTN_IMPLS
 from repro_torch.serving import InferenceEngine, Replica, Router
+from repro_torch.serving.remote import RemoteEngine, fleet_group, lead_ranks, serve_remote
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
@@ -101,7 +113,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="speculative decoding: n-gram prompt lookup or a reduced-depth draft model")
     ap.add_argument("--spec-k", type=int, default=4, help="drafted tokens scored per verify pass")
     ap.add_argument("--replicas", type=int, default=1,
-                    help="independent engine replicas behind the prefix-affinity router (all on the one card)")
+                    help="independent engine replicas behind the prefix-affinity router (on the one card; "
+                         "with --tp, each on --tp ranks of its own)")
     ap.add_argument("--tp", type=int, default=1, help="tensor-parallel degree: ranks of one engine")
     ap.add_argument("--backend", default=None, choices=BACKENDS,
                     help="process-group backend of --tp (default: nccl on the card, gloo on the CPU)")
@@ -132,23 +145,29 @@ def main(argv=None) -> dict:
     if args.tp < 1:
         raise SystemExit(f"--tp {args.tp} (need >= 1)")
     if args.tp > 1:
-        if args.replicas > 1:
-            raise SystemExit(
-                f"--replicas {args.replicas} with --tp {args.tp}: replicas of tensor-parallel engines, each on "
-                "cards of its own, come in the next slice"
-            )
-        return run_ranks(_serve_rank, args.tp, backend=args.backend, device=args.device, args=(args,),
-                         timeout_s=None if args.http else 600.0, forward_signals=args.http)[0]
+        check_replica_devices(args.replicas, args.tp, backend=args.backend, device=args.device)
+        return run_ranks(_serve_rank, (args.replicas, args.tp), backend=args.backend, device=args.device,
+                         args=(args,), timeout_s=None if args.http else 600.0, forward_signals=args.http)[0]
     return serve(args)
 
 
 def _serve_rank(rank: int, mesh, args) -> dict:
-    """One rank of ``--tp``: rank 0 serves and prints, the others follow."""
+    """One rank of ``--tp`` (of ``--replicas R --tp T``: of R x T ranks):
+    rank 0 serves and prints, each other replica's lead serves rank 0's
+    messages, the other ranks follow."""
+    meshes, fleet = [mesh], None
+    if args.replicas > 1:
+        meshes = make_replica_meshes(args.replicas, args.tp, backend=dist.get_backend(), device=args.device)
+        fleet = fleet_group(args.replicas, args.tp)
+    replica, local = divmod(rank, args.tp)
     if rank == 0:
-        return serve(args, mesh)
+        return serve(args, meshes[0], fleet)
     cfg = _model_config(args)
-    eng = _build_engine(args, cfg, init_params(cfg, args.seed, device=resolve_device(args.device)), mesh)
-    eng.follow()
+    eng = _build_engine(args, cfg, init_params(cfg, args.seed, device=resolve_device(args.device)), meshes[replica])
+    if local == 0:
+        serve_remote(eng, fleet)
+    else:
+        eng.follow()
     return eng.stats()
 
 
@@ -169,27 +188,34 @@ def _build_engine(args, cfg, params, mesh=None):
     )
 
 
-def serve(args, mesh=None) -> dict:
+def serve(args, mesh=None, fleet=None) -> dict:
     """Build the engine (or fleet) and serve ``args``; with a ``mesh``, on
-    rank 0, and the followers are released at the end."""
+    rank 0, and the followers are released at the end.  ``fleet``: the
+    leads' group of ``--replicas`` with ``--tp``, whose replicas past the
+    first are driven through ``RemoteEngine``s."""
     cfg = _model_config(args)
     if cfg.is_encoder_only:
         raise SystemExit(f"{args.arch} is encoder-only; no decode serving")
     device = resolve_device(args.device)
     on = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    ranks = f", tp={args.tp} over {torch.distributed.get_backend(mesh.get_group('model'))}" if mesh is not None else ""
+    ranks = f", tp={args.tp} over {dist.get_backend(mesh.get_group('model'))}" if mesh is not None else ""
     print(f"[serve] {cfg.name} (reduced={args.reduced}) on {on}, {args.replicas} replica(s){ranks}", flush=True)
 
-    params = init_params(cfg, args.seed, device=device)  # one copy, shared by every replica
+    params = init_params(cfg, args.seed, device=device)  # one copy, shared by the replicas on this card
 
-    if args.replicas > 1:
-        eng = Router([Replica(i, _build_engine(args, cfg, params)) for i in range(args.replicas)],
-                     trace_capacity=65536 if args.trace_out else 4096)
+    if fleet is not None:
+        engines = [_build_engine(args, cfg, params, mesh)]
+        engines += [RemoteEngine(lead, fleet) for lead in lead_ranks(args.replicas, args.tp)[1:]]
     else:
-        eng = _build_engine(args, cfg, params, mesh)
+        engines = [_build_engine(args, cfg, params, mesh) for _ in range(args.replicas)]
+    if args.replicas > 1:
+        eng = Router([Replica(i, e) for i, e in enumerate(engines)], trace_capacity=65536 if args.trace_out else 4096)
+    else:
+        eng = engines[0]
     stats = _drive(args, cfg, eng)
     if mesh is not None:
-        eng.stop_followers()
+        for e in engines:  # every replica's ranks, a failed replica's too
+            e.stop_followers()
     return stats
 
 

@@ -68,7 +68,8 @@ from repro_torch.kernels.paged_attention import (
 from repro_torch.kernels.paged_attention_ref import paged_attention_plain, paged_prefill_attention_plain
 from repro_torch.models.cache import NULL_BLOCK
 from repro_torch.models.layers import ParamSpec, apply_rope, softcap
-from repro_torch.parallel.collectives import copy_to_model, reduce_scatter_seq, scatter_seq, sum_over_model
+from repro_torch.parallel.collectives import all_gather, copy_to_model, reduce_scatter_seq, scatter_seq, sum_over_model
+from repro_torch.parallel.sharding import model_axis_size, model_rank
 
 ATTN_IMPLS = ("kernel", "plain")  # paged attention
 SELF_ATTN_IMPLS = ("torch", "flash")  # full-sequence self-attention
@@ -363,7 +364,8 @@ def prefill_attention(cfg, p: dict, x: torch.Tensor, *, positions=None, q_chunk:
     return _out(cfg, p, ctx, x.dtype, mesh=mesh), k, v
 
 
-def decode_attention(cfg, p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor, *, mesh=None) -> torch.Tensor:
+def decode_attention(cfg, p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor, *, mesh=None,
+                     seq_split: bool = False) -> torch.Tensor:
     """Single-token decode against one layer's dense ring cache.
 
     x:     (B, 1, D) current token embedding stream
@@ -375,20 +377,62 @@ def decode_attention(cfg, p: dict, x: torch.Tensor, cache: dict, pos: torch.Tens
     The new K/V and its position land in ring slot ``pos % W`` (in place);
     the token attends over every filled slot the causal and window masks
     admit.  Returns (B, 1, D).
+
+    ``seq_split``: under a ``mesh`` whose ranks each hold every head (the
+    heads do not divide the model axis), the ring's slots are split over
+    the model axis instead, as the JAX package's cache rules claim
+    ``kv_seq`` for it: this rank's cache holds slots ``[r W / n, (r + 1)
+    W / n)`` of a ring of W, the new K/V lands on the rank that holds its
+    slot, and the ranks' partial softmaxes are combined
+    (``_attend_seq_split``).
     """
     k_c, v_c, pos_c = cache["k"], cache["v"], cache["pos"]
     B, W = pos_c.shape
     q, k, v = _qkv(cfg, p, x)
     q, k = _rope(cfg, q, k, pos[:, None])
     b = torch.arange(B, device=x.device)
-    slot = pos.long() % W
-    k_c[b, slot] = k[:, 0].to(k_c.dtype)
-    v_c[b, slot] = v[:, 0].to(v_c.dtype)
-    pos_c[b, slot] = pos.to(pos_c.dtype)
+    if seq_split:
+        slot = pos.long() % (W * model_axis_size(mesh)) - model_rank(mesh) * W
+        mine = (slot >= 0) & (slot < W)  # the rows whose new K/V land on this rank
+        slot = slot.clamp(0, W - 1)
+        for c, new in ((k_c, k[:, 0]), (v_c, v[:, 0])):
+            c[b, slot] = torch.where(mine[:, None, None], new.to(c.dtype), c[b, slot])
+        pos_c[b, slot] = torch.where(mine, pos.to(pos_c.dtype), pos_c[b, slot])
+    else:
+        slot = pos.long() % W
+        k_c[b, slot] = k[:, 0].to(k_c.dtype)
+        v_c[b, slot] = v[:, 0].to(v_c.dtype)
+        pos_c[b, slot] = pos.to(pos_c.dtype)
     m = make_mask(pos[:, None], pos_c, causal=cfg.causal, window=cfg.sliding_window)  # (B, 1, W)
     m = torch.where(pos_c[:, None, :] < 0, torch.full_like(m, NEG_INF), m)  # empty slots
-    ctx = _attend_block(cfg, q, k_c, v_c, m[:, None, None], cfg.q_per_kv)
+    if seq_split:
+        ctx = _attend_seq_split(cfg, q, k_c, v_c, m[:, None, None], mesh)
+    else:
+        ctx = _attend_block(cfg, q, k_c, v_c, m[:, None, None], cfg.q_per_kv)
     return _out(cfg, p, ctx, x.dtype, mesh=mesh)
+
+
+def _attend_seq_split(cfg, q, k, v, mask, mesh):
+    """``_attend_block`` over a ring whose slots are split over the model
+    axis (``decode_attention(seq_split=True)``): each rank's softmax over
+    its own slots, as (output unnormalized, sum, max) against its local
+    max; one all-gather of the three; every rank then rescales each rank's
+    part to the largest max and sums them in rank order.  A rank whose
+    slots are all masked has a max near ``NEG_INF`` and weighs zero."""
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    s = _scores(q, k, cfg.q_per_kv, scale)  # (B, KV, G, 1, W)
+    if cfg.attn_logit_softcap > 0:
+        s = softcap(s, cfg.attn_logit_softcap)
+    s = s + mask
+    mx = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - mx)
+    part = torch.einsum("bhgqs,bshk->bhgqk", e.to(v.dtype), v).float()
+    parts = all_gather(torch.cat([part, e.sum(dim=-1, keepdim=True), mx], dim=-1)[None], mesh, dim=0)
+    part, total, mx = parts[..., :-2], parts[..., -2:-1], parts[..., -1:]
+    w = torch.exp(mx - mx.amax(dim=0, keepdim=True))  # (n, B, KV, G, 1, 1)
+    ctx = (w * part).sum(dim=0) / (w * total).sum(dim=0)  # (B, KV, G, 1, hd)
+    B, Sq, H = q.shape[0], q.shape[1], q.shape[2]
+    return ctx.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, cfg.head_dim)
 
 
 def paged_chunk_attention(

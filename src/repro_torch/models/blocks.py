@@ -68,12 +68,13 @@ from repro_torch.models.moe import moe_ffn, moe_specs
 from repro_torch.parallel.collectives import SeqGather, copy_to_model, scatter_seq
 
 
-def _decode_attn(cfg, p_attn, h, cache, pos, attn_impl, mesh=None):
+def _decode_attn(cfg, p_attn, h, cache, pos, attn_impl, mesh=None, kv_seq_split=False):
     """One decode token's attention against either cache layout (the keys
-    select it: ``"tbl"`` paged, else the dense ring), written in place."""
+    select it: ``"tbl"`` paged, else the dense ring, whose slots
+    ``kv_seq_split`` splits over the model axis), written in place."""
     if "tbl" in cache:
         return paged_decode_attention(cfg, p_attn, h, cache, pos, impl=attn_impl, mesh=mesh)
-    return decode_attention(cfg, p_attn, h, cache, pos, mesh=mesh)
+    return decode_attention(cfg, p_attn, h, cache, pos, mesh=mesh, seq_split=kv_seq_split)
 
 
 def dense_block_specs(cfg) -> dict:
@@ -134,12 +135,12 @@ def dense_block_chunk(cfg, p, x, cache, tbl_row, start, *, attn_impl="kernel", w
     return _residual(cfg, p, x, h, a, mesh=mesh)
 
 
-def dense_block_decode(cfg, p, x, cache, pos, *, attn_impl="kernel", mesh=None):
+def dense_block_decode(cfg, p, x, cache, pos, *, attn_impl="kernel", mesh=None, kv_seq_split=False):
     """One decode token against either cache layout: the cache's keys select
     it (``"tbl"``: paged, through ``attn_impl``; else the dense ring cache,
     always in tensor ops), as the JAX package's ``_decode_attn``."""
     h = apply_norm(cfg, p["norm1"], x)
-    a = _decode_attn(cfg, p["attn"], h, cache, pos, attn_impl, mesh)
+    a = _decode_attn(cfg, p["attn"], h, cache, pos, attn_impl, mesh, kv_seq_split)
     return _residual(cfg, p, x, h, a, mesh=mesh)
 
 
@@ -204,11 +205,11 @@ def moe_block_chunk(cfg, p, x, cache, tbl_row, start, *, attn_impl="kernel", wid
     return _moe_residual(cfg, p, x, a, mesh=mesh)[0]
 
 
-def moe_block_decode(cfg, p, x, cache, pos, *, attn_impl="kernel", mesh=None):
+def moe_block_decode(cfg, p, x, cache, pos, *, attn_impl="kernel", mesh=None, kv_seq_split=False):
     """As ``dense_block_decode``: every batch row is routed, idle slots
     included."""
     h = apply_norm(cfg, p["norm1"], x)
-    a = _decode_attn(cfg, p["attn"], h, cache, pos, attn_impl, mesh)
+    a = _decode_attn(cfg, p["attn"], h, cache, pos, attn_impl, mesh, kv_seq_split)
     return _moe_residual(cfg, p, x, a, mesh=mesh)[0]
 
 
@@ -341,13 +342,13 @@ def hybrid_block_prefill(cfg, p, x, *, positions=None, q_chunk=0, mesh=None):
     return _hybrid_ffn(cfg, p, x, mesh=mesh), {"k": k, "v": v, "conv": conv_state, "ssm": ssm_state}
 
 
-def hybrid_block_decode(cfg, p, x, cache, pos, *, attn_impl="kernel", mesh=None):
+def hybrid_block_decode(cfg, p, x, cache, pos, *, attn_impl="kernel", mesh=None, kv_seq_split=False):
     """One decode token against the layer's cache: the attention against
     either layout (``_decode_attn``), the SSM step from the slot-dense
     ``conv`` / ``ssm`` states, which are updated in place, cast to their
     leaves' dtypes."""
     h = apply_norm(cfg, p["norm1"], x)
-    a = _decode_attn(cfg, p["attn"], h, cache, pos, attn_impl, mesh)
+    a = _decode_attn(cfg, p["attn"], h, cache, pos, attn_impl, mesh, kv_seq_split)
     m, (conv_state, ssm_state) = ssm_mod.ssm_step(cfg, p["ssm"], h, cache["conv"], cache["ssm"])
     cache["conv"].copy_(conv_state)
     cache["ssm"].copy_(ssm_state)

@@ -106,16 +106,17 @@ def _ssm_states(cfg, B: int, dtype) -> dict:
     return {"conv": ((B, K - 1, di), dtype), "ssm": ((B, H, P, N), torch.float32)}
 
 
-def layer_cache_layout(cfg, B: int, seq_len: int, dtype, *, kv_heads: int | None = None) -> dict:
+def layer_cache_layout(cfg, B: int, seq_len: int, dtype, *, kv_heads: int | None = None, seq_shards: int = 1) -> dict:
     """(shape, dtype) of one layer's dense slot cache (a vlm layer group's:
     ``{"self": {...}, "cross": {...}}``), its K/V at ``kv_heads`` (default
-    all of them)."""
+    all of them), its ring's slots split over ``seq_shards`` ranks (one
+    rank's share: ``models.decode_step(kv_seq_split=True)``)."""
     if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(f"no dense cache for family {cfg.family!r} ({cfg.name}) in the port")
     if cfg.family == "ssm":
         H, n, D = cfg.num_heads, cfg.rwkv.head_size, cfg.d_model
         return {"tm_x": ((B, D), dtype), "cm_x": ((B, D), dtype), "state": ((B, H, n, n), torch.float32)}
-    W, KV, hd = cache_window(cfg, seq_len), kv_heads or cfg.num_kv_heads, cfg.head_dim
+    W, KV, hd = cache_window(cfg, seq_len) // seq_shards, kv_heads or cfg.num_kv_heads, cfg.head_dim
     lay = {"k": ((B, W, KV, hd), dtype), "v": ((B, W, KV, hd), dtype), "pos": ((B, W), torch.int32)}
     if cfg.family == "hybrid":
         lay.update(_ssm_states(cfg, B, dtype))
@@ -132,9 +133,11 @@ def _layout_leaves(lay: dict) -> list:
     return [leaf for v in lay.values() for leaf in (_layout_leaves(v) if isinstance(v, dict) else [v])]
 
 
-def init_cache(cfg, B: int, seq_len: int, dtype, *, device="cuda", kv_heads: int | None = None) -> dict:
+def init_cache(cfg, B: int, seq_len: int, dtype, *, device="cuda", kv_heads: int | None = None,
+               seq_shards: int = 1) -> dict:
     """Zero dense slot cache stacked over layers (vlm: layer groups), every
-    ring slot empty (pos -1), every state zero."""
+    ring slot empty (pos -1), every state zero; ``kv_heads`` and
+    ``seq_shards`` as ``layer_cache_layout``'s."""
     device = resolve_device(device)
     G = num_scan_groups(cfg)
 
@@ -147,7 +150,7 @@ def init_cache(cfg, B: int, seq_len: int, dtype, *, device="cuda", kv_heads: int
                 out[name] = torch.full((G,) + v[0], -1 if name == "pos" else 0, dtype=v[1], device=device)
         return out
 
-    return make(layer_cache_layout(cfg, B, seq_len, dtype, kv_heads=kv_heads))
+    return make(layer_cache_layout(cfg, B, seq_len, dtype, kv_heads=kv_heads, seq_shards=seq_shards))
 
 
 def cache_bytes(cfg, B: int, seq_len: int, dtype) -> int:

@@ -124,7 +124,7 @@ from repro_torch.parallel.collectives import (
     scatter_seq,
     sum_over_model,
 )
-from repro_torch.parallel.sharding import FSDP_AXES, data_axis, model_rank, seq_split
+from repro_torch.parallel.sharding import FSDP_AXES, data_axis, model_axis_size, model_rank, seq_split
 
 
 def _check_impl(cfg, attn_impl: str) -> None:
@@ -403,7 +403,7 @@ def forward(
 
 
 @torch.no_grad()
-def prefill(cfg, params, batch, *, q_chunk=0, mesh=None):
+def prefill(cfg, params, batch, *, q_chunk=0, mesh=None, kv_seq_split=False):
     """Inference prefill of whole prompts.  Returns (logits (B, V), raw
     cache).
 
@@ -425,7 +425,9 @@ def prefill(cfg, params, batch, *, q_chunk=0, mesh=None):
     cache ``decode_step`` reads.  A Python layer loop, in tensor ops (the
     JAX package's prefill reaches no Pallas kernel either).  For the moe
     family the pad positions are routed with the prompt's tokens, so they
-    compete for expert capacity, as in the JAX package.
+    compete for expert capacity, as in the JAX package.  ``kv_seq_split``:
+    each layer's K/V keeps only this rank's share of the sequence, split
+    over the model axis of ``mesh`` (as ``decode_step``'s).
     """
     _check_served(cfg)
     tokens = batch["tokens"]
@@ -444,13 +446,28 @@ def prefill(cfg, params, batch, *, q_chunk=0, mesh=None):
             c = {"self": _stack_caches(selfs), "cross": cc}
         else:
             x, c = PREFILL_BLOCKS[cfg.family](cfg, p_layer, x, positions=positions, q_chunk=q_chunk, mesh=mesh)
-        layers.append(c)
+        layers.append(_own_kv_seq(c, mesh) if kv_seq_split else c)
     last_index = batch.get("last_index")
     if last_index is None:
         x_last = x[:, -1]
     else:
         x_last = x[torch.arange(x.shape[0], device=x.device), last_index.long()]
     return lm_logits(cfg, params, x_last, mesh), _stack_caches(layers)
+
+
+def _own_kv_seq(c: dict, mesh) -> dict:
+    """A layer's prefill cache with its ``"k"`` / ``"v"`` leaves (a vlm
+    group's self layers' too) cut to this rank's contiguous share of the
+    sequence (dim -3), copied so the whole sequence's K/V can go."""
+    n, r = model_axis_size(mesh), model_rank(mesh)
+
+    def own(t):
+        share = t.shape[-3] // n
+        return t.narrow(-3, r * share, share).clone()
+
+    if "self" in c:
+        return {**c, "self": {k: own(t) if k in ("k", "v") else t for k, t in c["self"].items()}}
+    return {k: own(t) if k in ("k", "v") else t for k, t in c.items()}
 
 
 # chunked prefill needs a paged cache and per-chunk state that the written
@@ -553,7 +570,7 @@ def unified_step(cfg, params, cache, tokens, start, widths, tbl_rows, *, attn_im
 
 
 @torch.no_grad()
-def decode_step(cfg, params, cache, token, pos, *, attn_impl="kernel", mesh=None):
+def decode_step(cfg, params, cache, token, pos, *, attn_impl="kernel", mesh=None, kv_seq_split=False):
     """One decode step.  token: (B, 1) int32; pos: (B,) int32 absolute
     position of this token.  Returns (logits (B, V), cache).
 
@@ -564,6 +581,10 @@ def decode_step(cfg, params, cache, token, pos, *, attn_impl="kernel", mesh=None
     group's cached image K/V and leaves it as it is.  Every
     row is computed, idle slots included: an MoE layer routes them all.
     The ssm family ignores ``pos`` (the recurrence has no positions).
+    ``kv_seq_split``: under a ``mesh`` whose heads do not divide the model
+    axis, each rank's dense ring holds its share of the slots
+    (``attention.decode_attention(seq_split=True)``; the dry run's serving
+    layout, ``parallel.sharding.kv_seq_shards``).
 
     The recurrent states are updated in place.  The ``conv``, ``tm_x`` and
     ``cm_x`` leaves come back in the dtype the step computes them in (the
@@ -579,9 +600,8 @@ def decode_step(cfg, params, cache, token, pos, *, attn_impl="kernel", mesh=None
     for layer, p_layer in enumerate(params["blocks"]):
         if cfg.family == "vlm":
             for i, p_self in enumerate(p_layer["self"]):
-                x = dense_block_decode(
-                    cfg, p_self, x, {n: t[layer, i] for n, t in cache["self"].items()}, pos, mesh=mesh
-                )
+                x = dense_block_decode(cfg, p_self, x, {n: t[layer, i] for n, t in cache["self"].items()}, pos,
+                                       mesh=mesh, kv_seq_split=kv_seq_split)
             x = cross_block_decode(cfg, p_layer["cross"], x, {n: t[layer] for n, t in cache["cross"].items()}, mesh=mesh)
             continue
         c = layer_cache(cache, layer)
@@ -590,5 +610,6 @@ def decode_step(cfg, params, cache, token, pos, *, attn_impl="kernel", mesh=None
             for name, t in new.items():
                 c[name].copy_(t)
         else:
-            x = DECODE_BLOCKS[cfg.family](cfg, p_layer, x, c, pos, attn_impl=attn_impl, mesh=mesh)
+            x = DECODE_BLOCKS[cfg.family](cfg, p_layer, x, c, pos, attn_impl=attn_impl, mesh=mesh,
+                                          kv_seq_split=kv_seq_split)
     return lm_logits(cfg, params, x[:, 0], mesh), cache

@@ -152,6 +152,18 @@ def local_kv_heads(cfg, mesh) -> int:
     return cfg.num_kv_heads
 
 
+def kv_seq_shards(cfg, mesh, window: int) -> int:
+    """Over how many model ranks a dense ring of ``window`` slots splits
+    its slots: the model axis where the cfg attends, its heads do not
+    divide the axis (``local_kv_heads`` keeps them all) and the axis
+    divides the ring, as the JAX package's cache rules then claim
+    ``kv_seq``; else 1."""
+    tp = model_axis_size(mesh)
+    if tp > 1 and cfg.has_attention and local_kv_heads(cfg, mesh) == cfg.num_kv_heads and window % tp == 0:
+        return tp
+    return 1
+
+
 def paged_cache_axes(cfg, *, quantized: bool | str = False) -> dict:
     """Logical axes of the port's stacked paged cache, as the JAX package's
     ``paged_cache_axes``: the pools (and their scale leaves) shard along

@@ -108,7 +108,9 @@ Rank 0 drives and the others follow.  ``submit``, ``abort`` and ``step``
 act on rank 0 only (the front-ends wrap rank 0's engine); at the top of
 each step rank 0 broadcasts, on a gloo group of the same ranks, the
 submissions and aborts since its last step (each submission with rank 0's
-``submit_t``) and its clock reading, which decides the step's deadline
+``submit_t`` and its ``generated`` as it is at the step: a failover
+resume's seed, which the router sets right after ``submit``) and its
+clock reading, which decides the step's deadline
 aborts.  Every rank then runs the same deterministic host logic on the
 same inputs and the same logits, so tables and schedules agree without
 being sent.  Followers run ``follow()`` until rank 0 calls
@@ -176,6 +178,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import paged_attention
 from repro_torch.models import (
     SERVED_FAMILIES,
     decode_step,
@@ -629,7 +632,7 @@ class InferenceEngine:
                   priority=priority, deadline_s=deadline_s)
         req = self._submit(list(prompt), kw, self._clock())
         if self.mesh is not None:
-            self._events.append(("submit", req.prompt, kw, req.submit_t))
+            self._events.append(("submit", req, kw))  # sent at the next step, with req.generated as it is then
         return req
 
     def _submit(self, prompt: list[int], kw: dict, submit_t: float) -> Request:
@@ -689,6 +692,12 @@ class InferenceEngine:
 
     def chunked(self) -> bool:
         return self._chunked
+
+    def launch_counts(self) -> dict:
+        """The kernel launch counters of this process
+        (``kernels.paged_attention.LAUNCHES``), which ``Replica`` reads
+        around each step."""
+        return dict(paged_attention.LAUNCHES)
 
     def can_preempt(self) -> bool:
         # eviction and resume ride the chunked paged path: the resumed
@@ -1601,14 +1610,27 @@ class InferenceEngine:
         self._check_leader("step")
         now = self._clock()
         if self.mesh is not None:
-            self._send({"events": self._events, "now": now, "stop": False})
-            self._events = []
+            self._send({"events": self._wire_events(), "now": now, "stop": False})
         return self._step(now)
 
     # ---- rank 0 drives, the other ranks follow -----------------------
     def _check_leader(self, op: str) -> None:
         if self.rank != 0:
             raise RuntimeError(f"{op}: rank {self.rank} follows rank 0 (call follow()); {op} acts on rank 0")
+
+    def _wire_events(self) -> list:
+        """The submissions and aborts since the last step message, as the
+        followers apply them; a submission carries its request's
+        ``generated`` as it is now (a failover resume's seed, set after
+        ``submit``), and the list is emptied."""
+        events = []
+        for event in self._events:
+            if event[0] == "submit":
+                _, req, kw = event
+                event = ("submit", req.prompt, kw, req.submit_t, list(req.generated))
+            events.append(event)
+        self._events = []
+        return events
 
     def _send(self, msg: dict) -> None:
         torch.distributed.broadcast_object_list(
@@ -1634,8 +1656,8 @@ class InferenceEngine:
             msg = self._recv()
             for event in msg["events"]:
                 if event[0] == "submit":
-                    _, prompt, kw, submit_t = event
-                    self._submit(prompt, kw, submit_t)
+                    _, prompt, kw, submit_t, generated = event
+                    self._submit(prompt, kw, submit_t).generated = generated
                 else:
                     _, req_id, reason = event
                     self._abort(req_id, reason)
@@ -1649,8 +1671,7 @@ class InferenceEngine:
         the submissions and aborts since the last step."""
         self._check_leader("stop_followers")
         if self.mesh is not None:
-            self._send({"events": self._events, "now": None, "stop": True})
-            self._events = []
+            self._send({"events": self._wire_events(), "now": None, "stop": True})
 
     def _step(self, now: float) -> int:
         t0 = self._clock()

@@ -5,8 +5,10 @@ Grace-Hopper node of the paper's 1,362.  Every replica's engine lives on
 the one card: replicas share the weights (one params dict, kept by
 reference), each holds its own K/V pools and, with ``fused=True``, its own
 CUDA graphs and their memory pool.  One engine may span several ranks
-(``InferenceEngine(mesh=)``); replicas of such engines, each on cards of
-its own (``launch.mesh.make_replica_meshes``), come in the next slice.  The wrapper owns exactly the
+(``InferenceEngine(mesh=)``); replicas of such engines each own their
+ranks (``launch.mesh.make_replica_meshes``), and a replica led from
+another process than the router's is a ``serving.remote.RemoteEngine``.
+The wrapper owns exactly the
 state the JAX package's cluster model (``core/cluster.py`` there) keeps per
 node, translated to serving:
 
@@ -29,8 +31,9 @@ every ``slow_every``-th step so the router sees a straggler, not a corpse.
 The kernels' launch counters (``kernels.paged_attention.LAUNCHES``) are
 process-wide, so ``launches`` keeps this replica's share: the counters'
 growth over each of its steps (eager calls; a fused engine's graph replays
-count in its ``stats()["graph_launches"]``).  A copy of the JAX package's
-``serving/replica.py`` but for that counter.
+count in its ``stats()["graph_launches"]``), read in the process that
+steps the engine (``engine.launch_counts()``: a ``RemoteEngine``'s are its lead's).
+A copy of the JAX package's ``serving/replica.py`` but for that counter.
 """
 
 from __future__ import annotations
@@ -115,9 +118,9 @@ class Replica:
             raise ReplicaCrashed(f"replica {self.id} crashed at step {k} (injected)")
         if self.fault.hangs_at(k):
             return 0  # wedged: no work, no heartbeat — the sweep notices
-        before = dict(paged_attention.LAUNCHES)
+        before = self.engine.launch_counts()
         produced = self.engine.step()
-        for name, n in paged_attention.LAUNCHES.items():
+        for name, n in self.engine.launch_counts().items():
             self.launches[name] += n - before[name]
         if not self.fault.slow_at(k) or k % self.fault.slow_every == 0:
             self.last_heartbeat = self._clock()

@@ -3,9 +3,9 @@
 One tensor-parallel engine is a single Grace-Hopper node; Isambard-AI
 fields 1,362 of them and treats node failure as the baseline operating
 condition.  ``Router`` turns N independent ``InferenceEngine`` replicas
-(``serving.replica.Replica``; until tensor parallelism is ported they all
-share the one card) into one service with the JAX package's cluster
-health model on the serving path:
+(``serving.replica.Replica``: engines on the one card, or tensor-parallel
+engines on ranks of their own, driven through ``serving.remote``) into one
+service with the JAX package's cluster health model on the serving path:
 
 * **Prefix-affinity routing** — a request is scored against every
   admittable replica's ``PrefixIndex`` (``match_tokens``, a pure peek);

@@ -11,6 +11,11 @@ skips on a host without CUDA.
   and K2.
 * ``fused=True`` on the gloo group raises: a CUDA graph cannot capture
   gloo's collectives, which stage CUDA tensors through host memory.
+* Two replicas of TP=2 engines behind the router on four gloo ranks
+  (``serving.remote``), replica 0 crashed: the placements and tokens of the
+  same fleet of TP=1 engines, and K1/K2 on every rank.
+* CloverLeaf's halo exchange over two gloo ranks: the one-device step bit
+  for bit, and its control fails.
 """
 
 import pytest
@@ -49,3 +54,39 @@ def test_cuda_tp_tokens_equal_tp1(ranks):
 def test_cuda_tp_fused_on_gloo_raises(ranks):
     for r in ranks:
         assert r["fused_refusal"] is not None and "NCCL" in r["fused_refusal"]
+
+
+@pytest.fixture(scope="module")
+def fleet():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return run_ranks(torch_tp_ranks.cuda_fleet_checks, (2, 2), backend="gloo", device="cuda", timeout_s=600)
+
+
+def test_cuda_replicas_of_tp2_engines_fail_over(fleet):
+    """Two replicas of TP=2 engines on four gloo ranks of the card, replica
+    0 crashed at its 4th step: the TP=1 fleet's placements and tokens,
+    every request done, and each rank launched K1 and K2 on its slice."""
+    tp1, tp2 = fleet[0]["tp1"], fleet[0]["tp2"]
+    assert tp2["placed"] == tp1["placed"] and set(tp2["placed"]) == {0, 1}
+    assert tp2["tokens"] == tp1["tokens"]
+    assert tp2["failovers"] == tp1["failovers"] >= 1 and tp2["requests_done"] == len(tp1["tokens"])
+    assert tp2["states"] == {0: "dead", 1: "healthy"}
+    for r in fleet:
+        assert not r["jax_loaded"]
+        got = r["tp2"]["launches"]
+        assert got["paged_decode"] > 0 and got["paged_prefill"] > 0, got
+
+
+def test_cuda_cloverleaf_over_two_ranks():
+    """CloverLeaf's step over two gloo ranks on the card (the halo rows
+    through host memory) equals the one-device step bit for bit, and the
+    control (each rank wrapping its own rows) differs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.benchmarks import cloverleaf
+
+    rows = cloverleaf.run(sizes=(256,), iters=2, device="cuda", ranks=2)
+    r = rows[0]
+    assert r["name"] == "cloverleaf_256x256_2ranks" and r["bit_exact"] and not any(r["control_bit_exact"])
+    assert r["halo_bytes_per_step"] == 2 * 256 * 4 * 2 and r["achieved_gbps"] > 0

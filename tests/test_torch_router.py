@@ -21,8 +21,9 @@ first step that compiles, marks the other replica suspect or failed on one
 side only.
 
 The port's serve launcher (``repro_torch.launch.serve``) drains on the CPU
-with one engine and with two replicas; ``--replicas 2 --tp 2`` exits
-naming the next slice (``test_torch_tp_serving.py`` runs ``--tp 2``).
+with one engine, with two replicas, and with two replicas of TP=2 engines
+on four gloo ranks (``test_torch_tp_serving.py`` runs ``--tp 2``,
+``test_torch_replicas_tp.py`` the fleet's scenarios).
 """
 
 import asyncio
@@ -449,9 +450,17 @@ def test_serve_launcher_drains_on_the_cpu(replicas, capsys):
 
 
 def test_serve_launcher_refuses_tensor_parallelism():
-    """Tensor-parallel serving is ported; replicas of tensor-parallel
-    engines are not, and exit before any rank starts."""
+    """The launcher no longer refuses replicas of tensor-parallel engines:
+    ``--replicas 2 --tp 2`` serves on four gloo ranks (the router on rank 0,
+    replica 1 driven through ``serving.remote``), drains with no block in
+    use on either replica, and puts work on both replicas."""
     from repro_torch.launch.serve import main
 
-    with pytest.raises(SystemExit, match="next slice"):
-        main(["--device", "cpu", "--tp", "2", "--replicas", "2"])
+    stats = main(["--device", "cpu", "--arch", "olmo-1b", "--requests", "6", "--max-new", "4",
+                  "--prefill-budget", "16", "--replicas", "2", "--tp", "2"])
+    assert stats["requests_done"] == 6 and stats["requests_inflight"] == 0 and stats["requests_failed"] == 0
+    engines = list(stats["per_replica"].values())
+    assert len(engines) == 2 and all(s["tp"] == 2 for s in engines)
+    assert sum(s["requests_done"] for s in engines) == 6 and min(s["requests_done"] for s in engines) >= 1
+    for s in engines:
+        assert s["alloc_blocks_in_use"] == 0 and s["alloc_total_allocs"] == s["alloc_total_frees"]

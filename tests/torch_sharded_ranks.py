@@ -567,3 +567,68 @@ def cuda_family_checks(rank, mesh, device="cuda") -> dict:
                      "layers": cfg.num_layers, "eval_launches": eval_launches, "eval_losses": eval_losses,
                      "sharded": {"metrics": metrics, "params": [t.cpu().numpy() for t in tree_leaves(gathered.params)]}}
     return out
+
+
+def step_collectives(rank, mesh, cases: list) -> list[dict]:
+    """One step of each case (``cfg``, ``run``, ``batch``) on this rank, from
+    the rank's slices of a state drawn from seed 0 (``init_train_state(rules=,
+    mesh=)``): every training collective's calls and operand bytes
+    (``TRAIN_COLLECTIVES``, the ones issued) and the serving table's
+    (``COLLECTIVES``), for ``test_torch_dryrun_mesh.py``."""
+    from repro_torch.train import init_train_state
+
+    out = []
+    for case in cases:
+        cfg, run = case["cfg"], case["run"]
+        rules = training_rules(run.parallel)
+        state = init_train_state(cfg, run, 0, "cpu", rules=rules, mesh=mesh)
+        step = make_train_step(cfg, run, rules, mesh)
+        collectives.reset_collectives()
+        step(state, case["batch"])
+        tables = {**collectives.COLLECTIVES, **collectives.TRAIN_COLLECTIVES}
+        out.append({k: v for k, v in tables.items() if v})
+    return out
+
+
+def seq_split_decode(rank, mesh, cfg, B: int, seq_len: int, steps: int) -> dict:
+    """The dense ring split over the model axis (``decode_step(kv_seq_split=
+    True)``, for ``cfg`` whose heads do not divide it) against the whole
+    ring on every rank, on the serving layout's slices of seed 0's
+    parameters: ``steps`` greedy decode steps of ``B`` rows from seed 1's
+    first tokens, the logits of each layout at each step, and the
+    collectives of one split step (``COLLECTIVES``); then ``prefill``'s
+    cache with ``kv_seq_split=True`` against this rank's share of the whole
+    one."""
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+    from repro_torch.parallel.sharding import executed_specs, kv_seq_shards, model_axis_size, model_rank, shard_params
+
+    n = kv_seq_shards(cfg, mesh, seq_len)
+    params = shard_params(cfg, init_params(cfg, 0, "cpu"), executed_specs(cfg, mesh)["executed"], mesh)
+    first = torch.randint(0, cfg.vocab_size, (B, 1), generator=torch.Generator().manual_seed(1), dtype=torch.int32)
+    out = {"shards": n, "logits": {}, "collectives": None}
+    for split in (False, True):
+        cache = init_cache(cfg, B, seq_len, torch.float32, device="cpu", seq_shards=n if split else 1)
+        tok, got = first, []
+        for t in range(steps):
+            collectives.reset_collectives()
+            logits, cache = decode_step(cfg, params, cache, tok, torch.full((B,), t, dtype=torch.int32), mesh=mesh,
+                                        kv_seq_split=split)
+            if split and t == 0:
+                out["collectives"] = {k: v for k, v in collectives.COLLECTIVES.items() if v}
+            got.append(logits.numpy().copy())
+            tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        out["logits"][split] = got
+    g = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (B, seq_len), generator=g, dtype=torch.int32)
+    whole = prefill(cfg, params, {"tokens": tokens}, mesh=mesh)[1]
+    mine = prefill(cfg, params, {"tokens": tokens}, mesh=mesh, kv_seq_split=True)[1]
+    share = seq_len // model_axis_size(mesh)
+    out["prefill_equal"] = all(torch.equal(mine[k], whole[k].narrow(-3, model_rank(mesh) * share, share))
+                               for k in ("k", "v"))
+    return out
+
+
+def mesh_checks(rank, mesh, cases: list, decode: dict) -> dict:
+    """``test_torch_dryrun_mesh.py``'s world: ``step_collectives`` of the
+    train ``cases``, then ``seq_split_decode`` of ``decode``'s arguments."""
+    return {"steps": step_collectives(rank, mesh, cases), "decode": seq_split_decode(rank, mesh, **decode)}

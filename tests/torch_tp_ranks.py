@@ -20,6 +20,7 @@ from repro_torch.parallel import collectives
 from repro_torch.parallel.sharding import executed_specs, local_kv_heads, shard_params
 from repro_torch.serving import InferenceEngine
 from repro_torch.serving.metrics import ManualClock
+from repro_torch.serving.remote import RemoteEngine
 
 STEP_S = 0.01  # rank 0's manual clock advances this much before each step
 
@@ -179,3 +180,134 @@ def serve_cuda(cfg, params, case, mesh=None) -> list:
     eng.run_until_drained()
     eng.stop_followers()
     return [list(r.generated) for r in reqs]
+
+
+
+
+def fleet_router(cfg, params, engine_kw, meshes, fleet, plans, remote_cls):
+    """Rank 0's router over replica 0 (its own engine, the lead of
+    ``meshes[0]``) and replica 1 (a ``remote_cls`` of the lead at rank 2),
+    all reading one ``ManualClock`` ticking 1e-4 s a read; ``plans`` the
+    replicas' fault plans by id.  Returns (router, engines)."""
+    from repro_torch.serving import FaultPlan, ManualClock, Replica, Router
+
+    clock = ManualClock(tick=1e-4)
+    engines = [InferenceEngine(cfg, params, mesh=meshes[0], clock=clock, **engine_kw), remote_cls(2, fleet)]
+    replicas = [Replica(i, e, clock=clock, fault_plan=FaultPlan(**plans[i]) if i in plans else None)
+                for i, e in enumerate(engines)]
+    return Router(replicas, clock=clock, backoff_base_s=1e-4), engines
+
+
+def run_fleet_cases(rank, mesh, cfg, params, spec, device="cpu") -> list[dict]:
+    """Every scenario of ``test_torch_replicas_tp.py`` on one rank of a
+    world of four: two replicas of TP=2 engines (``make_replica_meshes(2,
+    2)``), the router on rank 0 driving replica 1's lead (rank 2) through a
+    ``RemoteEngine`` (or the scenario's ``remote`` class, a control), rank
+    2 serving it, ranks 1 and 3 following.  Rank 0 reports each request's
+    placement, final replica and tokens, the router's counts and each
+    replica's stats; every rank its kernel launches and whether it loaded
+    JAX."""
+    from repro_torch.kernels import paged_attention as K
+    from repro_torch.launch.mesh import make_replica_meshes
+    from chip_smoke import seed_dropping
+    from repro_torch.serving.remote import fleet_group, serve_remote
+
+    torch.set_num_threads(1)
+    meshes = make_replica_meshes(2, 2, backend="gloo", device=device)
+    fleet = fleet_group(2, 2)
+    replica, local = divmod(rank, 2)
+    out = []
+    for scenario in spec["scenarios"]:
+        K.reset_launches()
+        if rank == 0:
+            # the control (``chip_smoke.seed_dropping``): the resume's seed never reaches the lead
+            remote_cls = seed_dropping(RemoteEngine) if scenario.get("remote") == "drop_seeds" else RemoteEngine
+            router, engines = fleet_router(cfg, params, spec["engine"], meshes, fleet, scenario["plans"], remote_cls)
+            reqs = [router.submit(p, max_new_tokens=spec["max_new"]) for p in spec["prompts"]]
+            placed = [r.replica_id for r in reqs]
+            router.run_until_drained()
+            s = router.stats()
+            for e in engines:  # the crashed replica's ranks too
+                e.stop_followers()
+            res = {"tokens": [list(r.generated) for r in reqs], "placed": placed,
+                   "finished_on": [r.replica_id for r in reqs], "requests_done": s["requests_done"],
+                   "requests_failed": s["requests_failed"], "failovers": int(s["failovers"]),
+                   "states": s["replica_states"], "per_replica": s["per_replica"],
+                   "replica_launches": {r.id: dict(r.launches) for r in router.replicas}}
+        else:
+            eng = InferenceEngine(cfg, params, mesh=meshes[replica], **spec["engine"])
+            if local == 0:
+                serve_remote(eng, fleet)
+            else:
+                eng.follow()
+            res = {"stats": eng.stats()}
+        res["launches"] = dict(K.LAUNCHES)
+        out.append(res)
+    return out + [{"jax_loaded": any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)}]
+
+
+def cloverleaf_blocks(rank, mesh, grid: np.ndarray, steps: int, sizes: tuple) -> dict:
+    """``test_torch_cloverleaf_ranks.py`` on one rank of a world of four: for
+    each row mesh of ``sizes`` ranks (``cloverleaf.row_mesh``; the ranks
+    past it idle), this rank's block after each of ``steps`` chained steps
+    of ``cloverleaf.make_step`` and of the control (each rank wraps its own
+    rows: ``cloverleaf.step`` on the block)."""
+    from repro_torch.benchmarks import cloverleaf
+
+    out = {}
+    u = torch.from_numpy(grid)
+    for n in sizes:
+        rows = cloverleaf.row_mesh(n)
+        if rows is None:
+            continue
+        step_block = cloverleaf.make_step(rows)
+        mine = control = cloverleaf.block_of(u, rows)
+        out[n] = {"steps": [], "control": []}
+        for _ in range(steps):
+            mine, control = step_block(mine), cloverleaf.step(control)
+            out[n]["steps"].append(mine.numpy().copy())
+            out[n]["control"].append(control.numpy().copy())
+    return out
+
+
+def tp1_fleet(cfg, params, spec, plans) -> dict:
+    """``spec``'s prompts through a router over two TP=1 engines in this
+    process (fault ``plans`` by replica id), every clock a ``ManualClock``
+    ticking 1e-4 s a read: each request's placement, final replica and
+    tokens, and the router's counts and replica states."""
+    from repro_torch.serving import FaultPlan, Replica, Router
+
+    clock = ManualClock(tick=1e-4)
+    replicas = [Replica(i, InferenceEngine(cfg, params, clock=clock, **spec["engine"]), clock=clock,
+                        fault_plan=FaultPlan(**plans[i]) if i in plans else None) for i in range(2)]
+    router = Router(replicas, clock=clock, backoff_base_s=1e-4)
+    reqs = [router.submit(p, max_new_tokens=spec["max_new"]) for p in spec["prompts"]]
+    placed = [r.replica_id for r in reqs]
+    router.run_until_drained()
+    s = router.stats()
+    return {"tokens": [list(r.generated) for r in reqs], "placed": placed, "finished_on": [r.replica_id for r in reqs],
+            "requests_done": s["requests_done"], "requests_failed": s["requests_failed"],
+            "failovers": int(s["failovers"]), "states": s["replica_states"]}
+
+
+def cuda_fleet_checks(rank, mesh) -> dict:
+    """``test_torch_cuda_tp.py``'s fleet on one rank of four gloo ranks on
+    the card: the smoke olmo-1b (fp32 pools, block 16, K1/K2 on each rank's
+    kv-head slice), two replicas of TP=2 engines with replica 0 crashed at
+    its 4th step, against the same fleet of TP=1 engines on rank 0."""
+    from repro_torch.config import reduce_for_smoke
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    torch.set_num_threads(1)
+    cfg = reduce_for_smoke(get_config("olmo-1b"))
+    params = init_params(cfg, 0, device="cuda")
+    plans = {0: {"crash_at_step": 4}}
+    spec = {"prompts": [[(13 * t + 5 * j + 7) % 197 + 2 for j in range(16)] + [200 + 4 * t + i, 210 + t]
+                        for i in range(2) for t in range(4)],
+            "max_new": 6, "scenarios": [{"name": "crash_0", "plans": plans}],
+            "engine": dict(max_batch=4, max_seq=64, block_size=16, prefill_budget=16, cache_dtype=torch.float32,
+                           cache_kind="paged", prefix_cache=True, eos_token=1 << 30, device="cuda")}
+    tp1 = tp1_fleet(cfg, params, spec, plans) if rank == 0 else None
+    got = run_fleet_cases(rank, mesh, cfg, params, spec, device="cuda")
+    return {"tp1": tp1, "tp2": got[0], "jax_loaded": got[-1]["jax_loaded"]}
