@@ -18,7 +18,8 @@ or when any check fails.  Phases:
    the autotuner's table says) and K2 (chunked prefill) against their plain
    PyTorch versions on the card, bf16 pools, fp32 and bf16 queries, at the
    head shapes of olmo-1b, mistral-nemo-12b, gemma-7b and qwen3-moe-235b-a22b
-   (64 query heads over 4 kv heads), block size 32, K1 also at
+   (64 query heads over 4 kv heads, and one rank's 8 over 1 under the
+   grouped layout at 8 ranks), block size 32, K1 also at
    hymba-1.5b's (25 over 5 kv heads of 64, window 1024, 4 slots of
    77/300/1100/1400 tokens over 48-block tables),
    random block tables with null padding and ragged lengths, plus one
@@ -411,6 +412,27 @@ or when any check fails.  Phases:
    ``(1, 2)``, with a control (the cross query's ``copy_to_model`` left
    out) and a sharded eval through K3 at the local heads.  Each eval is
    held to the one-rank eval (``shard_eval_gates``).
+9b5. The grouped attention layout (``grouped_heads``): qwen3-moe-235b-a22b
+   at full width cut to 1 of 94 layers on eight gloo ranks at ``(1, 8)``,
+   where its 64 query heads split 8 a rank and its 4 kv heads do not
+   divide the axis: each rank holds every kv head's wk / wv and attends
+   over its GQA group's (``parallel.sharding.attention_layout``).  (a)
+   Four of the router phase's tenant prompts, 12 new tokens, at capacity
+   factor 16, served by a TP=1 engine on rank 0's full weights, then by
+   the TP=8 engine on each rank's slices (drawn leaf by leaf from the
+   seed): tokens equal on every rank and to TP=1's up to at most one near
+   tie, pools of one kv head (1 / 4 of TP=1's bytes, TP=1's global cache
+   bytes), K1/K2 once a layer a decode step or chunk as the autotuner's
+   table says for the local heads, 2 collectives a layer and 2 a model
+   call, and one prompt's prefill and decode logits on fp32 pools within
+   ``TP_LOGIT_TOL`` of TP=1's, the control (rank r's kv head taken as ``r
+   % KV``) outside.  (b) and (c): the train arm (``family_arm``, 2 x 2048,
+   fp8 through K4, AdamW moments in bf16 (``GROUPED_RUN``), 2 steps
+   against the one-rank steps that rank 0 runs first alone,
+   ``FAMILY_LIMITS`` over the attention, router and norm leaves, wk / wv's
+   own readings reported, the same control outside them) with the sharded
+   eval through K3 on 8 query heads over one kv head, held to the one-rank
+   eval within ``SHARDED_EVAL_LIMITS``.
 9c. Fig. 8 (``mlperf``): ``repro_torch.benchmarks.mlperf_train.run()`` on the
    card, bert-large at full width and depth, 448 x 512 tokens a step as 14
    microbatches of 32 (fp32 master, bf16 compute, remat full, no fp8), one
@@ -713,6 +735,8 @@ def library_call(c, attend):
 # a multiple of 64 and a start inside a block)
 KERNEL_CASES = [(m, (H, KV, hd), dt, 0, 0.0) for (m, H, KV, hd) in HEAD_SHAPES for dt in (torch.float32, torch.bfloat16)]
 KERNEL_CASES += [("mistral-nemo-12b", (32, 8, 128), torch.float32, 32, 0.0), ("gemma-7b", (16, 16, 256), torch.float32, 0, 30.0)]
+# one rank's heads of qwen3-moe under the grouped layout at 8 ranks: 8 query heads over one kv head
+KERNEL_CASES += [("qwen3-moe-235b-a22b/tp8", (8, 1, 128), dt, 0, 0.0) for dt in (torch.float32, torch.bfloat16)]
 PREFILL_CASES = [(*case, (PREFILL_C, PREFILL_START)) for case in KERNEL_CASES]
 PREFILL_CASES += [("olmo-1b", (16, 16, 128), torch.float32, 0, 0.0, chunk) for chunk in ((1, 192), (16, 192), (40, 200))]
 # the speculative verify window, C = spec_k + 1 = 5: at a block's first
@@ -4344,7 +4368,13 @@ EVAL_LIMITS_BY_MODEL = {"llama-3.2-vision-90b": {"loss_diff": 4e-4, "max_logits_
 # sequence parallelism bit for bit alike (each rank's bf16 partial attention
 # outputs are rounded before their sum, which one rank does not do), the
 # next-key control 2.19e-3 and 5.11; its loss limit lies between.
-SHARDED_EVAL_LIMITS = {"olmo-1b": {"loss_diff": 1e-3, "max_logits_diff": 0.5}}
+SHARDED_EVAL_LIMITS = {"olmo-1b": {"loss_diff": 1e-3, "max_logits_diff": 0.5},
+                       # qwen3-moe (1 of 94 layers, 2 x 2048) under the grouped layout (``grouped_heads``: 8 of
+                       # 64 query heads over one kv head a rank) on the H100 (PERF.md section 6): flash against
+                       # torch read a loss difference of 1.29e-4 on the ranks, the sharded loss 7.0e-5 from the
+                       # one-rank eval's, the next-key control's 8.8e-4 from it (one layer's attention moves
+                       # the loss little, so olmo-1b's 1e-3 would pass the control); its loss limit lies between
+                       "qwen3-moe-235b-a22b": {"loss_diff": 4e-4, "max_logits_diff": 0.5}}
 
 
 def train_run_config(fp8_gemm="kernel", arch="olmo-1b", global_batch=TRAIN_B):
@@ -4958,7 +4988,7 @@ def ranks_allocator():
 
 
 def shard_run_config(global_batch=TRAIN_B, seq_len=TRAIN_S, arch="olmo-1b", fp8=True, lr=None,
-                     compute_dtype="bfloat16"):
+                     compute_dtype="bfloat16", optimizer_dtype="float32"):
     from repro_torch.config import ParallelConfig, PrecisionConfig, RunConfig, TrainConfig
 
     rate = {} if lr is None else {"learning_rate": lr}
@@ -4966,7 +4996,8 @@ def shard_run_config(global_batch=TRAIN_B, seq_len=TRAIN_S, arch="olmo-1b", fp8=
         arch=arch, train=TrainConfig(global_batch=global_batch, seq_len=seq_len, warmup_steps=0, total_steps=10,
                                      **rate),
         parallel=ParallelConfig(remat="full"),
-        precision=PrecisionConfig(param_dtype="float32", compute_dtype=compute_dtype, fp8=fp8, fp8_gemm="kernel"),
+        precision=PrecisionConfig(param_dtype="float32", compute_dtype=compute_dtype, fp8=fp8, fp8_gemm="kernel",
+                                  optimizer_dtype=optimizer_dtype),
     )
 
 
@@ -5322,7 +5353,10 @@ class Arm(NamedTuple):
     cut; sequences of TRAIN_S a step; its meshes; the mesh its control runs
     on; its control (``family_control``), which must fail the limits; its
     eval, None or (the eval of ``shard_eval``, the mesh it runs on);
-    ``shard_run_config`` overrides."""
+    ``shard_run_config`` overrides; ``watch``, ``{group: path suffixes}``
+    of leaf groups read on their own (``group_readings``, reported only);
+    ``unread``, path suffixes of leaves the parameter readings leave out
+    (loss and gradient norm still cover them)."""
 
     cfg: Any
     batch: int
@@ -5331,6 +5365,8 @@ class Arm(NamedTuple):
     control: str
     evaluation: Any = None
     run: Any = None
+    watch: Any = None
+    unread: tuple = ()
 
 
 def family_shard_arms() -> dict:
@@ -5358,7 +5394,9 @@ def family_control(name: str, cfg) -> list:
     ``copy_to_model`` moved to the block input (the whole time mix's
     gradients summed over ranks that hold them whole); the vlm cross
     layer's query input without its ``copy_to_model`` (the residual keeps
-    one rank's heads' part of the cross attention's input gradient)."""
+    one rank's heads' part of the cross attention's input gradient); under
+    the ``"grouped"`` attention layout, rank r's kv head taken as ``r %
+    KV`` rather than its GQA group's ``r // (tp / KV)``."""
     from repro_torch.models import ffn as ffn_mod
     from repro_torch.models import model as model_mod
     from repro_torch.models import moe as moe_mod
@@ -5387,6 +5425,11 @@ def family_control(name: str, cfg) -> list:
 
         return [(rwkv_mod, "copy_to_model", lambda x, mesh: x),
                 (model_mod, "TRAIN_BLOCKS", dict(model_mod.TRAIN_BLOCKS, ssm=summed_block_input))]
+    if name == "kv_head_rank_mod_kv":
+        from repro_torch.models import attention as attn_mod
+        from repro_torch.parallel.sharding import model_rank
+
+        return [(attn_mod, "kv_group", lambda cfg, mesh: model_rank(mesh) % cfg.num_kv_heads)]
     if name == "cross_query_sum_dropped":
         from repro_torch.models import attention as attn_mod
 
@@ -5411,13 +5454,13 @@ class RankView:
         return self.coords[axis]
 
 
-def reference_slices(ref_params, specs, shapes, mesh) -> dict:
+def reference_slices(ref_params, specs, shapes, mesh, skip=()) -> dict:
     """{leaf index: this rank's slice of the reference's leaf} for every
     leaf that ``specs`` shards over ``mesh`` (``shapes``: the leaves' full
-    shapes), on the host: rank 0 holds the reference (``ref_params``), cuts
-    every rank's slice and sends the other ranks theirs, once for all the
-    runs of a mesh, point to point from host memory (no gather of the runs'
-    own slices)."""
+    shapes) but the leaf indices ``skip``, on the host: rank 0 holds the
+    reference (``ref_params``), cuts every rank's slice and sends the other
+    ranks theirs, once for all the runs of a mesh, point to point from host
+    memory (no gather of the runs' own slices)."""
     from repro_torch.parallel.sharding import local_shape, shard_tensor
     from repro_torch.utils.tree import tree_leaves
 
@@ -5425,7 +5468,7 @@ def reference_slices(ref_params, specs, shapes, mesh) -> dict:
     out = {}
     for i, (spec, shape) in enumerate(zip(tree_leaves(specs), shapes)):
         local = local_shape(shape, spec, mesh)
-        if local == tuple(shape):
+        if local == tuple(shape) or i in skip:
             continue
         if me == 0:
             for r in ranks:
@@ -5440,19 +5483,19 @@ def reference_slices(ref_params, specs, shapes, mesh) -> dict:
     return out
 
 
-def mesh_param_gaps(params, specs, mesh, mine: dict, ref_params) -> tuple[float, float, int]:
-    """``param_gaps`` of every leaf against the reference over the mesh: each
-    rank its sharded slices against ``mine`` (``reference_slices``), rank 0
-    the leaves no axis shards, which every rank holds alike (``replica_gap``
-    checks it at TP), against its whole reference leaf; then the largest
-    and the sums over the ranks."""
+def mesh_param_gaps(params, specs, mesh, mine: dict, ref_params, skip=()) -> tuple[float, float, int]:
+    """``param_gaps`` of every leaf but the leaf indices ``skip`` against the
+    reference over the mesh: each rank its sharded slices against ``mine``
+    (``reference_slices``), rank 0 the leaves no axis shards, which every
+    rank holds alike (``replica_gap`` checks it at TP), against its whole
+    reference leaf; then the largest and the sums over the ranks."""
     from repro_torch.utils.tree import tree_leaves, tree_map
 
     me, pairs = torch.distributed.get_rank(), []
     for i, (t, spec) in enumerate(tree_leaves(tree_map(lambda t, s: (t, s), params, specs))):
         if i in mine:
             pairs.append((t, mine[i]))
-        elif me == 0:
+        elif me == 0 and i not in skip:
             pairs.append((t, ref_params[i]))
     top, total, n = param_gaps(pairs)
     sums = torch.tensor([total, float(n)], dtype=torch.float64)
@@ -5554,14 +5597,17 @@ def fresh_train_state(cfg, run, device, rules=None, mesh=None):
     return state
 
 
-def family_arm(rank, cfg, B, seq, meshes, control_mesh, control, device, evaluation=None, run_kw=None) -> dict:
+def family_arm(rank, cfg, B, seq, meshes, control_mesh, control, device, evaluation=None, run_kw=None,
+               watch=None, unread=()) -> dict:
     """One arm of ``sharded_families`` on this rank: the one-rank reference
     (rank 0, the other ranks waiting), then each mesh's steps from the
     seed's slices and, on ``control_mesh``, the control's steps.
     ``evaluation``: (an eval of ``shard_eval``, its mesh), run on the
     one-rank model first and on that mesh's slices before their steps,
     from the seed's parameters both.  ``run_kw``: ``shard_run_config``
-    overrides."""
+    overrides.  ``watch``: ``{group: path suffixes}``, leaf groups read on
+    their own beside the moe layer's (``group_readings``); ``unread``: path
+    suffixes of the leaves the parameter readings leave out."""
     from repro_torch.data import make_batch_fn
     from repro_torch.fp8 import fp8_supported
     from repro_torch.models import param_specs
@@ -5582,6 +5628,8 @@ def family_arm(rank, cfg, B, seq, meshes, control_mesh, control, device, evaluat
     # layer alone (the dispatch input's and the router's)
     groups = {"router": {i for i, p in enumerate(paths) if p.endswith("/router")},
               "norm2": {i for i, p in enumerate(paths) if "/norm2/" in p}} if moe else {}
+    groups.update({name: {i for i, p in enumerate(paths) if p.endswith(ends)} for name, ends in (watch or {}).items()})
+    skip = {i for i, p in enumerate(paths) if unread and p.endswith(tuple(unread))}
     watched = set().union(*groups.values())
     if rank == 0:  # the one-rank run, alone on the card: its readings kept on the host
         clock = PartClock()
@@ -5616,7 +5664,7 @@ def family_arm(rank, cfg, B, seq, meshes, control_mesh, control, device, evaluat
         specs = state_shardings(cfg, run, rules, mesh)
         rec = out[f"{shape[0]}x{shape[1]}"] = {"mesh": list(shape)}
         t0 = time.perf_counter()
-        mine = reference_slices(ref.get("params"), specs.params, shapes, mesh)  # once for the mesh's runs
+        mine = reference_slices(ref.get("params"), specs.params, shapes, mesh, skip)  # once for the mesh's runs
         rec["reference_slices_s"] = time.perf_counter() - t0
         for what in ("arm",) + ((control,) if shape == control_mesh else ()):
             changes = family_control(what, cfg) if what != "arm" else []
@@ -5640,7 +5688,7 @@ def family_arm(rank, cfg, B, seq, meshes, control_mesh, control, device, evaluat
             by_group = group_readings(state, specs, mesh, groups, *shared[0], lr) if groups else {}
             if shape[1] > 1:
                 by_group["replica_gap"] = replica_gap(state.params, specs.params, mesh)
-            gaps = mesh_param_gaps(state.params, specs.params, mesh, mine, ref.get("params"))
+            gaps = mesh_param_gaps(state.params, specs.params, mesh, mine, ref.get("params"), skip)
             if rank == 0:
                 readings = {**shard_readings(metrics, ref["metrics"], lr, gaps), **by_group}
             del state
@@ -5675,7 +5723,7 @@ def family_shard_rank(rank, mesh_tp, device_type="cuda", arms=None, seq=TRAIN_S)
     for name, arm in (arms or family_shard_arms()).items():
         t0 = time.perf_counter()
         out[name] = family_arm(rank, arm.cfg, arm.batch, seq, {s: meshes[s] for s in arm.meshes}, arm.control_mesh,
-                               arm.control, device, arm.evaluation, arm.run)
+                               arm.control, device, arm.evaluation, arm.run, arm.watch, arm.unread)
         out[name]["seconds"] = time.perf_counter() - t0
     return out
 
@@ -5709,10 +5757,11 @@ def family_report(ranks, arms, seconds, seq=TRAIN_S, parent_allocated=0, phase="
     then its gates."""
     from repro_torch.fp8 import fp8_sites, fp8_supported
 
-    out = {"phase": phase, "backend": "gloo", "ranks": 2, "seconds": seconds,
+    out = {"phase": phase, "backend": "gloo", "ranks": len(ranks), "seconds": seconds,
            "steps": FAMILY_SHARD_STEPS, "parent_allocated_bytes": parent_allocated}
     gates = []
-    for name, (cfg, B, shapes, _, _, _, _) in arms.items():
+    for name, a in arms.items():
+        cfg, B, shapes = a.cfg, a.batch, a.meshes
         # forward, recompute, dx and dw of every site; none where the family takes no fp8
         per_step = 4 * cfg.num_layers * len(fp8_sites(cfg)) if fp8_supported(cfg) else 0
         arm = {"model": cfg.name, "layers": cfg.num_layers, "batch": [B, seq], "limits": FAMILY_LIMITS,
@@ -5743,18 +5792,18 @@ def family_report(ranks, arms, seconds, seq=TRAIN_S, parent_allocated=0, phase="
     emit(out)  # before the gates, so a failing run still shows its readings
     within_limits = lambda r, limits: all(r[k] <= lim for k, lim in limits.items())  # noqa: E731
     for name, key, recs, per_step, limits in gates:
-        if recs[0]["metrics"] != recs[1]["metrics"]:
+        if any(r["metrics"] != recs[0]["metrics"] for r in recs):
             fail(f"{phase} {name} {key}: the ranks' metrics differ")
         if not within_limits(recs[0]["readings"], limits):
             fail(f"{phase} {name} {key}: the sharded steps part from the one-rank steps: {recs[0]['readings']}")
         if "control" in recs[0] and within_limits(recs[0]["control"]["readings"], limits):
             fail(f"{phase} {name} {key}: the control passes the limits: {recs[0]['control']}")
-        if [a["k4"]["fp8_gemm"] for a in recs] != [per_step * FAMILY_SHARD_STEPS] * 2:
+        if [a["k4"]["fp8_gemm"] for a in recs] != [per_step * FAMILY_SHARD_STEPS] * len(recs):
             fail(f"{phase} {name} {key}: K4 launches {[a['k4']['fp8_gemm'] for a in recs]}, expected "
                  f"{per_step * FAMILY_SHARD_STEPS} a rank")
         if "eval" in recs[0]:
             shard_eval_gates(f"{phase} {name} {key}", arms[name].cfg, [a["eval"] for a in recs],
-                             out[name]["one_rank"]["eval"])
+                             out[name]["one_rank"]["eval"], SHARDED_EVAL_LIMITS.get(arms[name].cfg.name))
     return out
 
 
@@ -5880,6 +5929,194 @@ def ssm_vlm_arms() -> dict:
                    {"lr": SSM_RATE, "compute_dtype": "float32"}),
         "vlm": Arm(vlm, VLM_SHARD_BATCH, ((1, 2),), (1, 2), "cross_query_sum_dropped", ("attention", (1, 2))),
     }
+
+
+# ---------------------------------------------------------------------------
+# phase 9b5: the "grouped" attention layout, qwen3-moe's query heads split over
+# eight gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+# 64 query heads split 8 a rank while the 4 kv heads do not divide the axis:
+# two ranks a GQA group, each attending over its group's kv head.  The only
+# full-width config whose kv heads fail to divide a model axis one card's
+# ranks can reach.
+GROUPED_TP = 8
+GROUPED_LAYERS = 1  # of 94, as the moe train arm
+GROUPED_PROMPTS = 4  # of the router phase's 16 tenant prompts
+GROUPED_BATCH = 2  # x TRAIN_S, as the moe train arm
+# The arm's AdamW moments, bf16 (in its one-rank reference too): with fp32
+# moments the eight ranks ran out of the card's 79.18 GiB in the first
+# step's AdamW update, at 2 x 2048 and at 1 x 2048 alike (8.58 and 8.83 GiB
+# allocated on a rank beside eight contexts, NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md section 6): a rank's state is 471 M parameters, the widths whole
+GROUPED_RUN = {"optimizer_dtype": "bfloat16"}
+
+
+def grouped_config():
+    from repro_torch.configs import get_config
+
+    return get_config(MOE_ARCH).replace(num_layers=GROUPED_LAYERS)  # full width, depth cut
+
+
+def grouped_arm(cfg) -> Arm:
+    """The grouped layout's train arm: ``cfg`` at ``(1, GROUPED_TP)``, its
+    control the kv head taken as ``r % KV``, its eval through K3 on 8
+    query heads over one kv head a rank, wk / wv's readings reported on
+    their own (their gradient sums each rank's fp8 partial: only this
+    layout sums it over the model axis).  Its parameter readings leave out
+    the experts and the vocab tables, which split over the model axis as
+    in ``sharded_families``' moe arm (their reference slices would take 13
+    GB through gloo): they read the attention, router and norm leaves,
+    whose updates the control moves."""
+    return Arm(cfg, GROUPED_BATCH, ((1, GROUPED_TP),), (1, GROUPED_TP), "kv_head_rank_mod_kv",
+               ("attention", (1, GROUPED_TP)), GROUPED_RUN, watch={"attn_kv": ("/attn/wk", "/attn/wv")},
+               unread=("/moe/w_gate", "/moe/w_up", "/moe/w_down", "embed/tok", "lm_head"))
+
+
+def grouped_serving(rank, mesh, cfg, prompts, max_new_tokens, device) -> dict:
+    """TP serving of ``prompts`` under the grouped layout on this rank: its
+    slices drawn leaf by leaf from ``SEED`` (the full weights on rank 0
+    only, whose TP=1 engine serves first), the engine run
+    (``tp_serve``), then one prompt's prefill and decode logits on fp32
+    pools and the same with rank r's kv head taken as ``r % KV`` (the
+    control).  Rank 0 holds the TP run's tokens and logits to TP=1's."""
+    from repro_torch.models import init_params
+    from repro_torch.parallel.sharding import attention_layout, executed_specs, local_kv_heads
+
+    t0 = time.perf_counter()
+    local = init_params(cfg, SEED, device, shardings=executed_specs(cfg, mesh)["executed"], mesh=mesh)
+    attn = local["blocks"][0]["attn"]
+    out = {"layout": list(attention_layout(mesh, cfg.num_heads, cfg.num_kv_heads)),
+           "shapes": {k: list(attn[k].shape) for k in ("wq", "wk", "wv", "wo")}}
+    full = None
+    if rank == 0:
+        full = init_params(cfg, SEED, device)
+        out["tp1"] = tp_serve(cfg, full, None, prompts, max_new_tokens, device)
+    torch.distributed.barrier()
+    out["tp"] = tp_serve(cfg, local, mesh, prompts, max_new_tokens, device)
+    kv = local_kv_heads(cfg, mesh)
+    lp, ld, _, _ = tp_prompt_cache(cfg, local, mesh, prompts[0], kv)
+    [(owner, attr, control)] = family_control("kv_head_rank_mod_kv", cfg)
+    kept = getattr(owner, attr)
+    setattr(owner, attr, control)
+    try:
+        cp, cd, _, _ = tp_prompt_cache(cfg, local, mesh, prompts[0], kv)
+    finally:
+        setattr(owner, attr, kept)
+    if rank == 0:
+        rp, rd, _, _ = tp_prompt_cache(cfg, full, None, prompts[0], cfg.num_kv_heads)
+        found = []
+        out["ties_ok"] = same_up_to_ties(cfg, full, device, prompts, out["tp"]["tokens"], out["tp1"]["tokens"], found)
+        out["differences"] = found[0]
+        out["logits"] = {"prefill_rel": rel_gap(lp, rp), "decode_rel": rel_gap(ld, rd),
+                         "control_prefill_rel": rel_gap(cp, rp), "control_decode_rel": rel_gap(cd, rd),
+                         "tol": TP_LOGIT_TOL}
+    del full, local, attn
+    free_card()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def grouped_rank(rank, mesh, device_type="cuda", cfg=None, prompts=None, max_new_tokens=None, seq=TRAIN_S,
+                 arm=None) -> dict:
+    """One rank of ``grouped_heads``: the serving run (``grouped_serving``,
+    at capacity factor ``MOE_CF`` so that no pair is dropped), then the
+    train arm (``family_arm`` of ``grouped_arm``).  ``device_type``,
+    ``cfg``, ``prompts``, ``seq`` and ``arm`` serve rehearsals with a smoke
+    model on the CPU."""
+    from repro_torch.benchmarks import llm_inference as bench
+
+    device = torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda" else torch.device(device_type)
+    cfg = cfg or grouped_config()
+    prompts = prompts or bench.tenant_prompts(system_len=ROUTER_SYSTEM_LEN)[:GROUPED_PROMPTS]
+    out = {"rank": rank,
+           "serving": grouped_serving(rank, mesh, with_cf(cfg, MOE_CF), prompts, max_new_tokens or bench.ROUTER_MAX_NEW,
+                                      device)}
+    arm = arm or grouped_arm(cfg)
+    t0 = time.perf_counter()
+    out["train"] = family_arm(rank, arm.cfg, arm.batch, seq, {shape: mesh for shape in arm.meshes}, arm.control_mesh,
+                              arm.control, device, arm.evaluation, arm.run, arm.watch, arm.unread)
+    out["train"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def grouped_heads_phase() -> dict:
+    """qwen3-moe at full width cut to ``GROUPED_LAYERS`` over ``(1,
+    GROUPED_TP)``: eight gloo ranks on the one card, each holding 8 of the
+    64 query heads and every kv head's wk / wv, attending over its GQA
+    group's kv head (``grouped_rank``)."""
+    from repro_torch.launch.mesh import run_ranks
+
+    free_card()
+    t0 = time.perf_counter()
+    try:
+        with ranks_allocator():
+            ranks = run_ranks(grouped_rank, (1, GROUPED_TP), backend="gloo", device="cuda", timeout_s=900,
+                              args=("cuda",))
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"grouped_heads: {e}")
+    return grouped_report(ranks, grouped_config(), time.perf_counter() - t0)
+
+
+def grouped_report(ranks, cfg, seconds, seq=TRAIN_S) -> dict:
+    """``grouped_heads``' line from the ranks' results, then its gates: the
+    layout (8 query heads and every kv head's wk a rank, pools of one kv
+    head, 1 / KV of TP=1's pool bytes, TP=1's global cache bytes), tokens
+    equal on every rank and to TP=1's up to at most one near tie, every
+    request finished by length, K1/K2 once a layer a decode step or chunk
+    on every rank as the autotuner's table says for the local heads (its
+    ``"prefill1"``: K2 in place of K1), 2 collectives a layer and 2 a model
+    call, TP logits within ``TP_LOGIT_TOL`` of TP=1's and the control's
+    outside; then the train arm's gates (``family_report``)."""
+    from repro_torch.kernels import autotune
+
+    serving = [r["serving"] for r in ranks]
+    s0, runs = serving[0], [s["tp"] for s in serving]
+    tp1 = s0["tp1"]
+    L, H, KV = cfg.num_layers, cfg.num_heads // GROUPED_TP, 1
+    tuned = autotune.get_config(cfg.head_dim, BLOCK_SIZE, -(-TP_ENGINE["max_seq"] // BLOCK_SIZE), torch.bfloat16, H // KV)
+    decode_kernel = "paged_prefill" if tuned["decode_kernel"] == "prefill1" else "paged_decode"
+    out = {"phase": "grouped_heads", "model": cfg.name, "layers": L, "backend": "gloo", "ranks": len(ranks),
+           "seconds": seconds, "layout": s0["layout"], "local_shapes": s0["shapes"], "decode_kernel": decode_kernel,
+           "serving": {
+               "seconds": [s["seconds"] for s in serving],
+               "tp1": {k: tp1[k] for k in ("step_p50_s", "decode_step_p50_s", "wall_s", "cache_bytes", "pool_bytes")},
+               "tp": [{k: v for k, v in r.items() if k not in ("tokens", "reasons")} for r in runs],
+               "launches_per_step": [{k: v / (r["decode_steps"] + r["prefill_chunks"]) for k, v in r["launches"].items()
+                                      if v} for r in runs],
+               "differences": s0["differences"], "logits": s0["logits"]}}
+    train = family_report([{"grouped": r["train"]} for r in ranks], {"grouped": grouped_arm(cfg)}, seconds, seq,
+                          phase="grouped_heads_train")
+    out["train"] = {k: v for k, v in train["grouped"].items()}
+    emit({k: v for k, v in out.items() if k != "train"})  # before the gates, so a failing run shows its readings
+    for rank, s in enumerate(serving):
+        if s["layout"] != ["grouped", 1] or s["shapes"]["wq"][1] != H or s["shapes"]["wk"][1] != cfg.num_kv_heads:
+            fail(f"grouped_heads rank {rank}: layout {s['layout']}, local shapes {s['shapes']}")
+    if any(r["tokens"] != runs[0]["tokens"] for r in runs):
+        fail("grouped_heads: the ranks' tokens differ")
+    if not s0["ties_ok"] or len(s0["differences"]) > 1:
+        fail(f"grouped_heads: TP={GROUPED_TP} tokens differ from TP=1's beyond one near tie: {s0['differences']}")
+    lg = s0["logits"]
+    if not max(lg["prefill_rel"], lg["decode_rel"]) < TP_LOGIT_TOL:
+        fail(f"grouped_heads: TP={GROUPED_TP} logits part from TP=1's: {lg}")
+    if not min(lg["control_prefill_rel"], lg["control_decode_rel"]) > TP_LOGIT_TOL:
+        fail(f"grouped_heads: the control (kv head r % KV) passes, which then proves nothing: {lg}")
+    for rank, r in enumerate(runs):
+        if not all(x == "length" for x in r["reasons"]) or r["alloc_blocks_in_use"]:
+            fail(f"grouped_heads rank {rank}: {r['reasons']}, blocks in use {r['alloc_blocks_in_use']}")
+        if r["kv_heads"] != KV or cfg.num_kv_heads * r["pool_bytes"] != tp1["pool_bytes"] \
+                or r["cache_bytes"] != tp1["cache_bytes"]:
+            fail(f"grouped_heads rank {rank}: {r['kv_heads']} kv heads, pool bytes {r['pool_bytes']} (TP=1 "
+                 f"{tp1['pool_bytes']}), global cache bytes {r['cache_bytes']} (TP=1 {tp1['cache_bytes']})")
+        steps, chunks = r["decode_steps"], r["prefill_chunks"]
+        expect = {"paged_decode": steps * L if decode_kernel == "paged_decode" else 0,
+                  "paged_prefill": (chunks + (steps if decode_kernel == "paged_prefill" else 0)) * L}
+        if not ({k: r["launches"][k] for k in expect} == expect and steps > 0 and chunks > 0):
+            fail(f"grouped_heads rank {rank}: launches {r['launches']}, expected {expect}")
+        calls = (r["collectives"]["all_reduce"] + r["collectives"]["all_gather"]) / (steps + chunks)
+        if calls != 2 * L + 2:
+            fail(f"grouped_heads rank {rank}: {r['collectives']} is not 2 per layer + 2 a model call")
+    return out
 
 
 def mlperf_phase(device) -> dict:
@@ -6676,6 +6913,8 @@ def main() -> int:
     phase("tools_dryrun_mesh", tools_dryrun_mesh_phase, sharded)
     sharded_families, sharded_ssm_vlm = phase("sharded_families", sharded_families_phase)
     torch.cuda.empty_cache()
+    grouped = phase("grouped_heads", grouped_heads_phase)
+    torch.cuda.empty_cache()
     phase("mlperf", mlperf_phase, device)
     torch.cuda.empty_cache()
     # the remaining training forwards, each alone on the card
@@ -6751,6 +6990,8 @@ def main() -> int:
             k["tp_launches"] = {arm: [counts[k["name"]] for counts in ranks] for arm, ranks in tp["launches"].items()}
             # replicas of TP=2 engines behind the router: each of the four ranks' own, the affinity arm
             k["tp_launches"]["replicas_tp"] = [counts[k["name"]] for counts in replicas["launches"]]
+            # qwen3-moe under the grouped layout: each of the eight ranks' own (8 query heads over one kv head)
+            k["tp_launches"]["grouped_heads"] = [r["launches"][k["name"]] for r in grouped["serving"]["tp"]]
             k["vlm_serving_launches"] = vlm_serving["served"]["launches"][k["name"]]  # the dense ring: none
             k["quantized_launches"] = {  # quantized pools read plain: none
                 run: quantized[run]["eager_launches"][k["name"]] + (quantized[run]["replay_launches"] or {}).get(k["name"], 0)
@@ -6780,6 +7021,8 @@ def main() -> int:
             # the sharded eval of llama-3.2-vision (one self layer at 32 over 4 heads a rank): each gloo rank's
             k["vlm_sharded_eval_launches"] = [r["k3_launches"] for r in sharded_ssm_vlm["vlm"]["1x2"]["eval"]]
             k["vlm_serving_launches"] = vlm_serving["served"]["launches"]["flash_attention"]
+            # qwen3-moe's sharded eval under the grouped layout (8 query heads over one kv head a rank)
+            k["grouped_eval_launches"] = [e["k3_launches"] for e in grouped["train"][f"1x{GROUPED_TP}"]["eval"]]
             # the moe, hybrid and audio eval forwards: their heads and launches
             k["families"] = {arch: {"launches": family[arch]["eval"]["k3_launches"],
                                     **{f: flash_rows[arch][f] for f in (
@@ -6799,6 +7042,7 @@ def main() -> int:
             k["family_sharded_launches"] = {
                 name: {key: arm[key]["k4_launches"] for key in arm if key in ("1x2", "2x1")}
                 for name, arm in sharded_families.items() if isinstance(arm, dict) and "k4_per_step" in arm}
+            k["family_sharded_launches"]["grouped_heads"] = grouped["train"][f"1x{GROUPED_TP}"]["k4_launches"]
             k["sharded_shapes"] = {n: {f: gemm_rows[n][f] for f in ("mkn", "dtypes", "max_abs_err", "kernel_ms",
                                                                    "kernel_alone_ms", "plain_ms", "bound_ms",
                                                                    "bound_by", "library_ms")}

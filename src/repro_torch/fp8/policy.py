@@ -88,18 +88,21 @@ class Fp8Layer:
         self.layer = layer
         self.scales = {k: s[layer] for k, s in ctx.state.scale.items()}
 
-    def matmul(self, site: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def matmul(self, site: str, x: torch.Tensor, w: torch.Tensor, amax_of: torch.Tensor | None = None) -> torch.Tensor:
         """``x @ w`` through the FP8 path.
 
         x: (..., K) activations (compute dtype); w: (K, N) master weights.
         Returns (..., N) in ``x.dtype``.  Records the operands' amaxes while
-        the layer is open (its original forward), not in a recompute.
+        the layer is open (its original forward), not in a recompute;
+        ``amax_of``: the whole leaf whose slice ``w`` is, whose amax the
+        weight's record takes (a rank's kv head of ``wk`` / ``wv`` under
+        the ``"grouped"`` attention layout).
         """
         kx, kw = f"{site}/x", f"{site}/w"
         x2 = x.reshape(-1, x.shape[-1])
         if self.ctx.observing(self.layer):
             self.ctx._observe(kx, tensor_amax(x2))
-            self.ctx._observe(kw, tensor_amax(w))
+            self.ctx._observe(kw, tensor_amax(w if amax_of is None else amax_of))
         out = fp8_dot(x2, w, self.scales[kx], self.scales[kw], self.ctx.fwd_dtype, self.ctx.gemm_fn,
                       self.ctx.amax_reduce)
         return out.to(x.dtype).reshape(x.shape[:-1] + (w.shape[-1],))

@@ -56,14 +56,21 @@ versions on every device, and K1/K2's entry points raise on a quantized
 pool rather than read its codes as values.
 
 Tensor-parallel serving (``InferenceEngine(mesh=)``) launches K1/K2 on each
-rank's local heads: when both head counts divide the model axis
-(``kernel_shardable``, with ``model_axis_size``: the JAX package's
-``paged_attention_ops.py`` dispatch rule, kept in ``parallel.sharding`` and
-named here), each rank's q holds its contiguous ``H / tp`` query heads and
-its pools their ``KV / tp`` kv heads, so the GQA group stays whole and the
-kernels take the slice as they take any head count.  Otherwise every rank
-runs them on all the heads.  The autotuner's key is read from the tensors
-a call gets, so it sees the local head counts.
+rank's local heads, in the layout ``parallel.sharding.attention_layout``
+picks from the head counts and the model axis of ``tp`` ranks:
+
+* ``"split"`` (both head counts divide the axis): each rank's q holds its
+  contiguous ``H / tp`` query heads and its pools their ``KV / tp`` kv
+  heads, so the GQA groups stay whole;
+* ``"grouped"`` (``H`` divides the axis, the axis divides ``KV``): each
+  rank's q holds ``H / tp`` query heads, all of one GQA group, and its
+  pools that group's one kv head, so K1/K2 run GQA at ``H / tp`` query
+  heads over one kv head;
+* ``"whole"`` (otherwise): every rank runs them on all the heads.
+
+The kernels take either slice as they take any head count.  The
+autotuner's key is read from the tensors a call gets, so it sees the
+local head counts.
 """
 
 from __future__ import annotations
@@ -73,7 +80,6 @@ import ctypes
 import torch
 
 from repro_torch.kernels import autotune, build
-from repro_torch.parallel.sharding import kernel_shardable, model_axis_size  # noqa: F401  (the dispatch rule's names)
 from repro_torch.kernels.paged_attention_ref import (
     paged_attention_plain,
     paged_prefill_attention_plain,

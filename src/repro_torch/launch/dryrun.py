@@ -52,11 +52,14 @@ reference's batch shard); prefill and decode run ``prefill`` /
 ``forward`` / ``decode_step`` with ``mesh=`` on the serving layout's slices
 (``executed_specs``: tensor parallelism, the weights stationary over
 data) and the rank's share of the batch (the global batch over the data
-axis, where it divides, as the reference shards it).  Where the heads do
-not divide the model axis, the K/V cache splits its sequence over it
-instead (``parallel.sharding.kv_seq_shards``: the reference's ``kv_seq``
-rule; ``decode_step`` / ``prefill`` with ``kv_seq_split=True``).  The
-record then holds:
+axis, where it divides, as the reference shards it).  Attention follows
+``parallel.sharding.attention_layout``: where the query heads divide the
+model axis they split over it, as the reference's ``heads`` rule, also
+where the kv heads do not (the ``"grouped"`` layout).  Where the kv heads
+do not divide the model axis, the K/V cache splits its sequence over it
+instead, every kv head on every rank (``parallel.sharding.kv_seq_shards``:
+the reference's ``kv_seq`` rule; ``decode_step`` / ``prefill`` with
+``kv_seq_split=True``).  The record then holds:
 
 * ``per_device_flops`` / ``per_device_hbm_bytes``: the one-card trace's
   global cost over ``n_devices``, as the reference defines them;
@@ -300,8 +303,8 @@ def build_decode_rank(cfg, run, shape: ShapeConfig, mesh, q_chunk: int = 0):
     params = meta_serving_params(cfg, run, mesh)
     local = local_shape_of(shape, mesh)
     shards = kv_seq_shards(cfg, mesh, cache_window(cfg, local.seq_len))
-    cache = meta_cache(cfg, local.global_batch, local.seq_len, dtype, kv_heads=local_kv_heads(cfg, mesh),
-                       seq_shards=shards)
+    kv_heads = cfg.num_kv_heads if shards > 1 else local_kv_heads(cfg, mesh)  # a split ring holds every kv head
+    cache = meta_cache(cfg, local.global_batch, local.seq_len, dtype, kv_heads=kv_heads, seq_shards=shards)
     inp = decode_input_specs(cfg, local)
 
     def fn(p, c, token, pos):

@@ -30,9 +30,16 @@ Tensor-parallel serving (``mesh=``, ``parallel.sharding``): a rank whose
 parameters hold a slice of the heads projects Q/K/V for those heads
 (column-parallel), reads and writes its own head slice of the paged pools,
 runs K1/K2 on it, and sums the output projection over the ranks with one
-all-reduce (``_out``).  The GQA group stays whole, since both head counts
-divide the model axis.  RoPE, the q/k norms and the window are per head
-and unchanged.  Sharded training (``self_attention(mesh=)``) runs the
+all-reduce (``_out``).  Each rank's query heads lie in whole GQA groups
+(``parallel.sharding.attention_layout``): under ``"split"`` its wk / wv
+hold their kv heads; under ``"grouped"`` (the query heads divide the
+model axis, the axis divides the kv heads' count) its wk / wv hold every
+kv head and the rank projects its group's one (``_kv_weights``: the
+leaves through ``copy_to_model``, so training sums every rank's share of
+their gradients), attends with its ``H / tp`` query heads over it, and
+its pools hold that head.  The GQA ratio of every product is read from
+the local shapes.  RoPE, the q/k norms and the window are per head and
+unchanged.  Sharded training (``self_attention(mesh=)``) runs the
 same layout under autograd: the input goes through ``copy_to_model``
 (its gradient summed over the ranks), and so do the q/k norm scales, which
 every rank applies to its own heads only; the output's sum is
@@ -69,7 +76,7 @@ from repro_torch.kernels.paged_attention_ref import paged_attention_plain, paged
 from repro_torch.models.cache import NULL_BLOCK
 from repro_torch.models.layers import ParamSpec, apply_rope, softcap
 from repro_torch.parallel.collectives import all_gather, copy_to_model, reduce_scatter_seq, scatter_seq, sum_over_model
-from repro_torch.parallel.sharding import model_axis_size, model_rank
+from repro_torch.parallel.sharding import kv_group, model_axis_size, model_rank
 
 ATTN_IMPLS = ("kernel", "plain")  # paged attention
 SELF_ATTN_IMPLS = ("torch", "flash")  # full-sequence self-attention
@@ -111,39 +118,74 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype).reshape(D, nh * hd)).reshape(x.shape[:-1] + (nh, hd))
 
 
-def _fp8_proj(fp8, site: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The FP8 route of ``_proj``: the fp32 master weight as (D, heads*hd)."""
+def _fp8_proj(fp8, site: str, x: torch.Tensor, w: torch.Tensor, whole: torch.Tensor | None = None) -> torch.Tensor:
+    """The FP8 route of ``_proj``: the fp32 master weight as (D, heads*hd);
+    ``whole``: the leaf ``w`` is a slice of, whose amax the site records."""
     D, nh, hd = w.shape
-    return fp8.matmul(site, x, w.reshape(D, nh * hd)).reshape(x.shape[:-1] + (nh, hd))
+    return fp8.matmul(site, x, w.reshape(D, nh * hd), amax_of=whole).reshape(x.shape[:-1] + (nh, hd))
 
 
 def _split(cfg, p, mesh) -> bool:
-    """Whether ``p`` holds this rank's slice of the heads."""
+    """Whether ``p`` holds this rank's slice of the query heads (the
+    ``"split"`` and ``"grouped"`` layouts)."""
     return mesh is not None and p["wq"].shape[1] != cfg.num_heads
 
 
-def _qkv(cfg, p, x, kv_x=None, fp8=None, mesh=None, sp=False):
+def _group(cfg, p, mesh) -> int | None:
+    """The kv head this rank attends over where ``p`` holds a slice of the
+    query heads beside every kv head (the ``"grouped"`` layout), else
+    None."""
+    if _split(cfg, p, mesh) and p["wk"].shape[1] == cfg.num_kv_heads:
+        return kv_group(cfg, mesh)
+    return None
+
+
+def _own_group(cfg, p, t, mesh):
+    """Under the ``"grouped"`` layout, this rank's kv head of K or V ``t``
+    (..., S, KV, hd) that holds every kv head; else ``t``."""
+    g = _group(cfg, p, mesh)
+    return t if g is None or t.shape[-2] != cfg.num_kv_heads else t.narrow(-2, g, 1)
+
+
+def _kv_weights(cfg, p, mesh, whole_kv: bool) -> dict:
+    """``wk`` / ``wv`` (and ``bk`` / ``bv``) as this rank projects them:
+    under the ``"grouped"`` layout the rank's kv head of each whole leaf,
+    taken through ``copy_to_model`` (the leaf's gradient sums every rank's
+    share), unless ``whole_kv`` asks for every kv head."""
+    names = ("wk", "wv") + (("bk", "bv") if cfg.use_bias else ())
+    g = None if whole_kv else _group(cfg, p, mesh)
+    if g is None:
+        return {n: p[n] for n in names}
+    return {n: copy_to_model(p[n], mesh).narrow(1 if n[0] == "w" else 0, g, 1) for n in names}
+
+
+def _qkv(cfg, p, x, kv_x=None, fp8=None, mesh=None, sp=False, whole_kv=False):
     """q from x, k and v from ``kv_x`` (cross-attention's source; default
     x).  The weights are cast to x's dtype first, as in the JAX package,
     whose einsum then promotes against ``kv_x``'s dtype.  Under a training
     ``mesh`` whose ranks each hold a slice of the heads, x (but for the
     gathered sequence of ``sp``) and the q/k norm scales pass through
-    ``copy_to_model`` (module docstring)."""
+    ``copy_to_model`` (module docstring).  Under the ``"grouped"`` layout k
+    and v hold this rank's one kv head, or with ``whole_kv`` every kv head
+    (the split ring's cache)."""
     norms = {n: p[n] for n in ("q_norm", "k_norm") if cfg.qk_norm}
     if _split(cfg, p, mesh):
         if not sp:
             x = copy_to_model(x, mesh)
         norms = {n: copy_to_model(t, mesh) for n, t in norms.items()}
     kv_src = x if kv_x is None else kv_x
+    kv_w = _kv_weights(cfg, p, mesh, whole_kv)
     if fp8 is not None:
-        q, k, v = (_fp8_proj(fp8, f"attn_{n}", src, p[f"w{n}"]) for n, src in (("q", x), ("k", kv_src), ("v", kv_src)))
+        # the weight amax is the whole leaf's, as one process observes it
+        q = _fp8_proj(fp8, "attn_q", x, p["wq"])
+        k, v = (_fp8_proj(fp8, f"attn_{n}", kv_src, kv_w[f"w{n}"], p[f"w{n}"]) for n in ("k", "v"))
     else:
         q = _proj(x, p["wq"])
-        k, v = (_proj(kv_src, p[name].to(x.dtype)) for name in ("wk", "wv"))
+        k, v = (_proj(kv_src, kv_w[name].to(x.dtype)) for name in ("wk", "wv"))
     if cfg.use_bias:
         q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
+        k = k + kv_w["bk"].to(x.dtype)
+        v = v + kv_w["bv"].to(x.dtype)
     if cfg.qk_norm:
         q = _rms_head(q, norms["q_norm"], cfg.norm_eps)
         k = _rms_head(k, norms["k_norm"], cfg.norm_eps)
@@ -191,25 +233,26 @@ def _rope(cfg, q, k, positions):
 # ---------------------------------------------------------------------------
 
 
-def _scores(q, k, q_per_kv, scale):
-    """q: (B,Sq,H,hd), k: (B,Skv,KV,hd) -> (B,KV,G,Sq,Skv) fp32.  The
+def _scores(q, k, scale):
+    """q: (B,Sq,H,hd), k: (B,Skv,KV,hd) -> (B,KV,G,Sq,Skv) fp32, G = H / KV
+    from the shapes (a rank's local heads under tensor parallelism).  The
     product is in the promoted dtype of q and k, as the reference's einsum
     (fp32 queries against a bf16 cache: fp32)."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     dt = torch.promote_types(q.dtype, k.dtype)
-    qg = q.reshape(B, Sq, KV, q_per_kv, hd).to(dt)
+    qg = q.reshape(B, Sq, KV, H // KV, hd).to(dt)
     s = torch.einsum("bqhgk,bshk->bhgqs", qg, k.to(dt))
     return s.float() * scale
 
 
-def _attend_block(cfg, q, k, v, mask, q_per_kv):
+def _attend_block(cfg, q, k, v, mask):
     """Exact softmax attention for one (possibly chunked) query block.
 
     mask: (B?, 1, 1, Sq, Skv) additive fp32 mask (0 / NEG_INF).
     """
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    s = _scores(q, k, q_per_kv, scale)
+    s = _scores(q, k, scale)
     if cfg.attn_logit_softcap > 0:
         s = softcap(s, cfg.attn_logit_softcap)
     s = s + mask
@@ -294,12 +337,11 @@ def self_attention(
         ctx = flash_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
         return _out(cfg, p, ctx, x.dtype, fp8=fp8, mesh=mesh, sp=sp)
 
-    qpk = cfg.q_per_kv
     if q_chunk and S > q_chunk and S % q_chunk == 0:
 
         def chunk(qc, pq):
             m = make_mask(pq, positions, causal=cfg.causal, window=cfg.sliding_window)
-            return _attend_block(cfg, qc, k, v, m[:, None, None], qpk)
+            return _attend_block(cfg, qc, k, v, m[:, None, None])
 
         ctxs = []
         for c0 in range(0, S, q_chunk):
@@ -310,7 +352,7 @@ def self_attention(
         ctx = torch.cat(ctxs, dim=1)
     else:
         m = make_mask(positions, positions, causal=cfg.causal, window=cfg.sliding_window)
-        ctx = _attend_block(cfg, q, k, v, m[:, None, None], qpk)
+        ctx = _attend_block(cfg, q, k, v, m[:, None, None])
     return _out(cfg, p, ctx, x.dtype, fp8=fp8, mesh=mesh, sp=sp)
 
 
@@ -333,34 +375,40 @@ def _gated_cross(cfg, p, x, q, k, v, mesh=None, sp=False):
     k / v (the JAX package's all-zero additive mask).  The gate multiplies
     after ``_out``'s sum over the model ranks, so the replicated ``gate``
     takes its whole gradient on every rank; under ``sp`` it multiplies
-    this rank's slice and takes ``copy_to_model``."""
+    this rank's slice and takes ``copy_to_model``.  K / V that hold every
+    kv head (a split ring's image cache) give this rank's group's under the
+    ``"grouped"`` layout."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    ctx = _attend_block(cfg, q, k, v, zero, cfg.q_per_kv)
+    ctx = _attend_block(cfg, q, _own_group(cfg, p, k, mesh), _own_group(cfg, p, v, mesh), zero)
     gate = copy_to_model(p["gate"], mesh) if sp else p["gate"]
     return torch.tanh(gate.to(x.dtype)) * _out(cfg, p, ctx, x.dtype, mesh=mesh, sp=sp)
 
 
-def prefill_attention(cfg, p: dict, x: torch.Tensor, *, positions=None, q_chunk: int = 0, mesh=None):
+def prefill_attention(cfg, p: dict, x: torch.Tensor, *, positions=None, q_chunk: int = 0, mesh=None,
+                      whole_kv: bool = False):
     """Self-attention that also returns the K/V tensors for the cache (the
     dense engine's blocking prefill), in tensor ops as the JAX package's
     ``prefill_attention``.  x: (B, S, D); positions: (B, S), default
     ``arange(S)``; ``q_chunk`` attends that many queries at a time when it
-    divides S.  Returns (out (B, S, D), k, v (B, S, KV, hd)), K after RoPE."""
+    divides S.  Returns (out (B, S, D), k, v (B, S, KV, hd)), K after RoPE:
+    under a serving ``mesh`` the rank's kv heads, or with ``whole_kv``
+    every kv head (the split ring's cache; the rank still attends over its
+    own)."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
-    q, k, v = _qkv(cfg, p, x)
+    q, k, v = _qkv(cfg, p, x, mesh=mesh, whole_kv=whole_kv)
     q, k = _rope(cfg, q, k, positions)
-    qpk = cfg.q_per_kv
+    ka, va = _own_group(cfg, p, k, mesh), _own_group(cfg, p, v, mesh)
     if q_chunk and S > q_chunk and S % q_chunk == 0:
         ctxs = []
         for c0 in range(0, S, q_chunk):
             m = make_mask(positions[:, c0 : c0 + q_chunk], positions, causal=cfg.causal, window=cfg.sliding_window)
-            ctxs.append(_attend_block(cfg, q[:, c0 : c0 + q_chunk], k, v, m[:, None, None], qpk))
+            ctxs.append(_attend_block(cfg, q[:, c0 : c0 + q_chunk], ka, va, m[:, None, None]))
         ctx = torch.cat(ctxs, dim=1)
     else:
         m = make_mask(positions, positions, causal=cfg.causal, window=cfg.sliding_window)
-        ctx = _attend_block(cfg, q, k, v, m[:, None, None], qpk)
+        ctx = _attend_block(cfg, q, ka, va, m[:, None, None])
     return _out(cfg, p, ctx, x.dtype, mesh=mesh), k, v
 
 
@@ -378,17 +426,17 @@ def decode_attention(cfg, p: dict, x: torch.Tensor, cache: dict, pos: torch.Tens
     the token attends over every filled slot the causal and window masks
     admit.  Returns (B, 1, D).
 
-    ``seq_split``: under a ``mesh`` whose ranks each hold every head (the
-    heads do not divide the model axis), the ring's slots are split over
-    the model axis instead, as the JAX package's cache rules claim
-    ``kv_seq`` for it: this rank's cache holds slots ``[r W / n, (r + 1)
-    W / n)`` of a ring of W, the new K/V lands on the rank that holds its
-    slot, and the ranks' partial softmaxes are combined
-    (``_attend_seq_split``).
+    ``mesh``: the serving mesh; the cache holds the rank's kv heads.
+    ``seq_split``: where the kv heads do not divide the model axis, the
+    ring's slots are split over it instead, as the JAX package's cache
+    rules claim ``kv_seq`` for it: this rank's cache holds every kv head's
+    slots ``[r W / n, (r + 1) W / n)`` of a ring of W, every rank projects
+    every kv head's new K/V and the rank that holds its slot writes it,
+    and the ranks' partial softmaxes are combined (``_attend_seq_split``).
     """
     k_c, v_c, pos_c = cache["k"], cache["v"], cache["pos"]
     B, W = pos_c.shape
-    q, k, v = _qkv(cfg, p, x)
+    q, k, v = _qkv(cfg, p, x, mesh=mesh, whole_kv=seq_split)
     q, k = _rope(cfg, q, k, pos[:, None])
     b = torch.arange(B, device=x.device)
     if seq_split:
@@ -408,7 +456,7 @@ def decode_attention(cfg, p: dict, x: torch.Tensor, cache: dict, pos: torch.Tens
     if seq_split:
         ctx = _attend_seq_split(cfg, q, k_c, v_c, m[:, None, None], mesh)
     else:
-        ctx = _attend_block(cfg, q, k_c, v_c, m[:, None, None], cfg.q_per_kv)
+        ctx = _attend_block(cfg, q, k_c, v_c, m[:, None, None])
     return _out(cfg, p, ctx, x.dtype, mesh=mesh)
 
 
@@ -418,9 +466,15 @@ def _attend_seq_split(cfg, q, k, v, mask, mesh):
     its own slots, as (output unnormalized, sum, max) against its local
     max; one all-gather of the three; every rank then rescales each rank's
     part to the largest max and sums them in rank order.  A rank whose
-    slots are all masked has a max near ``NEG_INF`` and weighs zero."""
+    slots are all masked has a max near ``NEG_INF`` and weighs zero.
+    Where ``q`` holds a slice of the query heads (the ``"grouped"``
+    layout), one all-gather first hands every rank every head's query,
+    and the rank keeps its own heads' rows of the result."""
+    local = q.shape[2]
+    if local != cfg.num_heads:
+        q = all_gather(q, mesh, dim=2)
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    s = _scores(q, k, cfg.q_per_kv, scale)  # (B, KV, G, 1, W)
+    s = _scores(q, k, scale)  # (B, KV, G, 1, W)
     if cfg.attn_logit_softcap > 0:
         s = softcap(s, cfg.attn_logit_softcap)
     s = s + mask
@@ -432,7 +486,8 @@ def _attend_seq_split(cfg, q, k, v, mask, mesh):
     w = torch.exp(mx - mx.amax(dim=0, keepdim=True))  # (n, B, KV, G, 1, 1)
     ctx = (w * part).sum(dim=0) / (w * total).sum(dim=0)  # (B, KV, G, 1, hd)
     B, Sq, H = q.shape[0], q.shape[1], q.shape[2]
-    return ctx.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, cfg.head_dim)
+    ctx = ctx.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, cfg.head_dim)
+    return ctx if local == H else ctx.narrow(2, model_rank(mesh) * local, local)
 
 
 def paged_chunk_attention(
@@ -460,7 +515,7 @@ def paged_chunk_attention(
     B, C, _ = x.shape
     bs = k_pool.shape[1]
     positions = start[:, None].to(torch.int64) + torch.arange(C, device=x.device)[None, :]  # (B, C)
-    q, k, v = _qkv(cfg, p, x)
+    q, k, v = _qkv(cfg, p, x, mesh=mesh)
     q, k = _rope(cfg, q, k, positions)
 
     idx = torch.clamp(positions // bs, max=tbl_row.shape[1] - 1)
@@ -498,7 +553,7 @@ def paged_decode_attention(
     k_pool, v_pool, tbl = cache["k"], cache["v"], cache["tbl"]
     B = x.shape[0]
     bs = k_pool.shape[1]
-    q, k, v = _qkv(cfg, p, x)
+    q, k, v = _qkv(cfg, p, x, mesh=mesh)
     q, k = _rope(cfg, q, k, pos[:, None])
 
     pos64 = pos.long()

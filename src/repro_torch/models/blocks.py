@@ -115,13 +115,16 @@ def dense_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8=
     return _residual(cfg, p, x, h, a, fp8=fp8, mesh=mesh, sp=sp)
 
 
-def dense_block_prefill(cfg, p, x, *, positions=None, q_chunk=0, mesh=None):
+def dense_block_prefill(cfg, p, x, *, positions=None, q_chunk=0, mesh=None, whole_kv=False):
     """Full-sequence forward of one layer that also returns its K/V:
     (x (B, S, D), {"k", "v": (B, S, KV, hd)}).  ``mesh``, here and in every
     serving block: the tensor-parallel serving mesh, over which the
-    row-parallel products sum (``attention``, ``ffn``, ``moe``)."""
+    row-parallel products sum (``attention``, ``ffn``, ``moe``); the K/V
+    hold the rank's kv heads, or with ``whole_kv`` every kv head
+    (``attention.prefill_attention``)."""
     h = apply_norm(cfg, p["norm1"], x)
-    a, k, v = prefill_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk, mesh=mesh)
+    a, k, v = prefill_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk, mesh=mesh,
+                                whole_kv=whole_kv)
     return _residual(cfg, p, x, h, a, mesh=mesh), {"k": k, "v": v}
 
 
@@ -187,12 +190,13 @@ def moe_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8=No
     return _moe_residual(cfg, p, x, a, fp8=fp8, mesh=mesh, sp=sp)
 
 
-def moe_block_prefill(cfg, p, x, *, positions=None, q_chunk=0, mesh=None):
+def moe_block_prefill(cfg, p, x, *, positions=None, q_chunk=0, mesh=None, whole_kv=False):
     """As ``dense_block_prefill``.  The pad positions of a bucketed prompt
     are routed with its tokens and compete for expert capacity, as in the
     JAX package."""
     h = apply_norm(cfg, p["norm1"], x)
-    a, k, v = prefill_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk, mesh=mesh)
+    a, k, v = prefill_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk, mesh=mesh,
+                                whole_kv=whole_kv)
     return _moe_residual(cfg, p, x, a, mesh=mesh)[0], {"k": k, "v": v}
 
 
@@ -331,12 +335,13 @@ def hybrid_block(cfg, p, x, *, positions=None, q_chunk=0, attn_impl="torch", fp8
     return _hybrid_ffn(cfg, p, x, fp8=fp8, mesh=mesh, sp=sp)
 
 
-def hybrid_block_prefill(cfg, p, x, *, positions=None, q_chunk=0, mesh=None):
+def hybrid_block_prefill(cfg, p, x, *, positions=None, q_chunk=0, mesh=None, whole_kv=False):
     """Full-sequence forward of one layer from zero states that also returns
     its decode cache: (x (B, S, D), {"k", "v": (B, S, KV, hd), "conv": (B,
     K-1, d_inner) in x's dtype, "ssm": (B, H, P, N) fp32})."""
     h = apply_norm(cfg, p["norm1"], x)
-    a, k, v = prefill_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk, mesh=mesh)
+    a, k, v = prefill_attention(cfg, p["attn"], h, positions=positions, q_chunk=q_chunk, mesh=mesh,
+                                whole_kv=whole_kv)
     m, (conv_state, ssm_state) = ssm_mod.ssm_mix(cfg, p["ssm"], h)
     x = x + _hybrid_combine(p, a, m, x.dtype)
     return _hybrid_ffn(cfg, p, x, mesh=mesh), {"k": k, "v": v, "conv": conv_state, "ssm": ssm_state}
@@ -394,7 +399,7 @@ def cross_block_prefill(cfg, p, x, vision_tokens, *, mesh=None):
     decode steps: (x, {"ck", "cv": (B, N, KV, hd)}), in the dtype the
     projection computes them in."""
     h = apply_norm(cfg, p["norm1"], x)
-    q, ck, cv = _qkv(cfg, p["attn"], h, kv_x=vision_tokens)
+    q, ck, cv = _qkv(cfg, p["attn"], h, kv_x=vision_tokens, mesh=mesh)
     x = x + _gated_cross(cfg, p["attn"], h, q, ck, cv, mesh=mesh)
     return _cross_ffn(cfg, p, x, mesh=mesh), {"ck": ck, "cv": cv}
 

@@ -41,8 +41,11 @@ blocks sum their row-parallel products over the model axis; the
 embedding is vocab-parallel (each rank looks up the tokens in its vocab
 range, zeros elsewhere, and one all-reduce sums them: exact) and so are
 the logits (each rank's vocab slice, masked by global column, then one
-all-gather to the full padded vocab).  A family or layer whose heads do
-not divide the model axis runs them whole on every rank.
+all-gather to the full padded vocab).  Attention runs in the layout
+``parallel.sharding.attention_layout`` picks: a rank's query heads with
+their kv heads, or with its GQA group's one kv head where the model axis
+divides the kv heads' count (``models.attention``), or every head on every
+rank where the query heads do not divide the axis.
 
 Sharded and FSDP training: ``forward(mesh=)`` takes the ``(data, model)``
 mesh of ``launch.mesh.make_local_mesh`` and this rank's slices of the
@@ -425,9 +428,10 @@ def prefill(cfg, params, batch, *, q_chunk=0, mesh=None, kv_seq_split=False):
     cache ``decode_step`` reads.  A Python layer loop, in tensor ops (the
     JAX package's prefill reaches no Pallas kernel either).  For the moe
     family the pad positions are routed with the prompt's tokens, so they
-    compete for expert capacity, as in the JAX package.  ``kv_seq_split``:
-    each layer's K/V keeps only this rank's share of the sequence, split
-    over the model axis of ``mesh`` (as ``decode_step``'s).
+    compete for expert capacity, as in the JAX package.  Under a serving
+    ``mesh`` the K/V hold the rank's kv heads; with ``kv_seq_split`` every
+    kv head's, cut to this rank's share of the sequence, split over the
+    model axis of ``mesh`` (as ``decode_step``'s split ring).
     """
     _check_served(cfg)
     tokens = batch["tokens"]
@@ -440,12 +444,14 @@ def prefill(cfg, params, batch, *, q_chunk=0, mesh=None, kv_seq_split=False):
         elif cfg.family == "vlm":  # a layer group: its self layers, then its cross layer
             selfs = []
             for p_self in p_layer["self"]:
-                x, sc = dense_block_prefill(cfg, p_self, x, positions=positions, q_chunk=q_chunk, mesh=mesh)
+                x, sc = dense_block_prefill(cfg, p_self, x, positions=positions, q_chunk=q_chunk, mesh=mesh,
+                                            whole_kv=kv_seq_split)
                 selfs.append(sc)
             x, cc = cross_block_prefill(cfg, p_layer["cross"], x, batch["vision_tokens"], mesh=mesh)
             c = {"self": _stack_caches(selfs), "cross": cc}
         else:
-            x, c = PREFILL_BLOCKS[cfg.family](cfg, p_layer, x, positions=positions, q_chunk=q_chunk, mesh=mesh)
+            x, c = PREFILL_BLOCKS[cfg.family](cfg, p_layer, x, positions=positions, q_chunk=q_chunk, mesh=mesh,
+                                              whole_kv=kv_seq_split)
         layers.append(_own_kv_seq(c, mesh) if kv_seq_split else c)
     last_index = batch.get("last_index")
     if last_index is None:
@@ -581,8 +587,9 @@ def decode_step(cfg, params, cache, token, pos, *, attn_impl="kernel", mesh=None
     group's cached image K/V and leaves it as it is.  Every
     row is computed, idle slots included: an MoE layer routes them all.
     The ssm family ignores ``pos`` (the recurrence has no positions).
-    ``kv_seq_split``: under a ``mesh`` whose heads do not divide the model
-    axis, each rank's dense ring holds its share of the slots
+    ``kv_seq_split``: under a ``mesh`` whose kv heads do not divide the
+    model axis, each rank's dense ring holds every kv head's share of the
+    slots
     (``attention.decode_attention(seq_split=True)``; the dry run's serving
     layout, ``parallel.sharding.kv_seq_shards``).
 

@@ -89,6 +89,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.ffn import gate_fn, is_gated
 from repro_torch.models.layers import ParamSpec
@@ -196,11 +197,12 @@ def route_spanning(cfg, router_w: torch.Tensor, xt: torch.Tensor, mesh, G: int) 
     probs, experts, gates, chosen = _router(cfg, router_w, xt)
     counts = torch.zeros((ng, E), dtype=torch.int32, device=dev).index_add_(0, grp + g0, chosen)
     counts = exchange_counts(counts, mesh)  # (d, ng, E): every data rank's, exact
-    # the probabilities' per-group sums as a product with the (T, ng) one-hot
-    # of the tokens' global groups: one summation order on every model rank
-    member = torch.zeros((T, ng), dtype=probs.dtype, device=dev).scatter_(1, (grp + g0)[:, None], 1.0)
+    # the probabilities' per-group sums as a product with the (T, nl) one-hot
+    # of the tokens' groups among this rank's (one summation order on every
+    # model rank), placed at the rows of those groups among all ng
+    member = torch.zeros((T, nl), dtype=probs.dtype, device=dev).scatter_(1, grp[:, None], 1.0)
     frac = counts.sum(dim=0).to(probs.dtype) / G  # (ng, E) the group's share of tokens routed to each expert
-    mean_prob = sum_over_data(member.T @ probs, mesh) / G
+    mean_prob = sum_over_data(F.pad(member.T @ probs, (0, 0, g0, ng - g0 - nl)), mesh) / G
     aux = E * (frac * mean_prob).sum(dim=-1)  # (ng,)
     # a token's slot: the lower ranks' tokens of its group, then this rank's earlier ones
     cum = torch.cumsum(chosen, dim=0) - chosen  # this rank's earlier tokens, over all its groups

@@ -30,9 +30,25 @@ Q/K/V over the local heads, a row-parallel output with one all-reduce),
 FFN ``mlp`` (column-parallel up/gate, row-parallel down, one all-reduce),
 the MoE ``expert`` axis (each rank runs its experts, one all-reduce of the
 combine) and ``vocab`` (the embedding lookup summed by one all-reduce, the
-logits gathered).  Attention heads shard only when both head counts divide
-the model axis (``kernel_shardable``), so each rank's contiguous q-head
-slice keeps its GQA kv group.  Every other claim stays replicated:
+logits gathered).  Attention runs in one of three layouts
+(``attention_layout``), each rank's query heads a contiguous slice so
+that they stay within GQA groups:
+
+* ``"split"``: both head counts divide the model axis; ``wq`` / ``wo``
+  split on ``heads`` and ``wk`` / ``wv`` on ``kv_heads``;
+* ``"grouped"``: the query heads divide the axis and the axis divides the
+  kv heads' count (qwen3-moe's 64 over 4 or llama-3.2-vision's 64 over 8
+  at 16): ``wq`` / ``bq`` / ``wo`` split on ``heads``, and ``wk`` / ``wv``
+  / ``bk`` / ``bv`` stay whole on every rank, which slices its group's kv
+  head inside the forward (``models.attention``) through ``copy_to_model``,
+  so the whole leaf's gradient sums every rank's share; its pools hold
+  that one kv head;
+* ``"whole"``: every rank holds every head, where the query heads do not
+  divide the axis (arctic's 56 or hymba's 25 at 16: the table's
+  ``head_dim`` fallback, which GSPMD alone runs) or neither kv count
+  divides the other (24 over 6 at 4).
+
+Every other claim stays replicated:
 
 * ``embed``, the table's TP fallback (norm scales, biases added after a
   sum, hymba's projections when its 25 heads do not divide): a
@@ -79,8 +95,9 @@ the residual inherit the parameters' specs; the step and the fp8 state are
 replicated), ``shard_state`` cuts a rank's slices out of a full state and
 ``unshard_state`` gathers them back, bit for bit.
 The paged K/V pools shard on ``kv_heads`` only (``paged_cache_axes``): every
-rank holds its head slice of every physical block, so block ids, tables,
-the allocator and the prefix index are the same on every rank.
+rank holds its head slice of every physical block (``local_kv_heads``: its
+group's one head under ``"grouped"``), so block ids, tables, the
+allocator and the prefix index are the same on every rank.
 """
 
 from __future__ import annotations
@@ -132,34 +149,46 @@ def model_axis_size(mesh) -> int:
     return int(axis_sizes(mesh).get(MODEL, 1))
 
 
-def kernel_shardable(mesh, num_q_heads: int, num_kv_heads: int) -> bool:
-    """Whether attention runs on a local head slice: both head counts divide
-    the model axis, so the contiguous q-head slice of each rank stays
-    aligned with its GQA kv group and K1/K2 take it as they take any head
-    count.  Otherwise the heads stay replicated and every rank attends over
-    all of them."""
+def attention_layout(mesh, num_q_heads: int, num_kv_heads: int) -> tuple[str, int]:
+    """(layout, kv heads a rank holds) of attention over ``mesh``'s model
+    axis of ``tp`` ranks (module docstring):
+
+    * ``"split"``: both head counts divide the axis (or ``tp`` is 1): each
+      rank holds ``Hq / tp`` query heads and their ``KV / tp`` kv heads;
+    * ``"grouped"``: the query heads divide the axis and the axis divides
+      the kv heads' count: rank r holds query heads ``[r Hq / tp, (r + 1)
+      Hq / tp)``, all of one GQA group, and attends over that group's one
+      kv head, ``r // (tp / KV)`` (``kv_group``);
+    * ``"whole"``: every rank holds every head (the query heads do not
+      divide the axis, or neither kv count divides the other)."""
     tp = model_axis_size(mesh)
-    if tp <= 1:
-        return True
-    return num_q_heads % tp == 0 and num_kv_heads % tp == 0
+    if tp <= 1 or (num_q_heads % tp == 0 and num_kv_heads % tp == 0):
+        return "split", num_kv_heads // max(tp, 1)
+    if num_q_heads % tp == 0 and tp % num_kv_heads == 0:
+        return "grouped", 1
+    return "whole", num_kv_heads
 
 
 def local_kv_heads(cfg, mesh) -> int:
     """The kv heads of one rank's pools under ``mesh``."""
-    tp = model_axis_size(mesh)
-    if tp > 1 and cfg.has_attention and kernel_shardable(mesh, cfg.num_heads, cfg.num_kv_heads):
-        return cfg.num_kv_heads // tp
-    return cfg.num_kv_heads
+    if not cfg.has_attention:
+        return cfg.num_kv_heads
+    return attention_layout(mesh, cfg.num_heads, cfg.num_kv_heads)[1]
+
+
+def kv_group(cfg, mesh) -> int:
+    """The kv head this rank attends over under the ``"grouped"`` layout."""
+    return model_rank(mesh) // (model_axis_size(mesh) // cfg.num_kv_heads)
 
 
 def kv_seq_shards(cfg, mesh, window: int) -> int:
     """Over how many model ranks a dense ring of ``window`` slots splits
-    its slots: the model axis where the cfg attends, its heads do not
-    divide the axis (``local_kv_heads`` keeps them all) and the axis
-    divides the ring, as the JAX package's cache rules then claim
-    ``kv_seq``; else 1."""
+    its slots: the model axis where the cfg attends, its kv heads do not
+    divide the axis and the axis divides the ring, as the JAX package's
+    cache rules then claim ``kv_seq`` (whatever the query heads do); else
+    1.  A split ring holds every kv head on every rank."""
     tp = model_axis_size(mesh)
-    if tp > 1 and cfg.has_attention and local_kv_heads(cfg, mesh) == cfg.num_kv_heads and window % tp == 0:
+    if tp > 1 and cfg.has_attention and cfg.num_kv_heads % tp != 0 and window % tp == 0:
         return tp
     return 1
 
@@ -339,7 +368,7 @@ def serving_rules(parallel: ParallelConfig | None = None) -> ShardingRules:
 
 
 def _executed(cfg, mesh, path: tuple, axes: tuple, spec: tuple) -> tuple:
-    heads_ok = kernel_shardable(mesh, cfg.num_heads, cfg.num_kv_heads)
+    layout = attention_layout(mesh, cfg.num_heads, cfg.num_kv_heads)[0]
     replicated_here = any(p in REPLICATED_SUBTREES for p in path)
     whole_here = replicated_here or any(p in WHOLE_OVER_MODEL for p in path)
     out = []
@@ -348,7 +377,8 @@ def _executed(cfg, mesh, path: tuple, axes: tuple, spec: tuple) -> tuple:
         if MODEL not in names:
             # FSDP: the data claim of an embed dim (the serving table has none)
             out.append(DATA if names == (DATA,) and ax in FSDP_AXES and not replicated_here else None)
-        elif whole_here or ax not in EXECUTED_AXES or (ax in ("heads", "kv_heads") and not heads_ok):
+        elif (whole_here or ax not in EXECUTED_AXES or (ax == "heads" and layout == "whole")
+              or (ax == "kv_heads" and layout != "split")):
             out.append(None)
         else:
             out.append(MODEL)

@@ -100,9 +100,13 @@ is kept as it is) and its kv-head slice of every block of the pools, so
 block ids, tables, the allocator and the prefix index are the same on
 every rank, and K1/K2 run on each rank's local heads.  The blocks sum
 their row-parallel products with one all-reduce each, the logits are
-gathered to the full vocab (``models``).  Head counts that do not divide
-the model axis keep the attention replicated, with a warning: each rank
-then attends over every head, through K1/K2 all the same.
+gathered to the full vocab (``models``).  Where the query heads divide
+the model axis and the axis divides the kv heads' count (the
+``"grouped"`` layout), each rank holds its query heads, every kv head's
+weights, and pools of its GQA group's one kv head, over which K1/K2 run.
+Where neither layout applies the attention stays replicated, with a
+warning: each rank then attends over every head, through K1/K2 all the
+same.
 
 Rank 0 drives and the others follow.  ``submit``, ``abort`` and ``step``
 act on rank 0 only (the front-ends wrap rank 0's engine); at the top of
@@ -195,7 +199,7 @@ from repro_torch.models.attention import ATTN_IMPLS
 from repro_torch.parallel.collectives import model_group
 from repro_torch.parallel.sharding import (
     executed_specs,
-    kernel_shardable,
+    attention_layout,
     local_kv_heads,
     model_axis_size,
     model_rank,
@@ -341,7 +345,7 @@ class InferenceEngine:
                 )
             self._rules = serving_rules(parallel)
             params = shard_params(cfg, params, executed_specs(cfg, mesh, self._rules)["executed"], mesh)
-            if self.tp > 1 and cfg.has_attention and not kernel_shardable(mesh, cfg.num_heads, cfg.num_kv_heads):
+            if cfg.has_attention and attention_layout(mesh, cfg.num_heads, cfg.num_kv_heads)[0] == "whole":
                 warnings.warn(
                     f"{cfg.name}: head counts ({cfg.num_heads}/{cfg.num_kv_heads}) don't divide the model axis "
                     f"({self.tp}); the attention heads stay replicated: every rank attends over all of them",

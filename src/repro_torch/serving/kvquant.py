@@ -111,7 +111,7 @@ def attend_quantized(cfg, q: torch.Tensor, kv: QuantizedKV, mask: torch.Tensor) 
 
     k = dequantize(kv.k_q, kv.k_scale, q.dtype)
     v = dequantize(kv.v_q, kv.v_scale, q.dtype)
-    return _attend_block(cfg, q, k, v, mask, cfg.q_per_kv)
+    return _attend_block(cfg, q, k, v, mask)
 
 
 def memory_saving(seq: int, kv_heads: int, head_dim: int, layers: int, batch: int, from_dtype_bytes: int = 2) -> dict:

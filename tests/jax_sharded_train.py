@@ -1,11 +1,11 @@
 """The JAX package's sharded train step on a (data=2, model=2) mesh of four
-forced host devices, run as its own process by
-``test_torch_sharded_train.py`` (the device count is fixed when JAX
-starts):
+forced host devices (``--mesh DxM``: another shape of four), run as its own
+process by ``test_torch_sharded_train.py`` and the other sharded tests
+(the device count is fixed when JAX starts):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \\
         python tests/jax_sharded_train.py BATCHES.npz OUT.npz [--arch ARCH] [--open-gates G] \\
-            [--sequence-parallel]
+            [--sequence-parallel] [--mesh 1x4]
 
 It initialises the smoke state of ``ARCH`` (default olmo-1b; the sharded
 tests of the other families pass theirs) from ``PRNGKey(0)`` (fp32
@@ -49,7 +49,7 @@ def open_gates(state, value: float):
 
 
 def main(batches_path: str, out_path: str, arch: str = "olmo-1b", gates: float | None = None,
-         sequence_parallel: bool = False) -> None:
+         sequence_parallel: bool = False, mesh_shape: tuple = (2, 2)) -> None:
     data = np.load(batches_path)
     n = len([k for k in data if k.startswith("labels_")])
     keys = sorted({k.rsplit("_", 1)[0] for k in data})
@@ -59,7 +59,7 @@ def main(batches_path: str, out_path: str, arch: str = "olmo-1b", gates: float |
     run = RunConfig(arch=arch, train=TrainConfig(global_batch=B, seq_len=S, **STEPS_TRAIN),
                     parallel=ParallelConfig(remat="full", sequence_parallel=sequence_parallel),
                     precision=PrecisionConfig(compute_dtype="float32"))
-    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(mesh_shape), ("data", "model"))
     rules = make_rules(MeshConfig(), run.parallel)
     st_sh = state_shardings(cfg, run, rules, mesh, abstract_train_state(cfg, run))
     rep = NamedSharding(mesh, P())
@@ -95,5 +95,6 @@ if __name__ == "__main__":
     parser.add_argument("--arch", default="olmo-1b")
     parser.add_argument("--open-gates", type=float, default=None)
     parser.add_argument("--sequence-parallel", action="store_true")
+    parser.add_argument("--mesh", default="2x2", help="(data)x(model), four devices in all")
     a = parser.parse_args()
-    main(a.batches, a.out, a.arch, a.open_gates, a.sequence_parallel)
+    main(a.batches, a.out, a.arch, a.open_gates, a.sequence_parallel, tuple(int(n) for n in a.mesh.split("x")))

@@ -63,7 +63,8 @@ def _run(name) -> RunConfig:
     return RunConfig(arch="olmo-1b", train=TrainConfig(global_batch=B, seq_len=S), **SMOKE_RUNS[name])
 
 
-# the kv_seq case: one kv head over a model axis of 2, so the dense ring splits its slots
+# the kv_seq case: one kv head over a model axis of 2, so the dense ring splits its slots (and the
+# 4 query heads split over the axis: the "grouped" layout)
 SPLIT_CFG = reduce_for_smoke(get_config("olmo-1b")).replace(num_kv_heads=1)
 DECODE = dict(cfg=SPLIT_CFG, B=2, seq_len=16, steps=12)  # 12 steps: rank 1's slots are empty for the first 8
 
@@ -103,7 +104,9 @@ def test_split_ring_decodes_as_the_whole_ring(world):
     lands on the rank that holds its slot, and the two partial softmaxes
     combine to the whole ring's logits (fp32, relative to the largest
     logit, within 1e-5: the same sums in another order) at every step,
-    the first eight with rank 1's slots all empty.  One split step's
+    the first eight with rank 1's slots all empty.  Its 4 query heads
+    split over the ranks (the ``"grouped"`` layout), so each layer's
+    split decode gathers the queries before its parts.  One split step's
     collectives equal the meta trace's exactly, and ``prefill``'s split
     cache is the rank's share of the whole one."""
     _, ranks = world
@@ -118,7 +121,8 @@ def test_split_ring_decodes_as_the_whole_ring(world):
     colls = rec["collectives"]
     assert colls["count"] == {k: v for k, v in real.items() if not k.endswith("_bytes")}
     assert colls["operand_bytes"] == {k[: -len("_bytes")]: v for k, v in real.items() if k.endswith("_bytes")}
-    assert colls["count"]["all_gather"] == SPLIT_CFG.num_layers + 1  # a layer's parts, the logits
+    # a layer's queries and parts (its 4 query heads split over the 2 ranks: the "grouped" layout), the logits
+    assert colls["count"]["all_gather"] == 2 * SPLIT_CFG.num_layers + 1
 
 
 def _cut(arch, layers=2):

@@ -39,7 +39,7 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import param_specs
 from repro_torch.models.cache import paged_cache_layout
 from repro_torch.parallel import make_rules
-from repro_torch.parallel.sharding import executed_specs, replicated_claims, shard_params
+from repro_torch.parallel.sharding import attention_layout, executed_specs, replicated_claims, shard_params
 from repro_torch.utils.tree import tree_leaves, tree_paths
 
 torch.set_num_threads(2)
@@ -158,7 +158,8 @@ def test_executed_layout():
     axis at TP=2: nothing of olmo-1b (its norms have no parameters);
     mistral-nemo's norm scales (the embed fallback); hymba, whose 25 heads
     do not divide, its attention (the embed fallback of wq/wo) and its SSM
-    heads besides; qwen3-moe its router."""
+    heads besides; qwen3-moe its router.  At a model axis of 16, the
+    query heads split where they divide it, whatever the kv heads do."""
     mesh = MESHES["1x2"]
     assert replicated_claims(get_config("olmo-1b"), mesh) == {}
     nemo = replicated_claims(get_config("mistral-nemo-12b"), mesh)
@@ -172,6 +173,21 @@ def test_executed_layout():
     assert spec["embed"]["tok"] == ("model", None) and spec["lm_head"] == (None, "model")
     assert spec["blocks"][0]["attn"]["wk"] == (None, "model", None)
     assert spec["blocks"][0]["mlp"]["w_down"] == ("model", None)
+    # at a model axis of 16 the query heads of qwen3-moe (64 over 4) and
+    # mistral-nemo (32 over 8) split while their kv heads stay whole (the
+    # "grouped" layout); arctic's 56 and hymba's 25 do not divide: replicated
+    wide = StubMesh({"data": 1, "model": 16})
+    for arch, layout in (("qwen3-moe-235b-a22b", "grouped"), ("mistral-nemo-12b", "grouped"),
+                         ("arctic-480b", "whole"), ("hymba-1.5b", "whole")):
+        cfg = get_config(arch)
+        assert attention_layout(wide, cfg.num_heads, cfg.num_kv_heads)[0] == layout, arch
+        attn = executed_specs(cfg, wide)["executed"]["blocks"][0]["attn"]
+        split = layout == "grouped"
+        assert attn["wq"] == (None, "model" if split else None, None), arch
+        assert attn["wo"] == ("model" if split else None, None, None), arch
+        assert attn["wk"] == attn["wv"] == (None, None, None), arch
+        claims = replicated_claims(cfg, wide)
+        assert ("blocks/0/attn/wq" in claims) != split and "blocks/0/attn/wk" in claims, arch
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-moe-235b-a22b", "hymba-1.5b"])

@@ -155,21 +155,23 @@ def make_case(arch, jcfg, tcfg, prec: dict, par: dict, seed=0, data=None, gates=
     return jax_ref, port_ref, case, before, start_np
 
 
-def start_jax_sharded(arch, jcfg, tmp: Path, data=None, gates=None, sequence_parallel=False):
-    """Start the JAX package's sharded step on a (2, 2) mesh of four forced
-    host devices in a process of its own (``tests/jax_sharded_train.py
-    --arch``, ``--open-gates`` with ``gates``, ``--sequence-parallel``) on
-    ``data`` (default: ``torch_parity.batches`` of 8 x 16); returns (the
-    process, its output file, the batches)."""
+def start_jax_sharded(arch, jcfg, tmp: Path, data=None, gates=None, sequence_parallel=False, mesh=(2, 2)):
+    """Start the JAX package's sharded step on a ``mesh`` (default (2, 2))
+    of four forced host devices in a process of its own
+    (``tests/jax_sharded_train.py --arch``, ``--open-gates`` with
+    ``gates``, ``--sequence-parallel``, ``--mesh``) on ``data`` (default:
+    ``torch_parity.batches`` of 8 x 16); returns (the process, its output
+    file, the batches)."""
     data = batches(jcfg, 4, seed=5, batch=SHARDED_B, seq=SHARDED_S) if data is None else data
-    tag = "_sp" if sequence_parallel else ""
+    tag = ("_sp" if sequence_parallel else "") + ("" if mesh == (2, 2) else f"_{mesh[0]}x{mesh[1]}")
     np.savez(tmp / f"batches{tag}.npz", **{f"{k}_{i}": b[k] for i, b in enumerate(data) for k in b})
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4", JAX_PLATFORMS="cpu",
                PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.Popen([sys.executable, str(ROOT / "tests" / "jax_sharded_train.py"),
                              str(tmp / f"batches{tag}.npz"), str(tmp / f"out{tag}.npz"), "--arch", arch]
                             + ([] if gates is None else ["--open-gates", str(gates)])
-                            + (["--sequence-parallel"] if sequence_parallel else []),
+                            + (["--sequence-parallel"] if sequence_parallel else [])
+                            + ["--mesh", f"{mesh[0]}x{mesh[1]}"],
                             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     return proc, tmp / f"out{tag}.npz", data
 

@@ -52,6 +52,11 @@ FAMILY_CONTROLS = (
     # this rank's slice), so its leaves keep this rank's share of their gradients, unsummed
     "ssm_time_mix_leaves_unsummed",
 )
+# the "grouped" attention layout's controls (test_torch_grouped_heads.py)
+GROUPED_CONTROLS = (
+    "grouped_kv_head_rank_mod_kv",  # rank r attends over kv head r % KV, not its group's r // (tp / KV)
+    "grouped_kv_slice_unsummed",  # the rank's kv head of wk / wv sliced without copy_to_model
+)
 
 
 def _numpy_state(state) -> dict:
@@ -153,12 +158,27 @@ def _family_control(name: str, case: dict):
         return [(collectives._ScatterSeq, "backward", staticmethod(_ungathered_scatter_backward))]
     if name == "fsdp_gather_backward_unsummed":
         return [(collectives._GatherOverData, "backward", staticmethod(_unsummed_gather_backward))]
+    if name == "grouped_kv_head_rank_mod_kv":
+        from repro_torch.parallel.sharding import model_rank
+
+        return [(attn_mod, "kv_group", lambda cfg, mesh: model_rank(mesh) % cfg.num_kv_heads)]
+    if name == "grouped_kv_slice_unsummed":
+        inner = attn_mod._kv_weights
+
+        def unsummed(cfg, p, mesh, whole_kv):
+            summed, attn_mod.copy_to_model = attn_mod.copy_to_model, lambda x, mesh: x
+            try:
+                return inner(cfg, p, mesh, whole_kv)
+            finally:
+                attn_mod.copy_to_model = summed
+
+        return [(attn_mod, "_kv_weights", unsummed)]
     raise ValueError(name)
 
 
 def _control(name: str, case: dict):
     """Install control ``name`` in this process; returns its undo."""
-    if name in FAMILY_CONTROLS:
+    if name in FAMILY_CONTROLS + GROUPED_CONTROLS:
         changes = _family_control(name, case)
         kept = [(owner, attr, owner.__dict__[attr]) for owner, attr, _ in changes]
         for owner, attr, new in changes:
@@ -632,3 +652,30 @@ def mesh_checks(rank, mesh, cases: list, decode: dict) -> dict:
     """``test_torch_dryrun_mesh.py``'s world: ``step_collectives`` of the
     train ``cases``, then ``seq_split_decode`` of ``decode``'s arguments."""
     return {"steps": step_collectives(rank, mesh, cases), "decode": seq_split_decode(rank, mesh, **decode)}
+
+
+def grouped_checks(rank, mesh, cases: list, controls: dict, evals: list, serving: dict) -> dict:
+    """``test_torch_grouped_heads.py``'s world (one spawn at ``(1, 4)``):
+    ``train_cases`` of ``cases`` and ``controls``; each eval ``(cfg,
+    params, batch, sequence_parallel)``'s loss on this rank's slices of
+    the full ``params`` (``loss_fn`` under the training table, no
+    gradients); the shapes of this rank's attention slices of
+    ``serving["params"]`` and ``serving["case"]`` served on them
+    (``torch_tp_ranks.serve``)."""
+    import torch_tp_ranks
+    from repro_torch.config import ParallelConfig
+    from repro_torch.parallel.sharding import executed_specs, shard_params
+    from repro_torch.train import loss_fn
+
+    out = {"train": train_cases(rank, mesh, cases, controls), "evals": []}
+    for cfg, params, batch, sp in evals:
+        rules = training_rules(ParallelConfig(sequence_parallel=sp))
+        local = shard_params(cfg, params, executed_specs(cfg, mesh, rules)["executed"], mesh)
+        with torch.no_grad():
+            out["evals"].append(float(loss_fn(cfg, local, batch, mesh=mesh, sequence_parallel=sp)[0]))
+    cfg = serving["cfg"]
+    local = shard_params(cfg, serving["params"], executed_specs(cfg, mesh)["executed"], mesh)
+    out["shapes"] = {k: tuple(t.shape) for k, t in local["blocks"][0]["attn"].items()}
+    out["serve"] = torch_tp_ranks.serve(cfg, local, serving["case"], mesh)
+    out["jax_loaded"] = jax_loaded()
+    return out
